@@ -1,0 +1,193 @@
+"""Engine-level fusion planner: conv-chain[+pool][+lrn] → super-layers.
+The port of ``repro.core.fusion``.
+
+``plan_fusion`` scans a ``NetworkDef`` and greedily groups a run of
+consecutive conv layers (standalone ReLUs absorbed), an optional pool
+right after it and an optional trailing LRN into one ``FusedLayerSpec``,
+which the engine runs as one launch: a single conv with its tail on K1,
+a chain of convs on K2.  AlexNet becomes conv1+pool1+norm1,
+conv2+pool2+norm2 and conv3+conv4+conv5+pool5.
+
+Layers stay on the per-layer ladder when a conv's method is not a SIMD
+method, when two consecutive convs resolve to different methods, when the
+pool kind is not max/avg or its window exceeds the conv output, when a
+layer is named in ``no_fuse``, or when a standalone ReLU follows a conv
+and ``fuse_relu`` is off.  A lone conv with no pool is not a group.
+
+The JAX planner also checks each group against a TPU VMEM budget (or a
+cost model) and shortens it when it does not fit.  Those are TPU
+geometry; the port's kernels take every group this planner forms, so it
+has no admission check and forms the groups the JAX planner forms on its
+jnp path.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Iterable, List, Optional, Tuple, Union
+
+from repro_torch.core.methods import Method
+from repro_torch.core.netdefs import LayerSpec, NetworkDef
+
+#: methods whose kernels take the fused pooling epilogue
+FUSABLE_METHODS = frozenset({
+    Method.BASIC_SIMD, Method.ADVANCED_SIMD_4, Method.ADVANCED_SIMD_8,
+})
+
+SUPPORTED_POOL_KINDS = frozenset({"max", "avg"})
+
+
+@dataclass(frozen=True)
+class FusedLayerSpec:
+    """A conv→[ReLU]→…→conv→[ReLU]→[pool]→[ReLU]→[LRN] super-layer (one
+    launch).  ``convs`` is the chain of consecutive conv stages;
+    ``relus[i]`` is the ReLU after stage i (the conv's own or an absorbed
+    standalone one).  ``pool`` is None for a chain fused without a pool
+    tail."""
+    convs: Tuple[LayerSpec, ...]
+    relus: Tuple[bool, ...]
+    pool: Optional[LayerSpec]
+    pool_relu: bool   # ReLU after the pool (pool's own or absorbed)
+    names: Tuple[str, ...]  # original layer names this group covers
+    lrn: Optional[LayerSpec] = None  # trailing LRN absorbed into the cell
+    #: chain-only: the oc block of the final stage (the JAX package's K6
+    #: cell; None = full width, the only width the CUDA port runs)
+    oc_block_final: Optional[int] = None
+
+    kind = "fused"  # sentinel so plan items can be dispatched on .kind
+
+    @property
+    def conv(self) -> LayerSpec:
+        """The first conv of the chain (single-conv groups: THE conv)."""
+        return self.convs[0]
+
+    @property
+    def relu(self) -> bool:
+        """ReLU between the last conv stage and the pool."""
+        return self.relus[-1]
+
+    @property
+    def name(self) -> str:
+        return "+".join(self.names)
+
+
+PlanItem = Union[LayerSpec, FusedLayerSpec]
+
+
+def _conv_out_hw(h: int, w: int, spec: LayerSpec) -> Tuple[int, int]:
+    kh, kw = spec.kernel
+    return ((h + 2 * spec.padding[0] - kh) // spec.stride[0] + 1,
+            (w + 2 * spec.padding[1] - kw) // spec.stride[1] + 1)
+
+
+def _pool_out_hw(h: int, w: int, spec: LayerSpec) -> Tuple[int, int]:
+    kh, kw = spec.kernel
+    return ((h - kh) // spec.stride[0] + 1,
+            (w - kw) // spec.stride[1] + 1)
+
+
+def plan_fusion(net: NetworkDef, *,
+                method_for: Optional[Callable[[str], Method]] = None,
+                no_fuse: Iterable[str] = (),
+                fuse_relu: bool = True) -> List[PlanItem]:
+    """Greedy left-to-right grouping of conv-chain[+relu][+pool][+lrn]
+    runs.  ``method_for`` maps a conv layer name to its ``Method`` (None:
+    every conv is fusable).  Returns the layer sequence with each fused
+    run replaced by one ``FusedLayerSpec``; other layers pass through."""
+    no_fuse = frozenset(no_fuse)
+    layers = list(net.layers)
+    plan: List[PlanItem] = []
+    _, h, w = net.input_shape
+    i = 0
+    while i < len(layers):
+        spec = layers[i]
+        if spec.kind == "conv":
+            group = _try_group(layers, i, method_for, no_fuse, fuse_relu,
+                               h, w)
+            if group is not None:
+                plan.append(group)
+                for cv in group.convs:
+                    h, w = _conv_out_hw(h, w, cv)
+                if group.pool is not None:
+                    h, w = _pool_out_hw(h, w, group.pool)
+                i += len(group.names)
+                continue
+            h, w = _conv_out_hw(h, w, spec)
+        elif spec.kind == "pool":
+            h, w = _pool_out_hw(h, w, spec)
+        plan.append(spec)
+        i += 1
+    return plan
+
+
+def _try_group(layers, i, method_for, no_fuse, fuse_relu, h_in, w_in,
+               ) -> Optional[FusedLayerSpec]:
+    """A FusedLayerSpec for the run starting at conv ``layers[i]``, or
+    None when any eligibility check fails (the per-layer fallback)."""
+    first = layers[i]
+    if first.name in no_fuse:
+        return None
+    method = method_for(first.name) if method_for is not None else None
+    if method is not None and method not in FUSABLE_METHODS:
+        return None
+    # -- collect the maximal conv chain (absorbing standalone ReLUs) -------
+    convs = [first]
+    relus = [first.relu]
+    conv_names = [[first.name]]  # per-stage names incl. absorbed ReLUs
+    h, w = _conv_out_hw(h_in, w_in, first)
+    j = i + 1
+    blocked_by_relu = False  # an un-foldable standalone ReLU ends the run
+    while True:
+        if j < len(layers) and layers[j].kind == "relu":
+            if not fuse_relu:
+                blocked_by_relu = True
+                break
+            relus[-1] = True
+            conv_names[-1].append(layers[j].name)
+            j += 1
+        nxt = layers[j] if j < len(layers) else None
+        if (nxt is None or nxt.kind != "conv" or nxt.name in no_fuse
+                or (method_for is not None
+                    and method_for(nxt.name) != method)):
+            break
+        oh2, ow2 = _conv_out_hw(h, w, nxt)
+        if oh2 < 1 or ow2 < 1:
+            break
+        convs.append(nxt)
+        relus.append(nxt.relu)
+        conv_names.append([nxt.name])
+        h, w = oh2, ow2
+        j += 1
+    # -- optional pool (+ReLU) and LRN tail on the last conv ---------------
+    pool = None
+    pool_relu = False
+    pool_names: List[str] = []
+    lrn = None
+    if not blocked_by_relu and j < len(layers) and layers[j].kind == "pool":
+        p = layers[j]
+        pkh, pkw = p.kernel
+        if (p.name not in no_fuse and p.pool_kind in SUPPORTED_POOL_KINDS
+                and pkh >= 1 and pkw >= 1
+                and p.stride[0] >= 1 and p.stride[1] >= 1
+                and pkh <= h and pkw <= w):
+            pool = p
+            pool_relu = p.relu
+            pool_names = [p.name]
+            k = j + 1
+            if fuse_relu and k < len(layers) and layers[k].kind == "relu":
+                pool_relu = True
+                pool_names.append(layers[k].name)
+                k += 1
+            if (k < len(layers) and layers[k].kind == "lrn"
+                    and layers[k].name not in no_fuse):
+                lrn = layers[k]
+    if len(convs) == 1 and pool is None:
+        return None  # a lone conv is not a super-layer
+    names = (tuple(n for stage in conv_names for n in stage)
+             + tuple(pool_names) + ((lrn.name,) if lrn is not None else ()))
+    return FusedLayerSpec(convs=tuple(convs), relus=tuple(relus), pool=pool,
+                          pool_relu=pool_relu, names=names, lrn=lrn)
+
+
+def fusion_summary(plan: Iterable[PlanItem]) -> List[Tuple[str, ...]]:
+    """The fused groups in a plan, as tuples of original layer names."""
+    return [it.names for it in plan if isinstance(it, FusedLayerSpec)]
