@@ -9,21 +9,44 @@ Phases, each of which fails the run (non-zero exit, no result line):
    versions; TF32 off for every plain and library call;
 2. build: compile the kernels of ``src/repro_torch/csrc`` with nvcc
    (timed; ``--ptxas`` prints each kernel's registers and shared memory);
-3. kernels: at every shape the engine's fused plan gives K1 (conv+pool
-   [+LRN]), K2 (conv chain+pool) and K3 (fc matmul) for AlexNet, LeNet-5
-   and the CIFAR-10 net, at batch 1 and 16, each kernel against its plain
-   PyTorch version on the card (max abs <= 1e-4 * max(1, max|plain|)),
-   then timed with CUDA events (median of 25 after warm-up) beside its
-   plain version, one PyTorch library call as a yardstick and its bound;
-4. engine: ``CNNEngine(net).forward`` on the card at batch 16 (paper
-   §6.2) for AlexNet at full width, LeNet-5 and CIFAR-10, with seeded
-   random weights carried in by ``params_from_numpy``: the launch
-   counters must show K1/K2/K3 ran (2/1/3, 2/0/2, 3/0/2), the output must
-   match the CPU engine on the same weights (max abs <= 1e-4, same
-   argmax) and two runs must agree bit for bit; the forward is timed;
-5. prints one JSON line ``{"kernels": [...]}`` (per kernel: the
-   AlexNet batch-16 shapes summed, errors over every case);
-6. prints ``{"ok": true, "device": {...}}`` as its last line.
+3. kernels: every step that reaches a kernel in the plans of the rungs of
+   phase 4 for AlexNet, LeNet-5 and the CIFAR-10 net, at batch 1 and 16 —
+   K1 (fused conv+pool[+LRN] and the per-layer advanced SIMD conv), K2
+   (conv chain+pool), K3 (fc matmul), K7 (fused and per-layer basic SIMD
+   conv), K8 (basic parallel conv), K9 (standalone pool) — each kernel
+   against its plain PyTorch version on the card (max abs <= 1e-4 *
+   max(1, max|plain|)), then timed with CUDA events (median of 25 after
+   warm-up) beside its plain version, one PyTorch library call as a
+   yardstick and its bound;
+4. engine: ``CNNEngine(net, method=..., fuse_pool=...).forward`` on the
+   card at batch 16 (paper §6.2) on six rungs — ``advanced_simd_8`` fused
+   and unfused, ``basic_simd`` fused and unfused, ``basic_parallel``,
+   ``seq_ref`` — for AlexNet at full width, LeNet-5 and CIFAR-10, with
+   seeded random weights carried in by ``params_from_numpy``: each
+   forward is run with the launch counters set to 0 just before it and
+   read just after, and they must equal ``EXPECTED_LAUNCHES``; the output
+   must match the CPU engine at the same rung on the same weights (max
+   abs <= 1e-4, same argmax) and two more runs must agree bit for bit; the
+   forward is timed;
+5. serving: ``CNNServer`` over full-width AlexNet on the card
+   (``max_batch=16``, a fake clock, the default degradation ladder with
+   ``queue_high=0, degrade_after=1, cooldown=0``) takes ragged waves of
+   16, 5, 1, 3 and 16 seeded frames.  A wave below ``max_batch`` waits one
+   step in the queue, which is pressure, so the ladder moves one rung down
+   before the wave is served: the waves are served on
+   ``advanced_simd_8/fused``, ``advanced_simd_4/fused``,
+   ``basic_simd/fused`` and twice ``basic_simd/unfused``, in buckets 16,
+   8, 1, 4 and 16.  Every result's top-5 must equal the CPU engine's at
+   that rung (probabilities within 1e-4), the bucket cache must stay
+   within ``log2(16)+1`` compiles, the counters must show every kernel of
+   the ladder ran, and a ``FaultScript`` poisoning one request of a batch
+   of 16 must leave the 15 survivors' whole probability rows
+   byte-identical to the fault-free run (on the top and the bottom rung);
+6. prints one JSON line ``{"kernels": [...]}``: per kernel, ``launches``
+   is its count summed over phase 4's AlexNet forwards (each counted from
+   0), the times and bound are summed over its distinct AlexNet batch-16
+   shapes, the error is the largest over every case;
+7. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Run it from the repository root; it needs one CUDA device and the CUDA
 toolkit, and imports nothing of the JAX package.
@@ -52,8 +75,29 @@ PEAKS = (
 SEED = 0
 BATCHES = (1, 16)
 ENGINE_BATCH = 16
-EXPECTED_LAUNCHES = {  # K1, K2, K3 per forward of the fused plan
-    "alexnet": (2, 1, 3), "lenet5": (2, 0, 2), "cifar10": (3, 0, 2)}
+KERNELS = ("K1", "K2", "K3", "K7", "K8", "K9")
+#: the rungs of phase 4: (method, fuse_pool); seq_ref and basic_parallel
+#: never fuse, so they run once, at the engine's default fuse_pool
+RUNGS = (("advanced_simd_8", True), ("advanced_simd_8", False),
+         ("basic_simd", True), ("basic_simd", False),
+         ("basic_parallel", True), ("seq_ref", True))
+#: launches of K1, K2, K3, K7, K8, K9 per forward, per rung
+EXPECTED_LAUNCHES = {
+    "alexnet": dict(zip(RUNGS, (
+        (2, 1, 3, 0, 0, 0), (5, 0, 3, 0, 0, 3), (0, 1, 3, 2, 0, 0),
+        (0, 0, 3, 5, 0, 3), (0, 0, 3, 0, 5, 3), (0, 0, 0, 0, 0, 3)))),
+    "lenet5": dict(zip(RUNGS, (
+        (2, 0, 2, 0, 0, 0), (2, 0, 2, 0, 0, 2), (0, 0, 2, 2, 0, 0),
+        (0, 0, 2, 2, 0, 2), (0, 0, 2, 0, 2, 2), (0, 0, 0, 0, 0, 2)))),
+    "cifar10": dict(zip(RUNGS, (
+        (3, 0, 2, 0, 0, 0), (3, 0, 2, 0, 0, 3), (0, 0, 2, 3, 0, 0),
+        (0, 0, 2, 3, 0, 3), (0, 0, 2, 0, 3, 3), (0, 0, 0, 0, 0, 3)))),
+}
+#: serving phase: wave sizes, and the rung each wave is served on
+WAVES = (16, 5, 1, 3, 16)
+WAVE_RUNGS = ("advanced_simd_8/fused", "advanced_simd_4/fused",
+              "basic_simd/fused", "basic_simd/unfused", "basic_simd/unfused")
+MAX_BATCH = 16
 REPS = 25
 
 
@@ -102,23 +146,54 @@ def he_params(shapes, rng):
     return params
 
 
-def kernel_cases(net, compile_plan):
-    """One case per fused/chain/fc step of the net's fused plan, at each
-    batch: (kernel id, step, batch)."""
-    cases = []
-    for step in compile_plan(net).steps:
-        kid = {"fused": "K1", "chain": "K2", "fc": "K3"}.get(step.kind)
-        if kid is not None:
+def kernel_cases(net, compile_plan, Method):
+    """One case per distinct step of the phase-4 rungs' plans that reaches
+    a kernel, at each batch: (kernel id, step, batch)."""
+    kinds = {  # (method, fuse) -> {step kind: kernel id}
+        ("advanced_simd_8", True): {"fused": "K1", "chain": "K2",
+                                    "fc": "K3"},
+        ("advanced_simd_8", False): {"conv": "K1", "pool": "K9"},
+        ("basic_simd", True): {"fused": "K7", "chain": "K2"},
+        ("basic_simd", False): {"conv": "K7", "pool": "K9"},
+        ("basic_parallel", True): {"conv": "K8", "pool": "K9"},
+    }
+    cases, seen = [], set()
+    for (method, fuse), kid_of in kinds.items():
+        for step in compile_plan(net, method=Method(method),
+                                 fuse=fuse).steps:
+            kid = kid_of.get(step.kind)
+            key = (kid, step.kind, step.names)
+            if kid is None or key in seen:
+                continue
+            seen.add(key)
             cases.extend((kid, step, n) for n in BATCHES)
     return cases
+
+
+def _conv_flops(n, in_shape, convs):
+    flops = 0.0
+    c, h, w = in_shape
+    for cv in convs:
+        kh, kw = cv.kernel
+        oh = (h + 2 * cv.padding[0] - kh) // cv.stride[0] + 1
+        ow = (w + 2 * cv.padding[1] - kw) // cv.stride[1] + 1
+        flops += 2.0 * n * cv.out_channels * oh * ow * c * kh * kw
+        c, h, w = cv.out_channels, oh, ow
+    return flops
 
 
 def run_case(torch, F, kid, step, n, params, dev, peaks):
     """Kernel vs plain version on the card, then times; returns a dict."""
     from repro_torch.kernels.conv2d import ops as conv_ops
-    from repro_torch.kernels.conv2d.ref import lrn_ref
+    from repro_torch.kernels.conv2d.ref import (
+        conv2d_basic_parallel_ref,
+        conv2d_basic_simd_ref,
+        lrn_ref,
+    )
     from repro_torch.kernels.matmul_fused import ops as mm_ops
     from repro_torch.kernels.matmul_fused.ref import matmul_fused_ref
+    from repro_torch.kernels.pool2d.ops import pool2d
+    from repro_torch.kernels.pool2d.ref import pool2d_ref
 
     gen = torch.Generator(device=dev).manual_seed(SEED + n)
     flops_peak, bw_peak = peaks
@@ -138,35 +213,63 @@ def run_case(torch, F, kid, step, n, params, dev, peaks):
         nn_ = w.shape[1]
         flops = 2.0 * m * k * nn_
         nbytes = 4.0 * (m * k + k * nn_ + nn_ + m * nn_)
+    elif kid == "K9":
+        spec = step.spec
+        x = torch.randn((n, *step.in_shape), generator=gen, device=dev)
+        args = (x, spec.kernel, spec.stride, spec.pool_kind,
+                spec.relu or step.relu)
+        kernel = lambda: pool2d(*args)  # noqa: E731
+        plain = lambda: pool2d_ref(*args)  # noqa: E731
+
+        def library():
+            pool = F.max_pool2d if spec.pool_kind == "max" else F.avg_pool2d
+            y = pool(x, spec.kernel, spec.stride)
+            return y.relu_() if args[-1] else y
+
+        c, oh, ow = step.out_shape
+        flops = float(n * c * oh * ow * spec.kernel[0] * spec.kernel[1])
+        nbytes = 4.0 * (x.numel() + n * c * oh * ow)
     else:
-        g = step.group
-        convs = g.convs
+        if step.kind == "conv":    # per-layer conv: K1, K7 or K8
+            convs, relus, pool, g = (step.spec,), (step.relu,), None, None
+        else:                      # fused group or chain: K1, K2 or K7
+            g = step.group
+            convs, relus, pool = g.convs, g.relus, g.pool
         ws = [params[cv.name]["w"] for cv in convs]
         bs = [params[cv.name]["b"] for cv in convs]
         x = torch.randn((n, *step.in_shape), generator=gen, device=dev)
-        pool = g.pool
-        tail = dict(pool_kernel=pool.kernel, pool_stride=pool.stride,
-                    pool_kind=pool.pool_kind, pool_relu=g.pool_relu)
-        if g.lrn is not None:
-            tail.update(lrn_n=g.lrn.lrn_n, lrn_alpha=g.lrn.lrn_alpha,
-                        lrn_beta=g.lrn.lrn_beta, lrn_k=g.lrn.lrn_k)
         strides = [cv.stride for cv in convs]
         pads = [cv.padding for cv in convs]
+        tail = {}
+        if pool is not None:
+            tail = dict(pool_kernel=pool.kernel, pool_stride=pool.stride,
+                        pool_kind=pool.pool_kind, pool_relu=g.pool_relu)
+            if g.lrn is not None:
+                tail.update(lrn_n=g.lrn.lrn_n, lrn_alpha=g.lrn.lrn_alpha,
+                            lrn_beta=g.lrn.lrn_beta, lrn_k=g.lrn.lrn_k)
+        one = (x, ws[0], bs[0], strides[0], pads[0], relus[0])
         if kid == "K1":
-            args = (x, ws[0], bs[0], strides[0], pads[0], g.relus[0])
-            kernel = lambda: conv_ops.conv2d_pool_fused(*args, **tail)  # noqa
-            plain = lambda: conv_ops.conv2d_pool_fused_ref(*args, **tail)  # noqa
+            kernel = lambda: conv_ops.conv2d_pool_fused(*one, **tail)  # noqa
+            plain = lambda: conv_ops.conv2d_pool_fused_ref(*one, **tail)  # noqa
+        elif kid == "K7":
+            kernel = lambda: conv_ops.conv2d_basic_simd(*one, **tail)  # noqa
+            plain = lambda: conv2d_basic_simd_ref(*one, **tail)  # noqa
+        elif kid == "K8":
+            kernel = lambda: conv_ops.conv2d_basic_parallel(*one)  # noqa
+            plain = lambda: conv2d_basic_parallel_ref(*one)  # noqa
         else:
-            args = (x, ws, bs, strides, pads, g.relus)
+            args = (x, ws, bs, strides, pads, relus)
             kernel = lambda: conv_ops.conv2d_chain(*args, **tail)  # noqa
             plain = lambda: conv_ops.conv2d_chain_ref(*args, **tail)  # noqa
 
         def library():
             y = x
-            for w, b, s, p_, r in zip(ws, bs, strides, pads, g.relus):
+            for w, b, s, p_, r in zip(ws, bs, strides, pads, relus):
                 y = F.conv2d(y, w, b, stride=s, padding=p_)
                 if r:
                     y = y.relu_()
+            if pool is None:
+                return y
             if pool.pool_kind == "max":
                 y = F.max_pool2d(y, pool.kernel, pool.stride)
             else:
@@ -178,17 +281,10 @@ def run_case(torch, F, kid, step, n, params, dev, peaks):
                             g.lrn.lrn_k)
             return y
 
-        flops, nbytes = 0.0, 4.0 * (x.numel() + sum(t.numel() for t in ws)
-                                    + sum(t.numel() for t in bs))
-        c, h, w_ = step.in_shape
-        for cv in convs:
-            kh, kw = cv.kernel
-            oh = (h + 2 * cv.padding[0] - kh) // cv.stride[0] + 1
-            ow = (w_ + 2 * cv.padding[1] - kw) // cv.stride[1] + 1
-            flops += 2.0 * n * cv.out_channels * oh * ow * c * kh * kw
-            c, h, w_ = cv.out_channels, oh, ow
+        flops = _conv_flops(n, step.in_shape, convs)
         oc, ph, pw = step.out_shape
-        nbytes += 4.0 * n * oc * ph * pw
+        nbytes = 4.0 * (x.numel() + sum(t.numel() for t in ws)
+                        + sum(t.numel() for t in bs) + n * oc * ph * pw)
     ref = plain()
     out = kernel()
     torch.cuda.synchronize()
@@ -201,10 +297,12 @@ def run_case(torch, F, kid, step, n, params, dev, peaks):
     tol = 1e-4 * max(1.0, ref.abs().max().item())
     if not err <= tol:
         fail(f"{kid} {step.names} n={n}: max abs err {err} > {tol}")
+    if not torch.equal(kernel(), out):
+        fail(f"{kid} {step.names} n={n}: a repeated launch differs")
     lib_err = (library() - ref).abs().max().item()
     return {
-        "kernel": kid, "batch": n, "max_abs_err": err, "tol": tol,
-        "library_max_abs_err": lib_err,
+        "kernel": kid, "kind": step.kind, "batch": n, "max_abs_err": err,
+        "tol": tol, "library_max_abs_err": lib_err,
         "ms": time_ms(torch, kernel), "plain_ms": time_ms(torch, plain),
         "library_ms": time_ms(torch, library),
         "bound_ms": 1e3 * max(flops / flops_peak, nbytes / bw_peak),
@@ -212,6 +310,121 @@ def run_case(torch, F, kid, step, n, params, dev, peaks):
         else "bytes",
         "flops": flops, "bytes": nbytes,
     }
+
+
+class FakeClock:
+    """The serving phase's clock: time moves only when told to, so the
+    server's event trail is deterministic."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def serving_phase(torch, np, net, np_params, rng, dev, counters):
+    """Phase 5 (see the module docstring); returns its record."""
+    from repro_torch.core.deploy import params_from_numpy
+    from repro_torch.core.engine import CNNEngine
+    from repro_torch.core.methods import Method
+    from repro_torch.serving import (CNNServer, DegradeController,
+                                     FailedResult, FaultInjector, FaultScript,
+                                     ImageRequest, ImageResult, default_ladder)
+
+    params = params_from_numpy(np_params, dev)
+    cpu_params = params_from_numpy(np_params, "cpu")
+    frames = rng.standard_normal((sum(WAVES), *net.input_shape)
+                                 ).astype(np.float32)
+    eng = CNNEngine(net)
+    srv = CNNServer(eng, params, max_batch=MAX_BATCH, max_delay_s=1.0,
+                    clock=FakeClock(), sleep=lambda s: None,
+                    degrade=DegradeController(default_ladder(), queue_high=0,
+                                              degrade_after=1, cooldown=0))
+    for fn in counters.values():
+        fn.launches = 0
+    waves, rid = [], 0
+    for size in WAVES:
+        for r in range(rid, rid + size):
+            srv.submit(ImageRequest(rid=r, image=frames[r], top_k=5))
+        if size < MAX_BATCH and srv.step() != []:
+            fail(f"serving: a wave of {size} was served before it waited")
+        rung = (eng.method, eng.fuse_pool)
+        label = srv.health()["degrade"]["label"]
+        t0 = time.perf_counter()
+        served = srv.step(force=True)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        if (len(served) != size
+                or not all(isinstance(r, ImageResult) for r in served)):
+            fail(f"serving: wave of {size} on {label} served {served!r}")
+        stats = eng.bucket_stats()
+        per_fuse = max(sum(1 for f, _ in stats["buckets"] if f == fuse)
+                       for fuse in (True, False))
+        if stats["compiles"] > MAX_BATCH.bit_length() or per_fuse > 5:
+            fail(f"serving: bucket cache {stats}")
+        waves.append({"size": size, "rung": label, "rung_key": rung,
+                      "bucket": served[0].bucket, "host_ms": host_ms,
+                      "rids": list(range(rid, rid + size))})
+        rid += size
+    launches = {k: counters[k].launches for k in KERNELS}
+    if [w["rung"] for w in waves] != list(WAVE_RUNGS):
+        fail(f"serving: rungs {[w['rung'] for w in waves]}, expected "
+             f"{list(WAVE_RUNGS)}")
+    for k in ("K1", "K2", "K3", "K7", "K9"):
+        if launches[k] < 1:
+            fail(f"serving: {k} never launched ({launches})")
+    worst = 0.0
+    for w in waves:
+        method, fuse = w.pop("rung_key")
+        cpu = CNNEngine(net, method=method, fuse_pool=fuse, device="cpu")
+        probs = cpu.forward(cpu_params, frames[w["rids"]]).numpy()
+        for r, p in zip(w["rids"], probs):
+            res = srv.done[r]
+            top = [int(j) for j in np.argsort(-p, kind="stable")[:5]]
+            if res.top_indices != top:
+                fail(f"serving: rid {r} top-5 {res.top_indices} != CPU {top}")
+            err = float(np.abs(np.asarray(res.top_probs) - p[top]).max())
+            worst = max(worst, err)
+            if not err <= 1e-4:
+                fail(f"serving: rid {r} probabilities differ by {err}")
+    # bisection on the card: survivors keep the parent's bucket and bits
+    poison_rid = 6
+    bisect = {}
+    for method, fuse in ((Method.ADVANCED_SIMD_8, True),
+                         (Method.BASIC_SIMD, False)):
+        e2 = CNNEngine(net, method=method, fuse_pool=fuse)
+        runs = []
+        for script in (FaultScript(), FaultScript(poison_rids={poison_rid})):
+            s2 = CNNServer(e2, params, max_batch=MAX_BATCH, max_delay_s=0.0,
+                           clock=FakeClock(), sleep=lambda s: None,
+                           fault_injector=FaultInjector(script))
+            for r in range(MAX_BATCH):
+                s2.submit(ImageRequest(rid=r, image=frames[r],
+                                       top_k=net.num_classes))
+            s2.run_until_drained()
+            runs.append(s2)
+        clean, faulty = runs
+        failed = [r for r, v in faulty.done.items()
+                  if isinstance(v, FailedResult)]
+        if failed != [poison_rid]:
+            fail(f"serving: bisection failed {failed}, expected "
+                 f"[{poison_rid}]")
+        for r in range(MAX_BATCH):
+            if r == poison_rid:
+                continue
+            a, b = faulty.done[r], clean.done[r]
+            if (a.bucket != MAX_BATCH or a.top_probs != b.top_probs
+                    or a.top_indices != b.top_indices):
+                fail(f"serving: survivor {r} on {method.value} differs from "
+                     f"the fault-free run")
+        bisect[f"{method.value}/{'fused' if fuse else 'unfused'}"] = {
+            "bisections": faulty.stats()["bisections"],
+            "engine_calls": faulty.fault_injector.calls}
+    return {"waves": [{k: v for k, v in w.items() if k != "rids"}
+                      for w in waves],
+            "launches": launches, "stats": srv.stats(),
+            "events": [e["kind"] for e in srv.events],
+            "max_prob_err_vs_cpu": worst, "bisection": bisect}
 
 
 def main() -> int:
@@ -233,11 +446,13 @@ def main() -> int:
 
     from repro_torch.core.deploy import params_from_numpy
     from repro_torch.core.engine import CNNEngine
+    from repro_torch.core.methods import Method
     from repro_torch.core.netdefs import NETWORKS
     from repro_torch.core.plan import compile_plan, infer_param_shapes
     from repro_torch.kernels import _build
     from repro_torch.kernels.conv2d import ops as conv_ops
     from repro_torch.kernels.matmul_fused import ops as mm_ops
+    from repro_torch.kernels.pool2d import ops as pool_ops
 
     # -- 1. card ------------------------------------------------------------
     smi = subprocess.run(
@@ -267,7 +482,8 @@ def main() -> int:
         print(_build.build_log, flush=True)
 
     counters = {"K1": conv_ops.conv2d_pool_fused, "K2": conv_ops.conv2d_chain,
-                "K3": mm_ops.matmul_fused}
+                "K3": mm_ops.matmul_fused, "K7": conv_ops.conv2d_basic_simd,
+                "K8": conv_ops.conv2d_basic_parallel, "K9": pool_ops.pool2d}
     sources = {
         "K1": ("conv_pool_lrn", "src/repro_torch/csrc/conv_pool_lrn.cu",
                "src/repro/kernels/conv2d/kernels.py:649"),
@@ -275,6 +491,13 @@ def main() -> int:
                "src/repro/kernels/conv2d/kernels.py:1103"),
         "K3": ("matmul_fused", "src/repro_torch/csrc/matmul_fused.cu",
                "src/repro/kernels/matmul_fused/kernel.py:37"),
+        "K7": ("conv_basic_simd", "src/repro_torch/csrc/conv_basic_simd.cu",
+               "src/repro/kernels/conv2d/kernels.py:555"),
+        "K8": ("conv_basic_parallel",
+               "src/repro_torch/csrc/conv_basic_parallel.cu",
+               "src/repro/kernels/conv2d/kernels.py:376"),
+        "K9": ("pool2d", "src/repro_torch/csrc/pool2d.cu",
+               "src/repro/kernels/pool2d/kernels.py:84"),
     }
     nets = {name: NETWORKS[name]() for name in ("alexnet", "lenet5",
                                                 "cifar10")}
@@ -286,61 +509,70 @@ def main() -> int:
     cases = []
     for name, net in nets.items():
         params = params_from_numpy(np_params[name], dev)
-        for kid, step, n in kernel_cases(net, compile_plan):
+        for kid, step, n in kernel_cases(net, compile_plan, Method):
             r = run_case(torch, F, kid, step, n, params, dev, peaks)
             r.update(net=name, step="+".join(step.names))
             cases.append(r)
             print("case " + json.dumps(r), flush=True)
 
-    # -- 4. the engine on the card ------------------------------------------
-    engine_rows = {}
+    # -- 4. the engine on the card, every rung -------------------------------
+    engine_rows = []
     for name, net in nets.items():
-        eng = CNNEngine(net)
         params = params_from_numpy(np_params[name], dev)
+        cpu_params = params_from_numpy(np_params[name], "cpu")
         x_np = rng.standard_normal((ENGINE_BATCH, *net.input_shape)
                                    ).astype(np.float32)
         x = torch.from_numpy(x_np).to(dev)
-        for fn in counters.values():
-            fn.launches = 0
-        y = eng.forward(params, x)
-        torch.cuda.synchronize()
-        launches = tuple(counters[k].launches for k in ("K1", "K2", "K3"))
-        if launches != EXPECTED_LAUNCHES[name]:
-            fail(f"{name}: launches K1/K2/K3 {launches}, expected "
-                 f"{EXPECTED_LAUNCHES[name]}")
-        if tuple(y.shape) != (ENGINE_BATCH, net.num_classes):
-            fail(f"{name}: output shape {tuple(y.shape)}")
-        if not torch.isfinite(y).all():
-            fail(f"{name}: non-finite output")
-        cpu_eng = CNNEngine(net, device="cpu")
-        y_cpu = cpu_eng.forward(params_from_numpy(np_params[name], "cpu"),
-                                x_np)
-        err = (y.cpu() - y_cpu).abs().max().item()
-        if not err <= 1e-4:
-            fail(f"{name}: engine max abs err vs CPU {err} > 1e-4")
-        if not torch.equal(y.argmax(-1).cpu(), y_cpu.argmax(-1)):
-            fail(f"{name}: argmax differs from the CPU engine")
-        y2 = eng.forward(params, x)
-        y3 = eng.forward(params, x)
-        if not (torch.equal(y, y2) and torch.equal(y2, y3)):
-            fail(f"{name}: repeated forwards differ")
-        ms = time_ms(torch, lambda: eng.forward(params, x))
-        t0 = time.perf_counter()
-        for _ in range(10):
-            eng.forward(params, x)
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 100.0
-        engine_rows[name] = {"batch": ENGINE_BATCH, "forward_ms": ms,
-                             "host_forward_ms": host_ms,
-                             "launches": dict(zip(("K1", "K2", "K3"),
-                                                  launches)),
-                             "max_abs_err_vs_cpu": err}
-        print(f"engine {name} batch {ENGINE_BATCH}: forward {ms:.3f} ms "
-              f"(event median), {host_ms:.3f} ms (host clock), launches "
-              f"K1/K2/K3 {launches}, max abs err vs CPU {err:.3g}",
-              flush=True)
+        for method, fuse in RUNGS:
+            label = f"{name} {method}/{'fused' if fuse else 'unfused'}"
+            eng = CNNEngine(net, method=Method(method), fuse_pool=fuse)
+            for fn in counters.values():
+                fn.launches = 0
+            y = eng.forward(params, x)
+            torch.cuda.synchronize()
+            launches = tuple(counters[k].launches for k in KERNELS)
+            want = EXPECTED_LAUNCHES[name][(method, fuse)]
+            if launches != want:
+                fail(f"{label}: launches {dict(zip(KERNELS, launches))}, "
+                     f"expected {dict(zip(KERNELS, want))}")
+            if tuple(y.shape) != (ENGINE_BATCH, net.num_classes):
+                fail(f"{label}: output shape {tuple(y.shape)}")
+            if not torch.isfinite(y).all():
+                fail(f"{label}: non-finite output")
+            y_cpu = CNNEngine(net, method=Method(method), fuse_pool=fuse,
+                              device="cpu").forward(cpu_params, x_np)
+            err = (y.cpu() - y_cpu).abs().max().item()
+            if not err <= 1e-4:
+                fail(f"{label}: engine max abs err vs CPU {err} > 1e-4")
+            if not torch.equal(y.argmax(-1).cpu(), y_cpu.argmax(-1)):
+                fail(f"{label}: argmax differs from the CPU engine")
+            y2 = eng.forward(params, x)
+            y3 = eng.forward(params, x)
+            if not (torch.equal(y, y2) and torch.equal(y2, y3)):
+                fail(f"{label}: repeated forwards differ")
+            ms = time_ms(torch, lambda: eng.forward(params, x))
+            t0 = time.perf_counter()
+            for _ in range(10):
+                eng.forward(params, x)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 100.0
+            engine_rows.append({
+                "net": name, "method": method, "fuse": fuse,
+                "batch": ENGINE_BATCH, "forward_ms": ms,
+                "host_forward_ms": host_ms,
+                "launches": dict(zip(KERNELS, launches)),
+                "max_abs_err_vs_cpu": err})
+            print(f"engine {label} batch {ENGINE_BATCH}: forward {ms:.3f} ms "
+                  f"(event median), {host_ms:.3f} ms (host clock), launches "
+                  f"{dict(zip(KERNELS, launches))}, max abs err vs CPU "
+                  f"{err:.3g}", flush=True)
 
-    # -- 5. the kernels line ------------------------------------------------
+    # -- 5. serving: CNNServer walks the degradation ladder -----------------
+    serving = serving_phase(torch, np, nets["alexnet"], np_params["alexnet"],
+                            rng, dev, counters)
+    print("serving " + json.dumps(serving), flush=True)
+
+    # -- 6. the kernels line ------------------------------------------------
     kernels = []
     for kid, (name, src, replaces) in sources.items():
         mine = [c for c in cases if c["kernel"] == kid]
@@ -351,7 +583,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": engine_rows["alexnet"]["launches"][kid],
+            "launches": sum(r["launches"][kid] for r in engine_rows
+                            if r["net"] == "alexnet"),
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": sum(c["ms"] for c in main),
             "plain_ms": sum(c["plain_ms"] for c in main),
@@ -360,13 +593,16 @@ def main() -> int:
             else "bytes",
             "library_ms": sum(c["library_ms"] for c in main),
         })
+    for k in kernels:
+        if k["launches"] < 1:
+            fail(f"{k['name']} never launched on the main path")
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(
             {"card": card_line, "kind": kind, "torch": torch.__version__,
              "cuda": torch.version.cuda, "build_log": _build.build_log,
-             "cases": cases, "engine": engine_rows, "kernels": kernels},
-            indent=1))
+             "cases": cases, "engine": engine_rows, "serving": serving,
+             "kernels": kernels}, indent=1))
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

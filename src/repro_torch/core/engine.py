@@ -4,21 +4,34 @@
 ``CNNEngine(net)`` compiles its network into an ``ExecutionPlan``
 (``repro_torch.core.plan``) once per fuse setting and runs it with a thin
 step loop.  At the defaults (``ADVANCED_SIMD_8``, fusion on) every conv
-group runs on the K1/K2 CUDA kernels and every fc on K3.  The engine runs
-on ``cuda`` unless it is given ``device="cpu"``, where the plain PyTorch
+group runs on the K1/K2 CUDA kernels and every fc on K3; the other rungs
+of the method ladder run on K7 (basic SIMD), K8 (basic parallel) and the
+standalone pool K9 (``repro_torch.core.methods``).  The engine runs on
+``cuda`` unless it is given ``device="cpu"``, where the plain PyTorch
 versions run; with no GPU and no device it raises.
 
-Assigning ``method`` / ``fuse_pool`` / ``fuse_relu``, or mutating a
-``per_layer_*`` map, drops the memoized plans so the next call compiles
-against the new configuration.  ``forward_batched`` (batch buckets) and
-the serving front end are not ported yet.
+* ``forward_batched`` is the serving path (``repro_torch.serving.cnn``):
+  it pads a batch with zero frames up to its power-of-two bucket, runs
+  the forward and slices the real rows back out.  Bucket ``m`` always
+  runs the kernels at batch ``m``, so a frame's row has the same bits
+  whatever its batchmates.  The engine records the ``(fuse, bucket)``
+  keys it served and counts them as the JAX package counts its bucket
+  compilations (there is no compiled artifact per bucket yet): batch
+  sizes ``1..max_batch`` cost at most ``log2(max_batch)+1``.
+* ``verify`` / ``switch_verified`` gate a configuration change on the
+  shape-flow verifier (``repro_torch.analysis.verifier``): the
+  degradation ladder's check before a rung is served.
+* Assigning ``method`` / ``fuse_pool`` / ``fuse_relu``, or mutating a
+  ``per_layer_*`` map, drops the memoized plans and bucket records so
+  the next call compiles against the new configuration.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, List, Optional, Set, Tuple, Union
 
 import torch
 
+from repro_torch.analysis.findings import Finding
 from repro_torch.core.methods import Method
 from repro_torch.core.netdefs import NetworkDef
 from repro_torch.core.plan import ExecutionPlan, compile_plan, infer_param_shapes
@@ -140,8 +153,12 @@ class CNNEngine:
                  device: Optional[Union[str, torch.device]] = None):
         self.net = net
         self.device = resolve_device(device)
-        # plan cache (created first: the knob setters below clear it)
+        # plan and bucket caches (created first: the knob setters below
+        # clear them).  _buckets: the (fuse, bucket) keys served since the
+        # last clear; each bucket only ever sees its one padded batch
+        # shape, so their number is the compile count
         self._plans: Dict[bool, ExecutionPlan] = {}
+        self._buckets: Set[Tuple[bool, int]] = set()
         self.method = method
         self.fuse_relu = fuse_relu
         self.per_layer_methods = per_layer_methods or {}
@@ -155,8 +172,10 @@ class CNNEngine:
         self._shapes = infer_param_shapes(net)
 
     def clear_caches(self) -> None:
-        """Drop the memoized execution plans (the knob setters call it)."""
+        """Drop the memoized execution plans and bucket records (the knob
+        setters call it)."""
         self._plans.clear()
+        self._buckets.clear()
 
     # -- parameters -----------------------------------------------------------
     def init(self, generator: Optional[torch.Generator] = None
@@ -202,14 +221,77 @@ class CNNEngine:
                 per_layer_oc_block_final=self.per_layer_oc_block_final)
         return self._plans[use_fuse]
 
+    def verify(self, fuse: Optional[bool] = None) -> List[Finding]:
+        """Every finding of the shape-flow verifier on this engine's
+        compiled plan."""
+        from repro_torch.analysis.verifier import verify_plan
+
+        return verify_plan(self.plan(fuse))
+
+    #: knob names switch_verified accepts: the port's plan-invalidating
+    #: configuration surface (the _knob/_dict_knob descriptors above; the
+    #: JAX package's use_pallas and oh_block have no counterpart here)
+    KNOBS = ("method", "fuse_relu", "fuse_pool", "per_layer_methods",
+             "per_layer_fuse", "per_layer_pool_carry",
+             "per_layer_lrn_oc_block", "per_layer_oc_block_final")
+
+    def switch_verified(self, **knobs) -> Tuple[bool, List[Finding]]:
+        """Apply a candidate knob configuration only if its compiled plan
+        has no error-severity finding; otherwise roll every knob back.
+        Returns ``(switched, findings)``.  Unknown knob names raise — a
+        typo must not silently verify the unchanged configuration."""
+        unknown = set(knobs) - set(self.KNOBS)
+        if unknown:
+            raise ValueError(f"unknown knob(s): {sorted(unknown)}")
+        snapshot = {k: (dict(getattr(self, k)) if k.startswith("per_layer")
+                        else getattr(self, k)) for k in knobs}
+        for k, v in knobs.items():
+            setattr(self, k, v)
+        findings = self.verify()
+        if any(f.severity == "error" for f in findings):
+            for k, v in snapshot.items():
+                setattr(self, k, v)
+            return False, findings
+        return True, findings
+
     def forward(self, params, x, collect: Optional[dict] = None,
                 fuse: Optional[bool] = None):
         """x: [N, C, H, W] (a batch of frames, paper §4), moved to the
         engine's device.  ``collect`` (optional dict) receives per-layer
-        outputs — it forces the un-fused plan so every activation exists
-        (on CUDA that plan needs the unported standalone pool, K9).
+        outputs — it forces the un-fused plan so every activation exists.
         ``fuse`` overrides ``fuse_pool`` for this call."""
         if collect is not None:
             fuse = False  # instrumentation needs every per-layer output
         x = torch.as_tensor(x, device=self.device).contiguous()
         return self.plan(fuse).execute(params, x, collect=collect)
+
+    # -- batch-bucketed forward (serving path) --------------------------------
+    @staticmethod
+    def batch_bucket(n: int) -> int:
+        """The power-of-two bucket a batch of ``n`` requests rounds up
+        to: every batch size in ``1..max_batch`` lands in one of the
+        ``log2(max_batch)+1`` buckets ``{1, 2, 4, ..., max_batch}``."""
+        if n < 1:
+            raise ValueError(f"batch must be >= 1, got {n}")
+        return 1 << (int(n) - 1).bit_length()
+
+    def forward_batched(self, params, x, fuse: Optional[bool] = None):
+        """``forward`` at the batch's power-of-two bucket: pad the batch
+        with zero frames (on the engine's device), record the bucket, run
+        the forward, slice the real rows back out."""
+        use_fuse = self.fuse_pool if fuse is None else bool(fuse)
+        x = torch.as_tensor(x, device=self.device)
+        n = x.shape[0]
+        bucket = self.batch_bucket(n)
+        self._buckets.add((use_fuse, bucket))
+        if bucket != n:
+            pad = torch.zeros((bucket - n, *x.shape[1:]), dtype=x.dtype,
+                              device=self.device)
+            x = torch.cat([x, pad], dim=0)
+        return self.forward(params, x, fuse=use_fuse)[:n]
+
+    def bucket_stats(self) -> dict:
+        """The live ``(fuse, bucket)`` keys and the bucket compilations
+        this engine has paid since its caches were last cleared."""
+        return {"buckets": sorted(self._buckets),
+                "compiles": len(self._buckets)}

@@ -2,14 +2,24 @@
 port of ``repro.core.methods``.
 
 Every method computes the same convolution (or FC).  On the CPU each runs
-as plain PyTorch.  On CUDA the fused super-layers go to the hand-written
-kernels — ``conv2d_pool_fused`` to K1, ``conv2d_chain_fused`` to K2,
-``fc_fused`` to K3 — and so does the per-layer advanced SIMD conv (K1
-without its pool).  The rungs whose TPU kernels have no CUDA port yet
-(basic parallel: K8, basic SIMD: K7; the second-generation cells K4–K6)
-raise ``NotImplementedError`` on CUDA.  ``SEQ_REF`` is the paper's
-sequential reference and runs as plain PyTorch on any device, as it runs
-without Pallas in the JAX package.
+as its plain PyTorch version, in the arithmetic of the JAX package's jnp
+form of that method.  On CUDA each goes to a hand-written kernel:
+
+* ``BASIC_PARALLEL`` (§4.2): the per-layer conv on K8;
+* ``BASIC_SIMD`` (§4.3): the per-layer conv and the fused conv+pool
+  super-layer on K7; a ``BASIC_SIMD`` conv chain runs on K2, which is the
+  JAX package's chain kernel for every SIMD method too
+  (``_chain_simd_kernel`` with ``im2col=False``), so its launch counts
+  under K2;
+* ``ADVANCED_SIMD_4``/``_8`` (§4.4): the per-layer conv (K1 without its
+  pool) and the fused super-layer on K1, chains on K2;
+* every method but ``SEQ_REF``: the fc layers on K3 (``fc_fused``).
+
+``SEQ_REF`` is the paper's sequential reference and runs as plain PyTorch
+on any device, as it runs without Pallas in the JAX package.  The JAX
+package's second-generation cells (K4–K6: ``pool_carry``,
+``lrn_oc_block``, ``oc_block_final``) raise ``NotImplementedError`` on
+CUDA until they are ported.
 
 The method names keep the JAX package's enum.  ``ADVANCED_SIMD_4``/``_8``
 name the paper's 4/8-outputs-per-thread blocking; the CUDA kernels pick
@@ -74,22 +84,26 @@ def conv2d_pool_fused(x, w, b, method: Method, stride=(1, 1),
                       lrn_k: float = 1.0, pool_carry: bool = None,
                       lrn_oc_block: bool = None):
     """One-launch conv→[ReLU]→pool→[ReLU]→[LRN] (a ``FusedLayerSpec``).
-    SIMD methods only.  On CUDA: K1.  ``pool_carry``/``lrn_oc_block``
-    select the JAX package's second-generation cells (K5/K4); they do not
-    change the result, and on CUDA a True raises until they are ported."""
+    SIMD methods only.  On CUDA: K7 for ``BASIC_SIMD``, K1 for the
+    advanced methods.  ``pool_carry``/``lrn_oc_block`` select the JAX
+    package's second-generation cells of the advanced methods (K5/K4; the
+    JAX package ignores them for ``BASIC_SIMD``); they do not change the
+    result, and on CUDA a True raises until they are ported."""
     if method not in _SIMD:
         raise ValueError(f"fused super-layer requires a SIMD method: {method}")
+    tail = dict(pool_kernel=pool_kernel, pool_stride=pool_stride,
+                pool_kind=pool_kind, pool_relu=pool_relu, lrn_n=lrn_n,
+                lrn_alpha=lrn_alpha, lrn_beta=lrn_beta, lrn_k=lrn_k)
+    if method == Method.BASIC_SIMD:
+        return conv_ops.conv2d_basic_simd(x, w, b, stride, padding, relu,
+                                          **tail)
     if not _on_cpu(x):
-        if method == Method.BASIC_SIMD:
-            raise not_ported("K7", "the basic SIMD fused conv")
         if pool_carry:
             raise not_ported("K5", "the sliding-window pool carry")
         if lrn_oc_block:
             raise not_ported("K4", "the oc-blocked LRN cell")
-    return conv_ops.conv2d_pool_fused(
-        x, w, b, stride, padding, relu, pool_kernel=pool_kernel,
-        pool_stride=pool_stride, pool_kind=pool_kind, pool_relu=pool_relu,
-        lrn_n=lrn_n, lrn_alpha=lrn_alpha, lrn_beta=lrn_beta, lrn_k=lrn_k)
+    return conv_ops.conv2d_pool_fused(x, w, b, stride, padding, relu,
+                                      **tail)
 
 
 def conv2d_chain_fused(x, ws, bs, method: Method, strides, paddings, relus,
@@ -99,7 +113,8 @@ def conv2d_chain_fused(x, ws, bs, method: Method, strides, paddings, relus,
                        lrn_beta: float = 0.75, lrn_k: float = 1.0,
                        oc_block_final: int = None):
     """One-launch conv→[ReLU]→conv→…→[pool]→[ReLU]→[LRN] (a chain
-    ``FusedLayerSpec``).  SIMD methods only.  On CUDA: K2;
+    ``FusedLayerSpec``).  SIMD methods only.  On CUDA: K2 for every SIMD
+    method (the §4.3 and §4.4 stage arithmetic compute the same chain);
     ``oc_block_final`` (the JAX package's K6 cell) raises there."""
     if method not in _SIMD:
         raise ValueError(f"fused conv chain requires a SIMD method: {method}")
@@ -131,11 +146,10 @@ def conv2d(x, w, b, method: Method, stride=(1, 1), padding=(0, 0),
     """The per-layer conv of ``method``."""
     if method == Method.SEQ_REF:
         return conv2d_seq_ref(x, w, b, stride, padding, relu)
-    if method in (Method.BASIC_PARALLEL, Method.BASIC_SIMD):
-        if not _on_cpu(x):
-            kid = "K8" if method == Method.BASIC_PARALLEL else "K7"
-            raise not_ported(kid, f"the {method.value} conv")
-        return conv2d_seq_ref(x, w, b, stride, padding, relu)
+    if method == Method.BASIC_PARALLEL:   # §4.2: K8
+        return conv_ops.conv2d_basic_parallel(x, w, b, stride, padding, relu)
+    if method == Method.BASIC_SIMD:       # §4.3: K7 without its pool
+        return conv_ops.conv2d_basic_simd(x, w, b, stride, padding, relu)
     if method == Method.ADVANCED_SIMD_4:
         return conv2d_advanced_simd(x, w, b, stride, padding, relu, 4)
     if method == Method.ADVANCED_SIMD_8:

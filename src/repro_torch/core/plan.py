@@ -5,12 +5,15 @@ of ``repro.core.plan``.
 ``PlanStep``s: each step carries its input and output activation shape,
 standalone ReLUs are folded into the preceding conv/fc/pool step (with
 ``fuse_relu``), ``fusion.plan_fusion`` runs once and each
-``FusedLayerSpec`` becomes one ``fused`` (single conv + pool, K1) or
-``chain`` (several convs, K2) step, and per-layer methods are resolved.
-``ExecutionPlan.execute`` is a thin loop over step executors.
+``FusedLayerSpec`` becomes one ``fused`` (single conv + pool: K1, or K7
+for basic SIMD) or ``chain`` (several convs, K2) step, and per-layer
+methods are resolved.  ``ExecutionPlan.execute`` is a thin loop over step
+executors; an unfused plan's standalone pools run on K9.
 
-Not ported: the JAX package's static verifier (``verify=``), its TPU
-band overrides (``oh_block``) and its cost gate — all TPU geometry.
+The shape-flow rules of the JAX package's static verifier run in
+``repro_torch.analysis.verifier`` (``CNNEngine.verify``), not inside
+``compile_plan``.  Not ported: its TPU band overrides (``oh_block``), its
+band and VMEM verifier rules and its cost gate — all TPU geometry.
 """
 from __future__ import annotations
 
@@ -35,9 +38,9 @@ from repro_torch.core.methods import (
     fc_seq_ref,
 )
 from repro_torch.core.netdefs import LayerSpec, NetworkDef
-from repro_torch.kernels.common import ACC_DTYPE, not_ported
+from repro_torch.kernels.common import ACC_DTYPE
 from repro_torch.kernels.conv2d.ref import lrn_ref
-from repro_torch.kernels.pool2d.ref import pool2d_ref
+from repro_torch.kernels.pool2d.ops import pool2d
 
 Shape = Tuple[int, ...]
 
@@ -99,13 +102,11 @@ def _lrn_kwargs(lrn: Optional[LayerSpec]) -> Dict:
 
 
 def _pool(x, spec: LayerSpec, relu: bool = False):
-    """Standalone VALID pooling; ``relu`` is the folded standalone
-    activation (applied on top of the spec's own).  The JAX package runs
-    it on the K9 kernel, which has no CUDA port yet."""
-    if x.device.type != "cpu":
-        raise not_ported("K9", "the standalone pool of an unfused plan")
-    return pool2d_ref(x, spec.kernel, spec.stride, spec.pool_kind,
-                      relu=spec.relu or relu)
+    """Standalone VALID pooling on K9 (its plain version on the CPU);
+    ``relu`` is the folded standalone activation (applied on top of the
+    spec's own)."""
+    return pool2d(x, spec.kernel, spec.stride, spec.pool_kind,
+                  relu=spec.relu or relu)
 
 
 def _lrn(x, spec: LayerSpec):
@@ -121,7 +122,7 @@ def _exec_conv(step: PlanStep, params, x):
 
 
 def _exec_fused(step: PlanStep, params, x):
-    # single conv + pool[+LRN]: K1
+    # single conv + pool[+LRN]: K1 (advanced SIMD) or K7 (basic SIMD)
     g = step.group
     p = params[g.conv.name]
     return conv2d_pool_fused(

@@ -35,6 +35,9 @@ SIGNATURES = {
     "matmul_fused_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "conv_pool_lrn_f32": [_P, _P, _P, _P, _P, _P, _L, _P],
     "conv_chain_f32": [_P, _P, _P, _P, _P, _L, _P, _P, _L, _P],
+    "pool2d_f32": [_P, _P, _L] + [_I] * 10 + [_P],
+    "conv_basic_parallel_f32": [_P, _P, _P, _P, _P, _P],
+    "conv_basic_simd_f32": [_P, _P, _P, _P, _P, _P, _L, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

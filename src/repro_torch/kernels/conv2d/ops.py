@@ -6,12 +6,19 @@
   pool it is the per-layer conv of the advanced SIMD method.
 * ``conv2d_chain`` — K2 (``csrc/conv_chain.cu``): a chain of convs with
   the same optional pool/LRN tail in one launch.
+* ``conv2d_basic_simd`` — K7 (``csrc/conv_basic_simd.cu``): the §4.3
+  conv, NHWC with a float4 channel dot per kernel position; with a pool
+  it is the fused conv → pool → LRN super-layer of that rung.
+* ``conv2d_basic_parallel`` — K8 (``csrc/conv_basic_parallel.cu``): the
+  §4.2 conv, NCHW, one thread per output, channels the outer loop.
 
 NCHW activations and OIHW weights at every public function, as in the
 JAX package.  A CPU tensor goes to the plain version beside each wrapper
-(``conv2d_pool_fused_ref``, ``conv2d_chain_ref``); a CUDA tensor launches
-the kernel (fp32 only) or raises.  The kernels write NCHW, so the fc
-layer after a chain flattens their output as the JAX engine does.
+(``conv2d_pool_fused_ref``, ``conv2d_chain_ref``, and
+``conv2d_basic_simd_ref`` / ``conv2d_basic_parallel_ref`` from ``ref.py``);
+a CUDA tensor launches the kernel (fp32 only) or raises; any other device
+raises ``ValueError``.  The kernels write NCHW, so the fc layer after a
+conv flattens their output as the JAX engine does.
 
 The band geometry (which rows each block computes, how much scratch the
 chain needs, how many final rows a block owns) is computed here in
@@ -28,10 +35,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.layout import nchw_to_nhwc, oihw_to_hwio, pad_axis
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import ACC_DTYPE, check_cuda_f32
-from repro_torch.kernels.conv2d.ref import lrn_ref
-from repro_torch.kernels.pool2d.ref import pool2d_ref
+from repro_torch.kernels.conv2d.ref import (
+    conv2d_basic_parallel_ref,
+    conv2d_basic_simd_ref,
+    pool_lrn_tail,
+)
 
 POOL_CODES = {"max": 1, "avg": 2}
 MAX_STAGES = 8            # csrc/conv_common.cuh
@@ -39,6 +50,8 @@ GEMM_TILE = 64            # TP and TO in csrc/conv_common.cuh
 GEMM_GROUPS = 4           # GROUPS in csrc/conv_common.cuh: tiles run 4 at a time
 SMEM_LIMIT = 190 * 1024   # dynamic shared memory a block may take (bytes):
                           # 227 KB less the 33 KB of static GEMM tiles
+K7_SMEM_LIMIT = 227 * 1024  # K7 has no static tiles: the whole 227 KB
+K7_ALIGN = 4              # K7's channels: zero-padded to whole float4s
 
 
 class Stage(NamedTuple):
@@ -239,16 +252,6 @@ def _conv_im2col(x, w, b, stride, padding, relu):
     return out.clamp_min(0.0) if relu else out
 
 
-def _tail(out, pool: Optional[Pool], pool_relu, lrn):
-    if pool is None:
-        return out
-    out = pool2d_ref(out, (pool.kh, pool.kw), (pool.sy, pool.sx), pool.kind,
-                     relu=pool_relu)
-    if lrn is not None:
-        out = lrn_ref(out, *lrn)
-    return out
-
-
 def conv2d_pool_fused_ref(x, w, b, stride=(1, 1), padding=(0, 0),
                           relu=False, pool_kernel=None, pool_stride=None,
                           pool_kind: str = "max", pool_relu: bool = False,
@@ -257,10 +260,9 @@ def conv2d_pool_fused_ref(x, w, b, stride=(1, 1), padding=(0, 0),
     """Plain version of K1: conv → bias → [ReLU] → [pool → [ReLU] →
     [LRN]] (the JAX package's ``methods.conv2d_pool_fused`` without
     Pallas)."""
-    pool, lrn = _pool_lrn(pool_kernel, pool_stride, pool_kind, lrn_n,
-                          lrn_alpha, lrn_beta, lrn_k)
     out = _conv_im2col(x, w, b, stride, padding, relu)
-    return _tail(out, pool, pool_relu, lrn).to(x.dtype)
+    return pool_lrn_tail(out, pool_kernel, pool_stride, pool_kind, pool_relu,
+                         lrn_n, lrn_alpha, lrn_beta, lrn_k).to(x.dtype)
 
 
 def conv2d_chain_ref(x, ws, bs, strides, paddings, relus, pool_kernel=None,
@@ -270,12 +272,11 @@ def conv2d_chain_ref(x, ws, bs, strides, paddings, relus, pool_kernel=None,
                      lrn_k: float = 1.0):
     """Plain version of K2: each stage's conv (zero padding between
     stages) with bias and [ReLU], then the optional pool/LRN tail."""
-    pool, lrn = _pool_lrn(pool_kernel, pool_stride, pool_kind, lrn_n,
-                          lrn_alpha, lrn_beta, lrn_k)
     out = x.to(ACC_DTYPE)
     for w, b, s, p, r in zip(ws, bs, strides, paddings, relus):
         out = _conv_im2col(out, w, b, s, p, r)
-    return _tail(out, pool, pool_relu, lrn).to(x.dtype)
+    return pool_lrn_tail(out, pool_kernel, pool_stride, pool_kind, pool_relu,
+                         lrn_n, lrn_alpha, lrn_beta, lrn_k).to(x.dtype)
 
 
 # -- kernel wrappers ----------------------------------------------------------
@@ -400,6 +401,105 @@ def conv2d_chain(x, ws, bs, strides, paddings, relus, pool_kernel=None,
     return out
 
 
+def k7_smem(stages, pool, lrn: bool) -> int:
+    """K7's fused kernel's dynamic shared memory: the conv rows of one
+    pooled row at full channel width plus, with LRN, that pooled row (the
+    K1 layout at one final row a block)."""
+    return k1_smem(stages, pool, lrn, 1)
+
+
+@functools.lru_cache(maxsize=256)
+def k7_launch(n, in_chw, w_shape, stride, padding, relu, pool, pool_relu,
+              lrn):
+    """K7's launch geometry for one call signature: ``(stages, smem, geo,
+    lrn_f)``, ``in_chw`` and ``w_shape`` with the channels padded to
+    ``K7_ALIGN``.  The fused kernel gives each block one pooled row of one
+    frame; its band must fit ``K7_SMEM_LIMIT``."""
+    stages = make_stages(in_chw, [w_shape], [stride], [padding], [relu])
+    smem = k7_smem(stages, pool, lrn is not None)
+    if smem > K7_SMEM_LIMIT:
+        raise ValueError(f"K7 band of one pooled row needs {smem} bytes of "
+                         f"shared memory, more than {K7_SMEM_LIMIT}")
+    geo, lrn_f = pack_geo(n, stages, pool, pool_relu, lrn, 1)
+    geo.setflags(write=False)
+    lrn_f.setflags(write=False)
+    return stages, smem, geo, lrn_f
+
+
+def conv2d_basic_simd(x, w, b, stride=(1, 1), padding=(0, 0), relu=False,
+                      pool_kernel=None, pool_stride=None,
+                      pool_kind: str = "max", pool_relu: bool = False,
+                      lrn_n=None, lrn_alpha: float = 1e-4,
+                      lrn_beta: float = 0.75, lrn_k: float = 1.0):
+    """x: [N, C, H, W]; w: [OC, C, KH, KW]; b: [OC].  The §4.3 conv →
+    bias → [ReLU] and, with ``pool_kernel``, the fused → VALID pool →
+    [ReLU] → [LRN] tail, as one launch of K7 (CUDA) or its plain version
+    (CPU).  On CUDA the dimension swap (NHWC, HWIO, channels zero-padded
+    to ``K7_ALIGN``) happens here, outside the kernel, as the JAX package
+    does it outside its Pallas kernel."""
+    kwargs = dict(pool_kernel=pool_kernel, pool_stride=pool_stride,
+                  pool_kind=pool_kind, pool_relu=pool_relu, lrn_n=lrn_n,
+                  lrn_alpha=lrn_alpha, lrn_beta=lrn_beta, lrn_k=lrn_k)
+    if x.device.type == "cpu":
+        return conv2d_basic_simd_ref(x, w, b, stride, padding, relu,
+                                     **kwargs)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv2d_basic_simd: unsupported device {x.device}")
+    check_cuda_f32("conv2d_basic_simd", x, w, b)
+    pool, lrn = _pool_lrn(pool_kernel, pool_stride, pool_kind, lrn_n,
+                          lrn_alpha, lrn_beta, lrn_k)
+    if tuple(b.shape) != (w.shape[0],):
+        raise ValueError(f"bias shape {tuple(b.shape)} != ({w.shape[0]},)")
+    xh, _ = pad_axis(nchw_to_nhwc(x), 3, K7_ALIGN)
+    wh, _ = pad_axis(oihw_to_hwio(w), 2, K7_ALIGN)
+    xh, wh = xh.contiguous(), wh.contiguous()
+    n, h, wd, cp = xh.shape
+    kh, kw, _, oc = wh.shape
+    stages, smem, geo, lrn_f = k7_launch(
+        n, (cp, h, wd), (oc, cp, kh, kw), tuple(stride), tuple(padding),
+        bool(relu), pool, bool(pool_relu), lrn)
+    _, out_h, out_w = final_rows(stages, pool)
+    out = torch.empty((n, oc, out_h, out_w), dtype=torch.float32,
+                      device=x.device)
+    rc = _build.library().conv_basic_simd_f32(
+        xh.data_ptr(), wh.data_ptr(), b.data_ptr(), out.data_ptr(),
+        geo.ctypes.data, lrn_f.ctypes.data, smem, _stream(x.device))
+    _build.check(rc, "conv_basic_simd_f32")
+    conv2d_basic_simd.launches += 1
+    return out
+
+
+def conv2d_basic_parallel(x, w, b, stride=(1, 1), padding=(0, 0),
+                          relu=False):
+    """x: [N, C, H, W]; w: [OC, C, KH, KW]; b: [OC].  The §4.2 conv →
+    bias → [ReLU] (no pool) as one launch of K8 (CUDA) or its plain
+    version (CPU)."""
+    if x.device.type == "cpu":
+        return conv2d_basic_parallel_ref(x, w, b, stride, padding, relu)
+    if x.device.type != "cuda":
+        raise ValueError(
+            f"conv2d_basic_parallel: unsupported device {x.device}")
+    check_cuda_f32("conv2d_basic_parallel", x, w, b)
+    n, _, h, wd = x.shape
+    oc, c, kh, kw = w.shape
+    st = make_stages(tuple(x.shape[1:]), [w.shape], [stride], [padding],
+                     [relu])[0]
+    if tuple(b.shape) != (oc,):
+        raise ValueError(f"bias shape {tuple(b.shape)} != ({oc},)")
+    dims = np.asarray([n, c, h, wd, oc, kh, kw, *stride, *padding, st.OH,
+                       st.OW, int(relu)], dtype=np.int32)
+    out = torch.empty((n, oc, st.OH, st.OW), dtype=torch.float32,
+                      device=x.device)
+    rc = _build.library().conv_basic_parallel_f32(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+        dims.ctypes.data, _stream(x.device))
+    _build.check(rc, "conv_basic_parallel_f32")
+    conv2d_basic_parallel.launches += 1
+    return out
+
+
 #: kernel launches since the count was last set to 0
 conv2d_pool_fused.launches = 0
 conv2d_chain.launches = 0
+conv2d_basic_simd.launches = 0
+conv2d_basic_parallel.launches = 0

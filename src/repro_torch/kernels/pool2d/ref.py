@@ -1,6 +1,6 @@
 """Plain VALID max/avg pooling (NCHW): the port of
-``repro.kernels.pool2d.ref``.  The standalone pool kernel of the JAX
-package (``pool2d_nhwc``) has no CUDA port yet."""
+``repro.kernels.pool2d.ref`` and the plain version of K9
+(``kernels/pool2d/ops.py``)."""
 from __future__ import annotations
 
 import torch.nn.functional as F

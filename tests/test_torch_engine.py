@@ -10,6 +10,7 @@ that the port imports nothing of JAX.
 """
 import ast
 import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -25,6 +26,7 @@ import torch
 from repro.core import deploy as jdeploy
 from repro.core import netdefs as jnetdefs
 from repro.core.engine import CNNEngine as JEngine
+from repro.core.methods import Method as JMethod
 from repro.core.fusion import fusion_summary as jax_fusion_summary
 from repro_torch.core import netdefs as tnetdefs
 from repro_torch.core.deploy import load_model, params_from_numpy
@@ -33,6 +35,7 @@ from repro_torch.core.fusion import fusion_summary
 from repro_torch.core.methods import Method
 from repro_torch.core.plan import infer_param_shapes
 from repro_torch.kernels.conv2d import ops as conv_ops
+from repro_torch.kernels.conv2d.ref import pool_lrn_tail
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 1e-4
@@ -93,6 +96,44 @@ def test_engine_forward_matches_jax(name, batch):
     assert ours.shape == theirs.shape == (batch, tnet.num_classes)
     assert np.abs(ours - theirs).max() <= TOL
     np.testing.assert_array_equal(ours.argmax(-1), theirs.argmax(-1))
+
+
+@pytest.mark.parametrize("name", ["lenet5", "cifar10", "alexnet_narrow"])
+@pytest.mark.parametrize("method", [m.value for m in Method])
+@pytest.mark.parametrize("fuse", [True, False])
+def test_method_ladder_forward_matches_jax(name, method, fuse):
+    """Every rung of the method ladder, fused and unfused, against the JAX
+    engine's jitted jnp forward at the same method and fuse setting: the
+    port runs each method's own plain versions (K7, K8, K9 and K1–K3's on
+    the card)."""
+    tnet = _nets(tnetdefs)[name]
+    params = he_params(infer_param_shapes(tnet), seed=len(name))
+    x = np.random.default_rng(7).standard_normal(
+        (2, *tnet.input_shape)).astype(np.float32)
+    eng = CNNEngine(tnet, method=Method(method), fuse_pool=fuse,
+                    device="cpu")
+    ours = eng.forward(params_from_numpy(params, "cpu"), x).numpy()
+    # seq_ref and basic_parallel never fuse: their fused and unfused plans
+    # are one plan, with one JAX reference
+    groups = tuple(fusion_summary(eng.plan()))
+    theirs, jgroups = _jax_ladder_forward(name, method, fuse and bool(groups))
+    assert ours.shape == theirs.shape == (2, tnet.num_classes)
+    assert np.abs(ours - theirs).max() <= TOL
+    np.testing.assert_array_equal(ours.argmax(-1), theirs.argmax(-1))
+    assert groups == jgroups
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_ladder_forward(name, method, fuse):
+    """The JAX engine's jitted forward for the ladder test, and its fused
+    groups."""
+    jnet, tnet = _nets(jnetdefs)[name], _nets(tnetdefs)[name]
+    params = he_params(infer_param_shapes(tnet), seed=len(name))
+    x = np.random.default_rng(7).standard_normal(
+        (2, *tnet.input_shape)).astype(np.float32)
+    jeng = JEngine(jnet, method=JMethod(method), fuse_pool=fuse)
+    out = np.asarray(jeng.jit_forward()(_jax_tree(params), jnp.asarray(x)))
+    return out, tuple(jax_fusion_summary(jeng.plan()))
 
 
 def test_unfused_forward_and_collect_match_jax():
@@ -162,6 +203,136 @@ def test_init_is_seeded_and_sized():
     assert torch.allclose(y.sum(-1), torch.ones(1))
 
 
+# -- batch buckets (the serving path) ---------------------------------------------
+
+
+def test_batch_bucket_rounding():
+    assert [CNNEngine.batch_bucket(n) for n in range(1, 10)] == \
+        [1, 2, 4, 4, 8, 8, 8, 8, 16]
+    assert [CNNEngine.batch_bucket(n) for n in range(1, 10)] == \
+        [JEngine.batch_bucket(n) for n in range(1, 10)]
+    with pytest.raises(ValueError):
+        CNNEngine.batch_bucket(0)
+
+
+def test_bucketed_cache_compile_bound():
+    """Batch sizes 1..max_batch cost at most log2(max_batch)+1 bucket
+    entries, repeats add none, a knob change clears them, and the padded
+    rows never leak into the sliced-back outputs."""
+    max_batch = 8
+    net = tnetdefs.lenet5()
+    eng = CNNEngine(net, device="cpu")
+    params = eng.init()
+    xs = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (max_batch, *net.input_shape)).astype(np.float32))
+    for n in range(1, max_batch + 1):
+        assert eng.forward_batched(params, xs[:n]).shape == (
+            n, net.num_classes)
+    stats = eng.bucket_stats()
+    assert stats["compiles"] <= max_batch.bit_length()  # log2(8)+1 = 4
+    assert stats["buckets"] == [(True, 1), (True, 2), (True, 4), (True, 8)]
+    for n in range(1, max_batch + 1):
+        eng.forward_batched(params, xs[:n])
+    assert eng.bucket_stats()["compiles"] == stats["compiles"]
+    eng.forward_batched(params, xs[:3], fuse=False)
+    assert eng.bucket_stats()["buckets"][0] == (False, 4)
+    eng.method = Method.BASIC_SIMD      # a knob change drops the buckets
+    assert eng.bucket_stats() == {"buckets": [], "compiles": 0}
+    eng.method = Method.ADVANCED_SIMD_8
+    a = eng.forward_batched(params, xs[:3])   # bucket 4, one zero pad row
+    b = eng.forward_batched(params, xs[:4])   # bucket 4, no pad
+    assert torch.equal(a, b[:3])
+    eager = eng.forward(params, xs[:3])
+    assert (a - eager).abs().max() < 1e-5
+
+
+@pytest.mark.parametrize("method", [m.value for m in Method])
+@pytest.mark.parametrize("fuse", [True, False])
+def test_rows_are_bitwise_independent_of_batchmates(method, fuse):
+    """At a fixed bucket, a frame's output row has the same bits whatever
+    the other rows hold and whichever row it rides in: the CPU plain path
+    (torch CPU GEMMs and convolutions at a fixed shape) as the kernels on
+    the card.  Bisection survivors and pad rows rely on it."""
+    net = tnetdefs.cifar10_quick()
+    eng = CNNEngine(net, method=Method(method), fuse_pool=fuse,
+                    device="cpu")
+    params = eng.init()
+    rng = np.random.default_rng(3)
+    xs = torch.from_numpy(rng.standard_normal(
+        (8, *net.input_shape)).astype(np.float32))
+    base = eng.forward_batched(params, xs[:4])
+    others = torch.from_numpy(rng.standard_normal(
+        (3, *net.input_shape)).astype(np.float32))
+    for pos in range(4):
+        batch = torch.cat([others[:pos], xs[:1], others[pos:]])
+        assert torch.equal(eng.forward_batched(params, batch)[pos], base[0])
+    # zero pad rows are batchmates too: 3 real rows in bucket 4
+    assert torch.equal(eng.forward_batched(params, xs[:3]), base[:3])
+
+
+# -- verify and switch_verified ------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["lenet5", "cifar10", "alexnet"])
+def test_verify_is_clean_on_every_rung(name):
+    net = _nets(tnetdefs)[name]
+    for method in Method:
+        for fuse in (True, False):
+            eng = CNNEngine(net, method=method, fuse_pool=fuse, device="cpu")
+            assert eng.verify() == [], (method, fuse)
+
+
+def test_verifier_catches_seeded_shape_faults():
+    """Each V1xx rule fires on a plan corrupted to break it (the JAX
+    verifier's mutation cases)."""
+    from repro_torch.analysis.findings import RULES, Finding
+    from repro_torch.analysis.verifier import verify_plan
+
+    eng = CNNEngine(tnetdefs.alexnet(), fuse_pool=False, device="cpu")
+    plan = eng.plan()
+    conv1 = plan.steps[0]
+
+    def rules(steps):
+        return {f.rule for f in verify_plan(dataclasses.replace(
+            plan, steps=tuple(steps))) if f.severity == "error"}
+
+    bad_out = dataclasses.replace(conv1, out_shape=(96, 54, 55))
+    assert rules([bad_out, *plan.steps[1:]]) >= {"V101", "V102"}
+    bad_in = dataclasses.replace(plan.steps[1], in_shape=(95, 55, 55))
+    assert "V102" in rules([conv1, bad_in, *plan.steps[2:]])
+    bad_spec = dataclasses.replace(
+        conv1, spec=dataclasses.replace(conv1.spec, kernel=(9, 9)),
+        out_shape=(96, 55, 55))
+    assert "V103" in rules([bad_spec, *plan.steps[1:]])
+    fc = next(i for i, st in enumerate(plan.steps) if st.kind == "fc")
+    steps = list(plan.steps)
+    steps[fc] = dataclasses.replace(steps[fc], d_in=9215)
+    assert rules(steps) == {"V103"}
+    assert set(RULES) == {"V101", "V102", "V103"}
+    with pytest.raises(ValueError, match="unknown rule"):
+        Finding("error", "plan", "V301", "a TPU rule")
+
+
+def test_switch_verified_applies_or_rolls_back(monkeypatch):
+    eng = CNNEngine(tnetdefs.alexnet(), device="cpu")
+    ok, findings = eng.switch_verified(method=Method.BASIC_SIMD,
+                                       per_layer_fuse={"norm1": False})
+    assert ok and findings == []
+    assert eng.method == Method.BASIC_SIMD
+    assert ("conv1", "pool1") in fusion_summary(eng.plan())
+    from repro_torch.analysis.findings import Finding
+
+    monkeypatch.setattr(CNNEngine, "verify", lambda self, fuse=None: [
+        Finding("error", "plan", "V102", "injected")])
+    ok, findings = eng.switch_verified(method=Method.ADVANCED_SIMD_4,
+                                       fuse_pool=False,
+                                       per_layer_fuse={})
+    assert not ok and [f.rule for f in findings] == ["V102"]
+    assert eng.method == Method.BASIC_SIMD and eng.fuse_pool is True
+    assert dict(eng.per_layer_fuse) == {"norm1": False}   # rolled back
+    assert set(CNNEngine.KNOBS) < set(JEngine.KNOBS)
+
+
 # -- the device rule ---------------------------------------------------------------
 
 
@@ -176,10 +347,12 @@ def test_no_device_means_cuda_and_raises_without_gpu(monkeypatch):
 
 
 def test_unfused_pool_raises_off_cpu():
+    # K9 is ported: an unfused plan's pool reaches the pool2d wrapper,
+    # which refuses a tensor that lies on neither the CPU nor a GPU
     from repro_torch.core.plan import _pool
 
     spec = tnetdefs.lenet5().layers[1]
-    with pytest.raises(NotImplementedError, match="K9"):
+    with pytest.raises(ValueError, match="pool2d: unsupported device"):
         _pool(torch.empty((1, 2, 4, 4), device="meta"), spec)
 
 
@@ -255,7 +428,8 @@ def _emulate_bands(x, ws, bs, strides, pads, relus, pool, blk):
             row0 = a
         f0, f1 = t * blk, min((t + 1) * blk, total)
         if pool is not None:
-            band = conv_ops._tail(band, pool, False, None)
+            band = pool_lrn_tail(band, (pool.kh, pool.kw), (pool.sy, pool.sx),
+                                 pool.kind)
         out[:, :, f0:f1] = band
     return out
 
