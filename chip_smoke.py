@@ -17,7 +17,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    against its plain PyTorch version on the card (max abs <= 1e-4 *
    max(1, max|plain|)), then timed with CUDA events (median of 25 after
    warm-up) beside its plain version, one PyTorch library call as a
-   yardstick and its bound;
+   yardstick and its bound; and the second-generation cells at batch 1
+   and 16 — K4 (oc-blocked LRN cell) on AlexNet's conv1+pool1+norm1 and
+   conv2+pool2+norm2, K5 (pool carry) on AlexNet's conv1+pool1 and
+   conv2+pool2 (norms unfused) and the CIFAR-10 net's three groups, K6
+   (oc-blocked chain) on AlexNet's conv3-5+pool5 with ``oc_block_final``
+   8 and 64 — held, repeated and timed the same way;
 4. engine: ``CNNEngine(net, method=..., fuse_pool=...).forward`` on the
    card at batch 16 (paper §6.2) on six rungs — ``advanced_simd_8`` fused
    and unfused, ``basic_simd`` fused and unfused, ``basic_parallel``,
@@ -27,8 +32,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    read just after, and they must equal ``EXPECTED_LAUNCHES``; the output
    must match the CPU engine at the same rung on the same weights (max
    abs <= 1e-4, same argmax) and two more runs must agree bit for bit; the
-   forward is timed;
-5. serving: ``CNNServer`` over full-width AlexNet on the card
+   forward is timed; no default plan may launch K4, K5 or K6;
+5. tuned deploy: ``repro_torch.core.deploy.save_model(tuned=TUNED)``
+   writes full-width AlexNet with the seeded weights, ``load_engine``
+   builds it on the card and on the CPU, and its forward at batch 16 and
+   at batch 1 must launch exactly K3 ×3, K4, K5 and K6 once each and
+   nothing else, match the CPU engine (max abs <= 1e-4, same argmax),
+   repeat bit for bit, and is timed beside the default fused engine on the
+   same weights and frames;
+6. serving: ``CNNServer`` over full-width AlexNet on the card
    (``max_batch=16``, a fake clock, the default degradation ladder with
    ``queue_high=0, degrade_after=1, cooldown=0``) takes ragged waves of
    16, 5, 1, 3 and 16 seeded frames.  A wave below ``max_batch`` waits one
@@ -42,11 +54,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the ladder ran, and a ``FaultScript`` poisoning one request of a batch
    of 16 must leave the 15 survivors' whole probability rows
    byte-identical to the fault-free run (on the top and the bottom rung);
-6. prints one JSON line ``{"kernels": [...]}``: per kernel, ``launches``
-   is its count summed over phase 4's AlexNet forwards (each counted from
-   0), the times and bound are summed over its distinct AlexNet batch-16
-   shapes, the error is the largest over every case;
-7. prints ``{"ok": true, "device": {...}}`` as its last line.
+7. prints one JSON line ``{"kernels": [...]}``: per kernel, ``launches``
+   is its count summed over the AlexNet forwards of phase 4 (K1-K3,
+   K7-K9) or phase 5 (K4-K6), each counted from 0; the times and bound
+   are summed over its distinct AlexNet batch-16 shapes on that path; the
+   error is the largest over every case;
+8. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Run it from the repository root; it needs one CUDA device and the CUDA
 toolkit, and imports nothing of the JAX package.
@@ -76,6 +89,20 @@ SEED = 0
 BATCHES = (1, 16)
 ENGINE_BATCH = 16
 KERNELS = ("K1", "K2", "K3", "K7", "K8", "K9")
+#: the second-generation cells, which only a tuned plan reaches
+CELLS = ("K4", "K5", "K6")
+#: the tuned deployment of phase 5: norm1 unfused so that conv1+pool1
+#: runs the pool carry (K5), conv2+pool2+norm2 the oc-blocked LRN cell
+#: (K4), conv3-5+pool5 the oc-blocked chain (K6)
+TUNED = {"per_layer_fuse": {"norm1": False},
+         "per_layer_pool_carry": {"conv1": True},
+         "per_layer_lrn_oc_block": {"conv2": True},
+         "per_layer_oc_block_final": {"conv5": 8}}
+#: launches of each kernel per tuned forward
+TUNED_LAUNCHES = {"K1": 0, "K2": 0, "K3": 3, "K4": 1, "K5": 1, "K6": 1,
+                  "K7": 0, "K8": 0, "K9": 0}
+TUNED_BATCHES = (16, 1)
+TUNED_REPS = 10
 #: the rungs of phase 4: (method, fuse_pool); seq_ref and basic_parallel
 #: never fuse, so they run once, at the engine's default fuse_pool
 RUNGS = (("advanced_simd_8", True), ("advanced_simd_8", False),
@@ -170,6 +197,30 @@ def kernel_cases(net, compile_plan, Method):
     return cases
 
 
+def cell_cases(nets, compile_plan, Method):
+    """The phase-3 cases of K4, K5 and K6: (net, kernel id, step, batch,
+    oc_block_final, main), ``main`` marking the shape and block the tuned
+    deployment of phase 5 runs."""
+    adv = Method("advanced_simd_8")
+    alex = nets["alexnet"]
+    fused = compile_plan(alex, method=adv).steps
+    unfused_norms = compile_plan(alex, method=adv, per_layer_fuse={
+        "norm1": False, "norm2": False}).steps
+    cifar = compile_plan(nets["cifar10"], method=adv).steps
+    picks = [("alexnet", "K4", s, None, "norm2" in s.names) for s in fused
+             if s.kind == "fused"]
+    picks += [("alexnet", "K5", s, None, s.names[0] == "conv1")
+              for s in unfused_norms if s.kind == "fused"]
+    picks += [("cifar10", "K5", s, None, False) for s in cifar
+              if s.kind == "fused"]
+    chain = next(s for s in fused if s.kind == "chain")
+    picks += [("alexnet", "K6", chain, obf,
+               obf == TUNED["per_layer_oc_block_final"]["conv5"])
+              for obf in (8, 64)]
+    return [(net, kid, step, n, obf, main)
+            for net, kid, step, obf, main in picks for n in BATCHES]
+
+
 def _conv_flops(n, in_shape, convs):
     flops = 0.0
     c, h, w = in_shape
@@ -182,8 +233,9 @@ def _conv_flops(n, in_shape, convs):
     return flops
 
 
-def run_case(torch, F, kid, step, n, params, dev, peaks):
-    """Kernel vs plain version on the card, then times; returns a dict."""
+def run_case(torch, F, kid, step, n, params, dev, peaks, obf=None):
+    """Kernel vs plain version on the card, then times; returns a dict.
+    ``obf`` is K6's ``oc_block_final``."""
     from repro_torch.kernels.conv2d import ops as conv_ops
     from repro_torch.kernels.conv2d.ref import (
         conv2d_basic_parallel_ref,
@@ -248,7 +300,18 @@ def run_case(torch, F, kid, step, n, params, dev, peaks):
                 tail.update(lrn_n=g.lrn.lrn_n, lrn_alpha=g.lrn.lrn_alpha,
                             lrn_beta=g.lrn.lrn_beta, lrn_k=g.lrn.lrn_k)
         one = (x, ws[0], bs[0], strides[0], pads[0], relus[0])
-        if kid == "K1":
+        if kid == "K4":
+            kernel = lambda: conv_ops.conv2d_pool_lrn_halo(*one, **tail)  # noqa
+            plain = lambda: conv_ops.conv2d_pool_fused_ref(*one, **tail)  # noqa
+        elif kid == "K5":
+            kernel = lambda: conv_ops.conv2d_pool_carry(*one, **tail)  # noqa
+            plain = lambda: conv_ops.conv2d_pool_fused_ref(*one, **tail)  # noqa
+        elif kid == "K6":
+            args = (x, ws, bs, strides, pads, relus)
+            kernel = lambda: conv_ops.conv2d_chain_ocb(  # noqa: E731
+                *args, **tail, oc_block_final=obf)
+            plain = lambda: conv_ops.conv2d_chain_ref(*args, **tail)  # noqa
+        elif kid == "K1":
             kernel = lambda: conv_ops.conv2d_pool_fused(*one, **tail)  # noqa
             plain = lambda: conv_ops.conv2d_pool_fused_ref(*one, **tail)  # noqa
         elif kid == "K7":
@@ -321,6 +384,67 @@ class FakeClock:
 
     def __call__(self):
         return self.t
+
+
+def tuned_phase(torch, np, net, np_params, rng, dev, counters, card):
+    """Phase 5 (see the module docstring); returns its record.  The
+    default engine (fused ``advanced_simd_8``) is timed beside the tuned
+    one on the same weights and frames."""
+    import tempfile
+
+    from repro_torch.core.deploy import load_engine, save_model
+    from repro_torch.core.engine import CNNEngine
+
+    rows = []
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        save_model(tmp, net, np_params, extra={"seed": SEED}, tuned=TUNED)
+        eng, params, knobs = load_engine(tmp)
+        cpu, cpu_params, _ = load_engine(tmp, device="cpu")
+    if eng.device.type != "cuda":
+        fail(f"tuned deploy: engine on {eng.device}")
+    default = CNNEngine(net)
+    report = eng.fusion_report(batch=max(TUNED_BATCHES))
+    cells = [r["cell"] for r in report]
+    if cells != ["K5", "K4", "K6"]:
+        fail(f"tuned deploy: groups resolved to {cells}")
+    for n in TUNED_BATCHES:
+        x_np = rng.standard_normal((n, *net.input_shape)).astype(np.float32)
+        x = torch.from_numpy(x_np).to(dev)
+        for fn in counters.values():
+            fn.launches = 0
+        y = eng.forward(params, x)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        if launches != TUNED_LAUNCHES:
+            fail(f"tuned deploy batch {n}: launches {launches}, expected "
+                 f"{TUNED_LAUNCHES}")
+        if tuple(y.shape) != (n, net.num_classes):
+            fail(f"tuned deploy batch {n}: output shape {tuple(y.shape)}")
+        if not torch.isfinite(y).all():
+            fail(f"tuned deploy batch {n}: non-finite output")
+        y_cpu = cpu.forward(cpu_params, x_np)
+        err = (y.cpu() - y_cpu).abs().max().item()
+        if not err <= 1e-4:
+            fail(f"tuned deploy batch {n}: max abs err vs CPU {err} > 1e-4")
+        if not torch.equal(y.argmax(-1).cpu(), y_cpu.argmax(-1)):
+            fail(f"tuned deploy batch {n}: argmax differs from the CPU")
+        y2 = eng.forward(params, x)
+        y3 = eng.forward(params, x)
+        if not (torch.equal(y, y2) and torch.equal(y2, y3)):
+            fail(f"tuned deploy batch {n}: repeated forwards differ")
+        ms = time_ms(torch, lambda: eng.forward(params, x), TUNED_REPS)
+        default_ms = time_ms(torch, lambda: default.forward(params, x),
+                             TUNED_REPS)
+        rows.append({"batch": n, "forward_ms": ms, "launches": launches,
+                     "max_abs_err_vs_cpu": err,
+                     "default_fused_forward_ms": default_ms})
+        print(f"tuned deploy batch {n}: forward {ms:.3f} ms, default fused "
+              f"forward {default_ms:.3f} ms (event medians of {TUNED_REPS}),"
+              f" launches {launches}, max abs err vs CPU {err:.3g} [{card}]",
+              flush=True)
+    return {"knobs": knobs, "fusion_report": report,
+            "fusion_report_batch1": eng.fusion_report(batch=1),
+            "forwards": rows}
 
 
 def serving_phase(torch, np, net, np_params, rng, dev, counters):
@@ -482,7 +606,11 @@ def main() -> int:
         print(_build.build_log, flush=True)
 
     counters = {"K1": conv_ops.conv2d_pool_fused, "K2": conv_ops.conv2d_chain,
-                "K3": mm_ops.matmul_fused, "K7": conv_ops.conv2d_basic_simd,
+                "K3": mm_ops.matmul_fused,
+                "K4": conv_ops.conv2d_pool_lrn_halo,
+                "K5": conv_ops.conv2d_pool_carry,
+                "K6": conv_ops.conv2d_chain_ocb,
+                "K7": conv_ops.conv2d_basic_simd,
                 "K8": conv_ops.conv2d_basic_parallel, "K9": pool_ops.pool2d}
     sources = {
         "K1": ("conv_pool_lrn", "src/repro_torch/csrc/conv_pool_lrn.cu",
@@ -491,6 +619,12 @@ def main() -> int:
                "src/repro/kernels/conv2d/kernels.py:1103"),
         "K3": ("matmul_fused", "src/repro_torch/csrc/matmul_fused.cu",
                "src/repro/kernels/matmul_fused/kernel.py:37"),
+        "K4": ("conv_pool_lrn_halo", "src/repro_torch/csrc/conv_pool_lrn.cu",
+               "src/repro/kernels/conv2d/kernels.py:681"),
+        "K5": ("conv_pool_carry", "src/repro_torch/csrc/conv_pool_carry.cu",
+               "src/repro/kernels/conv2d/kernels.py:708"),
+        "K6": ("conv_chain_ocb", "src/repro_torch/csrc/conv_chain.cu",
+               "src/repro/kernels/conv2d/kernels.py:1260"),
         "K7": ("conv_basic_simd", "src/repro_torch/csrc/conv_basic_simd.cu",
                "src/repro/kernels/conv2d/kernels.py:555"),
         "K8": ("conv_basic_parallel",
@@ -511,9 +645,18 @@ def main() -> int:
         params = params_from_numpy(np_params[name], dev)
         for kid, step, n in kernel_cases(net, compile_plan, Method):
             r = run_case(torch, F, kid, step, n, params, dev, peaks)
-            r.update(net=name, step="+".join(step.names))
+            r.update(net=name, step="+".join(step.names),
+                     main=name == "alexnet")
             cases.append(r)
             print("case " + json.dumps(r), flush=True)
+    for name, kid, step, n, obf, main in cell_cases(nets, compile_plan,
+                                                     Method):
+        params = params_from_numpy(np_params[name], dev)
+        r = run_case(torch, F, kid, step, n, params, dev, peaks, obf)
+        r.update(net=name, step="+".join(step.names), main=main,
+                 oc_block_final=obf)
+        cases.append(r)
+        print("case " + json.dumps(r), flush=True)
 
     # -- 4. the engine on the card, every rung -------------------------------
     engine_rows = []
@@ -532,6 +675,9 @@ def main() -> int:
             torch.cuda.synchronize()
             launches = tuple(counters[k].launches for k in KERNELS)
             want = EXPECTED_LAUNCHES[name][(method, fuse)]
+            if any(counters[k].launches for k in CELLS):
+                fail(f"{label}: a default plan launched "
+                     f"{ {k: counters[k].launches for k in CELLS} }")
             if launches != want:
                 fail(f"{label}: launches {dict(zip(KERNELS, launches))}, "
                      f"expected {dict(zip(KERNELS, want))}")
@@ -567,24 +713,31 @@ def main() -> int:
                   f"{dict(zip(KERNELS, launches))}, max abs err vs CPU "
                   f"{err:.3g}", flush=True)
 
-    # -- 5. serving: CNNServer walks the degradation ladder -----------------
+    # -- 5. tuned deploy: save_model(tuned) -> load_engine -> forward -----
+    tuned = tuned_phase(torch, np, nets["alexnet"], np_params["alexnet"],
+                        rng, dev, counters, card_line)
+    print("tuned " + json.dumps(tuned), flush=True)
+
+    # -- 6. serving: CNNServer walks the degradation ladder -----------------
     serving = serving_phase(torch, np, nets["alexnet"], np_params["alexnet"],
                             rng, dev, counters)
     print("serving " + json.dumps(serving), flush=True)
 
-    # -- 6. the kernels line ------------------------------------------------
+    # -- 7. the kernels line ------------------------------------------------
     kernels = []
     for kid, (name, src, replaces) in sources.items():
         mine = [c for c in cases if c["kernel"] == kid]
-        main = [c for c in mine if c["net"] == "alexnet"
-                and c["batch"] == ENGINE_BATCH]
+        main = [c for c in mine if c["main"] and c["batch"] == ENGINE_BATCH]
         fl = sum(c["flops"] for c in main)
         by = sum(c["bytes"] for c in main)
+        if kid in CELLS:
+            launches = sum(r["launches"][kid] for r in tuned["forwards"])
+        else:
+            launches = sum(r["launches"][kid] for r in engine_rows
+                           if r["net"] == "alexnet")
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces,
-            "launches": sum(r["launches"][kid] for r in engine_rows
-                            if r["net"] == "alexnet"),
+            "replaces": replaces, "launches": launches,
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": sum(c["ms"] for c in main),
             "plain_ms": sum(c["plain_ms"] for c in main),
@@ -601,7 +754,8 @@ def main() -> int:
         Path(args.json).write_text(json.dumps(
             {"card": card_line, "kind": kind, "torch": torch.__version__,
              "cuda": torch.version.cuda, "build_log": _build.build_log,
-             "cases": cases, "engine": engine_rows, "serving": serving,
+             "cases": cases, "engine": engine_rows, "tuned": tuned,
+             "serving": serving,
              "kernels": kernels}, indent=1))
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -19,14 +19,20 @@ cost model) and shortens it when it does not fit.  Those are TPU
 geometry; the port's kernels take every group this planner forms, so it
 has no admission check and forms the groups the JAX planner forms on its
 jnp path.
+
+``group_geometry`` reports what a group executes: the kernel it resolves
+to (K1, K4, K5 or K7 for a single conv with its tail, K2 or K6 for a
+chain) and that kernel's band, the port's own tiling.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable, Iterable, List, Optional, Tuple, Union
 
-from repro_torch.core.methods import Method
+from repro_torch.core.methods import Method, chain_cell, fused_cell
 from repro_torch.core.netdefs import LayerSpec, NetworkDef
+from repro_torch.kernels.conv2d import ops as conv_ops
 
 #: methods whose kernels take the fused pooling epilogue
 FUSABLE_METHODS = frozenset({
@@ -49,8 +55,8 @@ class FusedLayerSpec:
     pool_relu: bool   # ReLU after the pool (pool's own or absorbed)
     names: Tuple[str, ...]  # original layer names this group covers
     lrn: Optional[LayerSpec] = None  # trailing LRN absorbed into the cell
-    #: chain-only: the oc block of the final stage (the JAX package's K6
-    #: cell; None = full width, the only width the CUDA port runs)
+    #: chain-only: the oc block of the final stage asked for (None = full
+    #: width, K2; below the stage's width the chain runs on K6)
     oc_block_final: Optional[int] = None
 
     kind = "fused"  # sentinel so plan items can be dispatched on .kind
@@ -191,3 +197,62 @@ def _try_group(layers, i, method_for, no_fuse, fuse_relu, h_in, w_in,
 def fusion_summary(plan: Iterable[PlanItem]) -> List[Tuple[str, ...]]:
     """The fused groups in a plan, as tuples of original layer names."""
     return [it.names for it in plan if isinstance(it, FusedLayerSpec)]
+
+
+def group_geometry(group: FusedLayerSpec, method: Method,
+                   in_shape: Tuple[int, int, int], *,
+                   pool_carry: Optional[bool] = None,
+                   lrn_oc_block: Optional[bool] = None,
+                   batch: int = 1) -> dict:
+    """The executed geometry of one fused group, resolved by the same
+    rules as the dispatch (``methods.fused_cell`` / ``chain_cell``): the
+    JAX report's keys — ``group``, ``convs``, ``rows_per_cell`` (final
+    rows a block owns), ``n_tiles`` (bands a frame) and ``out_hw`` — from
+    the port's tiling at ``batch`` on an H100 (``REPORT_SMS``), plus
+    ``cell`` (the kernel) and ``oc_block`` (output channels of the last
+    stage a block computes).  ``in_shape`` is the ``(C, H, W)`` entering
+    the group."""
+    sms = conv_ops.REPORT_SMS
+    convs = group.convs
+    ins = (in_shape[0],) + tuple(cv.out_channels for cv in convs[:-1])
+    stages = conv_ops.make_stages(
+        tuple(in_shape),
+        [(cv.out_channels, c, *cv.kernel) for cv, c in zip(convs, ins)],
+        [cv.stride for cv in convs], [cv.padding for cv in convs],
+        group.relus)
+    p = group.pool
+    pool = None if p is None else conv_ops.Pool(*p.kernel, *p.stride,
+                                                p.pool_kind)
+    lrn_n = group.lrn.lrn_n if group.lrn is not None else None
+    total, out_h, out_w = conv_ops.final_rows(stages, pool)
+    oc = stages[-1].OC
+    if len(convs) == 1:
+        cell = fused_cell(method, tuple(in_shape),
+                          (oc, stages[0].C, *convs[0].kernel),
+                          convs[0].stride, convs[0].padding, p.kernel,
+                          p.stride, lrn_n, pool_carry, lrn_oc_block)
+        ocb = oc
+        if cell == "K7":
+            blk = 1
+        elif cell == "K4":
+            blk, ocb = conv_ops.k4_geometry(stages, pool, lrn_n, batch, sms)
+        elif cell == "K5":
+            blk, _, ocb = conv_ops.k5_bands(stages, pool)
+        else:
+            blk = conv_ops.rows_per_block(
+                stages, pool, batch, sms,
+                lambda k: conv_ops.k1_smem(stages, pool, lrn_n is not None,
+                                           k))
+    else:
+        cell, obf = chain_cell(oc, group.oc_block_final, lrn_n)
+        if cell == "K6":
+            blk, ocb = conv_ops.k6_geometry(stages, pool, obf, batch, sms)
+        else:
+            ocb = oc
+            blk = conv_ops.rows_per_block(
+                stages, pool, batch, sms,
+                lambda k: conv_ops.k2_smem(stages, pool, lrn_n is not None,
+                                           k))
+    return {"group": group.name, "convs": len(convs), "rows_per_cell": blk,
+            "n_tiles": math.ceil(total / blk), "out_hw": [out_h, out_w],
+            "cell": cell, "oc_block": ocb}

@@ -12,8 +12,10 @@ executors; an unfused plan's standalone pools run on K9.
 
 The shape-flow rules of the JAX package's static verifier run in
 ``repro_torch.analysis.verifier`` (``CNNEngine.verify``), not inside
-``compile_plan``.  Not ported: its TPU band overrides (``oh_block``), its
-band and VMEM verifier rules and its cost gate — all TPU geometry.
+``compile_plan``.  ``ExecutionPlan.fusion_report`` reads each fused
+group's kernel and band off the steps (``fusion.group_geometry``).  Not
+ported: its TPU band overrides (``oh_block``), its band and VMEM verifier
+rules and its cost gate — all TPU geometry.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from repro_torch.core.fusion import (
     PlanItem,
     _conv_out_hw,
     _pool_out_hw,
+    group_geometry,
     plan_fusion,
 )
 from repro_torch.core.methods import (
@@ -215,6 +218,19 @@ class ExecutionPlan:
                     collect[n] = x
         return x
 
+    def fusion_report(self, batch: int = 1) -> List[dict]:
+        """The executed geometry of every fused group, read off the plan
+        steps (each carries its resolved input shape, method and cell
+        knobs): the JAX report's keys plus the kernel (``cell``) and its
+        channel block, at ``batch`` on an H100 — see
+        ``fusion.group_geometry``."""
+        return [group_geometry(
+                    s.group, s.method, s.in_shape,
+                    pool_carry=s.kwargs.get("pool_carry"),
+                    lrn_oc_block=s.kwargs.get("lrn_oc_block"),
+                    batch=batch)
+                for s in self.steps if s.kind in ("fused", "chain")]
+
 
 def compile_plan(net: NetworkDef, *,
                  method: Method = Method.ADVANCED_SIMD_8,
@@ -232,9 +248,9 @@ def compile_plan(net: NetworkDef, *,
 
     ``per_layer_pool_carry`` / ``per_layer_lrn_oc_block`` (keyed by the
     conv leading a fused conv+pool group) and ``per_layer_oc_block_final``
-    (keyed by the conv ending a chain) select the JAX package's
-    second-generation cells, which compute the same result; on CUDA they
-    raise until those kernels (K5, K4, K6) are ported.
+    (keyed by the conv ending a chain) select the second-generation cells
+    (K5, K4, K6), which compute the same result; the resolvers of
+    ``kernels.conv2d.ops`` decide where each takes effect.
     """
     per_layer_methods = per_layer_methods or {}
     per_layer_pool_carry = per_layer_pool_carry or {}

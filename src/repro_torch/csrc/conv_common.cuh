@@ -1,7 +1,8 @@
-// Shared device code of the fused convolution kernels (conv_pool_lrn.cu,
-// conv_chain.cu): a geometry block passed by value, a band convolution
-// (implicit GEMM over shared-memory tiles, fp32 FMAs on CUDA cores) and the
-// pool -> ReLU -> LRN tail.
+// Shared device code of the fused convolution kernels (conv_pool_lrn.cu: K1
+// and K4, conv_chain.cu: K2 and K6, conv_basic_simd.cu, conv_pool_carry.cu):
+// a geometry block passed by value, a band convolution (implicit GEMM over
+// shared-memory tiles, fp32 FMAs on CUDA cores) and the pool -> ReLU -> LRN
+// tail.
 //
 // Layouts: activations are NCHW, weights OIHW, both fp32 and contiguous.
 // A "band" is a run of output rows [a, b) of one conv stage for one frame,
@@ -36,7 +37,11 @@ struct __align__(16) Tiles {
 // relu, OH, OW (STAGE_INTS ints).  Header: N, n_stages, pool_kind (0 none,
 // 1 max, 2 avg), pkh, pkw, psy, psx, pool_relu, lrn_n (0 none), blk
 // (final rows per block), n_tiles, total (final rows), out_h, out_w.
+// The oc-blocked kernels (K4, K5, K6) take a second array, tile[] =
+// {ocb, oc_tiles, run}: output channels a block owns of the blocked stage,
+// blocks along the channel axis, and (K5) bands a block walks in order.
 constexpr int HEADER_INTS = 14;
+constexpr int TILE_INTS = 3;
 constexpr int STAGE_INTS = 13;
 
 struct Stage {
@@ -48,6 +53,7 @@ struct Stage {
 struct Geo {
   int N, n_stages, pool_kind, pkh, pkw, psy, psx, pool_relu, lrn_n, blk,
       n_tiles, total, out_h, out_w;
+  int ocb, oc_tiles, run;  // tile[]; full width, one tile, 1 without it
   float alpha, beta, k;
   Stage st[MAX_STAGES];
 };
@@ -81,6 +87,20 @@ inline int read_geo(Geo* g, const int* geo, const float* lrn,
     st.KH = p[4]; st.KW = p[5]; st.sy = p[6]; st.sx = p[7];
     st.py = p[8]; st.px = p[9]; st.relu = p[10]; st.OH = p[11]; st.OW = p[12];
   }
+  g->ocb = g->st[g->n_stages - 1].OC;
+  g->oc_tiles = 1;
+  g->run = 1;
+  return 0;
+}
+
+// The oc-blocked kernels' tile[] (see TILE_INTS); 1 if it is malformed.
+inline int read_tile(Geo* g, const int* tile) {
+  g->ocb = tile[0];
+  g->oc_tiles = tile[1];
+  g->run = tile[2];
+  const int oc = g->st[g->n_stages - 1].OC;
+  if (g->ocb < 1 || g->oc_tiles < 1 || g->run < 1) return 1;
+  if ((long)g->ocb * g->oc_tiles < oc) return 1;
   return 0;
 }
 
@@ -112,19 +132,23 @@ __device__ __forceinline__ void group_sync(int g) {
   asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "r"(GROUP) : "memory");
 }
 
-// Rows [a, b) x all columns x all channels of one conv stage, plus bias and
-// the optional ReLU: an implicit GEMM of [pixels, C*KH*KW] x [C*KH*KW, OC]
-// in 64 x 64 tiles.  The block's GROUPS groups take the tiles in turn, each
-// on its own Tiles; within a tile the next TK slice's global loads are
-// issued into registers before the current slice's FMAs.  The input is read
-// at in[c * in_cs + (gy - in_row0) * W + gx]; rows and columns outside
-// [0, H) x [0, W) are zeros (the stage's padding).  `in` is deliberately not
+// Rows [a, b) x all columns x n_oc channels of one conv stage, plus bias and
+// the optional ReLU: an implicit GEMM of [pixels, C*KH*KW] x [C*KH*KW, n_oc]
+// in 64 x 64 tiles.  Band channel o is the stage's output channel
+// o_base + o (default: all OC channels from 0); a channel outside [0, OC)
+// has zero weights and zero bias, so it comes out an exact zero (K4's LRN
+// halo at the frame's channel edges).  The block's GROUPS groups take the
+// tiles in turn, each on its own Tiles; within a tile the next TK slice's
+// global loads are issued into registers before the current slice's FMAs.
+// The input is read at in[c * in_cs + (gy - in_row0) * W + gx]; rows and
+// columns outside [0, H) x [0, W) are zeros (the stage's padding).  `in` is deliberately not
 // __restrict__: in a chain it is the previous stage's band, written by this
 // block earlier in the same launch, and must not be read through the
 // non-coherent cache.  The caller synchronises the block afterwards.
 __device__ inline void conv_band(const Stage& st, const float* in, long in_cs,
                                  int in_row0, int a, int b, float* out,
-                                 long out_cs, int out_row0, Tiles* tiles) {
+                                 long out_cs, int out_row0, Tiles* tiles,
+                                 int o_base = 0, int n_oc = -1) {
   const int g = threadIdx.x / GROUP;
   const int tid = threadIdx.x - g * GROUP;
   Tiles& T = tiles[g];
@@ -134,7 +158,8 @@ __device__ inline void conv_band(const Stage& st, const float* in, long in_cs,
   const int P = (b - a) * OW;
   const int KHW = st.KH * st.KW;
   const int Kd = st.C * KHW;
-  const int n_ot = (st.OC + TO - 1) / TO;
+  const int OCn = n_oc < 0 ? st.OC : n_oc;  // channels of the band
+  const int n_ot = (OCn + TO - 1) / TO;
   const int n_tiles = ((P + TP - 1) / TP) * n_ot;
   const int lp = tid & (TP - 1);  // gather: pixel lp, k rows lk + 4r
   const int lk = tid / TP;
@@ -175,7 +200,10 @@ __device__ inline void conv_band(const Stage& st, const float* in, long in_cs,
       for (int r = 0; r < 4; ++r) {
         int k = k0 + bk;
         int o = o0 + bo + 16 * r;
-        rb[r] = (k < Kd && o < st.OC) ? st.w[(long)o * Kd + k] : 0.f;
+        int og = o_base + o;
+        rb[r] = (k < Kd && o < OCn && (unsigned)og < (unsigned)st.OC)
+                    ? st.w[(long)og * Kd + k]
+                    : 0.f;
       }
     };
     float acc[4][4];
@@ -214,8 +242,9 @@ __device__ inline void conv_band(const Stage& st, const float* in, long in_cs,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         int o = o0 + ty * 4 + j;
-        if (o >= st.OC) continue;
-        float v = acc[i][j] + st.b[o];
+        if (o >= OCn) continue;
+        int og = o_base + o;
+        float v = acc[i][j] + ((unsigned)og < (unsigned)st.OC ? st.b[og] : 0.f);
         if (st.relu) v = fmaxf(v, 0.f);
         out[o * out_cs + (long)(a + orow - out_row0) * OW + ox] = v;
       }
@@ -229,11 +258,16 @@ __device__ inline void conv_band(const Stage& st, const float* in, long in_cs,
 // (alpha is NOT divided by n), written to out (frame base, NCHW).  With LRN
 // the pooled values of every channel are staged in `pooled` (shared memory,
 // OC * (f1 - f0) * PW floats) first, since each output needs its neighbours.
+// Only band channels [w_lo, w_hi) are written (default: all OC), band
+// channel o to output channel o + out_c0: K4 pools its halo channels but
+// writes its core only.
 __device__ inline void pool_tail(const Geo& g, const float* band, long cs,
                                  int row0, int OC, int OW, int f0, int f1,
-                                 float* out, float* pooled) {
+                                 float* out, float* pooled, int w_lo = 0,
+                                 int w_hi = -1, int out_c0 = 0) {
   const int PW = g.out_w;
   const int rows = f1 - f0;
+  if (w_hi < 0) w_hi = OC;
   const int count = OC * rows * PW;
   const long plane = (long)g.out_h * PW;
   for (int idx = threadIdx.x; idx < count; idx += blockDim.x) {
@@ -257,16 +291,17 @@ __device__ inline void pool_tail(const Geo& g, const float* band, long cs,
     if (g.pool_relu) v = fmaxf(v, 0.f);
     if (g.lrn_n)
       pooled[idx] = v;
-    else
-      out[o * plane + (long)(f0 + pr) * PW + q] = v;
+    else if (o >= w_lo && o < w_hi)
+      out[(o + out_c0) * plane + (long)(f0 + pr) * PW + q] = v;
   }
   if (!g.lrn_n) return;
   __syncthreads();
   const int lo = g.lrn_n / 2;
   const int hi = g.lrn_n - 1 - lo;
-  for (int idx = threadIdx.x; idx < count; idx += blockDim.x) {
-    int o = idx / (rows * PW);
-    int rem = idx - o * rows * PW;
+  const int count_w = (w_hi - w_lo) * rows * PW;
+  for (int idx = threadIdx.x; idx < count_w; idx += blockDim.x) {
+    int o = w_lo + idx / (rows * PW);
+    int rem = idx - (o - w_lo) * rows * PW;
     int pr = rem / PW;
     int q = rem - pr * PW;
     float s = 0.f;
@@ -274,8 +309,8 @@ __device__ inline void pool_tail(const Geo& g, const float* band, long cs,
       float u = pooled[c * rows * PW + rem];
       s = fmaf(u, u, s);
     }
-    float v = pooled[idx] / powf(g.k + g.alpha * s, g.beta);
-    out[o * plane + (long)(f0 + pr) * PW + q] = v;
+    float v = pooled[o * rows * PW + rem] / powf(g.k + g.alpha * s, g.beta);
+    out[(o + out_c0) * plane + (long)(f0 + pr) * PW + q] = v;
   }
 }
 

@@ -38,6 +38,9 @@ SIGNATURES = {
     "pool2d_f32": [_P, _P, _L] + [_I] * 10 + [_P],
     "conv_basic_parallel_f32": [_P, _P, _P, _P, _P, _P],
     "conv_basic_simd_f32": [_P, _P, _P, _P, _P, _P, _L, _P],
+    "conv_pool_lrn_halo_f32": [_P, _P, _P, _P, _P, _P, _P, _L, _P],
+    "conv_pool_carry_f32": [_P, _P, _P, _P, _P, _P, _P, _L, _P],
+    "conv_chain_ocb_f32": [_P, _P, _P, _P, _P, _L, _P, _P, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

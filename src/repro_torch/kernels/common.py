@@ -26,14 +26,6 @@ def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
     return torch.device(device)
 
 
-def not_ported(kernel: str, what: str) -> NotImplementedError:
-    """The error a CUDA path raises where it would need a TPU kernel of
-    the JAX package that has no CUDA port yet."""
-    return NotImplementedError(
-        f"{what} on CUDA needs TPU kernel {kernel}, which is not ported yet; "
-        f"run it with device='cpu'")
-
-
 def check_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
     """What every kernel wrapper requires of its CUDA inputs."""
     dev = tensors[0].device

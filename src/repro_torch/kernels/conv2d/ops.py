@@ -11,10 +11,27 @@
   it is the fused conv → pool → LRN super-layer of that rung.
 * ``conv2d_basic_parallel`` — K8 (``csrc/conv_basic_parallel.cu``): the
   §4.2 conv, NCHW, one thread per output, channels the outer loop.
+* ``conv2d_pool_lrn_halo`` — K4 (``csrc/conv_pool_lrn.cu``, K1's kernel
+  on an oc-tiled grid): K1's conv → pool → LRN group with the output
+  channels split across blocks, each tile widened by the LRN window's
+  halo.
+* ``conv2d_pool_carry`` — K5 (``csrc/conv_pool_carry.cu``): K1's conv →
+  pool group (no LRN) with the conv rows that neighbouring pool windows
+  share carried from band to band instead of recomputed.
+* ``conv2d_chain_ocb`` — K6 (``csrc/conv_chain.cu``, K2's kernel on an
+  oc-tiled grid): K2's chain with the final stage's output channels split
+  across blocks.
+
+Which of K1, K4 and K5 a fused group runs on, and whether a chain runs on
+K2 or K6, is decided by the resolvers ``resolve_lrn_ocb``,
+``resolve_pool_carry`` and ``resolve_oc_block_final`` (the JAX package's
+rules, read against the port's own tiling), which the method dispatch and
+the plan's ``fusion_report`` share.
 
 NCHW activations and OIHW weights at every public function, as in the
 JAX package.  A CPU tensor goes to the plain version beside each wrapper
-(``conv2d_pool_fused_ref``, ``conv2d_chain_ref``, and
+(``conv2d_pool_fused_ref`` for K1, K4 and K5, ``conv2d_chain_ref`` for K2
+and K6, and
 ``conv2d_basic_simd_ref`` / ``conv2d_basic_parallel_ref`` from ``ref.py``);
 a CUDA tensor launches the kernel (fp32 only) or raises; any other device
 raises ``ValueError``.  The kernels write NCHW, so the fc layer after a
@@ -28,6 +45,7 @@ is checked on the CPU too.
 from __future__ import annotations
 
 import functools
+import itertools
 import math
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
@@ -52,6 +70,13 @@ SMEM_LIMIT = 190 * 1024   # dynamic shared memory a block may take (bytes):
                           # 227 KB less the 33 KB of static GEMM tiles
 K7_SMEM_LIMIT = 227 * 1024  # K7 has no static tiles: the whole 227 KB
 K7_ALIGN = 4              # K7's channels: zero-padded to whole float4s
+#: the JAX package's oc tile of each advanced method (the paper's 4 or 8
+#: output channels a thread): the width its LRN blocking rule compares with
+#: the layer's channels
+ADVANCED_OC_BLOCK = {"advanced_simd_4": 4, "advanced_simd_8": 8}
+#: SMs of an H100 SXM: the card a plan's ``fusion_report`` resolves the
+#: batch-dependent geometry for
+REPORT_SMS = 132
 
 
 class Stage(NamedTuple):
@@ -236,6 +261,188 @@ def _pool_lrn(pool_kernel, pool_stride, pool_kind, lrn_n, lrn_alpha,
     return pool, lrn
 
 
+# -- the second-generation cells: resolvers and geometry ---------------------
+
+
+def resolve_lrn_ocb(oc: int, oc_block: int, lrn,
+                    lrn_oc_block) -> Tuple[int, int]:
+    """``(ocb, oc_halo)`` of a fused conv → pool → LRN group, in the JAX
+    package's terms (``repro.kernels.conv2d.kernels.resolve_lrn_ocb``):
+    ``oc_halo > 0`` routes the group to K4.  ``lrn`` is ``(n, alpha, beta,
+    k)`` or None; ``oc_block`` the method's tile (``ADVANCED_OC_BLOCK``).
+    ``True`` blocks whenever the tile is narrower than the layer; ``False``
+    and ``None`` keep K1's full width (the JAX auto rule blocks only when
+    its one-pooled-row floor cell overflows the TPU's VMEM, which no net of
+    the repository does).  ``ocb`` is the JAX tile; K4 picks its own
+    (``k4_geometry``).  Only the advanced (im2col) methods reach it, so
+    the JAX rule's ``im2col`` argument is always true here."""
+    blocked = min(oc_block, oc)
+    if lrn is None:
+        return blocked, 0
+    if blocked >= oc or lrn_oc_block is not True:
+        return oc, 0
+    return blocked, lrn[0] - 1
+
+
+def resolve_pool_carry(pool_carry, lrn, pool, phb: int, n_tiles: int) -> bool:
+    """Whether a fused conv → pool group of an advanced (im2col) method
+    runs the sliding-window carry cell (K5): requested (``True``), no LRN,
+    pool windows that overlap by ``K = pkh - psy >= 1`` rows, no more than
+    a band's fresh rows (``K <= phb*psy``), and more than one band.  ``pool``
+    is ``(pkh, pkw, psy, psx)``; ``phb``/``n_tiles`` are the port's band
+    (``k5_bands``).  The JAX package's rule, but ``None`` is off: the
+    JAX auto rule turns the carry on wherever it is feasible on the TPU;
+    the port keeps K1 unless asked.  An infeasible request stays on K1, a
+    planning decision, not a fallback."""
+    if pool_carry is not True or pool is None or lrn is not None:
+        return False
+    pkh, _, psy, _ = pool
+    k_rows = pkh - psy
+    return 1 <= k_rows <= phb * psy and n_tiles > 1
+
+
+def resolve_oc_block_final(oc_f: int, oc_block_final, lrn) -> Optional[int]:
+    """The final-stage oc block a chain runs with, or None for K2's full
+    width: a request at or above the stage's ``oc_f`` channels keeps K2;
+    with an LRN tail any request raises (the window reads every channel),
+    as the JAX package's chain dispatch does."""
+    if oc_block_final is None:
+        return None
+    if lrn is not None:
+        raise ValueError("oc-blocked final stage requires no LRN epilogue "
+                         "(the LRN window reads every output channel)")
+    return None if oc_block_final >= oc_f else int(oc_block_final)
+
+
+def _tile(ocb: int, oc: int, run: int = 1):
+    """The ``tile`` int array of the oc-blocked kernels
+    (``csrc/conv_common.cuh``): ``{ocb, oc_tiles, run}``."""
+    tile = np.asarray([ocb, math.ceil(oc / ocb), run], dtype=np.int32)
+    tile.setflags(write=False)
+    return tile
+
+
+def _best(options):
+    """The ``(cost, *geometry)`` option of least cost (the first of
+    equals)."""
+    best = None
+    for opt in options:
+        if best is None or opt[0] < best[0]:
+            best = opt
+    return best
+
+
+def k4_geometry(stages, pool, lrn_n: int, n: int, sms: int
+                ) -> Tuple[int, int]:
+    """K4's ``(blk, ocb)``: pooled rows and core channels a block owns.
+    A tile computes ``ocb + lrn_n - 1`` channels (core and halo) in 64-wide
+    GEMM tiles, so ``ocb`` is a whole number of GEMM tiles less the halo
+    (or the layer's width); both are picked by the ``rows_per_block`` time
+    model, waves × the slowest block, under ``SMEM_LIMIT``."""
+    st = stages[0]
+    total = final_rows(stages, pool)[0]
+
+    def options():
+        for k in itertools.count(1):
+            ocb = min(k * GEMM_TILE - (lrn_n - 1), st.OC)
+            if ocb < 1:
+                continue
+            wide = [st._replace(OC=ocb + lrn_n - 1)]
+            tiles = math.ceil(st.OC / ocb)
+            for blk in range(1, total + 1):
+                if k1_smem(wide, pool, True, blk) > SMEM_LIMIT:
+                    break
+                waves = math.ceil(n * math.ceil(total / blk) * tiles / sms)
+                yield waves * block_time(wide, pool, blk), blk, ocb
+            if ocb == st.OC:
+                return
+
+    best = _best(options())
+    if best is None:
+        raise ValueError("K4: no channel tile fits shared memory")
+    return best[1], best[2]
+
+
+def k4_smem(stages, pool, lrn_n: int, blk: int, ocb: int) -> int:
+    """K4's dynamic shared memory: K1's band and pooled band at the
+    widened tile's ``ocb + lrn_n - 1`` channels."""
+    return k1_smem([stages[0]._replace(OC=ocb + lrn_n - 1)], pool, True, blk)
+
+
+def k5_bands(stages, pool) -> Tuple[int, int, int]:
+    """K5's batch-independent band: ``(phb, n_bands, ocb)`` — pooled rows
+    a band step computes, bands a frame, output channels a block.  ``ocb``
+    is the layer's width up to two GEMM tiles, else one GEMM tile (a
+    channel split costs no recomputation here).  ``phb`` is the fewest
+    pooled rows whose ``phb*psy`` fresh conv rows keep the block's four
+    GEMM groups busy, at least ``K/psy`` (the carry fits one band's fresh
+    rows) and at most half the frame's pooled rows (so a frame has two
+    bands or more where it can)."""
+    st = stages[0]
+    total = final_rows(stages, pool)[0]
+    k_rows = pool.kh - pool.sy
+    ocb = st.OC if st.OC <= 2 * GEMM_TILE else GEMM_TILE
+    oc_gemm = math.ceil(ocb / GEMM_TILE)
+    phb = max(1, math.ceil(k_rows / pool.sy))
+    cap = max(phb, total // 2)
+    while (phb < cap and math.ceil(phb * pool.sy * st.OW / GEMM_TILE)
+           * oc_gemm < GEMM_GROUPS
+           and k5_smem(stages, pool, phb + 1, ocb) <= SMEM_LIMIT):
+        phb += 1
+    return phb, math.ceil(total / phb), ocb
+
+
+def k5_smem(stages, pool, phb: int, ocb: int) -> int:
+    """K5's dynamic shared memory: ``ocb`` channels of the carried and
+    fresh conv rows of one band."""
+    return 4 * ocb * (pool.kh - pool.sy + phb * pool.sy) * stages[0].OW
+
+
+def k5_run(stages, pool, n: int, sms: int) -> int:
+    """Bands a K5 block walks in order.  A longer run reuses more carried
+    rows; more runs make more blocks, each opening with a seed step of
+    ``K`` conv rows.  Picked by the time model: waves × (seed + run ×
+    band step)."""
+    phb, n_bands, ocb = k5_bands(stages, pool)
+    st = stages[0]._replace(OC=ocb)
+    tiles = math.ceil(stages[0].OC / ocb)
+    seed = _stage_time(st, pool.kh - pool.sy)
+    step = _stage_time(st, phb * pool.sy)
+
+    def options():
+        for run in range(n_bands, 0, -1):
+            runs = math.ceil(n_bands / run)
+            waves = math.ceil(n * runs * tiles / sms)
+            yield waves * (seed + run * step), run
+
+    return _best(options())[1]
+
+
+def k6_geometry(stages, pool, requested: int, n: int, sms: int
+                ) -> Tuple[int, int]:
+    """K6's ``(blk, ocb)``: final rows a block owns and final-stage
+    channels it computes.  ``ocb`` is at least ``requested`` (the JAX
+    knob's value) and a whole number of 64-wide GEMM tiles where that is
+    below the stage's width; every channel tile recomputes the earlier
+    stages, which the time model (waves × the slowest block) charges."""
+    last = stages[-1]
+    total = final_rows(stages, pool)[0]
+    cands = sorted({max(requested, GEMM_TILE * k)
+                    for k in range(1, math.ceil(last.OC / GEMM_TILE))})
+    cands = [c for c in cands if c < last.OC] or [requested]
+
+    def options():
+        for ocb in cands:
+            sts = list(stages[:-1]) + [last._replace(OC=ocb)]
+            tiles = math.ceil(last.OC / ocb)
+            for blk in range(1, total + 1):
+                waves = math.ceil(n * math.ceil(total / blk) * tiles / sms)
+                yield waves * block_time(sts, pool, blk), blk, ocb
+
+    best = _best(options())
+    return best[1], best[2]
+
+
 # -- plain versions -----------------------------------------------------------
 
 
@@ -288,36 +495,122 @@ def _sms(dev) -> int:
 
 @functools.lru_cache(maxsize=256)
 def k1_launch(n, in_chw, w_shape, stride, padding, relu, pool, pool_relu, lrn,
-              sms):
+              sms, halo=False):
     """K1's launch geometry for one call signature (hashable arguments):
-    ``(stages, smem, geo, lrn_f)``.  Memoized, so that a forward does not
-    repeat the ``rows_per_block`` search; the arrays are read-only."""
+    ``(stages, smem, geo, lrn_f, tile)``; with ``halo`` K4's (the output
+    channels in tiles widened by the LRN window's halo, ``k4_geometry``),
+    else ``tile`` is None.  Memoized, so that a forward does not repeat
+    the geometry search; the arrays are read-only."""
     stages = make_stages(in_chw, [w_shape], [stride], [padding], [relu])
-    blk = rows_per_block(stages, pool, n, sms,
-                         lambda k: k1_smem(stages, pool, lrn is not None, k))
+    tile = None
+    if halo:
+        blk, ocb = k4_geometry(stages, pool, lrn[0], n, sms)
+        smem = k4_smem(stages, pool, lrn[0], blk, ocb)
+        tile = _tile(ocb, stages[0].OC)
+    else:
+        blk = rows_per_block(stages, pool, n, sms,
+                             lambda k: k1_smem(stages, pool, lrn is not None,
+                                               k))
+        smem = k1_smem(stages, pool, lrn is not None, blk)
     geo, lrn_f = pack_geo(n, stages, pool, pool_relu, lrn, blk)
     geo.setflags(write=False)
     lrn_f.setflags(write=False)
-    return stages, k1_smem(stages, pool, lrn is not None, blk), geo, lrn_f
+    return stages, smem, geo, lrn_f, tile
 
 
 @functools.lru_cache(maxsize=256)
 def k2_launch(n, in_chw, w_shapes, strides, paddings, relus, pool, pool_relu,
-              lrn, sms):
+              lrn, sms, oc_block_final=None):
     """K2's launch geometry for one call signature: ``(stages, smem,
-    scratch_stride, geo, lrn_f)``; memoized like ``k1_launch``."""
+    scratch_stride, geo, lrn_f, tile)``; with ``oc_block_final`` K6's (the
+    final stage's channels in tiles of at least that width,
+    ``k6_geometry``), else ``tile`` is None.  Memoized like
+    ``k1_launch``."""
     stages = make_stages(in_chw, w_shapes, strides, paddings, relus)
-    blk = rows_per_block(stages, pool, n, sms,
-                         lambda k: k2_smem(stages, pool, lrn is not None, k))
+    tile = None
+    if oc_block_final is not None:
+        blk, ocb = k6_geometry(stages, pool, oc_block_final, n, sms)
+        tile = _tile(ocb, stages[-1].OC)
+    else:
+        blk = rows_per_block(stages, pool, n, sms,
+                             lambda k: k2_smem(stages, pool, lrn is not None,
+                                               k))
     geo, lrn_f = pack_geo(n, stages, pool, pool_relu, lrn, blk)
     geo.setflags(write=False)
     lrn_f.setflags(write=False)
     return (stages, k2_smem(stages, pool, lrn is not None, blk),
-            chain_scratch_stride(stages, pool, blk), geo, lrn_f)
+            chain_scratch_stride(stages, pool, blk), geo, lrn_f, tile)
 
 
 def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _launch_pool_lrn(wrapper, x, w, b, stride, padding, relu, pool,
+                     pool_relu, lrn, halo: bool):
+    """One launch of K1 (``halo`` False) or K4 on CUDA tensors; counts it
+    on ``wrapper.launches``."""
+    n = x.shape[0]
+    stages, smem, geo, lrn_f, tile = k1_launch(
+        n, tuple(x.shape[1:]), tuple(w.shape), tuple(stride), tuple(padding),
+        bool(relu), pool, bool(pool_relu), lrn, _sms(x.device), halo)
+    if tuple(b.shape) != (stages[0].OC,):
+        raise ValueError(f"bias shape {tuple(b.shape)} != ({stages[0].OC},)")
+    _, out_h, out_w = final_rows(stages, pool)
+    out = torch.empty((n, stages[0].OC, out_h, out_w), dtype=torch.float32,
+                      device=x.device)
+    ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+            geo.ctypes.data, lrn_f.ctypes.data)
+    lib = _build.library()
+    if tile is None:
+        name = "conv_pool_lrn_f32"
+        rc = lib.conv_pool_lrn_f32(*ptrs, smem, _stream(x.device))
+    else:
+        name = "conv_pool_lrn_halo_f32"
+        rc = lib.conv_pool_lrn_halo_f32(*ptrs, tile.ctypes.data, smem,
+                                        _stream(x.device))
+    _build.check(rc, name)
+    wrapper.launches += 1
+    return out
+
+
+def _launch_chain(wrapper, x, ws, bs, strides, paddings, relus, pool,
+                  pool_relu, lrn, oc_block_final=None):
+    """One launch of K2 (``oc_block_final`` None) or K6 on CUDA tensors;
+    counts it on ``wrapper.launches``."""
+    if not 1 <= len(ws) <= MAX_STAGES:
+        raise ValueError(f"a chain takes 1 to {MAX_STAGES} stages")
+    n = x.shape[0]
+    stages, smem, stride, geo, lrn_f, tile = k2_launch(
+        n, tuple(x.shape[1:]), tuple(tuple(w.shape) for w in ws),
+        tuple(map(tuple, strides)), tuple(map(tuple, paddings)),
+        tuple(map(bool, relus)), pool, bool(pool_relu), lrn, _sms(x.device),
+        oc_block_final)
+    for st, b in zip(stages, bs):
+        if tuple(b.shape) != (st.OC,):
+            raise ValueError(f"bias shape {tuple(b.shape)} != ({st.OC},)")
+    blocks = int(geo[10]) * (1 if tile is None else int(tile[1]))
+    _, out_h, out_w = final_rows(stages, pool)
+    out = torch.empty((n, stages[-1].OC, out_h, out_w), dtype=torch.float32,
+                      device=x.device)
+    scratch = torch.empty(n * blocks * 2 * stride, dtype=torch.float32,
+                          device=x.device)
+    w_ptrs = np.asarray([w.data_ptr() for w in ws], dtype=np.uint64)
+    b_ptrs = np.asarray([b.data_ptr() for b in bs], dtype=np.uint64)
+    ptrs = (x.data_ptr(), w_ptrs.ctypes.data, b_ptrs.ctypes.data,
+            out.data_ptr(), scratch.data_ptr(), stride, geo.ctypes.data,
+            lrn_f.ctypes.data)
+    lib = _build.library()
+    if tile is None:
+        name = "conv_chain_f32"
+        rc = lib.conv_chain_f32(*ptrs, smem, _stream(x.device))
+    else:
+        name = "conv_chain_ocb_f32"
+        rc = lib.conv_chain_ocb_f32(*ptrs, tile.ctypes.data,
+                                    _stream(x.device))
+    _build.check(rc, name)
+    wrapper.launches += 1
+    return out
 
 
 def conv2d_pool_fused(x, w, b, stride=(1, 1), padding=(0, 0), relu=False,
@@ -338,21 +631,8 @@ def conv2d_pool_fused(x, w, b, stride=(1, 1), padding=(0, 0), relu=False,
     check_cuda_f32("conv2d_pool_fused", x, w, b)
     pool, lrn = _pool_lrn(pool_kernel, pool_stride, pool_kind, lrn_n,
                           lrn_alpha, lrn_beta, lrn_k)
-    n = x.shape[0]
-    stages, smem, geo, lrn_f = k1_launch(
-        n, tuple(x.shape[1:]), tuple(w.shape), tuple(stride), tuple(padding),
-        bool(relu), pool, bool(pool_relu), lrn, _sms(x.device))
-    if tuple(b.shape) != (stages[0].OC,):
-        raise ValueError(f"bias shape {tuple(b.shape)} != ({stages[0].OC},)")
-    _, out_h, out_w = final_rows(stages, pool)
-    out = torch.empty((n, stages[0].OC, out_h, out_w), dtype=torch.float32,
-                      device=x.device)
-    rc = _build.library().conv_pool_lrn_f32(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-        geo.ctypes.data, lrn_f.ctypes.data, smem, _stream(x.device))
-    _build.check(rc, "conv_pool_lrn_f32")
-    conv2d_pool_fused.launches += 1
-    return out
+    return _launch_pool_lrn(conv2d_pool_fused, x, w, b, stride, padding, relu,
+                            pool, pool_relu, lrn, False)
 
 
 def conv2d_chain(x, ws, bs, strides, paddings, relus, pool_kernel=None,
@@ -371,34 +651,11 @@ def conv2d_chain(x, ws, bs, strides, paddings, relus, pool_kernel=None,
         return conv2d_chain_ref(x, ws, bs, strides, paddings, relus, **kwargs)
     if x.device.type != "cuda":
         raise ValueError(f"conv2d_chain: unsupported device {x.device}")
-    if not 1 <= len(ws) <= MAX_STAGES:
-        raise ValueError(f"a chain takes 1 to {MAX_STAGES} stages")
     check_cuda_f32("conv2d_chain", x, *ws, *bs)
     pool, lrn = _pool_lrn(pool_kernel, pool_stride, pool_kind, lrn_n,
                           lrn_alpha, lrn_beta, lrn_k)
-    n = x.shape[0]
-    stages, smem, stride, geo, lrn_f = k2_launch(
-        n, tuple(x.shape[1:]), tuple(tuple(w.shape) for w in ws),
-        tuple(map(tuple, strides)), tuple(map(tuple, paddings)),
-        tuple(map(bool, relus)), pool, bool(pool_relu), lrn, _sms(x.device))
-    for st, b in zip(stages, bs):
-        if tuple(b.shape) != (st.OC,):
-            raise ValueError(f"bias shape {tuple(b.shape)} != ({st.OC},)")
-    n_tiles = int(geo[10])
-    _, out_h, out_w = final_rows(stages, pool)
-    out = torch.empty((n, stages[-1].OC, out_h, out_w), dtype=torch.float32,
-                      device=x.device)
-    scratch = torch.empty(n * n_tiles * 2 * stride, dtype=torch.float32,
-                          device=x.device)
-    w_ptrs = np.asarray([w.data_ptr() for w in ws], dtype=np.uint64)
-    b_ptrs = np.asarray([b.data_ptr() for b in bs], dtype=np.uint64)
-    rc = _build.library().conv_chain_f32(
-        x.data_ptr(), w_ptrs.ctypes.data, b_ptrs.ctypes.data, out.data_ptr(),
-        scratch.data_ptr(), stride, geo.ctypes.data, lrn_f.ctypes.data, smem,
-        _stream(x.device))
-    _build.check(rc, "conv_chain_f32")
-    conv2d_chain.launches += 1
-    return out
+    return _launch_chain(conv2d_chain, x, ws, bs, strides, paddings, relus,
+                         pool, pool_relu, lrn)
 
 
 def k7_smem(stages, pool, lrn: bool) -> int:
@@ -498,8 +755,112 @@ def conv2d_basic_parallel(x, w, b, stride=(1, 1), padding=(0, 0),
     return out
 
 
+@functools.lru_cache(maxsize=256)
+def k5_launch(n, in_chw, w_shape, stride, padding, relu, pool, pool_relu,
+              sms):
+    """K5's launch geometry for one call signature: ``(stages, smem, geo,
+    lrn_f, tile)``, ``geo``'s ``blk``/``n_tiles`` being the band
+    (``k5_bands``).  Raises where the carry is infeasible."""
+    stages = make_stages(in_chw, [w_shape], [stride], [padding], [relu])
+    phb, n_bands, ocb = k5_bands(stages, pool)
+    if not resolve_pool_carry(True, None, tuple(pool[:4]), phb, n_bands):
+        raise ValueError(f"K5: no pool carry at pool {tuple(pool[:4])} with "
+                         f"{n_bands} band(s) of {phb} pooled rows")
+    geo, lrn_f = pack_geo(n, stages, pool, pool_relu, None, phb)
+    geo.setflags(write=False)
+    lrn_f.setflags(write=False)
+    return (stages, k5_smem(stages, pool, phb, ocb), geo, lrn_f,
+            _tile(ocb, stages[0].OC, k5_run(stages, pool, n, sms)))
+
+
+def conv2d_pool_lrn_halo(x, w, b, stride=(1, 1), padding=(0, 0), relu=False,
+                         pool_kernel=None, pool_stride=None,
+                         pool_kind: str = "max", pool_relu: bool = False,
+                         lrn_n=None, lrn_alpha: float = 1e-4,
+                         lrn_beta: float = 0.75, lrn_k: float = 1.0):
+    """x: [N, C, H, W]; w: [OC, C, KH, KW]; b: [OC].  conv → bias →
+    [ReLU] → VALID pool → [ReLU] → LRN with the output channels split
+    across blocks, as one launch of K4 (CUDA) or its plain version, K1's
+    (CPU).  ``pool_kernel`` and ``lrn_n`` are required."""
+    if pool_kernel is None or lrn_n is None:
+        raise ValueError("conv2d_pool_lrn_halo needs a pool and an LRN")
+    kwargs = dict(pool_kernel=pool_kernel, pool_stride=pool_stride,
+                  pool_kind=pool_kind, pool_relu=pool_relu, lrn_n=lrn_n,
+                  lrn_alpha=lrn_alpha, lrn_beta=lrn_beta, lrn_k=lrn_k)
+    if x.device.type == "cpu":
+        return conv2d_pool_fused_ref(x, w, b, stride, padding, relu, **kwargs)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv2d_pool_lrn_halo: unsupported device {x.device}")
+    check_cuda_f32("conv2d_pool_lrn_halo", x, w, b)
+    pool, lrn = _pool_lrn(pool_kernel, pool_stride, pool_kind, lrn_n,
+                          lrn_alpha, lrn_beta, lrn_k)
+    return _launch_pool_lrn(conv2d_pool_lrn_halo, x, w, b, stride, padding,
+                            relu, pool, pool_relu, lrn, True)
+
+
+def conv2d_pool_carry(x, w, b, stride=(1, 1), padding=(0, 0), relu=False,
+                      pool_kernel=None, pool_stride=None,
+                      pool_kind: str = "max", pool_relu: bool = False):
+    """x: [N, C, H, W]; w: [OC, C, KH, KW]; b: [OC].  conv → bias →
+    [ReLU] → VALID pool → [ReLU] with the pool windows' shared conv rows
+    carried from band to band, as one launch of K5 (CUDA) or its plain
+    version, K1's (CPU).  ``pool_kernel`` is required; on CUDA the
+    windows must overlap (``pkh > psy``) and the frame must have more
+    than one band (``k5_bands``)."""
+    if pool_kernel is None:
+        raise ValueError("conv2d_pool_carry needs a pool")
+    kwargs = dict(pool_kernel=pool_kernel, pool_stride=pool_stride,
+                  pool_kind=pool_kind, pool_relu=pool_relu)
+    if x.device.type == "cpu":
+        return conv2d_pool_fused_ref(x, w, b, stride, padding, relu, **kwargs)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv2d_pool_carry: unsupported device {x.device}")
+    check_cuda_f32("conv2d_pool_carry", x, w, b)
+    pool, _ = _pool_lrn(pool_kernel, pool_stride, pool_kind, None, 0, 0, 0)
+    n = x.shape[0]
+    stages, smem, geo, lrn_f, tile = k5_launch(
+        n, tuple(x.shape[1:]), tuple(w.shape), tuple(stride), tuple(padding),
+        bool(relu), pool, bool(pool_relu), _sms(x.device))
+    if tuple(b.shape) != (stages[0].OC,):
+        raise ValueError(f"bias shape {tuple(b.shape)} != ({stages[0].OC},)")
+    _, out_h, out_w = final_rows(stages, pool)
+    out = torch.empty((n, stages[0].OC, out_h, out_w), dtype=torch.float32,
+                      device=x.device)
+    rc = _build.library().conv_pool_carry_f32(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+        geo.ctypes.data, lrn_f.ctypes.data, tile.ctypes.data, smem,
+        _stream(x.device))
+    _build.check(rc, "conv_pool_carry_f32")
+    conv2d_pool_carry.launches += 1
+    return out
+
+
+def conv2d_chain_ocb(x, ws, bs, strides, paddings, relus, pool_kernel=None,
+                     pool_stride=None, pool_kind: str = "max",
+                     pool_relu: bool = False, oc_block_final: int = 64):
+    """A conv chain with the optional pool tail (no LRN) and the final
+    stage's output channels split across blocks, as one launch of K6
+    (CUDA) or its plain version, K2's (CPU).  ``oc_block_final`` is the
+    narrowest channel tile the kernel may use (``k6_geometry`` picks)."""
+    kwargs = dict(pool_kernel=pool_kernel, pool_stride=pool_stride,
+                  pool_kind=pool_kind, pool_relu=pool_relu)
+    if x.device.type == "cpu":
+        return conv2d_chain_ref(x, ws, bs, strides, paddings, relus, **kwargs)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv2d_chain_ocb: unsupported device {x.device}")
+    if oc_block_final < 1:
+        raise ValueError(f"oc_block_final must be >= 1: {oc_block_final}")
+    check_cuda_f32("conv2d_chain_ocb", x, *ws, *bs)
+    pool, _ = _pool_lrn(pool_kernel, pool_stride, pool_kind, None, 0, 0, 0)
+    return _launch_chain(conv2d_chain_ocb, x, ws, bs, strides, paddings,
+                         relus, pool, pool_relu, None, int(oc_block_final))
+
+
 #: kernel launches since the count was last set to 0
 conv2d_pool_fused.launches = 0
 conv2d_chain.launches = 0
 conv2d_basic_simd.launches = 0
 conv2d_basic_parallel.launches = 0
+conv2d_pool_lrn_halo.launches = 0
+conv2d_pool_carry.launches = 0
+conv2d_chain_ocb.launches = 0

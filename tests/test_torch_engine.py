@@ -136,6 +136,87 @@ def _jax_ladder_forward(name, method, fuse):
     return out, tuple(jax_fusion_summary(jeng.plan()))
 
 
+#: the tuned deployment the smoke runs (K5, K4, K6) and each of its
+#: knobs alone; the pool carry alone leaves conv1's group on K1, since
+#: norm1 stays fused and K5 takes no LRN
+TUNED = {"per_layer_fuse": {"norm1": False},
+         "per_layer_pool_carry": {"conv1": True},
+         "per_layer_lrn_oc_block": {"conv2": True},
+         "per_layer_oc_block_final": {"conv5": 8}}
+KNOB_SETS = {
+    "tuned": (TUNED, ["K5", "K4", "K6"]),
+    "pool_carry": ({"per_layer_pool_carry": {"conv1": True}},
+                   ["K1", "K1", "K2"]),
+    "pool_carry_norm1_unfused": ({"per_layer_fuse": {"norm1": False},
+                                 "per_layer_pool_carry": {"conv1": True}},
+                                ["K5", "K1", "K2"]),
+    "lrn_oc_block": ({"per_layer_lrn_oc_block": {"conv2": True}},
+                     ["K1", "K4", "K2"]),
+    "oc_block_final": ({"per_layer_oc_block_final": {"conv5": 8}},
+                       ["K1", "K1", "K6"]),
+}
+
+
+@pytest.mark.parametrize("knobs,name,batch",
+                         [(k, "alexnet_narrow", 2) for k in sorted(KNOB_SETS)]
+                         + [("tuned", "alexnet", 1)])
+def test_cell_knobs_forward_matches_jax(knobs, name, batch):
+    """AlexNet under each knob set (narrowed, batch 2; the tuned set also
+    at full width, batch 1) against the JAX engine under the same knobs
+    (its jitted jnp path): the groups resolve to the cells the set asks
+    for, and the forward agrees to 1e-4 with the same argmax."""
+    kn, cells = KNOB_SETS[knobs]
+    jnet, tnet = _nets(jnetdefs)[name], _nets(tnetdefs)[name]
+    params = he_params(infer_param_shapes(tnet), seed=11)
+    x = np.random.default_rng(batch).standard_normal(
+        (batch, *tnet.input_shape)).astype(np.float32)
+    theirs = np.asarray(JEngine(jnet, **kn).jit_forward()(
+        _jax_tree(params), jnp.asarray(x)))
+    eng = CNNEngine(tnet, device="cpu", **kn)
+    assert [r["cell"] for r in eng.fusion_report(batch=batch)] == cells
+    ours = eng.forward(params_from_numpy(params, "cpu"), x).numpy()
+    assert ours.shape == theirs.shape == (batch, tnet.num_classes)
+    assert np.abs(ours - theirs).max() <= TOL
+    np.testing.assert_array_equal(ours.argmax(-1), theirs.argmax(-1))
+
+
+def _report_keys(report):
+    return [(r["group"], r["convs"], list(r["out_hw"])) for r in report]
+
+
+@pytest.mark.parametrize("name", ["lenet5", "cifar10", "alexnet",
+                                  "alexnet_narrow"])
+@pytest.mark.parametrize("method", [m.value for m in Method])
+@pytest.mark.parametrize("fuse", [True, False])
+def test_fusion_report_matches_jax(name, method, fuse):
+    jeng = JEngine(_nets(jnetdefs)[name], method=JMethod(method),
+                   fuse_pool=fuse)
+    teng = CNNEngine(_nets(tnetdefs)[name], method=Method(method),
+                     fuse_pool=fuse, device="cpu")
+    report = teng.fusion_report()
+    assert _report_keys(report) == _report_keys(jeng.fusion_report())
+    # default plans keep the first-generation cells
+    want = {"basic_simd": {"K7", "K2"}}.get(method, {"K1", "K2"})
+    assert {r["cell"] for r in report} <= want
+    for r in report:
+        assert r["rows_per_cell"] * r["n_tiles"] >= r["out_hw"][0]
+        assert (r["rows_per_cell"] * (r["n_tiles"] - 1) < r["out_hw"][0])
+
+
+@pytest.mark.parametrize("knobs", sorted(KNOB_SETS))
+def test_tuned_fusion_report_matches_jax(knobs):
+    kn, cells = KNOB_SETS[knobs]
+    jrep = JEngine(jnetdefs.alexnet(), **kn).fusion_report()
+    teng = CNNEngine(tnetdefs.alexnet(), device="cpu", **kn)
+    for batch in (1, 16):
+        report = teng.fusion_report(batch=batch)
+        assert _report_keys(report) == _report_keys(jrep)
+        assert [r["cell"] for r in report] == cells
+    # K6 reads the knob as "block the final stage", no narrower than asked
+    if "K6" in cells:
+        assert report[-1]["oc_block"] >= 8
+
+
 def test_unfused_forward_and_collect_match_jax():
     jnet, tnet = jnetdefs.cifar10_quick(), tnetdefs.cifar10_quick()
     params = he_params(infer_param_shapes(tnet), seed=3)

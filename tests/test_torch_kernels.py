@@ -8,6 +8,7 @@ max abs <= 1e-4 (fp32 sums in another order).  The CUDA kernels
 themselves are checked against these plain versions on the card by
 ``chip_smoke.py``.
 """
+import math
 from functools import partial
 
 import jax
@@ -409,12 +410,13 @@ def test_fc_matches_jax(relu):
     _close(tm.fc_seq_ref(_t(x), _t(w), _t(b), relu), theirs)
 
 
-# -- off the CPU: the ported rungs reach their wrappers, the rest raise -----
+# -- off the CPU: every path reaches its kernel's wrapper ---------------------
 #
-# A ``meta`` tensor lies on neither the CPU nor a CUDA device: a path whose
-# kernel is ported reaches its wrapper, which refuses the device with
-# ValueError; a path that needs an unported kernel (K4, K5, K6) raises
-# NotImplementedError naming it first.
+# A ``meta`` tensor lies on neither the CPU nor a CUDA device: every path
+# reaches the wrapper of its kernel (all of K1-K9 are ported), which
+# refuses the device with ValueError.  (The names say "unported" for
+# history: these cases raised NotImplementedError before their kernels
+# were ported.)
 
 
 def _meta(*shape):
@@ -437,24 +439,39 @@ def test_unported_conv_methods_raise_off_cpu(method, kid):
     ("advanced_simd_8", "lrn_oc_block", "K4"),
     ("basic_simd", None, "K7")])
 def test_unported_fused_cells_raise_off_cpu(method, knob, kid):
-    call = partial(tm.conv2d_pool_fused, _meta(1, 3, 8, 8),
-                   _meta(4, 3, 3, 3), _meta(4), tm.Method(method),
-                   **({knob: True} if knob else {}))
-    if kid == "K7":  # ported: the fused K7 wrapper refuses the device
-        with pytest.raises(ValueError,
-                           match="conv2d_basic_simd: unsupported device"):
-            call()
-    else:
-        with pytest.raises(NotImplementedError, match=kid):
-            call()
+    # K5 needs overlapping pool windows (3/2) and K4 an LRN tail: with
+    # those the knob routes the group to its cell, whose wrapper refuses
+    # the meta tensor
+    wrapper = {"K5": "conv2d_pool_carry", "K4": "conv2d_pool_lrn_halo",
+               "K7": "conv2d_basic_simd"}[kid]
+    tail = dict(pool_kernel=(3, 3), pool_stride=(2, 2))
+    if kid == "K4":
+        tail["lrn_n"] = 5
+    with pytest.raises(ValueError, match=f"{wrapper}: unsupported device"):
+        tm.conv2d_pool_fused(_meta(1, 3, 8, 8), _meta(12, 3, 3, 3),
+                             _meta(12), tm.Method(method), **tail,
+                             **({knob: True} if knob else {}))
 
 
 def test_unported_chain_cell_raises_off_cpu():
-    with pytest.raises(NotImplementedError, match="K6"):
+    with pytest.raises(ValueError, match="conv2d_chain_ocb: unsupported"):
         tm.conv2d_chain_fused(_meta(1, 3, 8, 8), [_meta(4, 3, 3, 3)] * 2,
                               [_meta(4)] * 2, tm.Method.ADVANCED_SIMD_8,
                               [(1, 1)] * 2, [(1, 1)] * 2, [True] * 2,
-                              oc_block_final=8)
+                              oc_block_final=2)
+
+
+def test_chain_cell_with_an_lrn_tail_raises_on_every_device():
+    rng = np.random.default_rng(3)
+    x, w, b = _arr(rng, 1, 3, 9, 9), _arr(rng, 8, 3, 3, 3), _arr(rng, 8)
+    w2 = _arr(rng, 8, 8, 3, 3)
+    for dev_x in (_t(x), _meta(1, 3, 9, 9)):
+        with pytest.raises(ValueError, match="no LRN epilogue"):
+            tm.conv2d_chain_fused(
+                dev_x, [_t(w), _t(w2)], [_t(b), _t(b)],
+                tm.Method.ADVANCED_SIMD_8, [(1, 1)] * 2, [(1, 1)] * 2,
+                [True] * 2, pool_kernel=(3, 3), pool_stride=(2, 2), lrn_n=5,
+                oc_block_final=4)
 
 
 def test_wrappers_refuse_other_devices():
@@ -468,3 +485,388 @@ def test_wrappers_refuse_other_devices():
             fn(_meta(1, 3, 8, 8), _meta(4, 3, 3, 3), _meta(4))
     with pytest.raises(ValueError, match="device"):
         pool2d(_meta(1, 3, 8, 8))
+    for fn, lrn in ((conv_ops.conv2d_pool_lrn_halo, dict(lrn_n=5)),
+                    (conv_ops.conv2d_pool_carry, {})):
+        with pytest.raises(ValueError, match="device"):
+            fn(_meta(1, 3, 8, 8), _meta(4, 3, 3, 3), _meta(4),
+               pool_kernel=(3, 3), pool_stride=(2, 2), **lrn)
+        with pytest.raises(ValueError, match="needs a pool"):
+            fn(_t(np.zeros((1, 3, 8, 8), np.float32)),
+               _t(np.zeros((4, 3, 3, 3), np.float32)),
+               _t(np.zeros(4, np.float32)), **lrn)
+    with pytest.raises(ValueError, match="device"):
+        conv_ops.conv2d_chain_ocb(_meta(1, 3, 8, 8), [_meta(4, 3, 3, 3)],
+                                  [_meta(4)], [(1, 1)], [(1, 1)], [True])
+
+
+# -- K4, K5, K6: the second-generation cells ---------------------------------------
+#
+# Each knob routes a group to its cell (``methods.fused_cell`` /
+# ``chain_cell``), whose wrapper runs K1's or K2's plain version on the
+# CPU; the JAX side runs the same knob on its jnp path.  Tolerance: max
+# abs <= 1e-4, as above.
+
+CELL_CASES = {
+    **K1_CASES,
+    # wider than the advanced method's 8-channel tile, so K4 blocks it
+    "stride4_11x11_wide": ((2, 3, 51, 51), (20, 3, 11, 11), (4, 4), (0, 0),
+                           True, (3, 3), (2, 2), "max", False, 5),
+}
+K4_CASES = ("lrn5", "lrn4_even", "stride4_11x11_wide")
+K5_CASES = ("avg", "pool_relu_only", "relu_and_pool_relu_avg")
+
+
+@pytest.mark.parametrize("kid,case", [("K4", c) for c in K4_CASES]
+                         + [("K5", c) for c in K5_CASES])
+def test_fused_cell_knobs_match_jax(kid, case):
+    (xs, ws, stride, padding, relu, pk, ps, kind, pool_relu,
+     lrn_n) = CELL_CASES[case]
+    rng = np.random.default_rng(20 + len(case))
+    x, w, b = _arr(rng, *xs), _arr(rng, *ws, scale=0.3), _arr(rng, ws[0])
+    tail = dict(pool_kernel=pk, pool_stride=ps, pool_kind=kind,
+                pool_relu=pool_relu)
+    lrn = dict(lrn_n=lrn_n, lrn_alpha=1e-3, lrn_beta=0.75, lrn_k=1.0)
+    knob = {"K4": {"lrn_oc_block": True}, "K5": {"pool_carry": True}}[kid]
+    assert tm.fused_cell(tm.Method.ADVANCED_SIMD_8, xs[1:], ws, stride,
+                         padding, pk, ps, lrn_n, **knob) == kid
+    theirs = _jit(jm.conv2d_pool_fused, method=jm.Method.ADVANCED_SIMD_8,
+                  stride=stride, padding=padding, relu=relu, **tail, **lrn,
+                  **knob)(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    ours = tm.conv2d_pool_fused(_t(x), _t(w), _t(b),
+                                tm.Method.ADVANCED_SIMD_8, stride, padding,
+                                relu, **tail, **lrn, **knob)
+    _close(ours, theirs)
+    if kid == "K4":
+        direct = conv_ops.conv2d_pool_lrn_halo(_t(x), _t(w), _t(b), stride,
+                                               padding, relu, **tail, **lrn)
+    else:
+        direct = conv_ops.conv2d_pool_carry(_t(x), _t(w), _t(b), stride,
+                                            padding, relu, **tail)
+    _close(direct, theirs)
+
+
+@pytest.mark.parametrize("case", ["two_stage_no_pool", "three_stage_pool",
+                                  "pad2_avg"])
+@pytest.mark.parametrize("obf", [1, 4])
+def test_chain_cell_knob_matches_jax(case, obf):
+    xs, stages, pool, _ = K2_CASES[case]
+    rng = np.random.default_rng(30 + len(case) + obf)
+    x, c = _arr(rng, *xs), xs[1]
+    ws, bs = [], []
+    for oc, k, _, _, _ in stages:
+        ws.append(_arr(rng, oc, c, k, k, scale=(c * k * k) ** -0.5))
+        bs.append(_arr(rng, oc, scale=0.1))
+        c = oc
+    strides = tuple((s, s) for _, _, s, _, _ in stages)
+    pads = tuple((p, p) for _, _, _, p, _ in stages)
+    relus = tuple(r for *_, r in stages)
+    tail = dict(pool_kernel=pool[0] if pool else None,
+                pool_stride=pool[1] if pool else None,
+                pool_kind=pool[2] if pool else "max")
+    assert tm.chain_cell(ws[-1].shape[0], obf, None) == ("K6", obf)
+    theirs = _jit(jm.conv2d_chain_fused, method=jm.Method.ADVANCED_SIMD_8,
+                  strides=strides, paddings=pads, relus=relus, **tail,
+                  oc_block_final=obf)(
+        jnp.asarray(x), [jnp.asarray(w) for w in ws],
+        [jnp.asarray(b) for b in bs])
+    ours = tm.conv2d_chain_fused(_t(x), [_t(w) for w in ws],
+                                 [_t(b) for b in bs],
+                                 tm.Method.ADVANCED_SIMD_8, strides, pads,
+                                 relus, **tail, oc_block_final=obf)
+    _close(ours, theirs)
+    _close(conv_ops.conv2d_chain_ocb(_t(x), [_t(w) for w in ws],
+                                     [_t(b) for b in bs], strides, pads,
+                                     relus, **tail, oc_block_final=obf),
+           theirs)
+
+
+def test_chain_cell_keeps_k2_at_full_width():
+    assert tm.chain_cell(256, None, None) == ("K2", None)
+    assert tm.chain_cell(256, 256, None) == ("K2", None)
+    assert tm.chain_cell(256, 512, None) == ("K2", None)
+    assert tm.chain_cell(256, 8, None) == ("K6", 8)
+
+
+# -- the resolvers against the JAX package's, group by group ---------------------
+
+
+def _group_args(nd_name, unfuse_norms):
+    """Every fused single-conv group of a net's default advanced plan:
+    ``(name, in_chw, w_shape, stride, padding, pool4, lrn)``."""
+    from repro_torch.core.netdefs import NETWORKS
+    from repro_torch.core.plan import compile_plan
+
+    net = NETWORKS[nd_name]()
+    off = {l.name: False for l in net.layers if l.kind == "lrn"}
+    plan = compile_plan(net, per_layer_fuse=off if unfuse_norms else None)
+    for st in plan.steps:
+        if st.kind != "fused":
+            continue
+        g, cv = st.group, st.group.conv
+        lrn = None if g.lrn is None else (g.lrn.lrn_n, g.lrn.lrn_alpha,
+                                          g.lrn.lrn_beta, g.lrn.lrn_k)
+        yield (g.name, tuple(st.in_shape),
+               (cv.out_channels, st.in_shape[0], *cv.kernel), cv.stride,
+               cv.padding, (*g.pool.kernel, *g.pool.stride), lrn)
+
+
+GROUPS = [(net, unfuse, args) for net in ("lenet5", "cifar10", "alexnet")
+          for unfuse in (False, True)
+          for args in _group_args(net, unfuse)]
+
+
+@pytest.mark.parametrize("net,unfuse,args", GROUPS,
+                         ids=[f"{n}-{'unfused' if u else 'fused'}-{a[0]}"
+                              for n, u, a in GROUPS])
+@pytest.mark.parametrize("method", ["advanced_simd_4", "advanced_simd_8"])
+def test_resolvers_agree_with_jax(net, unfuse, args, method):
+    """Halo width: the JAX rule itself (its auto rule keeps full width on
+    every group, as the port's None does).  Pool carry: the same rule on
+    the same band; the port reads it on its own band (``k5_bands``), and
+    where that differs from the TPU's band the JAX package, run on its own
+    band, may only say no because the TPU keeps the frame in one band."""
+    from repro.core.fusion import group_band_params
+    from repro.core.methods import Method as JM
+    from repro.core.netdefs import NETWORKS as JN
+    from repro.core.plan import compile_plan as jcompile
+    from repro.kernels.conv2d import kernels as jk
+    from repro.kernels.conv2d.ops import SUBLANES
+
+    name, in_chw, w_shape, stride, padding, pool4, lrn = args
+    c, h, w = in_chw
+    oc, _, kh, kw = w_shape
+    ow = (w + 2 * padding[1] - kw) // stride[1] + 1
+    cp = -(-c // SUBLANES) * SUBLANES
+    block = conv_ops.ADVANCED_OC_BLOCK[method]
+    for knob in (None, True, False):
+        theirs = jk.resolve_lrn_ocb(oc, block, lrn, knob, ow,
+                                    w + 2 * padding[1], cp, kh, kw,
+                                    stride[0], pool4)
+        assert conv_ops.resolve_lrn_ocb(oc, block, lrn, knob) == theirs
+    halo = conv_ops.resolve_lrn_ocb(oc, block, lrn, True)[1]
+    assert halo == (lrn[0] - 1 if lrn is not None and block < oc else 0)
+    stages = conv_ops.make_stages(in_chw, [w_shape], [stride], [padding],
+                                  [True])
+    phb, n_bands, _ = conv_ops.k5_bands(stages, conv_ops.Pool(*pool4, "max"))
+    for knob in (True, False):
+        assert (conv_ops.resolve_pool_carry(knob, lrn, pool4, phb, n_bands)
+                == jk.resolve_pool_carry(knob, True, lrn, pool4, phb,
+                                         n_bands))
+    assert not conv_ops.resolve_pool_carry(None, lrn, pool4, phb, n_bands)
+    # against the JAX package on its own (TPU) band
+    jnet = JN[net]()
+    off = {l.name: False for l in jnet.layers if l.kind == "lrn"}
+    jplan = jcompile(jnet, method=JM(method), verify=False,
+                     per_layer_fuse=off if unfuse else None)
+    step = next(s for s in jplan.steps if s.kind == "fused"
+                and s.group.name == name)
+    tpu = group_band_params(step.group, step.method, step.in_shape, None,
+                            pool_carry=True)
+    ours = conv_ops.resolve_pool_carry(True, lrn, pool4, phb, n_bands)
+    if bool(tpu["carry"]) != ours:
+        assert ours and tpu["n_tiles"] == 1 and n_bands > 1
+
+
+# -- K4, K5, K6 geometry -------------------------------------------------------------
+
+ALEX_GROUPS = {
+    # name: (in_chw, w_shape, stride, padding)
+    "conv1": ((3, 227, 227), (96, 3, 11, 11), (4, 4), (0, 0)),
+    "conv2": ((96, 27, 27), (256, 96, 5, 5), (1, 1), (2, 2)),
+}
+CIFAR_GROUPS = {
+    "conv1": ((3, 32, 32), (32, 3, 5, 5), (1, 1), (2, 2)),
+    "conv2": ((32, 15, 15), (32, 32, 5, 5), (1, 1), (2, 2)),
+    "conv3": ((32, 7, 7), (64, 32, 5, 5), (1, 1), (2, 2)),
+}
+POOL32 = conv_ops.Pool(3, 3, 2, 2, "max")
+ALEX_CHAIN = conv_ops.make_stages(
+    (256, 13, 13), [(384, 256, 3, 3), (384, 384, 3, 3), (256, 384, 3, 3)],
+    [(1, 1)] * 3, [(1, 1)] * 3, [True] * 3)
+
+
+def _stages(in_chw, w_shape, stride, padding):
+    return conv_ops.make_stages(in_chw, [w_shape], [stride], [padding],
+                                [True])
+
+
+def _emulate_k4(x, w, b, stride, padding, pool, lrn, ocb):
+    """What K4 computes, tile by tile, in plain PyTorch: each tile
+    convolves its core and halo channels (weight and bias columns outside
+    [0, OC) zero), pools them, normalises over the tile alone and keeps
+    its core.  The halo channels outside the frame must be exact zeros."""
+    n_lrn = lrn[0]
+    lo, hi = n_lrn // 2, n_lrn - 1 - n_lrn // 2
+    oc = w.shape[0]
+    wz = torch.cat([torch.zeros((lo, *w.shape[1:])), w,
+                    torch.zeros((ocb + hi, *w.shape[1:]))])
+    bz = torch.cat([torch.zeros(lo), b, torch.zeros(ocb + hi)])
+    cores = []
+    for u in range(math.ceil(oc / ocb)):
+        cols = slice(u * ocb, u * ocb + ocb + n_lrn - 1)  # in wz: -lo shift
+        pooled = conv_ops.conv2d_pool_fused_ref(
+            x, wz[cols], bz[cols], stride, padding, True,
+            (pool.kh, pool.kw), (pool.sy, pool.sx), pool.kind)
+        outside = [i for i in range(pooled.shape[1])
+                   if not 0 <= u * ocb - lo + i < oc]
+        assert all(torch.equal(pooled[:, i], torch.zeros_like(pooled[:, i]))
+                   for i in outside)
+        normed = lrn_ref(pooled, *lrn)
+        cores.append(normed[:, lo:lo + min(ocb, oc - u * ocb)])
+    return torch.cat(cores, dim=1)
+
+
+@pytest.mark.parametrize("ocb", [3, 4, 7, 16])
+def test_k4_tiles_cover_the_channels_once_with_zero_edge_halos(ocb):
+    rng = np.random.default_rng(ocb)
+    x, w, b = _arr(rng, 2, 4, 13, 13), _arr(rng, 14, 4, 3, 3), _arr(rng, 14)
+    lrn = (5, 1e-2, 0.75, 1.0)
+    ours = _emulate_k4(_t(x), _t(w), _t(b), (1, 1), (1, 1), POOL32, lrn, ocb)
+    ref = conv_ops.conv2d_pool_fused_ref(_t(x), _t(w), _t(b), (1, 1), (1, 1),
+                                         True, (3, 3), (2, 2), "max",
+                                         lrn_n=5, lrn_alpha=1e-2)
+    assert torch.allclose(ours, ref, atol=1e-5)
+    cores = [range(u * ocb, min((u + 1) * ocb, 14))
+             for u in range(math.ceil(14 / ocb))]
+    assert sorted(c for r in cores for c in r) == list(range(14))
+
+
+@pytest.mark.parametrize("group", sorted(ALEX_GROUPS))
+@pytest.mark.parametrize("n", [1, 16])
+def test_k4_geometry_at_alexnet(group, n):
+    st = _stages(*ALEX_GROUPS[group])
+    blk, ocb = conv_ops.k4_geometry(st, POOL32, 5, n, conv_ops.REPORT_SMS)
+    assert (ocb + 4) % conv_ops.GEMM_TILE == 0 or ocb == st[0].OC
+    assert conv_ops.k4_smem(st, POOL32, 5, blk, ocb) <= conv_ops.SMEM_LIMIT
+    tile = conv_ops._tile(ocb, st[0].OC)
+    assert tile[1] * ocb >= st[0].OC > (tile[1] - 1) * ocb
+    # no fewer blocks than K1's full-width band
+    k1 = conv_ops.rows_per_block(
+        st, POOL32, n, conv_ops.REPORT_SMS,
+        lambda k: conv_ops.k1_smem(st, POOL32, True, k))
+    total = conv_ops.final_rows(st, POOL32)[0]
+    assert (math.ceil(total / blk) * tile[1]) >= math.ceil(total / k1)
+
+
+def _k5_schedule(stages, pool, n):
+    """What each K5 block does for one frame and channel tile, read off
+    the loop of ``csrc/conv_pool_carry.cu`` on the band ``k5_bands`` and
+    run ``k5_run`` give: one ``(seed, steps)`` per run, ``seed`` the conv
+    rows ``[a, b)`` of the seed step and ``steps`` a list of ``(carried,
+    fresh, pooled)`` row ranges (conv rows at the buffer's head, conv rows
+    convolved behind them, pooled rows written)."""
+    phb, n_bands, _ = conv_ops.k5_bands(stages, pool)
+    run = conv_ops.k5_run(stages, pool, n, conv_ops.REPORT_SMS)
+    total = conv_ops.final_rows(stages, pool)[0]
+    k_rows = pool.kh - pool.sy
+    out = []
+    for j0 in range(0, n_bands, run):
+        r0 = j0 * phb * pool.sy
+        seed = (r0, r0 + k_rows)
+        steps = []
+        for j in range(j0, min(j0 + run, n_bands)):
+            q, q1 = j * phb, min((j + 1) * phb, total)
+            r0 = q * pool.sy
+            steps.append(((r0, r0 + k_rows),
+                          (r0 + k_rows, q1 * pool.sy + k_rows), (q, q1)))
+        out.append((seed, steps))
+    return out
+
+
+def _check_k5_schedule(st, pool, n):
+    """Every pooled row written once; each run's seed is its first
+    band's carry; each step's carry is the previous step's last K conv
+    rows; every conv row computed lies in the conv output."""
+    total = conv_ops.final_rows(st, pool)[0]
+    k_rows = pool.kh - pool.sy
+    written = []
+    for seed, steps in _k5_schedule(st, pool, n):
+        assert seed == steps[0][0]
+        prev = None
+        for carried, fresh, (q, q1) in steps:
+            assert carried == (q * pool.sy, q * pool.sy + k_rows)
+            assert fresh[0] == carried[1]
+            assert fresh[1] == (q1 - 1) * pool.sy + pool.kh
+            assert fresh[1] - fresh[0] <= conv_ops.k5_bands(st, pool)[0] \
+                * pool.sy
+            if prev is not None:
+                assert carried == (prev[1] - k_rows, prev[1])
+            assert 0 <= carried[0] and fresh[1] <= st[0].OH
+            prev = fresh
+            written.extend(range(q, q1))
+    assert sorted(written) == list(range(total))
+
+
+@pytest.mark.parametrize("net,group", [("alexnet", g) for g in ALEX_GROUPS]
+                         + [("cifar10", g) for g in CIFAR_GROUPS])
+@pytest.mark.parametrize("n", [1, 16])
+def test_k5_schedule_and_shared_memory(net, group, n):
+    args = (ALEX_GROUPS if net == "alexnet" else CIFAR_GROUPS)[group]
+    st = _stages(*args)
+    _check_k5_schedule(st, POOL32, n)
+    phb, n_bands, ocb = conv_ops.k5_bands(st, POOL32)
+    assert n_bands > 1 and phb * POOL32.sy >= POOL32.kh - POOL32.sy
+    assert conv_ops.k5_smem(st, POOL32, phb, ocb) <= conv_ops.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("pool", [POOL32, conv_ops.Pool(3, 3, 1, 1, "avg"),
+                                  conv_ops.Pool(5, 5, 2, 2, "max")])
+@pytest.mark.parametrize("n", [1, 4])
+def test_k5_carry_reproduces_the_pool(pool, n):
+    """The carry bookkeeping on a whole-frame conv output: a buffer of
+    carried plus fresh rows, pooled band by band and slid, gives the
+    frame's pool."""
+    st = _stages((2, 21, 17), (5, 2, 3, 3), (1, 1), (0, 0))
+    _check_k5_schedule(st, pool, n)
+    conv = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (1, 5, st[0].OH, st[0].OW)).astype(np.float32))
+    ref = pool_lrn_tail_ref(conv, pool)
+    out = torch.full_like(ref, float("nan"))
+    for seed, steps in _k5_schedule(st, pool, n):
+        buf = conv[:, :, seed[0]:seed[1]]
+        for carried, fresh, (q, q1) in steps:
+            buf = torch.cat([buf[:, :, buf.shape[2] - (carried[1]
+                                                      - carried[0]):],
+                             conv[:, :, fresh[0]:fresh[1]]], dim=2)
+            out[:, :, q:q1] = pool_lrn_tail_ref(buf, pool)
+    assert torch.equal(out, ref)
+
+
+def pool_lrn_tail_ref(x, pool):
+    from repro_torch.kernels.conv2d.ref import pool_lrn_tail
+
+    return pool_lrn_tail(x, (pool.kh, pool.kw), (pool.sy, pool.sx),
+                         pool.kind)
+
+
+@pytest.mark.parametrize("requested", [1, 8, 64, 100])
+@pytest.mark.parametrize("n", [1, 16])
+def test_k6_tiles_cover_the_final_stage_once(requested, n):
+    blk, ocb = conv_ops.k6_geometry(ALEX_CHAIN, POOL32, requested, n,
+                                    conv_ops.REPORT_SMS)
+    assert ocb >= requested and ocb < 256
+    assert ocb % conv_ops.GEMM_TILE == 0 or ocb == requested
+    tiles = [range(u * ocb, min((u + 1) * ocb, 256))
+             for u in range(math.ceil(256 / ocb))]
+    assert sorted(c for t in tiles for c in t) == list(range(256))
+    total = conv_ops.final_rows(ALEX_CHAIN, POOL32)[0]
+    assert 1 <= blk <= total
+    # K6 takes no dynamic shared memory; its scratch (two bands a block)
+    stride = conv_ops.chain_scratch_stride(ALEX_CHAIN, POOL32, blk)
+    assert stride >= 384 * 7 * 13
+
+
+def test_k6_emulated_by_tiles_equals_the_chain():
+    rng = np.random.default_rng(2)
+    x = _t(_arr(rng, 2, 4, 11, 11))
+    ws = [_t(_arr(rng, 6, 4, 3, 3, scale=0.3)),
+          _t(_arr(rng, 10, 6, 3, 3, scale=0.3))]
+    bs = [_t(_arr(rng, 6)), _t(_arr(rng, 10))]
+    args = ([(1, 1)] * 2, [(1, 1)] * 2, [True] * 2)
+    ref = conv_ops.conv2d_chain_ref(x, ws, bs, *args, pool_kernel=(3, 3),
+                                    pool_stride=(2, 2))
+    ocb = 4
+    parts = [conv_ops.conv2d_chain_ref(
+        x, [ws[0], ws[1][u:u + ocb]], [bs[0], bs[1][u:u + ocb]], *args,
+        pool_kernel=(3, 3), pool_stride=(2, 2)) for u in range(0, 10, ocb)]
+    assert torch.equal(torch.cat(parts, dim=1), ref)
