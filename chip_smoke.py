@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--json PATH] [--ptxas]
+    python3 chip_smoke.py [--json PATH] [--ptxas] [--seed N]
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -54,12 +54,41 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the ladder ran, and a ``FaultScript`` poisoning one request of a batch
    of 16 must leave the 15 survivors' whole probability rows
    byte-identical to the fault-free run (on the top and the bottom rung);
-7. prints one JSON line ``{"kernels": [...]}``: per kernel, ``launches``
+7. the language model, gemma2-2b at full width (``repro_torch.serving.
+   engine.ServingEngine`` over ``repro_torch.models``):
+   a. kernel cases at its shapes, held, repeated and timed as in phase 3:
+      K10 (flash attention; b 1, 8 heads over 4 kv heads, head_dim 256,
+      causal, cap 50) in bf16 at 512 and 4500 tokens with window 4096 and
+      0, with cap 0 at window 0 (where SDPA, the yardstick, computes the
+      same function), at the other served lengths (16, 300, 1500) with
+      window 4096, and in fp32 at 512 and at 4500 with window 4096; K3 in
+      bf16 at the seven projections' five shapes for M = 4 (a decode
+      step) and M = 16, 300, 1500 and 4500 (the prefills); every element
+      within ``rtol * |plain| + atol`` (``LM_KERNEL_TOL``);
+   b. CPU parity: the model with its depth cut to one local/global pair,
+      float32, random weights from ``--seed`` on the card and the same on
+      the CPU; a 64-token prompt prefilled and 8 greedy tokens decoded on
+      both must agree (``LM_TOL``) and give the same tokens;
+   c. the full model: 26 layers in bf16 with a bf16 KV cache, weights
+      drawn on the card from ``--seed``, ``ServingEngine(max_batch=4,
+      max_len=8192)`` serving four greedy requests of ``LM_PROMPTS``
+      tokens, 16 new tokens each.  With the counters set to 0 before the
+      run and read after, every prefill must launch K10 26 times and K3
+      182 times (7 per layer), every decode step K3 182 times and no K10;
+      a second run must give the same tokens.  Each prefill, each decode
+      step and the run are timed;
+   d. ``torch.profiler`` over one prefill of 1500 tokens and three decode
+      steps of the full model: device time by kernel and the device's busy
+      share;
+8. prints one JSON line ``{"kernels": [...]}``: per kernel, ``launches``
    is its count summed over the AlexNet forwards of phase 4 (K1-K3,
-   K7-K9) or phase 5 (K4-K6), each counted from 0; the times and bound
-   are summed over its distinct AlexNet batch-16 shapes on that path; the
-   error is the largest over every case;
-8. prints ``{"ok": true, "device": {...}}`` as its last line.
+   K7-K9) or phase 5 (K4-K6), or over the first LM serving run of phase
+   7c (K10, and K3's bf16 launches as ``matmul_fused_bf16``), each
+   counted from 0; the times and bound are summed over its distinct
+   AlexNet batch-16 shapes on that path (K10: the bf16 4500-token cases
+   with cap 50; K3 bf16: its cases at M = 4 and 4500); the error is the
+   largest over every case;
+9. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Run it from the repository root; it needs one CUDA device and the CUDA
 toolkit, and imports nothing of the JAX package.
@@ -77,13 +106,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-#: published fp32 (CUDA cores, FMA = 2 operations) and memory peaks,
-#: NVIDIA data sheets; matched against torch.cuda.get_device_name
+#: published fp32 (CUDA cores, FMA = 2 operations), memory and dense bf16
+#: tensor-core peaks, NVIDIA data sheets; matched against
+#: torch.cuda.get_device_name.  A kernel's bound takes the peak of its
+#: inputs' type.
 PEAKS = (
-    ("H100 PCIe", 51.2e12, 2.0e12),
-    ("H100 NVL", 60.0e12, 3.9e12),
-    ("H100", 66.9e12, 3.35e12),   # SXM5 80 GB
-    ("H200", 66.9e12, 4.8e12),
+    ("H100 PCIe", 51.2e12, 2.0e12, 756e12),
+    ("H100 NVL", 60.0e12, 3.9e12, 835e12),
+    ("H100", 66.9e12, 3.35e12, 989e12),   # SXM5 80 GB
+    ("H200", 66.9e12, 4.8e12, 989e12),
 )
 SEED = 0
 BATCHES = (1, 16)
@@ -134,9 +165,10 @@ def fail(msg: str) -> None:
 
 
 def card_peaks(name: str):
-    for key, flops, bw in PEAKS:
+    """(fp32 FLOP/s, bytes/s, bf16 FLOP/s) of the card."""
+    for key, flops, bw, bf16 in PEAKS:
         if key in name:
-            return flops, bw
+            return flops, bw, bf16
     fail(f"no published peaks known for {name!r}")
 
 
@@ -248,7 +280,7 @@ def run_case(torch, F, kid, step, n, params, dev, peaks, obf=None):
     from repro_torch.kernels.pool2d.ref import pool2d_ref
 
     gen = torch.Generator(device=dev).manual_seed(SEED + n)
-    flops_peak, bw_peak = peaks
+    flops_peak, bw_peak = peaks[:2]
     if kid == "K3":
         p = params[step.spec.name]
         w, b = p["w"], p["b"]
@@ -551,12 +583,404 @@ def serving_phase(torch, np, net, np_params, rng, dev, counters):
             "max_prob_err_vs_cpu": worst, "bisection": bisect}
 
 
+#: phase 7: the language model and its kernels' cases
+LM_ARCH = "gemma2-2b"
+LM_PROMPTS = (16, 300, 1500, 4500)
+LM_NEW_TOKENS = 16
+LM_MAX_BATCH = 4
+LM_MAX_LEN = 8192
+LM_PARITY_PROMPT = 64
+LM_PROFILE_PROMPT = 1500
+LM_PARITY_DECODE = 8
+#: CPU parity of phase 7b, relative to max(1, max|CPU logits|): both sides
+#: are fp32 (the card's K3 and K10 against the CPU's plain versions, the
+#: same fp32 arithmetic in another order, about 1e-6 of the logits); the
+#: decode steps read the bf16 KV cache, where a k or v that differs in its
+#: last fp32 bits may round to the neighbouring bf16 value (2^-8 of that
+#: element), hence 2e-3 there — the tolerances of tests/test_torch_lm.py
+LM_TOL = {"prefill": 1e-4, "decode": 2e-3}
+#: K10 cases: (tokens, window, cap, dtype).  The window and the tile skip
+#: bite only past 4096 tokens, hence the 4500-token cases in both dtypes;
+#: 16, 300 and 1500 are the other prompt lengths phase 7c serves
+K10_CASES = ((512, 4096, 50.0, "bfloat16"), (512, 0, 50.0, "bfloat16"),
+             (512, 0, 0.0, "bfloat16"), (4500, 4096, 50.0, "bfloat16"),
+             (4500, 0, 50.0, "bfloat16"), (4500, 0, 0.0, "bfloat16"),
+             (16, 4096, 50.0, "bfloat16"), (300, 4096, 50.0, "bfloat16"),
+             (1500, 4096, 50.0, "bfloat16"), (512, 4096, 50.0, "float32"),
+             (4500, 4096, 50.0, "float32"))
+#: K10 and K3-bf16 against their plain versions, element by element:
+#: |kernel - plain| <= rtol * |plain| + atol.  Both sides sum in fp32 in
+#: another order (about 1e-6 of an output) and round once to the output
+#: type.  bf16: one rounding apart is at most 2^-7 of |plain|; atol 2^-10
+#: covers outputs near 0.  A row of K10 at 4500 tokens is about 0.03, and
+#: a kernel that skips one visible tile at the window's edge moves it by
+#: about 0.014, so a limit of max|plain| * 2^-7 (about 0.03 there, one
+#: bf16 rounding of the largest output) could not see it; this one is
+#: 0.0012 at such an element.  fp32: 1e-4 of |plain| plus 1e-5.
+LM_KERNEL_TOL = {"bfloat16": (2.0 ** -7, 2.0 ** -10),
+                 "float32": (1e-4, 1e-5)}
+#: K3's five distinct projection shapes (K, N, activation) in a gemma2-2b
+#: block: q, k and v, o, gate and up (gate with gelu), down
+K3_LM_SHAPES = ((2304, 2048, "none"), (2304, 1024, "none"),
+                (2048, 2304, "none"), (2304, 9216, "gelu"),
+                (9216, 2304, "none"))
+#: M of K3's cases: a decode step at 4 slots and the four prefills; the
+#: kernels line sums the cases at ``K3_LM_MAIN_ROWS``
+K3_LM_ROWS = (4, 16, 300, 1500, 4500)
+K3_LM_MAIN_ROWS = (4, 4500)
+
+
+def _visible_pairs(sq, window):
+    """(query, key) pairs a causal attention with ``window`` computes."""
+    if window <= 0:
+        return sq * (sq + 1) // 2
+    w = min(window, sq)
+    return w * (w + 1) // 2 + (sq - w) * w
+
+
+def _check_close(label, out, ref, tol, rtol=0.0):
+    """Fails unless every element is within ``tol + rtol * |ref|``;
+    returns the largest absolute error."""
+    if out.shape != ref.shape:
+        fail(f"{label}: shape {tuple(out.shape)} != {tuple(ref.shape)}")
+    if not bool(out.float().isfinite().all()):
+        fail(f"{label}: non-finite output")
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    over = diff - (tol + rtol * ref.float().abs())
+    if not over.max().item() <= 0.0:
+        i = int(over.argmax())
+        fail(f"{label}: error {diff.flatten()[i].item()} at element {i} "
+             f"(plain {ref.flatten()[i].item()}) > {tol} + {rtol} * |plain|"
+             f"; max abs err {err}")
+    return err
+
+
+def lm_kernel_cases(torch, F, dev, peaks):
+    """Phase 7a: K10 and K3 (bf16) at gemma2-2b's shapes against their
+    plain versions, repeated bit for bit, timed; returns the records."""
+    from repro_torch.kernels.attention.ops import flash_attention
+    from repro_torch.kernels.attention.ref import flash_attention_ref
+    from repro_torch.kernels.matmul_fused.ops import matmul_fused
+    from repro_torch.kernels.matmul_fused.ref import matmul_fused_ref
+
+    fp32_peak, bw_peak, bf16_peak = peaks
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    for sq, window, cap, dname in K10_CASES:
+        dt = getattr(torch, dname)
+        q = torch.randn((1, sq, 8, 256), generator=gen, device=dev).to(dt)
+        k = torch.randn((1, sq, 4, 256), generator=gen, device=dev).to(dt)
+        v = torch.randn((1, sq, 4, 256), generator=gen, device=dev).to(dt)
+        kw = dict(causal=True, window=window, attn_softcap=cap)
+        kernel = lambda: flash_attention(q, k, v, **kw)  # noqa: E731
+        plain = lambda: flash_attention_ref(q, k, v, **kw)  # noqa: E731
+        pos = torch.arange(sq, device=dev)
+        mask = pos[:, None] >= pos[None, :]
+        if window:
+            mask &= pos[None, :] > pos[:, None] - window
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def library():  # SDPA has no softcap: the cap-0 function
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True).transpose(1, 2)
+
+        ref = plain()
+        out = kernel()
+        torch.cuda.synchronize()
+        rtol, atol = LM_KERNEL_TOL[dname]
+        label = f"K10 {dname} s={sq} window={window} cap={cap}"
+        err = _check_close(label, out, ref, atol, rtol)
+        if not torch.equal(kernel(), out):
+            fail(f"{label}: a repeated launch differs")
+        lib_err = (library().float() - ref.float()).abs().max().item()
+        flops = 4.0 * _visible_pairs(sq, window) * 8 * 256
+        nbytes = float(out.element_size() * (2 * q.numel() + 2 * k.numel()))
+        peak = bf16_peak if dt == torch.bfloat16 else fp32_peak
+        r = {"kernel": "K10", "tokens": sq, "window": window, "cap": cap,
+             "dtype": dname, "max_abs_err": err,
+             "tol": {"rtol": rtol, "atol": atol},
+             "rms_plain": ref.float().square().mean().sqrt().item(),
+             "max_abs_plain": ref.float().abs().max().item(),
+             "library_max_abs_err": lib_err,
+             "library_note": "SDPA, same boolean mask, no softcap",
+             "ms": time_ms(torch, kernel), "plain_ms": time_ms(torch, plain),
+             "library_ms": time_ms(torch, library),
+             "bound_ms": 1e3 * max(flops / peak, nbytes / bw_peak),
+             "bound_by": "operations" if flops / peak > nbytes / bw_peak
+             else "bytes", "flops": flops, "bytes": nbytes,
+             "peak": peak, "main": sq == max(LM_PROMPTS) and cap > 0
+             and dname == "bfloat16"}
+        rows.append(r)
+        print("case " + json.dumps(r), flush=True)
+    for m in K3_LM_ROWS:
+        for kk, n, act in K3_LM_SHAPES:
+            x = torch.randn((m, kk), generator=gen, device=dev).bfloat16()
+            w = (torch.randn((kk, n), generator=gen, device=dev)
+                 / kk ** 0.5).bfloat16()
+            kernel = lambda: matmul_fused(x, w, None, act)  # noqa: E731
+            plain = lambda: matmul_fused_ref(x, w, None, act)  # noqa: E731
+
+            def library():
+                y = torch.matmul(x, w)
+                return F.gelu(y, approximate="tanh") if act == "gelu" else y
+
+            ref = plain()
+            out = kernel()
+            torch.cuda.synchronize()
+            rtol, atol = LM_KERNEL_TOL["bfloat16"]
+            label = f"K3 bf16 M={m} {kk}->{n} {act}"
+            err = _check_close(label, out, ref, atol, rtol)
+            if out.dtype != torch.bfloat16:
+                fail(f"{label}: output {out.dtype}")
+            if not torch.equal(kernel(), out):
+                fail(f"{label}: a repeated launch differs")
+            lib_err = (library().float() - ref.float()).abs().max().item()
+            flops = 2.0 * m * kk * n
+            nbytes = 2.0 * (m * kk + kk * n + m * n)
+            r = {"kernel": "K3-bf16", "rows": m, "k": kk, "n": n,
+                 "act": act, "max_abs_err": err,
+                 "tol": {"rtol": rtol, "atol": atol},
+                 "library_max_abs_err": lib_err,
+                 "library_note": "torch.matmul in bf16 (+ tanh gelu)",
+                 "ms": time_ms(torch, kernel),
+                 "plain_ms": time_ms(torch, plain),
+                 "library_ms": time_ms(torch, library),
+                 "bound_ms": 1e3 * max(flops / bf16_peak, nbytes / bw_peak),
+                 "bound_by": "operations"
+                 if flops / bf16_peak > nbytes / bw_peak else "bytes",
+                 "flops": flops, "bytes": nbytes, "peak": bf16_peak,
+                 "main": m in K3_LM_MAIN_ROWS}
+            rows.append(r)
+            print("case " + json.dumps(r), flush=True)
+    return rows
+
+
+def lm_parity_phase(torch, np, dev):
+    """Phase 7b: gemma2-2b at full width, one local/global pair, float32,
+    on the card and on the CPU with the same weights."""
+    import dataclasses
+
+    from repro_torch.core.config import get_arch
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.param import init_tree, tree_map
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH), num_layers=2,
+                              dtype="float32", param_dtype="float32")
+    gpu = get_model(cfg)
+    tree = init_tree(gpu.param_spec(),
+                     torch.Generator(device=dev).manual_seed(SEED),
+                     cfg.param_dtype)
+    gpu.load_tree(tree)
+    cpu = get_model(cfg).load_tree(tree_map(lambda t: t.cpu(), tree))
+    rng = np.random.default_rng(SEED)
+    prompt = rng.integers(0, cfg.vocab_size, (1, LM_PARITY_PROMPT))
+    cache_len = LM_PARITY_PROMPT + LM_PARITY_DECODE + 8
+    caches = {"gpu": gpu.init_cache(1, cache_len),
+              "cpu": cpu.init_cache(1, cache_len)}
+    models = {"gpu": gpu, "cpu": cpu}
+    logits, tokens, worst = {}, {"gpu": [], "cpu": []}, {}
+    with torch.no_grad():
+        for side, m in models.items():
+            t = torch.from_numpy(prompt).to(m.device)
+            logits[side], _, _ = m({"tokens": t}, mode="prefill",
+                                   cache=caches[side])
+        ref = logits["cpu"]
+        worst["prefill"] = _check_close(
+            "LM parity prefill", logits["gpu"].cpu(), ref,
+            LM_TOL["prefill"] * max(1.0, ref.abs().max().item()))
+        worst["decode"] = 0.0
+        for side in models:
+            tokens[side].append(int(torch.argmax(logits[side][0, -1])))
+        for i in range(LM_PARITY_DECODE - 1):
+            pos = LM_PARITY_PROMPT + i
+            for side, m in models.items():
+                lg, _ = m.decode_step(
+                    torch.tensor([[tokens[side][-1]]], device=m.device),
+                    torch.tensor([pos], device=m.device), caches[side])
+                logits[side] = lg
+                tokens[side].append(int(torch.argmax(lg[0, 0])))
+            ref = logits["cpu"]
+            worst["decode"] = max(worst["decode"], _check_close(
+                f"LM parity decode step {i}", logits["gpu"].cpu(), ref,
+                LM_TOL["decode"] * max(1.0, ref.abs().max().item())))
+            if tokens["gpu"] != tokens["cpu"]:
+                fail(f"LM parity: greedy tokens {tokens['gpu']} on the card,"
+                     f" {tokens['cpu']} on the CPU")
+    rec = {"layers": cfg.num_layers, "prompt": LM_PARITY_PROMPT,
+           "tokens": tokens["gpu"], "max_abs_err": worst, "tol": LM_TOL}
+    print("lm parity " + json.dumps(rec), flush=True)
+    return rec
+
+
+def lm_serving_phase(torch, np, dev, counters, card):
+    """Phase 7c: full-depth bf16 gemma2-2b served by ``ServingEngine`` on
+    the card, twice; returns the record of both runs."""
+    from repro_torch.core.config import get_arch
+    from repro_torch.models.registry import get_model
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = get_arch(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = get_model(cfg).init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in LM_PROMPTS]
+    k3, k10 = counters["K3"], counters["K10"]
+    per_step = 7 * cfg.num_layers
+
+    def timed(fn, log, kind):
+        def run(*args):
+            torch.cuda.synchronize()
+            c3, c10 = k3.launches, k10.launches
+            t = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            log.append({"kind": kind, "ms": (time.perf_counter() - t) * 1e3,
+                        "k3": k3.launches - c3, "k10": k10.launches - c10})
+            if kind == "prefill":
+                log[-1]["tokens"] = len(args[1].prompt)
+        return run
+
+    runs = []
+    for _ in range(2):
+        eng = ServingEngine(model, max_batch=LM_MAX_BATCH,
+                            max_len=LM_MAX_LEN, seed=SEED)
+        if eng.device.type != "cuda":
+            fail(f"LM serving: engine on {eng.device}")
+        log = []
+        eng._prefill_into_slot = timed(eng._prefill_into_slot, log, "prefill")
+        eng._decode_step = timed(eng._decode_step, log, "decode")
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid, p, max_new_tokens=LM_NEW_TOKENS))
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        done = eng.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {"K3": k3.launches, "K10": k10.launches}
+        others = {k: fn.launches for k, fn in counters.items()
+                  if k not in launches and fn.launches}
+        runs.append({"done": done, "log": log, "wall_s": wall,
+                     "launches": launches, "other_launches": others})
+        del eng
+    first, second = runs
+    label = "LM serving"
+    if sorted(first["done"]) != list(range(len(prompts))):
+        fail(f"{label}: finished {sorted(first['done'])}")
+    for rid, toks in first["done"].items():
+        if len(toks) != LM_NEW_TOKENS or not all(
+                0 <= t < cfg.vocab_size for t in toks):
+            fail(f"{label}: request {rid} gave {toks}")
+    if second["done"] != first["done"]:
+        fail(f"{label}: a second run gave other tokens")
+    for run in runs:
+        if run["other_launches"]:
+            fail(f"{label}: other kernels launched {run['other_launches']}")
+        prefills = [r for r in run["log"] if r["kind"] == "prefill"]
+        decodes = [r for r in run["log"] if r["kind"] == "decode"]
+        if len(prefills) != len(prompts) or len(decodes) != LM_NEW_TOKENS - 1:
+            fail(f"{label}: {len(prefills)} prefills, {len(decodes)} decode "
+                 f"steps")
+        for r in prefills:
+            if r["k10"] != cfg.num_layers or r["k3"] != per_step:
+                fail(f"{label}: a prefill of {r['tokens']} tokens launched "
+                     f"K10 {r['k10']}, K3 {r['k3']} times")
+        for r in decodes:
+            if r["k10"] != 0 or r["k3"] != per_step:
+                fail(f"{label}: a decode step launched K10 {r['k10']}, K3 "
+                     f"{r['k3']} times")
+        want = {"K3": per_step * (len(prefills) + len(decodes)),
+                "K10": cfg.num_layers * len(prefills)}
+        if run["launches"] != want:
+            fail(f"{label}: launches {run['launches']}, expected {want}")
+    tokens = sum(len(t) for t in first["done"].values())
+    rec = {"arch": LM_ARCH, "params": n_params, "init_s": init_s,
+           "max_batch": LM_MAX_BATCH, "max_len": LM_MAX_LEN,
+           "prompts": list(LM_PROMPTS), "new_tokens": LM_NEW_TOKENS,
+           "tokens": {str(k): v for k, v in first["done"].items()},
+           "launches": first["launches"],
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "runs": [{"wall_s": r["wall_s"], "tokens_per_s":
+                     tokens / r["wall_s"], "log": r["log"]} for r in runs]}
+    rec["model"] = model
+    for i, r in enumerate(rec["runs"]):
+        pre = ", ".join(f"{x['tokens']}: {x['ms']:.1f}" for x in r["log"]
+                        if x["kind"] == "prefill")
+        dec = [x["ms"] for x in r["log"] if x["kind"] == "decode"]
+        print(f"LM serving run {i + 1}: prefill ms by prompt length {{{pre}}}"
+              f", decode step at {LM_MAX_BATCH} slots median "
+              f"{statistics.median(dec):.2f} ms, {r['tokens_per_s']:.1f} "
+              f"tokens/s over {r['wall_s']:.2f} s [{card}]", flush=True)
+    return rec
+
+
+def lm_profile(torch, model, card):
+    """Phase 7d: ``torch.profiler`` over one prefill of
+    ``LM_PROFILE_PROMPT`` tokens and three decode steps at
+    ``LM_MAX_BATCH`` active slots of the full model; returns, per window,
+    the wall time, the device time summed over kernels and copies, their
+    ratio (the device's busy share) and the largest device-time names."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    rng = np.random.default_rng(SEED)
+    eng = ServingEngine(model, max_batch=LM_MAX_BATCH, max_len=LM_MAX_LEN,
+                        seed=SEED)
+    prompt = rng.integers(0, model.cfg.vocab_size,
+                          LM_PROFILE_PROMPT).tolist()
+    for rid in range(LM_MAX_BATCH):
+        eng.submit(Request(rid, prompt, max_new_tokens=LM_NEW_TOKENS))
+    eng.step()  # warm: prefills and one decode step
+    windows = {
+        "prefill": lambda: eng._prefill_into_slot(
+            0, Request(9, prompt, max_new_tokens=LM_NEW_TOKENS)),
+        "decode_x3": lambda: [eng._decode_step() for _ in range(3)],
+    }
+    out = {}
+    for name, fn in windows.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        # device-side events only (kernels, copies): an operator's own
+        # entry would count its kernels' time a second time
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        dev = sum(r[1] for r in rows)
+        rows.sort(key=lambda r: -r[1])
+        out[name] = {"wall_ms": wall, "device_ms": dev,
+                     "busy_share": dev / wall if dev else None,
+                     "top": [{"name": k[:80], "ms": ms, "calls": n}
+                             for k, ms, n in rows[:10]]}
+        print(f"LM profile {name}: wall {wall:.2f} ms, device "
+              f"{dev:.2f} ms [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
+    global SEED
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", help="also write every case's numbers here")
     ap.add_argument("--ptxas", action="store_true",
                     help="print nvcc's register/shared-memory report")
+    ap.add_argument("--seed", type=int, default=SEED,
+                    help="seed of every weight and input (default 0)")
     args = ap.parse_args()
+    SEED = args.seed
 
     import torch
     import torch.nn.functional as F
@@ -574,6 +998,7 @@ def main() -> int:
     from repro_torch.core.netdefs import NETWORKS
     from repro_torch.core.plan import compile_plan, infer_param_shapes
     from repro_torch.kernels import _build
+    from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.kernels.conv2d import ops as conv_ops
     from repro_torch.kernels.matmul_fused import ops as mm_ops
     from repro_torch.kernels.pool2d import ops as pool_ops
@@ -723,7 +1148,17 @@ def main() -> int:
                             rng, dev, counters)
     print("serving " + json.dumps(serving), flush=True)
 
-    # -- 7. the kernels line ------------------------------------------------
+    # -- 7. the language model: gemma2-2b ------------------------------------
+    lm_cases = lm_kernel_cases(torch, F, dev, peaks)
+    lm_parity = lm_parity_phase(torch, np, dev)
+    lm = lm_serving_phase(torch, np, dev,
+                          dict(counters, K10=attn_ops.flash_attention),
+                          card_line)
+    lm["profile"] = lm_profile(torch, lm.pop("model"), card_line)
+    print("lm " + json.dumps({k: v for k, v in lm.items() if k != "runs"}),
+          flush=True)
+
+    # -- 8. the kernels line ------------------------------------------------
     kernels = []
     for kid, (name, src, replaces) in sources.items():
         mine = [c for c in cases if c["kernel"] == kid]
@@ -746,6 +1181,29 @@ def main() -> int:
             else "bytes",
             "library_ms": sum(c["library_ms"] for c in main),
         })
+    for kid, name, src, replaces in (
+            ("K10", "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/attention/kernel.py:116"),
+            ("K3-bf16", "matmul_fused_bf16",
+             "src/repro_torch/csrc/matmul_fused.cu",
+             "src/repro/kernels/matmul_fused/kernel.py:37")):
+        mine = [c for c in lm_cases if c["kernel"] == kid]
+        main = [c for c in mine if c["main"]]
+        fl = sum(c["flops"] for c in main)
+        by = sum(c["bytes"] for c in main)
+        peak = main[0]["peak"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces,
+            "launches": lm["launches"]["K10" if kid == "K10" else "K3"],
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "ms": sum(c["ms"] for c in main),
+            "plain_ms": sum(c["plain_ms"] for c in main),
+            "bound_ms": 1e3 * max(fl / peak, by / peaks[1]),
+            "bound_by": "operations" if fl / peak > by / peaks[1]
+            else "bytes",
+            "library_ms": sum(c["library_ms"] for c in main),
+        })
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} never launched on the main path")
@@ -755,7 +1213,8 @@ def main() -> int:
             {"card": card_line, "kind": kind, "torch": torch.__version__,
              "cuda": torch.version.cuda, "build_log": _build.build_log,
              "cases": cases, "engine": engine_rows, "tuned": tuned,
-             "serving": serving,
+             "serving": serving, "lm_cases": lm_cases,
+             "lm_parity": lm_parity, "lm": lm,
              "kernels": kernels}, indent=1))
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,8 +1,10 @@
 """Kernel-wide constants and the device rule of the port.
 
 ``ACC_DTYPE`` is the accumulation type of every kernel and plain version:
-operands are read as fp32, sums are fp32, and there is one cast at the
-store.  The CUDA kernels take fp32 tensors only.
+operands are read as fp32 (a bf16 operand is converted on load), sums
+are fp32, and there is one cast at the store, to the operands' type.  The
+CNN kernels (K1, K2, K4-K9) take fp32 tensors; K3 and K10 take fp32 or
+bf16, the same type for all their operands.
 """
 from __future__ import annotations
 
@@ -26,13 +28,23 @@ def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
     return torch.device(device)
 
 
-def check_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
-    """What every kernel wrapper requires of its CUDA inputs."""
-    dev = tensors[0].device
+def check_cuda(name: str, *tensors: torch.Tensor,
+               dtypes=(torch.float32, torch.bfloat16)) -> None:
+    """What every kernel wrapper requires of its CUDA inputs: one CUDA
+    device, contiguous, a type the kernel takes, the same for all."""
+    dev, dtype = tensors[0].device, tensors[0].dtype
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name}: all tensors must be on one CUDA device")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name}: the kernel takes {dtypes}, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: operands of one type, got {dtype} and "
+                            f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def check_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
+    """What the fp32-only kernel wrappers require of their CUDA inputs."""
+    check_cuda(name, *tensors, dtypes=(torch.float32,))

@@ -2,7 +2,8 @@
 ``csrc/matmul_fused.cu``): the port of ``repro.kernels.matmul_fused``.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
-(fp32 only) or raises.
+(x and w both fp32 or both bf16, read as they are; the bias fp32) or
+raises.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import check_cuda_f32
+from repro_torch.kernels.common import check_cuda
 from repro_torch.kernels.matmul_fused.ref import _ACTS, matmul_fused_ref
 
 ACT_CODES = {"none": 0, "relu": 1, "silu": 2, "gelu": 3}
@@ -19,12 +20,14 @@ COLS_PER_BLOCK = 512  # BN in csrc/matmul_fused.cu
 KCHUNK_MAX = 512      # KMAX in csrc/matmul_fused.cu
 BLOCKS_PER_SM = 4
 PARTIAL_SHARE = 0.1   # partial sums may add at most this share of w's bytes
+TILED_MIN_M = 64      # from this M on, the tiled path (no partials)
 
 
 def split_k(m: int, n: int, k: int, sms: int):
-    """``(splits, kchunk)`` for an ``[m, k] x [k, n]`` product on a card
-    with ``sms`` SMs: enough K slices for about ``BLOCKS_PER_SM`` blocks an
-    SM, no more than keeps the ``[splits, m, n]`` partials under
+    """``(splits, kchunk)`` of the weight-stream path (``m`` below
+    ``TILED_MIN_M``) for an ``[m, k] x [k, n]`` product on a card with
+    ``sms`` SMs: enough K slices for about ``BLOCKS_PER_SM`` blocks an SM,
+    no more than keeps the ``[splits, m, n]`` partials under
     ``PARTIAL_SHARE`` of the weights, and slices of at most
     ``KCHUNK_MAX`` rows (the kernel's shared-memory x slice)."""
     tiles = math.ceil(n / COLS_PER_BLOCK) * math.ceil(m / 16)
@@ -37,28 +40,39 @@ def split_k(m: int, n: int, k: int, sms: int):
 
 
 def _launch(x, w, b, act):
-    check_cuda_f32("matmul_fused", x, w, *(() if b is None else (b,)))
+    check_cuda("matmul_fused", x, w)
     m, k = x.shape
     n = w.shape[1]
-    if b is not None and b.shape != (n,):
-        raise ValueError(f"matmul_fused: bias shape {tuple(b.shape)} != ({n},)")
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits, kchunk = split_k(m, n, k, sms)
-    part = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    lib = _build.library()
-    rc = lib.matmul_fused_f32(
+    if b is not None:
+        check_cuda("matmul_fused bias", b, dtypes=(torch.float32,))
+        if b.shape != (n,) or b.device != x.device:
+            raise ValueError(f"matmul_fused: bias {tuple(b.shape)} on "
+                             f"{b.device}, expected ({n},) on {x.device}")
+    # from TILED_MIN_M rows on, ceil(m / 128) x ceil(n / 128) tiles and no
+    # partials; below, the weight stream
+    tiled = m >= TILED_MIN_M
+    splits, kchunk, part = 0, 0, None
+    if not tiled:
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        splits, kchunk = split_k(m, n, k, sms)
+        part = torch.empty((splits, m, n), dtype=torch.float32,
+                           device=x.device)
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    entry = ("matmul_fused_bf16" if x.dtype == torch.bfloat16
+             else "matmul_fused_f32")
+    rc = getattr(_build.library(), entry)(
         x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
-        part.data_ptr(), y.data_ptr(), m, n, k, splits, kchunk,
-        ACT_CODES[act], torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(rc, "matmul_fused_f32")
+        None if part is None else part.data_ptr(), y.data_ptr(), m, n, k,
+        int(tiled), splits, kchunk, ACT_CODES[act],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, entry)
     matmul_fused.launches += 1
     return y
 
 
 def matmul_fused(x, w, b=None, act: str = "none"):
     """y = act(x @ w + b).  Leading dims of x are flattened to M.  fp32
-    accumulation; the result has x's dtype."""
+    accumulation, bias and activation; one cast to x's dtype."""
     if act not in _ACTS:
         raise ValueError(f"unknown activation {act!r}")
     if x.shape[-1] != w.shape[0]:
@@ -69,7 +83,7 @@ def matmul_fused(x, w, b=None, act: str = "none"):
     if x2.device.type == "cpu":
         y = matmul_fused_ref(x2, w, b, act)
     elif x2.device.type == "cuda":
-        y = _launch(x2, w, b, act).to(x.dtype)
+        y = _launch(x2, w, b, act)
     else:
         raise ValueError(f"matmul_fused: unsupported device {x.device}")
     return y.reshape(*lead, w.shape[-1])

@@ -15,7 +15,9 @@ _ACTS = {
 
 
 def matmul_fused_ref(x, w, b=None, act: str = "none"):
-    """y = act(x @ w + b) with fp32 accumulation.  x: [M, K]; w: [K, N]."""
+    """y = act(x @ w + b) with fp32 accumulation.  x: [M, K]; w: [K, N].
+    A bf16 operand is upcast, the sums, bias and activation are fp32, and
+    the result is cast once to x's dtype."""
     y = x.to(ACC_DTYPE) @ w.to(ACC_DTYPE)
     if b is not None:
         y = y + b.to(ACC_DTYPE)

@@ -1,0 +1,201 @@
+"""Shared model plumbing — blocks, cache specs, the Model API and the
+weight converter: the port of ``repro.models.common``.
+
+The JAX package keeps a model's layers stacked on a leading axis and runs
+them under one ``lax.scan``; the port holds one ``ParamTree`` a layer
+unit in an ``nn.ModuleList`` and runs them in a Python loop.  Parameter
+*trees* keep the JAX layout (nested dicts, units stacked on a leading
+``[n_scan]`` axis), so a tree made by :func:`init_tree` or carried over
+from the JAX package by :func:`params_from_jax` loads into a model with
+``BaseModel.load_tree`` without a copy.  The KV cache stays stacked
+(``[n_scan, batch, S, kvh, hd]`` leaves) and the layers write into views
+of it in place.  The sharding annotations of the JAX package have no
+counterpart on one card.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.core.config import ModelConfig
+from repro_torch.nn.attention import attention_apply, attention_spec
+from repro_torch.nn.mlp import mlp_apply, mlp_spec
+from repro_torch.nn.norm import (layernorm_apply, layernorm_spec,
+                                 rmsnorm_apply, rmsnorm_spec)
+from repro_torch.nn.param import Param, init_tree, is_param, tree_map
+
+#: the batch axis of every cache leaf, [n_scan, batch, S, kvh, hd]
+CACHE_BATCH_AXIS = 1
+
+
+# ---------------------------------------------------------------------------
+# Norm dispatch
+# ---------------------------------------------------------------------------
+
+
+def norm_spec(cfg: ModelConfig, dim: int = 0) -> dict:
+    dim = dim or cfg.d_model
+    if cfg.norm_kind == "layernorm":
+        return layernorm_spec(dim)
+    return rmsnorm_spec(dim)
+
+
+def norm_apply(params, x, cfg: ModelConfig):
+    if cfg.norm_kind == "layernorm":
+        return layernorm_apply(params, x, cfg.norm_eps)
+    return rmsnorm_apply(params, x, cfg.norm_eps, plus_one=cfg.rms_plus_one)
+
+
+# ---------------------------------------------------------------------------
+# Standard pre-norm transformer block (dense)
+# ---------------------------------------------------------------------------
+
+
+def block_spec(cfg: ModelConfig) -> dict:
+    spec = {
+        "ln_attn": norm_spec(cfg),
+        "attn": attention_spec(cfg),
+        "ln_mlp": norm_spec(cfg),
+        "mlp": mlp_spec(cfg),
+    }
+    if cfg.post_block_norms:
+        spec["ln_attn_post"] = norm_spec(cfg)
+        spec["ln_mlp_post"] = norm_spec(cfg)
+    return spec
+
+
+def block_apply(params, x, cfg: ModelConfig, *, window: int = 0,
+                positions=None, mode: str = "full",
+                cache: Optional[dict] = None) -> torch.Tensor:
+    """The block's output; its k/v go into ``cache`` in place."""
+    h = norm_apply(params["ln_attn"], x, cfg)
+    a = attention_apply(params["attn"], h, cfg, window=window,
+                        positions=positions, mode=mode, cache=cache)
+    if cfg.post_block_norms:
+        a = norm_apply(params["ln_attn_post"], a, cfg)
+    x = x + a
+    h = norm_apply(params["ln_mlp"], x, cfg)
+    m = mlp_apply(params["mlp"], h, cfg)
+    if cfg.post_block_norms:
+        m = norm_apply(params["ln_mlp_post"], m, cfg)
+    return x + m
+
+
+# ---------------------------------------------------------------------------
+# KV-cache specs (as Param trees so the init machinery is reused)
+# ---------------------------------------------------------------------------
+
+
+def kv_cache_param(cfg: ModelConfig, batch: int, cache_len: int,
+                   stacked: int = 0, dtype: str = "bfloat16") -> dict:
+    if cfg.kv_quant:
+        raise NotImplementedError(
+            "the int8 KV cache is not ported yet (ROADMAP.md, item 10)")
+    shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
+    axes = ("batch", "kv_seq", "kv_heads", None)
+    if stacked:
+        shape = (stacked,) + shape
+        axes = ("layers",) + axes
+    return {
+        "k": Param(shape, axes, init="zeros", dtype=dtype),
+        "v": Param(shape, axes, init="zeros", dtype=dtype),
+    }
+
+
+def cache_index(cache, i: int):
+    """Layer ``i``'s views of a stacked cache tree."""
+    return None if cache is None else tree_map(lambda t: t[i], cache)
+
+
+def cache_slot(cache, i: int):
+    """Batch row ``i`` of every leaf (``CACHE_BATCH_AXIS``), as views of
+    width 1."""
+    return tree_map(lambda t: t.narrow(CACHE_BATCH_AXIS, i, 1), cache)
+
+
+# ---------------------------------------------------------------------------
+# Model API
+# ---------------------------------------------------------------------------
+
+
+class BaseModel(nn.Module):
+    """A model: its parameter spec, its parameters (on the meta device
+    until :meth:`init` or :meth:`load_tree`), forward / prefill / decode.
+    The model runs on the device its parameters lie on."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+
+    # -- parameters ----------------------------------------------------------
+    def param_spec(self) -> dict:
+        raise NotImplementedError
+
+    def load_tree(self, tree: dict) -> "BaseModel":
+        """Take a parameter tree in the JAX package's layout."""
+        raise NotImplementedError
+
+    def init(self, generator: torch.Generator) -> "BaseModel":
+        """Random parameters by the JAX package's init rules, drawn from
+        ``generator`` on its device."""
+        return self.load_tree(init_tree(self.param_spec(), generator,
+                                        self.cfg.param_dtype))
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    # -- compute -------------------------------------------------------------
+    def cache_spec(self, batch: int, cache_len: int, window: int = 0) -> dict:
+        raise NotImplementedError
+
+    def init_cache(self, batch: int, cache_len: int, window: int = 0,
+                   device=None) -> dict:
+        """A zero bf16 cache (the JAX package's default), on the model's
+        device unless ``device`` is given."""
+        dev = torch.device(device) if device is not None else self.device
+        return tree_map(
+            lambda p: torch.zeros(p.shape, dtype=torch.bfloat16, device=dev),
+            self.cache_spec(batch, cache_len, window))
+
+
+# ---------------------------------------------------------------------------
+# Weights from the JAX package
+# ---------------------------------------------------------------------------
+
+
+def _to_tensor(arr) -> torch.Tensor:
+    a = np.array(arr, copy=True, order="C")
+    if a.dtype.name == "bfloat16":  # ml_dtypes: exact, through the bits
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def params_from_jax(tree: dict, cfg: ModelConfig, device="cpu") -> dict:
+    """The JAX package's parameter tree for ``cfg`` (nested dicts of numpy
+    arrays, units stacked on a leading ``[n_scan]`` axis, gemma's units
+    ``{"local", "global"}``) as a tree of tensors on ``device`` that the
+    port's model of ``cfg`` loads with ``load_tree``.  bf16 leaves are
+    carried bit for bit; every leaf's shape is checked against the port's
+    spec."""
+    from repro_torch.models.registry import get_model
+
+    spec = get_model(cfg).param_spec()
+
+    def walk(s, t, path):
+        if is_param(s):
+            x = _to_tensor(t)
+            if tuple(x.shape) != tuple(s.shape):
+                raise ValueError(f"{path}: shape {tuple(x.shape)}, the port's "
+                                 f"spec has {tuple(s.shape)}")
+            return x.to(device)
+        if not isinstance(t, dict) or set(t) != set(s):
+            got = sorted(t) if isinstance(t, dict) else type(t).__name__
+            raise ValueError(f"{path}: keys {got}, expected {sorted(s)}")
+        return {k: walk(s[k], t[k], f"{path}/{k}") for k in sorted(s)}
+
+    return walk(spec, tree, "params")
+

@@ -1,0 +1,136 @@
+"""Decoder-only transformer LM, dense: the port of
+``repro.models.transformer``.
+
+Covers internlm2 / qwen1.5 / starcoder2 (uniform layers) and gemma2
+(alternating local/global attention, softcaps, post-block norms), whose
+layer unit is a (local, global) *pair*.  The MoE variant is not ported
+yet (ROADMAP.md, item 10).
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.core.config import ModelConfig
+from repro_torch.models.common import (BaseModel, block_apply, block_spec,
+                                       cache_index, kv_cache_param,
+                                       norm_apply, norm_spec)
+from repro_torch.nn.embedding import embed_tokens, embedding_spec, lm_logits
+from repro_torch.nn.param import ParamTree, stack_spec
+
+
+class TransformerLM(BaseModel):
+    """Dense decoder-only LM: ``embed``, ``layers`` (an ``nn.ModuleList``
+    of ``n_scan`` units) and ``ln_f``."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__(cfg)
+        if cfg.moe is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: the MoE transformer is not ported yet "
+                f"(ROADMAP.md, item 10)")
+        self.pair = cfg.local_global_interval == 2
+        assert cfg.local_global_interval in (0, 2), "only k=2 alternation"
+        if self.pair:
+            assert cfg.num_layers % 2 == 0
+        self.n_scan = cfg.num_layers // (2 if self.pair else 1)
+        dt = cfg.param_dtype
+        spec = self.param_spec()
+        self.embed = ParamTree(spec["embed"], dt)
+        self.layers = nn.ModuleList(ParamTree(self._unit_spec(), dt)
+                                    for _ in range(self.n_scan))
+        self.ln_f = ParamTree(spec["ln_f"], dt)
+
+    # -- params ---------------------------------------------------------------
+    def _unit_spec(self) -> dict:
+        if self.pair:
+            return {"local": block_spec(self.cfg),
+                    "global": block_spec(self.cfg)}
+        return block_spec(self.cfg)
+
+    def param_spec(self) -> dict:
+        return {
+            "embed": embedding_spec(self.cfg),
+            "layers": stack_spec(self._unit_spec(), self.n_scan),
+            "ln_f": norm_spec(self.cfg),
+        }
+
+    def load_tree(self, tree: dict) -> "TransformerLM":
+        self.embed.load(tree["embed"])
+        for i, unit in enumerate(self.layers):
+            unit.load(tree["layers"], i)
+        self.ln_f.load(tree["ln_f"])
+        return self
+
+    # -- windows --------------------------------------------------------------
+    def _windows(self, window_override: int) -> Tuple[int, int]:
+        """(local_window, global_window) per unit."""
+        cfg = self.cfg
+        if self.pair:
+            return cfg.sliding_window, window_override
+        return cfg.sliding_window or window_override, 0
+
+    def _layers(self, x, positions, mode, cache, lw, gw):
+        for i, unit in enumerate(self.layers):
+            c_i = cache_index(cache, i)
+            if self.pair:
+                x = block_apply(
+                    unit["local"], x, self.cfg, window=lw, positions=positions,
+                    mode=mode, cache=None if c_i is None else c_i["local"])
+                x = block_apply(
+                    unit["global"], x, self.cfg, window=gw,
+                    positions=positions, mode=mode,
+                    cache=None if c_i is None else c_i["global"])
+            else:
+                x = block_apply(unit, x, self.cfg, window=lw,
+                                positions=positions, mode=mode, cache=c_i)
+        return norm_apply(self.ln_f, x, self.cfg)
+
+    # -- forward (prefill) ------------------------------------------------------
+    def forward(self, batch: dict, mode: str = "train", *,
+                window_override: int = 0, cache=None):
+        """batch: {"tokens": [b, s], "positions": optional [b, s]} ->
+        (fp32 logits [b, s, V] at every position, aux), or with ``cache``
+        (logits, cache, aux): the prompt's k/v written into ``cache`` in
+        place."""
+        tokens = batch["tokens"]
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(tokens.shape[1],
+                                     device=tokens.device)[None, :]
+        x = embed_tokens(self.embed, tokens, self.cfg,
+                         scale_by_dim=self.cfg.rms_plus_one)
+        lw, gw = self._windows(window_override)
+        x = self._layers(x, positions, "full", cache, lw, gw)
+        logits = lm_logits(self.embed, x, self.cfg)
+        if cache is not None:
+            return logits, cache, {}
+        return logits, {}
+
+    # -- caches ----------------------------------------------------------------
+    def cache_spec(self, batch: int, cache_len: int, window: int = 0) -> dict:
+        lw, gw = self._windows(window)
+
+        def clen(w):
+            return min(cache_len, w) if w > 0 else cache_len
+
+        if self.pair:
+            return {
+                "local": kv_cache_param(self.cfg, batch, clen(lw),
+                                        stacked=self.n_scan),
+                "global": kv_cache_param(self.cfg, batch, clen(gw),
+                                         stacked=self.n_scan),
+            }
+        return kv_cache_param(self.cfg, batch, clen(lw), stacked=self.n_scan)
+
+    # -- decode ------------------------------------------------------------------
+    def decode_step(self, tokens, positions, cache, *, window: int = 0):
+        """tokens [b, 1], positions [b] -> (logits [b, 1, V], cache), the
+        new k/v written into ``cache`` in place."""
+        x = embed_tokens(self.embed, tokens, self.cfg,
+                         scale_by_dim=self.cfg.rms_plus_one)
+        lw, gw = self._windows(window)
+        x = self._layers(x, positions, "decode", cache, lw, gw)
+        return lm_logits(self.embed, x, self.cfg), cache

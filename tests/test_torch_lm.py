@@ -1,0 +1,481 @@
+"""The port's language-model stack (``repro_torch.core.config``,
+``configs``, ``nn``, ``models``, ``serving.engine``) against the JAX
+package, on the CPU, with the same weights carried across by
+``params_from_jax``.
+
+The JAX side runs its jnp paths (``use_pallas=False``: ``dense`` as
+einsum, ``chunked_attention``), never Pallas (ROADMAP.md §3, R1).  The
+two packages' PRNGs differ, so weights and inputs come from the JAX
+package's init or from numpy, never from a shared seed.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import config as jconfig
+from repro.kernels.matmul_fused.ref import matmul_fused_ref as jax_mm_ref
+from repro.models import registry as jregistry
+from repro.nn import embedding as jemb
+from repro.nn import norm as jnorm
+from repro.nn import rope as jrope
+from repro.serving import engine as jengine
+from repro_torch.core import config as tconfig
+from repro_torch.kernels.matmul_fused.ops import (TILED_MIN_M, matmul_fused,
+                                                  split_k)
+from repro_torch.models import registry as tregistry
+from repro_torch.models.common import CACHE_BATCH_AXIS, params_from_jax
+from repro_torch.nn import embedding as temb
+from repro_torch.nn import norm as tnorm
+from repro_torch.nn import rope as trope
+from repro_torch.nn.param import Param, init_tree, tree_leaves
+from repro_torch.nn.sampling import sample
+from repro_torch.serving import engine as tengine
+from repro_torch.serving.engine import Request, ServingEngine
+
+ARCHS = ["gemma2-2b", "internlm2-20b"]
+
+
+def _cfgs(arch, dtype="float32"):
+    j = dataclasses.replace(jconfig.get_arch(arch).reduced(), dtype=dtype,
+                            param_dtype=dtype)
+    t = dataclasses.replace(tconfig.get_arch(arch).reduced(), dtype=dtype,
+                            param_dtype=dtype)
+    return j, t
+
+
+_MODELS = {}
+
+
+def _models(arch, dtype="float32"):
+    """(JAX model, JAX params, port model) with the same weights: the JAX
+    package's init, carried over by ``params_from_jax``."""
+    key = (arch, dtype)
+    if key not in _MODELS:
+        jcfg, tcfg = _cfgs(arch, dtype)
+        jm = jregistry.get_model(jcfg)
+        jp = jm.init(jax.random.PRNGKey(0))
+        tm = tregistry.get_model(tcfg)
+        tm.load_tree(params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
+                                     tcfg))
+        _MODELS[key] = (jm, jp, tm)
+    return _MODELS[key]
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _close(ours, ref, tol):
+    """max |ours - ref| <= tol * max(1, max |ref|)."""
+    a, b = _f32(ours), _f32(ref)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    err, top = float(np.abs(a - b).max()), float(np.abs(b).max())
+    assert err <= tol * max(1.0, top), (err, top)
+
+
+#: relative to max(1, max|ref|).  float32: the same fp32 arithmetic in
+#: another order (K3's plain version against XLA's einsum, K10's against
+#: the chunked scan) — 1e-4 on the logits.  The caches and the decode
+#: logits read a bf16 cache (the JAX default at every param dtype): a k or
+#: v that differs in its last fp32 bits may round to the neighbouring bf16
+#: value, one ulp (2^-7 relative) of that element — the caches are held
+#: to 2^-7, the decode logits to 2e-3.  bfloat16 params: every activation
+#: is rounded to bf16 (2^-8) some ten times a block, at places the two
+#: packages choose differently (JAX applies dense's activation after its
+#: bf16 cast, K3 before; JAX's chunked attention casts p to bf16, K10
+#: does not) — 2^-4 on the logits, 2^-5 on the caches.
+TOL = {"float32": {"logits": 1e-4, "cache": 2.0 ** -7, "decode": 2e-3},
+       "bfloat16": {"logits": 2.0 ** -4, "cache": 2.0 ** -5,
+                    "decode": 2.0 ** -4}}
+
+
+# -- configs ------------------------------------------------------------------
+
+
+def test_config_registry_matches_jax():
+    assert tconfig.list_archs() == jconfig.list_archs()
+
+
+@pytest.mark.parametrize("arch", jconfig.list_archs())
+def test_configs_match_jax(arch):
+    j, t = jconfig.get_arch(arch), tconfig.get_arch(arch)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert dataclasses.asdict(t.reduced()) == dataclasses.asdict(j.reduced())
+    assert t.padded_vocab == j.padded_vocab
+
+
+@pytest.mark.parametrize("arch", jconfig.list_archs())
+def test_get_model_dense_only(arch):
+    """Dense archs build (with JAX's parameter count); every other family
+    raises and names the ROADMAP item."""
+    cfg = tconfig.get_arch(arch)
+    if cfg.family == "dense" and cfg.moe is None:
+        assert cfg.num_params() == jregistry.analytic_param_count(
+            jconfig.get_arch(arch))
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tregistry.get_model(cfg)
+
+
+def test_gemma2_full_width_shape():
+    cfg = tconfig.get_arch("gemma2-2b")
+    m = tregistry.get_model(cfg)
+    assert (m.n_scan, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab_size) == (
+                13, 2304, 8, 4, 256, 9216, 256000)
+    assert len(m.layers) == 13 and set(m.layers[0]._modules) == {
+        "local", "global"}
+    assert all(p.device.type == "meta" for p in m.parameters())
+    assert 2.6e9 < cfg.num_params() < 2.7e9
+    # the JAX cache spec, [n_scan, batch, S, kvh, hd], bf16
+    spec = m.cache_spec(4, 8192)
+    assert spec["local"]["k"].shape == (13, 4, 4096, 4, 256)
+    assert spec["global"]["k"].shape == (13, 4, 8192, 4, 256)
+    assert CACHE_BATCH_AXIS == 1
+
+
+# -- parameters ---------------------------------------------------------------
+
+
+def test_init_tree_rules():
+    """normal / embed / fan_in (2-D: rows; 3-D: the middle axis, the stack
+    axis not counting) / zeros / ones, in the spec's dtype."""
+    spec = {"a": Param((400, 300), ("x", "y"), init="fan_in"),
+            "b": Param((5, 100, 300), ("l", "x", "y"), init="fan_in",
+                       scale=2.0),
+            "c": Param((200, 100), ("x", "y"), init="normal", scale=0.5),
+            "e": Param((300, 64), ("x", "y"), init="embed", scale=0.02,
+                       dtype="float32"),
+            "o": Param((7,), ("x",), init="ones"),
+            "z": Param((7,), ("x",), init="zeros", dtype="float32")}
+    t = init_tree(spec, torch.Generator().manual_seed(0), "bfloat16")
+    assert t["a"].dtype == torch.bfloat16 and t["e"].dtype == torch.float32
+    for name, std in (("a", 400 ** -0.5), ("b", 2 * 100 ** -0.5),
+                      ("c", 0.5), ("e", 0.02)):
+        assert abs(t[name].float().std().item() / std - 1) < 0.05, name
+    assert torch.equal(t["o"], torch.ones(7, dtype=torch.bfloat16))
+    assert torch.equal(t["z"], torch.zeros(7))
+    again = init_tree(spec, torch.Generator().manual_seed(0), "bfloat16")
+    assert all(torch.equal(x, y) for x, y in
+               zip(tree_leaves(t), tree_leaves(again)))
+
+
+def test_params_from_jax_is_bit_exact_for_bf16():
+    """bf16 leaves cross through their bits (ml_dtypes -> uint16 ->
+    torch.bfloat16) and come back unchanged."""
+    jm, jp, tm = _models("gemma2-2b", "bfloat16")
+    jl = jax.tree_util.tree_leaves(jp)
+    tl = tree_leaves(params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
+                                     tm.cfg))
+    assert len(jl) == len(tl) and any(x.dtype == jnp.bfloat16 for x in jl)
+    for a, b in zip(jl, tl):
+        a = np.asarray(a)
+        if a.dtype == jnp.bfloat16:
+            assert b.dtype == torch.bfloat16
+            assert np.array_equal(a.view(np.uint16),
+                                  b.view(torch.int16).numpy().view(np.uint16))
+            back = np.asarray(b.view(torch.int16).numpy()).view(jnp.bfloat16)
+            assert np.array_equal(back.view(np.uint16), a.view(np.uint16))
+        else:
+            assert np.array_equal(a, b.numpy())
+    # the model's parameters are those tensors, per layer unit
+    w = tm.layers[0]["global"]["attn"]["wq"]["w"]
+    assert np.array_equal(
+        np.asarray(jp["layers"]["global"]["attn"]["wq"]["w"][0]).view(
+            np.uint16), w.view(torch.int16).numpy().view(np.uint16))
+
+
+def test_params_from_jax_checks_the_tree():
+    jm, jp, tm = _models("internlm2-20b")
+    tree = jax.tree_util.tree_map(np.asarray, jp)
+    bad = dict(tree, ln_f={"scale": np.ones(3, np.float32)})
+    with pytest.raises(ValueError, match="shape"):
+        params_from_jax(bad, tm.cfg)
+    with pytest.raises(ValueError, match="keys"):
+        params_from_jax(dict(tree, extra={}), tm.cfg)
+
+
+# -- layers -------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("plus_one", [False, True])
+def test_norms_match_jax(plus_one):
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 5, 64)).astype(np.float32)
+    w = rng.standard_normal(64).astype(np.float32)
+    bias = rng.standard_normal(64).astype(np.float32)
+    for dt, jdt, tol in ((torch.float32, jnp.float32, 1e-6),
+                         (torch.bfloat16, jnp.bfloat16, 2.0 ** -7)):
+        tx, jx = torch.from_numpy(x).to(dt), jnp.asarray(x, jdt)
+        _close(tnorm.rmsnorm_apply({"scale": torch.from_numpy(w)}, tx,
+                                   plus_one=plus_one),
+               jnorm.rmsnorm_apply({"scale": jnp.asarray(w)}, jx,
+                                   plus_one=plus_one), tol)
+        p = {"scale": w, "bias": bias}
+        _close(tnorm.layernorm_apply(
+            {k: torch.from_numpy(v) for k, v in p.items()}, tx),
+            jnorm.layernorm_apply({k: jnp.asarray(v) for k, v in p.items()},
+                                  jx), tol)
+
+
+def test_rope_matches_jax():
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 9, 4, 64)).astype(np.float32)
+    pos = np.arange(100, 109)[None, :]
+    for theta in (10000.0, 1e6):
+        _close(trope.apply_rope(torch.from_numpy(x), torch.from_numpy(pos),
+                                theta),
+               jrope.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta),
+               1e-5)
+
+
+def test_embedding_and_logits_match_jax():
+    jcfg, tcfg = _cfgs("gemma2-2b")
+    jcfg = dataclasses.replace(jcfg, vocab_size=500)  # a padded vocab
+    tcfg = dataclasses.replace(tcfg, vocab_size=500)
+    rng = np.random.default_rng(2)
+    tok = rng.standard_normal((tcfg.padded_vocab, 256)).astype(np.float32)
+    ids = rng.integers(0, 500, (2, 7))
+    x = temb.embed_tokens({"tok": torch.from_numpy(tok)},
+                          torch.from_numpy(ids), tcfg, scale_by_dim=True)
+    jx = jemb.embed_tokens({"tok": jnp.asarray(tok)}, jnp.asarray(ids), jcfg,
+                           scale_by_dim=True)
+    _close(x, jx, 0.0)
+    lg = temb.lm_logits({"tok": torch.from_numpy(tok)}, x, tcfg)
+    jlg = jemb.lm_logits({"tok": jnp.asarray(tok)}, jx, jcfg)
+    assert lg.dtype == torch.float32 and lg.shape == (2, 7, 512)
+    assert torch.all(lg[..., 500:] == -1e30)
+    _close(lg, jlg, 1e-5)
+
+
+@pytest.mark.parametrize("act", ["none", "gelu", "silu"])
+@pytest.mark.parametrize("m", [4, 70])
+def test_k3_plain_version_takes_bf16(act, m):
+    """K3's plain version on bf16 operands: upcast, fp32 sums, bias and
+    activation, one cast to bf16 — JAX's ``matmul_fused_ref`` does the
+    same, so both give one rounding of the same fp32 result."""
+    rng = np.random.default_rng(m)
+    x = rng.standard_normal((m, 96)).astype(np.float32)
+    w = (rng.standard_normal((96, 40)) / 10).astype(np.float32)
+    b = rng.standard_normal(40).astype(np.float32)
+    ours = matmul_fused(torch.from_numpy(x).bfloat16(),
+                        torch.from_numpy(w).bfloat16(), torch.from_numpy(b),
+                        act)
+    assert ours.dtype == torch.bfloat16
+    ref = jax_mm_ref(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16),
+                     jnp.asarray(b), act)
+    _close(ours, ref, 2.0 ** -7)
+
+
+@pytest.mark.parametrize("m,path", [(1, "stream"), (4, "stream"),
+                                    (16, "stream"), (63, "stream"),
+                                    (64, "tiled"), (300, "tiled"),
+                                    (4500, "tiled")])
+def test_k3_paths_at_lm_shapes(m, path):
+    """A decode step (M = 4) and short prompts stream the weights with
+    partial sums small beside them; a prefill of 64 tokens and more takes
+    the tiled path, with no partials at all."""
+    assert (m >= TILED_MIN_M) == (path == "tiled")
+    if path == "tiled":
+        return
+    for k, n in ((2304, 2048), (2304, 1024), (2048, 2304), (2304, 9216),
+                 (9216, 2304)):
+        splits, kchunk = split_k(m, n, k, 132)
+        assert 1 <= kchunk <= 512
+        assert (splits - 1) * kchunk < k <= splits * kchunk
+        # the fp32 partials stay below the bf16 weights they sum
+        assert splits * m * n * 4 <= k * n * 2
+        if m <= 16:
+            assert splits * m * n * 4 <= 0.2 * k * n * 2
+
+
+# -- models -------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_and_decode_match_jax(arch, dtype):
+    """Prefill logits at every position and the caches written, then one
+    ``decode_step`` per request at per-request positions — past the local
+    layers' 64-slot ring buffer for gemma2."""
+    jm, jp, tm = _models(arch, dtype)
+    tol = TOL[dtype]
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, tm.cfg.vocab_size, (2, 80))
+    jc = jm.init_cache(2, 96)
+    jl, jc, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)},
+                           mode="prefill", cache=jc)
+    tc = tm.init_cache(2, 96)
+    with torch.no_grad():
+        tl, tc, _ = tm({"tokens": torch.from_numpy(toks)}, mode="prefill",
+                       cache=tc)
+    assert tl.dtype == torch.float32 and tl.shape == (2, 80, 512)
+    _close(tl, jl, tol["logits"])
+    for a, b in zip(tree_leaves(tc), jax.tree_util.tree_leaves(jc)):
+        assert a.dtype == torch.bfloat16
+        _close(a, b, tol["cache"])
+    nxt = rng.integers(0, tm.cfg.vocab_size, (2, 1))
+    pos = np.array([80, 80], np.int32)
+    jl2, jc = jm.decode_step(jp, jnp.asarray(nxt), jnp.asarray(pos), jc)
+    with torch.no_grad():
+        tl2, tc = tm.decode_step(torch.from_numpy(nxt),
+                                 torch.from_numpy(pos), tc)
+    _close(tl2, jl2, tol["decode"])
+    for a, b in zip(tree_leaves(tc), jax.tree_util.tree_leaves(jc)):
+        _close(a, b, tol["cache"])
+
+
+def test_forward_without_cache_matches_jax():
+    jm, jp, tm = _models("gemma2-2b")
+    toks = np.random.default_rng(4).integers(0, 512, (1, 33))
+    jl, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)}, mode="prefill")
+    with torch.no_grad():
+        tl, aux = tm({"tokens": torch.from_numpy(toks)}, mode="prefill")
+    _close(tl, jl, TOL["float32"]["logits"])
+
+
+# -- serving ------------------------------------------------------------------
+
+
+def _requests(vocab, n, seed=5, temperature=0.0):
+    rng = np.random.default_rng(seed)
+    return [Request(rid, rng.integers(0, vocab, int(rng.integers(3, 20))
+                                      ).tolist(),
+                    max_new_tokens=int(rng.integers(2, 9)),
+                    temperature=temperature) for rid in range(n)]
+
+
+def _serve(engine_cls, model, params, reqs, **kw):
+    eng = engine_cls(model, params, max_batch=2, max_len=64, **kw)
+    for r in reqs:
+        eng.submit(dataclasses.replace(r))
+    return eng.run_until_drained()
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serving_matches_jax_greedy(arch):
+    """More requests than slots, float32 params (as
+    ``tests/test_train_serve.py``): the port's engine gives the JAX
+    engine's token lists."""
+    jm, jp, tm = _models(arch)
+    reqs = _requests(tm.cfg.vocab_size, 5)
+    ours = _serve(ServingEngine, tm, None, reqs, device="cpu")
+    theirs = _serve(jengine.ServingEngine, jm, jp, reqs)
+    assert sorted(ours) == list(range(5))
+    assert ours == theirs
+
+
+def test_serving_matches_manual_greedy_decode():
+    _, _, tm = _models("internlm2-20b")
+    prompt, n_new = [3, 1, 4, 1, 5], 6
+    cache = tm.init_cache(1, 64)
+    with torch.no_grad():
+        logits, cache, _ = tm({"tokens": torch.tensor([prompt])},
+                              mode="prefill", cache=cache)
+        manual = [int(torch.argmax(logits[0, -1]))]
+        for i in range(n_new - 1):
+            lg, cache = tm.decode_step(torch.tensor([[manual[-1]]]),
+                                       torch.tensor([len(prompt) + i]), cache)
+            manual.append(int(torch.argmax(lg[0, 0])))
+    done = _serve(ServingEngine, tm, None,
+                  [Request(0, prompt, max_new_tokens=n_new)], device="cpu")
+    assert done[0] == manual
+
+
+def test_oversized_prompt_rejected():
+    """The JAX engine's admission rule: a prompt needs one free KV row
+    past it (``tests/test_serving_sampling.py``)."""
+    _, _, tm = _models("gemma2-2b")
+    eng = ServingEngine(tm, max_batch=2, max_len=8, device="cpu")
+    with pytest.raises(ValueError, match="max_len"):
+        eng.submit(Request(0, list(range(8)), max_new_tokens=1))
+    with pytest.raises(ValueError, match="max_len"):
+        eng._prefill_into_slot(0, Request(1, list(range(9)),
+                                          max_new_tokens=1))
+    eng.submit(Request(2, list(range(7)), max_new_tokens=1))
+    done = eng.run_until_drained()
+    assert 2 in done and len(done[2]) >= 1
+
+
+def test_prefill_writes_only_its_slot():
+    """The slot's batch row of every cache leaf is indexed explicitly:
+    prefilling slot 1 leaves slot 0's rows as they were."""
+    _, _, tm = _models("gemma2-2b")
+    eng = ServingEngine(tm, max_batch=3, max_len=32, device="cpu")
+    eng._prefill_into_slot(0, Request(0, [1, 2, 3], max_new_tokens=2))
+    before = [t.narrow(CACHE_BATCH_AXIS, 0, 1).clone()
+              for t in tree_leaves(eng.cache)]
+    eng._prefill_into_slot(1, Request(1, [4, 5, 6, 7], max_new_tokens=2))
+    after = tree_leaves(eng.cache)
+    for b, a in zip(before, after):
+        assert torch.equal(b, a.narrow(CACHE_BATCH_AXIS, 0, 1))
+        assert a.narrow(CACHE_BATCH_AXIS, 1, 1).abs().sum() > 0
+        assert torch.all(a.narrow(CACHE_BATCH_AXIS, 2, 1) == 0)
+
+
+def test_temperature_zero_is_deterministic():
+    """Greedy requests do not depend on the engine's seed."""
+    _, _, tm = _models("gemma2-2b")
+    reqs = [Request(0, [3, 1, 4], max_new_tokens=5)]
+    assert (_serve(ServingEngine, tm, None, reqs, seed=0, device="cpu")
+            == _serve(ServingEngine, tm, None, reqs, seed=123, device="cpu"))
+
+
+def test_sampling_is_repeatable_for_a_seed(monkeypatch):
+    """Sampled requests repeat for a seed, use their own temperatures and
+    draw once per generated token.  (They cannot equal the JAX engine's
+    tokens: ``jax.random`` and ``torch.Generator`` give different numbers
+    for the same seed.)"""
+    _, _, tm = _models("gemma2-2b")
+    reqs = [Request(0, [3, 1, 4], max_new_tokens=4, temperature=0.7),
+            Request(1, [2, 7, 1], max_new_tokens=4, temperature=1.3)]
+    a = _serve(ServingEngine, tm, None, reqs, seed=0, device="cpu")
+    b = _serve(ServingEngine, tm, None, reqs, seed=0, device="cpu")
+    assert a == b and sorted(a) == [0, 1]
+    calls = []
+    real = tengine.sample
+
+    def spy(logits, generator, temperature=0.0, top_k=0):
+        calls.append(temperature)
+        return real(logits, generator, temperature=temperature, top_k=top_k)
+
+    monkeypatch.setattr(tengine, "sample", spy)
+    assert _serve(ServingEngine, tm, None, reqs, seed=0, device="cpu") == a
+    assert sorted(set(calls)) == [0.7, 1.3] and len(calls) == 8
+    many = {tuple(_serve(ServingEngine, tm, None, reqs[:1], seed=s,
+                         device="cpu")[0]) for s in range(6)}
+    assert len(many) > 1  # the seed matters at temperature > 0
+
+
+def test_greedy_request_never_samples(monkeypatch):
+    _, _, tm = _models("gemma2-2b")
+
+    def boom(*a, **kw):  # pragma: no cover - failure path
+        raise AssertionError("greedy request must not hit the sampler")
+
+    monkeypatch.setattr(tengine, "sample", boom)
+    done = _serve(ServingEngine, tm, None,
+                  [Request(0, [1, 2, 3], max_new_tokens=4)], device="cpu")
+    assert len(done[0]) == 4
+
+
+def test_sample_top_k_keeps_the_top():
+    logits = torch.tensor([[0.0, 5.0, 4.0, -1.0, 4.5]])
+    g = torch.Generator().manual_seed(0)
+    draws = {int(sample(logits, g, temperature=2.0, top_k=2)[0])
+             for _ in range(200)}
+    assert draws == {1, 4}
+    assert int(sample(logits, g)[0]) == 1
+
+
+def test_engine_runs_on_cuda_unless_told(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, _, tm = _models("gemma2-2b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(tm, max_batch=1, max_len=8)
