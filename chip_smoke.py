@@ -67,8 +67,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
       within ``rtol * |plain| + atol`` (``LM_KERNEL_TOL``);
    b. CPU parity: the model with its depth cut to one local/global pair,
       float32, random weights from ``--seed`` on the card and the same on
-      the CPU; a 64-token prompt prefilled and 8 greedy tokens decoded on
-      both must agree (``LM_TOL``) and give the same tokens;
+      the CPU; a 64-token prompt prefilled (K10 once a layer on the card)
+      and 8 greedy tokens decoded on
+      both must agree (``LM_TOL``) and give the same tokens, and the
+      final bf16 KV caches must agree within one rounding
+      (``LM_CACHE_TOL``);
    c. the full model: 26 layers in bf16 with a bf16 KV cache, weights
       drawn on the card from ``--seed``, ``ServingEngine(max_batch=4,
       max_len=8192)`` serving four greedy requests of ``LM_PROMPTS``
@@ -80,15 +83,39 @@ Phases, each of which fails the run (non-zero exit, no result line):
    d. ``torch.profiler`` over one prefill of 1500 tokens and three decode
       steps of the full model: device time by kernel and the device's busy
       share;
-8. prints one JSON line ``{"kernels": [...]}``: per kernel, ``launches``
+8. rwkv6-1.6b at full width (the same engine over ``RWKV6LM``), its wall
+   time printed:
+   a. kernel cases at its shapes, held, repeated and timed as in 7a: K11
+      (the WKV6 chunked scan; b 1, 32 heads of 64, chunks of 64) in bf16 at
+      16, 300, 1500 and 4500 tokens, with strong decays at 4500 (finite),
+      in fp32 at 4500, o and the final state each element within
+      ``LM_KERNEL_TOL``; a state hand-off (two calls over the halves of
+      1500 tokens against one over the whole); K3 in bf16 at the three
+      projection shapes for the M of 7a (4, 16, 300, 1500 and 4500);
+   b. CPU parity as 7b: two layers in float32, the leaves the init rules
+      leave at zero redrawn (``repro_torch.nn.rwkv.RWKV_REDRAW``), a
+      100-token prompt (two
+      chunks) prefilled with K11 once a layer and 8 greedy tokens decoded;
+      logits (``LM_TOL``), tokens and final states (``LM_CACHE_TOL``) must
+      agree with the CPU;
+   c. the full model: 24 layers in bf16, an fp32 state cache, the same
+      redraw, served as in 7c; every prefill must launch K11 24 times and
+      K3 192 times (8 per layer), every decode step K3 192 times and no
+      K11, nothing may launch K10, a second run must repeat the tokens;
+      then the profile of 7d (device ms of K3, K11 and the rest);
+   d. the launcher ``repro_torch.launch.serve.main(["--arch",
+      "rwkv6-1.6b"])`` on the card: a token list for every request, K11
+      once a layer in every prefill;
+9. prints one JSON line ``{"kernels": [...]}``: per kernel, ``launches``
    is its count summed over the AlexNet forwards of phase 4 (K1-K3,
    K7-K9) or phase 5 (K4-K6), or over the first LM serving run of phase
-   7c (K10, and K3's bf16 launches as ``matmul_fused_bf16``), each
-   counted from 0; the times and bound are summed over its distinct
-   AlexNet batch-16 shapes on that path (K10: the bf16 4500-token cases
-   with cap 50; K3 bf16: its cases at M = 4 and 4500); the error is the
-   largest over every case;
-9. prints ``{"ok": true, "device": {...}}`` as its last line.
+   7c (K10, and K3's bf16 launches as ``matmul_fused_bf16``) or of phase
+   8c (K11, as ``wkv6``), each counted from 0; the times and bound are
+   summed over its distinct AlexNet batch-16 shapes on that path (K10: the
+   bf16 4500-token cases with cap 50; K3 bf16: its phase-7a cases at
+   M = 4 and 4500; K11: its bf16 4500-token case, which no library call computes);
+   the error is the largest over every case;
+10. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Run it from the repository root; it needs one CUDA device and the CUDA
 toolkit, and imports nothing of the JAX package.
@@ -656,13 +683,58 @@ def _check_close(label, out, ref, tol, rtol=0.0):
     return err
 
 
+def k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks, main):
+    """K3 on bf16 operands at one projection shape, held against its plain
+    version element by element, repeated bit for bit and timed beside
+    ``torch.matmul`` (+ the activation); returns the record."""
+    from repro_torch.kernels.matmul_fused.ops import matmul_fused
+    from repro_torch.kernels.matmul_fused.ref import matmul_fused_ref
+
+    _, bw_peak, bf16_peak = peaks
+    x = torch.randn((m, kk), generator=gen, device=dev).bfloat16()
+    w = (torch.randn((kk, n), generator=gen, device=dev) / kk ** 0.5
+         ).bfloat16()
+    kernel = lambda: matmul_fused(x, w, None, act)  # noqa: E731
+    plain = lambda: matmul_fused_ref(x, w, None, act)  # noqa: E731
+
+    def library():
+        y = torch.matmul(x, w)
+        if act == "gelu":
+            return F.gelu(y, approximate="tanh")
+        return F.relu(y) if act == "relu" else y
+
+    ref = plain()
+    out = kernel()
+    torch.cuda.synchronize()
+    rtol, atol = LM_KERNEL_TOL["bfloat16"]
+    label = f"K3 bf16 M={m} {kk}->{n} {act}"
+    err = _check_close(label, out, ref, atol, rtol)
+    if out.dtype != torch.bfloat16:
+        fail(f"{label}: output {out.dtype}")
+    if not torch.equal(kernel(), out):
+        fail(f"{label}: a repeated launch differs")
+    lib_err = (library().float() - ref.float()).abs().max().item()
+    flops = 2.0 * m * kk * n
+    nbytes = 2.0 * (m * kk + kk * n + m * n)
+    r = {"kernel": "K3-bf16", "rows": m, "k": kk, "n": n, "act": act,
+         "max_abs_err": err, "tol": {"rtol": rtol, "atol": atol},
+         "library_max_abs_err": lib_err,
+         "library_note": f"torch.matmul in bf16 (+ {act})",
+         "ms": time_ms(torch, kernel), "plain_ms": time_ms(torch, plain),
+         "library_ms": time_ms(torch, library),
+         "bound_ms": 1e3 * max(flops / bf16_peak, nbytes / bw_peak),
+         "bound_by": "operations"
+         if flops / bf16_peak > nbytes / bw_peak else "bytes",
+         "flops": flops, "bytes": nbytes, "peak": bf16_peak, "main": main}
+    print("case " + json.dumps(r), flush=True)
+    return r
+
+
 def lm_kernel_cases(torch, F, dev, peaks):
     """Phase 7a: K10 and K3 (bf16) at gemma2-2b's shapes against their
     plain versions, repeated bit for bit, timed; returns the records."""
     from repro_torch.kernels.attention.ops import flash_attention
     from repro_torch.kernels.attention.ref import flash_attention_ref
-    from repro_torch.kernels.matmul_fused.ops import matmul_fused
-    from repro_torch.kernels.matmul_fused.ref import matmul_fused_ref
 
     fp32_peak, bw_peak, bf16_peak = peaks
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -715,85 +787,64 @@ def lm_kernel_cases(torch, F, dev, peaks):
         print("case " + json.dumps(r), flush=True)
     for m in K3_LM_ROWS:
         for kk, n, act in K3_LM_SHAPES:
-            x = torch.randn((m, kk), generator=gen, device=dev).bfloat16()
-            w = (torch.randn((kk, n), generator=gen, device=dev)
-                 / kk ** 0.5).bfloat16()
-            kernel = lambda: matmul_fused(x, w, None, act)  # noqa: E731
-            plain = lambda: matmul_fused_ref(x, w, None, act)  # noqa: E731
-
-            def library():
-                y = torch.matmul(x, w)
-                return F.gelu(y, approximate="tanh") if act == "gelu" else y
-
-            ref = plain()
-            out = kernel()
-            torch.cuda.synchronize()
-            rtol, atol = LM_KERNEL_TOL["bfloat16"]
-            label = f"K3 bf16 M={m} {kk}->{n} {act}"
-            err = _check_close(label, out, ref, atol, rtol)
-            if out.dtype != torch.bfloat16:
-                fail(f"{label}: output {out.dtype}")
-            if not torch.equal(kernel(), out):
-                fail(f"{label}: a repeated launch differs")
-            lib_err = (library().float() - ref.float()).abs().max().item()
-            flops = 2.0 * m * kk * n
-            nbytes = 2.0 * (m * kk + kk * n + m * n)
-            r = {"kernel": "K3-bf16", "rows": m, "k": kk, "n": n,
-                 "act": act, "max_abs_err": err,
-                 "tol": {"rtol": rtol, "atol": atol},
-                 "library_max_abs_err": lib_err,
-                 "library_note": "torch.matmul in bf16 (+ tanh gelu)",
-                 "ms": time_ms(torch, kernel),
-                 "plain_ms": time_ms(torch, plain),
-                 "library_ms": time_ms(torch, library),
-                 "bound_ms": 1e3 * max(flops / bf16_peak, nbytes / bw_peak),
-                 "bound_by": "operations"
-                 if flops / bf16_peak > nbytes / bw_peak else "bytes",
-                 "flops": flops, "bytes": nbytes, "peak": bf16_peak,
-                 "main": m in K3_LM_MAIN_ROWS}
-            rows.append(r)
-            print("case " + json.dumps(r), flush=True)
+            rows.append(k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks,
+                                     m in K3_LM_MAIN_ROWS))
     return rows
 
 
-def lm_parity_phase(torch, np, dev):
-    """Phase 7b: gemma2-2b at full width, one local/global pair, float32,
-    on the card and on the CPU with the same weights."""
+def lm_parity_phase(torch, np, dev, counter, arch=LM_ARCH,
+                    prompt_len=LM_PARITY_PROMPT, redraw=False):
+    """Phase 7b (gemma2-2b, one local/global pair) and 8b (rwkv6-1.6b, two
+    layers): ``arch`` at full width with its depth cut to 2 layers, float32,
+    on the card and on the CPU with the same weights (``redraw``: with
+    ``rwkv_redraw``'s leaves); a ``prompt_len``-token prefill and
+    ``LM_PARITY_DECODE`` greedy tokens must agree (``LM_TOL``), as must
+    the final caches (``LM_CACHE_TOL``).  ``counter``, a kernel wrapper,
+    must launch once a layer in the card's prefill."""
     import dataclasses
 
     from repro_torch.core.config import get_arch
     from repro_torch.models.registry import get_model
-    from repro_torch.nn.param import init_tree, tree_map
+    from repro_torch.nn.param import init_tree, tree_leaves, tree_map
+    from repro_torch.nn.rwkv import rwkv_redraw
 
-    cfg = dataclasses.replace(get_arch(LM_ARCH), num_layers=2,
+    cfg = dataclasses.replace(get_arch(arch), num_layers=2,
                               dtype="float32", param_dtype="float32")
     gpu = get_model(cfg)
-    tree = init_tree(gpu.param_spec(),
-                     torch.Generator(device=dev).manual_seed(SEED),
-                     cfg.param_dtype)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tree = init_tree(gpu.param_spec(), gen, cfg.param_dtype)
+    if redraw:
+        rwkv_redraw(tree, gen)
     gpu.load_tree(tree)
     cpu = get_model(cfg).load_tree(tree_map(lambda t: t.cpu(), tree))
     rng = np.random.default_rng(SEED)
-    prompt = rng.integers(0, cfg.vocab_size, (1, LM_PARITY_PROMPT))
-    cache_len = LM_PARITY_PROMPT + LM_PARITY_DECODE + 8
+    prompt = rng.integers(0, cfg.vocab_size, (1, prompt_len))
+    cache_len = prompt_len + LM_PARITY_DECODE + 8
     caches = {"gpu": gpu.init_cache(1, cache_len),
               "cpu": cpu.init_cache(1, cache_len)}
     models = {"gpu": gpu, "cpu": cpu}
     logits, tokens, worst = {}, {"gpu": [], "cpu": []}, {}
+    label = f"{arch} parity"
     with torch.no_grad():
         for side, m in models.items():
             t = torch.from_numpy(prompt).to(m.device)
+            counter.launches = 0
             logits[side], _, _ = m({"tokens": t}, mode="prefill",
                                    cache=caches[side])
+            if side == "gpu":
+                torch.cuda.synchronize()
+                if counter.launches != cfg.num_layers:
+                    fail(f"{label}: the card's prefill launched its kernel "
+                         f"{counter.launches} times, not {cfg.num_layers}")
         ref = logits["cpu"]
         worst["prefill"] = _check_close(
-            "LM parity prefill", logits["gpu"].cpu(), ref,
+            f"{label} prefill", logits["gpu"].cpu(), ref,
             LM_TOL["prefill"] * max(1.0, ref.abs().max().item()))
         worst["decode"] = 0.0
         for side in models:
             tokens[side].append(int(torch.argmax(logits[side][0, -1])))
         for i in range(LM_PARITY_DECODE - 1):
-            pos = LM_PARITY_PROMPT + i
+            pos = prompt_len + i
             for side, m in models.items():
                 lg, _ = m.decode_step(
                     torch.tensor([[tokens[side][-1]]], device=m.device),
@@ -802,46 +853,71 @@ def lm_parity_phase(torch, np, dev):
                 tokens[side].append(int(torch.argmax(lg[0, 0])))
             ref = logits["cpu"]
             worst["decode"] = max(worst["decode"], _check_close(
-                f"LM parity decode step {i}", logits["gpu"].cpu(), ref,
+                f"{label} decode step {i}", logits["gpu"].cpu(), ref,
                 LM_TOL["decode"] * max(1.0, ref.abs().max().item())))
             if tokens["gpu"] != tokens["cpu"]:
-                fail(f"LM parity: greedy tokens {tokens['gpu']} on the card,"
-                     f" {tokens['cpu']} on the CPU")
-    rec = {"layers": cfg.num_layers, "prompt": LM_PARITY_PROMPT,
-           "tokens": tokens["gpu"], "max_abs_err": worst, "tol": LM_TOL}
-    print("lm parity " + json.dumps(rec), flush=True)
+                fail(f"{label}: greedy tokens {tokens['gpu']} on the card, "
+                     f"{tokens['cpu']} on the CPU")
+        worst["cache"] = 0.0
+        for a, b in zip(tree_leaves(caches["gpu"]),
+                        tree_leaves(caches["cpu"])):
+            tol = LM_CACHE_TOL[str(b.dtype).replace("torch.", "")]
+            worst["cache"] = max(worst["cache"], _check_close(
+                f"{label} final cache", a.cpu(), b,
+                tol * max(1.0, b.float().abs().max().item())))
+    rec = {"arch": arch, "layers": cfg.num_layers, "prompt": prompt_len,
+           "tokens": tokens["gpu"], "max_abs_err": worst,
+           "tol": {**LM_TOL, "cache": LM_CACHE_TOL}}
+    print(f"{label} " + json.dumps(rec), flush=True)
     return rec
 
 
-def lm_serving_phase(torch, np, dev, counters, card):
-    """Phase 7c: full-depth bf16 gemma2-2b served by ``ServingEngine`` on
-    the card, twice; returns the record of both runs."""
+def build_model(torch, arch, dev, redraw=False):
+    """``arch`` at full width and depth with weights drawn on ``dev`` from
+    ``SEED`` (``redraw``: then ``rwkv_redraw``'s leaves from the same
+    generator); returns (model, seconds)."""
     from repro_torch.core.config import get_arch
     from repro_torch.models.registry import get_model
+    from repro_torch.nn.param import init_tree
+    from repro_torch.nn.rwkv import rwkv_redraw
+
+    t0 = time.perf_counter()
+    model = get_model(get_arch(arch))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tree = init_tree(model.param_spec(), gen, model.cfg.param_dtype)
+    if redraw:
+        rwkv_redraw(tree, gen)
+    model.load_tree(tree)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def lm_serving_phase(torch, np, dev, counters, card, model, init_s, expect):
+    """Phase 7c (gemma2-2b) and 8c (rwkv6-1.6b): ``model`` served by
+    ``ServingEngine`` on the card, twice.  ``expect`` gives the launches of
+    each kernel that ``counters`` names in every prefill and every decode
+    step; every other counter must stay at 0.  Returns the record of both
+    runs."""
     from repro_torch.serving.engine import Request, ServingEngine
 
-    cfg = get_arch(LM_ARCH)
+    cfg = model.cfg
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    model = get_model(cfg).init(torch.Generator(device=dev).manual_seed(SEED))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
                for n in LM_PROMPTS]
-    k3, k10 = counters["K3"], counters["K10"]
-    per_step = 7 * cfg.num_layers
+    watched = {k: counters[k] for k in expect["prefill"]}
 
     def timed(fn, log, kind):
         def run(*args):
             torch.cuda.synchronize()
-            c3, c10 = k3.launches, k10.launches
+            before = {k: c.launches for k, c in watched.items()}
             t = time.perf_counter()
             fn(*args)
             torch.cuda.synchronize()
             log.append({"kind": kind, "ms": (time.perf_counter() - t) * 1e3,
-                        "k3": k3.launches - c3, "k10": k10.launches - c10})
+                        **{k: c.launches - before[k]
+                           for k, c in watched.items()}})
             if kind == "prefill":
                 log[-1]["tokens"] = len(args[1].prompt)
         return run
@@ -851,7 +927,7 @@ def lm_serving_phase(torch, np, dev, counters, card):
         eng = ServingEngine(model, max_batch=LM_MAX_BATCH,
                             max_len=LM_MAX_LEN, seed=SEED)
         if eng.device.type != "cuda":
-            fail(f"LM serving: engine on {eng.device}")
+            fail(f"{cfg.name} serving: engine on {eng.device}")
         log = []
         eng._prefill_into_slot = timed(eng._prefill_into_slot, log, "prefill")
         eng._decode_step = timed(eng._decode_step, log, "decode")
@@ -864,14 +940,14 @@ def lm_serving_phase(torch, np, dev, counters, card):
         done = eng.run_until_drained()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        launches = {"K3": k3.launches, "K10": k10.launches}
+        launches = {k: c.launches for k, c in watched.items()}
         others = {k: fn.launches for k, fn in counters.items()
                   if k not in launches and fn.launches}
         runs.append({"done": done, "log": log, "wall_s": wall,
                      "launches": launches, "other_launches": others})
         del eng
     first, second = runs
-    label = "LM serving"
+    label = f"{cfg.name} serving"
     if sorted(first["done"]) != list(range(len(prompts))):
         fail(f"{label}: finished {sorted(first['done'])}")
     for rid, toks in first["done"].items():
@@ -883,25 +959,26 @@ def lm_serving_phase(torch, np, dev, counters, card):
     for run in runs:
         if run["other_launches"]:
             fail(f"{label}: other kernels launched {run['other_launches']}")
-        prefills = [r for r in run["log"] if r["kind"] == "prefill"]
-        decodes = [r for r in run["log"] if r["kind"] == "decode"]
-        if len(prefills) != len(prompts) or len(decodes) != LM_NEW_TOKENS - 1:
-            fail(f"{label}: {len(prefills)} prefills, {len(decodes)} decode "
-                 f"steps")
-        for r in prefills:
-            if r["k10"] != cfg.num_layers or r["k3"] != per_step:
-                fail(f"{label}: a prefill of {r['tokens']} tokens launched "
-                     f"K10 {r['k10']}, K3 {r['k3']} times")
-        for r in decodes:
-            if r["k10"] != 0 or r["k3"] != per_step:
-                fail(f"{label}: a decode step launched K10 {r['k10']}, K3 "
-                     f"{r['k3']} times")
-        want = {"K3": per_step * (len(prefills) + len(decodes)),
-                "K10": cfg.num_layers * len(prefills)}
+        steps = {kind: [r for r in run["log"] if r["kind"] == kind]
+                 for kind in ("prefill", "decode")}
+        if (len(steps["prefill"]) != len(prompts)
+                or len(steps["decode"]) != LM_NEW_TOKENS - 1):
+            fail(f"{label}: {len(steps['prefill'])} prefills, "
+                 f"{len(steps['decode'])} decode steps")
+        for kind, rows in steps.items():
+            for r in rows:
+                got = {k: r[k] for k in watched}
+                if got != expect[kind]:
+                    what = (f"a prefill of {r['tokens']} tokens"
+                            if kind == "prefill" else "a decode step")
+                    fail(f"{label}: {what} launched {got}, expected "
+                         f"{expect[kind]}")
+        want = {k: sum(expect[kind][k] * len(rows)
+                       for kind, rows in steps.items()) for k in watched}
         if run["launches"] != want:
             fail(f"{label}: launches {run['launches']}, expected {want}")
     tokens = sum(len(t) for t in first["done"].values())
-    rec = {"arch": LM_ARCH, "params": n_params, "init_s": init_s,
+    rec = {"arch": cfg.name, "params": n_params, "init_s": init_s,
            "max_batch": LM_MAX_BATCH, "max_len": LM_MAX_LEN,
            "prompts": list(LM_PROMPTS), "new_tokens": LM_NEW_TOKENS,
            "tokens": {str(k): v for k, v in first["done"].items()},
@@ -909,24 +986,30 @@ def lm_serving_phase(torch, np, dev, counters, card):
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "runs": [{"wall_s": r["wall_s"], "tokens_per_s":
                      tokens / r["wall_s"], "log": r["log"]} for r in runs]}
-    rec["model"] = model
     for i, r in enumerate(rec["runs"]):
         pre = ", ".join(f"{x['tokens']}: {x['ms']:.1f}" for x in r["log"]
                         if x["kind"] == "prefill")
         dec = [x["ms"] for x in r["log"] if x["kind"] == "decode"]
-        print(f"LM serving run {i + 1}: prefill ms by prompt length {{{pre}}}"
+        print(f"{label} run {i + 1}: prefill ms by prompt length {{{pre}}}"
               f", decode step at {LM_MAX_BATCH} slots median "
               f"{statistics.median(dec):.2f} ms, {r['tokens_per_s']:.1f} "
-              f"tokens/s over {r['wall_s']:.2f} s [{card}]", flush=True)
+              f"tokens/s over {r['wall_s']:.2f} s, peak memory "
+              f"{rec['peak_memory_gb']:.2f} GB [{card}]", flush=True)
     return rec
 
 
+#: device-kernel names of the port's kernels, for the profile's breakdown
+PROFILE_GROUPS = (("K3", ("mm_tiled", "mm_partial", "mm_reduce")),
+                  ("K10", ("flash_fwd",)), ("K11", ("wkv6_fwd",)))
+
+
 def lm_profile(torch, model, card):
-    """Phase 7d: ``torch.profiler`` over one prefill of
+    """Phase 7d and 8c: ``torch.profiler`` over one prefill of
     ``LM_PROFILE_PROMPT`` tokens and three decode steps at
     ``LM_MAX_BATCH`` active slots of the full model; returns, per window,
     the wall time, the device time summed over kernels and copies, their
-    ratio (the device's busy share) and the largest device-time names."""
+    ratio (the device's busy share), the device time of each kernel of the
+    port and of the rest, and the largest device-time names."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -961,14 +1044,181 @@ def lm_profile(torch, model, card):
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and e.self_device_time_total > 0]
         dev = sum(r[1] for r in rows)
+        by_kernel = {kid: sum(ms for key, ms, _ in rows
+                              if any(nm in key for nm in names))
+                     for kid, names in PROFILE_GROUPS}
+        by_kernel["rest"] = dev - sum(by_kernel.values())
         rows.sort(key=lambda r: -r[1])
         out[name] = {"wall_ms": wall, "device_ms": dev,
                      "busy_share": dev / wall if dev else None,
+                     "device_ms_by_kernel": by_kernel,
                      "top": [{"name": k[:80], "ms": ms, "calls": n}
                              for k, ms, n in rows[:10]]}
-        print(f"LM profile {name}: wall {wall:.2f} ms, device "
-              f"{dev:.2f} ms [{card}]", flush=True)
+        print(f"{model.cfg.name} profile {name}: wall {wall:.2f} ms, device "
+              f"{dev:.2f} ms, by kernel "
+              f"{ {k: round(v, 3) for k, v in by_kernel.items()} } [{card}]",
+              flush=True)
     return out
+
+
+#: phase 8: rwkv6-1.6b and K11's cases
+RWKV_ARCH = "rwkv6-1.6b"
+RWKV_PARITY_PROMPT = 100  # two chunks of 64, the second padded
+#: K11 cases: (tokens, dtype, decays).  b 1 and rwkv6-1.6b's 32 heads of
+#: 64; decays "normal" logw = -exp(N(0, 0.5)), "strong" -exp(N(2, 1)),
+#: whose sums within a chunk go far below the -88 where exp overflows a
+#: product of two factors.  The kernels line takes the 4500-token bf16
+#: case with normal decays.
+K11_CASES = ((16, "bfloat16", "normal"), (300, "bfloat16", "normal"),
+             (1500, "bfloat16", "normal"), (4500, "bfloat16", "normal"),
+             (4500, "bfloat16", "strong"), (4500, "float32", "normal"))
+K11_DECAYS = {"normal": (0.0, 0.5), "strong": (2.0, 1.0)}
+K11_HEADS = 32
+K11_HANDOFF = 1500
+#: K3's three distinct projection shapes (K, N, activation) in an
+#: rwkv6-1.6b layer: r, k, v, g, o and the channel mix's receptance; the
+#: channel mix's key (with relu); its value
+K3_RWKV_SHAPES = ((2048, 2048, "none"), (2048, 7168, "relu"),
+                  (7168, 2048, "none"))
+#: the final caches of the parity phases, relative to max(1, max|CPU|):
+#: bf16 KV rows one rounding apart (2^-7), fp32 RWKV states as the logits
+LM_CACHE_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-4}
+
+
+def wkv6_cost(b, s, h, e, chunk, dtype_bytes):
+    """(operations, bytes) the chunked WKV needs, from K11's arithmetic:
+    per chunk of n rows and n (n - 1) / 2 pairs j < i, the cumulative
+    decays and cw_prev (2 n e), each pair's decay and product (5 e: a
+    difference, an exp, two products, a sum), A v (2 e a pair), the bonus
+    (5 n e), r ⊙ exp(cw_prev) (2 n e) and its product with S (2 n e^2),
+    k ⊙ exp(cw_L - cw) (3 n e), the state update (2 n e^2 + 3 e^2).
+    Bytes: r, k, v and o once in their type, logw and u in fp32, the final
+    state in fp32."""
+    L = min(chunk, s)
+    ops = 0.0
+    for t0 in range(0, s, L):
+        n = min(L, s - t0)
+        pairs = n * (n - 1) / 2
+        ops += (2 * n * e + 7 * pairs * e + 5 * n * e + 2 * n * e
+                + 2 * n * e * e + 3 * n * e + 2 * n * e * e + 3 * e * e)
+    elems = b * s * h * e
+    nbytes = (4 * dtype_bytes * elems + 4 * elems + 4 * h * e
+              + 4 * b * h * e * e)
+    return b * h * ops, float(nbytes)
+
+
+def rwkv_kernel_cases(torch, F, dev, peaks):
+    """Phase 8a: K11 at rwkv6-1.6b's shapes (``K11_CASES``, then a state
+    hand-off) and K3 (bf16) at its projections against their plain
+    versions, repeated bit for bit, timed; returns the records."""
+    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.kernels.wkv6.ref import wkv6_chunked_ref
+
+    fp32_peak, bw_peak, _ = peaks
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def inputs(s, dt, decay):
+        mean, std = K11_DECAYS[decay]
+        shape = (1, s, K11_HEADS, 64)
+        r, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
+                   for _ in range(3))
+        logw = -torch.exp(mean + std * torch.randn(shape, generator=gen,
+                                                   device=dev))
+        u = 0.5 * torch.randn((K11_HEADS, 64), generator=gen, device=dev)
+        return r, k, v, logw, u
+
+    rows = []
+    for s, dname, decay in K11_CASES:
+        r, k, v, logw, u = inputs(s, getattr(torch, dname), decay)
+        kernel = lambda: wkv6(r, k, v, logw, u, chunk=64)  # noqa: E731
+        plain = lambda: wkv6_chunked_ref(r, k, v, logw, u, 64)  # noqa: E731
+        ref_o, ref_s = plain()
+        out_o, out_s = kernel()
+        torch.cuda.synchronize()
+        rtol, atol = LM_KERNEL_TOL[dname]
+        label = f"K11 {dname} s={s} decays {decay}"
+        err = _check_close(label, out_o, ref_o, atol, rtol)
+        s_rtol, s_atol = LM_KERNEL_TOL["float32"]
+        s_err = _check_close(f"{label} state", out_s, ref_s, s_atol, s_rtol)
+        again = kernel()
+        if not (torch.equal(again[0], out_o) and torch.equal(again[1], out_s)):
+            fail(f"{label}: a repeated launch differs")
+        flops, nbytes = wkv6_cost(1, s, K11_HEADS, 64, 64,
+                                  out_o.element_size())
+        rec = {"kernel": "K11", "tokens": s, "heads": K11_HEADS,
+               "dtype": dname, "decays": decay, "max_abs_err": err,
+               "state_max_abs_err": s_err,
+               "tol": {"rtol": rtol, "atol": atol,
+                       "state_rtol": s_rtol, "state_atol": s_atol},
+               "rms_plain": ref_o.float().square().mean().sqrt().item(),
+               "max_abs_plain": ref_o.float().abs().max().item(),
+               "ms": time_ms(torch, kernel),
+               "plain_ms": time_ms(torch, plain, reps=5),
+               "library_ms": None,
+               "library_note": "no single PyTorch call computes WKV6",
+               "bound_ms": 1e3 * max(flops / fp32_peak, nbytes / bw_peak),
+               "bound_by": "operations" if flops / fp32_peak > nbytes / bw_peak
+               else "bytes", "flops": flops, "bytes": nbytes,
+               "peak": fp32_peak,
+               "main": (s, dname, decay) == (4500, "bfloat16", "normal")}
+        rows.append(rec)
+        print("case " + json.dumps(rec), flush=True)
+    # the state hand-off: two calls over the halves (the second one from
+    # the first one's final state) against one call over the whole.  The
+    # halves' chunks start at 750, not at a multiple of 64, so the state is
+    # the same sum in other groupings: its elements are held at fp32's
+    # rtol plus 1e-5 of the largest state (each element's rounding follows
+    # the size of its terms, not its own)
+    r, k, v, logw, u = inputs(K11_HANDOFF, torch.bfloat16, "normal")
+    whole_o, whole_s = wkv6(r, k, v, logw, u, chunk=64)
+    h = K11_HANDOFF // 2
+    first_o, first_s = wkv6(*(t[:, :h].contiguous() for t in (r, k, v, logw)),
+                            u, chunk=64)
+    second_o, second_s = wkv6(*(t[:, h:].contiguous()
+                                for t in (r, k, v, logw)),
+                              u, chunk=64, state=first_s)
+    torch.cuda.synchronize()
+    rtol, atol = LM_KERNEL_TOL["bfloat16"]
+    o_err = _check_close("K11 hand-off o", torch.cat([first_o, second_o], 1),
+                         whole_o, atol, rtol)
+    s_atol = 1e-5 * max(1.0, whole_s.abs().max().item())
+    s_err = _check_close("K11 hand-off state", second_s, whole_s, s_atol,
+                         LM_KERNEL_TOL["float32"][0])
+    rows.append({"kernel": "K11-handoff", "tokens": K11_HANDOFF, "split": h,
+                 "max_abs_err": o_err, "state_max_abs_err": s_err,
+                 "state_atol": s_atol, "main": False})
+    print("case " + json.dumps(rows[-1]), flush=True)
+    for m in K3_LM_ROWS:
+        for kk, n, act in K3_RWKV_SHAPES:
+            rows.append(k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks,
+                                     m in K3_LM_MAIN_ROWS))
+    return rows
+
+
+def launcher_phase(torch, counters):
+    """Phase 8d: ``repro_torch.launch.serve.main(["--arch", RWKV_ARCH])`` on
+    the card (its default device): a token list for every request, and
+    K11 once a layer in every prefill."""
+    from repro_torch.core.config import get_arch
+    from repro_torch.launch.serve import main as serve_main
+
+    for fn in counters.values():
+        fn.launches = 0
+    out = serve_main(["--arch", RWKV_ARCH])
+    torch.cuda.synchronize()
+    n_req = 6  # the launcher's default --requests
+    want = get_arch(RWKV_ARCH).reduced().num_layers * n_req
+    done = out["done"]
+    if sorted(done) != list(range(n_req)) or not all(done.values()):
+        fail(f"launcher: finished {sorted(done)}")
+    if counters["K11"].launches != want:
+        fail(f"launcher: K11 launched {counters['K11'].launches} times, "
+             f"expected {want}")
+    rec = {"requests": n_req, "tokens": out["tokens"],
+           "seconds": out["seconds"], "k11_launches": want,
+           "k3_launches": counters["K3"].launches}
+    print("launcher " + json.dumps(rec), flush=True)
+    return rec
 
 
 def main() -> int:
@@ -1002,6 +1252,7 @@ def main() -> int:
     from repro_torch.kernels.conv2d import ops as conv_ops
     from repro_torch.kernels.matmul_fused import ops as mm_ops
     from repro_torch.kernels.pool2d import ops as pool_ops
+    from repro_torch.kernels.wkv6 import ops as wkv6_ops
 
     # -- 1. card ------------------------------------------------------------
     smi = subprocess.run(
@@ -1149,16 +1400,42 @@ def main() -> int:
     print("serving " + json.dumps(serving), flush=True)
 
     # -- 7. the language model: gemma2-2b ------------------------------------
+    counters.update(K10=attn_ops.flash_attention, K11=wkv6_ops.wkv6)
     lm_cases = lm_kernel_cases(torch, F, dev, peaks)
-    lm_parity = lm_parity_phase(torch, np, dev)
-    lm = lm_serving_phase(torch, np, dev,
-                          dict(counters, K10=attn_ops.flash_attention),
-                          card_line)
-    lm["profile"] = lm_profile(torch, lm.pop("model"), card_line)
+    lm_parity = lm_parity_phase(torch, np, dev, attn_ops.flash_attention)
+    model, init_s = build_model(torch, LM_ARCH, dev)
+    per_step = 7 * model.cfg.num_layers
+    lm = lm_serving_phase(
+        torch, np, dev, counters, card_line, model, init_s,
+        {"prefill": {"K3": per_step, "K10": model.cfg.num_layers},
+         "decode": {"K3": per_step, "K10": 0}})
+    lm["profile"] = lm_profile(torch, model, card_line)
     print("lm " + json.dumps({k: v for k, v in lm.items() if k != "runs"}),
           flush=True)
+    del model
+    torch.cuda.empty_cache()
 
-    # -- 8. the kernels line ------------------------------------------------
+    # -- 8. rwkv6-1.6b: K11, the served model, the launcher ------------------
+    t8 = time.perf_counter()
+    rwkv_cases = rwkv_kernel_cases(torch, F, dev, peaks)
+    rwkv_parity = lm_parity_phase(torch, np, dev, wkv6_ops.wkv6, RWKV_ARCH,
+                                  RWKV_PARITY_PROMPT, redraw=True)
+    model, init_s = build_model(torch, RWKV_ARCH, dev, redraw=True)
+    n_layers = model.cfg.num_layers
+    rwkv = lm_serving_phase(
+        torch, np, dev, counters, card_line, model, init_s,
+        {"prefill": {"K3": 8 * n_layers, "K11": n_layers, "K10": 0},
+         "decode": {"K3": 8 * n_layers, "K11": 0, "K10": 0}})
+    rwkv["profile"] = lm_profile(torch, model, card_line)
+    del model
+    torch.cuda.empty_cache()
+    rwkv["launcher"] = launcher_phase(torch, counters)
+    rwkv["phase_s"] = time.perf_counter() - t8
+    print("rwkv " + json.dumps({k: v for k, v in rwkv.items()
+                                if k != "runs"}), flush=True)
+    print(f"phase 8 wall time {rwkv['phase_s']:.1f} s", flush=True)
+
+    # -- 9. the kernels line ------------------------------------------------
     kernels = []
     for kid, (name, src, replaces) in sources.items():
         mine = [c for c in cases if c["kernel"] == kid]
@@ -1204,6 +1481,18 @@ def main() -> int:
             else "bytes",
             "library_ms": sum(c["library_ms"] for c in main),
         })
+    k11 = next(c for c in rwkv_cases if c["kernel"] == "K11" and c["main"])
+    kernels.append({
+        "name": "wkv6", "route": "cuda",
+        "source": "src/repro_torch/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/wkv6/kernel.py:30",
+        "launches": rwkv["launches"]["K11"],
+        "max_abs_err": max(c["max_abs_err"] for c in rwkv_cases
+                           if c["kernel"] == "K11"),
+        "ms": k11["ms"], "plain_ms": k11["plain_ms"],
+        "bound_ms": k11["bound_ms"], "bound_by": k11["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes WKV6
+    })
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} never launched on the main path")
@@ -1214,7 +1503,8 @@ def main() -> int:
              "cuda": torch.version.cuda, "build_log": _build.build_log,
              "cases": cases, "engine": engine_rows, "tuned": tuned,
              "serving": serving, "lm_cases": lm_cases,
-             "lm_parity": lm_parity, "lm": lm,
+             "lm_parity": lm_parity, "lm": lm, "rwkv_cases": rwkv_cases,
+             "rwkv_parity": rwkv_parity, "rwkv": rwkv,
              "kernels": kernels}, indent=1))
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

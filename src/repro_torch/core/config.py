@@ -154,7 +154,7 @@ class ModelConfig:
         return self.num_kv_heads * self.head_dim
 
     def num_params(self) -> int:
-        """Parameter count of the port's model (dense family only)."""
+        """Parameter count of the port's model (dense and RWKV6 families)."""
         from repro_torch.models.registry import analytic_param_count
 
         return analytic_param_count(self)

@@ -44,6 +44,8 @@ SIGNATURES = {
     "conv_pool_lrn_halo_f32": [_P, _P, _P, _P, _P, _P, _P, _L, _P],
     "conv_pool_carry_f32": [_P, _P, _P, _P, _P, _P, _P, _L, _P],
     "conv_chain_ocb_f32": [_P, _P, _P, _P, _P, _L, _P, _P, _P, _P],
+    "wkv6_f32": [_P] * 8 + [_I] * 4 + [_P],
+    "wkv6_bf16": [_P] * 8 + [_I] * 4 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

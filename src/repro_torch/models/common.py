@@ -25,9 +25,11 @@ from repro_torch.nn.attention import attention_apply, attention_spec
 from repro_torch.nn.mlp import mlp_apply, mlp_spec
 from repro_torch.nn.norm import (layernorm_apply, layernorm_spec,
                                  rmsnorm_apply, rmsnorm_spec)
-from repro_torch.nn.param import Param, init_tree, is_param, tree_map
+from repro_torch.nn.param import (DTYPES, Param, init_tree, is_param,
+                                  tree_map)
 
-#: the batch axis of every cache leaf, [n_scan, batch, S, kvh, hd]
+#: the batch axis of every cache leaf: [n_scan, batch, S, kvh, hd] for a
+#: KV cache, [layers, batch, ...] for an RWKV state
 CACHE_BATCH_AXIS = 1
 
 
@@ -154,11 +156,13 @@ class BaseModel(nn.Module):
 
     def init_cache(self, batch: int, cache_len: int, window: int = 0,
                    device=None) -> dict:
-        """A zero bf16 cache (the JAX package's default), on the model's
-        device unless ``device`` is given."""
+        """A zero cache, each leaf in its spec's dtype or bf16 (the JAX
+        package's default): bf16 KV caches, fp32 RWKV states.  On the
+        model's device unless ``device`` is given."""
         dev = torch.device(device) if device is not None else self.device
         return tree_map(
-            lambda p: torch.zeros(p.shape, dtype=torch.bfloat16, device=dev),
+            lambda p: torch.zeros(p.shape, dtype=DTYPES[p.dtype or "bfloat16"],
+                                  device=dev),
             self.cache_spec(batch, cache_len, window))
 
 

@@ -10,8 +10,18 @@
   requests join and leave the batch independently (continuous batching);
 * finished slots (EOS / max_new_tokens) are freed and immediately reusable.
 
-On the card every prefill's attention runs K10 and every projection K3;
-a decode step runs K3 and the plain decode attention.  Sampling draws
+The cache may also be recurrent: an RWKV6 model keeps, per layer and
+slot, fp32 token-shift rows and a WKV state instead of k/v rows.  The same
+slot view serves it (its leaves have the batch on ``CACHE_BATCH_AXIS``
+too), and zeroing the slot's leaves before a prefill gives the zero state
+that the JAX engine's fresh one-request cache starts from; the prefill
+then leaves the prompt's final state there, and each decode step advances
+it by one token.  ``max_len`` bounds the prompt and the generated tokens
+as it does for a KV cache, though the state does not grow with them.
+
+On the card every prefill's attention runs K10 (a dense model) or its
+WKV runs K11 (RWKV6), and every projection K3; a decode step runs K3 and
+the plain decode attention or the plain per-step WKV.  Sampling draws
 from one ``torch.Generator`` on the CPU, seeded with ``seed``, in slot
 order: repeatable for a seed, but not the JAX engine's tokens at a
 temperature above 0 (its PRNG differs).  Greedy requests never draw.

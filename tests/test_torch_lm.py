@@ -112,12 +112,15 @@ def test_configs_match_jax(arch):
 
 @pytest.mark.parametrize("arch", jconfig.list_archs())
 def test_get_model_dense_only(arch):
-    """Dense archs build (with JAX's parameter count); every other family
-    raises and names the ROADMAP item."""
+    """Dense archs and RWKV6 (``ssm``) build, with JAX's parameter count
+    (rwkv6-1.6b: 1,599,673,856 at full width); every other family raises
+    and names the ROADMAP item."""
     cfg = tconfig.get_arch(arch)
-    if cfg.family == "dense" and cfg.moe is None:
+    if cfg.family in ("dense", "ssm") and cfg.moe is None:
         assert cfg.num_params() == jregistry.analytic_param_count(
             jconfig.get_arch(arch))
+        if cfg.family == "ssm":
+            assert cfg.num_params() == 1_599_673_856
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tregistry.get_model(cfg)
