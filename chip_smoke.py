@@ -63,8 +63,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
       same function), at the other served lengths (16, 300, 1500) with
       window 4096, and in fp32 at 512 and at 4500 with window 4096; K3 in
       bf16 at the seven projections' five shapes for M = 4 (a decode
-      step) and M = 16, 300, 1500 and 4500 (the prefills); every element
-      within ``rtol * |plain| + atol`` (``LM_KERNEL_TOL``);
+      step), M = 16, 300, 1500 and 4500 (the prefills) and M = 64; every
+      element within ``rtol * |plain| + atol`` (``LM_KERNEL_TOL``).  Each
+      K3 launch must step the counter of the path ``k3_path`` names: the
+      weight stream below 64 rows, TMA + wgmma from 64 on, where the
+      CUDA-core tile is held and timed beside it (tile, wgmma, wgmma,
+      tile) and must be at least ``K3_WGMMA_GAIN`` times slower at 4500;
    b. CPU parity: the model with its depth cut to one local/global pair,
       float32, random weights from ``--seed`` on the card and the same on
       the CPU; a 64-token prompt prefilled (K10 once a layer on the card)
@@ -78,6 +82,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
       tokens, 16 new tokens each.  With the counters set to 0 before the
       run and read after, every prefill must launch K10 26 times and K3
       182 times (7 per layer), every decode step K3 182 times and no K10;
+      all of a prefill's K3 launches must take the wgmma path from 64
+      tokens on and the weight stream below, as must every decode step's;
       a second run must give the same tokens.  Each prefill, each decode
       step and the run are timed;
    d. ``torch.profiler`` over one prefill of 1500 tokens and three decode
@@ -91,7 +97,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
       in fp32 at 4500, o and the final state each element within
       ``LM_KERNEL_TOL``; a state hand-off (two calls over the halves of
       1500 tokens against one over the whole); K3 in bf16 at the three
-      projection shapes for the M of 7a (4, 16, 300, 1500 and 4500);
+      projection shapes for the M of 7a (4, 16, 64, 300, 1500 and 4500),
+      its paths checked and timed as in 7a;
    b. CPU parity as 7b: two layers in float32, the leaves the init rules
       leave at zero redrawn (``repro_torch.nn.rwkv.RWKV_REDRAW``), a
       100-token prompt (two
@@ -101,7 +108,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    c. the full model: 24 layers in bf16, an fp32 state cache, the same
       redraw, served as in 7c; every prefill must launch K11 24 times and
       K3 192 times (8 per layer), every decode step K3 192 times and no
-      K11, nothing may launch K10, a second run must repeat the tokens;
+      K11, nothing may launch K10, K3's paths as in 7c, a second run must
+      repeat the tokens;
       then the profile of 7d (device ms of K3, K11 and the rest);
    d. the launcher ``repro_torch.launch.serve.main(["--arch",
       "rwkv6-1.6b"])`` on the card: a token list for every request, K11
@@ -113,8 +121,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    8c (K11, as ``wkv6``), each counted from 0; the times and bound are
    summed over its distinct AlexNet batch-16 shapes on that path (K10: the
    bf16 4500-token cases with cap 50; K3 bf16: its phase-7a cases at
-   M = 4 and 4500; K11: its bf16 4500-token case, which no library call computes);
-   the error is the largest over every case;
+   M = 4 and 4500; K11: its bf16 4500-token case, which no library call
+   computes); K3's wgmma path has an entry of its own, its launches those
+   of the wgmma path in the first run of 7c, its times its phase-7a cases
+   at M = 4500; the error is the largest over every case;
 10. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Run it from the repository root; it needs one CUDA device and the CUDA
@@ -651,10 +661,14 @@ LM_KERNEL_TOL = {"bfloat16": (2.0 ** -7, 2.0 ** -10),
 K3_LM_SHAPES = ((2304, 2048, "none"), (2304, 1024, "none"),
                 (2048, 2304, "none"), (2304, 9216, "gelu"),
                 (9216, 2304, "none"))
-#: M of K3's cases: a decode step at 4 slots and the four prefills; the
-#: kernels line sums the cases at ``K3_LM_MAIN_ROWS``
-K3_LM_ROWS = (4, 16, 300, 1500, 4500)
+#: M of K3's cases: a decode step at 4 slots, the four prefills, and the
+#: smallest M of the wgmma path; the kernels line sums the cases at
+#: ``K3_LM_MAIN_ROWS`` (and its wgmma entry those at 4500)
+K3_LM_ROWS = (4, 16, 64, 300, 1500, 4500)
 K3_LM_MAIN_ROWS = (4, 4500)
+#: at this M every projection shape must run on the wgmma path at least
+#: this many times faster than on the CUDA-core tile, timed in one call
+K3_WGMMA_GAIN = (4500, 5.0)
 
 
 def _visible_pairs(sq, window):
@@ -686,8 +700,12 @@ def _check_close(label, out, ref, tol, rtol=0.0):
 def k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks, main):
     """K3 on bf16 operands at one projection shape, held against its plain
     version element by element, repeated bit for bit and timed beside
-    ``torch.matmul`` (+ the activation); returns the record."""
-    from repro_torch.kernels.matmul_fused.ops import matmul_fused
+    ``torch.matmul`` (+ the activation); the launch must take the path
+    ``k3_path`` names (the weight stream below 64 rows, else wgmma), and
+    from 64 rows on the CUDA-core tile is timed beside it, in the order
+    tile, wgmma, wgmma, tile.  Returns the record."""
+    from repro_torch.kernels.matmul_fused import ops as mm_ops
+    from repro_torch.kernels.matmul_fused.ops import k3_path, matmul_fused
     from repro_torch.kernels.matmul_fused.ref import matmul_fused_ref
 
     _, bw_peak, bf16_peak = peaks
@@ -696,6 +714,7 @@ def k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks, main):
          ).bfloat16()
     kernel = lambda: matmul_fused(x, w, None, act)  # noqa: E731
     plain = lambda: matmul_fused_ref(x, w, None, act)  # noqa: E731
+    tile = lambda: mm_ops._launch(x, w, None, act, path="tiles")  # noqa: E731
 
     def library():
         y = torch.matmul(x, w)
@@ -703,11 +722,20 @@ def k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks, main):
             return F.gelu(y, approximate="tanh")
         return F.relu(y) if act == "relu" else y
 
+    label = f"K3 bf16 M={m} {kk}->{n} {act}"
+    path = k3_path(x.dtype, m, kk, n, x.data_ptr(), w.data_ptr())
+    if path != ("stream" if m < 64 else "wgmma"):
+        fail(f"{label}: path {path}")
     ref = plain()
+    paths = matmul_fused.path_launches
+    before = dict(paths)
     out = kernel()
     torch.cuda.synchronize()
+    stepped = {k: paths[k] - before[k] for k in paths}
+    if stepped != {**dict.fromkeys(paths, 0), path: 1}:
+        fail(f"{label}: path counters moved by {stepped}, expected one "
+             f"{path} launch")
     rtol, atol = LM_KERNEL_TOL["bfloat16"]
-    label = f"K3 bf16 M={m} {kk}->{n} {act}"
     err = _check_close(label, out, ref, atol, rtol)
     if out.dtype != torch.bfloat16:
         fail(f"{label}: output {out.dtype}")
@@ -717,15 +745,28 @@ def k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks, main):
     flops = 2.0 * m * kk * n
     nbytes = 2.0 * (m * kk + kk * n + m * n)
     r = {"kernel": "K3-bf16", "rows": m, "k": kk, "n": n, "act": act,
-         "max_abs_err": err, "tol": {"rtol": rtol, "atol": atol},
+         "path": path, "max_abs_err": err,
+         "tol": {"rtol": rtol, "atol": atol},
          "library_max_abs_err": lib_err,
-         "library_note": f"torch.matmul in bf16 (+ {act})",
-         "ms": time_ms(torch, kernel), "plain_ms": time_ms(torch, plain),
-         "library_ms": time_ms(torch, library),
-         "bound_ms": 1e3 * max(flops / bf16_peak, nbytes / bw_peak),
-         "bound_by": "operations"
-         if flops / bf16_peak > nbytes / bw_peak else "bytes",
-         "flops": flops, "bytes": nbytes, "peak": bf16_peak, "main": main}
+         "library_note": f"torch.matmul in bf16 (+ {act})"}
+    if path == "wgmma":
+        _check_close(f"{label} CUDA-core tile", tile(), ref, atol, rtol)
+        runs = [time_ms(torch, f) for f in (tile, kernel, kernel, tile)]
+        r.update(ms=(runs[1] + runs[2]) / 2, tile_ms=(runs[0] + runs[3]) / 2,
+                 runs_tile_wgmma_wgmma_tile_ms=runs)
+        r["gain_vs_tile"] = r["tile_ms"] / r["ms"]
+        gain_m, gain = K3_WGMMA_GAIN
+        if m == gain_m and not r["gain_vs_tile"] >= gain:
+            fail(f"{label}: wgmma {r['ms']:.4f} ms against the CUDA-core "
+                 f"tile's {r['tile_ms']:.4f}, under {gain}x")
+    else:
+        r["ms"] = time_ms(torch, kernel)
+    r.update(plain_ms=time_ms(torch, plain),
+             library_ms=time_ms(torch, library),
+             bound_ms=1e3 * max(flops / bf16_peak, nbytes / bw_peak),
+             bound_by="operations"
+             if flops / bf16_peak > nbytes / bw_peak else "bytes",
+             flops=flops, bytes=nbytes, peak=bf16_peak, main=main)
     print("case " + json.dumps(r), flush=True)
     return r
 
@@ -907,17 +948,21 @@ def lm_serving_phase(torch, np, dev, counters, card, model, init_s, expect):
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
                for n in LM_PROMPTS]
     watched = {k: counters[k] for k in expect["prefill"]}
+    k3_paths = counters["K3"].path_launches
 
     def timed(fn, log, kind):
         def run(*args):
             torch.cuda.synchronize()
             before = {k: c.launches for k, c in watched.items()}
+            paths = dict(k3_paths)
             t = time.perf_counter()
             fn(*args)
             torch.cuda.synchronize()
             log.append({"kind": kind, "ms": (time.perf_counter() - t) * 1e3,
                         **{k: c.launches - before[k]
-                           for k, c in watched.items()}})
+                           for k, c in watched.items()},
+                        "k3_paths": {k: k3_paths[k] - paths[k]
+                                     for k in paths}})
             if kind == "prefill":
                 log[-1]["tokens"] = len(args[1].prompt)
         return run
@@ -935,6 +980,8 @@ def lm_serving_phase(torch, np, dev, counters, card, model, init_s, expect):
             eng.submit(Request(rid, p, max_new_tokens=LM_NEW_TOKENS))
         for fn in counters.values():
             fn.launches = 0
+        for k in k3_paths:
+            k3_paths[k] = 0
         torch.cuda.synchronize()
         t = time.perf_counter()
         done = eng.run_until_drained()
@@ -944,7 +991,8 @@ def lm_serving_phase(torch, np, dev, counters, card, model, init_s, expect):
         others = {k: fn.launches for k, fn in counters.items()
                   if k not in launches and fn.launches}
         runs.append({"done": done, "log": log, "wall_s": wall,
-                     "launches": launches, "other_launches": others})
+                     "launches": launches, "other_launches": others,
+                     "k3_paths": dict(k3_paths)})
         del eng
     first, second = runs
     label = f"{cfg.name} serving"
@@ -968,11 +1016,19 @@ def lm_serving_phase(torch, np, dev, counters, card, model, init_s, expect):
         for kind, rows in steps.items():
             for r in rows:
                 got = {k: r[k] for k in watched}
+                what = (f"a prefill of {r['tokens']} tokens"
+                        if kind == "prefill" else "a decode step")
                 if got != expect[kind]:
-                    what = (f"a prefill of {r['tokens']} tokens"
-                            if kind == "prefill" else "a decode step")
                     fail(f"{label}: {what} launched {got}, expected "
                          f"{expect[kind]}")
+                # every projection of a prefill of 64 tokens or more on
+                # the wgmma path; shorter prompts and decode steps stream
+                tiled = kind == "prefill" and r["tokens"] >= 64
+                want = {**dict.fromkeys(k3_paths, 0),
+                        "wgmma" if tiled else "stream": expect[kind]["K3"]}
+                if r["k3_paths"] != want:
+                    fail(f"{label}: {what} took K3's paths {r['k3_paths']}, "
+                         f"expected {want}")
         want = {k: sum(expect[kind][k] * len(rows)
                        for kind, rows in steps.items()) for k in watched}
         if run["launches"] != want:
@@ -982,7 +1038,7 @@ def lm_serving_phase(torch, np, dev, counters, card, model, init_s, expect):
            "max_batch": LM_MAX_BATCH, "max_len": LM_MAX_LEN,
            "prompts": list(LM_PROMPTS), "new_tokens": LM_NEW_TOKENS,
            "tokens": {str(k): v for k, v in first["done"].items()},
-           "launches": first["launches"],
+           "launches": first["launches"], "k3_paths": first["k3_paths"],
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "runs": [{"wall_s": r["wall_s"], "tokens_per_s":
                      tokens / r["wall_s"], "log": r["log"]} for r in runs]}
@@ -999,7 +1055,8 @@ def lm_serving_phase(torch, np, dev, counters, card, model, init_s, expect):
 
 
 #: device-kernel names of the port's kernels, for the profile's breakdown
-PROFILE_GROUPS = (("K3", ("mm_tiled", "mm_partial", "mm_reduce")),
+PROFILE_GROUPS = (("K3", ("mm_wgmma", "mm_tiled", "mm_partial",
+                          "mm_reduce")),
                   ("K10", ("flash_fwd",)), ("K11", ("wkv6_fwd",)))
 
 
@@ -1481,6 +1538,24 @@ def main() -> int:
             else "bytes",
             "library_ms": sum(c["library_ms"] for c in main),
         })
+    wg_main = [c for c in lm_cases if c["kernel"] == "K3-bf16"
+               and c["path"] == "wgmma" and c["rows"] == K3_WGMMA_GAIN[0]]
+    fl = sum(c["flops"] for c in wg_main)
+    by = sum(c["bytes"] for c in wg_main)
+    kernels.append({
+        "name": "matmul_fused_bf16_wgmma", "route": "cuda",
+        "source": "src/repro_torch/csrc/matmul_fused.cu",
+        "replaces": "src/repro/kernels/matmul_fused/kernel.py:37",
+        "launches": lm["k3_paths"]["wgmma"],
+        "max_abs_err": max(c["max_abs_err"] for c in lm_cases + rwkv_cases
+                           if c.get("path") == "wgmma"),
+        "ms": sum(c["ms"] for c in wg_main),
+        "plain_ms": sum(c["plain_ms"] for c in wg_main),
+        "bound_ms": 1e3 * max(fl / peaks[2], by / peaks[1]),
+        "bound_by": "operations" if fl / peaks[2] > by / peaks[1]
+        else "bytes",
+        "library_ms": sum(c["library_ms"] for c in wg_main),
+    })
     k11 = next(c for c in rwkv_cases if c["kernel"] == "K11" and c["main"])
     kernels.append({
         "name": "wkv6", "route": "cuda",

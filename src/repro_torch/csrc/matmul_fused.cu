@@ -1,21 +1,23 @@
 // K3: y = act(x @ w + b), act one of none, relu, silu, gelu (tanh form).
 // x [M, K], w [K, N] and y [M, N] all fp32 or all bf16, b [N] fp32 or
-// null, all contiguous.  Operands are converted to fp32 on load, every sum
-// is fp32, the bias and the activation are applied in fp32, and y is
-// stored once in the operands' type.
+// null, all contiguous.  Every sum is fp32, the bias and the activation
+// are applied in fp32, and y is stored once in the operands' type.
 //
 // Replaces the TPU kernel src/repro/kernels/matmul_fused/kernel.py
 // matmul_fused_pallas -> _kernel.
 //
-// Two paths, chosen by the host from M and passed as ``tiled``; each sums
-// in a fixed order, so repeated runs give the same bits (no atomics):
+// Three paths, chosen by the host from the type, the shape and the
+// pointers and passed as ``path``; each sums in a fixed order, so repeated
+// runs give the same bits (no atomics), and a row's result does not depend
+// on how many rows share the call:
 //
-// * Weight stream (M below 64: AlexNet's fc layers at batch 1 to 16, an
-//   LM decode step, a short prompt).  Bound on the H100: bytes.  AlexNet's
-//   fc6 streams 151 MB for 2 * M * 37.7 M operations, about 45 us at 3.35
-//   TB/s against 1 to 18 us of fp32 FMAs; a decode step of gemma2-2b
-//   streams 156 MB of bf16 weights a layer for M = 4.  So the design fills
-//   every SM with weight rows, not with square tiles:
+// * Weight stream (path 0; M below 64 in either type: AlexNet's fc layers
+//   at batch 1 to 16, an LM decode step, a short prompt).  Bound on the
+//   H100: bytes.  AlexNet's fc6 streams 151 MB for 2 * M * 37.7 M
+//   operations, about 45 us at 3.35 TB/s against 1 to 18 us of fp32 FMAs;
+//   a decode step of gemma2-2b streams 156 MB of bf16 weights a layer for
+//   M = 4.  So the design fills every SM with weight rows, not with square
+//   tiles:
 //     pass 1: a block owns 512 output columns (4 a thread, 128 apart so
 //             each warp reads contiguous bytes of a weight row) and a K
 //             slice, keeps its x slice [BM, <= 512] in shared memory, and
@@ -24,16 +26,38 @@
 //             the activation.
 //   The split count is chosen by the host so that about four blocks per SM
 //   are in flight while the partials stay small next to the weights.
-// * Tiles (M of 64 and more: an LM prefill, M the prompt length).  Bound:
-//   operations (2 * 4500 * 2304 * 9216 for gemma2-2b's gate projection of
-//   a 4500-token prompt).  A classic fp32 CUDA-core tile: a block of 256
-//   threads owns a 128 x 128 output tile, each thread 8 x 8 of it, and
-//   walks K in steps of 8 through double-buffered shared memory (the next
-//   step's loads in registers while this step computes); no split of K,
-//   the epilogue adds the bias and applies the activation.
+// * Tensor-core tiles (path 2; bf16 with M of 64 and more: an LM prefill,
+//   M the prompt length; K and N multiples of 8 and x, w 16-byte aligned,
+//   as TMA needs).  Bound: operations (2 * 4500 * 2304 * 9216 for
+//   gemma2-2b's gate projection of a 4500-token prompt, 0.19 ms at 989
+//   TFLOP/s).  Products of bf16 operands are exact in fp32, so Hopper's
+//   tensor cores compute the contract's function: ``mm_wgmma`` gives a
+//   block of 384 threads a 128 x 128 output tile, whatever M (blocks walk
+//   M first when x is the smaller operand, else N, so that neighbours share
+//   its tiles in L2).  Warpgroup 0 is the producer: one thread walks K in
+//   steps of 64 and has TMA copy x's [128, 64] box (K-major, 128-byte
+//   swizzle) and two boxes of w's [64, 64] (read in its [K, N] layout,
+//   N-major, no transposed copy) into a ring of four shared-memory stages,
+//   one pair of mbarriers (full, empty) per stage.  Warpgroups 1 and 2
+//   each own 64 rows of the tile and run wgmma m64n128k16 (B transposed)
+//   four times a stage into fp32 registers, releasing a stage once the
+//   next one's products are issued.  No split of K: each block sums K from
+//   0 to K in order.  The epilogue adds the bias and applies the activation in fp32
+//   on the registers, stages the bf16 tile in shared memory and stores it
+//   in coalesced 16-byte chunks, rows at and past M masked (TMA fills the
+//   missing rows and the K tail with zeros on load).
+// * CUDA-core tiles (path 1; fp32 with M of 64 and more, and bf16 shapes
+//   TMA cannot describe).  Bound: operations, at the fp32 rate.  A classic
+//   fp32 tile: a block of 256 threads owns a 128 x 128 output tile, each
+//   thread 8 x 8 of it, and walks K in steps of 8 through double-buffered
+//   shared memory (the next step's loads in registers while this step
+//   computes); operands are converted to fp32 on load; no split of K, the
+//   epilogue adds the bias and applies the activation.
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from cudart
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -224,9 +248,290 @@ mm_tiled(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
+// -- path 2: TMA + wgmma ---------------------------------------------------
+
+// a block's tile is WG_BM x WG_BN; it walks K in steps of WG_BK through a
+// ring of WG_STAGES stages, each an x box and WG_BN / 64 w boxes
+constexpr int WG_BM = 128, WG_BN = 128, WG_BK = 64, WG_STAGES = 4;
+constexpr int WG_THREADS = 384;
+constexpr int WG_A_BYTES = WG_BM * WG_BK * 2;  // x box [128 rows, 64 K]
+constexpr int WG_BOX_BYTES = WG_BK * 64 * 2;   // w box [64 K rows, 64 N]
+constexpr int WG_STAGE_BYTES = WG_A_BYTES + WG_BN / 64 * WG_BOX_BYTES;
+// the ring, 1 KB to align it to the 128-byte swizzle's 1 KB pattern, and
+// a full and an empty barrier per stage
+constexpr int WG_SMEM = WG_STAGES * WG_STAGE_BYTES + 1024 + 2 * WG_STAGES * 8;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// returns once the phase of parity ``parity`` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma's shared-memory descriptor for a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (all >> 4), layout type 1.
+// x (K-major): the stride is 1024 bytes between groups of 8 rows; the
+// leading offset is unused.  w (N-major): the leading offset is the
+// distance between 64-column boxes, the stride 1024 bytes between groups
+// of 8 K rows.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+#define D8(i)                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d = a (64 x 16, K-major) * b (16 x 128, N-major) + (acc ? d : 0), fp32
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
+                                           uint64_t db, uint32_t acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24),
+        D8(32), D8(40), D8(48), D8(56)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+#undef D8
+
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__global__ void __launch_bounds__(WG_THREADS, 1)
+mm_wgmma(const __grid_constant__ CUtensorMap xmap,
+         const __grid_constant__ CUtensorMap wmap,
+         const float* __restrict__ b, __nv_bfloat16* __restrict__ y, int M,
+         int N, int K, int act, int m_fast) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t ring = (raw + 1023) & ~1023u;
+  const uint32_t bars = ring + WG_STAGES * WG_STAGE_BYTES;
+  auto a_at = [&](int s) { return ring + s * WG_STAGE_BYTES; };
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (WG_STAGES + s); };
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int m0 = (m_fast ? blockIdx.x : blockIdx.y) * WG_BM;
+  const int n0 = (m_fast ? blockIdx.y : blockIdx.x) * WG_BN;
+  const int nk = (K + WG_BK - 1) / WG_BK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (wg == 0) {
+    // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 0) {
+      for (int kb = 0; kb < nk; ++kb) {
+        const int s = kb % WG_STAGES;
+        if (kb >= WG_STAGES) mbar_wait(empty(s), (kb / WG_STAGES - 1) & 1);
+        mbar_expect_tx(full(s), WG_STAGE_BYTES);
+        tma_load(a_at(s), &xmap, full(s), kb * WG_BK, m0);
+#pragma unroll
+        for (int j = 0; j < WG_BN / 64; ++j)
+          tma_load(a_at(s) + WG_A_BYTES + j * WG_BOX_BYTES, &wmap, full(s),
+                   n0 + 64 * j, kb * WG_BK);
+      }
+    }
+  } else {
+    // consumers: warpgroup c owns rows 64 c .. 64 c + 63 of the tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int c = wg - 1;
+    // the first product writes d without reading it: no instruction but
+    // a wgmma defines the accumulators, so the products of a stage issue
+    // back to back
+    float d[WG_BN / 2];
+    for (int kb = 0; kb < nk; ++kb) {
+      const int s = kb % WG_STAGES;
+      mbar_wait(full(s), (kb / WG_STAGES) & 1);
+      const uint32_t a = a_at(s) + c * 64 * 128;
+      const uint32_t bt = a_at(s) + WG_A_BYTES;
+      fence_acc(d);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < WG_BK / 16; ++kk)
+        wgmma_n128(d, wg_desc(a + 32 * kk, 16, 1024),
+                   wg_desc(bt + 16 * 128 * kk, WG_BOX_BYTES, 1024),
+                   kb > 0 || kk > 0);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      // the previous stage's products are done: release its buffers
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      fence_acc(d);
+      if (kb > 0 && (tid & 31) == 0)
+        mbar_arrive(empty((kb - 1) % WG_STAGES));
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(d);
+    // Epilogue: the bias and the activation in fp32 on the registers, then
+    // bf16 pairs into this warpgroup's halves of the x boxes, which nobody
+    // reads any more (16-byte chunks swizzled by row, so the pairs of one
+    // store hit 32 banks), then coalesced 16-byte stores of whole rows.
+    // d[4 j + 2 h + e] holds row 16 warp + lane / 4 + 8 h and column
+    // 8 j + 2 (lane % 4) + e of the warpgroup's 64 x 128 slice; a box half
+    // holds 32 of its rows.
+    constexpr int ROW_BYTES = WG_BN * 2, ROWS_PER_BOX = 8192 / ROW_BYTES;
+    static_assert(64 / ROWS_PER_BOX <= WG_STAGES, "the epilogue's rows");
+    auto out_row = [&](int r) {
+      return a_at(r / ROWS_PER_BOX) + c * 8192 +
+             (r % ROWS_PER_BOX) * ROW_BYTES;
+    };
+    const int lane = tid % 32, r0 = 16 * (tid / 32) + lane / 4;
+#pragma unroll
+    for (int j = 0; j < WG_BN / 8; ++j) {
+      const int n = n0 + 8 * j + 2 * (lane % 4);
+      const bool bias = b && n < N;  // N is a multiple of 8: n + 1 < N too
+      const float b0 = bias ? b[n] : 0.f, b1 = bias ? b[n + 1] : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h;
+        float v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
+        if (b) {
+          v0 += b0;
+          v1 += b1;
+        }
+        __nv_bfloat162 v =
+            __floats2bfloat162_rn(activate(v0, act), activate(v1, act));
+        asm volatile("st.shared.b32 [%0], %1;\n"
+                     :: "r"(out_row(r) + 16 * (j ^ (r % 8)) + 4 * (lane % 4)),
+                        "r"(*reinterpret_cast<uint32_t*>(&v))
+                     : "memory");
+      }
+    }
+    asm volatile("bar.sync %0, 128;\n" :: "r"(1 + c) : "memory");
+    constexpr int CHUNKS = WG_BN / 8;  // 16-byte chunks of a row
+    for (int e = tid; e < 64 * CHUNKS; e += 128) {
+      const int r = e / CHUNKS, ch = e % CHUNKS;
+      const int m = m0 + 64 * c + r, n = n0 + 8 * ch;
+      if (m >= M || n >= N) continue;
+      uint4 v;
+      asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                   : "r"(out_row(r) + 16 * (ch ^ (r % 8))));
+      *reinterpret_cast<uint4*>(y + (long)m * N + n) = v;
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime, so the
+// library needs no -lcuda
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &q);
+#endif
+    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a bf16 [rows, cols] row-major tensor map with [box_rows, box_cols] boxes
+// and the 128-byte swizzle; false if TMA cannot describe it
+bool tensor_map(CUtensorMap* map, const void* base, int rows, int cols,
+                int box_rows, int box_cols) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode || reinterpret_cast<uintptr_t>(base) % 16 || cols % 8)
+    return false;
+  cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_wgmma(const void* x, const void* w, const float* b, void* y,
+                 int M, int N, int K, int act, cudaStream_t st) {
+  CUtensorMap xmap, wmap;
+  if (!tensor_map(&xmap, x, M, K, WG_BM, WG_BK) ||
+      !tensor_map(&wmap, w, K, N, WG_BK, 64))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      mm_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  // consecutive blocks share the smaller operand's tiles in L2: they walk
+  // M first when x is the smaller one (M < N), else N
+  const int mt = (M + WG_BM - 1) / WG_BM, nt = (N + WG_BN - 1) / WG_BN;
+  const int m_fast = M < N;
+  dim3 grid(m_fast ? mt : nt, m_fast ? nt : mt);
+  mm_wgmma<<<grid, WG_THREADS, WG_SMEM, st>>>(
+      xmap, wmap, b, static_cast<__nv_bfloat16*>(y), M, N, K, act, m_fast);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int run(const void* x, const void* w, const void* b, void* part, void* y,
-        int M, int N, int K, int tiled, int splits, int kchunk, int act,
+        int M, int N, int K, int path, int splits, int kchunk, int act,
         void* stream) {
   if (M < 1 || N < 1 || K < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -234,11 +539,16 @@ int run(const void* x, const void* w, const void* b, void* part, void* y,
   const T* wf = static_cast<const T*>(w);
   const float* bf = static_cast<const float*>(b);
   T* yf = static_cast<T*>(y);
-  if (tiled) {
+  if (path == 2) {  // bf16 only
+    if (sizeof(T) != 2) return (int)cudaErrorInvalidValue;
+    return launch_wgmma(x, w, bf, y, M, N, K, act, st);
+  }
+  if (path == 1) {
     dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM);
     mm_tiled<T><<<grid, TT, 0, st>>>(xf, wf, bf, yf, M, N, K, act);
     return (int)cudaGetLastError();
   }
+  if (path != 0) return (int)cudaErrorInvalidValue;
   if (splits < 1 || kchunk > KMAX || kchunk < 1 || (long)kchunk * splits < K)
     return (int)cudaErrorInvalidValue;
   float* pf = static_cast<float*>(part);
@@ -258,22 +568,23 @@ int run(const void* x, const void* w, const void* b, void* part, void* y,
 
 }  // namespace
 
-// tiled = 1 takes the tiled path (part, splits and kchunk unused); tiled = 0
-// the weight stream, with part holding splits * M * N floats, splits >= 1,
-// kchunk * splits >= K and kchunk <= 512.  act: 0 none, 1 relu, 2 silu,
-// 3 gelu.  Return cudaGetLastError().
+// path 0: the weight stream, with part holding splits * M * N floats,
+// splits >= 1, kchunk * splits >= K and kchunk <= 512; path 1: CUDA-core
+// tiles; path 2 (bf16 only): TMA + wgmma tiles of 128 x 128, K and N
+// multiples of 8, x and w 16-byte aligned.  part, splits and kchunk are
+// read by path 0 only.  act: 0 none, 1 relu, 2 silu, 3 gelu.  Return a CUDA error code, 0 when the launch was taken.
 extern "C" int matmul_fused_f32(const void* x, const void* w, const void* b,
                                 void* part, void* y, int M, int N, int K,
-                                int tiled, int splits, int kchunk, int act,
+                                int path, int splits, int kchunk, int act,
                                 void* stream) {
-  return run<float>(x, w, b, part, y, M, N, K, tiled, splits, kchunk, act,
+  return run<float>(x, w, b, part, y, M, N, K, path, splits, kchunk, act,
                     stream);
 }
 
 extern "C" int matmul_fused_bf16(const void* x, const void* w, const void* b,
                                  void* part, void* y, int M, int N, int K,
-                                 int tiled, int splits, int kchunk, int act,
+                                 int path, int splits, int kchunk, int act,
                                  void* stream) {
-  return run<__nv_bfloat16>(x, w, b, part, y, M, N, K, tiled, splits, kchunk,
+  return run<__nv_bfloat16>(x, w, b, part, y, M, N, K, path, splits, kchunk,
                             act, stream);
 }

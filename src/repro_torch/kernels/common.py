@@ -1,10 +1,12 @@
 """Kernel-wide constants and the device rule of the port.
 
 ``ACC_DTYPE`` is the accumulation type of every kernel and plain version:
-operands are read as fp32 (a bf16 operand is converted on load), sums
-are fp32, and there is one cast at the store, to the operands' type.  The
-CNN kernels (K1, K2, K4-K9) take fp32 tensors; K3 and K10 take fp32 or
-bf16, the same type for all their operands.
+operands are read as fp32 (a bf16 operand is converted on load, or, on
+K3's wgmma path, multiplied on the tensor cores, where the product of two
+bf16 values is exact in fp32), sums are fp32, and there is one cast at
+the store, to the operands' type.  The CNN kernels (K1, K2, K4-K9) take
+fp32 tensors; K3 and K10 take fp32 or bf16, the same type for all their
+operands.
 """
 from __future__ import annotations
 

@@ -3,7 +3,11 @@
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
 (x and w both fp32 or both bf16, read as they are; the bias fp32) or
-raises.
+raises.  The path is chosen from the type, the shape and the pointers
+alone, before the launch (``k3_path``): the weight stream below
+``TILED_MIN_M`` rows, TMA + wgmma tiles for bf16 from there on when TMA
+can describe both operands, CUDA-core tiles otherwise.  A refused launch
+raises; nothing retries on another path.
 """
 from __future__ import annotations
 
@@ -20,7 +24,30 @@ COLS_PER_BLOCK = 512  # BN in csrc/matmul_fused.cu
 KCHUNK_MAX = 512      # KMAX in csrc/matmul_fused.cu
 BLOCKS_PER_SM = 4
 PARTIAL_SHARE = 0.1   # partial sums may add at most this share of w's bytes
-TILED_MIN_M = 64      # from this M on, the tiled path (no partials)
+TILED_MIN_M = 64      # from this M on, a tiled path (no partials)
+#: the C entry's path codes
+PATH_CODES = {"stream": 0, "tiles": 1, "wgmma": 2}
+TMA_ALIGN = 16        # bytes: TMA's base alignment and stride multiple
+
+
+def tma_ok(k: int, n: int, x_ptr: int = 0, w_ptr: int = 0) -> bool:
+    """True when TMA can describe bf16 ``x [m, k]`` and ``w [k, n]``: row
+    strides ``2 k`` and ``2 n`` bytes multiples of 16 and both bases
+    16-byte aligned."""
+    return ((2 * k) % TMA_ALIGN == 0 and (2 * n) % TMA_ALIGN == 0
+            and x_ptr % TMA_ALIGN == 0 and w_ptr % TMA_ALIGN == 0)
+
+
+def k3_path(dtype, m: int, k: int, n: int, x_ptr: int = 0,
+            w_ptr: int = 0) -> str:
+    """The path of an ``[m, k] x [k, n]`` product of ``dtype`` operands at
+    ``x_ptr``, ``w_ptr``: ``"stream"`` below ``TILED_MIN_M`` rows,
+    ``"wgmma"`` for bf16 that TMA can describe, ``"tiles"`` otherwise."""
+    if m < TILED_MIN_M:
+        return "stream"
+    if dtype == torch.bfloat16 and tma_ok(k, n, x_ptr, w_ptr):
+        return "wgmma"
+    return "tiles"
 
 
 def split_k(m: int, n: int, k: int, sms: int):
@@ -39,7 +66,9 @@ def split_k(m: int, n: int, k: int, sms: int):
     return math.ceil(k / kchunk), kchunk
 
 
-def _launch(x, w, b, act):
+def _launch(x, w, b, act, path=None):
+    """Launch K3 on CUDA tensors; ``path`` (default: ``k3_path``'s choice)
+    may name another path, for timing one beside the other."""
     check_cuda("matmul_fused", x, w)
     m, k = x.shape
     n = w.shape[1]
@@ -48,11 +77,13 @@ def _launch(x, w, b, act):
         if b.shape != (n,) or b.device != x.device:
             raise ValueError(f"matmul_fused: bias {tuple(b.shape)} on "
                              f"{b.device}, expected ({n},) on {x.device}")
-    # from TILED_MIN_M rows on, ceil(m / 128) x ceil(n / 128) tiles and no
-    # partials; below, the weight stream
-    tiled = m >= TILED_MIN_M
+    chosen = k3_path(x.dtype, m, k, n, x.data_ptr(), w.data_ptr())
+    path = chosen if path is None else path
+    if path not in PATH_CODES or (path == "wgmma" and chosen != "wgmma"):
+        raise ValueError(f"matmul_fused: path {path!r} cannot take "
+                         f"{x.dtype} [{m}, {k}] x [{k}, {n}]")
     splits, kchunk, part = 0, 0, None
-    if not tiled:
+    if path == "stream":
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         splits, kchunk = split_k(m, n, k, sms)
         part = torch.empty((splits, m, n), dtype=torch.float32,
@@ -63,10 +94,11 @@ def _launch(x, w, b, act):
     rc = getattr(_build.library(), entry)(
         x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
         None if part is None else part.data_ptr(), y.data_ptr(), m, n, k,
-        int(tiled), splits, kchunk, ACT_CODES[act],
+        PATH_CODES[path], splits, kchunk, ACT_CODES[act],
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, entry)
     matmul_fused.launches += 1
+    matmul_fused.path_launches[path] += 1
     return y
 
 
@@ -89,5 +121,6 @@ def matmul_fused(x, w, b=None, act: str = "none"):
     return y.reshape(*lead, w.shape[-1])
 
 
-#: kernel launches since the count was last set to 0
+#: kernel launches since the count was last set to 0, in all and by path
 matmul_fused.launches = 0
+matmul_fused.path_launches = dict.fromkeys(PATH_CODES, 0)

@@ -9,6 +9,8 @@ two packages' PRNGs differ, so weights and inputs come from the JAX
 package's init or from numpy, never from a shared seed.
 """
 import dataclasses
+import math
+import re
 
 import jax
 import jax.numpy as jnp
@@ -24,8 +26,10 @@ from repro.nn import norm as jnorm
 from repro.nn import rope as jrope
 from repro.serving import engine as jengine
 from repro_torch.core import config as tconfig
-from repro_torch.kernels.matmul_fused.ops import (TILED_MIN_M, matmul_fused,
-                                                  split_k)
+from repro_torch.kernels import _build
+from repro_torch.kernels.matmul_fused.ops import (TILED_MIN_M, k3_path,
+                                                  matmul_fused, split_k)
+from repro_torch.kernels.matmul_fused.ref import _ACTS
 from repro_torch.models import registry as tregistry
 from repro_torch.models.common import CACHE_BATCH_AXIS, params_from_jax
 from repro_torch.nn import embedding as temb
@@ -276,14 +280,33 @@ def test_k3_plain_version_takes_bf16(act, m):
     _close(ours, ref, 2.0 ** -7)
 
 
+#: K3's projection shapes (K, N) in a gemma2-2b block (q, k/v, o, gate/up,
+#: down) and an rwkv6-1.6b layer (2048 -> 2048, the channel mix's key and
+#: value)
+LM_K3_SHAPES = ((2304, 2048), (2304, 1024), (2048, 2304), (2304, 9216),
+                (9216, 2304), (2048, 2048), (2048, 7168), (7168, 2048))
+#: the M of the served prompts (16, 300, 1500, 4500 tokens), a decode step
+#: at 4 slots, and the edges of the tiled paths
+LM_K3_ROWS = (1, 4, 16, 63, 64, 300, 1500, 4500)
+
+
 @pytest.mark.parametrize("m,path", [(1, "stream"), (4, "stream"),
                                     (16, "stream"), (63, "stream"),
                                     (64, "tiled"), (300, "tiled"),
-                                    (4500, "tiled")])
+                                    (4500, "tiled"), (64, "wgmma"),
+                                    (300, "wgmma"), (1500, "wgmma"),
+                                    (4500, "wgmma")])
 def test_k3_paths_at_lm_shapes(m, path):
     """A decode step (M = 4) and short prompts stream the weights with
     partial sums small beside them; a prefill of 64 tokens and more takes
-    the tiled path, with no partials at all."""
+    a tiled path, with no partials at all: the tensor-core tile (TMA +
+    wgmma) for the bf16 served model at every projection shape, the
+    CUDA-core tile for fp32."""
+    if path == "wgmma":
+        for k, n in LM_K3_SHAPES:
+            assert k3_path(torch.bfloat16, m, k, n) == "wgmma"
+            assert k3_path(torch.float32, m, k, n) == "tiles"
+        return
     assert (m >= TILED_MIN_M) == (path == "tiled")
     if path == "tiled":
         return
@@ -296,6 +319,161 @@ def test_k3_paths_at_lm_shapes(m, path):
         assert splits * m * n * 4 <= k * n * 2
         if m <= 16:
             assert splits * m * n * 4 <= 0.2 * k * n * 2
+
+
+@pytest.mark.parametrize("m", LM_K3_ROWS)
+@pytest.mark.parametrize("k,n", LM_K3_SHAPES)
+def test_k3_path_choice(m, k, n):
+    """K3's path comes from the type, M, K, N and the pointers alone: the
+    weight stream below 64 rows in either type; from 64 on, wgmma for bf16
+    that TMA can describe and the CUDA-core tile otherwise — fp32, a row
+    stride that is not a multiple of 16 bytes (K or N not a multiple of
+    8), a base that is not 16-byte aligned."""
+    want = "stream" if m < 64 else "wgmma"
+    assert k3_path(torch.bfloat16, m, k, n) == want
+    assert k3_path(torch.bfloat16, m, k, n, 256, 1 << 20) == want
+    tiled = "stream" if m < 64 else "tiles"
+    assert k3_path(torch.float32, m, k, n) == tiled
+    assert k3_path(torch.bfloat16, m, k, n + 4) == tiled
+    assert k3_path(torch.bfloat16, m, k + 4, n) == tiled
+    assert k3_path(torch.bfloat16, m, k, n, x_ptr=8) == tiled
+    assert k3_path(torch.bfloat16, m, k, n, w_ptr=2) == tiled
+
+
+def test_k3_path_counters_start_at_zero_and_the_cpu_moves_none():
+    """The wrapper counts its launches by path; the plain version on the
+    CPU launches nothing."""
+    assert set(matmul_fused.path_launches) == {"stream", "tiles", "wgmma"}
+    before = (matmul_fused.launches, dict(matmul_fused.path_launches))
+    matmul_fused(torch.ones(70, 16, dtype=torch.bfloat16),
+                 torch.ones(16, 8, dtype=torch.bfloat16))
+    assert (matmul_fused.launches, matmul_fused.path_launches) == before
+
+
+def _wgmma_constants():
+    """The wgmma path's integer constants (``WG_BM``, ``WG_BN``,
+    ``WG_BK``, ``WG_STAGES``, ``WG_THREADS``) as the kernel's source
+    declares them."""
+    src = (_build.CSRC / "matmul_fused.cu").read_text()
+    return {name: int(v) for name, v in
+            re.findall(r"\b(WG_[A-Z]+) = (\d+)[,;]", src)}
+
+
+#: N columns of one w box (``tensor_map(&wmap, ..., WG_BK, 64)``: a
+#: 128-byte swizzle row of bf16)
+WG_BOX_N = 64
+#: dynamic shared memory a block may opt in to on the H100 (227 KB)
+SMEM_LIMIT = 232448
+
+
+def wgmma_geometry(m, k, n):
+    """What the wgmma kernel launches for an ``[m, k] x [k, n]`` bf16
+    product, from its source's constants: the tile (``bm`` x ``bn``,
+    whatever the shape), the grid in launch order (M first when M < N),
+    the K steps, the TMA boxes (inner extent first, in elements) with their
+    row strides in bytes, the bytes one stage's loads bring and the ring's
+    dynamic shared memory (``WG_SMEM`` in the source)."""
+    c = _wgmma_constants()
+    bm, bn, bk, stages = c["WG_BM"], c["WG_BN"], c["WG_BK"], c["WG_STAGES"]
+    x_box, w_box = (bk, bm), (WG_BOX_N, bk)
+    tiles = (math.ceil(n / bn), math.ceil(m / bm))
+    stage = 2 * (x_box[0] * x_box[1] + bn // WG_BOX_N * w_box[0] * w_box[1])
+    return {"bm": bm, "bn": bn, "bk": bk, "stages": stages,
+            "threads": c["WG_THREADS"],
+            "grid": tiles[::-1] if m < n else tiles,
+            "k_steps": math.ceil(k / bk),
+            "x_box": x_box, "w_box": w_box, "w_boxes": bn // WG_BOX_N,
+            "x_stride": 2 * k, "w_stride": 2 * n, "stage_bytes": stage,
+            "smem": stages * stage + 1024 + 2 * stages * 8}
+
+
+@pytest.mark.parametrize("m", [64, 300, 1500, 4500])
+@pytest.mark.parametrize("k,n", LM_K3_SHAPES)
+def test_wgmma_geometry_at_lm_shapes(m, k, n):
+    """The wgmma kernel's geometry, read from its source: one tile shape
+    whatever the rows (a row's sums never depend on M), two consumer
+    warpgroups of 64 rows each beside the producer, tiles that cover the
+    output once, a ring that fits the 227 KB a block may opt in to, TMA
+    boxes with inner extents of at most 128 bytes (the 128-byte swizzle's
+    row) and row strides that are multiples of 16 bytes, and w's boxes
+    covering the tile's width."""
+    g = wgmma_geometry(m, k, n)
+    assert (g["bm"], g["bn"], g["bk"]) == (128, 128, 64)
+    assert g["threads"] == 128 * (1 + g["bm"] // 64)
+    tiles = g["grid"] if m >= n else g["grid"][::-1]
+    assert (tiles[0] - 1) * g["bn"] < n <= tiles[0] * g["bn"]
+    assert (tiles[1] - 1) * g["bm"] < m <= tiles[1] * g["bm"]
+    assert g["k_steps"] * g["bk"] >= k > (g["k_steps"] - 1) * g["bk"]
+    assert g["smem"] <= SMEM_LIMIT
+    for box in (g["x_box"], g["w_box"]):
+        assert 2 * box[0] <= 128 and (2 * box[0]) % 16 == 0
+        assert max(box) <= 256
+    assert g["x_box"] == (g["bk"], g["bm"])
+    assert g["w_box"][1] == g["bk"] and g["w_boxes"] * g["w_box"][0] == g["bn"]
+    assert g["x_stride"] % 16 == 0 and g["w_stride"] % 16 == 0
+    assert g["stage_bytes"] == 2 * (g["bm"] * g["bk"] + g["bk"] * g["bn"])
+    # the epilogue stages a warpgroup's 64 x bn bf16 rows in its halves of
+    # the ring's x boxes
+    assert g["stages"] * g["bm"] // 2 * g["bk"] * 2 >= 64 * g["bn"] * 2
+
+
+def _wgmma_emulated(x, w, b, act):
+    """The wgmma path's tile walk in plain PyTorch: 128 x bn output tiles,
+    each summing K in steps of 64 from boxes that TMA fills with zeros past
+    M, K and N, the bias and the activation on the fp32 sums, one cast to
+    bf16, the rows and columns past M and N dropped."""
+    m, k = x.shape
+    n = w.shape[1]
+    g = wgmma_geometry(m, k, n)
+    bm, bn, bk = g["bm"], g["bn"], g["bk"]
+    tiles = g["grid"] if m >= n else g["grid"][::-1]
+    xp = torch.zeros(tiles[1] * bm, g["k_steps"] * bk)
+    xp[:m, :k] = x.float()
+    wp = torch.zeros(g["k_steps"] * bk, tiles[0] * bn)
+    wp[:k, :n] = w.float()
+    y = torch.empty(m, n, dtype=torch.bfloat16)
+    for i in range(tiles[1]):
+        for j in range(tiles[0]):
+            acc = torch.zeros(bm, bn)
+            for s in range(g["k_steps"]):
+                acc += (xp[i * bm:(i + 1) * bm, s * bk:(s + 1) * bk]
+                        @ wp[s * bk:(s + 1) * bk, j * bn:(j + 1) * bn])
+            if b is not None:
+                bt = torch.zeros(bn)
+                cols = b[j * bn:(j + 1) * bn]
+                bt[:len(cols)] = cols
+                acc += bt
+            out = _ACTS[act](acc).to(torch.bfloat16)
+            rows = min(bm, m - i * bm)
+            ncols = min(bn, n - j * bn)
+            y[i * bm:i * bm + rows, j * bn:j * bn + ncols] = \
+                out[:rows, :ncols]
+    return y
+
+
+@pytest.mark.parametrize("m,k,n,act", [(200, 72, 136, "silu"),
+                                       (130, 264, 40, "gelu"),
+                                       (64, 64, 128, "relu"),
+                                       (70, 1040, 200, "none")])
+def test_wgmma_schedule_matches_jax(m, k, n, act):
+    """The tile walk that the wgmma kernel's source declares covers the
+    output once and zero-fills the boxes past M, K and N without changing
+    a sum — ragged M, a K tail inside the last 64-wide box, N narrower than
+    a tile or past the last whole one — so it reproduces JAX's
+    ``matmul_fused_ref`` on the same bf16 operands within one bf16
+    rounding.  It checks the schedule, not the kernel: the card holds the
+    kernel to the plain version element by element (``chip_smoke.py``)."""
+    assert k3_path(torch.bfloat16, m, k, n) == "wgmma"
+    rng = np.random.default_rng(m + k + n)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = (rng.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32)
+    b = rng.standard_normal(n).astype(np.float32)
+    ours = _wgmma_emulated(torch.from_numpy(x).bfloat16(),
+                           torch.from_numpy(w).bfloat16(),
+                           torch.from_numpy(b), act)
+    ref = jax_mm_ref(jnp.asarray(x, jnp.bfloat16),
+                     jnp.asarray(w, jnp.bfloat16), jnp.asarray(b), act)
+    _close(ours, ref, 2.0 ** -7)
 
 
 # -- models -------------------------------------------------------------------
