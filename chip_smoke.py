@@ -15,9 +15,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (conv chain+pool), K3 (fc matmul), K7 (fused and per-layer basic SIMD
    conv), K8 (basic parallel conv), K9 (standalone pool) — each kernel
    against its plain PyTorch version on the card (max abs <= 1e-4 *
-   max(1, max|plain|)), then timed with CUDA events (median of 25 after
-   warm-up) beside its plain version, one PyTorch library call as a
-   yardstick and its bound; and the second-generation cells at batch 1
+   max(1, max|plain|)), a repeat bit for bit and, for K7 and K8 at batch
+   16, frame 0 bit for bit against the kernel on frame 0 alone, then timed
+   with CUDA events (median of 25 after warm-up) beside its plain version,
+   one PyTorch library call as a yardstick and its bound (each case line
+   also prints ``bound_share``, bound / kernel time); and the
+   second-generation cells at batch 1
    and 16 — K4 (oc-blocked LRN cell) on AlexNet's conv1+pool1+norm1 and
    conv2+pool2+norm2, K5 (pool carry) on AlexNet's conv1+pool1 and
    conv2+pool2 (norms unfused) and the CIFAR-10 net's three groups, K6
@@ -159,6 +162,9 @@ ENGINE_BATCH = 16
 KERNELS = ("K1", "K2", "K3", "K7", "K8", "K9")
 #: the second-generation cells, which only a tuned plan reaches
 CELLS = ("K4", "K5", "K6")
+#: kernels whose batch-16 cases must give frame 0 the bits of frame 0
+#: launched alone (phase 3)
+FRAME_CHECKED = ("K7", "K8")
 #: the tuned deployment of phase 5: norm1 unfused so that conv1+pool1
 #: runs the pool carry (K5), conv2+pool2+norm2 the oc-blocked LRN cell
 #: (K4), conv3-5+pool5 the oc-blocked chain (K6)
@@ -384,10 +390,14 @@ def run_case(torch, F, kid, step, n, params, dev, peaks, obf=None):
             kernel = lambda: conv_ops.conv2d_pool_fused(*one, **tail)  # noqa
             plain = lambda: conv_ops.conv2d_pool_fused_ref(*one, **tail)  # noqa
         elif kid == "K7":
-            kernel = lambda: conv_ops.conv2d_basic_simd(*one, **tail)  # noqa
+            kernel_at = lambda xx: conv_ops.conv2d_basic_simd(  # noqa: E731
+                xx, *one[1:], **tail)
+            kernel = lambda: kernel_at(x)  # noqa: E731
             plain = lambda: conv2d_basic_simd_ref(*one, **tail)  # noqa
         elif kid == "K8":
-            kernel = lambda: conv_ops.conv2d_basic_parallel(*one)  # noqa
+            kernel_at = lambda xx: conv_ops.conv2d_basic_parallel(  # noqa
+                xx, *one[1:])
+            kernel = lambda: kernel_at(x)  # noqa: E731
             plain = lambda: conv2d_basic_parallel_ref(*one)  # noqa
         else:
             args = (x, ws, bs, strides, pads, relus)
@@ -431,13 +441,20 @@ def run_case(torch, F, kid, step, n, params, dev, peaks, obf=None):
         fail(f"{kid} {step.names} n={n}: max abs err {err} > {tol}")
     if not torch.equal(kernel(), out):
         fail(f"{kid} {step.names} n={n}: a repeated launch differs")
+    if kid in FRAME_CHECKED and n > 1:
+        # frame independence: frame 0 alone gives frame 0's bits
+        if not torch.equal(kernel_at(x[:1].contiguous()), out[:1]):
+            fail(f"{kid} {step.names} n={n}: frame 0 differs from the same "
+                 f"frame launched alone")
     lib_err = (library() - ref).abs().max().item()
+    ms = time_ms(torch, kernel)
+    bound_ms = 1e3 * max(flops / flops_peak, nbytes / bw_peak)
     return {
         "kernel": kid, "kind": step.kind, "batch": n, "max_abs_err": err,
         "tol": tol, "library_max_abs_err": lib_err,
-        "ms": time_ms(torch, kernel), "plain_ms": time_ms(torch, plain),
+        "ms": ms, "plain_ms": time_ms(torch, plain),
         "library_ms": time_ms(torch, library),
-        "bound_ms": 1e3 * max(flops / flops_peak, nbytes / bw_peak),
+        "bound_ms": bound_ms, "bound_share": bound_ms / ms,
         "bound_by": "operations" if flops / flops_peak > nbytes / bw_peak
         else "bytes",
         "flops": flops, "bytes": nbytes,

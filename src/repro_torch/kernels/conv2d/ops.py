@@ -7,10 +7,12 @@
 * ``conv2d_chain`` — K2 (``csrc/conv_chain.cu``): a chain of convs with
   the same optional pool/LRN tail in one launch.
 * ``conv2d_basic_simd`` — K7 (``csrc/conv_basic_simd.cu``): the §4.3
-  conv, NHWC with a float4 channel dot per kernel position; with a pool
-  it is the fused conv → pool → LRN super-layer of that rung.
+  conv, NHWC with a channel dot per kernel position, on the register-tiled
+  core of ``csrc/conv_simt_tile.cuh``; with a pool it is the fused conv →
+  pool → LRN super-layer of that rung.
 * ``conv2d_basic_parallel`` — K8 (``csrc/conv_basic_parallel.cu``): the
-  §4.2 conv, NCHW, one thread per output, channels the outer loop.
+  §4.2 conv, NCHW, channels the outer loop, on the same register-tiled
+  core over shared-memory halos of a chunk of channels.
 * ``conv2d_pool_lrn_halo`` — K4 (``csrc/conv_pool_lrn.cu``, K1's kernel
   on an oc-tiled grid): K1's conv → pool → LRN group with the output
   channels split across blocks, each tile widened by the LRN window's
@@ -68,8 +70,20 @@ GEMM_TILE = 64            # TP and TO in csrc/conv_common.cuh
 GEMM_GROUPS = 4           # GROUPS in csrc/conv_common.cuh: tiles run 4 at a time
 SMEM_LIMIT = 190 * 1024   # dynamic shared memory a block may take (bytes):
                           # 227 KB less the 33 KB of static GEMM tiles
-K7_SMEM_LIMIT = 227 * 1024  # K7 has no static tiles: the whole 227 KB
+K7_SMEM_LIMIT = 227 * 1024  # K7 and K8 have no static tiles: the whole 227 KB
 K7_ALIGN = 4              # K7's channels: zero-padded to whole float4s
+#: the register-tiled core of K7 and K8 (csrc/conv_simt_tile.cuh): a group
+#: of threads owns ST_TP output pixels x ST_TO output channels; a weight
+#: tile's rows are ST_BROW floats
+ST_TP, ST_TO, ST_BROW = 128, 64, 72
+#: K7's stage (csrc/conv_basic_simd.cu): K7_CK reduction rows, input pixel
+#: rows of K7_AROW floats; two stages a group, at most K7_MAX_GROUPS groups
+#: in a fused block
+K7_CK, K7_AROW, K7_MAX_GROUPS = 16, 20, 2
+K7_RING = 2 * (ST_TP * K7_AROW + K7_CK * ST_BROW)   # floats
+#: K8's stage budget in floats: its chunk of input channels (``cc``) is the
+#: most whose halos and weights fit it (a 64 KB ring of two stages)
+K8_STAGE_FLOATS = 8192
 #: the JAX package's oc tile of each advanced method (the paper's 4 or 8
 #: output channels a thread): the width its LRN blocking rule compares with
 #: the layer's channels
@@ -658,11 +672,39 @@ def conv2d_chain(x, ws, bs, strides, paddings, relus, pool_kernel=None,
                          pool, pool_relu, lrn)
 
 
-def k7_smem(stages, pool, lrn: bool) -> int:
-    """K7's fused kernel's dynamic shared memory: the conv rows of one
-    pooled row at full channel width plus, with LRN, that pooled row (the
-    K1 layout at one final row a block)."""
-    return k1_smem(stages, pool, lrn, 1)
+def _round4(v: int) -> int:
+    return -(-v // 4) * 4
+
+
+def k7_ring_off(stages, pool, lrn: bool) -> int:
+    """Float offset of the fused K7 block's tile rings in shared memory:
+    the conv rows of its one pooled row at full channel width plus, with
+    LRN, that pooled row (the K1 layout at one final row a block), rounded
+    up to a float4."""
+    return _round4(k1_smem(stages, pool, lrn, 1) // 4)
+
+
+def k7_smem(stages, pool, lrn: bool, groups: int) -> int:
+    """K7's fused kernel's dynamic shared memory: the band (and pooled
+    row) and ``groups`` tile rings of ``K7_RING`` floats."""
+    return 4 * (k7_ring_off(stages, pool, lrn) + groups * K7_RING)
+
+
+def k7_groups(stages, pool, lrn: bool) -> int:
+    """Tile groups of a fused K7 block: one for each of its band's
+    ``ST_TP`` x ``ST_TO`` tiles, at most ``K7_MAX_GROUPS``, and no more
+    than fit ``K7_SMEM_LIMIT`` beside the band."""
+    st = stages[0]
+    a, b = band_rows(stages, pool, 1, 0)[0]
+    tiles = math.ceil((b - a) * st.OW / ST_TP) * math.ceil(st.OC / ST_TO)
+    groups = min(K7_MAX_GROUPS, tiles)
+    while groups and k7_smem(stages, pool, lrn, groups) > K7_SMEM_LIMIT:
+        groups -= 1
+    if not groups:
+        raise ValueError(f"K7 band of one pooled row and one tile ring need "
+                         f"{k7_smem(stages, pool, lrn, 1)} bytes of shared "
+                         f"memory, more than {K7_SMEM_LIMIT}")
+    return groups
 
 
 @functools.lru_cache(maxsize=256)
@@ -670,17 +712,62 @@ def k7_launch(n, in_chw, w_shape, stride, padding, relu, pool, pool_relu,
               lrn):
     """K7's launch geometry for one call signature: ``(stages, smem, geo,
     lrn_f)``, ``in_chw`` and ``w_shape`` with the channels padded to
-    ``K7_ALIGN``.  The fused kernel gives each block one pooled row of one
-    frame; its band must fit ``K7_SMEM_LIMIT``."""
+    ``K7_ALIGN``; ``geo`` ends in the fused kernel's tile groups and ring
+    offset.  The per-layer kernel takes one ring (``smem`` is its bytes);
+    the fused kernel gives each block one pooled row of one frame."""
     stages = make_stages(in_chw, [w_shape], [stride], [padding], [relu])
-    smem = k7_smem(stages, pool, lrn is not None)
-    if smem > K7_SMEM_LIMIT:
-        raise ValueError(f"K7 band of one pooled row needs {smem} bytes of "
-                         f"shared memory, more than {K7_SMEM_LIMIT}")
+    if pool is None:
+        groups, ring_off, smem = 1, 0, 4 * K7_RING
+    else:
+        groups = k7_groups(stages, pool, lrn is not None)
+        ring_off = k7_ring_off(stages, pool, lrn is not None)
+        smem = k7_smem(stages, pool, lrn is not None, groups)
     geo, lrn_f = pack_geo(n, stages, pool, pool_relu, lrn, 1)
+    geo = np.append(geo, np.int32([groups, ring_off]))
     geo.setflags(write=False)
     lrn_f.setflags(write=False)
     return stages, smem, geo, lrn_f
+
+
+def k8_halo_rows(st: Stage) -> int:
+    """Input rows the tallest of K8's tiles reads: a tile is ``ST_TP``
+    consecutive output pixels (row-major) of one frame, and reads its
+    output rows' span times the stride plus the kernel's height (mirrors
+    ``k8_halo_rows`` in ``csrc/conv_basic_parallel.cu``)."""
+    p_all = st.OH * st.OW
+    return max((min(p0 + ST_TP, p_all) - 1) // st.OW - p0 // st.OW
+               for p0 in range(0, p_all, ST_TP)) * st.sy + st.KH
+
+
+def k8_stage(st: Stage, cc: int) -> int:
+    """Floats of one K8 stage with ``cc`` input channels: their halos
+    (``k8_halo_rows`` x the padded width) and their weight rows, each
+    rounded up to a float4."""
+    wp = (st.OW - 1) * st.sx + st.KW
+    return (_round4(cc * k8_halo_rows(st) * wp)
+            + _round4(cc * st.KH * st.KW) * ST_BROW)
+
+
+@functools.lru_cache(maxsize=256)
+def k8_launch(n, in_chw, w_shape, stride, padding, relu):
+    """K8's launch geometry for one call signature: ``(stage, dims, smem,
+    grid)``.  ``cc``, the input channels a stage holds, is the most whose
+    stage fits ``K8_STAGE_FLOATS`` (at least one); two stages make the
+    dynamic shared memory; the grid is (pixel tiles x N, channel
+    tiles)."""
+    st = make_stages(in_chw, [w_shape], [stride], [padding], [relu])[0]
+    cc = 1
+    while cc < st.C and k8_stage(st, cc + 1) <= K8_STAGE_FLOATS:
+        cc += 1
+    smem = 2 * 4 * k8_stage(st, cc)
+    if smem > K7_SMEM_LIMIT:
+        raise ValueError(f"K8 stage of one channel needs {smem} bytes of "
+                         f"shared memory, more than {K7_SMEM_LIMIT}")
+    dims = np.asarray([n, *st[:10], st.OH, st.OW, int(relu), cc],
+                      dtype=np.int32)
+    dims.setflags(write=False)
+    grid = (math.ceil(st.OH * st.OW / ST_TP) * n, math.ceil(st.OC / ST_TO))
+    return st, dims, smem, grid
 
 
 def conv2d_basic_simd(x, w, b, stride=(1, 1), padding=(0, 0), relu=False,
@@ -737,14 +824,12 @@ def conv2d_basic_parallel(x, w, b, stride=(1, 1), padding=(0, 0),
         raise ValueError(
             f"conv2d_basic_parallel: unsupported device {x.device}")
     check_cuda_f32("conv2d_basic_parallel", x, w, b)
-    n, _, h, wd = x.shape
-    oc, c, kh, kw = w.shape
-    st = make_stages(tuple(x.shape[1:]), [w.shape], [stride], [padding],
-                     [relu])[0]
+    n = x.shape[0]
+    oc = w.shape[0]
     if tuple(b.shape) != (oc,):
         raise ValueError(f"bias shape {tuple(b.shape)} != ({oc},)")
-    dims = np.asarray([n, c, h, wd, oc, kh, kw, *stride, *padding, st.OH,
-                       st.OW, int(relu)], dtype=np.int32)
+    st, dims, _, _ = k8_launch(n, tuple(x.shape[1:]), tuple(w.shape),
+                               tuple(stride), tuple(padding), bool(relu))
     out = torch.empty((n, oc, st.OH, st.OW), dtype=torch.float32,
                       device=x.device)
     rc = _build.library().conv_basic_parallel_f32(

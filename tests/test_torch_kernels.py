@@ -9,6 +9,7 @@ themselves are checked against these plain versions on the card by
 ``chip_smoke.py``.
 """
 import math
+import re
 from functools import partial
 
 import jax
@@ -24,6 +25,7 @@ from repro.kernels.conv2d.ref import conv2d_ref as jax_conv2d_ref
 from repro.kernels.matmul_fused.ref import matmul_fused_ref as jax_mm_ref
 from repro.kernels.pool2d.ref import pool2d_ref as jax_pool2d_ref
 from repro_torch.core import methods as tm
+from repro_torch.kernels import _build
 from repro_torch.kernels.conv2d import ops as conv_ops
 from repro_torch.kernels.conv2d.ref import (
     conv2d_basic_parallel_ref,
@@ -328,7 +330,416 @@ def test_pool2d_rejects_a_window_larger_than_the_input():
         pool_out_hw(2, 9, (3, 3), (2, 2))
 
 
-# -- K7's band geometry --------------------------------------------------------------
+# -- K7 and K8: the register-tiled cores, read from their sources ---------------
+
+#: every per-layer conv of the three nets: (in_chw, OIHW w shape, stride,
+#: padding) — K8's shapes on ``basic_parallel``, K7's on unfused
+#: ``basic_simd``
+NET_CONVS = {
+    "alexnet_conv1": ((3, 227, 227), (96, 3, 11, 11), (4, 4), (0, 0)),
+    "alexnet_conv2": ((96, 27, 27), (256, 96, 5, 5), (1, 1), (2, 2)),
+    "alexnet_conv3": ((256, 13, 13), (384, 256, 3, 3), (1, 1), (1, 1)),
+    "alexnet_conv4": ((384, 13, 13), (384, 384, 3, 3), (1, 1), (1, 1)),
+    "alexnet_conv5": ((384, 13, 13), (256, 384, 3, 3), (1, 1), (1, 1)),
+    "lenet5_conv1": ((1, 28, 28), (20, 1, 5, 5), (1, 1), (0, 0)),
+    "lenet5_conv2": ((20, 12, 12), (50, 20, 5, 5), (1, 1), (0, 0)),
+    "cifar10_conv1": ((3, 32, 32), (32, 3, 5, 5), (1, 1), (2, 2)),
+    "cifar10_conv2": ((32, 15, 15), (32, 32, 5, 5), (1, 1), (2, 2)),
+    "cifar10_conv3": ((32, 7, 7), (64, 32, 5, 5), (1, 1), (2, 2)),
+}
+NET_CONVS.update({f"ladder_{k}": (xs[1:], ws, st, pd)
+                  for k, (xs, ws, st, pd) in LADDER_CONV_CASES.items()})
+
+
+def _simt_constants():
+    """The integer constants (``ST_*``, ``K7_*``, ``K8_*``) that K7's and
+    K8's sources and their shared core declare."""
+    out = {}
+    for name in ("conv_simt_tile.cuh", "conv_basic_simd.cu",
+                 "conv_basic_parallel.cu"):
+        src = (_build.CSRC / name).read_text()
+        out.update({k: int(v) for k, v in re.findall(
+            r"constexpr (?:int|long long) ((?:ST|K7|K8)_[A-Z_]+) = (\d+);",
+            src)})
+    return out
+
+
+def _thread_outputs(c):
+    """Each thread's accumulators as tile offsets: pixels [T, 8] (tx + 16 m)
+    and channels [T, 8] (``tile_chan``: ty * 4 + u, 32 + ty * 4 + u)."""
+    tid = np.arange(c["ST_THREADS"])
+    tx, ty = tid % 16, tid // 16
+    pix = tx[:, None] + 16 * np.arange(8)[None]
+    u = np.arange(8)[None]
+    chan = np.where(u < 4, 0, 28) + ty[:, None] * 4 + u
+    return pix, chan
+
+
+def _tile_counts(c, p_all, oc, tiles):
+    """How often each (channel, pixel) of one frame is written by the
+    threads of the tiles ``(p0, o0)``, masked as the epilogues mask."""
+    pix, chan = _thread_outputs(c)
+    count = np.zeros((oc, p_all), dtype=np.int64)
+    for p0, o0 in tiles:
+        p = np.broadcast_to((p0 + pix)[:, :, None], (len(pix), 8, 8))
+        o = np.broadcast_to((o0 + chan)[:, None, :], (len(pix), 8, 8))
+        keep = (p < p_all) & (o < oc)
+        np.add.at(count, (o[keep], p[keep]), 1)
+    return count
+
+
+def _round4(v):
+    return -(-v // 4) * 4
+
+
+def test_simt_constants_match_the_wrappers():
+    """The wrappers' copies of the sources' tile constants, and K8's dims
+    array, agree with the sources."""
+    c = _simt_constants()
+    assert (c["ST_TP"], c["ST_TO"], c["ST_BROW"]) == (
+        conv_ops.ST_TP, conv_ops.ST_TO, conv_ops.ST_BROW)
+    assert (c["K7_CK"], c["K7_AROW"], c["K7_MAX_GROUPS"]) == (
+        conv_ops.K7_CK, conv_ops.K7_AROW, conv_ops.K7_MAX_GROUPS)
+    assert (c["K7_SMEM_LIMIT"] == c["K8_SMEM_LIMIT"]
+            == conv_ops.K7_SMEM_LIMIT == 227 * 1024)
+    assert conv_ops.K7_RING == 2 * (c["ST_TP"] * c["K7_AROW"]
+                                    + c["K7_CK"] * c["ST_BROW"])
+    # 8 x 8 accumulators a thread; K7's stage is whole float4s of channels
+    assert c["ST_TP"] * c["ST_TO"] == 64 * c["ST_THREADS"]
+    assert c["K7_CK"] % 4 == 0 and c["K7_AROW"] % 4 == 0
+    st, dims, _, _ = conv_ops.k8_launch(1, (3, 9, 9), (4, 3, 3, 3), (1, 1),
+                                        (1, 1), True)
+    assert len(dims) == c["K8_DIMS"]
+    geo = conv_ops.k7_launch(1, (4, 9, 9), (4, 4, 3, 3), (1, 1), (1, 1),
+                             True, None, False, None)[2]
+    assert len(geo) == 14 + 13 + c["K7_GEO_TAIL"]
+
+
+@pytest.mark.parametrize("conv", sorted(NET_CONVS))
+@pytest.mark.parametrize("n", [1, 16])
+def test_k8_geometry(conv, n):
+    """K8's launch: a block per (frame, pixel tile, channel tile) within
+    CUDA's grid limits, every output written by exactly one thread, every
+    tap of every pixel inside the stage's halo, ``cc`` the most channels
+    whose stage fits ``K8_STAGE_FLOATS``, and two stages within 227 KB."""
+    c = _simt_constants()
+    in_chw, w_shape, stride, padding = NET_CONVS[conv]
+    st, dims, smem, grid = conv_ops.k8_launch(n, in_chw, w_shape, stride,
+                                              padding, True)
+    p_all, tp, to = st.OH * st.OW, c["ST_TP"], c["ST_TO"]
+    n_pt = -(-p_all // tp)
+    assert grid == (n_pt * n, -(-st.OC // to))
+    assert grid[0] < 2 ** 31 and grid[1] <= 65535
+    # blockIdx.x = frame * n_pt + pixel tile: each frame's tiles once
+    assert (np.bincount(np.arange(grid[0]) // n_pt) == n_pt).all()
+    tiles = [(t * tp, o * to) for t in range(n_pt) for o in range(grid[1])]
+    assert (_tile_counts(c, p_all, st.OC, tiles) == 1).all()
+    # the halo: rows (oy - r0) * sy + i and columns ox * sx + j of every
+    # valid pixel's taps
+    wp = (st.OW - 1) * st.sx + st.KW
+    hr = 0
+    for p0 in range(0, p_all, tp):
+        p = np.arange(p0, min(p0 + tp, p_all))
+        rows = (p // st.OW - p0 // st.OW) * st.sy + st.KH - 1
+        cols = (p % st.OW) * st.sx + st.KW - 1
+        assert cols.max() < wp
+        hr = max(hr, int(rows.max()) + 1)
+    assert hr == conv_ops.k8_halo_rows(st)
+    cc = int(dims[-1])
+
+    def stage(k):
+        return (_round4(k * hr * wp)
+                + _round4(k * st.KH * st.KW) * c["ST_BROW"])
+
+    assert 1 <= cc <= st.C
+    assert cc == 1 or stage(cc) <= conv_ops.K8_STAGE_FLOATS
+    assert cc == st.C or stage(cc + 1) > conv_ops.K8_STAGE_FLOATS
+    assert smem == 2 * 4 * stage(cc) <= c["K8_SMEM_LIMIT"]
+    assert list(dims) == [n, *in_chw, w_shape[0], *w_shape[2:], *stride,
+                          *padding, st.OH, st.OW, 1, cc]
+
+
+@pytest.mark.parametrize("conv", sorted(NET_CONVS))
+@pytest.mark.parametrize("n", [1, 16])
+def test_k7_geometry(conv, n):
+    """K7's per-layer launch (the grid its source computes): a block per
+    (frame, pixel tile, channel tile) within CUDA's limits, every output
+    written by exactly one thread, one ring under the 48 KB a block has
+    without opting in, the channels padded to whole float4s."""
+    c = _simt_constants()
+    (ch, h, w), (oc, _, kh, kw), stride, padding = NET_CONVS[conv]
+    cp = _round4(ch)
+    stages, smem, geo, _ = conv_ops.k7_launch(
+        n, (cp, h, w), (oc, cp, kh, kw), stride, padding, True, None, False,
+        None)
+    st = stages[0]
+    p_all, tp, to = st.OH * st.OW, c["ST_TP"], c["ST_TO"]
+    n_pt = -(-p_all // tp)
+    assert n_pt * n < 2 ** 31 and -(-oc // to) <= 65535
+    tiles = [(t * tp, o * to) for t in range(n_pt)
+             for o in range(-(-oc // to))]
+    assert (_tile_counts(c, p_all, oc, tiles) == 1).all()
+    assert smem == 4 * conv_ops.K7_RING <= 48 * 1024
+    assert geo[14] == cp and cp % conv_ops.K7_ALIGN == 0
+    assert geo[2] == 0 and list(geo[-2:]) == [1, 0]
+
+
+def test_simt_stage_loads_cover_each_element_once():
+    """The copies a stage's threads issue: K7's A (pixel (gtid >> 2) + 32 r,
+    channel quad gtid & 3) and B (row (gtid >> 6) + 2 r, column gtid & 63)
+    and K8's weight rows (a warp: 8 channels x 4 consecutive k) write every
+    element of their tiles exactly once."""
+    c = _simt_constants()
+    g = np.arange(c["ST_THREADS"])
+    r4, r8 = np.arange(4), np.arange(8)
+    a_px = ((g >> 2)[:, None] + 32 * r4[None]).ravel()
+    a_q = np.repeat(g & 3, 4)
+    count = np.zeros((c["ST_TP"], c["K7_CK"] // 4), dtype=np.int64)
+    np.add.at(count, (a_px, a_q), 1)
+    assert (count == 1).all()
+    b_k = ((g >> 6)[:, None] + 2 * r8[None]).ravel()
+    b_o = np.repeat(g & 63, 8)
+    count = np.zeros((c["K7_CK"], c["ST_TO"]), dtype=np.int64)
+    np.add.at(count, (b_k, b_o), 1)
+    assert (count == 1).all()
+    for rows in (4, 12, 124):
+        e = np.arange(rows * c["ST_TO"])
+        o = ((e >> 5) & 7) * 8 + (e & 7)
+        k = (e >> 8) * 4 + ((e >> 3) & 3)
+        count = np.zeros((rows, c["ST_TO"]), dtype=np.int64)
+        np.add.at(count, (k, o), 1)
+        assert (count == 1).all()
+        # a warp's 32 stores land on 32 distinct banks of rows ST_BROW apart
+        for w0 in range(0, len(e), 32):
+            banks = (k[w0:w0 + 32] * c["ST_BROW"] + o[w0:w0 + 32]) % 32
+            assert len(set(banks)) == 32
+
+
+def _emulate_k8(x, w, b, stride, padding, relu):
+    """K8's tile walk in numpy, fp32: per block (frame, ST_TP pixels, ST_TO
+    channels) each stage's halo of ``cc`` channels and its weights as the
+    copies stage them (zeros outside the input and past the channels),
+    every output's sum over channels ascending, kernel rows, kernel
+    columns, then bias and ReLU."""
+    c = _simt_constants()
+    n, ch, h, wd = x.shape
+    oc, _, kh, kw = w.shape
+    st, dims, _, grid = conv_ops.k8_launch(n, (ch, h, wd), w.shape, stride,
+                                           padding, relu)
+    cc, tp, to = int(dims[-1]), c["ST_TP"], c["ST_TO"]
+    sy, sx = stride
+    py, px = padding
+    p_all, khw = st.OH * st.OW, kh * kw
+    wp = (st.OW - 1) * sx + kw
+    hr = conv_ops.k8_halo_rows(st)
+    n_pt = -(-p_all // tp)
+    wflat = w.reshape(oc, ch * khw)
+    out = np.full((n, oc, p_all), np.nan, dtype=np.float32)
+    for bx in range(grid[0]):
+        frame, p0 = bx // n_pt, bx % n_pt * tp
+        r0 = p0 // st.OW
+        p = p0 + np.arange(tp)
+        oy = p // st.OW
+        poff = np.where(p < p_all,
+                        (oy - r0) * sy * wp + (p - oy * st.OW) * sx, 0)
+        ci, r, col = np.meshgrid(np.arange(cc), np.arange(hr), np.arange(wp),
+                                 indexing="ij")
+        iy, ix = r0 * sy - py + r, col - px
+        for by in range(grid[1]):
+            o0 = by * to
+            o = o0 + np.arange(to)
+            acc = np.zeros((tp, to), dtype=np.float32)
+            for c0 in range(0, ch, cc):
+                v = (c0 + ci < ch) & (iy >= 0) & (iy < h) & (ix >= 0) & (
+                    ix < wd)
+                xs = np.where(v, x[frame, np.minimum(c0 + ci, ch - 1),
+                                   iy.clip(0, h - 1), ix.clip(0, wd - 1)],
+                              0).astype(np.float32).ravel()
+                k = np.arange(_round4(cc * khw))
+                kn = min(cc, ch - c0) * khw
+                ws = np.where((k[:, None] < kn) & (o[None] < oc),
+                              wflat[np.minimum(o, oc - 1)[None],
+                                    np.minimum(c0 * khw + k, ch * khw - 1
+                                               )[:, None]], 0)
+                for cl in range(min(cc, ch - c0)):     # channels outer
+                    for i in range(kh):
+                        for j in range(kw):
+                            a = xs[cl * hr * wp + i * wp + j + poff]
+                            brow = ws[cl * khw + i * kw + j]
+                            acc = (acc + a[:, None] * brow[None]).astype(
+                                np.float32)
+            keep_p, keep_o = p < p_all, o < oc
+            y = acc + b[np.minimum(o, oc - 1)][None]
+            if relu:
+                y = np.maximum(y, 0)
+            out[frame][np.ix_(o[keep_o], p[keep_p])] = y[keep_p][:, keep_o].T
+    assert not np.isnan(out).any()
+    return out.reshape(n, oc, st.OH, st.OW)
+
+
+def _k7_tile(xf, wk, st, row0, npx, p0, o0):
+    """One K7 tile in numpy, fp32: the conv before bias at run pixels p0 ..
+    p0 + ST_TP of npx row-major outputs from output row row0 of the NHWC
+    frame xf, channels o0 .. o0 + ST_TO of the HWIO weights flattened to
+    ``wk [KH*KW*C, OC]``; stages of K7_CK rows of k = (i * KW + j) * C + c
+    staged as the copies stage them, each sum k ascending."""
+    c = _simt_constants()
+    tp, to, ck = c["ST_TP"], c["ST_TO"], c["K7_CK"]
+    kd, oc = wk.shape
+    q = p0 + np.arange(tp)
+    iyb = np.where(q < npx, (row0 + q // st.OW) * st.sy - st.py, -(1 << 24))
+    ixb = np.where(q < npx, q % st.OW * st.sx - st.px, 0)
+    o = o0 + np.arange(to)
+    acc = np.zeros((tp, to), dtype=np.float32)
+    for k0 in range(0, kd, ck):
+        a = np.zeros((tp, ck), dtype=np.float32)
+        for q4 in range(ck // 4):
+            kg = k0 + 4 * q4
+            if kg >= kd:
+                continue
+            pos, ch = divmod(kg, st.C)
+            i, j = divmod(pos, st.KW)
+            iy, ix = iyb + i, ixb + j
+            v = (iy >= 0) & (iy < st.H) & (ix >= 0) & (ix < st.W)
+            a[:, 4 * q4:4 * q4 + 4] = np.where(
+                v[:, None], xf[iy.clip(0, st.H - 1), ix.clip(0, st.W - 1),
+                               ch:ch + 4], 0)
+        k = k0 + np.arange(ck)
+        bt = np.where((k < kd)[:, None] & (o < oc)[None],
+                      wk[np.minimum(k, kd - 1)[:, None],
+                         np.minimum(o, oc - 1)[None]], 0)
+        for kk in range(ck):          # positions outer, channels inside
+            acc = (acc + a[:, kk:kk + 1] * bt[kk][None]).astype(np.float32)
+    return acc
+
+
+def _k7_operands(x, w):
+    """K7's wrapper's dimension swap in numpy: NHWC and HWIO with the
+    channels zero-padded to ``K7_ALIGN``; HWIO flattened to [KH*KW*C, OC]."""
+    n, ch, h, wd = x.shape
+    oc, _, kh, kw = w.shape
+    cp = _round4(ch)
+    xh = np.zeros((n, h, wd, cp), dtype=np.float32)
+    xh[..., :ch] = x.transpose(0, 2, 3, 1)
+    wh = np.zeros((kh, kw, cp, oc), dtype=np.float32)
+    wh[:, :, :ch] = w.transpose(2, 3, 1, 0)
+    return xh, wh.reshape(kh * kw * cp, oc), cp
+
+
+def _emulate_k7(x, w, b, stride, padding, relu):
+    """K7's per-layer kernel in numpy: every block's tile (``_k7_tile``)
+    plus bias and ReLU, written NCHW."""
+    c = _simt_constants()
+    xh, wk, cp = _k7_operands(x, w)
+    n, _, h, wd = x.shape
+    oc, _, kh, kw = w.shape
+    stages = conv_ops.k7_launch(n, (cp, h, wd), (oc, cp, kh, kw), stride,
+                                padding, relu, None, False, None)[0]
+    st = stages[0]
+    p_all, tp, to = st.OH * st.OW, c["ST_TP"], c["ST_TO"]
+    out = np.full((n, oc, p_all), np.nan, dtype=np.float32)
+    for frame in range(n):
+        for p0 in range(0, p_all, tp):
+            for o0 in range(0, oc, to):
+                acc = _k7_tile(xh[frame], wk, st, 0, p_all, p0, o0)
+                p, o = p0 + np.arange(tp), o0 + np.arange(to)
+                kp, ko = p < p_all, o < oc
+                y = acc[kp][:, ko] + b[o[ko]][None]
+                out[frame][np.ix_(o[ko], p[kp])] = (
+                    np.maximum(y, 0) if relu else y).T
+    assert not np.isnan(out).any()
+    return out.reshape(n, oc, st.OH, st.OW)
+
+
+@pytest.mark.parametrize("case", sorted(LADDER_CONV_CASES))
+@pytest.mark.parametrize("relu", [False, True])
+def test_k8_tile_walk_matches_jax(case, relu):
+    """The numpy emulation of K8's tile walk against JAX
+    ``methods.conv2d_basic_parallel`` without Pallas; frame 0 of the batch
+    equals, bit for bit, the same walk on frame 0 alone."""
+    xs, ws, stride, padding = LADDER_CONV_CASES[case]
+    rng = np.random.default_rng(50 + len(case))
+    x, w, b = _arr(rng, *xs), _arr(rng, *ws, scale=0.3), _arr(rng, ws[0])
+    theirs = _jit(jm.conv2d_basic_parallel, stride=stride, padding=padding,
+                  relu=relu)(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    ours = _emulate_k8(x, w, b, stride, padding, relu)
+    _close(ours, theirs)
+    assert np.array_equal(ours[:1],
+                          _emulate_k8(x[:1], w, b, stride, padding, relu))
+
+
+@pytest.mark.parametrize("case", sorted(LADDER_CONV_CASES))
+@pytest.mark.parametrize("relu", [False, True])
+def test_k7_tile_walk_matches_jax(case, relu):
+    """The numpy emulation of K7's per-layer tile walk against JAX
+    ``methods.conv2d_basic_simd`` without Pallas; frame 0 of the batch
+    equals, bit for bit, the same walk on frame 0 alone."""
+    xs, ws, stride, padding = LADDER_CONV_CASES[case]
+    rng = np.random.default_rng(60 + len(case))
+    x, w, b = _arr(rng, *xs), _arr(rng, *ws, scale=0.3), _arr(rng, ws[0])
+    theirs = _jit(jm.conv2d_basic_simd, stride=stride, padding=padding,
+                  relu=relu)(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    ours = _emulate_k7(x, w, b, stride, padding, relu)
+    _close(ours, theirs)
+    assert np.array_equal(ours[:1],
+                          _emulate_k7(x[:1], w, b, stride, padding, relu))
+
+
+@pytest.mark.parametrize("case", sorted(K1_CASES))
+def test_k7_fused_tile_walk_matches_jax(case):
+    """The numpy emulation of K7's fused kernel: each block's band (the
+    conv rows of its pooled row, ``band_rows``) from its groups' tiles,
+    where rows that two blocks share come out bit for bit the same, then
+    the pool → [ReLU] → [LRN] tail, against JAX
+    ``methods.conv2d_pool_fused(method=BASIC_SIMD)`` without Pallas."""
+    (xs, ws, stride, padding, relu, pk, ps, kind, pool_relu,
+     lrn_n) = K1_CASES[case]
+    rng = np.random.default_rng(70 + len(case))
+    x, w, b = _arr(rng, *xs), _arr(rng, *ws, scale=0.3), _arr(rng, ws[0])
+    lrn = dict(lrn_n=lrn_n, lrn_alpha=1e-3, lrn_beta=0.75, lrn_k=1.0)
+    theirs = _jit(jm.conv2d_pool_fused, method=jm.Method.BASIC_SIMD,
+                  stride=stride, padding=padding, relu=relu, pool_kernel=pk,
+                  pool_stride=ps, pool_kind=kind, pool_relu=pool_relu,
+                  **lrn)(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    c = _simt_constants()
+    xh, wk, cp = _k7_operands(x, w)
+    n, _, h, wd = x.shape
+    oc, _, kh, kw = w.shape
+    pool = conv_ops.Pool(*pk, *ps, kind)
+    lrn_t = (lrn_n, 1e-3, 0.75, 1.0) if lrn_n is not None else None
+    stages, _, geo, _ = conv_ops.k7_launch(
+        n, (cp, h, wd), (oc, cp, kh, kw), stride, padding, relu, pool,
+        pool_relu, lrn_t)
+    st, groups = stages[0], int(geo[-2])
+    conv = np.full((n, oc, st.OH, st.OW), np.nan, dtype=np.float32)
+    for frame in range(n):
+        for t in range(int(geo[10])):
+            (a, bb), = conv_ops.band_rows(stages, pool, 1, t)
+            npx = (bb - a) * st.OW
+            n_ot = -(-oc // c["ST_TO"])
+            tiles = -(-npx // c["ST_TP"]) * n_ot
+            band = np.full((oc, npx), np.nan, dtype=np.float32)
+            for gi in range(groups):
+                for tile in range(gi, tiles, groups):
+                    p0 = tile // n_ot * c["ST_TP"]
+                    o0 = tile % n_ot * c["ST_TO"]
+                    acc = _k7_tile(xh[frame], wk, st, a, npx, p0, o0)
+                    q, o = p0 + np.arange(c["ST_TP"]), o0 + np.arange(
+                        c["ST_TO"])
+                    kq, ko = q < npx, o < oc
+                    y = acc[kq][:, ko] + b[o[ko]][None]
+                    band[np.ix_(o[ko], q[kq])] = (
+                        np.maximum(y, 0) if relu else y).T
+            band = band.reshape(oc, bb - a, st.OW)
+            seen = conv[frame, :, a:bb]
+            done = ~np.isnan(seen)
+            assert np.array_equal(seen[done], band[done])
+            conv[frame, :, a:bb] = band
+    ours = conv_ops.pool_lrn_tail(
+        torch.from_numpy(np.nan_to_num(conv)), pk, ps, kind, pool_relu,
+        **lrn)
+    _close(ours, theirs)
+
 
 #: every fused basic-SIMD conv+pool group of the three nets:
 #: (net, in_chw, OIHW weight shape, stride, padding, pool k, pool s, lrn)
@@ -355,10 +766,13 @@ K7_GROUPS = [
 def test_k7_band_fits_shared_memory(group, n):
     """K7's fused kernel gives a block one pooled row of one frame at full
     channel width: the conv rows that row reads (and, with LRN, the pooled
-    row) must fit the 227 KB of shared memory a block may have."""
-    (_, (c, h, w), (oc, _, kh, kw), stride, padding, pk, ps,
+    row), then one tile ring for each of its groups (one a band tile, at
+    most K7_MAX_GROUPS, as many as fit), must fit the 227 KB of shared
+    memory a block may have; the groups' tiles cover the band once."""
+    c = _simt_constants()
+    (_, (ch, h, w), (oc, _, kh, kw), stride, padding, pk, ps,
      lrn) = K7_GROUPS[group]
-    cp = -(-c // conv_ops.K7_ALIGN) * conv_ops.K7_ALIGN
+    cp = _round4(ch)
     pool = conv_ops.Pool(*pk, *ps, "max")
     lrn_t = (5, 1e-4, 0.75, 1.0) if lrn else None
     stages, smem, geo, lrn_f = conv_ops.k7_launch(
@@ -367,22 +781,41 @@ def test_k7_band_fits_shared_memory(group, n):
     st = stages[0]
     ph = (st.OH - pk[0]) // ps[0] + 1
     pw = (st.OW - pk[1]) // ps[1] + 1
-    # the conv rows of one pooled row, and with LRN that pooled row
-    assert smem == 4 * oc * (pk[0] * st.OW + (pw if lrn else 0))
+    # the conv rows of one pooled row, and with LRN that pooled row, then
+    # the rings
+    groups, ring_off = (int(v) for v in geo[-2:])
+    ring = 2 * (c["ST_TP"] * c["K7_AROW"] + c["K7_CK"] * c["ST_BROW"])
+    assert ring_off == _round4(oc * (pk[0] * st.OW + (pw if lrn else 0)))
+    tiles = -(-pk[0] * st.OW // c["ST_TP"]) * -(-oc // c["ST_TO"])
+    fits = (c["K7_SMEM_LIMIT"] // 4 - ring_off) // ring
+    assert groups == min(c["K7_MAX_GROUPS"], tiles, fits) >= 1
+    assert smem == 4 * (ring_off + groups * ring)
     assert smem <= conv_ops.K7_SMEM_LIMIT == 227 * 1024
-    # one pooled row a block, n_tiles = pooled rows, the padded channels
+    # one pooled row a block, n_tiles = pooled rows, the padded channels;
+    # a grid of (pooled rows, frames) and at most 1024 threads
     assert geo[9] == 1 and geo[10] == ph and geo[14] == cp
+    assert n <= 65535 and groups * c["ST_THREADS"] <= 1024
     for t in range(ph):
         (a, b), = conv_ops.band_rows(stages, pool, 1, t)
         assert (a, b) == (t * ps[0], t * ps[0] + pk[0]) and b <= st.OH
+    n_ot = -(-oc // c["ST_TO"])
+    owned = [(tile // n_ot * c["ST_TP"], tile % n_ot * c["ST_TO"])
+             for gi in range(groups) for tile in range(gi, tiles, groups)]
+    assert (_tile_counts(c, pk[0] * st.OW, oc, owned) == 1).all()
 
 
 def test_k7_alexnet_conv2_band_is_83_kb():
     stages = conv_ops.make_stages((96, 27, 27), [(256, 96, 5, 5)], [(1, 1)],
                                   [(2, 2)], [True])
     pool = conv_ops.Pool(3, 3, 2, 2, "max")
-    assert conv_ops.k7_smem(stages, pool, False) == 3 * 27 * 256 * 4 == 82944
-    assert conv_ops.k7_smem(stages, pool, True) == 82944 + 256 * 13 * 4
+    ring = 4 * conv_ops.K7_RING
+    assert conv_ops.k7_ring_off(stages, pool, False) * 4 == 3 * 27 * 256 * 4
+    assert conv_ops.k7_smem(stages, pool, False, 2) == 82944 + 2 * ring
+    assert conv_ops.k7_smem(stages, pool, True, 2) == (82944 + 256 * 13 * 4
+                                                       + 2 * ring)
+    # its band has four 128 x 64 tiles on two groups: 152 KB in all
+    assert conv_ops.k7_groups(stages, pool, True) == 2
+    assert conv_ops.k7_smem(stages, pool, True, 2) == 155648
 
 
 # -- the method ladder -----------------------------------------------------------
