@@ -15,8 +15,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (conv chain+pool), K3 (fc matmul), K7 (fused and per-layer basic SIMD
    conv), K8 (basic parallel conv), K9 (standalone pool) — each kernel
    against its plain PyTorch version on the card (max abs <= 1e-4 *
-   max(1, max|plain|)), a repeat bit for bit and, for K7 and K8 at batch
-   16, frame 0 bit for bit against the kernel on frame 0 alone, then timed
+   max(1, max|plain|)), a repeat bit for bit and, for K2, K6, K7 and K8
+   at batch 16, frame 0 bit for bit against the kernel on frame 0 alone
+   (K2 and K6 sum each output in an order fixed by the stage's shape, so
+   this holds though their schedule follows the batch), then timed
    with CUDA events (median of 25 after warm-up) beside its plain version,
    one PyTorch library call as a yardstick and its bound (each case line
    also prints ``bound_share``, bound / kernel time); and the
@@ -25,7 +27,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    conv2+pool2+norm2, K5 (pool carry) on AlexNet's conv1+pool1 and
    conv2+pool2 (norms unfused) and the CIFAR-10 net's three groups, K6
    (oc-blocked chain) on AlexNet's conv3-5+pool5 with ``oc_block_final``
-   8 and 64 — held, repeated and timed the same way;
+   8 and 64 — held, repeated and timed the same way.  Each K2/K6 case line
+   carries its cooperative launch's geometry (``chain``: grid, blocks an
+   SM holds, grid barriers, scratch MB, each stage's unit and items); a
+   batch-16 grid under 128 blocks or past the co-residency limit fails;
 4. engine: ``CNNEngine(net, method=..., fuse_pool=...).forward`` on the
    card at batch 16 (paper §6.2) on six rungs — ``advanced_simd_8`` fused
    and unfused, ``basic_simd`` fused and unfused, ``basic_parallel``,
@@ -117,7 +122,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    d. the launcher ``repro_torch.launch.serve.main(["--arch",
       "rwkv6-1.6b"])`` on the card: a token list for every request, K11
       once a layer in every prefill;
-9. prints one JSON line ``{"kernels": [...]}``: per kernel, ``launches``
+9. stream capture: K2 on AlexNet's chain at batch 16 captured into a
+   ``torch.cuda.CUDAGraph`` and replayed (``capture`` line: whether the
+   cooperative launch was accepted and the replay gave the bits of the
+   launch; a refusal is reported, not failed);
+10. prints one JSON line ``{"kernels": [...]}``: per kernel, ``launches``
    is its count summed over the AlexNet forwards of phase 4 (K1-K3,
    K7-K9) or phase 5 (K4-K6), or over the first LM serving run of phase
    7c (K10, and K3's bf16 launches as ``matmul_fused_bf16``) or of phase
@@ -128,7 +137,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    computes); K3's wgmma path has an entry of its own, its launches those
    of the wgmma path in the first run of 7c, its times its phase-7a cases
    at M = 4500; the error is the largest over every case;
-10. prints ``{"ok": true, "device": {...}}`` as its last line.
+11. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Run it from the repository root; it needs one CUDA device and the CUDA
 toolkit, and imports nothing of the JAX package.
@@ -164,7 +173,7 @@ KERNELS = ("K1", "K2", "K3", "K7", "K8", "K9")
 CELLS = ("K4", "K5", "K6")
 #: kernels whose batch-16 cases must give frame 0 the bits of frame 0
 #: launched alone (phase 3)
-FRAME_CHECKED = ("K7", "K8")
+FRAME_CHECKED = ("K2", "K6", "K7", "K8")
 #: the tuned deployment of phase 5: norm1 unfused so that conv1+pool1
 #: runs the pool carry (K5), conv2+pool2+norm2 the oc-blocked LRN cell
 #: (K4), conv3-5+pool5 the oc-blocked chain (K6)
@@ -383,8 +392,9 @@ def run_case(torch, F, kid, step, n, params, dev, peaks, obf=None):
             plain = lambda: conv_ops.conv2d_pool_fused_ref(*one, **tail)  # noqa
         elif kid == "K6":
             args = (x, ws, bs, strides, pads, relus)
-            kernel = lambda: conv_ops.conv2d_chain_ocb(  # noqa: E731
-                *args, **tail, oc_block_final=obf)
+            kernel_at = lambda xx: conv_ops.conv2d_chain_ocb(  # noqa: E731
+                xx, *args[1:], **tail, oc_block_final=obf)
+            kernel = lambda: kernel_at(x)  # noqa: E731
             plain = lambda: conv_ops.conv2d_chain_ref(*args, **tail)  # noqa
         elif kid == "K1":
             kernel = lambda: conv_ops.conv2d_pool_fused(*one, **tail)  # noqa
@@ -401,7 +411,9 @@ def run_case(torch, F, kid, step, n, params, dev, peaks, obf=None):
             plain = lambda: conv2d_basic_parallel_ref(*one)  # noqa
         else:
             args = (x, ws, bs, strides, pads, relus)
-            kernel = lambda: conv_ops.conv2d_chain(*args, **tail)  # noqa
+            kernel_at = lambda xx: conv_ops.conv2d_chain(  # noqa: E731
+                xx, *args[1:], **tail)
+            kernel = lambda: kernel_at(x)  # noqa: E731
             plain = lambda: conv_ops.conv2d_chain_ref(*args, **tail)  # noqa
 
         def library():
@@ -449,7 +461,7 @@ def run_case(torch, F, kid, step, n, params, dev, peaks, obf=None):
     lib_err = (library() - ref).abs().max().item()
     ms = time_ms(torch, kernel)
     bound_ms = 1e3 * max(flops / flops_peak, nbytes / bw_peak)
-    return {
+    row = {
         "kernel": kid, "kind": step.kind, "batch": n, "max_abs_err": err,
         "tol": tol, "library_max_abs_err": lib_err,
         "ms": ms, "plain_ms": time_ms(torch, plain),
@@ -459,6 +471,76 @@ def run_case(torch, F, kid, step, n, params, dev, peaks, obf=None):
         else "bytes",
         "flops": flops, "bytes": nbytes,
     }
+    if kid in ("K2", "K6"):
+        row["chain"] = chain_geometry(torch, conv_ops, n, step, ws, strides,
+                                      pads, relus, pool, obf)
+    return row
+
+
+def chain_geometry(torch, conv_ops, n, step, ws, strides, pads, relus,
+                   pool, obf):
+    """The cooperative launch of a K2/K6 case (``ops.chain_plan``): grid,
+    blocks an SM holds (the CUDA occupancy query), barriers, scratch MB,
+    each stage's unit (chunks an item) and items.  At batch 16 the grid must
+    hold at least 128 blocks; it may never pass the resident limit."""
+    from repro_torch.kernels import _build
+
+    stages = conv_ops.make_stages(tuple(step.in_shape),
+                                  [tuple(w.shape) for w in ws], strides,
+                                  pads, relus)
+    p = None if pool is None else conv_ops.Pool(*pool.kernel, *pool.stride,
+                                                pool.pool_kind)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = conv_ops.chain_plan(stages, p, n, sms,
+                               None if obf is None else conv_ops.k6_ocb(obf))
+    per_sm = _build.library().conv_chain_blocks_per_sm()
+    if not 0 < plan.grid <= per_sm * sms:
+        fail(f"chain grid {plan.grid} past {per_sm} blocks x {sms} SMs")
+    if n == ENGINE_BATCH and plan.grid < 128:
+        fail(f"chain grid {plan.grid} under 128 blocks at batch {n}")
+    return {"grid": plan.grid, "blocks_per_sm": per_sm,
+            "barriers": plan.barriers, "scratch_mb": 4e-6 * plan.scratch,
+            "units": [sp.unit for sp in plan.stages],
+            "items": [sp.items for sp in plan.stages],
+            "tail_items": plan.tail_items}
+
+
+def capture_phase(torch, net, params, dev):
+    """K2 on AlexNet's chain at batch 16 captured into a CUDA graph and
+    replayed: whether stream capture takes the cooperative launch, and
+    whether the replay gives the launch's bits.  A refusal is reported
+    (``captured`` false, the error), not failed: no path captures yet."""
+    from repro_torch.core.methods import Method
+    from repro_torch.core.plan import compile_plan
+    from repro_torch.kernels.conv2d import ops as conv_ops
+
+    step = next(s for s in compile_plan(
+        net, method=Method("advanced_simd_8")).steps if s.kind == "chain")
+    g = step.group
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((ENGINE_BATCH, *step.in_shape), generator=gen, device=dev)
+    args = (x, [params[cv.name]["w"] for cv in g.convs],
+            [params[cv.name]["b"] for cv in g.convs],
+            [cv.stride for cv in g.convs], [cv.padding for cv in g.convs],
+            g.relus)
+    tail = dict(pool_kernel=g.pool.kernel, pool_stride=g.pool.stride,
+                pool_kind=g.pool.pool_kind, pool_relu=g.pool_relu)
+    ref = conv_ops.conv2d_chain(*args, **tail)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        conv_ops.conv2d_chain(*args, **tail)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            out = conv_ops.conv2d_chain(*args, **tail)
+        graph.replay()
+        torch.cuda.synchronize()
+    except RuntimeError as e:  # reported only: no path of the port captures
+        return {"captured": False, "error": str(e)[:300]}
+    return {"captured": True, "replay_equal": torch.equal(out, ref)}
 
 
 class FakeClock:
@@ -1509,7 +1591,7 @@ def main() -> int:
                                 if k != "runs"}), flush=True)
     print(f"phase 8 wall time {rwkv['phase_s']:.1f} s", flush=True)
 
-    # -- 9. the kernels line ------------------------------------------------
+    # -- 10. the kernels line -----------------------------------------------
     kernels = []
     for kid, (name, src, replaces) in sources.items():
         mine = [c for c in cases if c["kernel"] == kid]
@@ -1588,6 +1670,11 @@ def main() -> int:
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} never launched on the main path")
+
+    # -- 9. stream capture of the cooperative chain launch --------------------
+    capture = capture_phase(torch, nets["alexnet"],
+                            params_from_numpy(np_params["alexnet"], dev), dev)
+    print("capture " + json.dumps(capture), flush=True)
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(
@@ -1597,7 +1684,7 @@ def main() -> int:
              "serving": serving, "lm_cases": lm_cases,
              "lm_parity": lm_parity, "lm": lm, "rwkv_cases": rwkv_cases,
              "rwkv_parity": rwkv_parity, "rwkv": rwkv,
-             "kernels": kernels}, indent=1))
+             "capture": capture, "kernels": kernels}, indent=1))
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -207,7 +207,8 @@ def group_geometry(group: FusedLayerSpec, method: Method,
     """The executed geometry of one fused group, resolved by the same
     rules as the dispatch (``methods.fused_cell`` / ``chain_cell``): the
     JAX report's keys — ``group``, ``convs``, ``rows_per_cell`` (final
-    rows a block owns), ``n_tiles`` (bands a frame) and ``out_hw`` — from
+    rows a block owns; a chain's whole frame, since each of its stages
+    covers every row), ``n_tiles`` (bands a frame) and ``out_hw`` — from
     the port's tiling at ``batch`` on an H100 (``REPORT_SMS``), plus
     ``cell`` (the kernel) and ``oc_block`` (output channels of the last
     stage a block computes).  ``in_shape`` is the ``(C, H, W)`` entering
@@ -244,15 +245,12 @@ def group_geometry(group: FusedLayerSpec, method: Method,
                 lambda k: conv_ops.k1_smem(stages, pool, lrn_n is not None,
                                            k))
     else:
+        # stage-major (K2, K6): every stage covers the whole frame, so one
+        # band of all the final rows; oc_block is the final stage's item
         cell, obf = chain_cell(oc, group.oc_block_final, lrn_n)
-        if cell == "K6":
-            blk, ocb = conv_ops.k6_geometry(stages, pool, obf, batch, sms)
-        else:
-            ocb = oc
-            blk = conv_ops.rows_per_block(
-                stages, pool, batch, sms,
-                lambda k: conv_ops.k2_smem(stages, pool, lrn_n is not None,
-                                           k))
+        blk = total
+        ocb = min(oc, conv_ops.k6_ocb(obf) if cell == "K6"
+                  else conv_ops.ST_TO)
     return {"group": group.name, "convs": len(convs), "rows_per_cell": blk,
             "n_tiles": math.ceil(total / blk), "out_hw": [out_h, out_w],
             "cell": cell, "oc_block": ocb}

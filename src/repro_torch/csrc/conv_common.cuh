@@ -1,8 +1,8 @@
 // Shared device code of the fused convolution kernels (conv_pool_lrn.cu: K1
-// and K4, conv_chain.cu: K2 and K6, conv_basic_simd.cu, conv_pool_carry.cu):
-// a geometry block passed by value, a band convolution (implicit GEMM over
-// shared-memory tiles, fp32 FMAs on CUDA cores) and the pool -> ReLU -> LRN
-// tail.
+// and K4, conv_basic_simd.cu, conv_pool_carry.cu; conv_chain.cu, K2 and K6,
+// takes only the geometry block): a geometry block passed by value, a band
+// convolution (implicit GEMM over shared-memory tiles, fp32 FMAs on CUDA
+// cores) and the pool -> ReLU -> LRN tail.
 //
 // Layouts: activations are NCHW, weights OIHW, both fp32 and contiguous.
 // A "band" is a run of output rows [a, b) of one conv stage for one frame,
@@ -107,7 +107,7 @@ inline int read_tile(Geo* g, const int* tile) {
 // Rows [a[s], b[s]) every stage must produce so that the block's final rows
 // [t*blk, min((t+1)*blk, total)) come out: walked back from the last stage,
 // clipped to each stage's valid output.  Mirrors
-// repro_torch.kernels.conv2d.ops.band_rows, which sizes the scratch.
+// repro_torch.kernels.conv2d.ops.band_rows, which sizes the bands.
 __device__ inline void band_rows(const Geo& g, int t, int* a, int* b) {
   int f0 = t * g.blk;
   int f1 = min(f0 + g.blk, g.total);
@@ -141,10 +141,8 @@ __device__ __forceinline__ void group_sync(int g) {
 // tiles in turn, each on its own Tiles; within a tile the next TK slice's
 // global loads are issued into registers before the current slice's FMAs.
 // The input is read at in[c * in_cs + (gy - in_row0) * W + gx]; rows and
-// columns outside [0, H) x [0, W) are zeros (the stage's padding).  `in` is deliberately not
-// __restrict__: in a chain it is the previous stage's band, written by this
-// block earlier in the same launch, and must not be read through the
-// non-coherent cache.  The caller synchronises the block afterwards.
+// columns outside [0, H) x [0, W) are zeros (the stage's padding).  The
+// caller synchronises the block afterwards.
 __device__ inline void conv_band(const Stage& st, const float* in, long in_cs,
                                  int in_row0, int a, int b, float* out,
                                  long out_cs, int out_row0, Tiles* tiles,

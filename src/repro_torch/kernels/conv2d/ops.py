@@ -5,7 +5,9 @@
   [ReLU] → [VALID max/avg pool → [ReLU] → [LRN]] in one launch; without a
   pool it is the per-layer conv of the advanced SIMD method.
 * ``conv2d_chain`` — K2 (``csrc/conv_chain.cu``): a chain of convs with
-  the same optional pool/LRN tail in one launch.
+  the same optional pool/LRN tail in one cooperative launch, stage-major
+  (every stage one implicit GEMM over the whole batch, spread over every
+  SM; ``chain_plan``).
 * ``conv2d_basic_simd`` — K7 (``csrc/conv_basic_simd.cu``): the §4.3
   conv, NHWC with a channel dot per kernel position, on the register-tiled
   core of ``csrc/conv_simt_tile.cuh``; with a pool it is the fused conv →
@@ -20,9 +22,9 @@
 * ``conv2d_pool_carry`` — K5 (``csrc/conv_pool_carry.cu``): K1's conv →
   pool group (no LRN) with the conv rows that neighbouring pool windows
   share carried from band to band instead of recomputed.
-* ``conv2d_chain_ocb`` — K6 (``csrc/conv_chain.cu``, K2's kernel on an
-  oc-tiled grid): K2's chain with the final stage's output channels split
-  across blocks.
+* ``conv2d_chain_ocb`` — K6 (``csrc/conv_chain.cu``, K2's kernel and
+  schedule): K2's chain with the final stage's items at least
+  ``oc_block_final`` channels wide.
 
 Which of K1, K4 and K5 a fused group runs on, and whether a chain runs on
 K2 or K6, is decided by the resolvers ``resolve_lrn_ocb``,
@@ -39,16 +41,18 @@ a CUDA tensor launches the kernel (fp32 only) or raises; any other device
 raises ``ValueError``.  The kernels write NCHW, so the fc layer after a
 conv flattens their output as the JAX engine does.
 
-The band geometry (which rows each block computes, how much scratch the
-chain needs, how many final rows a block owns) is computed here in
-Python and mirrored by ``band_rows`` in ``csrc/conv_common.cuh``, so it
-is checked on the CPU too.
+The launch geometry (which rows each band kernel's block computes, how
+many final rows a block owns; the chain's items, partials and scratch)
+is computed here in Python and handed to the kernels (the band by
+``band_rows`` in ``csrc/conv_common.cuh``, the chain by ``plan[]``), so
+it is checked on the CPU too.
 """
 from __future__ import annotations
 
 import functools
 import itertools
 import math
+import weakref
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -91,6 +95,20 @@ ADVANCED_OC_BLOCK = {"advanced_simd_4": 4, "advanced_simd_8": 8}
 #: SMs of an H100 SXM: the card a plan's ``fusion_report`` resolves the
 #: batch-dependent geometry for
 REPORT_SMS = 132
+#: the stage-major chain (csrc/conv_chain.cu, K2 and K6): blocks of
+#: CH_THREADS threads on the register-tiled core, at least CH_MIN_BLOCKS of
+#: them resident an SM (its launch bounds), so the cooperative grid is
+#: CH_MIN_BLOCKS x the SMs; a ring slot holds CH_CK reduction rows, pixel
+#: rows of CH_AROW floats, a chunk of a tap at most CH_CHUNK_SLOTS slots;
+#: the dynamic shared memory is the two-slot ring, the kernel-row fold (64
+#: floats a thread) and three ints a tile pixel
+CH_THREADS, CH_MIN_BLOCKS, CH_CK, CH_AROW = 128, 3, 16, 20
+CH_CHUNK_SLOTS = 8
+CH_RING = 2 * (ST_TP * CH_AROW + CH_CK * ST_BROW)   # floats
+CH_SMEM = 4 * (CH_RING + ST_TP * ST_TO + 3 * ST_TP)  # bytes
+#: the most partial bytes a stage may write for items of one chunk or one
+#: tap; past it the items take a whole kernel row (fewer, larger partials)
+CH_PARTIAL_BYTES = 24 * 2 ** 20
 
 
 class Stage(NamedTuple):
@@ -200,13 +218,6 @@ def k1_smem(stages, pool, lrn: bool, blk: int) -> int:
     return 4 * (st.OC * (b - a) * st.OW + (st.OC * blk * out_w if lrn else 0))
 
 
-def k2_smem(stages, pool, lrn: bool, blk: int) -> int:
-    """K2's dynamic shared memory: the pooled band (LRN only)."""
-    if pool is None or not lrn:
-        return 0
-    return 4 * stages[-1].OC * blk * final_rows(stages, pool)[2]
-
-
 def rows_per_block(stages, pool, n: int, sms: int, smem_fn) -> int:
     """Final rows a block owns.  Fewer rows make more blocks but
     recompute more halo rows.  A block of 1024 threads at 64 registers
@@ -226,20 +237,6 @@ def rows_per_block(stages, pool, n: int, sms: int, smem_fn) -> int:
         raise ValueError(f"band of one final row needs {smem_fn(1)} bytes of "
                          f"shared memory, more than {SMEM_LIMIT}")
     return best
-
-
-def chain_scratch_stride(stages, pool, blk: int) -> int:
-    """Floats of one scratch band: the largest band any block writes to
-    scratch (every stage but a pool-less last one, which goes straight to
-    the output)."""
-    total = final_rows(stages, pool)[0]
-    n_scratch = len(stages) if pool is not None else len(stages) - 1
-    stride = 1
-    for t in range(math.ceil(total / blk)):
-        rows = band_rows(stages, pool, blk, t)
-        for st, (a, b) in list(zip(stages, rows))[:n_scratch]:
-            stride = max(stride, st.OC * (b - a) * st.OW)
-    return stride
 
 
 def pack_geo(n: int, stages, pool: Optional[Pool], pool_relu: bool,
@@ -432,29 +429,154 @@ def k5_run(stages, pool, n: int, sms: int) -> int:
     return _best(options())[1]
 
 
-def k6_geometry(stages, pool, requested: int, n: int, sms: int
-                ) -> Tuple[int, int]:
-    """K6's ``(blk, ocb)``: final rows a block owns and final-stage
-    channels it computes.  ``ocb`` is at least ``requested`` (the JAX
-    knob's value) and a whole number of 64-wide GEMM tiles where that is
-    below the stage's width; every channel tile recomputes the earlier
-    stages, which the time model (waves × the slowest block) charges."""
-    last = stages[-1]
-    total = final_rows(stages, pool)[0]
-    cands = sorted({max(requested, GEMM_TILE * k)
-                    for k in range(1, math.ceil(last.OC / GEMM_TILE))})
-    cands = [c for c in cands if c < last.OC] or [requested]
+# -- the stage-major chain (K2, K6) ---------------------------------------------
 
-    def options():
-        for ocb in cands:
-            sts = list(stages[:-1]) + [last._replace(OC=ocb)]
-            tiles = math.ceil(last.OC / ocb)
-            for blk in range(1, total + 1):
-                waves = math.ceil(n * math.ceil(total / blk) * tiles / sms)
-                yield waves * block_time(sts, pool, blk), blk, ocb
 
-    best = _best(options())
-    return best[1], best[2]
+def _round4(v: int) -> int:
+    return -(-v // 4) * 4
+
+
+def k6_ocb(requested: int) -> int:
+    """K6's final-stage channel tile: ``requested`` (the JAX knob, read
+    as a lower bound) rounded up to whole ``ST_TO``-wide core tiles."""
+    return ST_TO * math.ceil(max(1, requested) / ST_TO)
+
+
+def tap_split(cp: int) -> int:
+    """Chunks of one kernel tap of a stage with ``cp`` (padded) input
+    channels: the fewest runs of at most ``CH_CHUNK_SLOTS`` ring slots of
+    ``CH_CK`` channels (``tap_split`` in ``csrc/conv_chain.cu``).  A
+    function of the shape alone, so each output's sum order is too."""
+    return math.ceil(math.ceil(cp / CH_CK) / CH_CHUNK_SLOTS)
+
+
+class ChainStagePlan(NamedTuple):
+    """One stage of the chain kernel's schedule.  Its GEMM is ``m``
+    output pixels (every frame's) x ``ocp`` channels (OC padded to a
+    float4) over the taps ``KH x KW`` of ``Cp`` channels each, each tap
+    cut into ``split`` chunks of ``chunk_slots`` ring slots; an item is a
+    pixel tile of ``ST_TP``, ``ot_item`` channel tiles of ``ST_TO`` and
+    ``unit`` chunks (1, ``split``: a tap, or ``KW * split``: a kernel
+    row), writing partial ``q`` of ``n_partials`` for its outputs; the
+    reduce adds them."""
+    m: int
+    ocp: int
+    tiles_m: int
+    o_items: int
+    ot_item: int
+    split: int
+    chunk_slots: int
+    unit: int
+    n_partials: int
+    items: int
+    act_off: int   # floats into scratch of the NHWC output, -1: NCHW out
+
+
+class ChainPlan(NamedTuple):
+    """The chain kernel's launch: a cooperative grid of ``grid`` blocks of
+    ``CH_THREADS``, ``barriers`` grid-wide barriers, ``scratch`` floats of
+    scratch (the NHWC input at 0, each stage's NHWC output, the partials at
+    ``part_off``), ``tail_items`` pooled pixels (0 without a pool)."""
+    grid: int
+    stages: Tuple[ChainStagePlan, ...]
+    part_off: int
+    scratch: int
+    barriers: int
+    tail_items: int
+
+
+def chain_plan(stages, pool, n: int, sms: int, ocb: Optional[int] = None
+               ) -> ChainPlan:
+    """The stage-major schedule of K2 (``ocb`` None) or K6 (final-stage
+    items ``ocb`` channels wide, ``k6_ocb``) for ``n`` frames on ``sms``
+    SMs.  Per stage the host picks the unit, a kernel row, a tap or one
+    chunk: smaller units make more items and write more partials; the
+    unit of fewer rounds of the grid × chunks an item wins, the larger on
+    a tie, and a tap or a chunk only while its partials stay within
+    ``CH_PARTIAL_BYTES``.  Every unit sums every output in the same order
+    (``csrc/conv_chain.cu``), so the unit follows the batch and the bits
+    do not."""
+    grid = CH_MIN_BLOCKS * sms
+    last = len(stages) - 1
+    off = _round4(n * stages[0].H * stages[0].W * _round4(stages[0].C))
+    plans, part = [], 0
+    for s, st in enumerate(stages):
+        m = n * st.OH * st.OW
+        ocp = _round4(st.OC)
+        tiles_m = math.ceil(m / ST_TP)
+        n_ot = math.ceil(ocp / ST_TO)
+        ot_item = (math.ceil(ocb / ST_TO) if ocb is not None and s == last
+                   else 1)
+        o_items = math.ceil(n_ot / ot_item)
+        cp = _round4(st.C)
+        split = tap_split(cp)
+        chunks, row = st.KH * st.KW * split, st.KW * split
+        best = None
+        for unit in dict.fromkeys((row, split, 1)):  # larger first: ties
+            q = chunks // unit
+            items = tiles_m * o_items * q
+            if unit != row and 4 * q * m * ocp > CH_PARTIAL_BYTES:
+                continue
+            cost = math.ceil(items / grid) * unit
+            if best is None or cost < best[0]:
+                best = (cost, unit, q, items)
+        _, unit, q, items = best
+        part = max(part, q * m * ocp)
+        if s == last and pool is None:
+            act = -1
+        else:
+            act, off = off, off + _round4(m * ocp)
+        plans.append(ChainStagePlan(
+            m, ocp, tiles_m, o_items, ot_item, split,
+            math.ceil(math.ceil(cp / CH_CK) / split), unit, q, items, act))
+    if off + part >= 2 ** 31:
+        raise ValueError(f"chain scratch of {off + part} floats is past the "
+                         "kernel's 32-bit offsets")
+    _, out_h, out_w = final_rows(stages, pool)
+    return ChainPlan(grid, tuple(plans), off, off + part,
+                     2 * len(stages) + (pool is not None),
+                     n * out_h * out_w if pool is not None else 0)
+
+
+def pack_chain_plan(plan: ChainPlan) -> np.ndarray:
+    """The ``plan`` int array of ``csrc/conv_chain.cu``: grid, partials'
+    offset, then per stage unit (chunks an item), channel tiles an item,
+    output offset."""
+    arr = np.asarray([plan.grid, plan.part_off]
+                     + [v for sp in plan.stages
+                        for v in (sp.unit, sp.ot_item, sp.act_off)],
+                     dtype=np.int32)
+    arr.setflags(write=False)
+    return arr
+
+
+def chain_weights(w: torch.Tensor) -> torch.Tensor:
+    """A chain stage's OIHW weights as the kernel reads them: HWIO with
+    C and OC zero-padded to multiples of 4, contiguous.  Converted once
+    per weight tensor and kept while it lives and is not written in place
+    (its version counter); an inference tensor, which has no counter, is
+    converted on every call."""
+    if w.is_inference():
+        return _hwio_padded(w)
+    hit = _CHAIN_WEIGHTS.get(id(w))
+    if hit is not None and hit[0]() is w and hit[1] == w._version:
+        return hit[2]
+    out = _hwio_padded(w)
+    key = id(w)
+    _CHAIN_WEIGHTS[key] = (
+        weakref.ref(w, lambda _, k=key: _CHAIN_WEIGHTS.pop(k, None)),
+        w._version, out)
+    return out
+
+
+def _hwio_padded(w: torch.Tensor) -> torch.Tensor:
+    with torch.no_grad():
+        hwio, _ = pad_axis(oihw_to_hwio(w), 2, 4)
+        return pad_axis(hwio, 3, 4)[0].contiguous()
+
+
+#: id(weight) -> (weakref to it, its version, chain_weights' copy)
+_CHAIN_WEIGHTS: dict = {}
 
 
 # -- plain versions -----------------------------------------------------------
@@ -535,25 +657,25 @@ def k1_launch(n, in_chw, w_shape, stride, padding, relu, pool, pool_relu, lrn,
 @functools.lru_cache(maxsize=256)
 def k2_launch(n, in_chw, w_shapes, strides, paddings, relus, pool, pool_relu,
               lrn, sms, oc_block_final=None):
-    """K2's launch geometry for one call signature: ``(stages, smem,
-    scratch_stride, geo, lrn_f, tile)``; with ``oc_block_final`` K6's (the
-    final stage's channels in tiles of at least that width,
-    ``k6_geometry``), else ``tile`` is None.  Memoized like
-    ``k1_launch``."""
+    """K2's launch geometry for one call signature: ``(stages, plan, geo,
+    lrn_f, plan_arr, tile)``; with ``oc_block_final`` K6's (the final
+    stage's items ``k6_ocb`` channels wide), else ``tile`` is None.
+    ``geo`` describes the whole frame as one band (``blk`` = the final
+    rows).  Memoized like ``k1_launch``."""
     stages = make_stages(in_chw, w_shapes, strides, paddings, relus)
-    tile = None
+    tile, ocb = None, None
     if oc_block_final is not None:
-        blk, ocb = k6_geometry(stages, pool, oc_block_final, n, sms)
+        ocb = k6_ocb(oc_block_final)
         tile = _tile(ocb, stages[-1].OC)
-    else:
-        blk = rows_per_block(stages, pool, n, sms,
-                             lambda k: k2_smem(stages, pool, lrn is not None,
-                                               k))
-    geo, lrn_f = pack_geo(n, stages, pool, pool_relu, lrn, blk)
+    plan = chain_plan(stages, pool, n, sms, ocb)
+    if lrn is not None and stages[-1].OC > CH_SMEM // 4:
+        raise ValueError(f"K2's LRN tail holds {stages[-1].OC} channels of a "
+                         f"pixel, more than {CH_SMEM // 4}")
+    geo, lrn_f = pack_geo(n, stages, pool, pool_relu, lrn,
+                          final_rows(stages, pool)[0])
     geo.setflags(write=False)
     lrn_f.setflags(write=False)
-    return (stages, k2_smem(stages, pool, lrn is not None, blk),
-            chain_scratch_stride(stages, pool, blk), geo, lrn_f, tile)
+    return stages, plan, geo, lrn_f, pack_chain_plan(plan), tile
 
 
 def _stream(dev) -> int:
@@ -595,7 +717,7 @@ def _launch_chain(wrapper, x, ws, bs, strides, paddings, relus, pool,
     if not 1 <= len(ws) <= MAX_STAGES:
         raise ValueError(f"a chain takes 1 to {MAX_STAGES} stages")
     n = x.shape[0]
-    stages, smem, stride, geo, lrn_f, tile = k2_launch(
+    stages, plan, geo, lrn_f, plan_arr, tile = k2_launch(
         n, tuple(x.shape[1:]), tuple(tuple(w.shape) for w in ws),
         tuple(map(tuple, strides)), tuple(map(tuple, paddings)),
         tuple(map(bool, relus)), pool, bool(pool_relu), lrn, _sms(x.device),
@@ -603,21 +725,20 @@ def _launch_chain(wrapper, x, ws, bs, strides, paddings, relus, pool,
     for st, b in zip(stages, bs):
         if tuple(b.shape) != (st.OC,):
             raise ValueError(f"bias shape {tuple(b.shape)} != ({st.OC},)")
-    blocks = int(geo[10]) * (1 if tile is None else int(tile[1]))
     _, out_h, out_w = final_rows(stages, pool)
     out = torch.empty((n, stages[-1].OC, out_h, out_w), dtype=torch.float32,
                       device=x.device)
-    scratch = torch.empty(n * blocks * 2 * stride, dtype=torch.float32,
-                          device=x.device)
-    w_ptrs = np.asarray([w.data_ptr() for w in ws], dtype=np.uint64)
+    scratch = torch.empty(plan.scratch, dtype=torch.float32, device=x.device)
+    wts = [chain_weights(w) for w in ws]
+    w_ptrs = np.asarray([w.data_ptr() for w in wts], dtype=np.uint64)
     b_ptrs = np.asarray([b.data_ptr() for b in bs], dtype=np.uint64)
     ptrs = (x.data_ptr(), w_ptrs.ctypes.data, b_ptrs.ctypes.data,
-            out.data_ptr(), scratch.data_ptr(), stride, geo.ctypes.data,
-            lrn_f.ctypes.data)
+            out.data_ptr(), scratch.data_ptr(), geo.ctypes.data,
+            lrn_f.ctypes.data, plan_arr.ctypes.data)
     lib = _build.library()
     if tile is None:
         name = "conv_chain_f32"
-        rc = lib.conv_chain_f32(*ptrs, smem, _stream(x.device))
+        rc = lib.conv_chain_f32(*ptrs, _stream(x.device))
     else:
         name = "conv_chain_ocb_f32"
         rc = lib.conv_chain_ocb_f32(*ptrs, tile.ctypes.data,
@@ -670,10 +791,6 @@ def conv2d_chain(x, ws, bs, strides, paddings, relus, pool_kernel=None,
                           lrn_alpha, lrn_beta, lrn_k)
     return _launch_chain(conv2d_chain, x, ws, bs, strides, paddings, relus,
                          pool, pool_relu, lrn)
-
-
-def _round4(v: int) -> int:
-    return -(-v // 4) * 4
 
 
 def k7_ring_off(stages, pool, lrn: bool) -> int:
@@ -926,7 +1043,8 @@ def conv2d_chain_ocb(x, ws, bs, strides, paddings, relus, pool_kernel=None,
     """A conv chain with the optional pool tail (no LRN) and the final
     stage's output channels split across blocks, as one launch of K6
     (CUDA) or its plain version, K2's (CPU).  ``oc_block_final`` is the
-    narrowest channel tile the kernel may use (``k6_geometry`` picks)."""
+    narrowest channel tile the kernel may use (``k6_ocb`` rounds it up to
+    whole core tiles)."""
     kwargs = dict(pool_kernel=pool_kernel, pool_stride=pool_stride,
                   pool_kind=pool_kind, pool_relu=pool_relu)
     if x.device.type == "cpu":

@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.config import ModelConfig
+from repro_torch.kernels.common import resolve_device
 from repro_torch.nn.attention import attention_apply, attention_spec
 from repro_torch.nn.mlp import mlp_apply, mlp_spec
 from repro_torch.nn.norm import (layernorm_apply, layernorm_spec,
@@ -178,13 +179,15 @@ def _to_tensor(arr) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def params_from_jax(tree: dict, cfg: ModelConfig, device="cpu") -> dict:
+def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
     """The JAX package's parameter tree for ``cfg`` (nested dicts of numpy
     arrays, units stacked on a leading ``[n_scan]`` axis, gemma's units
     ``{"local", "global"}``) as a tree of tensors on ``device`` that the
-    port's model of ``cfg`` loads with ``load_tree``.  bf16 leaves are
-    carried bit for bit; every leaf's shape is checked against the port's
-    spec."""
+    port's model of ``cfg`` loads with ``load_tree``: ``cuda`` unless the
+    caller asks for another (``resolve_device``; with no GPU and no device
+    it raises, after the tree's keys and shapes are checked).  bf16
+    leaves are carried bit for bit; every leaf's shape is checked against
+    the port's spec."""
     from repro_torch.models.registry import get_model
 
     spec = get_model(cfg).param_spec()
@@ -195,11 +198,13 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cpu") -> dict:
             if tuple(x.shape) != tuple(s.shape):
                 raise ValueError(f"{path}: shape {tuple(x.shape)}, the port's "
                                  f"spec has {tuple(s.shape)}")
-            return x.to(device)
+            return x
         if not isinstance(t, dict) or set(t) != set(s):
             got = sorted(t) if isinstance(t, dict) else type(t).__name__
             raise ValueError(f"{path}: keys {got}, expected {sorted(s)}")
         return {k: walk(s[k], t[k], f"{path}/{k}") for k in sorted(s)}
 
-    return walk(spec, tree, "params")
+    host = walk(spec, tree, "params")
+    dev = resolve_device(device)
+    return tree_map(lambda x: x.to(dev), host)
 

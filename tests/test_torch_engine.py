@@ -485,8 +485,9 @@ def test_load_model_rejects_tampering(tmp_path):
 
 
 def _emulate_bands(x, ws, bs, strides, pads, relus, pool, blk):
-    """What the K1/K2 kernels compute, band by band, in plain PyTorch:
-    each block runs every stage only on the rows ``band_rows`` gives it,
+    """What a band kernel (K1, K7: one stage) computes, band by band, in
+    plain PyTorch, here over chains of stages too: each block runs every
+    stage only on the rows ``band_rows`` gives it,
     reading rows outside the previous stage's valid output as zeros, then
     pools its final rows.  Must equal the whole-frame plain version."""
     stages = conv_ops.make_stages(tuple(x.shape[1:]), ws, strides, pads,
@@ -553,12 +554,17 @@ def test_alexnet_geometry_fits_the_card():
             (256, 13, 13), [(384, 256, 3, 3), (384, 384, 3, 3),
                             (256, 384, 3, 3)], [(1, 1)] * 3, [(1, 1)] * 3,
             [True] * 3)
-        blk = conv_ops.rows_per_block(chain, pool, n, 132, lambda k: 0)
-        stride = conv_ops.chain_scratch_stride(chain, pool, blk)
-        tiles = math.ceil(conv_ops.final_rows(chain, pool)[0] / blk)
-        assert n * tiles * 2 * stride * 4 <= 50e6  # scratch stays in L2
-        geo, lrn = conv_ops.pack_geo(n, chain, pool, False, None, blk)
+        # the stage-major chain (K2): one cooperative grid of co-resident
+        # blocks, every stage's items spread over it, scratch in L2
+        for ocb in (None, conv_ops.k6_ocb(8)):
+            plan = conv_ops.chain_plan(chain, pool, n, 132, ocb)
+            assert plan.grid == conv_ops.CH_MIN_BLOCKS * 132
+            assert 4 * plan.scratch <= 50e6  # scratch stays in L2
+            assert min(sp.items for sp in plan.stages) >= 72
+            assert plan.barriers == 7 and plan.tail_items == n * 36
+        geo, lrn = conv_ops.pack_geo(n, chain, pool, False, None, 6)
         assert geo.shape == (14 + 13 * 3,) and lrn.shape == (3,)
+        assert len(conv_ops.pack_chain_plan(plan)) == 2 + 3 * 3
 
 
 # -- the port imports nothing of JAX ----------------------------------------------

@@ -1272,21 +1272,374 @@ def pool_lrn_tail_ref(x, pool):
                          pool.kind)
 
 
+# -- K2 and K6: the stage-major chain ------------------------------------------------
+
+#: chains of the schedule tests: AlexNet's conv3-5 + pool5, and a small odd
+#: one (channels off the float4, a strided 5 x 5 stage, a 1 x 3 kernel)
+CHAINS = {
+    "alexnet": (ALEX_CHAIN, POOL32),
+    "odd": (conv_ops.make_stages(
+        (3, 15, 14), [(6, 3, 5, 5), (9, 6, 3, 3), (5, 9, 1, 3)],
+        [(2, 2), (1, 1), (1, 1)], [(2, 2), (1, 1), (0, 1)], [True] * 3),
+        conv_ops.Pool(2, 2, 1, 1, "avg")),
+}
+
+
+def _chain_constants():
+    """The integer constants (``CH_*``) that ``csrc/conv_chain.cu``
+    declares."""
+    src = (_build.CSRC / "conv_chain.cu").read_text()
+    return {k: int(v) for k, v in re.findall(
+        r"constexpr int (CH_[A-Z_]+) = (\d+);", src)}
+
+
+def _chain_items(st, sp):
+    """The items of one stage as the kernel walks them (item -> pixel
+    tile fastest, then channel block, then partial): ``(pixels, channels,
+    chunks, q)`` ranges; chunk g is chunk g % split of tap g // split."""
+    n_ot = math.ceil(sp.ocp / conv_ops.ST_TO)
+    for item in range(sp.items):
+        mt, rest = item % sp.tiles_m, item // sp.tiles_m
+        ob, q = rest % sp.o_items, rest // sp.o_items
+        ot0 = ob * sp.ot_item
+        ot1 = min(ot0 + sp.ot_item, n_ot)
+        yield (range(mt * conv_ops.ST_TP, min((mt + 1) * conv_ops.ST_TP,
+                                              sp.m)),
+               range(ot0 * conv_ops.ST_TO, min(ot1 * conv_ops.ST_TO, sp.ocp)),
+               range(q * sp.unit, (q + 1) * sp.unit), q)
+
+
+def _fold(values, add):
+    out = values[0]
+    for v in values[1:]:
+        out = add(out, v)
+    return out
+
+
+def _run_tree(st, split, unit, chunk, add):
+    """One output's sum as ``csrc/conv_chain.cu`` adds it with items of
+    ``unit`` chunks: an item folds its chunks into a tap (a fresh tap at
+    each tap's first chunk) and writes the tap to partial q when the tap
+    or the item ends, adding it to what it wrote there when it is a later
+    tap of a row item; the reduce folds the partials left (chunks into
+    taps, taps into rows, rows).  ``chunk(g)`` is chunk g's sum."""
+    part = {}
+    for q in range(st.KH * st.KW * split // unit):
+        f = None
+        for jj in range(unit):
+            g = q * unit + jj
+            k = g % split
+            f = chunk(g) if k == 0 or jj == 0 else add(f, chunk(g))
+            if k == split - 1 or jj == unit - 1:
+                later = unit > split and (g // split) % st.KW
+                part[q] = add(part[q], f) if later else f
+    per_tap = split if unit == 1 else 1
+    taps = 1 if unit > split else st.KW
+    return _fold([_fold([_fold([part[(i * taps + j) * per_tap + k]
+                                for k in range(per_tap)], add)
+                         for j in range(taps)], add)
+                  for i in range(st.KH)], add)
+
+
+def _sum_order(st, split, unit):
+    """The tree of one output's sum with items of ``unit`` chunks."""
+    return _run_tree(st, split, unit, lambda g: g,
+                     lambda a, b: ("+", a, b))
+
+
+def test_chain_constants_match_the_wrapper():
+    """The wrapper's copies of the chain kernel's constants, its plan
+    array's layout and its shared memory agree with the source."""
+    c = _chain_constants()
+    assert (c["CH_THREADS"], c["CH_MIN_BLOCKS"], c["CH_CK"], c["CH_AROW"],
+            c["CH_CHUNK_SLOTS"]) == (
+        conv_ops.CH_THREADS, conv_ops.CH_MIN_BLOCKS, conv_ops.CH_CK,
+        conv_ops.CH_AROW, conv_ops.CH_CHUNK_SLOTS)
+    slot = conv_ops.ST_TP * c["CH_AROW"] + c["CH_CK"] * conv_ops.ST_BROW
+    assert conv_ops.CH_RING == 2 * slot
+    assert conv_ops.CH_SMEM == 4 * (2 * slot + conv_ops.ST_TP
+                                    * conv_ops.ST_TO + 3 * conv_ops.ST_TP)
+    plan = conv_ops.chain_plan(ALEX_CHAIN, POOL32, 2, 132)
+    arr = conv_ops.pack_chain_plan(plan)
+    assert len(arr) == c["CH_PLAN_HEAD"] + 3 * c["CH_PLAN_STAGE"]
+    assert _build.SIGNATURES["conv_chain_f32"] == [_build._P] * 9
+    assert _build.SIGNATURES["conv_chain_ocb_f32"] == [_build._P] * 10
+
+
+@pytest.mark.parametrize("chain", sorted(CHAINS))
+@pytest.mark.parametrize("n", [1, 2, 5, 16])
+def test_chain_items_cover_every_output_once(chain, n):
+    """Each stage's items write every (partial, pixel, padded channel)
+    once, and through their chunks each (pixel, channel, chunk) of the
+    stage's GEMM once, the chunks covering every channel of every tap;
+    the scratch regions do not overlap."""
+    stages, pool = CHAINS[chain]
+    plan = conv_ops.chain_plan(stages, pool, n, conv_ops.REPORT_SMS)
+    regions = [(0, n * stages[0].H * stages[0].W * _round4(stages[0].C))]
+    for st, sp in zip(stages, plan.stages):
+        chunks = st.KH * st.KW * sp.split
+        assert sp.m == n * st.OH * st.OW and sp.ocp == _round4(st.OC)
+        assert sp.unit in (1, sp.split, st.KW * sp.split)
+        assert sp.n_partials * sp.unit == chunks
+        # a tap's chunks: runs of chunk_slots x CH_CK channels over Cp
+        cp, width = _round4(st.C), sp.chunk_slots * conv_ops.CH_CK
+        assert sp.chunk_slots <= conv_ops.CH_CHUNK_SLOTS
+        assert (sp.split - 1) * width < cp <= sp.split * width
+        part = np.zeros((sp.n_partials, sp.m, sp.ocp), dtype=np.int64)
+        cov = np.zeros((chunks, sp.m, sp.ocp), dtype=np.int64)
+        for px, ch, cr, q in _chain_items(st, sp):
+            assert len(px) and len(ch) and list(cr) == list(
+                range(q * sp.unit, (q + 1) * sp.unit))
+            part[q, px.start:px.stop, ch.start:ch.stop] += 1
+            cov[cr.start:cr.stop, px.start:px.stop, ch.start:ch.stop] += 1
+        assert (part == 1).all() and (cov == 1).all()
+        if sp.act_off >= 0:
+            regions.append((sp.act_off, sp.act_off + sp.m * sp.ocp))
+        assert sp.n_partials * sp.m * sp.ocp <= plan.scratch - plan.part_off
+    regions.append((plan.part_off, plan.scratch))
+    regions.sort()
+    assert all(a[1] <= b[0] for a, b in zip(regions, regions[1:]))
+    assert all(off % 4 == 0 for off, _ in regions)
+    assert (plan.stages[-1].act_off < 0) == (pool is None)
+    assert plan.barriers == 2 * len(stages) + (pool is not None)
+
+
+@pytest.mark.parametrize("chain", sorted(CHAINS))
+def test_chain_sum_order_is_the_same_for_every_batch(chain):
+    """The unit follows the batch; each output's sum does not: items of
+    one chunk, one tap or a kernel row add the chunks in one tree (chunks
+    into taps, taps into rows, rows, each left to right), and the chunks
+    (runs of a tap's channels) are fixed by the shape."""
+    stages, pool = CHAINS[chain]
+    plans = {n: conv_ops.chain_plan(stages, pool, n, conv_ops.REPORT_SMS)
+             for n in (1, 2, 5, 16)}
+    for s, st in enumerate(stages):
+        split = plans[1].stages[s].split
+        assert split == conv_ops.tap_split(_round4(st.C))
+        assert {p.stages[s].split for p in plans.values()} == {split}
+        want = _fold([_fold([_fold([(i * st.KW + j) * split + k
+                                    for k in range(split)],
+                                   lambda a, b: ("+", a, b))
+                             for j in range(st.KW)], lambda a, b: ("+", a, b))
+                      for i in range(st.KH)], lambda a, b: ("+", a, b))
+        for unit in (1, split, st.KW * split):
+            assert _sum_order(st, split, unit) == want
+        assert {_sum_order(st, split, p.stages[s].unit)
+                for p in plans.values()} == {want}
+    if chain == "alexnet":  # batch 1 takes a chunk an item, 16 a row
+        assert [sp.split for sp in plans[1].stages] == [2, 3, 3]
+        assert [sp.unit for sp in plans[1].stages] == [1, 1, 1]
+        assert plans[16].stages[0].unit == 6
+        assert plans[16].stages[1].unit == 9
+
+
+@pytest.mark.parametrize("chain", sorted(CHAINS))
+@pytest.mark.parametrize("n", [1, 16])
+def test_chain_grid_fits_the_card(chain, n):
+    """The cooperative grid fits the blocks an SM holds by the kernel's
+    shared memory (228 KB an SM, 1 KB of it reserved a block) and threads
+    (2048 an SM) on 132 SMs (its launch bounds promise the registers), 3
+    an SM; at batch 16 AlexNet's chain gives every block an item in conv3
+    and conv4 and its scratch stays in the 50 MB L2."""
+    stages, pool = CHAINS[chain]
+    plan = conv_ops.chain_plan(stages, pool, n, conv_ops.REPORT_SMS)
+    per_sm = min(233472 // (conv_ops.CH_SMEM + 1024),
+                 2048 // conv_ops.CH_THREADS)
+    assert per_sm == conv_ops.CH_MIN_BLOCKS == 3
+    assert plan.grid == per_sm * conv_ops.REPORT_SMS == 396
+    assert conv_ops.CH_SMEM <= 227 * 1024
+    if chain == "alexnet" and n == 16:
+        assert plan.grid >= 128
+        assert [sp.items for sp in plan.stages][:2] == [396, 396]
+        assert 4 * plan.scratch < 50e6
+        assert plan.tail_items == 16 * 6 * 6
+
+
+def _emulate_chain(x, ws, bs, strides, pads, relus, pool, lrn, ocb=None,
+                   unit=None):
+    """The chain kernel's schedule in plain PyTorch (fp32): the input to
+    NHWC with channels zero-padded to a float4, the weights as
+    ``chain_weights`` converts them; per stage every item of
+    ``chain_plan`` computes each of its chunks as a [pixels, chunk's
+    channels] x [chunk's channels, channels] product (zero outside the
+    stage's input: padding is read as activation zeros) and the items and
+    the reduce add them in the kernel's tree (``_run_tree``: chunks into
+    taps, taps into rows, rows), then the bias and the ReLU; then the
+    pool / ReLU / LRN tail.  ``unit`` ("chunk", "tap" or "row") overrides
+    the unit the plan picks at every stage."""
+    n = x.shape[0]
+    stages = conv_ops.make_stages(tuple(x.shape[1:]), ws, strides, pads,
+                                  relus)
+    plan = conv_ops.chain_plan(stages, pool, n, conv_ops.REPORT_SMS, ocb)
+    act = torch.nn.functional.pad(x.permute(0, 2, 3, 1),
+                                  (0, _round4(x.shape[1]) - x.shape[1]))
+    for st, sp, w, b in zip(stages, plan.stages, ws, bs):
+        if unit is not None:
+            u = {"chunk": 1, "tap": sp.split, "row": st.KW * sp.split}[unit]
+            q = st.KH * st.KW * sp.split // u
+            sp = sp._replace(unit=u, n_partials=q,
+                             items=sp.tiles_m * sp.o_items * q)
+        wt = conv_ops.chain_weights(w)          # [KH, KW, Cp, OCp]
+        assert wt.shape == (st.KH, st.KW, _round4(st.C), sp.ocp)
+        m = torch.arange(sp.m)
+        fr, pix = m // (st.OH * st.OW), m % (st.OH * st.OW)
+        iy0 = pix // st.OW * st.sy - st.py
+        ix0 = pix % st.OW * st.sx - st.px
+        width = sp.chunk_slots * conv_ops.CH_CK
+        sums = torch.full((st.KH * st.KW * sp.split, sp.m, sp.ocp),
+                          float("nan"))
+        for px, ch, chunks, _ in _chain_items(st, sp):
+            sl, cs = slice(px.start, px.stop), slice(ch.start, ch.stop)
+            for g in chunks:
+                (i, j), k = divmod(g // sp.split, st.KW), g % sp.split
+                iy, ix = iy0[sl] + i, ix0[sl] + j
+                ok = (iy >= 0) & (iy < st.H) & (ix >= 0) & (ix < st.W)
+                a = act[fr[sl], iy.clamp(0, st.H - 1), ix.clamp(0, st.W - 1)]
+                a = torch.where(ok[:, None], a, torch.zeros(()))
+                cc = slice(k * width, (k + 1) * width)
+                sums[g, sl, cs] = a[:, cc] @ wt[i, j][cc, cs]
+        tot = _run_tree(st, sp.split, sp.unit, lambda g: sums[g],
+                        torch.add)
+        out = tot[:, :st.OC] + b
+        out = out.clamp_min(0.0) if st.relu else out
+        out = torch.nn.functional.pad(out, (0, sp.ocp - st.OC))
+        act = out.reshape(n, st.OH, st.OW, sp.ocp)
+    last = stages[-1]
+    out = act[..., :last.OC].permute(0, 3, 1, 2)
+    kw = {} if lrn is None else dict(lrn_n=lrn[0], lrn_alpha=lrn[1],
+                                     lrn_beta=lrn[2], lrn_k=lrn[3])
+    if pool is None:
+        return out
+    from repro_torch.kernels.conv2d.ref import pool_lrn_tail
+
+    return pool_lrn_tail(out, (pool.kh, pool.kw), (pool.sy, pool.sx),
+                         pool.kind, False, **kw)
+
+
+def _k2_inputs(case, n):
+    xs, specs, pool, lrn_n = K2_CASES[case]
+    rng = np.random.default_rng(20 + len(case) + n)
+    x = _arr(rng, n, *xs[1:])
+    c, ws, bs = xs[1], [], []
+    for oc, k, _, _, _ in specs:
+        ws.append(_arr(rng, oc, c, k, k, scale=(c * k * k) ** -0.5))
+        bs.append(_arr(rng, oc, scale=0.1))
+        c = oc
+    args = ([(s, s) for _, _, s, _, _ in specs],
+            [(p, p) for _, _, _, p, _ in specs], [r for *_, r in specs])
+    return x, ws, bs, args, pool, lrn_n
+
+
+@pytest.mark.parametrize("case", sorted(K2_CASES))
+@pytest.mark.parametrize("n", [1, 3])
+def test_chain_schedule_matches_the_plain_chain_and_jax(case, n):
+    """The emulated schedule (items, chunks, partials, the fixed folds,
+    padding between stages) equals ``conv2d_chain_ref`` and the JAX
+    package's jnp chain (``conv2d_chain_fused``, never Pallas) on the
+    same numpy inputs within 1e-4, with an LRN tail and without; at
+    n = 3 pixel tiles cross frame boundaries."""
+    x, ws, bs, (strides, pads, relus), pool, lrn_n = _k2_inputs(case, n)
+    tail = dict(pool_kernel=pool[0] if pool else None,
+                pool_stride=pool[1] if pool else None,
+                pool_kind=pool[2] if pool else "max", lrn_n=lrn_n,
+                lrn_alpha=1e-2, lrn_beta=0.75, lrn_k=1.0)
+    tpool = (conv_ops.Pool(*pool[0], *pool[1], pool[2]) if pool else None)
+    lrn = (lrn_n, 1e-2, 0.75, 1.0) if lrn_n else None
+    tw, tb = [_t(w) for w in ws], [_t(b) for b in bs]
+    ours = _emulate_chain(_t(x), tw, tb, strides, pads, relus, tpool, lrn)
+    ref = conv_ops.conv2d_chain_ref(_t(x), tw, tb, strides, pads, relus,
+                                    **tail)
+    _close(ours, ref.numpy())
+    theirs = _jit(jm.conv2d_chain_fused, method=jm.Method.ADVANCED_SIMD_8,
+                  strides=tuple(strides), paddings=tuple(pads),
+                  relus=tuple(relus), **tail)(
+        jnp.asarray(x), [jnp.asarray(w) for w in ws],
+        [jnp.asarray(b) for b in bs])
+    _close(ours, theirs)
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_chain_schedule_at_alexnet_matches_the_plain_chain(n):
+    """The emulated schedule at AlexNet's chain (one chunk an item at
+    these batches: taps cut in two or three), and K6's at
+    ``oc_block_final`` 100 (128-wide final items), equal
+    ``conv2d_chain_ref``."""
+    rng = np.random.default_rng(n)
+    x = _t(_arr(rng, n, 256, 13, 13))
+    ws, bs, c = [], [], 256
+    for oc in (384, 384, 256):
+        ws.append(_t(_arr(rng, oc, c, 3, 3, scale=(9 * c) ** -0.5)))
+        bs.append(_t(_arr(rng, oc, scale=0.05)))
+        c = oc
+    args = ([(1, 1)] * 3, [(1, 1)] * 3, [True] * 3)
+    ref = conv_ops.conv2d_chain_ref(x, ws, bs, *args, pool_kernel=(3, 3),
+                                    pool_stride=(2, 2))
+    for ocb in (None, conv_ops.k6_ocb(100)):
+        ours = _emulate_chain(x, ws, bs, *args, POOL32, None, ocb)
+        _close(ours, ref.numpy(), TOL * max(1.0, ref.abs().max().item()))
+
+
+def test_chain_schedule_gives_the_same_bits_with_every_unit():
+    """Items of one chunk, one tap or a kernel row (the units the host
+    picks by the batch) add each output in the same tree: the emulated
+    schedule gives the same bits with each, within 1e-4 of the plain
+    chain, on a chain whose taps are cut in chunks (136 and 140 channels:
+    two chunks a tap) and a 1 x 3 kernel."""
+    rng = np.random.default_rng(7)
+    x = _t(_arr(rng, 2, 136, 6, 7))
+    ws = [_t(_arr(rng, 140, 136, 3, 3, scale=(9 * 136) ** -0.5)),
+          _t(_arr(rng, 12, 140, 1, 3, scale=(3 * 140) ** -0.5))]
+    bs = [_t(_arr(rng, 140, scale=0.1)), _t(_arr(rng, 12, scale=0.1))]
+    args = ([(1, 1)] * 2, [(1, 1), (0, 1)], [True, False])
+    pool = conv_ops.Pool(2, 2, 2, 2, "max")
+    stages = conv_ops.make_stages((136, 6, 7), ws, *args)
+    assert [conv_ops.tap_split(_round4(st.C)) for st in stages] == [2, 2]
+    outs = [_emulate_chain(x, ws, bs, *args, pool, None, unit=u)
+            for u in ("chunk", "tap", "row")]
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[1], outs[2])
+    ref = conv_ops.conv2d_chain_ref(x, ws, bs, *args, pool_kernel=(2, 2),
+                                    pool_stride=(2, 2))
+    _close(outs[0], ref.numpy())
+
+
+def test_chain_weights_are_converted_once():
+    """``chain_weights`` converts a tensor once and reuses the copy until
+    the tensor is written in place or dropped."""
+    w = _t(_arr(np.random.default_rng(0), 5, 3, 3, 2))
+    a = conv_ops.chain_weights(w)
+    assert a.shape == (3, 2, 4, 8) and a.is_contiguous()
+    assert torch.equal(a[:, :, :3, :5], w.permute(2, 3, 1, 0))
+    assert not a[:, :, 3:].any() and not a[..., 5:].any()
+    assert conv_ops.chain_weights(w) is a
+    w.mul_(2.0)
+    b = conv_ops.chain_weights(w)
+    assert b is not a and torch.equal(b[:, :, :3, :5], w.permute(2, 3, 1, 0))
+    key = id(w)
+    del w
+    assert key not in conv_ops._CHAIN_WEIGHTS
+
+
 @pytest.mark.parametrize("requested", [1, 8, 64, 100])
 @pytest.mark.parametrize("n", [1, 16])
 def test_k6_tiles_cover_the_final_stage_once(requested, n):
-    blk, ocb = conv_ops.k6_geometry(ALEX_CHAIN, POOL32, requested, n,
-                                    conv_ops.REPORT_SMS)
-    assert ocb >= requested and ocb < 256
-    assert ocb % conv_ops.GEMM_TILE == 0 or ocb == requested
-    tiles = [range(u * ocb, min((u + 1) * ocb, 256))
-             for u in range(math.ceil(256 / ocb))]
-    assert sorted(c for t in tiles for c in t) == list(range(256))
-    total = conv_ops.final_rows(ALEX_CHAIN, POOL32)[0]
-    assert 1 <= blk <= total
-    # K6 takes no dynamic shared memory; its scratch (two bands a block)
-    stride = conv_ops.chain_scratch_stride(ALEX_CHAIN, POOL32, blk)
-    assert stride >= 384 * 7 * 13
+    """K6 runs K2's schedule with final-stage items of ``k6_ocb`` channels
+    (the request rounded up to 64-wide core tiles): they cover every
+    final channel once, and the earlier stages are K2's (no stage is
+    recomputed per channel tile)."""
+    ocb = conv_ops.k6_ocb(requested)
+    assert ocb >= requested and ocb % conv_ops.ST_TO == 0
+    k6 = conv_ops.chain_plan(ALEX_CHAIN, POOL32, n, conv_ops.REPORT_SMS, ocb)
+    k2 = conv_ops.chain_plan(ALEX_CHAIN, POOL32, n, conv_ops.REPORT_SMS)
+    assert k6.stages[:-1] == k2.stages[:-1]
+    last = k6.stages[-1]
+    assert last.ot_item * conv_ops.ST_TO == ocb
+    owned = np.zeros((last.n_partials, 256), dtype=np.int64)
+    for _, ch, _, q in _chain_items(ALEX_CHAIN[-1], last):
+        assert len(ch) <= ocb
+        owned[q, ch.start:ch.stop] += 1
+    assert (owned == last.tiles_m).all()
+    tile = conv_ops._tile(ocb, 256)
+    assert tile[1] * ocb >= 256 > (tile[1] - 1) * ocb
 
 
 def test_k6_emulated_by_tiles_equals_the_chain():

@@ -64,7 +64,7 @@ def _models(arch, dtype="float32"):
         jp = jm.init(jax.random.PRNGKey(0))
         tm = tregistry.get_model(tcfg)
         tm.load_tree(params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
-                                     tcfg))
+                                     tcfg, device="cpu"))
         _MODELS[key] = (jm, jp, tm)
     return _MODELS[key]
 
@@ -179,7 +179,7 @@ def test_params_from_jax_is_bit_exact_for_bf16():
     jm, jp, tm = _models("gemma2-2b", "bfloat16")
     jl = jax.tree_util.tree_leaves(jp)
     tl = tree_leaves(params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
-                                     tm.cfg))
+                                     tm.cfg, device="cpu"))
     assert len(jl) == len(tl) and any(x.dtype == jnp.bfloat16 for x in jl)
     for a, b in zip(jl, tl):
         a = np.asarray(a)
@@ -206,6 +206,19 @@ def test_params_from_jax_checks_the_tree():
         params_from_jax(bad, tm.cfg)
     with pytest.raises(ValueError, match="keys"):
         params_from_jax(dict(tree, extra={}), tm.cfg)
+
+
+def test_params_from_jax_without_a_device_needs_a_gpu(monkeypatch):
+    """No device and no GPU: it raises instead of building the tree on
+    the CPU (the model would then quietly run there); with one asked for,
+    the leaves land on it."""
+    jm, jp, tm = _models("internlm2-20b")
+    tree = jax.tree_util.tree_map(np.asarray, jp)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_jax(tree, tm.cfg)
+    leaves = tree_leaves(params_from_jax(tree, tm.cfg, device="cpu"))
+    assert leaves and all(x.device.type == "cpu" for x in leaves)
 
 
 # -- layers -------------------------------------------------------------------

@@ -265,7 +265,8 @@ def _models(dtype="float32"):
         jcfg, tcfg = _cfgs(dtype)
         jm = jregistry.get_model(jcfg)
         jp = jm.init(jax.random.PRNGKey(0))
-        tree = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tcfg)
+        tree = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tcfg,
+                               device="cpu")
         trwkv.rwkv_redraw(tree, torch.Generator().manual_seed(1))
         tm = tregistry.get_model(tcfg).load_tree(tree)
         _MODELS[dtype] = (jm, tree_map(_to_jax, tree), tm)
@@ -388,7 +389,8 @@ def test_params_from_jax_is_bit_exact_for_rwkv():
     """bf16 projections and fp32 mix leaves cross bit for bit, per layer."""
     jcfg, tcfg = _cfgs("bfloat16")
     jp = jregistry.get_model(jcfg).init(jax.random.PRNGKey(2))
-    tree = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tcfg)
+    tree = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tcfg,
+                           device="cpu")
     jl, tl = jax.tree_util.tree_leaves(jp), tree_leaves(tree)
     assert len(jl) == len(tl)
     kinds = set()
