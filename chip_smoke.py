@@ -15,22 +15,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (conv chain+pool), K3 (fc matmul), K7 (fused and per-layer basic SIMD
    conv), K8 (basic parallel conv), K9 (standalone pool) — each kernel
    against its plain PyTorch version on the card (max abs <= 1e-4 *
-   max(1, max|plain|)), a repeat bit for bit and, for K2, K6, K7 and K8
-   at batch 16, frame 0 bit for bit against the kernel on frame 0 alone
-   (K2 and K6 sum each output in an order fixed by the stage's shape, so
-   this holds though their schedule follows the batch), then timed
+   max(1, max|plain|)), a repeat bit for bit and, for K1, K2, K5, K6, K7
+   and K8 at batch 16, frame 0 bit for bit against the kernel on frame 0
+   alone (the stage-major kernels K1, K2, K5 and K6 sum each output in an
+   order fixed by the stage's shape, so this holds though their schedule
+   follows the batch), then timed
    with CUDA events (median of 25 after warm-up) beside its plain version,
    one PyTorch library call as a yardstick and its bound (each case line
-   also prints ``bound_share``, bound / kernel time); and the
+   also prints ``bound_share``, bound / kernel time, and ``host_ms``, the
+   wrapper's host time a call: the mean of ``HOST_REPS`` calls enqueued
+   back to back, which the card's queue absorbs); and the
    second-generation cells at batch 1
    and 16 — K4 (oc-blocked LRN cell) on AlexNet's conv1+pool1+norm1 and
    conv2+pool2+norm2, K5 (pool carry) on AlexNet's conv1+pool1 and
    conv2+pool2 (norms unfused) and the CIFAR-10 net's three groups, K6
    (oc-blocked chain) on AlexNet's conv3-5+pool5 with ``oc_block_final``
-   8 and 64 — held, repeated and timed the same way.  Each K2/K6 case line
-   carries its cooperative launch's geometry (``chain``: grid, blocks an
-   SM holds, grid barriers, scratch MB, each stage's unit and items); a
-   batch-16 grid under 128 blocks or past the co-residency limit fails;
+   8 and 64 — held, repeated and timed the same way.  Each K1/K2/K5/K6
+   case line carries its cooperative launch's geometry (``chain``: grid,
+   blocks an SM holds, grid barriers, scratch MB, each stage's unit,
+   items and whether an item takes the whole reduction); a batch-16 grid
+   under 128 blocks or past the co-residency limit fails;
 4. engine: ``CNNEngine(net, method=..., fuse_pool=...).forward`` on the
    card at batch 16 (paper §6.2) on six rungs — ``advanced_simd_8`` fused
    and unfused, ``basic_simd`` fused and unfused, ``basic_parallel``,
@@ -40,7 +44,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    read just after, and they must equal ``EXPECTED_LAUNCHES``; the output
    must match the CPU engine at the same rung on the same weights (max
    abs <= 1e-4, same argmax) and two more runs must agree bit for bit; the
-   forward is timed; no default plan may launch K4, K5 or K6;
+   forward is timed; no default plan may launch K4, K5 or K6; the
+   repeated forwards of the default fused rung must reuse the weights'
+   padded HWIO copies (``chain_weights``) made by the first;
 5. tuned deploy: ``repro_torch.core.deploy.save_model(tuned=TUNED)``
    writes full-width AlexNet with the seeded weights, ``load_engine``
    builds it on the card and on the CPU, and its forward at batch 16 and
@@ -122,10 +128,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    d. the launcher ``repro_torch.launch.serve.main(["--arch",
       "rwkv6-1.6b"])`` on the card: a token list for every request, K11
       once a layer in every prefill;
-9. stream capture: K2 on AlexNet's chain at batch 16 captured into a
-   ``torch.cuda.CUDAGraph`` and replayed (``capture`` line: whether the
-   cooperative launch was accepted and the replay gave the bits of the
-   launch; a refusal is reported, not failed);
+9. stream capture: K2 on AlexNet's chain and K1 on its conv2+pool2+norm2
+   group at batch 16, each captured into a ``torch.cuda.CUDAGraph`` and
+   replayed (``capture`` line: per kernel, whether the cooperative launch
+   was accepted and the replay gave the bits of the launch; a refusal is
+   reported, not failed);
 10. prints one JSON line ``{"kernels": [...]}``: per kernel, ``launches``
    is its count summed over the AlexNet forwards of phase 4 (K1-K3,
    K7-K9) or phase 5 (K4-K6), or over the first LM serving run of phase
@@ -173,7 +180,10 @@ KERNELS = ("K1", "K2", "K3", "K7", "K8", "K9")
 CELLS = ("K4", "K5", "K6")
 #: kernels whose batch-16 cases must give frame 0 the bits of frame 0
 #: launched alone (phase 3)
-FRAME_CHECKED = ("K2", "K6", "K7", "K8")
+FRAME_CHECKED = ("K1", "K2", "K5", "K6", "K7", "K8")
+#: the cells that launch the one stage-major kernel (csrc/conv_chain.cu on
+#: csrc/conv_stage_major.cuh)
+STAGE_MAJOR = ("K1", "K2", "K5", "K6")
 #: the tuned deployment of phase 5: norm1 unfused so that conv1+pool1
 #: runs the pool carry (K5), conv2+pool2+norm2 the oc-blocked LRN cell
 #: (K4), conv3-5+pool5 the oc-blocked chain (K6)
@@ -209,6 +219,7 @@ WAVE_RUNGS = ("advanced_simd_8/fused", "advanced_simd_4/fused",
               "basic_simd/fused", "basic_simd/unfused", "basic_simd/unfused")
 MAX_BATCH = 16
 REPS = 25
+HOST_REPS = 20
 
 
 def fail(msg: str) -> None:
@@ -388,7 +399,9 @@ def run_case(torch, F, kid, step, n, params, dev, peaks, obf=None):
             kernel = lambda: conv_ops.conv2d_pool_lrn_halo(*one, **tail)  # noqa
             plain = lambda: conv_ops.conv2d_pool_fused_ref(*one, **tail)  # noqa
         elif kid == "K5":
-            kernel = lambda: conv_ops.conv2d_pool_carry(*one, **tail)  # noqa
+            kernel_at = lambda xx: conv_ops.conv2d_pool_carry(  # noqa: E731
+                xx, *one[1:], **tail)
+            kernel = lambda: kernel_at(x)  # noqa: E731
             plain = lambda: conv_ops.conv2d_pool_fused_ref(*one, **tail)  # noqa
         elif kid == "K6":
             args = (x, ws, bs, strides, pads, relus)
@@ -397,7 +410,9 @@ def run_case(torch, F, kid, step, n, params, dev, peaks, obf=None):
             kernel = lambda: kernel_at(x)  # noqa: E731
             plain = lambda: conv_ops.conv2d_chain_ref(*args, **tail)  # noqa
         elif kid == "K1":
-            kernel = lambda: conv_ops.conv2d_pool_fused(*one, **tail)  # noqa
+            kernel_at = lambda xx: conv_ops.conv2d_pool_fused(  # noqa: E731
+                xx, *one[1:], **tail)
+            kernel = lambda: kernel_at(x)  # noqa: E731
             plain = lambda: conv_ops.conv2d_pool_fused_ref(*one, **tail)  # noqa
         elif kid == "K7":
             kernel_at = lambda xx: conv_ops.conv2d_basic_simd(  # noqa: E731
@@ -460,29 +475,37 @@ def run_case(torch, F, kid, step, n, params, dev, peaks, obf=None):
                  f"frame launched alone")
     lib_err = (library() - ref).abs().max().item()
     ms = time_ms(torch, kernel)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_REPS):
+        kernel()
+    host_ms = (time.perf_counter() - t0) * 1e3 / HOST_REPS
+    torch.cuda.synchronize()
     bound_ms = 1e3 * max(flops / flops_peak, nbytes / bw_peak)
     row = {
         "kernel": kid, "kind": step.kind, "batch": n, "max_abs_err": err,
         "tol": tol, "library_max_abs_err": lib_err,
-        "ms": ms, "plain_ms": time_ms(torch, plain),
+        "ms": ms, "host_ms": host_ms, "plain_ms": time_ms(torch, plain),
         "library_ms": time_ms(torch, library),
         "bound_ms": bound_ms, "bound_share": bound_ms / ms,
         "bound_by": "operations" if flops / flops_peak > nbytes / bw_peak
         else "bytes",
         "flops": flops, "bytes": nbytes,
     }
-    if kid in ("K2", "K6"):
-        row["chain"] = chain_geometry(torch, conv_ops, n, step, ws, strides,
-                                      pads, relus, pool, obf)
+    if kid in STAGE_MAJOR:
+        row["chain"] = chain_geometry(torch, conv_ops, kid, n, step, ws,
+                                      strides, pads, relus, pool, obf)
     return row
 
 
-def chain_geometry(torch, conv_ops, n, step, ws, strides, pads, relus,
+def chain_geometry(torch, conv_ops, kid, n, step, ws, strides, pads, relus,
                    pool, obf):
-    """The cooperative launch of a K2/K6 case (``ops.chain_plan``): grid,
-    blocks an SM holds (the CUDA occupancy query), barriers, scratch MB,
-    each stage's unit (chunks an item) and items.  At batch 16 the grid must
-    hold at least 128 blocks; it may never pass the resident limit."""
+    """The cooperative launch of a stage-major case, K1, K2, K5 or K6
+    (``ops.chain_plan``): grid, blocks an SM holds (the CUDA occupancy
+    query of the stage-major kernel), barriers, scratch MB, each stage's
+    unit (chunks an item), items and whether an item takes the whole
+    reduction.  At batch 16 the grid must hold at least 128 blocks; it may
+    never pass the resident limit."""
     from repro_torch.kernels import _build
 
     stages = conv_ops.make_stages(tuple(step.in_shape),
@@ -493,7 +516,7 @@ def chain_geometry(torch, conv_ops, n, step, ws, strides, pads, relus,
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     plan = conv_ops.chain_plan(stages, p, n, sms,
                                None if obf is None else conv_ops.k6_ocb(obf))
-    per_sm = _build.library().conv_chain_blocks_per_sm()
+    per_sm = _build.library().stage_major_blocks_per_sm()
     if not 0 < plan.grid <= per_sm * sms:
         fail(f"chain grid {plan.grid} past {per_sm} blocks x {sms} SMs")
     if n == ENGINE_BATCH and plan.grid < 128:
@@ -502,45 +525,62 @@ def chain_geometry(torch, conv_ops, n, step, ws, strides, pads, relus,
             "barriers": plan.barriers, "scratch_mb": 4e-6 * plan.scratch,
             "units": [sp.unit for sp in plan.stages],
             "items": [sp.items for sp in plan.stages],
+            "whole": [sp.whole for sp in plan.stages],
             "tail_items": plan.tail_items}
 
 
 def capture_phase(torch, net, params, dev):
-    """K2 on AlexNet's chain at batch 16 captured into a CUDA graph and
-    replayed: whether stream capture takes the cooperative launch, and
-    whether the replay gives the launch's bits.  A refusal is reported
-    (``captured`` false, the error), not failed: no path captures yet."""
+    """K2 on AlexNet's chain and K1 on its conv2+pool2+norm2 group at
+    batch 16, each captured into a CUDA graph and replayed: whether stream
+    capture takes the cooperative launch, and whether the replay gives the
+    launch's bits.  A refusal is reported (``captured`` false, the
+    error), not failed: no path captures yet."""
     from repro_torch.core.methods import Method
     from repro_torch.core.plan import compile_plan
     from repro_torch.kernels.conv2d import ops as conv_ops
 
-    step = next(s for s in compile_plan(
-        net, method=Method("advanced_simd_8")).steps if s.kind == "chain")
-    g = step.group
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    x = torch.randn((ENGINE_BATCH, *step.in_shape), generator=gen, device=dev)
-    args = (x, [params[cv.name]["w"] for cv in g.convs],
-            [params[cv.name]["b"] for cv in g.convs],
-            [cv.stride for cv in g.convs], [cv.padding for cv in g.convs],
-            g.relus)
-    tail = dict(pool_kernel=g.pool.kernel, pool_stride=g.pool.stride,
-                pool_kind=g.pool.pool_kind, pool_relu=g.pool_relu)
-    ref = conv_ops.conv2d_chain(*args, **tail)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        conv_ops.conv2d_chain(*args, **tail)
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    try:
-        with torch.cuda.graph(graph):
-            out = conv_ops.conv2d_chain(*args, **tail)
-        graph.replay()
+    steps = compile_plan(net, method=Method("advanced_simd_8")).steps
+    chain = next(s for s in steps if s.kind == "chain")
+    group = next(s for s in steps if s.kind == "fused"
+                 and s.group.convs[0].name == "conv2")
+    out = {}
+    for kid, step in (("K2", chain), ("K1", group)):
+        g = step.group
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        x = torch.randn((ENGINE_BATCH, *step.in_shape), generator=gen,
+                        device=dev)
+        ws = [params[cv.name]["w"] for cv in g.convs]
+        bs = [params[cv.name]["b"] for cv in g.convs]
+        tail = dict(pool_kernel=g.pool.kernel, pool_stride=g.pool.stride,
+                    pool_kind=g.pool.pool_kind, pool_relu=g.pool_relu)
+        if kid == "K2":
+            call = lambda: conv_ops.conv2d_chain(  # noqa: E731
+                x, ws, bs, [cv.stride for cv in g.convs],
+                [cv.padding for cv in g.convs], g.relus, **tail)
+        else:
+            cv, lrn = g.convs[0], g.lrn
+            call = lambda: conv_ops.conv2d_pool_fused(  # noqa: E731
+                x, ws[0], bs[0], cv.stride, cv.padding, g.relus[0], **tail,
+                lrn_n=lrn.lrn_n, lrn_alpha=lrn.lrn_alpha,
+                lrn_beta=lrn.lrn_beta, lrn_k=lrn.lrn_k)
+        ref = call()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
         torch.cuda.synchronize()
-    except RuntimeError as e:  # reported only: no path of the port captures
-        return {"captured": False, "error": str(e)[:300]}
-    return {"captured": True, "replay_equal": torch.equal(out, ref)}
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                y = call()
+            graph.replay()
+            torch.cuda.synchronize()
+        except RuntimeError as e:  # reported only: no path captures yet
+            out[kid] = {"captured": False, "error": str(e)[:300]}
+            continue
+        out[kid] = {"captured": True, "replay_equal": torch.equal(y, ref)}
+    return out
 
 
 class FakeClock:
@@ -1445,7 +1485,7 @@ def main() -> int:
                 "K7": conv_ops.conv2d_basic_simd,
                 "K8": conv_ops.conv2d_basic_parallel, "K9": pool_ops.pool2d}
     sources = {
-        "K1": ("conv_pool_lrn", "src/repro_torch/csrc/conv_pool_lrn.cu",
+        "K1": ("conv_pool_lrn", "src/repro_torch/csrc/conv_chain.cu",
                "src/repro/kernels/conv2d/kernels.py:649"),
         "K2": ("conv_chain", "src/repro_torch/csrc/conv_chain.cu",
                "src/repro/kernels/conv2d/kernels.py:1103"),
@@ -1453,7 +1493,7 @@ def main() -> int:
                "src/repro/kernels/matmul_fused/kernel.py:37"),
         "K4": ("conv_pool_lrn_halo", "src/repro_torch/csrc/conv_pool_lrn.cu",
                "src/repro/kernels/conv2d/kernels.py:681"),
-        "K5": ("conv_pool_carry", "src/repro_torch/csrc/conv_pool_carry.cu",
+        "K5": ("conv_pool_carry", "src/repro_torch/csrc/conv_chain.cu",
                "src/repro/kernels/conv2d/kernels.py:708"),
         "K6": ("conv_chain_ocb", "src/repro_torch/csrc/conv_chain.cu",
                "src/repro/kernels/conv2d/kernels.py:1260"),
@@ -1524,10 +1564,18 @@ def main() -> int:
                 fail(f"{label}: engine max abs err vs CPU {err} > 1e-4")
             if not torch.equal(y.argmax(-1).cpu(), y_cpu.argmax(-1)):
                 fail(f"{label}: argmax differs from the CPU engine")
+            copies = {k: v[2] for k, v in conv_ops._CHAIN_WEIGHTS.items()}
             y2 = eng.forward(params, x)
             y3 = eng.forward(params, x)
             if not (torch.equal(y, y2) and torch.equal(y2, y3)):
                 fail(f"{label}: repeated forwards differ")
+            # the stage-major kernels' weights were converted once, by the
+            # first forward, and the later ones reuse the copies
+            again = {k: v[2] for k, v in conv_ops._CHAIN_WEIGHTS.items()}
+            if (again.keys() != copies.keys()
+                    or any(again[k] is not c for k, c in copies.items())):
+                fail(f"{label}: a repeated forward converted its weights "
+                     f"again")
             ms = time_ms(torch, lambda: eng.forward(params, x))
             t0 = time.perf_counter()
             for _ in range(10):
@@ -1671,7 +1719,7 @@ def main() -> int:
         if k["launches"] < 1:
             fail(f"{k['name']} never launched on the main path")
 
-    # -- 9. stream capture of the cooperative chain launch --------------------
+    # -- 9. stream capture of the cooperative K2 and K1 launches -------------
     capture = capture_phase(torch, nets["alexnet"],
                             params_from_numpy(np_params["alexnet"], dev), dev)
     print("capture " + json.dumps(capture), flush=True)

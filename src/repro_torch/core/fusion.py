@@ -232,18 +232,14 @@ def group_geometry(group: FusedLayerSpec, method: Method,
                           (oc, stages[0].C, *convs[0].kernel),
                           convs[0].stride, convs[0].padding, p.kernel,
                           p.stride, lrn_n, pool_carry, lrn_oc_block)
-        ocb = oc
         if cell == "K7":
-            blk = 1
+            blk, ocb = 1, oc
         elif cell == "K4":
             blk, ocb = conv_ops.k4_geometry(stages, pool, lrn_n, batch, sms)
-        elif cell == "K5":
-            blk, _, ocb = conv_ops.k5_bands(stages, pool)
         else:
-            blk = conv_ops.rows_per_block(
-                stages, pool, batch, sms,
-                lambda k: conv_ops.k1_smem(stages, pool, lrn_n is not None,
-                                           k))
+            # stage-major (K1, K5): one band of all the final rows, items
+            # ST_TO channels wide
+            blk, ocb = total, min(oc, conv_ops.ST_TO)
     else:
         # stage-major (K2, K6): every stage covers the whole frame, so one
         # band of all the final rows; oc_block is the final stage's item

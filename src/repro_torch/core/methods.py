@@ -97,7 +97,7 @@ def fused_cell(method: Method, in_chw, w_shape, stride, padding,
         if pool.kh > pool.sy:
             stages = conv_ops.make_stages(in_chw, [w_shape], [stride],
                                           [padding], [False])
-            phb, n_bands, _ = conv_ops.k5_bands(stages, pool)
+            phb, n_bands = conv_ops.k5_bands(stages, pool)
             if conv_ops.resolve_pool_carry(True, None, tuple(pool[:4]), phb,
                                            n_bands):
                 return "K5"

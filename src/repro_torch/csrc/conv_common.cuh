@@ -1,8 +1,10 @@
-// Shared device code of the fused convolution kernels (conv_pool_lrn.cu: K1
-// and K4, conv_basic_simd.cu, conv_pool_carry.cu; conv_chain.cu, K2 and K6,
-// takes only the geometry block): a geometry block passed by value, a band
-// convolution (implicit GEMM over shared-memory tiles, fp32 FMAs on CUDA
-// cores) and the pool -> ReLU -> LRN tail.
+// Shared device code of the fused convolution kernels (K4 in
+// conv_pool_lrn.cu, K7 in conv_basic_simd.cu; the stage-major kernel of
+// conv_stage_major.cuh, which K1, K2, K5 and K6 launch, takes only the
+// geometry block):
+// a geometry block passed by value, a band convolution (implicit GEMM over
+// shared-memory tiles, fp32 FMAs on CUDA cores) and the pool -> ReLU ->
+// LRN tail.
 //
 // Layouts: activations are NCHW, weights OIHW, both fp32 and contiguous.
 // A "band" is a run of output rows [a, b) of one conv stage for one frame,
@@ -37,11 +39,11 @@ struct __align__(16) Tiles {
 // relu, OH, OW (STAGE_INTS ints).  Header: N, n_stages, pool_kind (0 none,
 // 1 max, 2 avg), pkh, pkw, psy, psx, pool_relu, lrn_n (0 none), blk
 // (final rows per block), n_tiles, total (final rows), out_h, out_w.
-// The oc-blocked kernels (K4, K5, K6) take a second array, tile[] =
-// {ocb, oc_tiles, run}: output channels a block owns of the blocked stage,
-// blocks along the channel axis, and (K5) bands a block walks in order.
+// The oc-blocked kernels (K4, K6) take a second array, tile[] = {ocb,
+// oc_tiles}: output channels a block owns of the blocked stage, and blocks
+// along the channel axis.
 constexpr int HEADER_INTS = 14;
-constexpr int TILE_INTS = 3;
+constexpr int TILE_INTS = 2;
 constexpr int STAGE_INTS = 13;
 
 struct Stage {
@@ -53,7 +55,7 @@ struct Stage {
 struct Geo {
   int N, n_stages, pool_kind, pkh, pkw, psy, psx, pool_relu, lrn_n, blk,
       n_tiles, total, out_h, out_w;
-  int ocb, oc_tiles, run;  // tile[]; full width, one tile, 1 without it
+  int ocb, oc_tiles;  // tile[]; full width and one tile without it
   float alpha, beta, k;
   Stage st[MAX_STAGES];
 };
@@ -89,7 +91,6 @@ inline int read_geo(Geo* g, const int* geo, const float* lrn,
   }
   g->ocb = g->st[g->n_stages - 1].OC;
   g->oc_tiles = 1;
-  g->run = 1;
   return 0;
 }
 
@@ -97,9 +98,8 @@ inline int read_geo(Geo* g, const int* geo, const float* lrn,
 inline int read_tile(Geo* g, const int* tile) {
   g->ocb = tile[0];
   g->oc_tiles = tile[1];
-  g->run = tile[2];
   const int oc = g->st[g->n_stages - 1].OC;
-  if (g->ocb < 1 || g->oc_tiles < 1 || g->run < 1) return 1;
+  if (g->ocb < 1 || g->oc_tiles < 1) return 1;
   if ((long)g->ocb * g->oc_tiles < oc) return 1;
   return 0;
 }

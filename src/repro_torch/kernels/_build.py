@@ -36,15 +36,15 @@ SIGNATURES = {
     "matmul_fused_bf16": [_P, _P, _P, _P, _P] + [_I] * 7 + [_P],
     "flash_attention_fwd": [_P, _P, _P, _P] + [_I] * 8
     + [ctypes.c_float, ctypes.c_float, _I, _P],
-    "conv_pool_lrn_f32": [_P, _P, _P, _P, _P, _P, _L, _P],
+    "conv_pool_lrn_f32": [_P] * 9,
     "conv_chain_f32": [_P] * 9,
     "pool2d_f32": [_P, _P, _L] + [_I] * 10 + [_P],
     "conv_basic_parallel_f32": [_P, _P, _P, _P, _P, _P],
     "conv_basic_simd_f32": [_P, _P, _P, _P, _P, _P, _L, _P],
     "conv_pool_lrn_halo_f32": [_P, _P, _P, _P, _P, _P, _P, _L, _P],
-    "conv_pool_carry_f32": [_P, _P, _P, _P, _P, _P, _P, _L, _P],
+    "conv_pool_carry_f32": [_P] * 9,
     "conv_chain_ocb_f32": [_P] * 10,
-    "conv_chain_blocks_per_sm": [],
+    "stage_major_blocks_per_sm": [],
     "wkv6_f32": [_P] * 8 + [_I] * 4 + [_P],
     "wkv6_bf16": [_P] * 8 + [_I] * 4 + [_P],
 }

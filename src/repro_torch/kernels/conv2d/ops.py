@@ -1,13 +1,15 @@
 """Wrappers of the fused convolution kernels: the port of
 ``repro.kernels.conv2d.ops``.
 
-* ``conv2d_pool_fused`` — K1 (``csrc/conv_pool_lrn.cu``): conv → bias →
-  [ReLU] → [VALID max/avg pool → [ReLU] → [LRN]] in one launch; without a
-  pool it is the per-layer conv of the advanced SIMD method.
+* ``conv2d_pool_fused`` — K1 (``csrc/conv_chain.cu``): conv → bias →
+  [ReLU] → [VALID max/avg pool → [ReLU] → [LRN]] in one cooperative
+  launch of the stage-major kernel (``csrc/conv_stage_major.cuh``) with
+  one stage; without a pool it is the per-layer conv of the advanced SIMD
+  method.
 * ``conv2d_chain`` — K2 (``csrc/conv_chain.cu``): a chain of convs with
-  the same optional pool/LRN tail in one cooperative launch, stage-major
-  (every stage one implicit GEMM over the whole batch, spread over every
-  SM; ``chain_plan``).
+  the same optional pool/LRN tail in one cooperative launch of the same
+  kernel (every stage one implicit GEMM over the whole batch, spread
+  over every SM; ``chain_plan``).
 * ``conv2d_basic_simd`` — K7 (``csrc/conv_basic_simd.cu``): the §4.3
   conv, NHWC with a channel dot per kernel position, on the register-tiled
   core of ``csrc/conv_simt_tile.cuh``; with a pool it is the fused conv →
@@ -15,13 +17,14 @@
 * ``conv2d_basic_parallel`` — K8 (``csrc/conv_basic_parallel.cu``): the
   §4.2 conv, NCHW, channels the outer loop, on the same register-tiled
   core over shared-memory halos of a chunk of channels.
-* ``conv2d_pool_lrn_halo`` — K4 (``csrc/conv_pool_lrn.cu``, K1's kernel
-  on an oc-tiled grid): K1's conv → pool → LRN group with the output
-  channels split across blocks, each tile widened by the LRN window's
-  halo.
-* ``conv2d_pool_carry`` — K5 (``csrc/conv_pool_carry.cu``): K1's conv →
-  pool group (no LRN) with the conv rows that neighbouring pool windows
-  share carried from band to band instead of recomputed.
+* ``conv2d_pool_lrn_halo`` — K4 (``csrc/conv_pool_lrn.cu``, the band
+  kernel of ``csrc/conv_common.cuh`` on an oc-tiled grid): K1's conv →
+  pool → LRN group with the output channels split across blocks, each
+  tile widened by the LRN window's halo.
+* ``conv2d_pool_carry`` — K5 (``csrc/conv_chain.cu``): K1's conv →
+  pool group (no LRN) as a one-stage launch of the stage-major kernel,
+  where each conv row is computed once, which the TPU kernel's carry
+  buys; on the same plan as K1, so the two give the same bits.
 * ``conv2d_chain_ocb`` — K6 (``csrc/conv_chain.cu``, K2's kernel and
   schedule): K2's chain with the final stage's items at least
   ``oc_block_final`` channels wide.
@@ -42,13 +45,14 @@ raises ``ValueError``.  The kernels write NCHW, so the fc layer after a
 conv flattens their output as the JAX engine does.
 
 The launch geometry (which rows each band kernel's block computes, how
-many final rows a block owns; the chain's items, partials and scratch)
-is computed here in Python and handed to the kernels (the band by
-``band_rows`` in ``csrc/conv_common.cuh``, the chain by ``plan[]``), so
-it is checked on the CPU too.
+many final rows a block owns; the stage-major items, partials and
+scratch) is computed here in Python and handed to the kernels (the band
+by ``band_rows`` in ``csrc/conv_common.cuh``, the stage-major schedule
+by ``plan[]``), so it is checked on the CPU too.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import itertools
 import math
@@ -95,19 +99,20 @@ ADVANCED_OC_BLOCK = {"advanced_simd_4": 4, "advanced_simd_8": 8}
 #: SMs of an H100 SXM: the card a plan's ``fusion_report`` resolves the
 #: batch-dependent geometry for
 REPORT_SMS = 132
-#: the stage-major chain (csrc/conv_chain.cu, K2 and K6): blocks of
-#: CH_THREADS threads on the register-tiled core, at least CH_MIN_BLOCKS of
-#: them resident an SM (its launch bounds), so the cooperative grid is
-#: CH_MIN_BLOCKS x the SMs; a ring slot holds CH_CK reduction rows, pixel
-#: rows of CH_AROW floats, a chunk of a tap at most CH_CHUNK_SLOTS slots;
-#: the dynamic shared memory is the two-slot ring, the kernel-row fold (64
-#: floats a thread) and three ints a tile pixel
+#: the stage-major schedule (csrc/conv_stage_major.cuh: K1, K2, K5, K6):
+#: blocks of CH_THREADS threads on the register-tiled core, at least
+#: CH_MIN_BLOCKS of them resident an SM (its launch bounds), so the
+#: cooperative grid is CH_MIN_BLOCKS x the SMs; a ring slot holds CH_CK
+#: reduction rows, pixel rows of CH_AROW floats, a chunk of a tap at most
+#: CH_CHUNK_SLOTS slots; the dynamic shared memory is the two-slot ring,
+#: the fold (64 floats a thread) and three ints a tile pixel
 CH_THREADS, CH_MIN_BLOCKS, CH_CK, CH_AROW = 128, 3, 16, 20
 CH_CHUNK_SLOTS = 8
 CH_RING = 2 * (ST_TP * CH_AROW + CH_CK * ST_BROW)   # floats
 CH_SMEM = 4 * (CH_RING + ST_TP * ST_TO + 3 * ST_TP)  # bytes
 #: the most partial bytes a stage may write for items of one chunk or one
-#: tap; past it the items take a whole kernel row (fewer, larger partials)
+#: tap; past it the items take a whole kernel row or the whole reduction
+#: (fewer, larger partials, or none)
 CH_PARTIAL_BYTES = 24 * 2 ** 20
 
 
@@ -208,35 +213,15 @@ def block_time(stages, pool, blk) -> int:
 
 
 def k1_smem(stages, pool, lrn: bool, blk: int) -> int:
-    """K1's dynamic shared memory: the conv band plus, with LRN, the
-    pooled band."""
+    """A band block's dynamic shared memory (the layout of K4's and
+    K7's fused blocks): the conv band plus, with LRN, the pooled
+    band."""
     if pool is None:
         return 0
     st = stages[0]
     a, b = band_rows(stages, pool, blk, 0)[0]
     out_w = final_rows(stages, pool)[2]
     return 4 * (st.OC * (b - a) * st.OW + (st.OC * blk * out_w if lrn else 0))
-
-
-def rows_per_block(stages, pool, n: int, sms: int, smem_fn) -> int:
-    """Final rows a block owns.  Fewer rows make more blocks but
-    recompute more halo rows.  A block of 1024 threads at 64 registers
-    fills an SM, so the grid runs in waves of ``sms`` blocks and the time
-    model is waves × the slowest block's time.  ``smem_fn(blk)`` must stay
-    within ``SMEM_LIMIT``."""
-    total = final_rows(stages, pool)[0]
-    best, best_cost = None, None
-    for blk in range(1, total + 1):
-        if smem_fn(blk) > SMEM_LIMIT:
-            break
-        waves = math.ceil(n * math.ceil(total / blk) / sms)
-        cost = waves * block_time(stages, pool, blk)
-        if best_cost is None or cost < best_cost:
-            best, best_cost = blk, cost
-    if best is None:
-        raise ValueError(f"band of one final row needs {smem_fn(1)} bytes of "
-                         f"shared memory, more than {SMEM_LIMIT}")
-    return best
 
 
 def pack_geo(n: int, stages, pool: Optional[Pool], pool_relu: bool,
@@ -325,10 +310,10 @@ def resolve_oc_block_final(oc_f: int, oc_block_final, lrn) -> Optional[int]:
     return None if oc_block_final >= oc_f else int(oc_block_final)
 
 
-def _tile(ocb: int, oc: int, run: int = 1):
+def _tile(ocb: int, oc: int):
     """The ``tile`` int array of the oc-blocked kernels
-    (``csrc/conv_common.cuh``): ``{ocb, oc_tiles, run}``."""
-    tile = np.asarray([ocb, math.ceil(oc / ocb), run], dtype=np.int32)
+    (``csrc/conv_common.cuh``): ``{ocb, oc_tiles}``."""
+    tile = np.asarray([ocb, math.ceil(oc / ocb)], dtype=np.int32)
     tile.setflags(write=False)
     return tile
 
@@ -348,8 +333,11 @@ def k4_geometry(stages, pool, lrn_n: int, n: int, sms: int
     """K4's ``(blk, ocb)``: pooled rows and core channels a block owns.
     A tile computes ``ocb + lrn_n - 1`` channels (core and halo) in 64-wide
     GEMM tiles, so ``ocb`` is a whole number of GEMM tiles less the halo
-    (or the layer's width); both are picked by the ``rows_per_block`` time
-    model, waves × the slowest block, under ``SMEM_LIMIT``."""
+    (or the layer's width).  Both are picked by a time model: a block of
+    1024 threads fills an SM, so the grid runs in waves of ``sms`` blocks,
+    and the cost is waves × the slowest block's time (``block_time``;
+    fewer rows a block make more blocks but recompute more halo rows),
+    under ``SMEM_LIMIT``."""
     st = stages[0]
     total = final_rows(stages, pool)[0]
 
@@ -375,61 +363,26 @@ def k4_geometry(stages, pool, lrn_n: int, n: int, sms: int
 
 
 def k4_smem(stages, pool, lrn_n: int, blk: int, ocb: int) -> int:
-    """K4's dynamic shared memory: K1's band and pooled band at the
-    widened tile's ``ocb + lrn_n - 1`` channels."""
+    """K4's dynamic shared memory: ``k1_smem``'s band and pooled band at
+    the widened tile's ``ocb + lrn_n - 1`` channels."""
     return k1_smem([stages[0]._replace(OC=ocb + lrn_n - 1)], pool, True, blk)
 
 
-def k5_bands(stages, pool) -> Tuple[int, int, int]:
-    """K5's batch-independent band: ``(phb, n_bands, ocb)`` — pooled rows
-    a band step computes, bands a frame, output channels a block.  ``ocb``
-    is the layer's width up to two GEMM tiles, else one GEMM tile (a
-    channel split costs no recomputation here).  ``phb`` is the fewest
-    pooled rows whose ``phb*psy`` fresh conv rows keep the block's four
-    GEMM groups busy, at least ``K/psy`` (the carry fits one band's fresh
-    rows) and at most half the frame's pooled rows (so a frame has two
-    bands or more where it can)."""
-    st = stages[0]
+def k5_bands(stages, pool) -> Tuple[int, int]:
+    """The band the pool-carry rule reads (``resolve_pool_carry``):
+    ``(phb, n_bands)``, the fewest pooled rows whose ``phb*psy`` fresh
+    conv rows hold the ``K = pkh - psy`` rows a carry keeps (at least one),
+    and the bands of that height a frame has.  K5 itself walks no band:
+    stage-major, each conv row is computed once by construction.  The
+    band only decides, as the JAX package's rule does on its own band,
+    where the carry applies: overlapping windows and a frame of more than
+    one band."""
     total = final_rows(stages, pool)[0]
-    k_rows = pool.kh - pool.sy
-    ocb = st.OC if st.OC <= 2 * GEMM_TILE else GEMM_TILE
-    oc_gemm = math.ceil(ocb / GEMM_TILE)
-    phb = max(1, math.ceil(k_rows / pool.sy))
-    cap = max(phb, total // 2)
-    while (phb < cap and math.ceil(phb * pool.sy * st.OW / GEMM_TILE)
-           * oc_gemm < GEMM_GROUPS
-           and k5_smem(stages, pool, phb + 1, ocb) <= SMEM_LIMIT):
-        phb += 1
-    return phb, math.ceil(total / phb), ocb
+    phb = max(1, math.ceil((pool.kh - pool.sy) / pool.sy))
+    return phb, math.ceil(total / phb)
 
 
-def k5_smem(stages, pool, phb: int, ocb: int) -> int:
-    """K5's dynamic shared memory: ``ocb`` channels of the carried and
-    fresh conv rows of one band."""
-    return 4 * ocb * (pool.kh - pool.sy + phb * pool.sy) * stages[0].OW
-
-
-def k5_run(stages, pool, n: int, sms: int) -> int:
-    """Bands a K5 block walks in order.  A longer run reuses more carried
-    rows; more runs make more blocks, each opening with a seed step of
-    ``K`` conv rows.  Picked by the time model: waves × (seed + run ×
-    band step)."""
-    phb, n_bands, ocb = k5_bands(stages, pool)
-    st = stages[0]._replace(OC=ocb)
-    tiles = math.ceil(stages[0].OC / ocb)
-    seed = _stage_time(st, pool.kh - pool.sy)
-    step = _stage_time(st, phb * pool.sy)
-
-    def options():
-        for run in range(n_bands, 0, -1):
-            runs = math.ceil(n_bands / run)
-            waves = math.ceil(n * runs * tiles / sms)
-            yield waves * (seed + run * step), run
-
-    return _best(options())[1]
-
-
-# -- the stage-major chain (K2, K6) ---------------------------------------------
+# -- the stage-major schedule (K1, K2, K5, K6) ---------------------------------
 
 
 def _round4(v: int) -> int:
@@ -442,38 +395,64 @@ def k6_ocb(requested: int) -> int:
     return ST_TO * math.ceil(max(1, requested) / ST_TO)
 
 
-def tap_split(cp: int) -> int:
-    """Chunks of one kernel tap of a stage with ``cp`` (padded) input
-    channels: the fewest runs of at most ``CH_CHUNK_SLOTS`` ring slots of
-    ``CH_CK`` channels (``tap_split`` in ``csrc/conv_chain.cu``).  A
-    function of the shape alone, so each output's sum order is too."""
-    return math.ceil(math.ceil(cp / CH_CK) / CH_CHUNK_SLOTS)
+def tap_walk(st: Stage) -> Tuple[int, int]:
+    """``(tw, tpr)``: the floats of one tap's run and the taps of a kernel
+    row in a stage's reduction walk (``stage_walk`` in
+    ``csrc/conv_stage_major.cuh``).  A tap is one kernel position of
+    ``Cp`` channels (``KW`` taps a row) or, where ``Cp < CH_CK``, one
+    kernel row: its ``KW * Cp`` floats lie side by side in NHWC for one
+    output pixel (one tap a row), so the ring slots fill with real rows."""
+    cp = _round4(st.C)
+    return (st.KW * cp, 1) if cp < CH_CK else (cp, st.KW)
+
+
+def tap_split(tw: int) -> int:
+    """Chunks of a tap of ``tw`` floats: the fewest runs of at most
+    ``CH_CHUNK_SLOTS`` ring slots of ``CH_CK`` rows.  A function of the
+    shape alone, so each output's sum order is too."""
+    return math.ceil(math.ceil(tw / CH_CK) / CH_CHUNK_SLOTS)
+
+
+def whole_run(split: int, tpr: int, kh: int) -> int:
+    """Chunks that one fold of a whole-reduction item sums: the inner
+    level of a stage's sum tree (a tap's chunks, else a kernel row's taps,
+    else every row), whose folds the item adds up in its own partial; 0
+    where the tree has three levels of more than one member (no item then
+    takes the whole reduction)."""
+    if split > 1 and tpr > 1 and kh > 1:
+        return 0
+    return split if split > 1 else tpr if tpr > 1 else kh
 
 
 class ChainStagePlan(NamedTuple):
-    """One stage of the chain kernel's schedule.  Its GEMM is ``m``
-    output pixels (every frame's) x ``ocp`` channels (OC padded to a
-    float4) over the taps ``KH x KW`` of ``Cp`` channels each, each tap
-    cut into ``split`` chunks of ``chunk_slots`` ring slots; an item is a
+    """One stage of the stage-major schedule.  Its GEMM is ``m`` output
+    pixels (every frame's) x ``ocp`` channels (OC padded to a float4) over
+    ``KH * tpr`` taps of ``tw`` floats each (``tap_walk``), each tap cut
+    into ``split`` chunks of ``chunk_slots`` ring slots; an item is a
     pixel tile of ``ST_TP``, ``ot_item`` channel tiles of ``ST_TO`` and
-    ``unit`` chunks (1, ``split``: a tap, or ``KW * split``: a kernel
-    row), writing partial ``q`` of ``n_partials`` for its outputs; the
-    reduce adds them."""
+    ``unit`` chunks (1, ``split``: a tap, ``tpr * split``: a kernel row,
+    or every chunk: ``whole``), writing partial ``q`` of ``n_partials``
+    for its outputs, which the reduce adds; a whole item writes the
+    outputs itself, adding its folds in ``part`` floats of its own."""
     m: int
     ocp: int
     tiles_m: int
     o_items: int
     ot_item: int
+    tw: int
+    tpr: int
     split: int
     chunk_slots: int
     unit: int
     n_partials: int
     items: int
+    whole: bool
+    part: int      # floats of partials the stage writes
     act_off: int   # floats into scratch of the NHWC output, -1: NCHW out
 
 
 class ChainPlan(NamedTuple):
-    """The chain kernel's launch: a cooperative grid of ``grid`` blocks of
+    """A stage-major launch: a cooperative grid of ``grid`` blocks of
     ``CH_THREADS``, ``barriers`` grid-wide barriers, ``scratch`` floats of
     scratch (the NHWC input at 0, each stage's NHWC output, the partials at
     ``part_off``), ``tail_items`` pooled pixels (0 without a pool)."""
@@ -487,19 +466,20 @@ class ChainPlan(NamedTuple):
 
 def chain_plan(stages, pool, n: int, sms: int, ocb: Optional[int] = None
                ) -> ChainPlan:
-    """The stage-major schedule of K2 (``ocb`` None) or K6 (final-stage
-    items ``ocb`` channels wide, ``k6_ocb``) for ``n`` frames on ``sms``
-    SMs.  Per stage the host picks the unit, a kernel row, a tap or one
-    chunk: smaller units make more items and write more partials; the
-    unit of fewer rounds of the grid × chunks an item wins, the larger on
-    a tie, and a tap or a chunk only while its partials stay within
+    """The stage-major schedule of K1 and K5 (one stage), K2 (``ocb``
+    None) or K6 (final-stage items ``ocb`` channels wide, ``k6_ocb``) for
+    ``n`` frames on ``sms`` SMs.  Per stage the host picks the unit: the
+    whole reduction (where ``whole_run`` allows it), a kernel row, a tap
+    or one chunk.  Smaller units make more items and write more partials;
+    the unit of fewer rounds of the grid × chunks an item wins, the larger
+    on a tie, and a tap or a chunk only while its partials stay within
     ``CH_PARTIAL_BYTES``.  Every unit sums every output in the same order
-    (``csrc/conv_chain.cu``), so the unit follows the batch and the bits
-    do not."""
+    (``csrc/conv_stage_major.cuh``), so the unit follows the batch and the
+    bits do not."""
     grid = CH_MIN_BLOCKS * sms
     last = len(stages) - 1
     off = _round4(n * stages[0].H * stages[0].W * _round4(stages[0].C))
-    plans, part = [], 0
+    plans, part, barriers = [], 0, 0
     for s, st in enumerate(stages):
         m = n * st.OH * st.OW
         ocp = _round4(st.OC)
@@ -508,40 +488,47 @@ def chain_plan(stages, pool, n: int, sms: int, ocb: Optional[int] = None
         ot_item = (math.ceil(ocb / ST_TO) if ocb is not None and s == last
                    else 1)
         o_items = math.ceil(n_ot / ot_item)
-        cp = _round4(st.C)
-        split = tap_split(cp)
-        chunks, row = st.KH * st.KW * split, st.KW * split
+        tw, tpr = tap_walk(st)
+        split = tap_split(tw)
+        row = tpr * split
+        chunks = st.KH * row
+        run = whole_run(split, tpr, st.KH)
         best = None
-        for unit in dict.fromkeys((row, split, 1)):  # larger first: ties
+        for unit in dict.fromkeys(((chunks,) if run else ())
+                                  + (row, split, 1)):  # larger first: ties
             q = chunks // unit
             items = tiles_m * o_items * q
-            if unit != row and 4 * q * m * ocp > CH_PARTIAL_BYTES:
+            whole = unit == chunks
+            floats = (m * ocp if chunks > run else 0) if whole else q * m * ocp
+            if unit not in (row, chunks) and 4 * floats > CH_PARTIAL_BYTES:
                 continue
             cost = math.ceil(items / grid) * unit
             if best is None or cost < best[0]:
-                best = (cost, unit, q, items)
-        _, unit, q, items = best
-        part = max(part, q * m * ocp)
+                best = (cost, unit, q, items, whole, floats)
+        _, unit, q, items, whole, floats = best
+        part = max(part, floats)
+        barriers += 1 if whole else 2
         if s == last and pool is None:
             act = -1
         else:
             act, off = off, off + _round4(m * ocp)
         plans.append(ChainStagePlan(
-            m, ocp, tiles_m, o_items, ot_item, split,
-            math.ceil(math.ceil(cp / CH_CK) / split), unit, q, items, act))
+            m, ocp, tiles_m, o_items, ot_item, tw, tpr, split,
+            math.ceil(math.ceil(tw / CH_CK) / split), unit, q, items, whole,
+            floats, act))
     if off + part >= 2 ** 31:
         raise ValueError(f"chain scratch of {off + part} floats is past the "
                          "kernel's 32-bit offsets")
     _, out_h, out_w = final_rows(stages, pool)
     return ChainPlan(grid, tuple(plans), off, off + part,
-                     2 * len(stages) + (pool is not None),
+                     barriers + (pool is not None),
                      n * out_h * out_w if pool is not None else 0)
 
 
 def pack_chain_plan(plan: ChainPlan) -> np.ndarray:
-    """The ``plan`` int array of ``csrc/conv_chain.cu``: grid, partials'
-    offset, then per stage unit (chunks an item), channel tiles an item,
-    output offset."""
+    """The ``plan`` int array of ``csrc/conv_stage_major.cuh``: grid,
+    partials' offset, then per stage unit (chunks an item), channel tiles
+    an item, output offset."""
     arr = np.asarray([plan.grid, plan.part_off]
                      + [v for sp in plan.stages
                         for v in (sp.unit, sp.ot_item, sp.act_off)],
@@ -626,42 +613,44 @@ def conv2d_chain_ref(x, ws, bs, strides, paddings, relus, pool_kernel=None,
 
 
 def _sms(dev) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
+    return _sms_of(dev.index if dev.index is not None
+                   else torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _sms_of(index: int) -> int:
+    """SMs of CUDA device ``index`` (read once: a wrapper asks on every
+    call)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.lru_cache(maxsize=256)
-def k1_launch(n, in_chw, w_shape, stride, padding, relu, pool, pool_relu, lrn,
-              sms, halo=False):
-    """K1's launch geometry for one call signature (hashable arguments):
-    ``(stages, smem, geo, lrn_f, tile)``; with ``halo`` K4's (the output
-    channels in tiles widened by the LRN window's halo, ``k4_geometry``),
-    else ``tile`` is None.  Memoized, so that a forward does not repeat
-    the geometry search; the arrays are read-only."""
+def k4_launch(n, in_chw, w_shape, stride, padding, relu, pool, pool_relu, lrn,
+              sms):
+    """K4's launch geometry for one call signature (hashable arguments):
+    ``(stages, smem, geo, lrn_f, tile)``, the output channels in tiles
+    widened by the LRN window's halo (``k4_geometry``).  Memoized, so that
+    a forward does not repeat the geometry search; the arrays are
+    read-only."""
     stages = make_stages(in_chw, [w_shape], [stride], [padding], [relu])
-    tile = None
-    if halo:
-        blk, ocb = k4_geometry(stages, pool, lrn[0], n, sms)
-        smem = k4_smem(stages, pool, lrn[0], blk, ocb)
-        tile = _tile(ocb, stages[0].OC)
-    else:
-        blk = rows_per_block(stages, pool, n, sms,
-                             lambda k: k1_smem(stages, pool, lrn is not None,
-                                               k))
-        smem = k1_smem(stages, pool, lrn is not None, blk)
+    blk, ocb = k4_geometry(stages, pool, lrn[0], n, sms)
     geo, lrn_f = pack_geo(n, stages, pool, pool_relu, lrn, blk)
     geo.setflags(write=False)
     lrn_f.setflags(write=False)
-    return stages, smem, geo, lrn_f, tile
+    return (stages, k4_smem(stages, pool, lrn[0], blk, ocb), geo, lrn_f,
+            _tile(ocb, stages[0].OC))
 
 
 @functools.lru_cache(maxsize=256)
-def k2_launch(n, in_chw, w_shapes, strides, paddings, relus, pool, pool_relu,
-              lrn, sms, oc_block_final=None):
-    """K2's launch geometry for one call signature: ``(stages, plan, geo,
-    lrn_f, plan_arr, tile)``; with ``oc_block_final`` K6's (the final
-    stage's items ``k6_ocb`` channels wide), else ``tile`` is None.
-    ``geo`` describes the whole frame as one band (``blk`` = the final
-    rows).  Memoized like ``k1_launch``."""
+def chain_launch(n, in_chw, w_shapes, strides, paddings, relus, pool,
+                 pool_relu, lrn, sms, oc_block_final=None):
+    """The launch geometry of a stage-major kernel (K1 and K5: one stage;
+    K2; K6 with ``oc_block_final``, its final stage's items ``k6_ocb``
+    channels wide) for one call signature: ``(stages, plan, arrays,
+    ptrs)``, ``arrays`` the read-only ``(geo, lrn_f, plan_arr)`` and, for
+    K6, ``tile``, ``ptrs`` their addresses (they live as long as the
+    memo).  ``geo`` describes the whole frame as one band (``blk`` = the
+    final rows).  Memoized like ``k4_launch``."""
     stages = make_stages(in_chw, w_shapes, strides, paddings, relus)
     tile, ocb = None, None
     if oc_block_final is not None:
@@ -669,55 +658,30 @@ def k2_launch(n, in_chw, w_shapes, strides, paddings, relus, pool, pool_relu,
         tile = _tile(ocb, stages[-1].OC)
     plan = chain_plan(stages, pool, n, sms, ocb)
     if lrn is not None and stages[-1].OC > CH_SMEM // 4:
-        raise ValueError(f"K2's LRN tail holds {stages[-1].OC} channels of a "
+        raise ValueError(f"the LRN tail holds {stages[-1].OC} channels of a "
                          f"pixel, more than {CH_SMEM // 4}")
     geo, lrn_f = pack_geo(n, stages, pool, pool_relu, lrn,
                           final_rows(stages, pool)[0])
     geo.setflags(write=False)
     lrn_f.setflags(write=False)
-    return stages, plan, geo, lrn_f, pack_chain_plan(plan), tile
+    arrays = (geo, lrn_f, pack_chain_plan(plan)) + (
+        (tile,) if tile is not None else ())
+    return stages, plan, arrays, tuple(a.ctypes.data for a in arrays)
 
 
 def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _launch_pool_lrn(wrapper, x, w, b, stride, padding, relu, pool,
-                     pool_relu, lrn, halo: bool):
-    """One launch of K1 (``halo`` False) or K4 on CUDA tensors; counts it
-    on ``wrapper.launches``."""
-    n = x.shape[0]
-    stages, smem, geo, lrn_f, tile = k1_launch(
-        n, tuple(x.shape[1:]), tuple(w.shape), tuple(stride), tuple(padding),
-        bool(relu), pool, bool(pool_relu), lrn, _sms(x.device), halo)
-    if tuple(b.shape) != (stages[0].OC,):
-        raise ValueError(f"bias shape {tuple(b.shape)} != ({stages[0].OC},)")
-    _, out_h, out_w = final_rows(stages, pool)
-    out = torch.empty((n, stages[0].OC, out_h, out_w), dtype=torch.float32,
-                      device=x.device)
-    ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-            geo.ctypes.data, lrn_f.ctypes.data)
-    lib = _build.library()
-    if tile is None:
-        name = "conv_pool_lrn_f32"
-        rc = lib.conv_pool_lrn_f32(*ptrs, smem, _stream(x.device))
-    else:
-        name = "conv_pool_lrn_halo_f32"
-        rc = lib.conv_pool_lrn_halo_f32(*ptrs, tile.ctypes.data, smem,
-                                        _stream(x.device))
-    _build.check(rc, name)
-    wrapper.launches += 1
-    return out
-
-
-def _launch_chain(wrapper, x, ws, bs, strides, paddings, relus, pool,
-                  pool_relu, lrn, oc_block_final=None):
-    """One launch of K2 (``oc_block_final`` None) or K6 on CUDA tensors;
-    counts it on ``wrapper.launches``."""
+def _launch_stage_major(wrapper, entry: str, x, ws, bs, strides, paddings,
+                        relus, pool, pool_relu, lrn, oc_block_final=None):
+    """One launch of the stage-major C entry ``entry`` (K1, K2, K5 or, with
+    ``oc_block_final``, K6) on CUDA tensors; counts it on
+    ``wrapper.launches``."""
     if not 1 <= len(ws) <= MAX_STAGES:
         raise ValueError(f"a chain takes 1 to {MAX_STAGES} stages")
     n = x.shape[0]
-    stages, plan, geo, lrn_f, plan_arr, tile = k2_launch(
+    stages, plan, _, ptrs = chain_launch(
         n, tuple(x.shape[1:]), tuple(tuple(w.shape) for w in ws),
         tuple(map(tuple, strides)), tuple(map(tuple, paddings)),
         tuple(map(bool, relus)), pool, bool(pool_relu), lrn, _sms(x.device),
@@ -729,21 +693,17 @@ def _launch_chain(wrapper, x, ws, bs, strides, paddings, relus, pool,
     out = torch.empty((n, stages[-1].OC, out_h, out_w), dtype=torch.float32,
                       device=x.device)
     scratch = torch.empty(plan.scratch, dtype=torch.float32, device=x.device)
+    # host arrays of the stages' device pointers; ``wts`` keeps the
+    # converted weights alive until the launch is queued (an inference
+    # tensor's copy is not cached, and a freed block may be reused by the
+    # next stage's conversion before the kernel reads it)
     wts = [chain_weights(w) for w in ws]
-    w_ptrs = np.asarray([w.data_ptr() for w in wts], dtype=np.uint64)
-    b_ptrs = np.asarray([b.data_ptr() for b in bs], dtype=np.uint64)
-    ptrs = (x.data_ptr(), w_ptrs.ctypes.data, b_ptrs.ctypes.data,
-            out.data_ptr(), scratch.data_ptr(), geo.ctypes.data,
-            lrn_f.ctypes.data, plan_arr.ctypes.data)
-    lib = _build.library()
-    if tile is None:
-        name = "conv_chain_f32"
-        rc = lib.conv_chain_f32(*ptrs, _stream(x.device))
-    else:
-        name = "conv_chain_ocb_f32"
-        rc = lib.conv_chain_ocb_f32(*ptrs, tile.ctypes.data,
-                                    _stream(x.device))
-    _build.check(rc, name)
+    w_ptrs = (ctypes.c_void_p * len(wts))(*[w.data_ptr() for w in wts])
+    b_ptrs = (ctypes.c_void_p * len(bs))(*[b.data_ptr() for b in bs])
+    rc = getattr(_build.library(), entry)(
+        x.data_ptr(), w_ptrs, b_ptrs, out.data_ptr(), scratch.data_ptr(),
+        *ptrs, _stream(x.device))
+    _build.check(rc, entry)
     wrapper.launches += 1
     return out
 
@@ -766,8 +726,9 @@ def conv2d_pool_fused(x, w, b, stride=(1, 1), padding=(0, 0), relu=False,
     check_cuda_f32("conv2d_pool_fused", x, w, b)
     pool, lrn = _pool_lrn(pool_kernel, pool_stride, pool_kind, lrn_n,
                           lrn_alpha, lrn_beta, lrn_k)
-    return _launch_pool_lrn(conv2d_pool_fused, x, w, b, stride, padding, relu,
-                            pool, pool_relu, lrn, False)
+    return _launch_stage_major(conv2d_pool_fused, "conv_pool_lrn_f32", x,
+                               (w,), (b,), (stride,), (padding,), (relu,),
+                               pool, pool_relu, lrn)
 
 
 def conv2d_chain(x, ws, bs, strides, paddings, relus, pool_kernel=None,
@@ -789,15 +750,15 @@ def conv2d_chain(x, ws, bs, strides, paddings, relus, pool_kernel=None,
     check_cuda_f32("conv2d_chain", x, *ws, *bs)
     pool, lrn = _pool_lrn(pool_kernel, pool_stride, pool_kind, lrn_n,
                           lrn_alpha, lrn_beta, lrn_k)
-    return _launch_chain(conv2d_chain, x, ws, bs, strides, paddings, relus,
-                         pool, pool_relu, lrn)
+    return _launch_stage_major(conv2d_chain, "conv_chain_f32", x, ws, bs,
+                               strides, paddings, relus, pool, pool_relu, lrn)
 
 
 def k7_ring_off(stages, pool, lrn: bool) -> int:
     """Float offset of the fused K7 block's tile rings in shared memory:
     the conv rows of its one pooled row at full channel width plus, with
-    LRN, that pooled row (the K1 layout at one final row a block), rounded
-    up to a float4."""
+    LRN, that pooled row (``k1_smem``'s layout at one final row a
+    block), rounded up to a float4."""
     return _round4(k1_smem(stages, pool, lrn, 1) // 4)
 
 
@@ -957,24 +918,6 @@ def conv2d_basic_parallel(x, w, b, stride=(1, 1), padding=(0, 0),
     return out
 
 
-@functools.lru_cache(maxsize=256)
-def k5_launch(n, in_chw, w_shape, stride, padding, relu, pool, pool_relu,
-              sms):
-    """K5's launch geometry for one call signature: ``(stages, smem, geo,
-    lrn_f, tile)``, ``geo``'s ``blk``/``n_tiles`` being the band
-    (``k5_bands``).  Raises where the carry is infeasible."""
-    stages = make_stages(in_chw, [w_shape], [stride], [padding], [relu])
-    phb, n_bands, ocb = k5_bands(stages, pool)
-    if not resolve_pool_carry(True, None, tuple(pool[:4]), phb, n_bands):
-        raise ValueError(f"K5: no pool carry at pool {tuple(pool[:4])} with "
-                         f"{n_bands} band(s) of {phb} pooled rows")
-    geo, lrn_f = pack_geo(n, stages, pool, pool_relu, None, phb)
-    geo.setflags(write=False)
-    lrn_f.setflags(write=False)
-    return (stages, k5_smem(stages, pool, phb, ocb), geo, lrn_f,
-            _tile(ocb, stages[0].OC, k5_run(stages, pool, n, sms)))
-
-
 def conv2d_pool_lrn_halo(x, w, b, stride=(1, 1), padding=(0, 0), relu=False,
                          pool_kernel=None, pool_stride=None,
                          pool_kind: str = "max", pool_relu: bool = False,
@@ -996,19 +939,32 @@ def conv2d_pool_lrn_halo(x, w, b, stride=(1, 1), padding=(0, 0), relu=False,
     check_cuda_f32("conv2d_pool_lrn_halo", x, w, b)
     pool, lrn = _pool_lrn(pool_kernel, pool_stride, pool_kind, lrn_n,
                           lrn_alpha, lrn_beta, lrn_k)
-    return _launch_pool_lrn(conv2d_pool_lrn_halo, x, w, b, stride, padding,
-                            relu, pool, pool_relu, lrn, True)
+    n = x.shape[0]
+    stages, smem, geo, lrn_f, tile = k4_launch(
+        n, tuple(x.shape[1:]), tuple(w.shape), tuple(stride), tuple(padding),
+        bool(relu), pool, bool(pool_relu), lrn, _sms(x.device))
+    if tuple(b.shape) != (stages[0].OC,):
+        raise ValueError(f"bias shape {tuple(b.shape)} != ({stages[0].OC},)")
+    _, out_h, out_w = final_rows(stages, pool)
+    out = torch.empty((n, stages[0].OC, out_h, out_w), dtype=torch.float32,
+                      device=x.device)
+    rc = _build.library().conv_pool_lrn_halo_f32(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+        geo.ctypes.data, lrn_f.ctypes.data, tile.ctypes.data, smem,
+        _stream(x.device))
+    _build.check(rc, "conv_pool_lrn_halo_f32")
+    conv2d_pool_lrn_halo.launches += 1
+    return out
 
 
 def conv2d_pool_carry(x, w, b, stride=(1, 1), padding=(0, 0), relu=False,
                       pool_kernel=None, pool_stride=None,
                       pool_kind: str = "max", pool_relu: bool = False):
     """x: [N, C, H, W]; w: [OC, C, KH, KW]; b: [OC].  conv → bias →
-    [ReLU] → VALID pool → [ReLU] with the pool windows' shared conv rows
-    carried from band to band, as one launch of K5 (CUDA) or its plain
-    version, K1's (CPU).  ``pool_kernel`` is required; on CUDA the
-    windows must overlap (``pkh > psy``) and the frame must have more
-    than one band (``k5_bands``)."""
+    [ReLU] → VALID pool → [ReLU] (no LRN) as one launch of K5 (CUDA) or
+    its plain version, K1's (CPU).  ``pool_kernel`` is required.  K5 runs
+    K1's schedule and plan, where each conv row that neighbouring pool
+    windows share is computed once, so the two give the same bits."""
     if pool_kernel is None:
         raise ValueError("conv2d_pool_carry needs a pool")
     kwargs = dict(pool_kernel=pool_kernel, pool_stride=pool_stride,
@@ -1019,22 +975,9 @@ def conv2d_pool_carry(x, w, b, stride=(1, 1), padding=(0, 0), relu=False,
         raise ValueError(f"conv2d_pool_carry: unsupported device {x.device}")
     check_cuda_f32("conv2d_pool_carry", x, w, b)
     pool, _ = _pool_lrn(pool_kernel, pool_stride, pool_kind, None, 0, 0, 0)
-    n = x.shape[0]
-    stages, smem, geo, lrn_f, tile = k5_launch(
-        n, tuple(x.shape[1:]), tuple(w.shape), tuple(stride), tuple(padding),
-        bool(relu), pool, bool(pool_relu), _sms(x.device))
-    if tuple(b.shape) != (stages[0].OC,):
-        raise ValueError(f"bias shape {tuple(b.shape)} != ({stages[0].OC},)")
-    _, out_h, out_w = final_rows(stages, pool)
-    out = torch.empty((n, stages[0].OC, out_h, out_w), dtype=torch.float32,
-                      device=x.device)
-    rc = _build.library().conv_pool_carry_f32(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-        geo.ctypes.data, lrn_f.ctypes.data, tile.ctypes.data, smem,
-        _stream(x.device))
-    _build.check(rc, "conv_pool_carry_f32")
-    conv2d_pool_carry.launches += 1
-    return out
+    return _launch_stage_major(conv2d_pool_carry, "conv_pool_carry_f32", x,
+                               (w,), (b,), (stride,), (padding,), (relu,),
+                               pool, pool_relu, None)
 
 
 def conv2d_chain_ocb(x, ws, bs, strides, paddings, relus, pool_kernel=None,
@@ -1055,8 +998,9 @@ def conv2d_chain_ocb(x, ws, bs, strides, paddings, relus, pool_kernel=None,
         raise ValueError(f"oc_block_final must be >= 1: {oc_block_final}")
     check_cuda_f32("conv2d_chain_ocb", x, *ws, *bs)
     pool, _ = _pool_lrn(pool_kernel, pool_stride, pool_kind, None, 0, 0, 0)
-    return _launch_chain(conv2d_chain_ocb, x, ws, bs, strides, paddings,
-                         relus, pool, pool_relu, None, int(oc_block_final))
+    return _launch_stage_major(conv2d_chain_ocb, "conv_chain_ocb_f32", x, ws,
+                               bs, strides, paddings, relus, pool, pool_relu,
+                               None, int(oc_block_final))
 
 
 #: kernel launches since the count was last set to 0

@@ -545,11 +545,14 @@ def test_alexnet_geometry_fits_the_card():
               ((96, 27, 27), [(256, 96, 5, 5)], [(1, 1)], [(2, 2)])]
     for n in (1, 16):
         for in_chw, ws, s, p in groups:
+            # K1's groups: one stage of the stage-major schedule, its
+            # scratch in L2, its LRN tail's channels in shared memory
             st = conv_ops.make_stages(in_chw, ws, s, p, [True])
-            blk = conv_ops.rows_per_block(
-                st, pool, n, 132, lambda k: conv_ops.k1_smem(st, pool, True,
-                                                             k))
-            assert conv_ops.k1_smem(st, pool, True, blk) <= conv_ops.SMEM_LIMIT
+            plan = conv_ops.chain_plan(st, pool, n, 132)
+            assert plan.grid == conv_ops.CH_MIN_BLOCKS * 132
+            assert 4 * plan.scratch <= 50e6
+            assert st[0].OC <= conv_ops.CH_SMEM // 4
+            assert plan.barriers == (2 if plan.stages[0].whole else 3)
         chain = conv_ops.make_stages(
             (256, 13, 13), [(384, 256, 3, 3), (384, 384, 3, 3),
                             (256, 384, 3, 3)], [(1, 1)] * 3, [(1, 1)] * 3,

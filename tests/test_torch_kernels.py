@@ -1080,7 +1080,7 @@ def test_resolvers_agree_with_jax(net, unfuse, args, method):
     assert halo == (lrn[0] - 1 if lrn is not None and block < oc else 0)
     stages = conv_ops.make_stages(in_chw, [w_shape], [stride], [padding],
                                   [True])
-    phb, n_bands, _ = conv_ops.k5_bands(stages, conv_ops.Pool(*pool4, "max"))
+    phb, n_bands = conv_ops.k5_bands(stages, conv_ops.Pool(*pool4, "max"))
     for knob in (True, False):
         assert (conv_ops.resolve_pool_carry(knob, lrn, pool4, phb, n_bands)
                 == jk.resolve_pool_carry(knob, True, lrn, pool4, phb,
@@ -1173,106 +1173,28 @@ def test_k4_geometry_at_alexnet(group, n):
     assert conv_ops.k4_smem(st, POOL32, 5, blk, ocb) <= conv_ops.SMEM_LIMIT
     tile = conv_ops._tile(ocb, st[0].OC)
     assert tile[1] * ocb >= st[0].OC > (tile[1] - 1) * ocb
-    # no fewer blocks than K1's full-width band
-    k1 = conv_ops.rows_per_block(
-        st, POOL32, n, conv_ops.REPORT_SMS,
-        lambda k: conv_ops.k1_smem(st, POOL32, True, k))
+    # no fewer blocks than a full-width band of the same time model
     total = conv_ops.final_rows(st, POOL32)[0]
-    assert (math.ceil(total / blk) * tile[1]) >= math.ceil(total / k1)
+    assert 1 <= blk <= total
+    full = _full_width_band(st, POOL32, n, conv_ops.REPORT_SMS)
+    assert math.ceil(total / blk) * tile[1] >= math.ceil(total / full)
 
 
-def _k5_schedule(stages, pool, n):
-    """What each K5 block does for one frame and channel tile, read off
-    the loop of ``csrc/conv_pool_carry.cu`` on the band ``k5_bands`` and
-    run ``k5_run`` give: one ``(seed, steps)`` per run, ``seed`` the conv
-    rows ``[a, b)`` of the seed step and ``steps`` a list of ``(carried,
-    fresh, pooled)`` row ranges (conv rows at the buffer's head, conv rows
-    convolved behind them, pooled rows written)."""
-    phb, n_bands, _ = conv_ops.k5_bands(stages, pool)
-    run = conv_ops.k5_run(stages, pool, n, conv_ops.REPORT_SMS)
+def _full_width_band(stages, pool, n, sms):
+    """Final rows a block of a full-width band kernel (every output channel
+    a block, with the LRN, as K1 ran before the stage-major schedule) owns
+    under K4's time model: waves of ``sms`` blocks × the slowest block's
+    time, the least over the bands that fit in shared memory."""
     total = conv_ops.final_rows(stages, pool)[0]
-    k_rows = pool.kh - pool.sy
-    out = []
-    for j0 in range(0, n_bands, run):
-        r0 = j0 * phb * pool.sy
-        seed = (r0, r0 + k_rows)
-        steps = []
-        for j in range(j0, min(j0 + run, n_bands)):
-            q, q1 = j * phb, min((j + 1) * phb, total)
-            r0 = q * pool.sy
-            steps.append(((r0, r0 + k_rows),
-                          (r0 + k_rows, q1 * pool.sy + k_rows), (q, q1)))
-        out.append((seed, steps))
-    return out
+    costs = [(math.ceil(n * math.ceil(total / k) / sms)
+              * conv_ops.block_time(stages, pool, k), k)
+             for k in range(1, total + 1)
+             if conv_ops.k1_smem(stages, pool, True, k)
+             <= conv_ops.SMEM_LIMIT]
+    return min(costs)[1]
 
 
-def _check_k5_schedule(st, pool, n):
-    """Every pooled row written once; each run's seed is its first
-    band's carry; each step's carry is the previous step's last K conv
-    rows; every conv row computed lies in the conv output."""
-    total = conv_ops.final_rows(st, pool)[0]
-    k_rows = pool.kh - pool.sy
-    written = []
-    for seed, steps in _k5_schedule(st, pool, n):
-        assert seed == steps[0][0]
-        prev = None
-        for carried, fresh, (q, q1) in steps:
-            assert carried == (q * pool.sy, q * pool.sy + k_rows)
-            assert fresh[0] == carried[1]
-            assert fresh[1] == (q1 - 1) * pool.sy + pool.kh
-            assert fresh[1] - fresh[0] <= conv_ops.k5_bands(st, pool)[0] \
-                * pool.sy
-            if prev is not None:
-                assert carried == (prev[1] - k_rows, prev[1])
-            assert 0 <= carried[0] and fresh[1] <= st[0].OH
-            prev = fresh
-            written.extend(range(q, q1))
-    assert sorted(written) == list(range(total))
-
-
-@pytest.mark.parametrize("net,group", [("alexnet", g) for g in ALEX_GROUPS]
-                         + [("cifar10", g) for g in CIFAR_GROUPS])
-@pytest.mark.parametrize("n", [1, 16])
-def test_k5_schedule_and_shared_memory(net, group, n):
-    args = (ALEX_GROUPS if net == "alexnet" else CIFAR_GROUPS)[group]
-    st = _stages(*args)
-    _check_k5_schedule(st, POOL32, n)
-    phb, n_bands, ocb = conv_ops.k5_bands(st, POOL32)
-    assert n_bands > 1 and phb * POOL32.sy >= POOL32.kh - POOL32.sy
-    assert conv_ops.k5_smem(st, POOL32, phb, ocb) <= conv_ops.SMEM_LIMIT
-
-
-@pytest.mark.parametrize("pool", [POOL32, conv_ops.Pool(3, 3, 1, 1, "avg"),
-                                  conv_ops.Pool(5, 5, 2, 2, "max")])
-@pytest.mark.parametrize("n", [1, 4])
-def test_k5_carry_reproduces_the_pool(pool, n):
-    """The carry bookkeeping on a whole-frame conv output: a buffer of
-    carried plus fresh rows, pooled band by band and slid, gives the
-    frame's pool."""
-    st = _stages((2, 21, 17), (5, 2, 3, 3), (1, 1), (0, 0))
-    _check_k5_schedule(st, pool, n)
-    conv = torch.from_numpy(np.random.default_rng(1).standard_normal(
-        (1, 5, st[0].OH, st[0].OW)).astype(np.float32))
-    ref = pool_lrn_tail_ref(conv, pool)
-    out = torch.full_like(ref, float("nan"))
-    for seed, steps in _k5_schedule(st, pool, n):
-        buf = conv[:, :, seed[0]:seed[1]]
-        for carried, fresh, (q, q1) in steps:
-            buf = torch.cat([buf[:, :, buf.shape[2] - (carried[1]
-                                                      - carried[0]):],
-                             conv[:, :, fresh[0]:fresh[1]]], dim=2)
-            out[:, :, q:q1] = pool_lrn_tail_ref(buf, pool)
-    assert torch.equal(out, ref)
-
-
-def pool_lrn_tail_ref(x, pool):
-    from repro_torch.kernels.conv2d.ref import pool_lrn_tail
-
-    return pool_lrn_tail(x, (pool.kh, pool.kw), (pool.sy, pool.sx),
-                         pool.kind)
-
-
-# -- K2 and K6: the stage-major chain ------------------------------------------------
+# -- K1, K2, K5, K6: the stage-major schedule -------------------------------------
 
 #: chains of the schedule tests: AlexNet's conv3-5 + pool5, and a small odd
 #: one (channels off the float4, a strided 5 x 5 stage, a 1 x 3 kernel)
@@ -1283,12 +1205,41 @@ CHAINS = {
         [(2, 2), (1, 1), (1, 1)], [(2, 2), (1, 1), (0, 1)], [True] * 3),
         conv_ops.Pool(2, 2, 1, 1, "avg")),
 }
+ALEX_CONVS = {
+    # name: (in_chw, w_shape, stride, padding) of AlexNet's per-layer convs
+    **ALEX_GROUPS,
+    "conv3": ((256, 13, 13), (384, 256, 3, 3), (1, 1), (1, 1)),
+    "conv4": ((384, 13, 13), (384, 384, 3, 3), (1, 1), (1, 1)),
+    "conv5": ((384, 13, 13), (256, 384, 3, 3), (1, 1), (1, 1)),
+}
+
+
+def _k1_case_stage(case):
+    """``(stages, pool)`` of one of ``K1_CASES``."""
+    xs, ws, stride, padding, relu, pk, ps, kind = K1_CASES[case][:8]
+    return (conv_ops.make_stages(xs[1:], [ws], [stride], [padding], [relu]),
+            conv_ops.Pool(*pk, *ps, kind))
+
+
+#: the one-stage launches of K1 and K5: AlexNet's conv1+pool1(+norm1) and
+#: conv2+pool2(+norm2) groups and its per-layer convs 1-5, the CIFAR-10
+#: net's three groups (K5's other main-path shapes), and K1_CASES
+ONE_STAGE = {
+    **{f"alexnet_{g}_group": (_stages(*ALEX_GROUPS[g]), POOL32)
+       for g in ALEX_GROUPS},
+    **{f"alexnet_{c}": (_stages(*ALEX_CONVS[c]), None) for c in ALEX_CONVS},
+    **{f"cifar10_{g}_group": (_stages(*CIFAR_GROUPS[g]), POOL32)
+       for g in CIFAR_GROUPS},
+    **{f"k1_{c}": _k1_case_stage(c) for c in K1_CASES},
+}
+#: every schedule the stage-major tests walk
+SCHEDULES = {**CHAINS, **ONE_STAGE}
 
 
 def _chain_constants():
-    """The integer constants (``CH_*``) that ``csrc/conv_chain.cu``
+    """The integer constants (``CH_*``) that ``csrc/conv_stage_major.cuh``
     declares."""
-    src = (_build.CSRC / "conv_chain.cu").read_text()
+    src = (_build.CSRC / "conv_stage_major.cuh").read_text()
     return {k: int(v) for k, v in re.findall(
         r"constexpr int (CH_[A-Z_]+) = (\d+);", src)}
 
@@ -1316,40 +1267,56 @@ def _fold(values, add):
     return out
 
 
-def _run_tree(st, split, unit, chunk, add):
-    """One output's sum as ``csrc/conv_chain.cu`` adds it with items of
-    ``unit`` chunks: an item folds its chunks into a tap (a fresh tap at
-    each tap's first chunk) and writes the tap to partial q when the tap
+def _units(st, split, tpr):
+    """The units the kernel takes for a stage: one chunk, a tap, a kernel
+    row and, where ``whole_run`` allows it, every chunk."""
+    chunks = st.KH * tpr * split
+    whole = (chunks,) if conv_ops.whole_run(split, tpr, st.KH) else ()
+    return tuple(dict.fromkeys((1, split, tpr * split) + whole))
+
+
+def _run_tree(st, split, tpr, unit, chunk, add):
+    """One output's sum as ``csrc/conv_stage_major.cuh`` adds it with items
+    of ``unit`` chunks.  An item folds its chunks into a tap (a fresh tap
+    at each tap's first chunk) and writes the tap to partial q when the tap
     or the item ends, adding it to what it wrote there when it is a later
     tap of a row item; the reduce folds the partials left (chunks into
-    taps, taps into rows, rows).  ``chunk(g)`` is chunk g's sum."""
+    taps, taps into rows, rows).  A whole item folds runs of ``whole_run``
+    chunks and adds each run after the first to its partial.  ``chunk(g)``
+    is chunk g's sum."""
+    chunks = st.KH * tpr * split
+    if unit == chunks:
+        run = conv_ops.whole_run(split, tpr, st.KH)
+        return _fold([_fold([chunk(g) for g in range(r0, r0 + run)], add)
+                      for r0 in range(0, chunks, run)], add)
     part = {}
-    for q in range(st.KH * st.KW * split // unit):
+    for q in range(chunks // unit):
         f = None
         for jj in range(unit):
             g = q * unit + jj
             k = g % split
             f = chunk(g) if k == 0 or jj == 0 else add(f, chunk(g))
             if k == split - 1 or jj == unit - 1:
-                later = unit > split and (g // split) % st.KW
+                later = unit > split and (g // split) % tpr
                 part[q] = add(part[q], f) if later else f
     per_tap = split if unit == 1 else 1
-    taps = 1 if unit > split else st.KW
+    taps = 1 if unit > split else tpr
     return _fold([_fold([_fold([part[(i * taps + j) * per_tap + k]
                                 for k in range(per_tap)], add)
                          for j in range(taps)], add)
                   for i in range(st.KH)], add)
 
 
-def _sum_order(st, split, unit):
+def _sum_order(st, split, tpr, unit):
     """The tree of one output's sum with items of ``unit`` chunks."""
-    return _run_tree(st, split, unit, lambda g: g,
+    return _run_tree(st, split, tpr, unit, lambda g: g,
                      lambda a, b: ("+", a, b))
 
 
 def test_chain_constants_match_the_wrapper():
-    """The wrapper's copies of the chain kernel's constants, its plan
-    array's layout and its shared memory agree with the source."""
+    """The wrapper's copies of the stage-major kernels' constants, its plan
+    array's layout, its shared memory and the entry points' argument
+    lists agree with the sources."""
     c = _chain_constants()
     assert (c["CH_THREADS"], c["CH_MIN_BLOCKS"], c["CH_CK"], c["CH_AROW"],
             c["CH_CHUNK_SLOTS"]) == (
@@ -1362,111 +1329,239 @@ def test_chain_constants_match_the_wrapper():
     plan = conv_ops.chain_plan(ALEX_CHAIN, POOL32, 2, 132)
     arr = conv_ops.pack_chain_plan(plan)
     assert len(arr) == c["CH_PLAN_HEAD"] + 3 * c["CH_PLAN_STAGE"]
-    assert _build.SIGNATURES["conv_chain_f32"] == [_build._P] * 9
+    for entry in ("conv_chain_f32", "conv_pool_lrn_f32",
+                  "conv_pool_carry_f32"):
+        assert _build.SIGNATURES[entry] == [_build._P] * 9
     assert _build.SIGNATURES["conv_chain_ocb_f32"] == [_build._P] * 10
+    assert _build.SIGNATURES["stage_major_blocks_per_sm"] == []
+    # one stage-major __global__, which every stage-major entry launches
+    text = (_build.CSRC / "conv_chain.cu").read_text()
+    assert '#include "conv_stage_major.cuh"' in text
+    assert text.count("__global__ void") == 1
+    assert re.search(r"__launch_bounds__\(CH_THREADS, CH_MIN_BLOCKS\)\s*"
+                     r"stage_major_kernel\(", text)
+    assert text.count("stage_major(g, p, x, out, scratch);") == 1
+    for entry in ("conv_chain_f32", "conv_chain_ocb_f32", "conv_pool_lrn_f32",
+                  "conv_pool_carry_f32"):
+        body = text[text.index(f'extern "C" int {entry}('):]
+        body = body[:body.index("\n}\n")]
+        assert body.count("cnnk::launch_stage_major(") == 1
+    others = [p for p in _build.CSRC.glob("*.cu") if p.name != "conv_chain.cu"]
+    assert not [p.name for p in others
+                if "conv_stage_major.cuh" in p.read_text()]
+    # the band body of the old K1 and K5's carry loop are gone
+    assert not (_build.CSRC / "conv_pool_carry.cu").exists()
+    k4 = (_build.CSRC / "conv_pool_lrn.cu").read_text()
+    assert k4.count("conv_band(") == 1 and k4.count("__global__ void") == 1
 
 
-@pytest.mark.parametrize("chain", sorted(CHAINS))
+@pytest.mark.parametrize("chain", sorted(SCHEDULES))
 @pytest.mark.parametrize("n", [1, 2, 5, 16])
 def test_chain_items_cover_every_output_once(chain, n):
-    """Each stage's items write every (partial, pixel, padded channel)
-    once, and through their chunks each (pixel, channel, chunk) of the
-    stage's GEMM once, the chunks covering every channel of every tap;
-    the scratch regions do not overlap."""
-    stages, pool = CHAINS[chain]
+    """Each stage's items write every (partial, pixel tile, channel tile)
+    once (a whole item: every output), and through their chunks each
+    (chunk, pixel tile, channel tile) of the stage's GEMM once, the chunks
+    covering every float of every tap's run; the scratch regions do not
+    overlap."""
+    stages, pool = SCHEDULES[chain]
     plan = conv_ops.chain_plan(stages, pool, n, conv_ops.REPORT_SMS)
     regions = [(0, n * stages[0].H * stages[0].W * _round4(stages[0].C))]
+    tp, to = conv_ops.ST_TP, conv_ops.ST_TO
     for st, sp in zip(stages, plan.stages):
-        chunks = st.KH * st.KW * sp.split
+        assert (sp.tw, sp.tpr) == conv_ops.tap_walk(st)
+        chunks = st.KH * sp.tpr * sp.split
         assert sp.m == n * st.OH * st.OW and sp.ocp == _round4(st.OC)
-        assert sp.unit in (1, sp.split, st.KW * sp.split)
+        assert sp.unit in _units(st, sp.split, sp.tpr)
+        assert sp.whole == (sp.unit == chunks)
         assert sp.n_partials * sp.unit == chunks
-        # a tap's chunks: runs of chunk_slots x CH_CK channels over Cp
-        cp, width = _round4(st.C), sp.chunk_slots * conv_ops.CH_CK
+        # a tap's chunks: runs of chunk_slots x CH_CK floats over its run
+        width = sp.chunk_slots * conv_ops.CH_CK
         assert sp.chunk_slots <= conv_ops.CH_CHUNK_SLOTS
-        assert (sp.split - 1) * width < cp <= sp.split * width
-        part = np.zeros((sp.n_partials, sp.m, sp.ocp), dtype=np.int64)
-        cov = np.zeros((chunks, sp.m, sp.ocp), dtype=np.int64)
+        assert (sp.split - 1) * width < sp.tw <= sp.split * width
+        assert (sp.tiles_m - 1) * tp < sp.m <= sp.tiles_m * tp
+        n_ot = math.ceil(sp.ocp / to)
+        part = np.zeros((sp.n_partials, sp.tiles_m, n_ot), dtype=np.int64)
+        cov = np.zeros((chunks, sp.tiles_m, n_ot), dtype=np.int64)
         for px, ch, cr, q in _chain_items(st, sp):
-            assert len(px) and len(ch) and list(cr) == list(
-                range(q * sp.unit, (q + 1) * sp.unit))
-            part[q, px.start:px.stop, ch.start:ch.stop] += 1
-            cov[cr.start:cr.stop, px.start:px.stop, ch.start:ch.stop] += 1
+            mt, o0, o1 = px.start // tp, ch.start // to, math.ceil(ch.stop
+                                                                  / to)
+            assert px == range(mt * tp, min((mt + 1) * tp, sp.m))
+            assert len(ch) and ch == range(o0 * to, min(o1 * to, sp.ocp))
+            assert list(cr) == list(range(q * sp.unit, (q + 1) * sp.unit))
+            part[q, mt, o0:o1] += 1
+            cov[cr.start:cr.stop, mt, o0:o1] += 1
         assert (part == 1).all() and (cov == 1).all()
+        run = conv_ops.whole_run(sp.split, sp.tpr, st.KH)
+        assert sp.part == ((sp.m * sp.ocp if chunks > run else 0) if sp.whole
+                           else sp.n_partials * sp.m * sp.ocp)
         if sp.act_off >= 0:
             regions.append((sp.act_off, sp.act_off + sp.m * sp.ocp))
-        assert sp.n_partials * sp.m * sp.ocp <= plan.scratch - plan.part_off
+        assert sp.part <= plan.scratch - plan.part_off
     regions.append((plan.part_off, plan.scratch))
     regions.sort()
     assert all(a[1] <= b[0] for a, b in zip(regions, regions[1:]))
     assert all(off % 4 == 0 for off, _ in regions)
     assert (plan.stages[-1].act_off < 0) == (pool is None)
-    assert plan.barriers == 2 * len(stages) + (pool is not None)
+    assert plan.barriers == (sum(1 if sp.whole else 2 for sp in plan.stages)
+                             + (pool is not None))
 
 
-@pytest.mark.parametrize("chain", sorted(CHAINS))
+@pytest.mark.parametrize("chain", sorted(SCHEDULES))
 def test_chain_sum_order_is_the_same_for_every_batch(chain):
     """The unit follows the batch; each output's sum does not: items of
-    one chunk, one tap or a kernel row add the chunks in one tree (chunks
-    into taps, taps into rows, rows, each left to right), and the chunks
-    (runs of a tap's channels) are fixed by the shape."""
-    stages, pool = CHAINS[chain]
+    one chunk, one tap, a kernel row or the whole reduction add the chunks
+    in one tree (chunks into taps, taps into rows, rows, each left to
+    right), and the chunks (runs of a tap's floats) are fixed by the
+    shape."""
+    stages, pool = SCHEDULES[chain]
     plans = {n: conv_ops.chain_plan(stages, pool, n, conv_ops.REPORT_SMS)
              for n in (1, 2, 5, 16)}
+    plus = lambda a, b: ("+", a, b)  # noqa: E731
     for s, st in enumerate(stages):
+        tw, tpr = conv_ops.tap_walk(st)
         split = plans[1].stages[s].split
-        assert split == conv_ops.tap_split(_round4(st.C))
-        assert {p.stages[s].split for p in plans.values()} == {split}
-        want = _fold([_fold([_fold([(i * st.KW + j) * split + k
-                                    for k in range(split)],
-                                   lambda a, b: ("+", a, b))
-                             for j in range(st.KW)], lambda a, b: ("+", a, b))
-                      for i in range(st.KH)], lambda a, b: ("+", a, b))
-        for unit in (1, split, st.KW * split):
-            assert _sum_order(st, split, unit) == want
-        assert {_sum_order(st, split, p.stages[s].unit)
+        assert split == conv_ops.tap_split(tw)
+        assert {(p.stages[s].split, p.stages[s].tpr)
+                for p in plans.values()} == {(split, tpr)}
+        want = _fold([_fold([_fold([(i * tpr + j) * split + k
+                                    for k in range(split)], plus)
+                             for j in range(tpr)], plus)
+                      for i in range(st.KH)], plus)
+        for unit in _units(st, split, tpr):
+            assert _sum_order(st, split, tpr, unit) == want
+        assert {_sum_order(st, split, tpr, p.stages[s].unit)
                 for p in plans.values()} == {want}
     if chain == "alexnet":  # batch 1 takes a chunk an item, 16 a row
         assert [sp.split for sp in plans[1].stages] == [2, 3, 3]
         assert [sp.unit for sp in plans[1].stages] == [1, 1, 1]
         assert plans[16].stages[0].unit == 6
         assert plans[16].stages[1].unit == 9
+    if chain in ("alexnet_conv1_group", "alexnet_conv2_group"):
+        # batch 16: the pixel x channel tiles fill the grid, so an item
+        # takes the whole reduction; batch 1: a chunk an item
+        assert plans[16].stages[0].whole and plans[1].stages[0].unit == 1
 
 
-@pytest.mark.parametrize("chain", sorted(CHAINS))
+@pytest.mark.parametrize("chain", sorted(SCHEDULES))
 @pytest.mark.parametrize("n", [1, 16])
 def test_chain_grid_fits_the_card(chain, n):
     """The cooperative grid fits the blocks an SM holds by the kernel's
     shared memory (228 KB an SM, 1 KB of it reserved a block) and threads
     (2048 an SM) on 132 SMs (its launch bounds promise the registers), 3
     an SM; at batch 16 AlexNet's chain gives every block an item in conv3
-    and conv4 and its scratch stays in the 50 MB L2."""
-    stages, pool = CHAINS[chain]
+    and conv4, its K1 groups give 368 and 758 whole items, and the
+    scratch stays in the 50 MB L2."""
+    stages, pool = SCHEDULES[chain]
     plan = conv_ops.chain_plan(stages, pool, n, conv_ops.REPORT_SMS)
     per_sm = min(233472 // (conv_ops.CH_SMEM + 1024),
                  2048 // conv_ops.CH_THREADS)
     assert per_sm == conv_ops.CH_MIN_BLOCKS == 3
     assert plan.grid == per_sm * conv_ops.REPORT_SMS == 396
     assert conv_ops.CH_SMEM <= 227 * 1024
+    if chain.startswith("alexnet"):
+        assert 4 * plan.scratch < 50e6
     if chain == "alexnet" and n == 16:
         assert plan.grid >= 128
         assert [sp.items for sp in plan.stages][:2] == [396, 396]
-        assert 4 * plan.scratch < 50e6
         assert plan.tail_items == 16 * 6 * 6
+    if n == 16 and chain == "alexnet_conv2_group":
+        assert plan.stages[0].items == 368 and plan.barriers == 2
+        assert plan.tail_items == 16 * 13 * 13
+    if n == 16 and chain == "alexnet_conv1_group":
+        # one fold holds the whole sum of a row-walked stage: no partials
+        assert plan.stages[0].items == 758 and plan.stages[0].part == 0
+
+
+def _walk_rows(st, sp):
+    """The reduction rows the kernel's loads give each chunk, slot and row
+    of a slot (the arithmetic of ``stage_items`` in
+    ``csrc/conv_stage_major.cuh``): ``(chunk, kernel row i, kernel column
+    j, channel c, HWIO row)`` for each row inside its tap's run."""
+    cp = _round4(st.C)
+    for g in range(st.KH * sp.tpr * sp.split):
+        tap, k = divmod(g, sp.split)
+        i, j0 = divmod(tap, sp.tpr)
+        for t in range(sp.chunk_slots):
+            for kk in range(conv_ops.CH_CK):
+                r = (k * sp.chunk_slots + t) * conv_ops.CH_CK + kk
+                if r < sp.tw:
+                    yield g, i, j0 + r // cp, r % cp, tap * sp.tw + r
+
+
+#: stages whose Cp is under CH_CK: AlexNet's conv1 and the LeNet-5 and
+#: CIFAR-10 conv1 (Cp 4), Cp 8 and 12, and a row of 132 floats (two
+#: chunks a row)
+NARROW = {
+    "alexnet_conv1": ((3, 227, 227), (96, 3, 11, 11), (4, 4), (0, 0)),
+    "lenet5_conv1": ((1, 28, 28), (20, 1, 5, 5), (1, 1), (0, 0)),
+    "cifar10_conv1": CIFAR_GROUPS["conv1"],
+    "cp8_2x3": ((6, 9, 10), (5, 6, 2, 3), (1, 1), (0, 1)),
+    "cp12_2x11": ((9, 8, 30), (7, 9, 2, 11), (1, 2), (1, 5)),
+}
+
+
+@pytest.mark.parametrize("conv", sorted(NARROW))
+def test_kernel_row_walk_covers_each_real_row_once(conv):
+    """A stage with Cp < CH_CK walks a kernel row a tap: each real (i, j,
+    c) is read once, at its HWIO weight row, the rest of a row's slots are
+    padding past the run, and the walk takes fewer reduction rows than a
+    tap a slot would."""
+    st = _stages(*NARROW[conv])[0]
+    sp = conv_ops.chain_plan([st], None, 1, conv_ops.REPORT_SMS).stages[0]
+    cp = _round4(st.C)
+    assert cp < conv_ops.CH_CK and (sp.tw, sp.tpr) == (st.KW * cp, 1)
+    seen = {}
+    for g, i, j, c, w_row in _walk_rows(st, sp):
+        assert 0 <= i < st.KH and 0 <= j < st.KW and 0 <= c < cp
+        assert w_row == (i * st.KW + j) * cp + c
+        assert g // sp.split == i
+        seen[(i, j, c)] = seen.get((i, j, c), 0) + 1
+    assert seen == {(i, j, c): 1 for i in range(st.KH) for j in range(st.KW)
+                    for c in range(cp)}
+    rows = st.KH * sp.split * sp.chunk_slots * conv_ops.CH_CK
+    assert rows < st.KH * st.KW * conv_ops.CH_CK
+    if conv == "alexnet_conv1":  # 3 slots a row: 528 rows for 363
+        assert (sp.split, sp.chunk_slots, rows) == (1, 3, 528)
+    if conv == "cp12_2x11":
+        assert sp.split == 2
+
+
+@pytest.mark.parametrize("conv", sorted(NARROW))
+def test_kernel_row_walk_gives_every_unit_the_same_bits(conv):
+    """The emulated schedule of a row-walked stage gives the same bits with
+    every unit (one chunk, a tap = a kernel row, the whole reduction), and
+    its result is the plain conv's within 1e-4."""
+    in_chw, w_shape, stride, padding = NARROW[conv]
+    rng = np.random.default_rng(len(conv))
+    if conv == "alexnet_conv1":  # the full frame is slow to emulate
+        in_chw = (3, 51, 51)
+    x = _t(_arr(rng, 2, *in_chw))
+    w = _t(_arr(rng, *w_shape, scale=(np.prod(w_shape[1:])) ** -0.5))
+    b = _t(_arr(rng, w_shape[0], scale=0.1))
+    args = ([stride], [padding], [True])
+    st = conv_ops.make_stages(in_chw, [w], *args)[0]
+    tw, tpr = conv_ops.tap_walk(st)
+    units = _units(st, conv_ops.tap_split(tw), tpr)
+    assert len(units) >= 2
+    outs = [_emulate_chain(x, [w], [b], *args, None, None, unit=u)
+            for u in units]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    ref = conv_ops.conv2d_pool_fused_ref(x, w, b, stride, padding, True)
+    _close(outs[0], ref.numpy())
 
 
 def _emulate_chain(x, ws, bs, strides, pads, relus, pool, lrn, ocb=None,
-                   unit=None):
-    """The chain kernel's schedule in plain PyTorch (fp32): the input to
+                   unit=None, pool_relu=False):
+    """The stage-major schedule in plain PyTorch (fp32): the input to
     NHWC with channels zero-padded to a float4, the weights as
     ``chain_weights`` converts them; per stage every item of
     ``chain_plan`` computes each of its chunks as a [pixels, chunk's
-    channels] x [chunk's channels, channels] product (zero outside the
-    stage's input: padding is read as activation zeros) and the items and
-    the reduce add them in the kernel's tree (``_run_tree``: chunks into
-    taps, taps into rows, rows), then the bias and the ReLU; then the
-    pool / ReLU / LRN tail.  ``unit`` ("chunk", "tap" or "row") overrides
-    the unit the plan picks at every stage."""
+    floats] x [chunk's floats, channels] product (a tap's run: one kernel
+    position's Cp channels, or a kernel row's KW x Cp floats; zero outside
+    the stage's input: padding is read as activation zeros) and the items
+    and the reduce add them in the kernel's tree (``_run_tree``), then the
+    bias and the ReLU; then the pool / [ReLU] / LRN tail.  ``unit`` (a
+    number of chunks) overrides the unit the plan picks at every stage."""
     n = x.shape[0]
     stages = conv_ops.make_stages(tuple(x.shape[1:]), ws, strides, pads,
                                   relus)
@@ -1474,31 +1569,40 @@ def _emulate_chain(x, ws, bs, strides, pads, relus, pool, lrn, ocb=None,
     act = torch.nn.functional.pad(x.permute(0, 2, 3, 1),
                                   (0, _round4(x.shape[1]) - x.shape[1]))
     for st, sp, w, b in zip(stages, plan.stages, ws, bs):
+        chunks = st.KH * sp.tpr * sp.split
         if unit is not None:
-            u = {"chunk": 1, "tap": sp.split, "row": st.KW * sp.split}[unit]
-            q = st.KH * st.KW * sp.split // u
-            sp = sp._replace(unit=u, n_partials=q,
+            q = chunks // unit
+            sp = sp._replace(unit=unit, n_partials=q, whole=unit == chunks,
                              items=sp.tiles_m * sp.o_items * q)
         wt = conv_ops.chain_weights(w)          # [KH, KW, Cp, OCp]
-        assert wt.shape == (st.KH, st.KW, _round4(st.C), sp.ocp)
+        cp = _round4(st.C)
+        assert wt.shape == (st.KH, st.KW, cp, sp.ocp)
+        w_rows = wt.reshape(-1, sp.ocp)         # HWIO row tap * tw + r
         m = torch.arange(sp.m)
         fr, pix = m // (st.OH * st.OW), m % (st.OH * st.OW)
         iy0 = pix // st.OW * st.sy - st.py
         ix0 = pix % st.OW * st.sx - st.px
         width = sp.chunk_slots * conv_ops.CH_CK
-        sums = torch.full((st.KH * st.KW * sp.split, sp.m, sp.ocp),
-                          float("nan"))
-        for px, ch, chunks, _ in _chain_items(st, sp):
+        span = st.KW if sp.tpr == 1 else 1      # kernel columns of a tap
+        sums = torch.full((chunks, sp.m, sp.ocp), float("nan"))
+        for px, ch, cr, _ in _chain_items(st, sp):
             sl, cs = slice(px.start, px.stop), slice(ch.start, ch.stop)
-            for g in chunks:
-                (i, j), k = divmod(g // sp.split, st.KW), g % sp.split
-                iy, ix = iy0[sl] + i, ix0[sl] + j
-                ok = (iy >= 0) & (iy < st.H) & (ix >= 0) & (ix < st.W)
-                a = act[fr[sl], iy.clamp(0, st.H - 1), ix.clamp(0, st.W - 1)]
-                a = torch.where(ok[:, None], a, torch.zeros(()))
+            for g in cr:
+                tap, k = divmod(g, sp.split)
+                i, j0 = divmod(tap, sp.tpr)
+                cols = []
+                for j in range(j0, j0 + span):
+                    iy, ix = iy0[sl] + i, ix0[sl] + j
+                    ok = (iy >= 0) & (iy < st.H) & (ix >= 0) & (ix < st.W)
+                    a = act[fr[sl], iy.clamp(0, st.H - 1),
+                            ix.clamp(0, st.W - 1)]
+                    cols.append(torch.where(ok[:, None], a, torch.zeros(())))
+                a = torch.cat(cols, dim=1)      # [pixels, tw]
                 cc = slice(k * width, (k + 1) * width)
-                sums[g, sl, cs] = a[:, cc] @ wt[i, j][cc, cs]
-        tot = _run_tree(st, sp.split, sp.unit, lambda g: sums[g],
+                sums[g, sl, cs] = (a[:, cc]
+                                   @ w_rows[tap * sp.tw:(tap + 1) * sp.tw]
+                                   [cc, cs])
+        tot = _run_tree(st, sp.split, sp.tpr, sp.unit, lambda g: sums[g],
                         torch.add)
         out = tot[:, :st.OC] + b
         out = out.clamp_min(0.0) if st.relu else out
@@ -1513,7 +1617,7 @@ def _emulate_chain(x, ws, bs, strides, pads, relus, pool, lrn, ocb=None,
     from repro_torch.kernels.conv2d.ref import pool_lrn_tail
 
     return pool_lrn_tail(out, (pool.kh, pool.kw), (pool.sy, pool.sx),
-                         pool.kind, False, **kw)
+                         pool.kind, pool_relu, **kw)
 
 
 def _k2_inputs(case, n):
@@ -1558,6 +1662,225 @@ def test_chain_schedule_matches_the_plain_chain_and_jax(case, n):
     _close(ours, theirs)
 
 
+def _k1_inputs(case, n):
+    """Seeded inputs of a ``K1_CASES`` case at batch ``n``: ``(x, w, b,
+    stride, padding, relu, tail, pool, lrn)``, ``tail`` the wrappers'
+    keywords, ``pool``/``lrn`` the schedule's."""
+    (xs, ws, stride, padding, relu, pk, ps, kind, pool_relu,
+     lrn_n) = K1_CASES[case]
+    rng = np.random.default_rng(40 + len(case) + n)
+    x, w, b = _arr(rng, n, *xs[1:]), _arr(rng, *ws, scale=0.3), _arr(rng,
+                                                                    ws[0])
+    tail = dict(pool_kernel=pk, pool_stride=ps, pool_kind=kind,
+                pool_relu=pool_relu, lrn_n=lrn_n, lrn_alpha=1e-3,
+                lrn_beta=0.75, lrn_k=1.0)
+    lrn = (lrn_n, 1e-3, 0.75, 1.0) if lrn_n else None
+    return (x, w, b, stride, padding, relu, tail,
+            conv_ops.Pool(*pk, *ps, kind), lrn)
+
+
+@pytest.mark.parametrize("case", sorted(K1_CASES))
+@pytest.mark.parametrize("n", [1, 3])
+def test_one_stage_schedule_matches_k1_plain_and_jax(case, n):
+    """K1's launch is the one-stage schedule: emulated item by item (the
+    kernel-row walk where Cp < 16) with the plan's unit and with the whole
+    reduction, it gives the same bits both ways and equals
+    ``conv2d_pool_fused_ref`` and the JAX package's jnp
+    ``conv2d_pool_fused`` on the same numpy inputs within 1e-4."""
+    x, w, b, stride, padding, relu, tail, pool, lrn = _k1_inputs(case, n)
+    args = ([stride], [padding], [relu])
+    emu = partial(_emulate_chain, _t(x), [_t(w)], [_t(b)], *args, pool, lrn,
+                  pool_relu=tail["pool_relu"])
+    ours = emu()
+    st = conv_ops.make_stages(x.shape[1:], [w.shape], *args)[0]
+    tw, tpr = conv_ops.tap_walk(st)
+    whole = _units(st, conv_ops.tap_split(tw), tpr)[-1]
+    assert whole == st.KH * tpr * conv_ops.tap_split(tw)
+    assert torch.equal(ours, emu(unit=whole))
+    ref = conv_ops.conv2d_pool_fused_ref(_t(x), _t(w), _t(b), stride,
+                                         padding, relu, **tail)
+    _close(ours, ref.numpy())
+    theirs = _jit(jm.conv2d_pool_fused, method=jm.Method.ADVANCED_SIMD_8,
+                  stride=stride, padding=padding, relu=relu, **tail)(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    _close(ours, theirs)
+
+
+#: AlexNet's lrn layers (netdefs defaults): n, alpha, beta, k
+ALEX_LRN = (5, 1e-4, 0.75, 1.0)
+
+
+@pytest.mark.parametrize("conv", ["conv1_group", "conv2_group", "conv1",
+                                  "conv2", "conv3", "conv4", "conv5"])
+def test_one_stage_schedule_at_alexnet_matches_the_plain_version(conv):
+    """K1 at AlexNet's widths, batch 1: the conv1+pool1+norm1 and
+    conv2+pool2+norm2 groups and the per-layer convs 1-5, emulated item by
+    item with the plan's unit (one chunk) and with the largest unit the
+    stage allows (the whole reduction for conv1 and conv2), give the same
+    bits both ways and equal ``conv2d_pool_fused_ref`` and the JAX
+    package's jnp ``conv2d_pool_fused`` within 1e-4 · max(1, max|plain|)."""
+    name = conv.split("_")[0]
+    in_chw, w_shape, stride, padding = ALEX_CONVS[name]
+    rng = np.random.default_rng(len(conv))
+    x = _arr(rng, 1, *in_chw)
+    w = _arr(rng, *w_shape, scale=(2.0 / np.prod(w_shape[1:])) ** 0.5)
+    b = _arr(rng, w_shape[0], scale=0.05)
+    group = conv.endswith("_group")
+    pool, lrn = (POOL32, ALEX_LRN) if group else (None, None)
+    args = ([stride], [padding], [True])
+    emu = partial(_emulate_chain, _t(x), [_t(w)], [_t(b)], *args, pool, lrn)
+    ours = emu()
+    st = _stages(*ALEX_CONVS[name])[0]
+    tw, tpr = conv_ops.tap_walk(st)
+    units = _units(st, conv_ops.tap_split(tw), tpr)
+    assert torch.equal(ours, emu(unit=units[-1]))
+    tail = {} if not group else dict(
+        pool_kernel=(3, 3), pool_stride=(2, 2), lrn_n=ALEX_LRN[0],
+        lrn_alpha=ALEX_LRN[1], lrn_beta=ALEX_LRN[2], lrn_k=ALEX_LRN[3])
+    ref = conv_ops.conv2d_pool_fused_ref(_t(x), _t(w), _t(b), stride,
+                                         padding, True, **tail)
+    tol = TOL * max(1.0, ref.abs().max().item())
+    _close(ours, ref.numpy(), tol)
+    if group:
+        theirs = _jit(jm.conv2d_pool_fused, method=jm.Method.ADVANCED_SIMD_8,
+                      stride=stride, padding=padding, relu=True, **tail)(
+            jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    else:
+        theirs = _jit(jax_conv2d_ref, stride=stride, padding=padding,
+                      relu=True)(jnp.asarray(x), jnp.asarray(w),
+                                 jnp.asarray(b))
+    _close(ours, theirs, tol)
+
+
+class _OnCard:
+    """A CPU tensor that says it lies on the card, so that a wrapper takes
+    its CUDA branch, whose launch the test records instead of running."""
+
+    def __init__(self, t):
+        self.t, self.shape, self.device = t, t.shape, torch.device("cuda")
+
+
+#: no-LRN groups K5 takes: AlexNet's conv1+pool1 and conv2+pool2 (frames
+#: cut to keep the emulation short) and the CIFAR-10 net's three groups
+K5_GROUPS = {
+    "alexnet_conv1": ((3, 63, 63), (96, 3, 11, 11), (4, 4), (0, 0)),
+    "alexnet_conv2": ((96, 13, 13), (256, 96, 5, 5), (1, 1), (2, 2)),
+    **{f"cifar10_{g}": CIFAR_GROUPS[g] for g in CIFAR_GROUPS},
+}
+
+
+@pytest.mark.parametrize("group", sorted(K5_GROUPS))
+def test_k5_and_k1_agree_bit_for_bit_in_emulation(group, monkeypatch):
+    """On a group without LRN, the K5 wrapper hands the stage-major launch
+    what the K1 wrapper hands it (the same tensors, stage, pool and plan;
+    only the C entry differs), and the groups resolve to K5 under the
+    pool-carry knob: the emulated schedule at batch 2 gives K5 and K1 the
+    same bits, frame 0 the bits of frame 0 alone, and equals the plain
+    version and the JAX package's jnp path within 1e-4."""
+    in_chw, w_shape, stride, padding = K5_GROUPS[group]
+    calls = []
+    monkeypatch.setattr(conv_ops, "check_cuda_f32", lambda *a: None)
+    monkeypatch.setattr(conv_ops, "_launch_stage_major",
+                        lambda wrapper, entry, *a: calls.append(
+                            (wrapper, entry, a)))
+    rng = np.random.default_rng(len(group))
+    x = _arr(rng, 2, *in_chw)
+    w = _arr(rng, *w_shape, scale=(2.0 / np.prod(w_shape[1:])) ** 0.5)
+    b = _arr(rng, w_shape[0], scale=0.05)
+    tail = dict(pool_kernel=(3, 3), pool_stride=(2, 2))
+    xc, tw_, tb = _OnCard(_t(x)), _t(w), _t(b)
+    conv_ops.conv2d_pool_fused(xc, tw_, tb, stride, padding, True, **tail)
+    conv_ops.conv2d_pool_carry(xc, tw_, tb, stride, padding, True, **tail)
+    (w1, e1, a1), (w5, e5, a5) = calls
+    assert (w1, e1) == (conv_ops.conv2d_pool_fused, "conv_pool_lrn_f32")
+    assert (w5, e5) == (conv_ops.conv2d_pool_carry, "conv_pool_carry_f32")
+    assert a1[0] is a5[0] is xc and a1[1][0] is a5[1][0] is tw_
+    assert a1[2][0] is a5[2][0] is tb and a1[3:] == a5[3:]
+    _, _, _, strides, pads, relus, pool, pool_relu, lrn = a1
+    assert lrn is None and pool == POOL32 and not pool_relu
+    assert tm.fused_cell(tm.Method.ADVANCED_SIMD_8, in_chw, w_shape, stride,
+                         padding, (3, 3), (2, 2), None, pool_carry=True) == "K5"
+    assert tm.fused_cell(tm.Method.ADVANCED_SIMD_8, in_chw, w_shape, stride,
+                         padding, (3, 3), (2, 2), None) == "K1"
+    emu = partial(_emulate_chain, ws=[tw_], bs=[tb], strides=strides,
+                  pads=pads, relus=relus, pool=pool, lrn=lrn)
+    k1, k5 = emu(_t(x)), emu(_t(x))
+    assert torch.equal(k1, k5)
+    assert torch.equal(emu(_t(x[:1]))[0], k1[0])
+    ref = conv_ops.conv2d_pool_fused_ref(_t(x), tw_, tb, stride, padding,
+                                         True, **tail)
+    tol = TOL * max(1.0, ref.abs().max().item())
+    _close(k1, ref.numpy(), tol)
+    theirs = _jit(jm.conv2d_pool_fused, method=jm.Method.ADVANCED_SIMD_8,
+                  stride=stride, padding=padding, relu=True, **tail,
+                  pool_carry=True)(jnp.asarray(x), jnp.asarray(w),
+                                   jnp.asarray(b))
+    _close(k1, theirs, tol)
+
+
+class _Entry:
+    """A stand-in of a stage-major C entry that records, when it is called,
+    whether each weight pointer it gets is the data of a converted weight
+    tensor that is still alive, and each bias pointer a bias's data."""
+
+    def __init__(self, converted, bs):
+        self.converted, self.bs, self.seen = converted, bs, None
+
+    def __call__(self, x, w_ptrs, b_ptrs, *rest):
+        live = {t.data_ptr() for t in (r() for r in self.converted)
+                if t is not None}
+        self.seen = ([p in live for p in w_ptrs],
+                     list(b_ptrs) == [b.data_ptr() for b in self.bs])
+        return 0
+
+
+@pytest.mark.parametrize("inference", [False, True])
+@pytest.mark.parametrize("entry", ["conv_pool_lrn_f32", "conv_chain_f32"])
+def test_stage_major_launch_keeps_converted_weights_alive(entry, inference,
+                                                          monkeypatch):
+    """Every weight pointer the stage-major launch hands its C entry (one
+    stage for K1, three for K2) points into a converted weight tensor that
+    is still alive when the entry is called, also for inference tensors,
+    whose converted copies are not cached: a copy freed before the launch
+    could be overwritten by the next stage's conversion before the kernel
+    reads it."""
+    import weakref
+
+    one = entry == "conv_pool_lrn_f32"
+    rng = np.random.default_rng(7)
+    shapes = [(8, 3, 3, 3)] if one else [(8, 4, 3, 3), (8, 8, 3, 3),
+                                         (4, 8, 3, 3)]
+    with torch.inference_mode(inference):
+        x = _t(_arr(rng, 2, shapes[0][1], 9, 9))
+        ws = [_t(_arr(rng, *s)) for s in shapes]
+        bs = [_t(_arr(rng, s[0])) for s in shapes]
+    converted = []
+    convert = conv_ops.chain_weights
+
+    def recording(w):
+        out = convert(w)
+        converted.append(weakref.ref(out))
+        return out
+
+    fake = type("Lib", (), {})()
+    setattr(fake, entry, _Entry(converted, bs))
+    wrapper = (conv_ops.conv2d_pool_fused if one else conv_ops.conv2d_chain)
+    monkeypatch.setattr(conv_ops, "chain_weights", recording)
+    monkeypatch.setattr(conv_ops, "_sms", lambda dev: conv_ops.REPORT_SMS)
+    monkeypatch.setattr(conv_ops, "_stream", lambda dev: 0)
+    monkeypatch.setattr(_build, "library", lambda: fake)
+    monkeypatch.setattr(wrapper, "launches", 0)
+    k = len(shapes)
+    pool, lrn = conv_ops._pool_lrn((2, 2), None, "max", None, 0, 0, 0)
+    with torch.inference_mode(inference):
+        conv_ops._launch_stage_major(wrapper, entry, x, ws, bs,
+                                     [(1, 1)] * k, [(1, 1)] * k, [True] * k,
+                                     pool, False, lrn)
+    assert all(w.is_inference() == inference for w in ws)
+    assert getattr(fake, entry).seen == ([True] * k, True)
+    assert wrapper.launches == 1
+
+
 @pytest.mark.parametrize("n", [1, 2])
 def test_chain_schedule_at_alexnet_matches_the_plain_chain(n):
     """The emulated schedule at AlexNet's chain (one chunk an item at
@@ -1594,8 +1917,10 @@ def test_chain_schedule_gives_the_same_bits_with_every_unit():
     pool = conv_ops.Pool(2, 2, 2, 2, "max")
     stages = conv_ops.make_stages((136, 6, 7), ws, *args)
     assert [conv_ops.tap_split(_round4(st.C)) for st in stages] == [2, 2]
+    # a chunk, a tap and a kernel row at every stage (the 1 x 3 stage's
+    # row is its whole reduction)
     outs = [_emulate_chain(x, ws, bs, *args, pool, None, unit=u)
-            for u in ("chunk", "tap", "row")]
+            for u in (1, 2, 6)]
     assert torch.equal(outs[0], outs[1]) and torch.equal(outs[1], outs[2])
     ref = conv_ops.conv2d_chain_ref(x, ws, bs, *args, pool_kernel=(2, 2),
                                     pool_stride=(2, 2))
