@@ -75,7 +75,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
       causal, cap 50) in bf16 at 512 and 4500 tokens with window 4096 and
       0, with cap 0 at window 0 (where SDPA, the yardstick, computes the
       same function), at the other served lengths (16, 300, 1500) with
-      window 4096, and in fp32 at 512 and at 4500 with window 4096; K3 in
+      window 4096, in bf16 at 1500 tokens with head_dim 128 (16 heads over
+      8), head_dim 64 (32 over 8) and without causal masking, and in fp32
+      at 512 and at 4500 with window 4096.  Each K10 launch must step the
+      counter of the path ``k10_path`` names (TMA + wgmma for bf16, the
+      CUDA-core kernel for fp32); on the wgmma path the CUDA-core kernel
+      is held and timed beside it (simt, wgmma, wgmma, simt) and must be
+      at least ``K10_WGMMA_GAIN`` times slower at 4500 tokens, and SDPA
+      with ``is_causal`` is timed where the window does not bite.  K3 in
       bf16 at the seven projections' five shapes for M = 4 (a decode
       step), M = 16, 300, 1500 and 4500 (the prefills) and M = 64; every
       element within ``rtol * |plain| + atol`` (``LM_KERNEL_TOL``).  Each
@@ -85,7 +92,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
       tile) and must be at least ``K3_WGMMA_GAIN`` times slower at 4500;
    b. CPU parity: the model with its depth cut to one local/global pair,
       float32, random weights from ``--seed`` on the card and the same on
-      the CPU; a 64-token prompt prefilled (K10 once a layer on the card)
+      the CPU; a 64-token prompt prefilled (K10 once a layer on the card,
+      on the CUDA-core kernel)
       and 8 greedy tokens decoded on
       both must agree (``LM_TOL``) and give the same tokens, and the
       final bf16 KV caches must agree within one rounding
@@ -98,6 +106,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
       182 times (7 per layer), every decode step K3 182 times and no K10;
       all of a prefill's K3 launches must take the wgmma path from 64
       tokens on and the weight stream below, as must every decode step's;
+      all of a prefill's K10 launches must take the wgmma path;
       a second run must give the same tokens.  Each prefill, each decode
       step and the run are timed;
    d. ``torch.profiler`` over one prefill of 1500 tokens and three decode
@@ -136,12 +145,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
 10. prints one JSON line ``{"kernels": [...]}``: per kernel, ``launches``
    is its count summed over the AlexNet forwards of phase 4 (K1-K3,
    K7-K9) or phase 5 (K4-K6), or over the first LM serving run of phase
-   7c (K10, and K3's bf16 launches as ``matmul_fused_bf16``) or of phase
-   8c (K11, as ``wkv6``), each counted from 0; the times and bound are
-   summed over its distinct AlexNet batch-16 shapes on that path (K10: the
-   bf16 4500-token cases with cap 50; K3 bf16: its phase-7a cases at
-   M = 4 and 4500; K11: its bf16 4500-token case, which no library call
-   computes); K3's wgmma path has an entry of its own, its launches those
+   7c (K10's wgmma path as ``flash_attention``, and K3's bf16 launches as
+   ``matmul_fused_bf16``) or of phase 8c (K11, as ``wkv6``), each counted
+   from 0; the times and bound are summed over its distinct AlexNet
+   batch-16 shapes on that path (K10: the bf16 4500-token cases at
+   gemma2-2b's shape with cap 50; K3 bf16: its phase-7a cases at M = 4
+   and 4500; K11: its bf16 4500-token case, which no library call
+   computes); K10's CUDA-core kernel has an entry of its own
+   (``flash_attention_simt``), its launches those of the fp32 prefill of
+   7b, its times the fp32 4500-token case; K3's wgmma path has an entry
+   of its own, its launches those
    of the wgmma path in the first run of 7c, its times its phase-7a cases
    at M = 4500; the error is the largest over every case;
 11. prints ``{"ok": true, "device": {...}}`` as its last line.
@@ -775,15 +788,26 @@ LM_PARITY_DECODE = 8
 #: last fp32 bits may round to the neighbouring bf16 value (2^-8 of that
 #: element), hence 2e-3 there — the tolerances of tests/test_torch_lm.py
 LM_TOL = {"prefill": 1e-4, "decode": 2e-3}
-#: K10 cases: (tokens, window, cap, dtype).  The window and the tile skip
-#: bite only past 4096 tokens, hence the 4500-token cases in both dtypes;
-#: 16, 300 and 1500 are the other prompt lengths phase 7c serves
-K10_CASES = ((512, 4096, 50.0, "bfloat16"), (512, 0, 50.0, "bfloat16"),
-             (512, 0, 0.0, "bfloat16"), (4500, 4096, 50.0, "bfloat16"),
-             (4500, 0, 50.0, "bfloat16"), (4500, 0, 0.0, "bfloat16"),
-             (16, 4096, 50.0, "bfloat16"), (300, 4096, 50.0, "bfloat16"),
-             (1500, 4096, 50.0, "bfloat16"), (512, 4096, 50.0, "float32"),
-             (4500, 4096, 50.0, "float32"))
+#: K10 cases: (tokens, window, cap, dtype, heads, kv heads, head_dim,
+#: causal).  gemma2-2b's shape (8 heads over 4, head_dim 256, causal):
+#: the window and the tile skip bite only past 4096 tokens, hence the
+#: 4500-token cases in both dtypes; 16, 300 and 1500 are the other prompt
+#: lengths phase 7c serves.  Then the tensor-core path's other head_dims
+#: (128: 16 heads over 8; 64: 32 over 8) and a non-causal case.
+K10_CASES = ((512, 4096, 50.0, "bfloat16", 8, 4, 256, True),
+             (512, 0, 50.0, "bfloat16", 8, 4, 256, True),
+             (512, 0, 0.0, "bfloat16", 8, 4, 256, True),
+             (4500, 4096, 50.0, "bfloat16", 8, 4, 256, True),
+             (4500, 0, 50.0, "bfloat16", 8, 4, 256, True),
+             (4500, 0, 0.0, "bfloat16", 8, 4, 256, True),
+             (16, 4096, 50.0, "bfloat16", 8, 4, 256, True),
+             (300, 4096, 50.0, "bfloat16", 8, 4, 256, True),
+             (1500, 4096, 50.0, "bfloat16", 8, 4, 256, True),
+             (1500, 0, 50.0, "bfloat16", 16, 8, 128, True),
+             (1500, 0, 0.0, "bfloat16", 32, 8, 64, True),
+             (1500, 0, 50.0, "bfloat16", 8, 4, 256, False),
+             (512, 4096, 50.0, "float32", 8, 4, 256, True),
+             (4500, 4096, 50.0, "float32", 8, 4, 256, True))
 #: K10 and K3-bf16 against their plain versions, element by element:
 #: |kernel - plain| <= rtol * |plain| + atol.  Both sides sum in fp32 in
 #: another order (about 1e-6 of an output) and round once to the output
@@ -808,10 +832,17 @@ K3_LM_MAIN_ROWS = (4, 4500)
 #: at this M every projection shape must run on the wgmma path at least
 #: this many times faster than on the CUDA-core tile, timed in one call
 K3_WGMMA_GAIN = (4500, 5.0)
+#: at this many tokens K10's bf16 cases at gemma2-2b's shape must run on
+#: the wgmma path at least this many times faster than on the CUDA-core
+#: kernel, timed in one call
+K10_WGMMA_GAIN = (4500, 5.0)
 
 
-def _visible_pairs(sq, window):
-    """(query, key) pairs a causal attention with ``window`` computes."""
+def _visible_pairs(sq, window, causal=True):
+    """(query, key) pairs an attention over ``sq`` tokens with ``window``
+    computes."""
+    if not causal:
+        return sq * sq
     if window <= 0:
         return sq * (sq + 1) // 2
     w = min(window, sq)
@@ -910,61 +941,106 @@ def k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks, main):
     return r
 
 
-def lm_kernel_cases(torch, F, dev, peaks):
-    """Phase 7a: K10 and K3 (bf16) at gemma2-2b's shapes against their
-    plain versions, repeated bit for bit, timed; returns the records."""
-    from repro_torch.kernels.attention.ops import flash_attention
+def k10_case(torch, F, gen, dev, case, peaks):
+    """K10 at one case of ``K10_CASES``, held against its plain version
+    element by element, repeated bit for bit and timed beside SDPA (the
+    same boolean mask, and with ``is_causal`` where the window does not
+    bite); the launch must take the path ``k10_path`` names, and on the
+    wgmma path the CUDA-core kernel is held and timed beside it (simt,
+    wgmma, wgmma, simt) and must be at least ``K10_WGMMA_GAIN`` times
+    slower at gemma2-2b's shape at 4500 tokens.  Returns the record."""
+    from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.kernels.attention.ref import flash_attention_ref
 
     fp32_peak, bw_peak, bf16_peak = peaks
+    sq, window, cap, dname, h, kvh, hd, causal = case
+    dt = getattr(torch, dname)
+    q = torch.randn((1, sq, h, hd), generator=gen, device=dev).to(dt)
+    k = torch.randn((1, sq, kvh, hd), generator=gen, device=dev).to(dt)
+    v = torch.randn((1, sq, kvh, hd), generator=gen, device=dev).to(dt)
+    kw = dict(causal=causal, window=window, attn_softcap=cap)
+    scale = 1.0 / hd ** 0.5
+    kernel = lambda: attn_ops.flash_attention(q, k, v, **kw)  # noqa: E731
+    plain = lambda: flash_attention_ref(q, k, v, **kw)  # noqa: E731
+    simt = lambda: attn_ops._launch(  # noqa: E731
+        q, k, v, causal, window, cap, scale, path="simt")
+    pos = torch.arange(sq, device=dev)
+    mask = torch.ones((sq, sq), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= pos[:, None] >= pos[None, :]
+    if window:
+        mask &= pos[None, :] > pos[:, None] - window
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def library():  # SDPA has no softcap: the cap-0 function
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True).transpose(1, 2)
+
+    def library_causal():  # its flash backend, where the window does not bite
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+
+    label = (f"K10 {dname} s={sq} window={window} cap={cap} h={h}/{kvh} "
+             f"hd={hd} causal={causal}")
+    path = attn_ops.k10_path(dt, sq, sq, hd)
+    if path != ("wgmma" if dt == torch.bfloat16 else "simt"):
+        fail(f"{label}: path {path}")
+    ref = plain()
+    paths = attn_ops.flash_attention.path_launches
+    before = dict(paths)
+    out = kernel()
+    torch.cuda.synchronize()
+    stepped = {p: paths[p] - before[p] for p in paths}
+    if stepped != {**dict.fromkeys(paths, 0), path: 1}:
+        fail(f"{label}: path counters moved by {stepped}, expected one "
+             f"{path} launch")
+    rtol, atol = LM_KERNEL_TOL[dname]
+    err = _check_close(label, out, ref, atol, rtol)
+    if not torch.equal(kernel(), out):
+        fail(f"{label}: a repeated launch differs")
+    lib_err = (library().float() - ref.float()).abs().max().item()
+    flops = 4.0 * _visible_pairs(sq, window, causal) * h * hd
+    nbytes = float(out.element_size() * (2 * q.numel() + 2 * k.numel()))
+    peak = bf16_peak if dt == torch.bfloat16 else fp32_peak
+    gemma2 = (h, kvh, hd, causal) == (8, 4, 256, True) and dname == "bfloat16"
+    r = {"kernel": "K10", "tokens": sq, "window": window, "cap": cap,
+         "dtype": dname, "heads": h, "kv_heads": kvh, "head_dim": hd,
+         "causal": causal, "path": path, "max_abs_err": err,
+         "tol": {"rtol": rtol, "atol": atol},
+         "rms_plain": ref.float().square().mean().sqrt().item(),
+         "max_abs_plain": ref.float().abs().max().item(),
+         "library_max_abs_err": lib_err,
+         "library_note": "SDPA, same boolean mask, no softcap"}
+    if path == "wgmma":
+        r["simt_max_abs_err"] = _check_close(f"{label} CUDA-core kernel",
+                                             simt(), ref, atol, rtol)
+        runs = [time_ms(torch, f) for f in (simt, kernel, kernel, simt)]
+        r.update(ms=(runs[1] + runs[2]) / 2, simt_ms=(runs[0] + runs[3]) / 2,
+                 runs_simt_wgmma_wgmma_simt_ms=runs)
+        r["gain_vs_simt"] = r["simt_ms"] / r["ms"]
+        gain_sq, gain = K10_WGMMA_GAIN
+        if gemma2 and sq == gain_sq and not r["gain_vs_simt"] >= gain:
+            fail(f"{label}: wgmma {r['ms']:.4f} ms against the CUDA-core "
+                 f"kernel's {r['simt_ms']:.4f}, under {gain}x")
+    else:
+        r["ms"] = time_ms(torch, kernel)
+    if causal and (window <= 0 or window >= sq):
+        r["library_causal_ms"] = time_ms(torch, library_causal)
+    r.update(plain_ms=time_ms(torch, plain),
+             library_ms=time_ms(torch, library),
+             bound_ms=1e3 * max(flops / peak, nbytes / bw_peak),
+             bound_by="operations" if flops / peak > nbytes / bw_peak
+             else "bytes", flops=flops, bytes=nbytes, peak=peak,
+             main=gemma2 and sq == max(LM_PROMPTS) and cap > 0)
+    print("case " + json.dumps(r), flush=True)
+    return r
+
+
+def lm_kernel_cases(torch, F, dev, peaks):
+    """Phase 7a: K10 and K3 (bf16) at gemma2-2b's shapes against their
+    plain versions, repeated bit for bit, timed; returns the records."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    rows = []
-    for sq, window, cap, dname in K10_CASES:
-        dt = getattr(torch, dname)
-        q = torch.randn((1, sq, 8, 256), generator=gen, device=dev).to(dt)
-        k = torch.randn((1, sq, 4, 256), generator=gen, device=dev).to(dt)
-        v = torch.randn((1, sq, 4, 256), generator=gen, device=dev).to(dt)
-        kw = dict(causal=True, window=window, attn_softcap=cap)
-        kernel = lambda: flash_attention(q, k, v, **kw)  # noqa: E731
-        plain = lambda: flash_attention_ref(q, k, v, **kw)  # noqa: E731
-        pos = torch.arange(sq, device=dev)
-        mask = pos[:, None] >= pos[None, :]
-        if window:
-            mask &= pos[None, :] > pos[:, None] - window
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-
-        def library():  # SDPA has no softcap: the cap-0 function
-            return F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, enable_gqa=True).transpose(1, 2)
-
-        ref = plain()
-        out = kernel()
-        torch.cuda.synchronize()
-        rtol, atol = LM_KERNEL_TOL[dname]
-        label = f"K10 {dname} s={sq} window={window} cap={cap}"
-        err = _check_close(label, out, ref, atol, rtol)
-        if not torch.equal(kernel(), out):
-            fail(f"{label}: a repeated launch differs")
-        lib_err = (library().float() - ref.float()).abs().max().item()
-        flops = 4.0 * _visible_pairs(sq, window) * 8 * 256
-        nbytes = float(out.element_size() * (2 * q.numel() + 2 * k.numel()))
-        peak = bf16_peak if dt == torch.bfloat16 else fp32_peak
-        r = {"kernel": "K10", "tokens": sq, "window": window, "cap": cap,
-             "dtype": dname, "max_abs_err": err,
-             "tol": {"rtol": rtol, "atol": atol},
-             "rms_plain": ref.float().square().mean().sqrt().item(),
-             "max_abs_plain": ref.float().abs().max().item(),
-             "library_max_abs_err": lib_err,
-             "library_note": "SDPA, same boolean mask, no softcap",
-             "ms": time_ms(torch, kernel), "plain_ms": time_ms(torch, plain),
-             "library_ms": time_ms(torch, library),
-             "bound_ms": 1e3 * max(flops / peak, nbytes / bw_peak),
-             "bound_by": "operations" if flops / peak > nbytes / bw_peak
-             else "bytes", "flops": flops, "bytes": nbytes,
-             "peak": peak, "main": sq == max(LM_PROMPTS) and cap > 0
-             and dname == "bfloat16"}
-        rows.append(r)
-        print("case " + json.dumps(r), flush=True)
+    rows = [k10_case(torch, F, gen, dev, case, peaks) for case in K10_CASES]
     for m in K3_LM_ROWS:
         for kk, n, act in K3_LM_SHAPES:
             rows.append(k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks,
@@ -1005,10 +1081,13 @@ def lm_parity_phase(torch, np, dev, counter, arch=LM_ARCH,
     models = {"gpu": gpu, "cpu": cpu}
     logits, tokens, worst = {}, {"gpu": [], "cpu": []}, {}
     label = f"{arch} parity"
+    table, paths = getattr(counter, "path_launches", None), None
     with torch.no_grad():
         for side, m in models.items():
             t = torch.from_numpy(prompt).to(m.device)
             counter.launches = 0
+            for k in table or ():
+                table[k] = 0
             logits[side], _, _ = m({"tokens": t}, mode="prefill",
                                    cache=caches[side])
             if side == "gpu":
@@ -1016,6 +1095,7 @@ def lm_parity_phase(torch, np, dev, counter, arch=LM_ARCH,
                 if counter.launches != cfg.num_layers:
                     fail(f"{label}: the card's prefill launched its kernel "
                          f"{counter.launches} times, not {cfg.num_layers}")
+                paths = table and dict(table)
         ref = logits["cpu"]
         worst["prefill"] = _check_close(
             f"{label} prefill", logits["gpu"].cpu(), ref,
@@ -1048,6 +1128,8 @@ def lm_parity_phase(torch, np, dev, counter, arch=LM_ARCH,
     rec = {"arch": arch, "layers": cfg.num_layers, "prompt": prompt_len,
            "tokens": tokens["gpu"], "max_abs_err": worst,
            "tol": {**LM_TOL, "cache": LM_CACHE_TOL}}
+    if paths:
+        rec["paths"] = paths
     print(f"{label} " + json.dumps(rec), flush=True)
     return rec
 
@@ -1078,6 +1160,7 @@ def lm_serving_phase(torch, np, dev, counters, card, model, init_s, expect):
     each kernel that ``counters`` names in every prefill and every decode
     step; every other counter must stay at 0.  Returns the record of both
     runs."""
+    from repro_torch.kernels.attention.ops import k10_path
     from repro_torch.serving.engine import Request, ServingEngine
 
     cfg = model.cfg
@@ -1088,12 +1171,13 @@ def lm_serving_phase(torch, np, dev, counters, card, model, init_s, expect):
                for n in LM_PROMPTS]
     watched = {k: counters[k] for k in expect["prefill"]}
     k3_paths = counters["K3"].path_launches
+    k10_paths = counters["K10"].path_launches
 
     def timed(fn, log, kind):
         def run(*args):
             torch.cuda.synchronize()
             before = {k: c.launches for k, c in watched.items()}
-            paths = dict(k3_paths)
+            paths, paths10 = dict(k3_paths), dict(k10_paths)
             t = time.perf_counter()
             fn(*args)
             torch.cuda.synchronize()
@@ -1101,7 +1185,9 @@ def lm_serving_phase(torch, np, dev, counters, card, model, init_s, expect):
                         **{k: c.launches - before[k]
                            for k, c in watched.items()},
                         "k3_paths": {k: k3_paths[k] - paths[k]
-                                     for k in paths}})
+                                     for k in paths},
+                        "k10_paths": {k: k10_paths[k] - paths10[k]
+                                      for k in paths10}})
             if kind == "prefill":
                 log[-1]["tokens"] = len(args[1].prompt)
         return run
@@ -1119,8 +1205,9 @@ def lm_serving_phase(torch, np, dev, counters, card, model, init_s, expect):
             eng.submit(Request(rid, p, max_new_tokens=LM_NEW_TOKENS))
         for fn in counters.values():
             fn.launches = 0
-        for k in k3_paths:
-            k3_paths[k] = 0
+        for table in (k3_paths, k10_paths):
+            for k in table:
+                table[k] = 0
         torch.cuda.synchronize()
         t = time.perf_counter()
         done = eng.run_until_drained()
@@ -1131,7 +1218,8 @@ def lm_serving_phase(torch, np, dev, counters, card, model, init_s, expect):
                   if k not in launches and fn.launches}
         runs.append({"done": done, "log": log, "wall_s": wall,
                      "launches": launches, "other_launches": others,
-                     "k3_paths": dict(k3_paths)})
+                     "k3_paths": dict(k3_paths),
+                     "k10_paths": dict(k10_paths)})
         del eng
     first, second = runs
     label = f"{cfg.name} serving"
@@ -1168,6 +1256,16 @@ def lm_serving_phase(torch, np, dev, counters, card, model, init_s, expect):
                 if r["k3_paths"] != want:
                     fail(f"{label}: {what} took K3's paths {r['k3_paths']}, "
                          f"expected {want}")
+                # every K10 launch of a prefill on the path k10_path names
+                # for the model's type (bf16: wgmma)
+                n10 = expect[kind].get("K10", 0)
+                want = dict.fromkeys(k10_paths, 0)
+                if n10:
+                    want[k10_path(getattr(torch, cfg.dtype), r["tokens"],
+                                  r["tokens"], cfg.head_dim)] = n10
+                if r["k10_paths"] != want:
+                    fail(f"{label}: {what} took K10's paths "
+                         f"{r['k10_paths']}, expected {want}")
         want = {k: sum(expect[kind][k] * len(rows)
                        for kind, rows in steps.items()) for k in watched}
         if run["launches"] != want:
@@ -1178,6 +1276,7 @@ def lm_serving_phase(torch, np, dev, counters, card, model, init_s, expect):
            "prompts": list(LM_PROMPTS), "new_tokens": LM_NEW_TOKENS,
            "tokens": {str(k): v for k, v in first["done"].items()},
            "launches": first["launches"], "k3_paths": first["k3_paths"],
+           "k10_paths": first["k10_paths"],
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "runs": [{"wall_s": r["wall_s"], "tokens_per_s":
                      tokens / r["wall_s"], "log": r["log"]} for r in runs]}
@@ -1196,7 +1295,8 @@ def lm_serving_phase(torch, np, dev, counters, card, model, init_s, expect):
 #: device-kernel names of the port's kernels, for the profile's breakdown
 PROFILE_GROUPS = (("K3", ("mm_wgmma", "mm_tiled", "mm_partial",
                           "mm_reduce")),
-                  ("K10", ("flash_fwd",)), ("K11", ("wkv6_fwd",)))
+                  ("K10", ("flash_wgmma", "flash_fwd")),
+                  ("K11", ("wkv6_fwd",)))
 
 
 def lm_profile(torch, model, card):
@@ -1607,12 +1707,18 @@ def main() -> int:
     counters.update(K10=attn_ops.flash_attention, K11=wkv6_ops.wkv6)
     lm_cases = lm_kernel_cases(torch, F, dev, peaks)
     lm_parity = lm_parity_phase(torch, np, dev, attn_ops.flash_attention)
+    if lm_parity["paths"] != {"simt": lm_parity["layers"], "wgmma": 0}:
+        fail(f"{LM_ARCH} parity: the fp32 prefill took K10's paths "
+             f"{lm_parity['paths']}, not the CUDA-core kernel alone")
     model, init_s = build_model(torch, LM_ARCH, dev)
     per_step = 7 * model.cfg.num_layers
     lm = lm_serving_phase(
         torch, np, dev, counters, card_line, model, init_s,
         {"prefill": {"K3": per_step, "K10": model.cfg.num_layers},
          "decode": {"K3": per_step, "K10": 0}})
+    if lm["k10_paths"] != {"simt": 0, "wgmma": lm["launches"]["K10"]}:
+        fail(f"{LM_ARCH} serving: K10's prefill launches took the paths "
+             f"{lm['k10_paths']}, not the wgmma path alone")
     lm["profile"] = lm_profile(torch, model, card_line)
     print("lm " + json.dumps({k: v for k, v in lm.items() if k != "runs"}),
           flush=True)
@@ -1662,47 +1768,50 @@ def main() -> int:
             else "bytes",
             "library_ms": sum(c["library_ms"] for c in main),
         })
-    for kid, name, src, replaces in (
-            ("K10", "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-             "src/repro/kernels/attention/kernel.py:116"),
-            ("K3-bf16", "matmul_fused_bf16",
-             "src/repro_torch/csrc/matmul_fused.cu",
-             "src/repro/kernels/matmul_fused/kernel.py:37")):
-        mine = [c for c in lm_cases if c["kernel"] == kid]
-        main = [c for c in mine if c["main"]]
+    def lm_entry(name, src, replaces, main, launches, err, **extra):
         fl = sum(c["flops"] for c in main)
         by = sum(c["bytes"] for c in main)
         peak = main[0]["peak"]
-        kernels.append({
+        return {
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces,
-            "launches": lm["launches"]["K10" if kid == "K10" else "K3"],
-            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": sum(c["ms"] for c in main),
             "plain_ms": sum(c["plain_ms"] for c in main),
             "bound_ms": 1e3 * max(fl / peak, by / peaks[1]),
             "bound_by": "operations" if fl / peak > by / peaks[1]
             else "bytes",
-            "library_ms": sum(c["library_ms"] for c in main),
-        })
-    wg_main = [c for c in lm_cases if c["kernel"] == "K3-bf16"
-               and c["path"] == "wgmma" and c["rows"] == K3_WGMMA_GAIN[0]]
-    fl = sum(c["flops"] for c in wg_main)
-    by = sum(c["bytes"] for c in wg_main)
-    kernels.append({
-        "name": "matmul_fused_bf16_wgmma", "route": "cuda",
-        "source": "src/repro_torch/csrc/matmul_fused.cu",
-        "replaces": "src/repro/kernels/matmul_fused/kernel.py:37",
-        "launches": lm["k3_paths"]["wgmma"],
-        "max_abs_err": max(c["max_abs_err"] for c in lm_cases + rwkv_cases
-                           if c.get("path") == "wgmma"),
-        "ms": sum(c["ms"] for c in wg_main),
-        "plain_ms": sum(c["plain_ms"] for c in wg_main),
-        "bound_ms": 1e3 * max(fl / peaks[2], by / peaks[1]),
-        "bound_by": "operations" if fl / peaks[2] > by / peaks[1]
-        else "bytes",
-        "library_ms": sum(c["library_ms"] for c in wg_main),
-    })
+            "library_ms": sum(c["library_ms"] for c in main), **extra}
+
+    # K10: the wgmma path (every bf16 prefill of 7c) and the CUDA-core
+    # kernel (the fp32 prefill of 7b; its time the fp32 4500-token case)
+    k10 = [c for c in lm_cases if c["kernel"] == "K10"]
+    k10_src = "src/repro_torch/csrc/flash_attention.cu"
+    k10_pallas = "src/repro/kernels/attention/kernel.py:116"
+    kernels.append(lm_entry(
+        "flash_attention", k10_src, k10_pallas,
+        [c for c in k10 if c["main"]], lm["k10_paths"]["wgmma"],
+        max(c["max_abs_err"] for c in k10 if c["path"] == "wgmma"),
+        path="wgmma", paths=lm["k10_paths"]))
+    kernels.append(lm_entry(
+        "flash_attention_simt", k10_src, k10_pallas,
+        [c for c in k10 if c["dtype"] == "float32"
+         and c["tokens"] == max(LM_PROMPTS)], lm_parity["paths"]["simt"],
+        max([c["max_abs_err"] for c in k10 if c["path"] == "simt"]
+            + [c["simt_max_abs_err"] for c in k10 if c["path"] == "wgmma"]),
+        path="simt", paths=lm_parity["paths"]))
+    k3 = [c for c in lm_cases if c["kernel"] == "K3-bf16"]
+    kernels.append(lm_entry(
+        "matmul_fused_bf16", "src/repro_torch/csrc/matmul_fused.cu",
+        "src/repro/kernels/matmul_fused/kernel.py:37",
+        [c for c in k3 if c["main"]], lm["launches"]["K3"],
+        max(c["max_abs_err"] for c in k3)))
+    kernels.append(lm_entry(
+        "matmul_fused_bf16_wgmma", "src/repro_torch/csrc/matmul_fused.cu",
+        "src/repro/kernels/matmul_fused/kernel.py:37",
+        [c for c in k3 if c["path"] == "wgmma"
+         and c["rows"] == K3_WGMMA_GAIN[0]], lm["k3_paths"]["wgmma"],
+        max(c["max_abs_err"] for c in k3 + rwkv_cases
+            if c["kernel"] == "K3-bf16" and c["path"] == "wgmma")))
     k11 = next(c for c in rwkv_cases if c["kernel"] == "K11" and c["main"])
     kernels.append({
         "name": "wkv6", "route": "cuda",

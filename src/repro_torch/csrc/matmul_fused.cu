@@ -53,13 +53,16 @@
 //   shared memory (the next step's loads in registers while this step
 //   computes); operands are converted to fp32 on load; no split of K, the
 //   epilogue adds the bias and applies the activation.
-#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from cudart
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_common.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int MM_THREADS = 128;
 constexpr int COLS = 4;                       // columns per thread
@@ -261,60 +264,6 @@ constexpr int WG_STAGE_BYTES = WG_A_BYTES + WG_BN / 64 * WG_BOX_BYTES;
 // a full and an empty barrier per stage
 constexpr int WG_SMEM = WG_STAGES * WG_STAGE_BYTES + 1024 + 2 * WG_STAGES * 8;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-// returns once the phase of parity ``parity`` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  }
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-         "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma's shared-memory descriptor for a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (all >> 4), layout type 1.
-// x (K-major): the stride is 1024 bytes between groups of 8 rows; the
-// leading offset is unused.  w (N-major): the leading offset is the
-// distance between 64-column boxes, the stride 1024 bytes between groups
-// of 8 K rows.
-__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
-                                            uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-
 #define D8(i)                                                          \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
@@ -339,14 +288,6 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
 
 #undef D8
 
-// keeps the compiler from moving accumulator reads or writes across the
-// asynchronous products
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 __global__ void __launch_bounds__(WG_THREADS, 1)
 mm_wgmma(const __grid_constant__ CUtensorMap xmap,
          const __grid_constant__ CUtensorMap wmap,
@@ -368,7 +309,7 @@ mm_wgmma(const __grid_constant__ CUtensorMap xmap,
       mbar_init(full(s), 1);
       mbar_init(empty(s), 8);  // lane 0 of each consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
   if (wg == 0) {
@@ -400,20 +341,20 @@ mm_wgmma(const __grid_constant__ CUtensorMap xmap,
       const uint32_t a = a_at(s) + c * 64 * 128;
       const uint32_t bt = a_at(s) + WG_A_BYTES;
       fence_acc(d);
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      wg_fence();
 #pragma unroll
       for (int kk = 0; kk < WG_BK / 16; ++kk)
         wgmma_n128(d, wg_desc(a + 32 * kk, 16, 1024),
                    wg_desc(bt + 16 * 128 * kk, WG_BOX_BYTES, 1024),
                    kb > 0 || kk > 0);
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      wg_commit();
       // the previous stage's products are done: release its buffers
-      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      wg_wait<1>();
       fence_acc(d);
       if (kb > 0 && (tid & 31) == 0)
         mbar_arrive(empty((kb - 1) % WG_STAGES));
     }
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    wg_wait<0>();
     fence_acc(d);
     // Epilogue: the bias and the activation in fp32 on the registers, then
     // bf16 pairs into this warpgroup's halves of the x boxes, which nobody
@@ -463,51 +404,6 @@ mm_wgmma(const __grid_constant__ CUtensorMap xmap,
       *reinterpret_cast<uint4*>(y + (long)m * N + n) = v;
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime, so the
-// library needs no -lcuda
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &q);
-#endif
-    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// a bf16 [rows, cols] row-major tensor map with [box_rows, box_cols] boxes
-// and the 128-byte swizzle; false if TMA cannot describe it
-bool tensor_map(CUtensorMap* map, const void* base, int rows, int cols,
-                int box_rows, int box_cols) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode || reinterpret_cast<uintptr_t>(base) % 16 || cols % 8)
-    return false;
-  cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  cuuint32_t unit[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 int launch_wgmma(const void* x, const void* w, const float* b, void* y,

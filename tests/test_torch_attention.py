@@ -9,6 +9,7 @@ R1).  Inputs are numpy arrays from a seed, handed to both packages.
 """
 import importlib.util
 import math
+import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 from repro.nn import attention as jattn
+from repro_torch.kernels import _build
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.attention.ref import flash_attention_ref
 from repro_torch.nn import attention as tattn
@@ -324,3 +326,345 @@ def test_reference_attention_matches_jax():
     assert math.isclose(float(tattn.softcap(torch.tensor(100.0), 50.0)),
                         float(jattn.softcap(jnp.float32(100.0), 50.0)),
                         rel_tol=1e-6)
+
+
+# -- K10's tensor-core path (bf16: TMA + wgmma, ``flash_wgmma``) ------------
+
+
+def _wgmma_constants():
+    """The wgmma path's integer constants (``FA_BQ``, ``FA_BK``,
+    ``FA_STAGES``, ``FA_THREADS``, ``FA_BOX``) as the kernel's source
+    declares them."""
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    return {name: int(v) for name, v in
+            re.findall(r"\b(FA_[A-Z]+) = (\d+);", src)}
+
+
+#: dynamic shared memory a block may opt in to on the H100 (227 KB)
+SMEM_LIMIT = 232448
+
+
+def wgmma_smem_bytes(hd):
+    """The wgmma block's dynamic shared memory (``FaSmem<HD>::BYTES``
+    restated): the bf16 q tile, the ring of k and v tiles, 1 KB of
+    alignment and the barriers (q's, a full and an empty one a stage)."""
+    c = _wgmma_constants()
+    stage = 2 * 2 * c["FA_BK"] * hd
+    return (2 * c["FA_BQ"] * hd + c["FA_STAGES"] * stage + 1024
+            + 8 * (1 + 2 * c["FA_STAGES"]))
+
+
+def test_wgmma_constants():
+    """Two consumer warpgroups of 64 query rows beside the producer, 64-row
+    kv tiles, a ring of at least two stages, boxes one 128-byte swizzle
+    row of bf16 wide."""
+    c = _wgmma_constants()
+    assert c == {"FA_BQ": 128, "FA_BK": 64, "FA_STAGES": 2,
+                 "FA_THREADS": 384, "FA_BOX": 64}
+    assert c["FA_THREADS"] == 128 * (1 + c["FA_BQ"] // 64)
+    assert 2 * c["FA_BOX"] == 128
+    for hd in attn_ops.HEAD_DIMS:
+        assert hd % c["FA_BOX"] == 0
+
+
+@pytest.mark.parametrize("hd", attn_ops.HEAD_DIMS)
+def test_wgmma_shared_memory_fits_the_card(hd):
+    """The q tile and two k + v stages fit an H100 block's 227 KB at every
+    head_dim (192 KB and a little at 256), and every box lands on the
+    128-byte swizzle's 1 KB pattern."""
+    c = _wgmma_constants()
+    assert wgmma_smem_bytes(hd) <= SMEM_LIMIT
+    assert (2 * c["FA_BQ"] * 128) % 1024 == 0
+    assert (2 * c["FA_BK"] * 128) % 1024 == 0
+    if hd == 256:
+        assert wgmma_smem_bytes(hd) - 1024 - 40 == 192 * 1024
+
+
+def test_the_wgmma_instructions_cover_every_head_dim():
+    """The kernel's p.v product is one wgmma m64n{hd}k16 for each head_dim
+    it takes, and S = q k^T one m64n64k16 (a kv tile's 64 keys)."""
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    shapes = set(re.findall(r"wgmma\.mma_async\.sync\.aligned\.m64n(\d+)k16",
+                            src))
+    assert shapes == {str(hd) for hd in attn_ops.HEAD_DIMS}
+    for hd in attn_ops.HEAD_DIMS:
+        assert f"launch<{hd}>" in src
+
+
+def test_hopper_helpers_live_in_one_header():
+    """K3 and K10 include the shared PTX wrappers and the tensor-map
+    encoder; neither defines its own copy."""
+    for name in ("matmul_fused.cu", "flash_attention.cu"):
+        src = (_build.CSRC / name).read_text()
+        assert '#include "hopper_common.cuh"' in src
+        for fn in ("mbar_wait(uint32_t", "wg_desc(uint32_t",
+                   "EncodeTiled encode_tiled()", "smem_addr(const void"):
+            assert fn not in src, (name, fn)
+    common = (_build.CSRC / "hopper_common.cuh").read_text()
+    for fn in ("mbar_wait(uint32_t", "wg_desc(uint32_t", "tma_load_4d(",
+               "EncodeTiled encode_tiled()", "smem_addr(const void"):
+        assert fn in common
+
+
+@pytest.mark.parametrize("hd", attn_ops.HEAD_DIMS)
+@pytest.mark.parametrize("sq", [16, 300, 512, 1500, 4500])
+def test_k10_path_at_gemma2_shapes(sq, hd):
+    """Every bf16 prefill of the served gemma2-2b (head_dim 256) and the
+    other head_dims takes the tensor-core path; fp32 the CUDA-core one."""
+    assert attn_ops.k10_path(torch.bfloat16, sq, sq, hd) == "wgmma"
+    assert attn_ops.k10_path(torch.float32, sq, sq, hd) == "simt"
+
+
+def test_k10_path_counters_start_at_zero_and_the_cpu_moves_none():
+    fa = attn_ops.flash_attention
+    assert set(fa.path_launches) == set(attn_ops.PATH_CODES) == {"simt",
+                                                                 "wgmma"}
+    before = (fa.launches, dict(fa.path_launches))
+    q = torch.ones(1, 5, 2, 64, dtype=torch.bfloat16)
+    fa(q, q[:, :, :1], q[:, :, :1])
+    assert (fa.launches, fa.path_launches) == before
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [0, 1, 63, 64, 65, 100, 4096])
+def test_wgmma_kv_tile_range_matches_visible_pairs(causal, window):
+    """The wgmma block's kv-tile range (128 query rows, 64-row kv tiles)
+    equals the JAX package's static pair list at those tiles."""
+    c = _wgmma_constants()
+    bq, bk = c["FA_BQ"], c["FA_BK"]
+    for sq in (1, 63, 64, 65, 127, 128, 129, 200, 1500, 4500):
+        n_q, n_kv = -(-sq // bq), -(-sq // bk)
+        pairs = set(jattn._visible_pairs(n_q, n_kv, bq, bk, causal, window,
+                                         0))
+        ours = set()
+        for i in range(n_q):
+            lo, hi = kv_tile_range(i, n_kv, causal, window, bq, bk)
+            ours |= {(i, j) for j in range(lo, hi + 1)}
+        assert ours == pairs, (sq, causal, window)
+
+
+def _emulate_wgmma(q, k, v, *, causal, window, cap, scale, split=True):
+    """The wgmma kernel's schedule in PyTorch, fp32 before the final cast:
+    per 128-row query tile the kv tiles of ``kv_tile_range`` in order; per
+    consumer warpgroup of 64 rows the tiles it can see, the masks only on
+    tiles that cross skv, a diagonal or the window's edge (k and v rows
+    past skv zero-filled, as TMA fills them), the online softmax with fp32
+    m, l and p, and o += P_hi v + P_lo v with P_hi = bf16(p) and P_lo =
+    bf16(p - P_hi) (``split=False``: P_hi v alone, a single rounding of
+    p); rows past sq are never stored."""
+    c = _wgmma_constants()
+    bq, bk = c["FA_BQ"], c["FA_BK"]
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    n_kv = -(-skv // bk)
+    pad = n_kv * bk - skv
+    qf = q.float()
+    kf = torch.nn.functional.pad(k.float().repeat_interleave(h // kvh, 2),
+                                 (0, 0, 0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v.float().repeat_interleave(h // kvh, 2),
+                                 (0, 0, 0, 0, 0, pad))
+    out = torch.zeros(b, sq, h, hd)
+    for t in range(-(-sq // bq)):
+        lo, hi = kv_tile_range(t, n_kv, causal, window, bq, bk)
+        for r_lo in range(t * bq, (t + 1) * bq, 64):
+            if r_lo >= sq:
+                continue
+            qb = qf[:, r_lo:r_lo + 64]
+            rows = qb.shape[1]
+            m = torch.full((b, h, rows), -1e30)
+            l = torch.zeros(b, h, rows)
+            acc = torch.zeros(b, h, rows, hd)
+            for j in range(lo, hi + 1):
+                k0 = j * bk
+                seen = ((not causal or k0 <= r_lo + 63)
+                        and (window <= 0 or k0 + bk - 1 > r_lo - window))
+                if not seen:
+                    continue
+                s = torch.einsum("bqhd,bkhd->bhqk", qb,
+                                 kf[:, k0:k0 + bk]) * scale
+                if cap > 0:
+                    s = cap * torch.tanh(s / cap)
+                edge = (k0 + bk > skv or (causal and k0 + bk - 1 > r_lo)
+                        or (window > 0 and k0 <= r_lo + 63 - window))
+                if edge:
+                    qp = r_lo + torch.arange(rows)[:, None]
+                    kp = k0 + torch.arange(bk)[None, :]
+                    ok = kp < skv
+                    if causal:
+                        ok = ok & (qp >= kp)
+                    if window > 0:
+                        ok = ok & (kp > qp - window)
+                    s = torch.where(ok, s, -1e30)
+                m_new = torch.maximum(m, s.amax(-1))
+                p = torch.exp(s - m_new[..., None]) * (m_new > -5e29)[..., None]
+                alpha = torch.exp(m - m_new)
+                l = l * alpha + p.sum(-1)
+                vt = vf[:, k0:k0 + bk].transpose(1, 2)
+                p_hi = p.bfloat16().float()
+                acc = acc * alpha[..., None] + p_hi @ vt
+                if split:
+                    acc = acc + (p - p_hi).bfloat16().float() @ vt
+                m = m_new
+            res = acc / torch.clamp_min(l, 1e-30)[..., None]
+            out[:, r_lo:r_lo + rows] = res.transpose(1, 2)
+    return out
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("cap", [0.0, 5.0])
+@pytest.mark.parametrize("window", [0, 9])
+@pytest.mark.parametrize("sq", [37, 130])
+def test_wgmma_schedule_with_split_p_matches_jax(sq, window, cap, causal):
+    """The wgmma schedule with p split in hi and lo bf16 halves, on bf16
+    inputs (4 heads over 2 kv heads, head_dim 64), against JAX's
+    ``chunked_attention`` and ``reference_attention`` within ``TOL``; in
+    fp32 before the cast it is within 2^-16 * max(1, max|out|) of the
+    plain version (p in fp32), which a single bf16 rounding of p misses."""
+    arrs = _qkv(sq + window + int(cap), 1, sq, sq, 4, 2, 64)
+    (q, k, v), (jq, jk, jv) = _both(arrs, "bfloat16")
+    kw = dict(causal=causal, window=window)
+    scale = 0.125
+    split = _emulate_wgmma(q, k, v, cap=cap, scale=scale, **kw)
+    ours = split.to(torch.bfloat16)
+    jkw = dict(attn_softcap=cap, scale=scale, **kw)
+    _close(ours, jattn.chunked_attention(jq, jk, jv, chunk_q=16,
+                                         chunk_kv=16, **jkw), "bfloat16")
+    _close(ours, jattn.reference_attention(jq, jk, jv, **jkw), "bfloat16")
+    plain = flash_attention_ref(q.float(), k.float(), v.float(),
+                                attn_softcap=cap, scale=scale, **kw)
+    limit = 2.0 ** -16 * max(1.0, plain.abs().max().item())
+    assert _err(split, plain) <= limit
+    single = _emulate_wgmma(q, k, v, cap=cap, scale=scale, split=False, **kw)
+    assert _err(single, plain) > limit
+
+
+@pytest.mark.parametrize("sq,window", [(200, 0), (200, 70), (130, 64),
+                                       (64, 1), (300, 150), (129, 0)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_wgmma_schedule_matches_plain_version(sq, window, causal):
+    """Tile skipping per block and per warpgroup and the masks on edge
+    tiles only give the plain version's result within the split's 2^-16
+    (fp32 inputs rounded to bf16, as the path takes them)."""
+    arrs = _qkv(sq + window, 1, sq, sq, 4, 2, 16)
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in arrs)
+    kw = dict(causal=causal, window=window, scale=0.25)
+    got = _emulate_wgmma(q, k, v, cap=7.0, **kw)
+    want = flash_attention_ref(q.float(), k.float(), v.float(),
+                               attn_softcap=7.0, **kw)
+    assert _err(got, want) <= 2.0 ** -16 * max(1.0, want.abs().max().item())
+
+
+class _Entry:
+    """A stand-in of the C entry ``flash_attention_fwd`` that records its
+    arguments and whether each pointer it gets is the data of a tensor
+    that is alive when it is called."""
+
+    def __init__(self):
+        self.tensors, self.args = [], None
+
+    def __call__(self, *args):
+        live = {t.data_ptr() for t in (r() for r in self.tensors)
+                if t is not None}
+        self.args = args
+        self.live = [p in live for p in args[:4]]
+        return 0
+
+
+@pytest.mark.parametrize("path", [None, "simt", "wgmma"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_launch_passes_live_tensors_and_the_named_path(dtype, path,
+                                                       monkeypatch):
+    """``_launch`` hands the C entry q, k, v and an output that are alive
+    when it is called (the output is the tensor it returns) and the path
+    code of ``k10_path`` (or the path asked for, the CUDA-core kernel for
+    either type), and steps that path's counter; the tensor-core path
+    refuses fp32."""
+    import weakref
+
+    tdt = DTYPES[dtype][0]
+    q, k, v = (torch.from_numpy(a).to(tdt)
+               for a in _qkv(1, 1, 20, 20, 4, 2, 64))
+    entry = _Entry()
+    entry.tensors = [weakref.ref(t) for t in (q, k, v)]
+    empty_like = torch.empty_like
+
+    def recording(t):
+        out = empty_like(t)
+        entry.tensors.append(weakref.ref(out))
+        return out
+
+    fake = type("Lib", (), {"flash_attention_fwd": entry})()
+    monkeypatch.setattr(attn_ops, "check_cuda", lambda *a: None)
+    monkeypatch.setattr(attn_ops, "_stream", lambda dev: 0)
+    monkeypatch.setattr(attn_ops.torch, "empty_like", recording)
+    monkeypatch.setattr(_build, "library", lambda: fake)
+    fa = attn_ops.flash_attention
+    monkeypatch.setattr(fa, "launches", 0)
+    monkeypatch.setattr(fa, "path_launches",
+                        dict.fromkeys(attn_ops.PATH_CODES, 0))
+    chosen = attn_ops.k10_path(tdt, 20, 20, 64)
+    if path == "wgmma" and chosen != "wgmma":
+        with pytest.raises(ValueError, match="path"):
+            attn_ops._launch(q, k, v, True, 0, 0.0, 0.125, path=path)
+        assert entry.args is None and fa.launches == 0
+        return
+    out = attn_ops._launch(q, k, v, True, 9, 5.0, 0.125, path=path)
+    want = path or chosen
+    assert entry.live == [True] * 4
+    assert entry.args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              out.data_ptr())
+    assert entry.args[4:15] == (1, 20, 20, 4, 2, 64, 1, 9, 0.125, 5.0,
+                                int(dtype == "bfloat16"))
+    assert entry.args[15] == attn_ops.PATH_CODES[want]
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert fa.launches == 1
+    assert fa.path_launches == {**dict.fromkeys(attn_ops.PATH_CODES, 0),
+                                want: 1}
+
+
+def _fma32(a, b, c):
+    """fmaf: a * b + c rounded once to float32 (ties to even)."""
+    from fractions import Fraction
+
+    exact = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    x = np.float32(float(exact))  # at most one ulp off: pick the nearest
+    best = x
+    for y in (np.nextafter(x, np.float32(np.inf)),
+              np.nextafter(x, np.float32(-np.inf))):
+        d, e = abs(Fraction(float(y)) - exact), abs(Fraction(float(best))
+                                                    - exact)
+        if d < e or (d == e and int(y.view(np.int32)) % 2 == 0):
+            best = y
+    return best
+
+
+@pytest.mark.parametrize("cap", [50.0, 30.0, 7.0, 5.0, 3.0])
+def test_softcap_quotient_is_the_correctly_rounded_division(cap):
+    """The wgmma kernel's s / cap (``div_rn``: s times the rounded
+    reciprocal, then two fmaf remainder corrections) equals the IEEE
+    float32 quotient that the plain version computes, for scores of the
+    magnitudes attention gives and far beyond."""
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    assert "tanhf(div_rn(x, cap, inv_cap))" in src
+    rng = np.random.default_rng(int(cap))
+    d = np.float32(cap)
+    inv = np.float32(1.0) / d
+    xs = np.concatenate([rng.standard_normal(300) * 30,
+                         rng.uniform(-1e4, 1e4, 100)]).astype(np.float32)
+    for x in xs:
+        q = np.float32(x * inv)
+        q = _fma32(_fma32(-q, d, x), inv, q)
+        q = _fma32(_fma32(-q, d, x), inv, q)
+        assert q == x / d, (x, q, x / d)
+
+
+def test_launch_refuses_what_tma_cannot_describe(monkeypatch):
+    """A bf16 q that does not start on a 16-byte boundary cannot be a TMA
+    tensor map's base: the wgmma path refuses it before any launch."""
+    monkeypatch.setattr(attn_ops, "check_cuda", lambda *a: None)
+    monkeypatch.setattr(_build, "library", lambda: pytest.fail("launched"))
+    k = torch.zeros(1, 8, 1, 64, dtype=torch.bfloat16)
+    q = torch.zeros(8 * 64 + 1, dtype=torch.bfloat16)[1:].view(1, 8, 1, 64)
+    assert q.data_ptr() % attn_ops.TMA_ALIGN
+    with pytest.raises(ValueError, match="aligned"):
+        attn_ops._launch(q, k, k, True, 0, 0.0, 0.125)
