@@ -15,22 +15,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (conv chain+pool), K3 (fc matmul), K7 (fused and per-layer basic SIMD
    conv), K8 (basic parallel conv), K9 (standalone pool) — each kernel
    against its plain PyTorch version on the card (max abs <= 1e-4 *
-   max(1, max|plain|)), a repeat bit for bit and, for K1, K2, K5, K6, K7
-   and K8 at batch 16, frame 0 bit for bit against the kernel on frame 0
-   alone (the stage-major kernels K1, K2, K5 and K6 sum each output in an
+   max(1, max|plain|)), a repeat bit for bit and, for K1-K8 but K9 at
+   batch 16, frame 0 bit for bit against the kernel on frame 0 alone (the
+   stage-major kernels K1, K2, K4, K5 and K6 sum each output in an
    order fixed by the stage's shape, so this holds though their schedule
-   follows the batch), then timed
+   follows the batch; K3's weight stream slices K by K, N and the SM count
+   alone), then timed
    with CUDA events (median of 25 after warm-up) beside its plain version,
    one PyTorch library call as a yardstick and its bound (each case line
    also prints ``bound_share``, bound / kernel time, and ``host_ms``, the
    wrapper's host time a call: the mean of ``HOST_REPS`` calls enqueued
-   back to back, which the card's queue absorbs); and the
+   back to back, which the card's queue absorbs; K3's also ``device_ms``,
+   the device time a call without the host gap, as in 7a); and the
    second-generation cells at batch 1
    and 16 — K4 (oc-blocked LRN cell) on AlexNet's conv1+pool1+norm1 and
    conv2+pool2+norm2, K5 (pool carry) on AlexNet's conv1+pool1 and
    conv2+pool2 (norms unfused) and the CIFAR-10 net's three groups, K6
    (oc-blocked chain) on AlexNet's conv3-5+pool5 with ``oc_block_final``
-   8 and 64 — held, repeated and timed the same way.  Each K1/K2/K5/K6
+   8 and 64 — held, repeated and timed the same way, K4 and K5 also bit
+   for bit against K1 on the same group (one plan).  Each K1/K2/K4-K6
    case line carries its cooperative launch's geometry (``chain``: grid,
    blocks an SM holds, grid barriers, scratch MB, each stage's unit,
    items and whether an item takes the whole reduction); a batch-16 grid
@@ -84,12 +87,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
       at least ``K10_WGMMA_GAIN`` times slower at 4500 tokens, and SDPA
       with ``is_causal`` is timed where the window does not bite.  K3 in
       bf16 at the seven projections' five shapes for M = 4 (a decode
-      step), M = 16, 300, 1500 and 4500 (the prefills) and M = 64; every
-      element within ``rtol * |plain| + atol`` (``LM_KERNEL_TOL``).  Each
+      step), M = 16, 300, 1500 and 4500 (the prefills) and M = 64, and at
+      the gate's shape for M = 48; every element within ``rtol * |plain| +
+      atol`` (``LM_KERNEL_TOL``), each case with its ``host_ms``.  Each
       K3 launch must step the counter of the path ``k3_path`` names: the
       weight stream below 64 rows, TMA + wgmma from 64 on, where the
       CUDA-core tile is held and timed beside it (tile, wgmma, wgmma,
-      tile) and must be at least ``K3_WGMMA_GAIN`` times slower at 4500;
+      tile) and must be at least ``K3_WGMMA_GAIN`` times slower at 4500.
+      On the stream, row 0 must equal the same row called alone bit for
+      bit, ``STREAM_GRAPH_LAUNCHES`` calls are captured into a CUDA graph
+      whose replay gives the device time a call (``device_ms``, no host
+      gap), and the M = 48 case, which reads w once as M = 4 does, must
+      take under ``STREAM_ROWS_READ_ONCE`` times the M = 4 gate's device
+      time;
    b. CPU parity: the model with its depth cut to one local/global pair,
       float32, random weights from ``--seed`` on the card and the same on
       the CPU; a 64-token prompt prefilled (K10 once a layer on the card,
@@ -110,8 +120,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
       a second run must give the same tokens.  Each prefill, each decode
       step and the run are timed;
    d. ``torch.profiler`` over one prefill of 1500 tokens and three decode
-      steps of the full model: device time by kernel and the device's busy
-      share;
+      steps of the full model: device time by kernel (K3's also by path)
+      and the device's busy share;
 8. rwkv6-1.6b at full width (the same engine over ``RWKV6LM``), its wall
    time printed:
    a. kernel cases at its shapes, held, repeated and timed as in 7a: K11
@@ -121,7 +131,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
       ``LM_KERNEL_TOL``; a state hand-off (two calls over the halves of
       1500 tokens against one over the whole); K3 in bf16 at the three
       projection shapes for the M of 7a (4, 16, 64, 300, 1500 and 4500),
-      its paths checked and timed as in 7a;
+      its paths, rows and device times checked and timed as in 7a;
    b. CPU parity as 7b: two layers in float32, the leaves the init rules
       leave at zero redrawn (``repro_torch.nn.rwkv.RWKV_REDRAW``), a
       100-token prompt (two
@@ -193,10 +203,10 @@ KERNELS = ("K1", "K2", "K3", "K7", "K8", "K9")
 CELLS = ("K4", "K5", "K6")
 #: kernels whose batch-16 cases must give frame 0 the bits of frame 0
 #: launched alone (phase 3)
-FRAME_CHECKED = ("K1", "K2", "K5", "K6", "K7", "K8")
+FRAME_CHECKED = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
 #: the cells that launch the one stage-major kernel (csrc/conv_chain.cu on
-#: csrc/conv_stage_major.cuh)
-STAGE_MAJOR = ("K1", "K2", "K5", "K6")
+#: csrc/conv_stage_major.cuh); K4 and K5 on K1's plan, with K1's bits
+STAGE_MAJOR = ("K1", "K2", "K4", "K5", "K6")
 #: the tuned deployment of phase 5: norm1 unfused so that conv1+pool1
 #: runs the pool carry (K5), conv2+pool2+norm2 the oc-blocked LRN cell
 #: (K4), conv3-5+pool5 the oc-blocked chain (K6)
@@ -362,7 +372,8 @@ def run_case(torch, F, kid, step, n, params, dev, peaks, obf=None):
         w, b = p["w"], p["b"]
         x = torch.randn((n, step.d_in), generator=gen, device=dev)
         act = "relu" if step.relu else "none"
-        kernel = lambda: mm_ops.matmul_fused(x, w, b, act)  # noqa: E731
+        kernel_at = lambda xx: mm_ops.matmul_fused(xx, w, b, act)  # noqa
+        kernel = lambda: kernel_at(x)  # noqa: E731
         plain = lambda: matmul_fused_ref(x, w, b, act)  # noqa: E731
 
         def library():
@@ -409,7 +420,9 @@ def run_case(torch, F, kid, step, n, params, dev, peaks, obf=None):
                             lrn_beta=g.lrn.lrn_beta, lrn_k=g.lrn.lrn_k)
         one = (x, ws[0], bs[0], strides[0], pads[0], relus[0])
         if kid == "K4":
-            kernel = lambda: conv_ops.conv2d_pool_lrn_halo(*one, **tail)  # noqa
+            kernel_at = lambda xx: conv_ops.conv2d_pool_lrn_halo(  # noqa
+                xx, *one[1:], **tail)
+            kernel = lambda: kernel_at(x)  # noqa: E731
             plain = lambda: conv_ops.conv2d_pool_fused_ref(*one, **tail)  # noqa
         elif kid == "K5":
             kernel_at = lambda xx: conv_ops.conv2d_pool_carry(  # noqa: E731
@@ -486,6 +499,11 @@ def run_case(torch, F, kid, step, n, params, dev, peaks, obf=None):
         if not torch.equal(kernel_at(x[:1].contiguous()), out[:1]):
             fail(f"{kid} {step.names} n={n}: frame 0 differs from the same "
                  f"frame launched alone")
+    if kid in ("K4", "K5"):
+        # K4 and K5 launch the stage-major kernel on K1's plan: K1's bits
+        if not torch.equal(conv_ops.conv2d_pool_fused(*one, **tail), out):
+            fail(f"{kid} {step.names} n={n}: differs from K1 on the same "
+                 f"group")
     lib_err = (library() - ref).abs().max().item()
     ms = time_ms(torch, kernel)
     torch.cuda.synchronize()
@@ -508,6 +526,8 @@ def run_case(torch, F, kid, step, n, params, dev, peaks, obf=None):
     if kid in STAGE_MAJOR:
         row["chain"] = chain_geometry(torch, conv_ops, kid, n, step, ws,
                                       strides, pads, relus, pool, obf)
+    if kid == "K3":  # the weight stream: its device time, no host gap
+        row["device_ms"] = stream_device_ms(torch, kernel)
     return row
 
 
@@ -624,7 +644,7 @@ def tuned_phase(torch, np, net, np_params, rng, dev, counters, card):
     if eng.device.type != "cuda":
         fail(f"tuned deploy: engine on {eng.device}")
     default = CNNEngine(net)
-    report = eng.fusion_report(batch=max(TUNED_BATCHES))
+    report = eng.fusion_report()
     cells = [r["cell"] for r in report]
     if cells != ["K5", "K4", "K6"]:
         fail(f"tuned deploy: groups resolved to {cells}")
@@ -663,9 +683,7 @@ def tuned_phase(torch, np, net, np_params, rng, dev, counters, card):
               f"forward {default_ms:.3f} ms (event medians of {TUNED_REPS}),"
               f" launches {launches}, max abs err vs CPU {err:.3g} [{card}]",
               flush=True)
-    return {"knobs": knobs, "fusion_report": report,
-            "fusion_report_batch1": eng.fusion_report(batch=1),
-            "forwards": rows}
+    return {"knobs": knobs, "fusion_report": report, "forwards": rows}
 
 
 def serving_phase(torch, np, net, np_params, rng, dev, counters):
@@ -829,6 +847,16 @@ K3_LM_SHAPES = ((2304, 2048, "none"), (2304, 1024, "none"),
 #: ``K3_LM_MAIN_ROWS`` (and its wgmma entry those at 4500)
 K3_LM_ROWS = (4, 16, 64, 300, 1500, 4500)
 K3_LM_MAIN_ROWS = (4, 4500)
+#: phase 7a's extra stream case: M = 48 at the gate's shape (three 16-row
+#: tiles, which the stream reads w once for, as for M = 4)
+K3_READ_ONCE_CASE = (48, 2304, 9216, "gelu")
+#: the M = 48 case's device time must stay under this many times the M = 4
+#: gate's (reading w three times, as 16-row tiles over M did, takes about
+#: three)
+STREAM_ROWS_READ_ONCE = 2.0
+#: stream calls captured into one CUDA graph, whose replay times the
+#: device alone (no host gap between launches)
+STREAM_GRAPH_LAUNCHES = 20
 #: at this M every projection shape must run on the wgmma path at least
 #: this many times faster than on the CUDA-core tile, timed in one call
 K3_WGMMA_GAIN = (4500, 5.0)
@@ -867,13 +895,36 @@ def _check_close(label, out, ref, tol, rtol=0.0):
     return err
 
 
+def stream_device_ms(torch, call):
+    """Device time of one call on the weight stream: ``STREAM_GRAPH_
+    LAUNCHES`` calls captured into a CUDA graph (the launch allocates only
+    y and never synchronises, so it captures), the replay timed with CUDA
+    events, the median of 5 over the launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(STREAM_GRAPH_LAUNCHES):
+            call()
+    ms = time_ms(torch, graph.replay, 5) / STREAM_GRAPH_LAUNCHES
+    del graph
+    return ms
+
+
 def k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks, main):
     """K3 on bf16 operands at one projection shape, held against its plain
     version element by element, repeated bit for bit and timed beside
-    ``torch.matmul`` (+ the activation); the launch must take the path
-    ``k3_path`` names (the weight stream below 64 rows, else wgmma), and
-    from 64 rows on the CUDA-core tile is timed beside it, in the order
-    tile, wgmma, wgmma, tile.  Returns the record."""
+    ``torch.matmul`` (+ the activation), with its host time a call
+    (``host_ms``); the launch must take the path ``k3_path`` names (the
+    weight stream below 64 rows, else wgmma).  On the stream, row 0 must
+    give the bits of the same row called alone, and the device time a call
+    comes from a captured graph (``stream_device_ms``); from 64 rows on
+    the CUDA-core tile is timed beside it, in the order tile, wgmma,
+    wgmma, tile.  Returns the record."""
     from repro_torch.kernels.matmul_fused import ops as mm_ops
     from repro_torch.kernels.matmul_fused.ops import k3_path, matmul_fused
     from repro_torch.kernels.matmul_fused.ref import matmul_fused_ref
@@ -911,6 +962,9 @@ def k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks, main):
         fail(f"{label}: output {out.dtype}")
     if not torch.equal(kernel(), out):
         fail(f"{label}: a repeated launch differs")
+    if path == "stream" and m > 1 and not torch.equal(
+            matmul_fused(x[:1], w, None, act), out[:1]):
+        fail(f"{label}: row 0 differs from the same row called alone")
     lib_err = (library().float() - ref.float()).abs().max().item()
     flops = 2.0 * m * kk * n
     nbytes = 2.0 * (m * kk + kk * n + m * n)
@@ -931,6 +985,13 @@ def k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks, main):
                  f"tile's {r['tile_ms']:.4f}, under {gain}x")
     else:
         r["ms"] = time_ms(torch, kernel)
+        r["device_ms"] = stream_device_ms(torch, kernel)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_REPS):
+        kernel()
+    r["host_ms"] = (time.perf_counter() - t0) * 1e3 / HOST_REPS
+    torch.cuda.synchronize()
     r.update(plain_ms=time_ms(torch, plain),
              library_ms=time_ms(torch, library),
              bound_ms=1e3 * max(flops / bf16_peak, nbytes / bw_peak),
@@ -1045,6 +1106,19 @@ def lm_kernel_cases(torch, F, dev, peaks):
         for kk, n, act in K3_LM_SHAPES:
             rows.append(k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks,
                                      m in K3_LM_MAIN_ROWS))
+    m, kk, n, act = K3_READ_ONCE_CASE
+    once = k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks, False)
+    m4 = next(r for r in rows if r["kernel"] == "K3-bf16" and r["rows"] == 4
+              and (r["k"], r["n"]) == (kk, n))
+    once["device_vs_m4"] = once["device_ms"] / m4["device_ms"]
+    print(f"K3 stream M={m} {kk}->{n}: device {once['device_ms']:.4f} ms, "
+          f"{once['device_vs_m4']:.2f}x M=4's {m4['device_ms']:.4f}",
+          flush=True)
+    if not once["device_vs_m4"] < STREAM_ROWS_READ_ONCE:
+        fail(f"K3 stream M={m} {kk}->{n}: {once['device_vs_m4']:.2f}x the "
+             f"device time of M=4, not under {STREAM_ROWS_READ_ONCE}x: w "
+             f"read more than once?")
+    rows.append(once)
     return rows
 
 
@@ -1293,10 +1367,12 @@ def lm_serving_phase(torch, np, dev, counters, card, model, init_s, expect):
 
 
 #: device-kernel names of the port's kernels, for the profile's breakdown
-PROFILE_GROUPS = (("K3", ("mm_wgmma", "mm_tiled", "mm_partial",
-                          "mm_reduce")),
+PROFILE_GROUPS = (("K3", ("mm_wgmma", "mm_tiled", "mm_stream")),
                   ("K10", ("flash_wgmma", "flash_fwd")),
                   ("K11", ("wkv6_fwd",)))
+#: K3's device kernels by path
+K3_PROFILE_PATHS = (("stream", "mm_stream"), ("tiles", "mm_tiled"),
+                    ("wgmma", "mm_wgmma"))
 
 
 def lm_profile(torch, model, card):
@@ -1344,16 +1420,20 @@ def lm_profile(torch, model, card):
                               if any(nm in key for nm in names))
                      for kid, names in PROFILE_GROUPS}
         by_kernel["rest"] = dev - sum(by_kernel.values())
+        k3_by_path = {path: sum(ms for key, ms, _ in rows if nm in key)
+                      for path, nm in K3_PROFILE_PATHS}
         rows.sort(key=lambda r: -r[1])
         out[name] = {"wall_ms": wall, "device_ms": dev,
                      "busy_share": dev / wall if dev else None,
                      "device_ms_by_kernel": by_kernel,
+                     "k3_device_ms_by_path": k3_by_path,
                      "top": [{"name": k[:80], "ms": ms, "calls": n}
                              for k, ms, n in rows[:10]]}
         print(f"{model.cfg.name} profile {name}: wall {wall:.2f} ms, device "
               f"{dev:.2f} ms, by kernel "
-              f"{ {k: round(v, 3) for k, v in by_kernel.items()} } [{card}]",
-              flush=True)
+              f"{ {k: round(v, 3) for k, v in by_kernel.items()} }, K3 by "
+              f"path { {k: round(v, 3) for k, v in k3_by_path.items()} } "
+              f"[{card}]", flush=True)
     return out
 
 
@@ -1591,7 +1671,7 @@ def main() -> int:
                "src/repro/kernels/conv2d/kernels.py:1103"),
         "K3": ("matmul_fused", "src/repro_torch/csrc/matmul_fused.cu",
                "src/repro/kernels/matmul_fused/kernel.py:37"),
-        "K4": ("conv_pool_lrn_halo", "src/repro_torch/csrc/conv_pool_lrn.cu",
+        "K4": ("conv_pool_lrn_halo", "src/repro_torch/csrc/conv_chain.cu",
                "src/repro/kernels/conv2d/kernels.py:681"),
         "K5": ("conv_pool_carry", "src/repro_torch/csrc/conv_chain.cu",
                "src/repro/kernels/conv2d/kernels.py:708"),

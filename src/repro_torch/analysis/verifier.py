@@ -11,7 +11,8 @@ Not ported: the JAX verifier's band-coverage rules (V2xx) and its VMEM
 budget audit (V3xx).  Both prove the TPU kernels' row-band tiling and
 their fit in VMEM; the CUDA kernels tile differently (a block per pooled
 row band, shared memory under 227 KB, checked by the CPU geometry tests)
-and their own rules wait for ROADMAP item 8.
+and their own rules wait for the port's static analysis (ROADMAP.md,
+"Modules still to port": static analysis for the port).
 """
 from __future__ import annotations
 

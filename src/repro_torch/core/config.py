@@ -3,7 +3,8 @@
 Every architecture is a frozen :class:`ModelConfig`; the modules of
 ``repro_torch.configs`` register themselves on import, as in the JAX
 package.  The shape, mesh and training configurations of the JAX package
-belong to paths the port does not run yet (ROADMAP.md, item 10).
+belong to paths the port does not run yet: training, and the sharding
+decision (ROADMAP.md, "Modules still to port").
 """
 from __future__ import annotations
 

@@ -254,14 +254,13 @@ class CNNEngine:
             return False, findings
         return True, findings
 
-    def fusion_report(self, fuse: Optional[bool] = None,
-                      batch: int = 1) -> List[dict]:
+    def fusion_report(self, fuse: Optional[bool] = None) -> List[dict]:
         """Executed geometry of every fused group of this configuration's
         plan: layer names, chain depth, the final-row band a block owns
         (``rows_per_cell`` × ``n_tiles``), the output size, and the kernel
-        (``cell``) with its channel block, resolved for ``batch`` frames
-        on an H100 (``ExecutionPlan.fusion_report``)."""
-        return self.plan(fuse).fusion_report(batch)
+        (``cell``) with its channel block
+        (``ExecutionPlan.fusion_report``)."""
+        return self.plan(fuse).fusion_report()
 
     def forward(self, params, x, collect: Optional[dict] = None,
                 fuse: Optional[bool] = None):

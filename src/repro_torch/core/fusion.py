@@ -202,18 +202,15 @@ def fusion_summary(plan: Iterable[PlanItem]) -> List[Tuple[str, ...]]:
 def group_geometry(group: FusedLayerSpec, method: Method,
                    in_shape: Tuple[int, int, int], *,
                    pool_carry: Optional[bool] = None,
-                   lrn_oc_block: Optional[bool] = None,
-                   batch: int = 1) -> dict:
+                   lrn_oc_block: Optional[bool] = None) -> dict:
     """The executed geometry of one fused group, resolved by the same
     rules as the dispatch (``methods.fused_cell`` / ``chain_cell``): the
     JAX report's keys — ``group``, ``convs``, ``rows_per_cell`` (final
     rows a block owns; a chain's whole frame, since each of its stages
     covers every row), ``n_tiles`` (bands a frame) and ``out_hw`` — from
-    the port's tiling at ``batch`` on an H100 (``REPORT_SMS``), plus
-    ``cell`` (the kernel) and ``oc_block`` (output channels of the last
-    stage a block computes).  ``in_shape`` is the ``(C, H, W)`` entering
-    the group."""
-    sms = conv_ops.REPORT_SMS
+    the port's tiling, plus ``cell`` (the kernel) and ``oc_block``
+    (output channels of the last stage an item computes).  ``in_shape``
+    is the ``(C, H, W)`` entering the group."""
     convs = group.convs
     ins = (in_shape[0],) + tuple(cv.out_channels for cv in convs[:-1])
     stages = conv_ops.make_stages(
@@ -234,11 +231,9 @@ def group_geometry(group: FusedLayerSpec, method: Method,
                           p.stride, lrn_n, pool_carry, lrn_oc_block)
         if cell == "K7":
             blk, ocb = 1, oc
-        elif cell == "K4":
-            blk, ocb = conv_ops.k4_geometry(stages, pool, lrn_n, batch, sms)
         else:
-            # stage-major (K1, K5): one band of all the final rows, items
-            # ST_TO channels wide
+            # stage-major (K1, K4, K5): one band of all the final rows,
+            # items ST_TO channels wide
             blk, ocb = total, min(oc, conv_ops.ST_TO)
     else:
         # stage-major (K2, K6): every stage covers the whole frame, so one

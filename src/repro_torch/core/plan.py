@@ -218,17 +218,15 @@ class ExecutionPlan:
                     collect[n] = x
         return x
 
-    def fusion_report(self, batch: int = 1) -> List[dict]:
+    def fusion_report(self) -> List[dict]:
         """The executed geometry of every fused group, read off the plan
         steps (each carries its resolved input shape, method and cell
         knobs): the JAX report's keys plus the kernel (``cell``) and its
-        channel block, at ``batch`` on an H100 — see
-        ``fusion.group_geometry``."""
+        channel block — see ``fusion.group_geometry``."""
         return [group_geometry(
                     s.group, s.method, s.in_shape,
                     pool_carry=s.kwargs.get("pool_carry"),
-                    lrn_oc_block=s.kwargs.get("lrn_oc_block"),
-                    batch=batch)
+                    lrn_oc_block=s.kwargs.get("lrn_oc_block"))
                 for s in self.steps if s.kind in ("fused", "chain")]
 
 

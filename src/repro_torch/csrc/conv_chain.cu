@@ -1,4 +1,4 @@
-// The stage-major convolution kernel (conv_stage_major.cuh) and its four
+// The stage-major convolution kernel (conv_stage_major.cuh) and its five
 // entry points, each one cooperative launch of the same __global__:
 //
 // K2 (conv_chain_f32): a chain of convolutions (each with bias and
@@ -42,9 +42,20 @@
 // in VMEM, so that each conv row is computed once.  Stage-major, that
 // holds by construction, so K5 is K1's launch without an LRN, on the same
 // plan: the two give the same bits on the same group.
+//
+// K4 (conv_pool_lrn_halo_f32): one stage with a pool and an LRN.  It
+// replaces the TPU kernel conv2d_advanced_simd ->
+// _advanced_simd_halo_kernel (with _pool_epilogue_halo and
+// lrn_band_halo), which splits the output channels into tiles, each
+// widened by the n - 1 halo channels its LRN window reads, and recomputes
+// those halos and the pool windows that straddle two bands.  Stage-major,
+// the LRN tail runs after a grid barrier and sees every channel of a
+// pixel, so no halo is left to compute: K4 is K1's launch on K1's plan,
+// and the two give the same bits on the same group.
 #include <atomic>
 
 #include "conv_stage_major.cuh"
+#include "hopper_common.cuh"
 
 namespace cnnk {
 
@@ -59,16 +70,7 @@ stage_major_kernel(Geo g, Plan p, const float* __restrict__ x, float* out,
 // small nets' host-bound calls otherwise).
 inline cudaError_t opt_in_smem() {
   static std::atomic<unsigned long long> done{0};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
-  if (bit && (done.load(std::memory_order_acquire) & bit)) return cudaSuccess;
-  e = cudaFuncSetAttribute(stage_major_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           CH_SMEM);
-  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return e;
+  return hopper::opt_in_smem(stage_major_kernel, CH_SMEM, done);
 }
 
 // Reads geo[], lrn[] and plan[] (ws/bs: host arrays of each stage's device
@@ -138,6 +140,17 @@ extern "C" int conv_pool_lrn_f32(const void* x, const void* const* ws,
                                  const float* lrn, const int* plan,
                                  void* stream) {
   if (geo[1] != 1) return (int)cudaErrorInvalidValue;
+  return cnnk::launch_stage_major(x, ws, bs, out, scratch, geo, lrn, plan,
+                                  nullptr, stream);
+}
+
+// K4.  As K2 with one stage, a pool and an LRN.
+extern "C" int conv_pool_lrn_halo_f32(const void* x, const void* const* ws,
+                                      const void* const* bs, void* out,
+                                      void* scratch, const int* geo,
+                                      const float* lrn, const int* plan,
+                                      void* stream) {
+  if (geo[1] != 1 || !geo[2] || !geo[8]) return (int)cudaErrorInvalidValue;
   return cnnk::launch_stage_major(x, ws, bs, out, scratch, geo, lrn, plan,
                                   nullptr, stream);
 }

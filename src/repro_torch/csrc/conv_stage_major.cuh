@@ -1,7 +1,7 @@
-// The stage-major schedule of the fp32 convolution kernels K1, K2, K5 and
-// K6 (one kernel, conv_chain.cu, with an entry point each):
-// a chain of convolutions (each with bias and optional ReLU; K1 and K5 are
-// the one-stage case), then an optional VALID pool -> ReLU -> channel LRN
+// The stage-major schedule of the fp32 convolution kernels K1, K2, K4, K5
+// and K6 (one kernel, conv_chain.cu, with an entry point each):
+// a chain of convolutions (each with bias and optional ReLU; K1, K4 and K5
+// are the one-stage case), then an optional VALID pool -> ReLU -> channel LRN
 // tail, in one cooperative launch whose blocks all stay resident.  Each
 // stage is one implicit GEMM over every frame's output pixels at once,
 // [N*OH*OW, KH*KW*C] x [KH*KW*C, OC], cut into tiles of ST_TP pixels x

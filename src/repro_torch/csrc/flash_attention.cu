@@ -249,23 +249,6 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Opts ``kernel`` in to ``bytes`` of dynamic shared memory on the current
-// device, once a device: ``done`` holds a bit per device that has been
-// opted in (a runtime call every launch would pay otherwise).
-template <typename K>
-cudaError_t opt_in_smem(K* kernel, int bytes,
-                        std::atomic<unsigned long long>& done) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
-  if (bit && (done.load(std::memory_order_acquire) & bit)) return cudaSuccess;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           bytes);
-  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return e;
-}
-
 template <int HD, typename T>
 int launch_simt(const void* q, const void* k, const void* v, void* out, int b,
                 int sq, int skv, int H, int KVH, int causal, int window,

@@ -1,14 +1,19 @@
 // PTX wrappers and the tensor-map encoder shared by the kernels that run
 // on Hopper's TMA and wgmma (K3's tensor-core path in matmul_fused.cu and
 // K10's in flash_attention.cu): shared-memory addresses, mbarriers, TMA
-// loads, wgmma's fence, commit, wait and shared-memory descriptors.  Every
-// function emits exactly the instructions it is named after, so a kernel
-// that calls them compiles to what it did with the asm written inline.
+// loads, wgmma's fence, commit, wait and shared-memory descriptors; and
+// the cp.async copies, ldmatrix loads and mma.sync products of K3's
+// weight stream.  Every device function emits exactly the instructions it
+// is named after, so a kernel that calls them compiles to what it did
+// with the asm written inline.  On the host: the tensor-map encoder and
+// the once-a-device shared-memory opt-in every large-smem kernel uses.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from cudart
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace hopper {
 
@@ -110,6 +115,70 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// 16 bytes from global memory at src to shared memory at dst (both
+// 16-byte aligned), or 16 zero bytes when !valid (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// the same for 4 bytes (both 4-byte aligned)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// returns once at most N of this thread's committed groups of copies are
+// still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// four 8 x 8 matrices of 16-bit values from shared memory: lanes 8 j to
+// 8 j + 7 give the addresses of matrix j's rows (16 bytes each), and
+// r[j] holds the lane's pair of matrix j (row lane / 4, columns 2 (lane %
+// 4) and the next)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// the same with each matrix transposed: r[j] holds rows 2 (lane % 4) and
+// the next of column lane / 4
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// d += a (16 x 16, row-major fragment) * b (16 x 8, column fragment b0,
+// b1) on the tensor cores, bf16 operands and an fp32 accumulator
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,
                                  const cuuint64_t*, const cuuint32_t*,
@@ -165,6 +234,24 @@ inline bool tensor_map(CUtensorMap* map, const void* base, int rows, int cols,
   const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   return tensor_map_bf16(map, base, 2, dims, strides, box);
+}
+
+// Opts ``kernel`` in to ``bytes`` of dynamic shared memory on the current
+// device, once a device: ``done`` (one per kernel and size) holds a bit per
+// device already opted in, so later launches make no runtime call, and
+// none while a stream is captured.
+template <typename K>
+inline cudaError_t opt_in_smem(K* kernel, int bytes,
+                               std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (bit && (done.load(std::memory_order_acquire) & bit)) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return e;
 }
 
 }  // namespace hopper

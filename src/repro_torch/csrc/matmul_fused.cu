@@ -7,25 +7,58 @@
 // matmul_fused_pallas -> _kernel.
 //
 // Three paths, chosen by the host from the type, the shape and the
-// pointers and passed as ``path``; each sums in a fixed order, so repeated
-// runs give the same bits (no atomics), and a row's result does not depend
-// on how many rows share the call:
+// pointers and passed as ``path``.  Each sums in a fixed order, so repeated
+// runs give the same bits (no atomics in any sum), and on each path a
+// row's result does not depend on how many rows share the call: the order
+// of every sum is fixed by K, N and the card's SM count, never by M.  The
+// path itself changes at 64 rows, and with it the order.
 //
 // * Weight stream (path 0; M below 64 in either type: AlexNet's fc layers
 //   at batch 1 to 16, an LM decode step, a short prompt).  Bound on the
 //   H100: bytes.  AlexNet's fc6 streams 151 MB for 2 * M * 37.7 M
-//   operations, about 45 us at 3.35 TB/s against 1 to 18 us of fp32 FMAs;
-//   a decode step of gemma2-2b streams 156 MB of bf16 weights a layer for
-//   M = 4.  So the design fills every SM with weight rows, not with square
-//   tiles:
-//     pass 1: a block owns 512 output columns (4 a thread, 128 apart so
-//             each warp reads contiguous bytes of a weight row) and a K
-//             slice, keeps its x slice [BM, <= 512] in shared memory, and
-//             writes its partial sums to a scratch [splits, M, N];
-//     pass 2: sums the partials in split order, adds the bias and applies
-//             the activation.
-//   The split count is chosen by the host so that about four blocks per SM
-//   are in flight while the partials stay small next to the weights.
+//   operations, 45 us at 3.35 TB/s against 1 to 18 us of fp32 FMAs; a
+//   decode step of gemma2-2b streams 156 MB of bf16 weights a layer, and
+//   its gate projection alone 42.5 MB, 12.7 us.  One launch a call, which
+//   reads every weight byte from HBM once whatever M, and no partial sums
+//   in global memory:
+//     - A block owns SW_BN output columns and one K slice of whole ring
+//       stages, and keeps the partial sums of every row of the call (M
+//       padded to the row tile) for its columns.  The K slices of a column
+//       block are one thread-block cluster (SW_CLUSTER blocks at most).
+//       The slicing (ops.split_k) is a function of K, N and the SM count
+//       only: about SW_BLOCKS_PER_SM blocks an SM.
+//     - w's [stage rows, SW_BN] tile and x's [rows, stage rows] tile come
+//       through a ring of SW_STAGES shared-memory stages by 16-byte
+//       cp.async (zero-filled past K, N and M), three stages in flight
+//       while one computes: 24 KB of weights a block, about 48 KB an SM.
+//       x comes through the ring beside w rather than once a slice: at 63
+//       rows a slice of x would not fit beside the ring.  Shapes whose rows
+//       are not whole 16-byte chunks (LeNet-5's fc3, N = 10) take 4-byte
+//       copies (fp32) or plain loads (bf16) into the same layout.
+//     - After the ring, the block adds its warps' sums in a fixed tree,
+//       leaves its fp32 partial tile in its own shared memory and waits at
+//       the cluster barrier; then block r of the cluster sums its share of
+//       the tile's outputs over the slices in rank order (0, 1, ...,
+//       through distributed shared memory), adds the bias, applies the
+//       activation and stores y once; a second cluster barrier keeps every
+//       partial alive until it has been read.
+//   fp32: CUDA-core FMAs (a tensor core would round the operands to
+//   TF32).  Warp j of 8 takes the stage rows 4 j to 4 j + 3 in order; a
+//   lane owns two columns for every row of the tile, and reads a row's
+//   four x values as one float4 (a broadcast).  At fc6's M = 16, 16 *
+//   37.7 M FMAs are 18 us on 132 SMs, under its 45 us of bytes.
+//   bf16: tensor cores, mma.sync m16n8k16 (products of bf16 operands are
+//   exact in fp32; the sums stay in one fixed order).  By arithmetic:
+//   gemma2's gate at M = 16 needs 16 * 21.2 M = 340 M FMAs, 10.2 us at the
+//   card's 33.4 T FMA/s, 80 % of the 12.7 us the bytes take, before the
+//   conversion of each weight to fp32 and the shared-memory reads of both
+//   operands that every FMA needs: CUDA-core FMAs would exceed the byte
+//   bound there.  A row's bits must not depend on M, so the form taken at
+//   M = 16 is taken at every M: a 16-row tile of the tensor cores, whose
+//   padding rows cost 0.7 us of their rate at M = 1.  Warps 0-3 own 16
+//   columns each over the even k16 steps of a stage, warps 4-7 the same
+//   columns over the odd ones (ldmatrix of both operands from rows padded
+//   to distinct banks); the two halves are added in that order.
 // * Tensor-core tiles (path 2; bf16 with M of 64 and more: an LM prefill,
 //   M the prompt length; K and N multiples of 8 and x, w 16-byte aligned,
 //   as TMA needs).  Bound: operations (2 * 4500 * 2304 * 9216 for
@@ -53,21 +86,20 @@
 //   shared memory (the next step's loads in registers while this step
 //   computes); operands are converted to fp32 on load; no split of K, the
 //   epilogue adds the bias and applies the activation.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #include "hopper_common.cuh"
 
 namespace {
 
 using namespace hopper;
-
-constexpr int MM_THREADS = 128;
-constexpr int COLS = 4;                       // columns per thread
-constexpr int BN = MM_THREADS * COLS;         // columns per block
-constexpr int KMAX = 512;                     // largest K slice a block takes
+namespace coop = cooperative_groups;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -82,70 +114,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-template <int BM, typename T>
-__global__ void __launch_bounds__(MM_THREADS)
-mm_partial(const T* __restrict__ x, const T* __restrict__ w,
-           float* __restrict__ part, int M, int N, int K, int kchunk) {
-  __shared__ float xs[BM][KMAX];
-  const int n0 = blockIdx.x * BN + threadIdx.x;
-  const int s = blockIdx.y;
-  const int m0 = blockIdx.z * BM;
-  const int kb = s * kchunk;
-  const int ke = min(K, kb + kchunk);
-  const int kl = ke - kb;
-  for (int e = threadIdx.x; e < BM * kl; e += MM_THREADS) {
-    int m = e / kl;
-    int k = e - m * kl;
-    xs[m][k] = (m0 + m < M) ? to_f(x[(long)(m0 + m) * K + kb + k]) : 0.f;
-  }
-  __syncthreads();
-  float acc[BM][COLS];
-#pragma unroll
-  for (int m = 0; m < BM; ++m)
-#pragma unroll
-    for (int j = 0; j < COLS; ++j) acc[m][j] = 0.f;
-  bool ok[COLS];
-#pragma unroll
-  for (int j = 0; j < COLS; ++j) ok[j] = n0 + j * MM_THREADS < N;
-  int k = 0;
-  // four weight rows in flight per thread
-  for (; k + 4 <= kl; k += 4) {
-    float wv[4][COLS];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const T* row = w + (long)(kb + k + u) * N + n0;
-#pragma unroll
-      for (int j = 0; j < COLS; ++j)
-        wv[u][j] = ok[j] ? to_f(row[j * MM_THREADS]) : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int m = 0; m < BM; ++m) {
-        float xv = xs[m][k + u];
-#pragma unroll
-        for (int j = 0; j < COLS; ++j) acc[m][j] = fmaf(xv, wv[u][j], acc[m][j]);
-      }
-  }
-  for (; k < kl; ++k) {
-    const T* row = w + (long)(kb + k) * N + n0;
-#pragma unroll
-    for (int j = 0; j < COLS; ++j) {
-      float wv = ok[j] ? to_f(row[j * MM_THREADS]) : 0.f;
-#pragma unroll
-      for (int m = 0; m < BM; ++m) acc[m][j] = fmaf(xs[m][k], wv, acc[m][j]);
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < BM; ++m) {
-    if (m0 + m >= M) break;
-    float* dst = part + ((long)s * M + m0 + m) * N + n0;
-#pragma unroll
-    for (int j = 0; j < COLS; ++j)
-      if (ok[j]) dst[j * MM_THREADS] = acc[m][j];
-  }
-}
-
 __device__ inline float activate(float y, int act) {
   if (act == 1) return fmaxf(y, 0.f);
   if (act == 2) return y * (1.f / (1.f + expf(-y)));
@@ -154,26 +122,375 @@ __device__ inline float activate(float y, int act) {
   return y;
 }
 
+// -- path 0: the weight stream ----------------------------------------------
+
+constexpr int SW_THREADS = 256;   // 8 warps
+constexpr int SW_BN = 64;         // output columns of a block
+constexpr int SW_STAGES = 4;      // the shared-memory ring
+constexpr int SW_BK16 = 64;       // K rows of a stage, bf16
+constexpr int SW_BK32 = 32;       // K rows of a stage, fp32
+constexpr int SW_PAD16 = 8;       // bf16 row padding: ldmatrix rows on distinct banks
+constexpr int SW_CLUSTER = 8;     // most K slices: the blocks of one cluster
+constexpr int SW_BLOCKS_PER_SM = 2;  // the slicing's aim (ops.split_k)
+constexpr int SW_MT = 4;          // most 16-row m tiles, bf16
+constexpr int SW_BM32 = 64;       // most rows of the fp32 tile
+constexpr int SW_LD16 = SW_BN + SW_PAD16;  // a bf16 tile row, w's and x's
+static_assert(SW_BN == SW_BK16, "w's and x's bf16 tile rows share SW_LD16");
+static_assert(16 * SW_MT == 64 && SW_BM32 == 64,
+              "the row tiles reach the 63 rows below the tiled paths");
+
+// dynamic shared memory of the ring: bf16 with MT m tiles, fp32 with BM rows
+constexpr int sw_smem16(int mt) {
+  return SW_STAGES * (SW_BK16 + 16 * mt) * SW_LD16 * 2;
+}
+constexpr int sw_smem32(int bm) {
+  return SW_STAGES * SW_BK32 * (SW_BN + bm) * 4;
+}
+
+// Block r of the cluster sums its share of the [rows, SW_BN] partial tiles
+// over the cluster's blocks in rank order, adds the bias, applies the
+// activation and stores y's rows below M and columns below N.
 template <typename T>
-__global__ void mm_reduce(const float* __restrict__ part,
-                          const float* __restrict__ b, T* __restrict__ y,
-                          int M, int N, int splits, int act) {
-  long mn = (long)M * N;
-  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < mn;
-       i += (long)gridDim.x * blockDim.x) {
-    float v = 0.f;
-    for (int s = 0; s < splits; ++s) v += part[s * mn + i];
-    if (b) v += b[i % N];
-    y[i] = from_f<T>(activate(v, act));
+__device__ __forceinline__ void sw_cluster_sum(const float* part, int rows,
+                                               const float* __restrict__ b,
+                                               T* __restrict__ y, int M,
+                                               int N, int n0, int act) {
+  coop::cluster_group cluster = coop::this_cluster();
+  cluster.sync();  // every slice's partial tile is written
+  const int S = (int)cluster.num_blocks(), r = (int)cluster.block_rank();
+  const int total = min(M, rows) * SW_BN;
+  const int share = (total + S - 1) / S;
+  const int e1 = min(total, (r + 1) * share);
+  for (int e = r * share + (int)threadIdx.x; e < e1; e += SW_THREADS) {
+    const int m = e / SW_BN, n = n0 + e % SW_BN;
+    if (n >= N) continue;
+    float* p = const_cast<float*>(part + e);
+    float v = *cluster.map_shared_rank(p, 0);
+    for (int q = 1; q < S; ++q) v += *cluster.map_shared_rank(p, q);
+    if (b) v += b[n];
+    y[(long)m * N + n] = from_f<T>(activate(v, act));
+  }
+  cluster.sync();  // no block leaves while another reads its tile
+}
+
+// One bf16 stage: w rows [k0, k0 + SW_BK16) x columns [n0, n0 + SW_BN) and
+// x rows [0, 16 MT) x the same K rows, zeros past K, N and M.
+template <int MT, bool VEC>
+__device__ __forceinline__ void sw_load16(const __nv_bfloat16* x,
+                                          const __nv_bfloat16* w,
+                                          __nv_bfloat16* ws,
+                                          __nv_bfloat16* xs, int M, int N,
+                                          int K, int k0, int n0) {
+  constexpr int WQ = SW_BN / 8, XQ = SW_BK16 / 8;  // 16-byte chunks a row
+  if (VEC) {
+    for (int c = threadIdx.x; c < SW_BK16 * WQ; c += SW_THREADS) {
+      const int r = c / WQ, q = c % WQ, k = k0 + r, n = n0 + 8 * q;
+      const bool ok = k < K && n < N;
+      cp_async16(ws + r * SW_LD16 + 8 * q, ok ? w + (long)k * N + n : w, ok);
+    }
+    for (int c = threadIdx.x; c < 16 * MT * XQ; c += SW_THREADS) {
+      const int r = c / XQ, q = c % XQ, k = k0 + 8 * q;
+      const bool ok = r < M && k < K;
+      cp_async16(xs + r * SW_LD16 + 8 * q, ok ? x + (long)r * K + k : x, ok);
+    }
+  } else {
+    const __nv_bfloat16 zero = __float2bfloat16(0.f);
+    for (int e = threadIdx.x; e < SW_BK16 * SW_BN; e += SW_THREADS) {
+      const int r = e / SW_BN, c = e % SW_BN, k = k0 + r, n = n0 + c;
+      ws[r * SW_LD16 + c] = k < K && n < N ? w[(long)k * N + n] : zero;
+    }
+    for (int e = threadIdx.x; e < 16 * MT * SW_BK16; e += SW_THREADS) {
+      const int r = e / SW_BK16, c = e % SW_BK16, k = k0 + c;
+      xs[r * SW_LD16 + c] = r < M && k < K ? x[(long)r * K + k] : zero;
+    }
   }
 }
 
-template <int BM, typename T>
-void launch_partial(const T* x, const T* w, float* part, int M, int N, int K,
-                    int splits, int kchunk, cudaStream_t st) {
-  dim3 grid((N + BN - 1) / BN, splits, (M + BM - 1) / BM);
-  mm_partial<BM, T><<<grid, MM_THREADS, 0, st>>>(x, w, part, M, N, K, kchunk);
+template <int MT, bool VEC>
+__global__ void __launch_bounds__(SW_THREADS)
+mm_stream16(const __nv_bfloat16* __restrict__ x,
+            const __nv_bfloat16* __restrict__ w, const float* __restrict__ b,
+            __nv_bfloat16* __restrict__ y, int M, int N, int K, int kslice,
+            int act) {
+  extern __shared__ __align__(16) unsigned char sw_raw[];
+  constexpr int W_ELEMS = SW_BK16 * SW_LD16, STAGE = W_ELEMS + 16 * MT * SW_LD16;
+  static_assert(2 * 16 * MT * SW_BN * 4 <= SW_STAGES * STAGE * 2,
+                "the partial tiles fit in the ring");
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(sw_raw);
+  const int kb = (int)coop::this_cluster().block_rank() * kslice;
+  const int n0 = blockIdx.y * SW_BN;
+  const int nst = (min(K, kb + kslice) - kb + SW_BK16 - 1) / SW_BK16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int cw = warp % 4, kw = warp / 4;  // 16 columns; even or odd k16 steps
+  float acc[MT][2][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[mt][i / 4][i % 4] = 0.f;
+  for (int s = 0; s < SW_STAGES - 1; ++s) {
+    if (s < nst)
+      sw_load16<MT, VEC>(x, w, ring + s * STAGE, ring + s * STAGE + W_ELEMS,
+                         M, N, K, kb + s * SW_BK16, n0);
+    cp_async_commit();
+  }
+  for (int t = 0; t < nst; ++t) {
+    cp_async_wait<SW_STAGES - 2>();  // stage t has landed
+    __syncthreads();                 // for every thread; stage t - 1 is free
+    const int nt = t + SW_STAGES - 1;
+    if (nt < nst) {
+      __nv_bfloat16* st = ring + (nt % SW_STAGES) * STAGE;
+      sw_load16<MT, VEC>(x, w, st, st + W_ELEMS, M, N, K, kb + nt * SW_BK16,
+                         n0);
+    }
+    cp_async_commit();
+    const __nv_bfloat16* ws = ring + (t % SW_STAGES) * STAGE;
+    const __nv_bfloat16* xs = ws + W_ELEMS;
+#pragma unroll
+    for (int i = 0; i < SW_BK16 / 32; ++i) {
+      const int kk = 16 * (2 * i + kw);
+      uint32_t bq[4];
+      ldsm_x4_trans(bq, ws + (kk + (lane & 15)) * SW_LD16 + 16 * cw +
+                            8 * (lane >> 4));
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t a[4];
+        ldsm_x4(a, xs + (16 * mt + (lane & 15)) * SW_LD16 + kk + 8 * (lane >> 4));
+        mma_bf16(acc[mt][0], a, bq[0], bq[1]);
+        mma_bf16(acc[mt][1], a, bq[2], bq[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it holds the partial tiles now
+  float* red = reinterpret_cast<float*>(sw_raw);  // the odd steps' sums
+  float* part = red + 16 * MT * SW_BN;            // the block's partial tile
+  // acc[mt][j][2 h + e]: row 16 mt + lane / 4 + 8 h, column 16 cw + 8 j +
+  // 2 (lane % 4) + e
+  const int r0 = lane / 4, c0 = 16 * cw + 2 * (lane % 4);
+  if (kw == 1) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        red[(16 * mt + r0 + 8 * (i % 4 / 2)) * SW_BN + c0 + 8 * (i / 4) +
+            i % 2] = acc[mt][i / 4][i % 4];
+  }
+  __syncthreads();
+  if (kw == 0) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int e = (16 * mt + r0 + 8 * (i % 4 / 2)) * SW_BN + c0 +
+                      8 * (i / 4) + i % 2;
+        part[e] = acc[mt][i / 4][i % 4] + red[e];
+      }
+  }
+  sw_cluster_sum(part, 16 * MT, b, y, M, N, n0, act);
 }
+
+// One fp32 stage: w rows [k0, k0 + SW_BK32) x columns [n0, n0 + SW_BN),
+// and x's rows [0, BM) x the same K rows (xs[m * SW_BK32 + k]), zeros past
+// K, N and M.
+template <int BM, bool VEC>
+__device__ __forceinline__ void sw_load32(const float* x, const float* w,
+                                          float* ws, float* xs, int M, int N,
+                                          int K, int k0, int n0) {
+  if (VEC) {
+    constexpr int WQ = SW_BN / 4, XQ = SW_BK32 / 4;  // 16-byte chunks a row
+    for (int c = threadIdx.x; c < SW_BK32 * WQ; c += SW_THREADS) {
+      const int r = c / WQ, q = c % WQ, k = k0 + r, n = n0 + 4 * q;
+      const bool ok = k < K && n < N;
+      cp_async16(ws + r * SW_BN + 4 * q, ok ? w + (long)k * N + n : w, ok);
+    }
+    for (int c = threadIdx.x; c < BM * XQ; c += SW_THREADS) {
+      const int m = c / XQ, q = c % XQ, k = k0 + 4 * q;
+      const bool ok = m < M && k < K;
+      cp_async16(xs + m * SW_BK32 + 4 * q, ok ? x + (long)m * K + k : x, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < SW_BK32 * SW_BN; e += SW_THREADS) {
+      const int r = e / SW_BN, c = e % SW_BN, k = k0 + r, n = n0 + c;
+      const bool ok = k < K && n < N;
+      cp_async4(ws + e, ok ? w + (long)k * N + n : w, ok);
+    }
+    for (int e = threadIdx.x; e < BM * SW_BK32; e += SW_THREADS) {
+      const int m = e / SW_BK32, kk = e % SW_BK32, k = k0 + kk;
+      const bool ok = m < M && k < K;
+      cp_async4(xs + e, ok ? x + (long)m * K + k : x, ok);
+    }
+  }
+}
+
+template <int BM, bool VEC>
+__global__ void __launch_bounds__(SW_THREADS)
+mm_stream32(const float* __restrict__ x, const float* __restrict__ w,
+            const float* __restrict__ b, float* __restrict__ y, int M, int N,
+            int K, int kslice, int act) {
+  extern __shared__ __align__(16) unsigned char sw_raw[];
+  constexpr int W_ELEMS = SW_BK32 * SW_BN, STAGE = W_ELEMS + SW_BK32 * BM;
+  static_assert(4 * BM * SW_BN <= SW_STAGES * STAGE,
+                "the k-way tree's tiles fit in the ring");
+  float* ring = reinterpret_cast<float*>(sw_raw);
+  const int kb = (int)coop::this_cluster().block_rank() * kslice;
+  const int n0 = blockIdx.y * SW_BN;
+  const int nst = (min(K, kb + kslice) - kb + SW_BK32 - 1) / SW_BK32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float acc[BM][2];
+#pragma unroll
+  for (int m = 0; m < BM; ++m) acc[m][0] = acc[m][1] = 0.f;
+  for (int s = 0; s < SW_STAGES - 1; ++s) {
+    if (s < nst)
+      sw_load32<BM, VEC>(x, w, ring + s * STAGE, ring + s * STAGE + W_ELEMS,
+                         M, N, K, kb + s * SW_BK32, n0);
+    cp_async_commit();
+  }
+  for (int t = 0; t < nst; ++t) {
+    cp_async_wait<SW_STAGES - 2>();
+    __syncthreads();
+    const int nt = t + SW_STAGES - 1;
+    if (nt < nst) {
+      float* st = ring + (nt % SW_STAGES) * STAGE;
+      sw_load32<BM, VEC>(x, w, st, st + W_ELEMS, M, N, K, kb + nt * SW_BK32,
+                         n0);
+    }
+    cp_async_commit();
+    const float* ws = ring + (t % SW_STAGES) * STAGE;
+    const float* xs = ws + W_ELEMS;
+    // warp j takes the stage rows 4 j .. 4 j + 3 in order; lane l the
+    // columns 2 l and 2 l + 1
+    static_assert(SW_BK32 == 4 * SW_THREADS / 32, "four stage rows a warp");
+    float2 wv[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      wv[u] = *reinterpret_cast<const float2*>(ws + (4 * warp + u) * SW_BN +
+                                               2 * lane);
+#pragma unroll
+    for (int m = 0; m < BM; ++m) {
+      const float4 xv =
+          *reinterpret_cast<const float4*>(xs + m * SW_BK32 + 4 * warp);
+      const float xq[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        acc[m][0] = fmaf(xq[u], wv[u].x, acc[m][0]);
+        acc[m][1] = fmaf(xq[u], wv[u].y, acc[m][1]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  // the 8 warps' sums in a fixed tree, ((w0 + w4) + (w2 + w6)) + ((w1 + w5)
+  // + (w3 + w7)), through tiles slot(0..3) of the ring; warp 0's result,
+  // the block's partial tile, ends in slot(0)
+  auto slot = [&](int j) { return ring + j * BM * SW_BN; };
+#pragma unroll
+  for (int half = 4; half >= 1; half /= 2) {
+    if (warp >= half && warp < 2 * half) {
+      float* t = slot(warp - half);
+#pragma unroll
+      for (int m = 0; m < BM; ++m)
+        *reinterpret_cast<float2*>(t + m * SW_BN + 2 * lane) =
+            make_float2(acc[m][0], acc[m][1]);
+    }
+    __syncthreads();
+    if (warp < half) {
+      const float* t = slot(warp);
+#pragma unroll
+      for (int m = 0; m < BM; ++m) {
+        const float2 v = *reinterpret_cast<const float2*>(t + m * SW_BN +
+                                                          2 * lane);
+        acc[m][0] += v.x;
+        acc[m][1] += v.y;
+      }
+    }
+    __syncthreads();
+  }
+  if (warp == 0) {
+#pragma unroll
+    for (int m = 0; m < BM; ++m)
+      *reinterpret_cast<float2*>(slot(0) + m * SW_BN + 2 * lane) =
+          make_float2(acc[m][0], acc[m][1]);
+  }
+  sw_cluster_sum(slot(0), BM, b, y, M, N, n0, act);
+}
+
+// One launch of stream kernel Kern: a grid of (splits, column blocks), each
+// column block's splits one cluster.
+template <auto Kern, typename T>
+int sw_launch(int smem, const T* x, const T* w, const float* b, T* y, int M,
+              int N, int K, int splits, int kslice, int act,
+              cudaStream_t st) {
+  static std::atomic<unsigned long long> opted{0};
+  cudaError_t e = opt_in_smem(Kern, smem, opted);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, (N + SW_BN - 1) / SW_BN);
+  cfg.blockDim = dim3(SW_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, Kern, x, w, b, y, M, N, K, kslice, act);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <int MT>
+int stream16(bool vec, const __nv_bfloat16* x, const __nv_bfloat16* w,
+             const float* b, __nv_bfloat16* y, int M, int N, int K,
+             int splits, int kslice, int act, cudaStream_t st) {
+  return vec ? sw_launch<mm_stream16<MT, true>>(sw_smem16(MT), x, w, b, y, M,
+                                                N, K, splits, kslice, act, st)
+             : sw_launch<mm_stream16<MT, false>>(sw_smem16(MT), x, w, b, y, M,
+                                                 N, K, splits, kslice, act, st);
+}
+
+template <int BM>
+int stream32(bool vec, const float* x, const float* w, const float* b,
+             float* y, int M, int N, int K, int splits, int kslice, int act,
+             cudaStream_t st) {
+  return vec ? sw_launch<mm_stream32<BM, true>>(sw_smem32(BM), x, w, b, y, M,
+                                                N, K, splits, kslice, act, st)
+             : sw_launch<mm_stream32<BM, false>>(sw_smem32(BM), x, w, b, y, M,
+                                                 N, K, splits, kslice, act, st);
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// The weight stream: its row tile from M (16-row m tiles for bf16, 4 to
+// 64 rows for fp32), whole 16-byte chunks where the rows and bases allow.
+int launch_stream(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                  const float* b, __nv_bfloat16* y, int M, int N, int K,
+                  int splits, int kslice, int act, cudaStream_t st) {
+  const bool vec = aligned16(x) && aligned16(w) && K % 8 == 0 && N % 8 == 0;
+  switch ((M + 15) / 16) {
+    case 1: return stream16<1>(vec, x, w, b, y, M, N, K, splits, kslice, act, st);
+    case 2: return stream16<2>(vec, x, w, b, y, M, N, K, splits, kslice, act, st);
+    case 3: return stream16<3>(vec, x, w, b, y, M, N, K, splits, kslice, act, st);
+    case SW_MT: return stream16<SW_MT>(vec, x, w, b, y, M, N, K, splits, kslice, act, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+int launch_stream(const float* x, const float* w, const float* b, float* y,
+                  int M, int N, int K, int splits, int kslice, int act,
+                  cudaStream_t st) {
+  const bool vec = aligned16(x) && aligned16(w) && K % 4 == 0 && N % 4 == 0;
+  if (M <= 4) return stream32<4>(vec, x, w, b, y, M, N, K, splits, kslice, act, st);
+  if (M <= 8) return stream32<8>(vec, x, w, b, y, M, N, K, splits, kslice, act, st);
+  if (M <= 16) return stream32<16>(vec, x, w, b, y, M, N, K, splits, kslice, act, st);
+  if (M <= 32) return stream32<32>(vec, x, w, b, y, M, N, K, splits, kslice, act, st);
+  return stream32<SW_BM32>(vec, x, w, b, y, M, N, K, splits, kslice, act, st);
+}
+
+// -- path 1: CUDA-core tiles -------------------------------------------------
 
 constexpr int TM = 128, TN = 128, TK = 8, TT = 256;
 
@@ -412,8 +729,8 @@ int launch_wgmma(const void* x, const void* w, const float* b, void* y,
   if (!tensor_map(&xmap, x, M, K, WG_BM, WG_BK) ||
       !tensor_map(&wmap, w, K, N, WG_BK, 64))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      mm_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+  static std::atomic<unsigned long long> opted{0};
+  cudaError_t e = opt_in_smem(mm_wgmma, WG_SMEM, opted);
   if (e != cudaSuccess) return (int)e;
   // consecutive blocks share the smaller operand's tiles in L2: they walk
   // M first when x is the smaller one (M < N), else N
@@ -426,9 +743,8 @@ int launch_wgmma(const void* x, const void* w, const float* b, void* y,
 }
 
 template <typename T>
-int run(const void* x, const void* w, const void* b, void* part, void* y,
-        int M, int N, int K, int path, int splits, int kchunk, int act,
-        void* stream) {
+int run(const void* x, const void* w, const void* b, void* y, int M, int N,
+        int K, int path, int splits, int kchunk, int act, void* stream) {
   if (M < 1 || N < 1 || K < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const T* xf = static_cast<const T*>(x);
@@ -445,42 +761,35 @@ int run(const void* x, const void* w, const void* b, void* part, void* y,
     return (int)cudaGetLastError();
   }
   if (path != 0) return (int)cudaErrorInvalidValue;
-  if (splits < 1 || kchunk > KMAX || kchunk < 1 || (long)kchunk * splits < K)
+  // K slices of whole stages, none empty, one cluster of them
+  const int bk = sizeof(T) == 2 ? SW_BK16 : SW_BK32;
+  if (M >= 64 || splits < 1 || splits > SW_CLUSTER || kchunk < 1 ||
+      kchunk % bk || (long)(splits - 1) * kchunk >= K ||
+      (long)splits * kchunk < K || (N + SW_BN - 1) / SW_BN > 65535)
     return (int)cudaErrorInvalidValue;
-  float* pf = static_cast<float*>(part);
-  if (M <= 1) launch_partial<1, T>(xf, wf, pf, M, N, K, splits, kchunk, st);
-  else if (M <= 2) launch_partial<2, T>(xf, wf, pf, M, N, K, splits, kchunk, st);
-  else if (M <= 4) launch_partial<4, T>(xf, wf, pf, M, N, K, splits, kchunk, st);
-  else if (M <= 8) launch_partial<8, T>(xf, wf, pf, M, N, K, splits, kchunk, st);
-  else launch_partial<16, T>(xf, wf, pf, M, N, K, splits, kchunk, st);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  long mn = (long)M * N;
-  int blocks = (int)((mn + 255) / 256);
-  if (blocks > 4096) blocks = 4096;
-  mm_reduce<T><<<blocks, 256, 0, st>>>(pf, bf, yf, M, N, splits, act);
-  return (int)cudaGetLastError();
+  return launch_stream(xf, wf, bf, yf, M, N, K, splits, kchunk, act, st);
 }
 
 }  // namespace
 
-// path 0: the weight stream, with part holding splits * M * N floats,
-// splits >= 1, kchunk * splits >= K and kchunk <= 512; path 1: CUDA-core
+// path 0: the weight stream (M below 64), in ``splits`` K slices of
+// ``kchunk`` rows (ops.split_k: 1 to SW_CLUSTER slices, kchunk a multiple
+// of the type's stage rows, every slice holding rows); path 1: CUDA-core
 // tiles; path 2 (bf16 only): TMA + wgmma tiles of 128 x 128, K and N
-// multiples of 8, x and w 16-byte aligned.  part, splits and kchunk are
-// read by path 0 only.  act: 0 none, 1 relu, 2 silu, 3 gelu.  Return a CUDA error code, 0 when the launch was taken.
+// multiples of 8, x and w 16-byte aligned.  splits and kchunk are read by
+// path 0 only.  act: 0 none, 1 relu, 2 silu, 3 gelu.  Return a CUDA error
+// code, 0 when the launch was taken.  No call allocates or synchronises.
 extern "C" int matmul_fused_f32(const void* x, const void* w, const void* b,
-                                void* part, void* y, int M, int N, int K,
-                                int path, int splits, int kchunk, int act,
+                                void* y, int M, int N, int K, int path,
+                                int splits, int kchunk, int act,
                                 void* stream) {
-  return run<float>(x, w, b, part, y, M, N, K, path, splits, kchunk, act,
-                    stream);
+  return run<float>(x, w, b, y, M, N, K, path, splits, kchunk, act, stream);
 }
 
 extern "C" int matmul_fused_bf16(const void* x, const void* w, const void* b,
-                                 void* part, void* y, int M, int N, int K,
-                                 int path, int splits, int kchunk, int act,
+                                 void* y, int M, int N, int K, int path,
+                                 int splits, int kchunk, int act,
                                  void* stream) {
-  return run<__nv_bfloat16>(x, w, b, part, y, M, N, K, path, splits, kchunk,
-                            act, stream);
+  return run<__nv_bfloat16>(x, w, b, y, M, N, K, path, splits, kchunk, act,
+                            stream);
 }

@@ -32,8 +32,8 @@ _L = ctypes.c_longlong
 #: C entry points and their argument types (every pointer and the stream
 #: as c_void_p, so none is cut to 32 bits)
 SIGNATURES = {
-    "matmul_fused_f32": [_P, _P, _P, _P, _P] + [_I] * 7 + [_P],
-    "matmul_fused_bf16": [_P, _P, _P, _P, _P] + [_I] * 7 + [_P],
+    "matmul_fused_f32": [_P, _P, _P, _P] + [_I] * 7 + [_P],
+    "matmul_fused_bf16": [_P, _P, _P, _P] + [_I] * 7 + [_P],
     "flash_attention_fwd": [_P, _P, _P, _P] + [_I] * 8
     + [ctypes.c_float, ctypes.c_float, _I, _I, _P],
     "conv_pool_lrn_f32": [_P] * 9,
@@ -41,7 +41,7 @@ SIGNATURES = {
     "pool2d_f32": [_P, _P, _L] + [_I] * 10 + [_P],
     "conv_basic_parallel_f32": [_P, _P, _P, _P, _P, _P],
     "conv_basic_simd_f32": [_P, _P, _P, _P, _P, _P, _L, _P],
-    "conv_pool_lrn_halo_f32": [_P, _P, _P, _P, _P, _P, _P, _L, _P],
+    "conv_pool_lrn_halo_f32": [_P] * 9,
     "conv_pool_carry_f32": [_P] * 9,
     "conv_chain_ocb_f32": [_P] * 10,
     "stage_major_blocks_per_sm": [],

@@ -10,6 +10,7 @@ operands.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Union
 
 import torch
@@ -33,13 +34,17 @@ def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
 def check_cuda(name: str, *tensors: torch.Tensor,
                dtypes=(torch.float32, torch.bfloat16)) -> None:
     """What every kernel wrapper requires of its CUDA inputs: one CUDA
-    device, contiguous, a type the kernel takes, the same for all."""
+    device, contiguous, a type the kernel takes, the same for all.  The
+    wrappers call it on every launch, so it reads each tensor's device,
+    type and layout once."""
     dev, dtype = tensors[0].device, tensors[0].dtype
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: all tensors must be on one CUDA device")
+    if dtype not in dtypes:
+        raise TypeError(f"{name}: the kernel takes {dtypes}, got {dtype}")
     for t in tensors:
-        if t.device != dev or t.device.type != "cuda":
+        if t.device != dev:
             raise ValueError(f"{name}: all tensors must be on one CUDA device")
-        if t.dtype not in dtypes:
-            raise TypeError(f"{name}: the kernel takes {dtypes}, got {t.dtype}")
         if t.dtype != dtype:
             raise TypeError(f"{name}: operands of one type, got {dtype} and "
                             f"{t.dtype}")
@@ -50,3 +55,25 @@ def check_cuda(name: str, *tensors: torch.Tensor,
 def check_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
     """What the fp32-only kernel wrappers require of their CUDA inputs."""
     check_cuda(name, *tensors, dtypes=(torch.float32,))
+
+
+def sm_count(dev: torch.device) -> int:
+    """SMs of CUDA device ``dev`` (its index, or the current device)."""
+    return _sm_count_of(dev.index if dev.index is not None
+                        else torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count_of(index: int) -> int:
+    """SMs of CUDA device ``index``, read once: the wrappers ask on every
+    call."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def stream_handle(dev: torch.device) -> int:
+    """The ``cudaStream_t`` of the current stream on CUDA device ``dev``,
+    as the C entries take it: read raw, without building a
+    ``torch.cuda.Stream`` (the public call takes several microseconds, a
+    good part of a small kernel's host time)."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

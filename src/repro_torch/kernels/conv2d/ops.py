@@ -17,10 +17,12 @@
 * ``conv2d_basic_parallel`` — K8 (``csrc/conv_basic_parallel.cu``): the
   §4.2 conv, NCHW, channels the outer loop, on the same register-tiled
   core over shared-memory halos of a chunk of channels.
-* ``conv2d_pool_lrn_halo`` — K4 (``csrc/conv_pool_lrn.cu``, the band
-  kernel of ``csrc/conv_common.cuh`` on an oc-tiled grid): K1's conv →
-  pool → LRN group with the output channels split across blocks, each
-  tile widened by the LRN window's halo.
+* ``conv2d_pool_lrn_halo`` — K4 (``csrc/conv_chain.cu``): K1's conv →
+  pool → LRN group, which the TPU kernel splits into channel tiles widened
+  by the LRN window's halo, as a one-stage launch of the stage-major
+  kernel on K1's plan: its LRN tail runs after a grid barrier and sees
+  every channel of a pixel, so no halo is left to compute, and the two
+  give the same bits.
 * ``conv2d_pool_carry`` — K5 (``csrc/conv_chain.cu``): K1's conv →
   pool group (no LRN) as a one-stage launch of the stage-major kernel,
   where each conv row is computed once, which the TPU kernel's carry
@@ -44,17 +46,16 @@ a CUDA tensor launches the kernel (fp32 only) or raises; any other device
 raises ``ValueError``.  The kernels write NCHW, so the fc layer after a
 conv flattens their output as the JAX engine does.
 
-The launch geometry (which rows each band kernel's block computes, how
-many final rows a block owns; the stage-major items, partials and
-scratch) is computed here in Python and handed to the kernels (the band
-by ``band_rows`` in ``csrc/conv_common.cuh``, the stage-major schedule
-by ``plan[]``), so it is checked on the CPU too.
+The launch geometry (which rows K7's band block computes; the
+stage-major items, partials and scratch) is computed here in Python and
+handed to the kernels (the band by ``band_rows`` in
+``csrc/conv_common.cuh``, the stage-major schedule by ``plan[]``), so it
+is checked on the CPU too.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import itertools
 import math
 import weakref
 from typing import List, NamedTuple, Optional, Sequence, Tuple
@@ -65,7 +66,9 @@ import torch.nn.functional as F
 
 from repro_torch.core.layout import nchw_to_nhwc, oihw_to_hwio, pad_axis
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import ACC_DTYPE, check_cuda_f32
+from repro_torch.kernels.common import (ACC_DTYPE, check_cuda_f32,
+                                        sm_count as _sms,
+                                        stream_handle as _stream)
 from repro_torch.kernels.conv2d.ref import (
     conv2d_basic_parallel_ref,
     conv2d_basic_simd_ref,
@@ -74,10 +77,6 @@ from repro_torch.kernels.conv2d.ref import (
 
 POOL_CODES = {"max": 1, "avg": 2}
 MAX_STAGES = 8            # csrc/conv_common.cuh
-GEMM_TILE = 64            # TP and TO in csrc/conv_common.cuh
-GEMM_GROUPS = 4           # GROUPS in csrc/conv_common.cuh: tiles run 4 at a time
-SMEM_LIMIT = 190 * 1024   # dynamic shared memory a block may take (bytes):
-                          # 227 KB less the 33 KB of static GEMM tiles
 K7_SMEM_LIMIT = 227 * 1024  # K7 and K8 have no static tiles: the whole 227 KB
 K7_ALIGN = 4              # K7's channels: zero-padded to whole float4s
 #: the register-tiled core of K7 and K8 (csrc/conv_simt_tile.cuh): a group
@@ -96,10 +95,7 @@ K8_STAGE_FLOATS = 8192
 #: output channels a thread): the width its LRN blocking rule compares with
 #: the layer's channels
 ADVANCED_OC_BLOCK = {"advanced_simd_4": 4, "advanced_simd_8": 8}
-#: SMs of an H100 SXM: the card a plan's ``fusion_report`` resolves the
-#: batch-dependent geometry for
-REPORT_SMS = 132
-#: the stage-major schedule (csrc/conv_stage_major.cuh: K1, K2, K5, K6):
+#: the stage-major schedule (csrc/conv_stage_major.cuh: K1, K2, K4-K6):
 #: blocks of CH_THREADS threads on the register-tiled core, at least
 #: CH_MIN_BLOCKS of them resident an SM (its launch bounds), so the
 #: cooperative grid is CH_MIN_BLOCKS x the SMs; a ring slot holds CH_CK
@@ -114,6 +110,8 @@ CH_SMEM = 4 * (CH_RING + ST_TP * ST_TO + 3 * ST_TP)  # bytes
 #: tap; past it the items take a whole kernel row or the whole reduction
 #: (fewer, larger partials, or none)
 CH_PARTIAL_BYTES = 24 * 2 ** 20
+#: the stage-major kernel addresses its scratch with 32-bit float offsets
+CH_SCRATCH_LIMIT = 2 ** 31
 
 
 class Stage(NamedTuple):
@@ -195,27 +193,9 @@ def band_rows(stages: Sequence[Stage], pool: Optional[Pool], blk: int,
     return rows
 
 
-def _stage_time(st: Stage, rows: int) -> int:
-    """Time of one block on ``rows`` output rows of a stage, in units of
-    one 64 x 64 GEMM tile's TK slice: the block's GEMM_GROUPS groups take
-    the tiles in rounds, and a tile costs its reduction depth."""
-    tiles = (math.ceil(rows * st.OW / GEMM_TILE)
-             * math.ceil(st.OC / GEMM_TILE))
-    return math.ceil(tiles / GEMM_GROUPS) * st.C * st.KH * st.KW
-
-
-def block_time(stages, pool, blk) -> int:
-    """The slowest block's time when each block owns ``blk`` final rows."""
-    total = final_rows(stages, pool)[0]
-    return max(sum(_stage_time(st, b - a) for st, (a, b)
-                   in zip(stages, band_rows(stages, pool, blk, t)))
-               for t in range(math.ceil(total / blk)))
-
-
 def k1_smem(stages, pool, lrn: bool, blk: int) -> int:
-    """A band block's dynamic shared memory (the layout of K4's and
-    K7's fused blocks): the conv band plus, with LRN, the pooled
-    band."""
+    """A band block's dynamic shared memory (the layout of K7's fused
+    block): the conv band plus, with LRN, the pooled band."""
     if pool is None:
         return 0
     st = stages[0]
@@ -269,8 +249,8 @@ def resolve_lrn_ocb(oc: int, oc_block: int, lrn,
     ``True`` blocks whenever the tile is narrower than the layer; ``False``
     and ``None`` keep K1's full width (the JAX auto rule blocks only when
     its one-pooled-row floor cell overflows the TPU's VMEM, which no net of
-    the repository does).  ``ocb`` is the JAX tile; K4 picks its own
-    (``k4_geometry``).  Only the advanced (im2col) methods reach it, so
+    the repository does).  ``ocb`` is the JAX tile; K4, stage-major,
+    takes K1's items.  Only the advanced (im2col) methods reach it, so
     the JAX rule's ``im2col`` argument is always true here."""
     blocked = min(oc_block, oc)
     if lrn is None:
@@ -318,56 +298,6 @@ def _tile(ocb: int, oc: int):
     return tile
 
 
-def _best(options):
-    """The ``(cost, *geometry)`` option of least cost (the first of
-    equals)."""
-    best = None
-    for opt in options:
-        if best is None or opt[0] < best[0]:
-            best = opt
-    return best
-
-
-def k4_geometry(stages, pool, lrn_n: int, n: int, sms: int
-                ) -> Tuple[int, int]:
-    """K4's ``(blk, ocb)``: pooled rows and core channels a block owns.
-    A tile computes ``ocb + lrn_n - 1`` channels (core and halo) in 64-wide
-    GEMM tiles, so ``ocb`` is a whole number of GEMM tiles less the halo
-    (or the layer's width).  Both are picked by a time model: a block of
-    1024 threads fills an SM, so the grid runs in waves of ``sms`` blocks,
-    and the cost is waves × the slowest block's time (``block_time``;
-    fewer rows a block make more blocks but recompute more halo rows),
-    under ``SMEM_LIMIT``."""
-    st = stages[0]
-    total = final_rows(stages, pool)[0]
-
-    def options():
-        for k in itertools.count(1):
-            ocb = min(k * GEMM_TILE - (lrn_n - 1), st.OC)
-            if ocb < 1:
-                continue
-            wide = [st._replace(OC=ocb + lrn_n - 1)]
-            tiles = math.ceil(st.OC / ocb)
-            for blk in range(1, total + 1):
-                if k1_smem(wide, pool, True, blk) > SMEM_LIMIT:
-                    break
-                waves = math.ceil(n * math.ceil(total / blk) * tiles / sms)
-                yield waves * block_time(wide, pool, blk), blk, ocb
-            if ocb == st.OC:
-                return
-
-    best = _best(options())
-    if best is None:
-        raise ValueError("K4: no channel tile fits shared memory")
-    return best[1], best[2]
-
-
-def k4_smem(stages, pool, lrn_n: int, blk: int, ocb: int) -> int:
-    """K4's dynamic shared memory: ``k1_smem``'s band and pooled band at
-    the widened tile's ``ocb + lrn_n - 1`` channels."""
-    return k1_smem([stages[0]._replace(OC=ocb + lrn_n - 1)], pool, True, blk)
-
-
 def k5_bands(stages, pool) -> Tuple[int, int]:
     """The band the pool-carry rule reads (``resolve_pool_carry``):
     ``(phb, n_bands)``, the fewest pooled rows whose ``phb*psy`` fresh
@@ -382,7 +312,7 @@ def k5_bands(stages, pool) -> Tuple[int, int]:
     return phb, math.ceil(total / phb)
 
 
-# -- the stage-major schedule (K1, K2, K5, K6) ---------------------------------
+# -- the stage-major schedule (K1, K2, K4, K5, K6) -----------------------------
 
 
 def _round4(v: int) -> int:
@@ -466,7 +396,7 @@ class ChainPlan(NamedTuple):
 
 def chain_plan(stages, pool, n: int, sms: int, ocb: Optional[int] = None
                ) -> ChainPlan:
-    """The stage-major schedule of K1 and K5 (one stage), K2 (``ocb``
+    """The stage-major schedule of K1, K4 and K5 (one stage), K2 (``ocb``
     None) or K6 (final-stage items ``ocb`` channels wide, ``k6_ocb``) for
     ``n`` frames on ``sms`` SMs.  Per stage the host picks the unit: the
     whole reduction (where ``whole_run`` allows it), a kernel row, a tap
@@ -516,7 +446,7 @@ def chain_plan(stages, pool, n: int, sms: int, ocb: Optional[int] = None
             m, ocp, tiles_m, o_items, ot_item, tw, tpr, split,
             math.ceil(math.ceil(tw / CH_CK) / split), unit, q, items, whole,
             floats, act))
-    if off + part >= 2 ** 31:
+    if off + part >= CH_SCRATCH_LIMIT:
         raise ValueError(f"chain scratch of {off + part} floats is past the "
                          "kernel's 32-bit offsets")
     _, out_h, out_w = final_rows(stages, pool)
@@ -612,45 +542,17 @@ def conv2d_chain_ref(x, ws, bs, strides, paddings, relus, pool_kernel=None,
 # -- kernel wrappers ----------------------------------------------------------
 
 
-def _sms(dev) -> int:
-    return _sms_of(dev.index if dev.index is not None
-                   else torch.cuda.current_device())
-
-
-@functools.lru_cache(maxsize=None)
-def _sms_of(index: int) -> int:
-    """SMs of CUDA device ``index`` (read once: a wrapper asks on every
-    call)."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-@functools.lru_cache(maxsize=256)
-def k4_launch(n, in_chw, w_shape, stride, padding, relu, pool, pool_relu, lrn,
-              sms):
-    """K4's launch geometry for one call signature (hashable arguments):
-    ``(stages, smem, geo, lrn_f, tile)``, the output channels in tiles
-    widened by the LRN window's halo (``k4_geometry``).  Memoized, so that
-    a forward does not repeat the geometry search; the arrays are
-    read-only."""
-    stages = make_stages(in_chw, [w_shape], [stride], [padding], [relu])
-    blk, ocb = k4_geometry(stages, pool, lrn[0], n, sms)
-    geo, lrn_f = pack_geo(n, stages, pool, pool_relu, lrn, blk)
-    geo.setflags(write=False)
-    lrn_f.setflags(write=False)
-    return (stages, k4_smem(stages, pool, lrn[0], blk, ocb), geo, lrn_f,
-            _tile(ocb, stages[0].OC))
-
-
 @functools.lru_cache(maxsize=256)
 def chain_launch(n, in_chw, w_shapes, strides, paddings, relus, pool,
                  pool_relu, lrn, sms, oc_block_final=None):
-    """The launch geometry of a stage-major kernel (K1 and K5: one stage;
+    """The launch geometry of a stage-major kernel (K1, K4 and K5: one stage;
     K2; K6 with ``oc_block_final``, its final stage's items ``k6_ocb``
     channels wide) for one call signature: ``(stages, plan, arrays,
     ptrs)``, ``arrays`` the read-only ``(geo, lrn_f, plan_arr)`` and, for
     K6, ``tile``, ``ptrs`` their addresses (they live as long as the
     memo).  ``geo`` describes the whole frame as one band (``blk`` = the
-    final rows).  Memoized like ``k4_launch``."""
+    final rows).  Memoized, so that a forward does not repeat the plan's
+    search; the arrays are read-only."""
     stages = make_stages(in_chw, w_shapes, strides, paddings, relus)
     tile, ocb = None, None
     if oc_block_final is not None:
@@ -669,13 +571,9 @@ def chain_launch(n, in_chw, w_shapes, strides, paddings, relus, pool,
     return stages, plan, arrays, tuple(a.ctypes.data for a in arrays)
 
 
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def _launch_stage_major(wrapper, entry: str, x, ws, bs, strides, paddings,
                         relus, pool, pool_relu, lrn, oc_block_final=None):
-    """One launch of the stage-major C entry ``entry`` (K1, K2, K5 or, with
+    """One launch of the stage-major C entry ``entry`` (K1, K2, K4, K5 or, with
     ``oc_block_final``, K6) on CUDA tensors; counts it on
     ``wrapper.launches``."""
     if not 1 <= len(ws) <= MAX_STAGES:
@@ -924,9 +822,12 @@ def conv2d_pool_lrn_halo(x, w, b, stride=(1, 1), padding=(0, 0), relu=False,
                          lrn_n=None, lrn_alpha: float = 1e-4,
                          lrn_beta: float = 0.75, lrn_k: float = 1.0):
     """x: [N, C, H, W]; w: [OC, C, KH, KW]; b: [OC].  conv → bias →
-    [ReLU] → VALID pool → [ReLU] → LRN with the output channels split
-    across blocks, as one launch of K4 (CUDA) or its plain version, K1's
-    (CPU).  ``pool_kernel`` and ``lrn_n`` are required."""
+    [ReLU] → VALID pool → [ReLU] → LRN, the oc-blocked LRN cell, as one
+    launch of K4 (CUDA) or its plain version, K1's (CPU).  ``pool_kernel``
+    and ``lrn_n`` are required.  K4 runs K1's schedule and plan, whose LRN
+    tail sees every channel of a pixel, so the halo channels the TPU
+    kernel's tiles recompute are not needed and the two give the same
+    bits."""
     if pool_kernel is None or lrn_n is None:
         raise ValueError("conv2d_pool_lrn_halo needs a pool and an LRN")
     kwargs = dict(pool_kernel=pool_kernel, pool_stride=pool_stride,
@@ -939,22 +840,9 @@ def conv2d_pool_lrn_halo(x, w, b, stride=(1, 1), padding=(0, 0), relu=False,
     check_cuda_f32("conv2d_pool_lrn_halo", x, w, b)
     pool, lrn = _pool_lrn(pool_kernel, pool_stride, pool_kind, lrn_n,
                           lrn_alpha, lrn_beta, lrn_k)
-    n = x.shape[0]
-    stages, smem, geo, lrn_f, tile = k4_launch(
-        n, tuple(x.shape[1:]), tuple(w.shape), tuple(stride), tuple(padding),
-        bool(relu), pool, bool(pool_relu), lrn, _sms(x.device))
-    if tuple(b.shape) != (stages[0].OC,):
-        raise ValueError(f"bias shape {tuple(b.shape)} != ({stages[0].OC},)")
-    _, out_h, out_w = final_rows(stages, pool)
-    out = torch.empty((n, stages[0].OC, out_h, out_w), dtype=torch.float32,
-                      device=x.device)
-    rc = _build.library().conv_pool_lrn_halo_f32(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-        geo.ctypes.data, lrn_f.ctypes.data, tile.ctypes.data, smem,
-        _stream(x.device))
-    _build.check(rc, "conv_pool_lrn_halo_f32")
-    conv2d_pool_lrn_halo.launches += 1
-    return out
+    return _launch_stage_major(conv2d_pool_lrn_halo, "conv_pool_lrn_halo_f32",
+                               x, (w,), (b,), (stride,), (padding,), (relu,),
+                               pool, pool_relu, lrn)
 
 
 def conv2d_pool_carry(x, w, b, stride=(1, 1), padding=(0, 0), relu=False,

@@ -5,29 +5,37 @@ A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
 (x and w both fp32 or both bf16, read as they are; the bias fp32) or
 raises.  The path is chosen from the type, the shape and the pointers
 alone, before the launch (``k3_path``): the weight stream below
-``TILED_MIN_M`` rows, TMA + wgmma tiles for bf16 from there on when TMA
-can describe both operands, CUDA-core tiles otherwise.  A refused launch
-raises; nothing retries on another path.
+``TILED_MIN_M`` rows (one launch a call, its K slicing ``split_k`` a
+function of K, N and the SM count, memoized), TMA + wgmma tiles for bf16
+from there on when TMA can describe both operands, CUDA-core tiles
+otherwise.  A refused launch raises; nothing retries on another path.
 """
 from __future__ import annotations
 
+import functools
 import math
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import check_cuda
+from repro_torch.kernels.common import check_cuda, sm_count
+from repro_torch.kernels.common import stream_handle as _stream
 from repro_torch.kernels.matmul_fused.ref import _ACTS, matmul_fused_ref
 
 ACT_CODES = {"none": 0, "relu": 1, "silu": 2, "gelu": 3}
-COLS_PER_BLOCK = 512  # BN in csrc/matmul_fused.cu
-KCHUNK_MAX = 512      # KMAX in csrc/matmul_fused.cu
-BLOCKS_PER_SM = 4
-PARTIAL_SHARE = 0.1   # partial sums may add at most this share of w's bytes
-TILED_MIN_M = 64      # from this M on, a tiled path (no partials)
+TILED_MIN_M = 64      # from this M on, a tiled path (the stream below)
 #: the C entry's path codes
 PATH_CODES = {"stream": 0, "tiles": 1, "wgmma": 2}
 TMA_ALIGN = 16        # bytes: TMA's base alignment and stride multiple
+#: the weight stream's slicing constants (``SW_*`` in csrc/matmul_fused.cu):
+#: output columns of a block, K rows of a ring stage by type, the most K
+#: slices (the blocks of one cluster) and the blocks an SM the slicing
+#: aims at
+STREAM_BN = 64
+STREAM_BK = {torch.bfloat16: 64, torch.float32: 32}
+STREAM_CLUSTER = 8
+STREAM_BLOCKS_PER_SM = 2
 
 
 def tma_ok(k: int, n: int, x_ptr: int = 0, w_ptr: int = 0) -> bool:
@@ -50,25 +58,36 @@ def k3_path(dtype, m: int, k: int, n: int, x_ptr: int = 0,
     return "tiles"
 
 
-def split_k(m: int, n: int, k: int, sms: int):
-    """``(splits, kchunk)`` of the weight-stream path (``m`` below
-    ``TILED_MIN_M``) for an ``[m, k] x [k, n]`` product on a card with
-    ``sms`` SMs: enough K slices for about ``BLOCKS_PER_SM`` blocks an SM,
-    no more than keeps the ``[splits, m, n]`` partials under
-    ``PARTIAL_SHARE`` of the weights, and slices of at most
-    ``KCHUNK_MAX`` rows (the kernel's shared-memory x slice)."""
-    tiles = math.ceil(n / COLS_PER_BLOCK) * math.ceil(m / 16)
-    splits = math.ceil(BLOCKS_PER_SM * sms / tiles)
-    splits = min(splits, max(1, int(PARTIAL_SHARE * k / m)))
-    splits = max(1, min(splits, k))
-    kchunk = math.ceil(k / splits)
-    kchunk = min(KCHUNK_MAX, -(-kchunk // 4) * 4)
-    return math.ceil(k / kchunk), kchunk
+@functools.lru_cache(maxsize=None)
+def split_k(dtype, k: int, n: int, sms: int) -> Tuple[int, int]:
+    """``(splits, kchunk)`` of the weight stream for ``dtype`` operands
+    ``[m, k] x [k, n]`` on a card with ``sms`` SMs, whatever ``m``: K cut
+    into ``splits`` slices of ``kchunk`` rows, whole ring stages, none
+    empty, so that the ``ceil(n / STREAM_BN)`` column blocks times the
+    slices come to about ``STREAM_BLOCKS_PER_SM`` blocks an SM, with at
+    most ``STREAM_CLUSTER`` slices (one cluster).  A function of the type,
+    K, N and the SM count only, so a row's sums never depend on how many
+    rows share the call.  Memoized: the wrapper asks on every call."""
+    return split_k_aimed(dtype, k, n, sms, STREAM_BLOCKS_PER_SM)
+
+
+def split_k_aimed(dtype, k: int, n: int, sms: int,
+                  blocks_per_sm: int) -> Tuple[int, int]:
+    """``split_k``'s rule aimed at ``blocks_per_sm`` blocks an SM (the
+    stream's aim is ``STREAM_BLOCKS_PER_SM``; ``tools/k3_stream_probe.py``
+    times others)."""
+    bk = STREAM_BK[dtype]
+    steps = math.ceil(k / bk)
+    want = math.ceil(blocks_per_sm * sms / math.ceil(n / STREAM_BN))
+    per = math.ceil(steps / max(1, min(STREAM_CLUSTER, steps, want)))
+    return math.ceil(steps / per), per * bk
 
 
 def _launch(x, w, b, act, path=None):
-    """Launch K3 on CUDA tensors; ``path`` (default: ``k3_path``'s choice)
-    may name another path, for timing one beside the other."""
+    """Launch K3 on CUDA tensors: one call of the C entry, which launches
+    one kernel, with nothing allocated but y.  ``path`` (default:
+    ``k3_path``'s choice) may name another path, for timing one beside the
+    other."""
     check_cuda("matmul_fused", x, w)
     m, k = x.shape
     n = w.shape[1]
@@ -79,23 +98,19 @@ def _launch(x, w, b, act, path=None):
                              f"{b.device}, expected ({n},) on {x.device}")
     chosen = k3_path(x.dtype, m, k, n, x.data_ptr(), w.data_ptr())
     path = chosen if path is None else path
-    if path not in PATH_CODES or (path == "wgmma" and chosen != "wgmma"):
+    if (path not in PATH_CODES or (path == "wgmma" and chosen != "wgmma")
+            or (path == "stream" and chosen != "stream")):
         raise ValueError(f"matmul_fused: path {path!r} cannot take "
                          f"{x.dtype} [{m}, {k}] x [{k}, {n}]")
-    splits, kchunk, part = 0, 0, None
-    if path == "stream":
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        splits, kchunk = split_k(m, n, k, sms)
-        part = torch.empty((splits, m, n), dtype=torch.float32,
-                           device=x.device)
+    splits, kchunk = (split_k(x.dtype, k, n, sm_count(x.device))
+                      if path == "stream" else (0, 0))
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     entry = ("matmul_fused_bf16" if x.dtype == torch.bfloat16
              else "matmul_fused_f32")
     rc = getattr(_build.library(), entry)(
         x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
-        None if part is None else part.data_ptr(), y.data_ptr(), m, n, k,
-        PATH_CODES[path], splits, kchunk, ACT_CODES[act],
-        torch.cuda.current_stream(x.device).cuda_stream)
+        y.data_ptr(), m, n, k, PATH_CODES[path], splits, kchunk,
+        ACT_CODES[act], _stream(x.device))
     _build.check(rc, entry)
     matmul_fused.launches += 1
     matmul_fused.path_launches[path] += 1
@@ -110,15 +125,14 @@ def matmul_fused(x, w, b=None, act: str = "none"):
     if x.shape[-1] != w.shape[0]:
         raise ValueError(f"matmul_fused: x {tuple(x.shape)} vs w "
                          f"{tuple(w.shape)}")
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    if x2.device.type == "cpu":
-        y = matmul_fused_ref(x2, w, b, act)
-    elif x2.device.type == "cuda":
-        y = _launch(x2, w, b, act)
-    else:
-        raise ValueError(f"matmul_fused: unsupported device {x.device}")
-    return y.reshape(*lead, w.shape[-1])
+    if x.dim() != 2:
+        return matmul_fused(x.reshape(-1, x.shape[-1]), w, b, act).reshape(
+            *x.shape[:-1], w.shape[-1])
+    if x.device.type == "cuda":
+        return _launch(x, w, b, act)
+    if x.device.type == "cpu":
+        return matmul_fused_ref(x, w, b, act)
+    raise ValueError(f"matmul_fused: unsupported device {x.device}")
 
 
 #: kernel launches since the count was last set to 0, in all and by path

@@ -1,2 +1,3 @@
 """Entry points of the port: the counterparts of ``repro.launch`` (the
-serving launcher so far; ROADMAP.md, item 10)."""
+serving launcher so far; the training launcher waits for training, in
+ROADMAP.md, "Modules still to port")."""

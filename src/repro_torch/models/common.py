@@ -96,7 +96,9 @@ def kv_cache_param(cfg: ModelConfig, batch: int, cache_len: int,
                    stacked: int = 0, dtype: str = "bfloat16") -> dict:
     if cfg.kv_quant:
         raise NotImplementedError(
-            "the int8 KV cache is not ported yet (ROADMAP.md, item 10)")
+            "the int8 KV cache (quantize_kv / dequantize_kv in "
+            "nn/attention.py) is not ported yet (ROADMAP.md, \"Modules "
+            "still to port\")")
     shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
     axes = ("batch", "kv_seq", "kv_heads", None)
     if stacked:

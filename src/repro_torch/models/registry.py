@@ -21,7 +21,7 @@ def get_model(cfg: ModelConfig):
     if family in UNPORTED:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet — "
-            f"{UNPORTED[family]} (ROADMAP.md, item 10)")
+            f"{UNPORTED[family]} (ROADMAP.md, \"Modules still to port\")")
     if family == "ssm":
         return RWKV6LM(cfg)
     return TransformerLM(cfg)

@@ -3,8 +3,8 @@
 
 Covers internlm2 / qwen1.5 / starcoder2 (uniform layers) and gemma2
 (alternating local/global attention, softcaps, post-block norms), whose
-layer unit is a (local, global) *pair*.  The MoE variant is not ported
-yet (ROADMAP.md, item 10).
+layer unit is a (local, global) *pair*.  The MoE variant (``nn/moe.py``)
+is not ported yet (ROADMAP.md, "Modules still to port").
 """
 from __future__ import annotations
 
@@ -29,8 +29,8 @@ class TransformerLM(BaseModel):
         super().__init__(cfg)
         if cfg.moe is not None:
             raise NotImplementedError(
-                f"{cfg.name}: the MoE transformer is not ported yet "
-                f"(ROADMAP.md, item 10)")
+                f"{cfg.name}: the MoE transformer (nn/moe.py) is not ported "
+                f"yet (ROADMAP.md, \"Modules still to port\")")
         self.pair = cfg.local_global_interval == 2
         assert cfg.local_global_interval in (0, 2), "only k=2 alternation"
         if self.pair:

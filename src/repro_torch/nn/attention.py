@@ -12,8 +12,10 @@ runs.
 
 Unlike the JAX package, the cache is updated in place: ``attention_apply``
 writes into the tensors of ``cache`` (views of the model's stacked cache)
-and returns only its output.  The int8 cache, cross-attention and the
-backward are not ported yet (ROADMAP.md, item 10).
+and returns only its output.  The int8 cache (``quantize_kv`` /
+``dequantize_kv``), cross-attention (``models/vision_lm.py``,
+``models/encdec.py``) and the backward are not ported yet (ROADMAP.md,
+"Modules still to port").
 """
 from __future__ import annotations
 

@@ -393,16 +393,20 @@ def test_the_wgmma_instructions_cover_every_head_dim():
 
 def test_hopper_helpers_live_in_one_header():
     """K3 and K10 include the shared PTX wrappers and the tensor-map
-    encoder; neither defines its own copy."""
-    for name in ("matmul_fused.cu", "flash_attention.cu"):
+    encoder; neither defines its own copy.  They and the stage-major conv
+    kernel opt in to shared memory through the header's once-a-device
+    ``opt_in_smem``, and none calls ``cudaFuncSetAttribute`` itself."""
+    for name in ("matmul_fused.cu", "flash_attention.cu", "conv_chain.cu"):
         src = (_build.CSRC / name).read_text()
         assert '#include "hopper_common.cuh"' in src
         for fn in ("mbar_wait(uint32_t", "wg_desc(uint32_t",
-                   "EncodeTiled encode_tiled()", "smem_addr(const void"):
+                   "EncodeTiled encode_tiled()", "smem_addr(const void",
+                   "cudaFuncSetAttribute(", "opt_in_smem(K*"):
             assert fn not in src, (name, fn)
     common = (_build.CSRC / "hopper_common.cuh").read_text()
     for fn in ("mbar_wait(uint32_t", "wg_desc(uint32_t", "tma_load_4d(",
-               "EncodeTiled encode_tiled()", "smem_addr(const void"):
+               "EncodeTiled encode_tiled()", "smem_addr(const void",
+               "opt_in_smem(K*"):
         assert fn in common
 
 

@@ -173,7 +173,7 @@ def test_cell_knobs_forward_matches_jax(knobs, name, batch):
     theirs = np.asarray(JEngine(jnet, **kn).jit_forward()(
         _jax_tree(params), jnp.asarray(x)))
     eng = CNNEngine(tnet, device="cpu", **kn)
-    assert [r["cell"] for r in eng.fusion_report(batch=batch)] == cells
+    assert [r["cell"] for r in eng.fusion_report()] == cells
     ours = eng.forward(params_from_numpy(params, "cpu"), x).numpy()
     assert ours.shape == theirs.shape == (batch, tnet.num_classes)
     assert np.abs(ours - theirs).max() <= TOL
@@ -208,10 +208,9 @@ def test_tuned_fusion_report_matches_jax(knobs):
     kn, cells = KNOB_SETS[knobs]
     jrep = JEngine(jnetdefs.alexnet(), **kn).fusion_report()
     teng = CNNEngine(tnetdefs.alexnet(), device="cpu", **kn)
-    for batch in (1, 16):
-        report = teng.fusion_report(batch=batch)
-        assert _report_keys(report) == _report_keys(jrep)
-        assert [r["cell"] for r in report] == cells
+    report = teng.fusion_report()
+    assert _report_keys(report) == _report_keys(jrep)
+    assert [r["cell"] for r in report] == cells
     # K6 reads the knob as "block the final stage", no narrower than asked
     if "K6" in cells:
         assert report[-1]["oc_block"] >= 8

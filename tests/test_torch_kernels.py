@@ -33,11 +33,14 @@ from repro_torch.kernels.conv2d.ref import (
     conv2d_ref,
     lrn_ref,
 )
+from repro_torch.kernels.matmul_fused import ops as mm_ops
 from repro_torch.kernels.matmul_fused.ops import matmul_fused, split_k
 from repro_torch.kernels.pool2d.ops import pool2d
 from repro_torch.kernels.pool2d.ref import pool2d_ref
 
 TOL = 1e-4
+#: SMs of an H100 SXM: the card the schedule tests plan for
+REPORT_SMS = 132
 
 
 def _close(ours, theirs, tol=TOL):
@@ -89,9 +92,16 @@ def test_matmul_fused_no_bias_and_leading_dims():
                                    (16, 1000, 4096), (2, 10, 500),
                                    (40, 7, 3)])
 def test_split_k_covers_k(m, n, k):
-    splits, kchunk = split_k(m, n, k, 132)
-    assert 1 <= kchunk <= 512
-    assert (splits - 1) * kchunk < k <= splits * kchunk  # no empty slice
+    """The weight stream's K slices for either type, at every M below 64
+    (``m`` is one of them; the slicing does not read it): whole ring
+    stages, none empty, one cluster of at most ``STREAM_CLUSTER``."""
+    for dtype in (torch.float32, torch.bfloat16):
+        splits, kchunk = split_k(dtype, k, n, 132)
+        assert kchunk % mm_ops.STREAM_BK[dtype] == 0
+        assert 1 <= splits <= mm_ops.STREAM_CLUSTER
+        assert (splits - 1) * kchunk < k <= splits * kchunk  # no empty slice
+        assert mm_ops.k3_path(dtype, m, k, n) == (
+            "stream" if m < mm_ops.TILED_MIN_M else "tiles")
 
 
 # -- plain building blocks ----------------------------------------------------
@@ -1123,77 +1133,6 @@ def _stages(in_chw, w_shape, stride, padding):
                                 [True])
 
 
-def _emulate_k4(x, w, b, stride, padding, pool, lrn, ocb):
-    """What K4 computes, tile by tile, in plain PyTorch: each tile
-    convolves its core and halo channels (weight and bias columns outside
-    [0, OC) zero), pools them, normalises over the tile alone and keeps
-    its core.  The halo channels outside the frame must be exact zeros."""
-    n_lrn = lrn[0]
-    lo, hi = n_lrn // 2, n_lrn - 1 - n_lrn // 2
-    oc = w.shape[0]
-    wz = torch.cat([torch.zeros((lo, *w.shape[1:])), w,
-                    torch.zeros((ocb + hi, *w.shape[1:]))])
-    bz = torch.cat([torch.zeros(lo), b, torch.zeros(ocb + hi)])
-    cores = []
-    for u in range(math.ceil(oc / ocb)):
-        cols = slice(u * ocb, u * ocb + ocb + n_lrn - 1)  # in wz: -lo shift
-        pooled = conv_ops.conv2d_pool_fused_ref(
-            x, wz[cols], bz[cols], stride, padding, True,
-            (pool.kh, pool.kw), (pool.sy, pool.sx), pool.kind)
-        outside = [i for i in range(pooled.shape[1])
-                   if not 0 <= u * ocb - lo + i < oc]
-        assert all(torch.equal(pooled[:, i], torch.zeros_like(pooled[:, i]))
-                   for i in outside)
-        normed = lrn_ref(pooled, *lrn)
-        cores.append(normed[:, lo:lo + min(ocb, oc - u * ocb)])
-    return torch.cat(cores, dim=1)
-
-
-@pytest.mark.parametrize("ocb", [3, 4, 7, 16])
-def test_k4_tiles_cover_the_channels_once_with_zero_edge_halos(ocb):
-    rng = np.random.default_rng(ocb)
-    x, w, b = _arr(rng, 2, 4, 13, 13), _arr(rng, 14, 4, 3, 3), _arr(rng, 14)
-    lrn = (5, 1e-2, 0.75, 1.0)
-    ours = _emulate_k4(_t(x), _t(w), _t(b), (1, 1), (1, 1), POOL32, lrn, ocb)
-    ref = conv_ops.conv2d_pool_fused_ref(_t(x), _t(w), _t(b), (1, 1), (1, 1),
-                                         True, (3, 3), (2, 2), "max",
-                                         lrn_n=5, lrn_alpha=1e-2)
-    assert torch.allclose(ours, ref, atol=1e-5)
-    cores = [range(u * ocb, min((u + 1) * ocb, 14))
-             for u in range(math.ceil(14 / ocb))]
-    assert sorted(c for r in cores for c in r) == list(range(14))
-
-
-@pytest.mark.parametrize("group", sorted(ALEX_GROUPS))
-@pytest.mark.parametrize("n", [1, 16])
-def test_k4_geometry_at_alexnet(group, n):
-    st = _stages(*ALEX_GROUPS[group])
-    blk, ocb = conv_ops.k4_geometry(st, POOL32, 5, n, conv_ops.REPORT_SMS)
-    assert (ocb + 4) % conv_ops.GEMM_TILE == 0 or ocb == st[0].OC
-    assert conv_ops.k4_smem(st, POOL32, 5, blk, ocb) <= conv_ops.SMEM_LIMIT
-    tile = conv_ops._tile(ocb, st[0].OC)
-    assert tile[1] * ocb >= st[0].OC > (tile[1] - 1) * ocb
-    # no fewer blocks than a full-width band of the same time model
-    total = conv_ops.final_rows(st, POOL32)[0]
-    assert 1 <= blk <= total
-    full = _full_width_band(st, POOL32, n, conv_ops.REPORT_SMS)
-    assert math.ceil(total / blk) * tile[1] >= math.ceil(total / full)
-
-
-def _full_width_band(stages, pool, n, sms):
-    """Final rows a block of a full-width band kernel (every output channel
-    a block, with the LRN, as K1 ran before the stage-major schedule) owns
-    under K4's time model: waves of ``sms`` blocks × the slowest block's
-    time, the least over the bands that fit in shared memory."""
-    total = conv_ops.final_rows(stages, pool)[0]
-    costs = [(math.ceil(n * math.ceil(total / k) / sms)
-              * conv_ops.block_time(stages, pool, k), k)
-             for k in range(1, total + 1)
-             if conv_ops.k1_smem(stages, pool, True, k)
-             <= conv_ops.SMEM_LIMIT]
-    return min(costs)[1]
-
-
 # -- K1, K2, K5, K6: the stage-major schedule -------------------------------------
 
 #: chains of the schedule tests: AlexNet's conv3-5 + pool5, and a small odd
@@ -1330,7 +1269,7 @@ def test_chain_constants_match_the_wrapper():
     arr = conv_ops.pack_chain_plan(plan)
     assert len(arr) == c["CH_PLAN_HEAD"] + 3 * c["CH_PLAN_STAGE"]
     for entry in ("conv_chain_f32", "conv_pool_lrn_f32",
-                  "conv_pool_carry_f32"):
+                  "conv_pool_carry_f32", "conv_pool_lrn_halo_f32"):
         assert _build.SIGNATURES[entry] == [_build._P] * 9
     assert _build.SIGNATURES["conv_chain_ocb_f32"] == [_build._P] * 10
     assert _build.SIGNATURES["stage_major_blocks_per_sm"] == []
@@ -1342,17 +1281,19 @@ def test_chain_constants_match_the_wrapper():
                      r"stage_major_kernel\(", text)
     assert text.count("stage_major(g, p, x, out, scratch);") == 1
     for entry in ("conv_chain_f32", "conv_chain_ocb_f32", "conv_pool_lrn_f32",
-                  "conv_pool_carry_f32"):
+                  "conv_pool_carry_f32", "conv_pool_lrn_halo_f32"):
         body = text[text.index(f'extern "C" int {entry}('):]
         body = body[:body.index("\n}\n")]
         assert body.count("cnnk::launch_stage_major(") == 1
     others = [p for p in _build.CSRC.glob("*.cu") if p.name != "conv_chain.cu"]
     assert not [p.name for p in others
                 if "conv_stage_major.cuh" in p.read_text()]
-    # the band body of the old K1 and K5's carry loop are gone
+    # the band body (the old K1's and K4's) and K5's carry loop are gone:
+    # K4's entry wraps the stage-major launch once, like K1's and K5's
     assert not (_build.CSRC / "conv_pool_carry.cu").exists()
-    k4 = (_build.CSRC / "conv_pool_lrn.cu").read_text()
-    assert k4.count("conv_band(") == 1 and k4.count("__global__ void") == 1
+    assert not (_build.CSRC / "conv_pool_lrn.cu").exists()
+    assert not [p.name for p in _build.CSRC.glob("*.cu*")
+                if "conv_band(" in p.read_text()]
 
 
 @pytest.mark.parametrize("chain", sorted(SCHEDULES))
@@ -1364,7 +1305,7 @@ def test_chain_items_cover_every_output_once(chain, n):
     covering every float of every tap's run; the scratch regions do not
     overlap."""
     stages, pool = SCHEDULES[chain]
-    plan = conv_ops.chain_plan(stages, pool, n, conv_ops.REPORT_SMS)
+    plan = conv_ops.chain_plan(stages, pool, n, REPORT_SMS)
     regions = [(0, n * stages[0].H * stages[0].W * _round4(stages[0].C))]
     tp, to = conv_ops.ST_TP, conv_ops.ST_TO
     for st, sp in zip(stages, plan.stages):
@@ -1414,7 +1355,7 @@ def test_chain_sum_order_is_the_same_for_every_batch(chain):
     right), and the chunks (runs of a tap's floats) are fixed by the
     shape."""
     stages, pool = SCHEDULES[chain]
-    plans = {n: conv_ops.chain_plan(stages, pool, n, conv_ops.REPORT_SMS)
+    plans = {n: conv_ops.chain_plan(stages, pool, n, REPORT_SMS)
              for n in (1, 2, 5, 16)}
     plus = lambda a, b: ("+", a, b)  # noqa: E731
     for s, st in enumerate(stages):
@@ -1452,11 +1393,11 @@ def test_chain_grid_fits_the_card(chain, n):
     and conv4, its K1 groups give 368 and 758 whole items, and the
     scratch stays in the 50 MB L2."""
     stages, pool = SCHEDULES[chain]
-    plan = conv_ops.chain_plan(stages, pool, n, conv_ops.REPORT_SMS)
+    plan = conv_ops.chain_plan(stages, pool, n, REPORT_SMS)
     per_sm = min(233472 // (conv_ops.CH_SMEM + 1024),
                  2048 // conv_ops.CH_THREADS)
     assert per_sm == conv_ops.CH_MIN_BLOCKS == 3
-    assert plan.grid == per_sm * conv_ops.REPORT_SMS == 396
+    assert plan.grid == per_sm * REPORT_SMS == 396
     assert conv_ops.CH_SMEM <= 227 * 1024
     if chain.startswith("alexnet"):
         assert 4 * plan.scratch < 50e6
@@ -1507,7 +1448,7 @@ def test_kernel_row_walk_covers_each_real_row_once(conv):
     padding past the run, and the walk takes fewer reduction rows than a
     tap a slot would."""
     st = _stages(*NARROW[conv])[0]
-    sp = conv_ops.chain_plan([st], None, 1, conv_ops.REPORT_SMS).stages[0]
+    sp = conv_ops.chain_plan([st], None, 1, REPORT_SMS).stages[0]
     cp = _round4(st.C)
     assert cp < conv_ops.CH_CK and (sp.tw, sp.tpr) == (st.KW * cp, 1)
     seen = {}
@@ -1565,7 +1506,7 @@ def _emulate_chain(x, ws, bs, strides, pads, relus, pool, lrn, ocb=None,
     n = x.shape[0]
     stages = conv_ops.make_stages(tuple(x.shape[1:]), ws, strides, pads,
                                   relus)
-    plan = conv_ops.chain_plan(stages, pool, n, conv_ops.REPORT_SMS, ocb)
+    plan = conv_ops.chain_plan(stages, pool, n, REPORT_SMS, ocb)
     act = torch.nn.functional.pad(x.permute(0, 2, 3, 1),
                                   (0, _round4(x.shape[1]) - x.shape[1]))
     for st, sp, w, b in zip(stages, plan.stages, ws, bs):
@@ -1818,6 +1759,130 @@ def test_k5_and_k1_agree_bit_for_bit_in_emulation(group, monkeypatch):
     _close(k1, theirs, tol)
 
 
+def _record_stage_major(monkeypatch):
+    """Calls of the stage-major launch, recorded instead of run: (wrapper,
+    C entry, the launch's arguments)."""
+    calls = []
+    monkeypatch.setattr(conv_ops, "check_cuda_f32", lambda *a: None)
+    monkeypatch.setattr(conv_ops, "_launch_stage_major",
+                        lambda wrapper, entry, *a: calls.append(
+                            (wrapper, entry, a)))
+    return calls
+
+
+#: AlexNet's lrn layers in the fused groups' keywords
+ALEX_LRN_TAIL = dict(pool_kernel=(3, 3), pool_stride=(2, 2),
+                     lrn_n=ALEX_LRN[0], lrn_alpha=ALEX_LRN[1],
+                     lrn_beta=ALEX_LRN[2], lrn_k=ALEX_LRN[3])
+
+
+@pytest.mark.parametrize("group", sorted(ALEX_GROUPS))
+@pytest.mark.parametrize("n", [1, 16])
+def test_k4_plan_is_k1s_at_alexnet(group, n, monkeypatch):
+    """K4 at AlexNet's two LRN groups, full width, batch 1 and 16: the
+    groups resolve to K4 under the LRN-blocking knob (to K1 without it),
+    the K4 wrapper hands the stage-major launch what the K1 wrapper hands
+    it (the same tensors, stage, pool and LRN; only the C entry differs),
+    so ``chain_launch`` gives both one plan: K1's one-stage plan, whose
+    tail holds every channel of a pixel (no halo), with the geometry the
+    C entry checks (one stage, a pool, an LRN)."""
+    in_chw, w_shape, stride, padding = ALEX_GROUPS[group]
+    assert tm.fused_cell(tm.Method.ADVANCED_SIMD_8, in_chw, w_shape, stride,
+                         padding, (3, 3), (2, 2), ALEX_LRN[0],
+                         lrn_oc_block=True) == "K4"
+    assert tm.fused_cell(tm.Method.ADVANCED_SIMD_8, in_chw, w_shape, stride,
+                         padding, (3, 3), (2, 2), ALEX_LRN[0]) == "K1"
+    calls = _record_stage_major(monkeypatch)
+    x = _OnCard(torch.zeros(1).expand(n, *in_chw))
+    w, b = torch.zeros(w_shape), torch.zeros(w_shape[0])
+    conv_ops.conv2d_pool_fused(x, w, b, stride, padding, True,
+                               **ALEX_LRN_TAIL)
+    conv_ops.conv2d_pool_lrn_halo(x, w, b, stride, padding, True,
+                                  **ALEX_LRN_TAIL)
+    (w1, e1, a1), (w4, e4, a4) = calls
+    assert (w1, e1) == (conv_ops.conv2d_pool_fused, "conv_pool_lrn_f32")
+    assert (w4, e4) == (conv_ops.conv2d_pool_lrn_halo,
+                        "conv_pool_lrn_halo_f32")
+    assert a1[0] is a4[0] is x and a1[1][0] is a4[1][0] is w
+    assert a1[2][0] is a4[2][0] is b and a1[3:] == a4[3:]
+    _, _, _, strides, pads, relus, pool, pool_relu, lrn = a4
+    assert pool == POOL32 and lrn == ALEX_LRN and not pool_relu
+    stages, plan, arrays, _ = conv_ops.chain_launch(
+        n, in_chw, (w_shape,), tuple(map(tuple, strides)),
+        tuple(map(tuple, pads)), tuple(relus), pool, pool_relu, lrn,
+        REPORT_SMS)
+    assert plan == conv_ops.chain_plan(stages, pool, n, REPORT_SMS)
+    assert len(plan.stages) == 1 and plan.stages[0].ot_item == 1
+    geo = arrays[0]
+    assert (geo[1], geo[2], geo[8]) == (1, 1, ALEX_LRN[0])
+    _, out_h, out_w = conv_ops.final_rows(stages, pool)
+    assert plan.tail_items == n * out_h * out_w
+    assert stages[0].OC <= conv_ops.CH_SMEM // 4
+
+
+#: LRN groups K4 takes: AlexNet's conv1+pool1+norm1 and conv2+pool2+norm2,
+#: frames cut to keep the emulation short
+K4_GROUPS = {
+    "alexnet_conv1": ((3, 63, 63), (96, 3, 11, 11), (4, 4), (0, 0)),
+    "alexnet_conv2": ((96, 13, 13), (256, 96, 5, 5), (1, 1), (2, 2)),
+}
+
+
+@pytest.mark.parametrize("group", sorted(K4_GROUPS))
+def test_k4_and_k1_agree_bit_for_bit_in_emulation(group, monkeypatch):
+    """On an LRN group, K4 hands the stage-major launch K1's arguments
+    (so the two give the same bits), and the emulated schedule of those
+    arguments at batch 2 gives frame 0 the bits of frame 0 alone and
+    equals the plain version and the JAX package's jnp path under the
+    LRN-blocking knob within 1e-4 · max(1, max|plain|)."""
+    in_chw, w_shape, stride, padding = K4_GROUPS[group]
+    calls = _record_stage_major(monkeypatch)
+    rng = np.random.default_rng(len(group) + 4)
+    x = _arr(rng, 2, *in_chw)
+    w = _arr(rng, *w_shape, scale=(2.0 / np.prod(w_shape[1:])) ** 0.5)
+    b = _arr(rng, w_shape[0], scale=0.05)
+    xc, tw_, tb = _OnCard(_t(x)), _t(w), _t(b)
+    conv_ops.conv2d_pool_fused(xc, tw_, tb, stride, padding, True,
+                               **ALEX_LRN_TAIL)
+    conv_ops.conv2d_pool_lrn_halo(xc, tw_, tb, stride, padding, True,
+                                  **ALEX_LRN_TAIL)
+    (_, _, a1), (_, _, a4) = calls
+    assert a1[3:] == a4[3:]
+    _, _, _, strides, pads, relus, pool, pool_relu, lrn = a4
+    emu = partial(_emulate_chain, ws=[tw_], bs=[tb], strides=strides,
+                  pads=pads, relus=relus, pool=pool, lrn=lrn,
+                  pool_relu=pool_relu)
+    k4 = emu(_t(x))
+    assert torch.equal(emu(_t(x[:1]))[0], k4[0])
+    ref = conv_ops.conv2d_pool_fused_ref(_t(x), tw_, tb, stride, padding,
+                                         True, **ALEX_LRN_TAIL)
+    tol = TOL * max(1.0, ref.abs().max().item())
+    _close(k4, ref.numpy(), tol)
+    theirs = _jit(jm.conv2d_pool_fused, method=jm.Method.ADVANCED_SIMD_8,
+                  stride=stride, padding=padding, relu=True, **ALEX_LRN_TAIL,
+                  lrn_oc_block=True)(jnp.asarray(x), jnp.asarray(w),
+                                     jnp.asarray(b))
+    _close(k4, theirs, tol)
+
+
+@pytest.mark.parametrize("case", K4_CASES)
+def test_k4_equals_k1_on_the_cpu(case):
+    """On the CPU the K4 wrapper and the K1 wrapper run one plain version:
+    the same bits on every LRN case."""
+    (xs, ws, stride, padding, relu, pk, ps, kind, pool_relu,
+     lrn_n) = CELL_CASES[case]
+    rng = np.random.default_rng(60 + len(case))
+    x, w, b = _arr(rng, *xs), _arr(rng, *ws, scale=0.3), _arr(rng, ws[0])
+    tail = dict(pool_kernel=pk, pool_stride=ps, pool_kind=kind,
+                pool_relu=pool_relu, lrn_n=lrn_n, lrn_alpha=1e-3,
+                lrn_beta=0.75, lrn_k=1.0)
+    assert torch.equal(
+        conv_ops.conv2d_pool_lrn_halo(_t(x), _t(w), _t(b), stride, padding,
+                                      relu, **tail),
+        conv_ops.conv2d_pool_fused(_t(x), _t(w), _t(b), stride, padding,
+                                   relu, **tail))
+
+
 class _Entry:
     """A stand-in of a stage-major C entry that records, when it is called,
     whether each weight pointer it gets is the data of a converted weight
@@ -1866,7 +1931,7 @@ def test_stage_major_launch_keeps_converted_weights_alive(entry, inference,
     setattr(fake, entry, _Entry(converted, bs))
     wrapper = (conv_ops.conv2d_pool_fused if one else conv_ops.conv2d_chain)
     monkeypatch.setattr(conv_ops, "chain_weights", recording)
-    monkeypatch.setattr(conv_ops, "_sms", lambda dev: conv_ops.REPORT_SMS)
+    monkeypatch.setattr(conv_ops, "_sms", lambda dev: REPORT_SMS)
     monkeypatch.setattr(conv_ops, "_stream", lambda dev: 0)
     monkeypatch.setattr(_build, "library", lambda: fake)
     monkeypatch.setattr(wrapper, "launches", 0)
@@ -1953,8 +2018,8 @@ def test_k6_tiles_cover_the_final_stage_once(requested, n):
     recomputed per channel tile)."""
     ocb = conv_ops.k6_ocb(requested)
     assert ocb >= requested and ocb % conv_ops.ST_TO == 0
-    k6 = conv_ops.chain_plan(ALEX_CHAIN, POOL32, n, conv_ops.REPORT_SMS, ocb)
-    k2 = conv_ops.chain_plan(ALEX_CHAIN, POOL32, n, conv_ops.REPORT_SMS)
+    k6 = conv_ops.chain_plan(ALEX_CHAIN, POOL32, n, REPORT_SMS, ocb)
+    k2 = conv_ops.chain_plan(ALEX_CHAIN, POOL32, n, REPORT_SMS)
     assert k6.stages[:-1] == k2.stages[:-1]
     last = k6.stages[-1]
     assert last.ot_item * conv_ops.ST_TO == ocb

@@ -27,6 +27,7 @@ from repro.nn import rope as jrope
 from repro.serving import engine as jengine
 from repro_torch.core import config as tconfig
 from repro_torch.kernels import _build
+from repro_torch.kernels.matmul_fused import ops as mm_ops
 from repro_torch.kernels.matmul_fused.ops import (TILED_MIN_M, k3_path,
                                                   matmul_fused, split_k)
 from repro_torch.kernels.matmul_fused.ref import _ACTS
@@ -310,11 +311,11 @@ LM_K3_ROWS = (1, 4, 16, 63, 64, 300, 1500, 4500)
                                     (300, "wgmma"), (1500, "wgmma"),
                                     (4500, "wgmma")])
 def test_k3_paths_at_lm_shapes(m, path):
-    """A decode step (M = 4) and short prompts stream the weights with
-    partial sums small beside them; a prefill of 64 tokens and more takes
-    a tiled path, with no partials at all: the tensor-core tile (TMA +
-    wgmma) for the bf16 served model at every projection shape, the
-    CUDA-core tile for fp32."""
+    """A decode step (M = 4) and short prompts stream the weights in one
+    launch, in K slices of one cluster that leave no partial sums in
+    global memory; a prefill of 64 tokens and more takes a tiled path: the
+    tensor-core tile (TMA + wgmma) for the bf16 served model at every
+    projection shape, the CUDA-core tile for fp32."""
     if path == "wgmma":
         for k, n in LM_K3_SHAPES:
             assert k3_path(torch.bfloat16, m, k, n) == "wgmma"
@@ -325,13 +326,16 @@ def test_k3_paths_at_lm_shapes(m, path):
         return
     for k, n in ((2304, 2048), (2304, 1024), (2048, 2304), (2304, 9216),
                  (9216, 2304)):
-        splits, kchunk = split_k(m, n, k, 132)
-        assert 1 <= kchunk <= 512
+        assert k3_path(torch.bfloat16, m, k, n) == "stream"
+        splits, kchunk = split_k(torch.bfloat16, k, n, 132)
+        assert kchunk % mm_ops.STREAM_BK[torch.bfloat16] == 0
         assert (splits - 1) * kchunk < k <= splits * kchunk
-        # the fp32 partials stay below the bf16 weights they sum
-        assert splits * m * n * 4 <= k * n * 2
-        if m <= 16:
-            assert splits * m * n * 4 <= 0.2 * k * n * 2
+        # one cluster of slices; every block's partial tile of the call's
+        # rows (padded to the row tile) stays in its own shared memory
+        assert 1 <= splits <= mm_ops.STREAM_CLUSTER
+        rows = _stream_rows(torch.bfloat16, m)
+        assert m <= rows and 2 * rows * mm_ops.STREAM_BN * 4 <= \
+            _stream_smem(torch.bfloat16, m)
 
 
 @pytest.mark.parametrize("m", LM_K3_ROWS)
@@ -487,6 +491,288 @@ def test_wgmma_schedule_matches_jax(m, k, n, act):
     ref = jax_mm_ref(jnp.asarray(x, jnp.bfloat16),
                      jnp.asarray(w, jnp.bfloat16), jnp.asarray(b), act)
     _close(ours, ref, 2.0 ** -7)
+
+
+# -- K3's weight stream (M < 64) -----------------------------------------------
+
+
+def _stream_constants():
+    """The weight stream's integer constants (``SW_*``) as the kernel's
+    source declares them."""
+    src = (_build.CSRC / "matmul_fused.cu").read_text()
+    return {name: int(v) for name, v in
+            re.findall(r"\b(SW_[A-Z0-9_]+) = (\d+)[,;]", src)}
+
+
+def _stream_rows(dtype, m):
+    """Rows of the stream's block tile for ``m`` rows, as ``launch_stream``
+    picks them: 16-row m tiles for bf16 (the tensor cores' m16), 4, 8,
+    16, 32 or 64 for fp32."""
+    if dtype == torch.bfloat16:
+        return 16 * math.ceil(m / 16)
+    return next(r for r in (4, 8, 16, 32, 64) if m <= r)
+
+
+def _stream_smem(dtype, m):
+    """The stream's dynamic shared memory at ``m`` rows, from the source's
+    constants (``sw_smem16`` / ``sw_smem32``): ``SW_STAGES`` stages of
+    w's [stage rows, SW_BN] tile and x's [rows, stage rows] tile, bf16
+    rows padded by ``SW_PAD16``."""
+    c = _stream_constants()
+    rows = _stream_rows(dtype, m)
+    if dtype == torch.bfloat16:
+        return (c["SW_STAGES"] * (c["SW_BK16"] + rows)
+                * (c["SW_BN"] + c["SW_PAD16"]) * 2)
+    return c["SW_STAGES"] * c["SW_BK32"] * (c["SW_BN"] + rows) * 4
+
+
+#: AlexNet's fc layers (K, N), fp32: fc6, fc7, fc8
+ALEX_FC = ((9216, 4096), (4096, 4096), (4096, 1000))
+#: every stream shape of the main paths: gemma2-2b's and rwkv6-1.6b's
+#: projections in bf16, AlexNet's fc layers in fp32
+STREAM_SHAPES = ([("bfloat16", k, n) for k, n in LM_K3_SHAPES]
+                 + [("float32", k, n) for k, n in ALEX_FC])
+#: SMs of the cards the slicing is checked for: H100 SXM, H100 PCIe, and
+#: a small one
+STREAM_SMS = (132, 114, 20)
+
+
+def test_stream_constants_match_the_wrapper():
+    """The wrapper's copies of the stream's constants agree with the
+    source; the ring has at least three stages, a cluster is within the
+    portable 8 blocks, and the row tiles reach past the 63 rows the stream
+    takes."""
+    c = _stream_constants()
+    assert c["SW_BN"] == mm_ops.STREAM_BN
+    assert (c["SW_BK16"], c["SW_BK32"]) == (
+        mm_ops.STREAM_BK[torch.bfloat16], mm_ops.STREAM_BK[torch.float32])
+    assert c["SW_STAGES"] >= 3
+    assert c["SW_CLUSTER"] == mm_ops.STREAM_CLUSTER <= 8
+    assert c["SW_BLOCKS_PER_SM"] == mm_ops.STREAM_BLOCKS_PER_SM
+    assert 16 * c["SW_MT"] >= TILED_MIN_M - 1
+    assert c["SW_BM32"] >= TILED_MIN_M - 1
+    assert _build.SIGNATURES["matmul_fused_bf16"] == \
+        _build.SIGNATURES["matmul_fused_f32"] == \
+        [_build._P] * 4 + [_build._I] * 7 + [_build._P]
+
+
+class _Entry:
+    """A stand-in of K3's C entries that records each call's arguments and
+    whether each pointer it gets is the data of a tensor that is alive
+    when it is called."""
+
+    def __init__(self, tensors=()):
+        import weakref
+
+        self.refs = [weakref.ref(t) for t in tensors]
+        self.calls = []
+
+    def track(self, t):
+        import weakref
+
+        self.refs.append(weakref.ref(t))
+        return t
+
+    def __call__(self, *args):
+        live = {t.data_ptr() for t in (r() for r in self.refs)
+                if t is not None}
+        self.calls.append((args, [p in live for p in args[:4]
+                                  if p is not None]))
+        return 0
+
+
+def _stand_in(monkeypatch, entry, sms=132):
+    """Route ``_launch`` to ``entry`` with CPU tensors standing in for the
+    card's, and record every tensor ``torch.empty`` makes."""
+    made = []
+    empty = torch.empty
+
+    def recording(*a, **kw):
+        made.append(entry.track(empty(*a, **kw)))
+        return made[-1]
+
+    lib = type("Lib", (), {"matmul_fused_bf16": entry,
+                           "matmul_fused_f32": entry})()
+    monkeypatch.setattr(mm_ops, "check_cuda", lambda *a, **kw: None)
+    monkeypatch.setattr(mm_ops, "sm_count", lambda dev: sms)
+    monkeypatch.setattr(mm_ops, "_stream", lambda dev: 7)
+    monkeypatch.setattr(mm_ops.torch, "empty", recording)
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(matmul_fused, "launches", 0)
+    monkeypatch.setattr(matmul_fused, "path_launches",
+                        dict.fromkeys(mm_ops.PATH_CODES, 0))
+    return made
+
+
+@pytest.mark.parametrize("dtype,k,n", STREAM_SHAPES)
+def test_stream_slicing_is_the_same_for_every_m(dtype, k, n, monkeypatch):
+    """``_launch`` at every M from 1 to 63 hands the C entry the stream's
+    path code and one K slicing (splits, rows a slice): a row's sum order
+    never depends on how many rows share the call."""
+    dt = getattr(torch, dtype)
+    entry = _Entry()
+    _stand_in(monkeypatch, entry)
+    w = torch.zeros(1, dtype=dt).expand(k, n)
+    for m in range(1, TILED_MIN_M):
+        mm_ops._launch(torch.zeros(1, dtype=dt).expand(m, k), w, None,
+                       "none")
+    slicings = {args[8:10] for args, _ in entry.calls}
+    assert len(entry.calls) == TILED_MIN_M - 1
+    assert slicings == {split_k(dt, k, n, 132)}
+    assert {args[4:8] for args, _ in entry.calls} == {
+        (m, n, k, mm_ops.PATH_CODES["stream"]) for m in range(1, 64)}
+    assert matmul_fused.path_launches["stream"] == TILED_MIN_M - 1
+
+
+@pytest.mark.parametrize("dtype,k,n", STREAM_SHAPES)
+def test_stream_slices_cover_k_once(dtype, k, n):
+    """The slices [s kchunk, min(K, (s + 1) kchunk)) of every card's
+    slicing are whole ring stages, none empty, and cover K once."""
+    dt = getattr(torch, dtype)
+    for sms in STREAM_SMS:
+        splits, kchunk = split_k(dt, k, n, sms)
+        assert kchunk % mm_ops.STREAM_BK[dt] == 0
+        rows = [r for s in range(splits)
+                for r in range(s * kchunk, min(k, (s + 1) * kchunk))]
+        assert rows == list(range(k))
+        assert all(s * kchunk < k for s in range(splits))
+
+
+@pytest.mark.parametrize("dtype,k,n", STREAM_SHAPES)
+def test_stream_fits_the_card(dtype, k, n):
+    """At every M below 64: the cluster (the slices of a column block) is
+    within ``SW_CLUSTER``; the ring fits the 227 KB a block may opt in to
+    and also holds the partial tiles (bf16: two of the row tile; fp32:
+    the k-way tree's four); the stages in flight keep at least 16 KB of
+    weights a block; the grid's column blocks are within CUDA's 65535."""
+    c = _stream_constants()
+    dt = getattr(torch, dtype)
+    splits, _ = split_k(dt, k, n, 132)
+    assert 1 <= splits <= c["SW_CLUSTER"]
+    assert math.ceil(n / c["SW_BN"]) <= 65535
+    bf16 = dt == torch.bfloat16
+    bk = c["SW_BK16"] if bf16 else c["SW_BK32"]
+    elt = 2 if bf16 else 4
+    assert (c["SW_STAGES"] - 1) * bk * c["SW_BN"] * elt >= 16 * 1024
+    for m in range(1, TILED_MIN_M):
+        rows = _stream_rows(dt, m)
+        ring = _stream_smem(dt, m)
+        parts = (2 if bf16 else 4) * rows * c["SW_BN"] * 4
+        assert ring <= SMEM_LIMIT
+        assert parts <= ring and m <= rows
+
+
+def _fma(acc, a, b):
+    """fmaf in float64: the product of two fp32 (or bf16) values is exact
+    there; the sum is rounded once to float64, then to fp32."""
+    return (acc.double() + a.double() * b.double()).float()
+
+
+def _stream_emulated(x, w, b, act, sms=132):
+    """The weight stream's summation order in plain PyTorch, for every row
+    of ``x`` at once, with ``split_k``'s slicing and the source's
+    constants: per K slice, fp32 (8 warps, warp j the stage rows 4 j to
+    4 j + 3 by FMA, then the tree ((w0 + w4) + (w2 + w6)) + ((w1 + w5) +
+    (w3 + w7))) or bf16 (each k16 step one tensor-core product, its 16 products
+    summed exactly and added to the accumulator with one rounding; warps
+    0-3 the even steps of a stage, 4-7 the odd ones, then even + odd);
+    then the slices in rank order, the bias, the activation and one cast.
+    Rows past K are zeros, which change no sum."""
+    c = _stream_constants()
+    m, k = x.shape
+    n = w.shape[1]
+    bf16 = x.dtype == torch.bfloat16
+    bk = c["SW_BK16"] if bf16 else c["SW_BK32"]
+    splits, kchunk = split_k(x.dtype, k, n, sms)
+    xf, wf = x.float(), w.float()
+    parts = []
+    for s in range(splits):
+        k0, k1 = s * kchunk, min(k, (s + 1) * kchunk)
+        if bf16:
+            acc = [torch.zeros(m, n), torch.zeros(m, n)]  # even, odd steps
+            for t0 in range(k0, k1, bk):
+                for j in range(bk // 16):
+                    lo, hi = t0 + 16 * j, min(k1, t0 + 16 * j + 16)
+                    if lo >= hi:
+                        continue
+                    prod = xf[:, lo:hi].double() @ wf[lo:hi].double()
+                    acc[j % 2] = (acc[j % 2].double() + prod).float()
+            parts.append(acc[0] + acc[1])
+        else:
+            acc = [torch.zeros(m, n) for _ in range(8)]
+            for r in range(k0, k1):
+                j = (r - k0) % bk // 4
+                acc[j] = _fma(acc[j], xf[:, r:r + 1], wf[r:r + 1])
+            parts.append(((acc[0] + acc[4]) + (acc[2] + acc[6]))
+                         + ((acc[1] + acc[5]) + (acc[3] + acc[7])))
+    v = parts[0]
+    for p in parts[1:]:
+        v = v + p
+    if b is not None:
+        v = v + b
+    return _ACTS[act](v).to(x.dtype)
+
+
+#: a stream shape of several K slices with a ragged K tail and a ragged
+#: last column block
+STREAM_EMU = (300, 100)
+
+
+@pytest.mark.parametrize("m", [1, 4, 16, 48])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stream_order_matches_jax(dtype, m):
+    """The stream's summation order (``_stream_emulated``) over several K
+    slices reproduces JAX's ``matmul_fused_ref`` on the same operands
+    within today's tolerance: one bf16 rounding (2^-7) for bf16, 1e-4 for
+    fp32."""
+    k, n = STREAM_EMU
+    dt = getattr(torch, dtype)
+    assert split_k(dt, k, n, 132)[0] > 1
+    rng = np.random.default_rng(m)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = (rng.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32)
+    b = rng.standard_normal(n).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    ours = _stream_emulated(torch.from_numpy(x).to(dt),
+                            torch.from_numpy(w).to(dt), torch.from_numpy(b),
+                            "gelu")
+    ref = jax_mm_ref(jnp.asarray(x, jdt), jnp.asarray(w, jdt),
+                     jnp.asarray(b), "gelu")
+    _close(ours, ref, 2.0 ** -7 if dtype == "bfloat16" else 1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bias", [False, True])
+def test_stream_launch_is_one_call_with_live_tensors(dtype, bias,
+                                                     monkeypatch):
+    """``_launch`` on the stream makes one call of the C entry with the
+    stream's path code, the slicing of ``split_k`` and pointers to x, w,
+    the bias and y that are alive when it is called (y is the tensor it
+    returns), allocates nothing but y (no partial sums), and steps the
+    stream's counter once."""
+    dt = getattr(torch, dtype)
+    x = torch.ones(5, 40, dtype=dt)
+    w = torch.ones(40, 24, dtype=dt)
+    b = torch.ones(24) if bias else None
+    entry = _Entry([t for t in (x, w, b) if t is not None])
+    made = _stand_in(monkeypatch, entry)
+    y = mm_ops._launch(x, w, b, "silu")
+    assert len(entry.calls) == 1 and len(made) == 1 and made[0] is y
+    assert y.shape == (5, 24) and y.dtype == dt
+    args, live = entry.calls[0]
+    assert args[:4] == (x.data_ptr(), w.data_ptr(),
+                        b.data_ptr() if bias else None, y.data_ptr())
+    assert live == [True] * (4 if bias else 3)
+    assert args[4:] == (5, 24, 40, mm_ops.PATH_CODES["stream"],
+                        *split_k(dt, 40, 24, 132), mm_ops.ACT_CODES["silu"], 7)
+    assert matmul_fused.launches == 1
+    assert matmul_fused.path_launches == {
+        **dict.fromkeys(mm_ops.PATH_CODES, 0), "stream": 1}
+    # the stream takes no call of 64 rows or more
+    with pytest.raises(ValueError, match="path"):
+        mm_ops._launch(torch.ones(64, 40, dtype=dt), w, b, "none",
+                       path="stream")
+    assert len(entry.calls) == 1
 
 
 # -- models -------------------------------------------------------------------
