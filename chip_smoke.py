@@ -25,8 +25,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    one PyTorch library call as a yardstick and its bound (each case line
    also prints ``bound_share``, bound / kernel time, and ``host_ms``, the
    wrapper's host time a call: the mean of ``HOST_REPS`` calls enqueued
-   back to back, which the card's queue absorbs; K3's also ``device_ms``,
-   the device time a call without the host gap, as in 7a); and the
+   back to back, which the card's queue absorbs; K3's and K9's also
+   ``device_ms``, the device time a call without the host gap, as in 7a;
+   K9's also its grid, ``pool_plan``'s); and the
    second-generation cells at batch 1
    and 16 — K4 (oc-blocked LRN cell) on AlexNet's conv1+pool1+norm1 and
    conv2+pool2+norm2, K5 (pool carry) on AlexNet's conv1+pool1 and
@@ -126,10 +127,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    time printed:
    a. kernel cases at its shapes, held, repeated and timed as in 7a: K11
       (the WKV6 chunked scan; b 1, 32 heads of 64, chunks of 64) in bf16 at
-      16, 300, 1500 and 4500 tokens, with strong decays at 4500 (finite),
-      in fp32 at 4500, o and the final state each element within
-      ``LM_KERNEL_TOL``; a state hand-off (two calls over the halves of
-      1500 tokens against one over the whole); K3 in bf16 at the three
+      16, 37 (a 5-row last sub-chunk), 300, 1500 and 4500 tokens, with
+      strong decays at 4500 (finite), in fp32 at 4500, o and the final
+      state each element within ``LM_KERNEL_TOL``, each case with its
+      ``host_ms``, its ``device_ms`` (graph replay) and its design's
+      three launches (``wkv6_plan``: grids, exps, operations, bytes moved,
+      scratch bytes and their bound) beside ``wkv6_cost``'s bound; a state
+      hand-off (two calls over the halves of 1500 tokens against one over
+      the whole); K3 in bf16 at the three
       projection shapes for the M of 7a (4, 16, 64, 300, 1500 and 4500),
       its paths, rows and device times checked and timed as in 7a;
    b. CPU parity as 7b: two layers in float32, the leaves the init rules
@@ -362,7 +367,7 @@ def run_case(torch, F, kid, step, n, params, dev, peaks, obf=None):
     )
     from repro_torch.kernels.matmul_fused import ops as mm_ops
     from repro_torch.kernels.matmul_fused.ref import matmul_fused_ref
-    from repro_torch.kernels.pool2d.ops import pool2d
+    from repro_torch.kernels.pool2d.ops import pool2d, pool_plan
     from repro_torch.kernels.pool2d.ref import pool2d_ref
 
     gen = torch.Generator(device=dev).manual_seed(SEED + n)
@@ -506,12 +511,7 @@ def run_case(torch, F, kid, step, n, params, dev, peaks, obf=None):
                  f"group")
     lib_err = (library() - ref).abs().max().item()
     ms = time_ms(torch, kernel)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(HOST_REPS):
-        kernel()
-    host_ms = (time.perf_counter() - t0) * 1e3 / HOST_REPS
-    torch.cuda.synchronize()
+    host_ms = host_call_ms(torch, kernel)
     bound_ms = 1e3 * max(flops / flops_peak, nbytes / bw_peak)
     row = {
         "kernel": kid, "kind": step.kind, "batch": n, "max_abs_err": err,
@@ -526,8 +526,10 @@ def run_case(torch, F, kid, step, n, params, dev, peaks, obf=None):
     if kid in STAGE_MAJOR:
         row["chain"] = chain_geometry(torch, conv_ops, kid, n, step, ws,
                                       strides, pads, relus, pool, obf)
-    if kid == "K3":  # the weight stream: its device time, no host gap
+    if kid in ("K3", "K9"):  # the device time a call, no host gap
         row["device_ms"] = stream_device_ms(torch, kernel)
+    if kid == "K9":
+        row["grid"] = pool_plan(n * x.shape[1], *step.out_shape[1:])._asdict()
     return row
 
 
@@ -895,11 +897,24 @@ def _check_close(label, out, ref, tol, rtol=0.0):
     return err
 
 
+def host_call_ms(torch, fn):
+    """The wrapper's host time a call: the mean of ``HOST_REPS`` calls
+    enqueued back to back, which the card's queue absorbs."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_REPS):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / HOST_REPS
+    torch.cuda.synchronize()
+    return ms
+
+
 def stream_device_ms(torch, call):
-    """Device time of one call on the weight stream: ``STREAM_GRAPH_
-    LAUNCHES`` calls captured into a CUDA graph (the launch allocates only
-    y and never synchronises, so it captures), the replay timed with CUDA
-    events, the median of 5 over the launches."""
+    """Device time of one call of a kernel wrapper (K3's weight stream,
+    K9, K11): ``STREAM_GRAPH_LAUNCHES`` calls captured into a CUDA graph
+    (a launch allocates only its outputs and scratch and never
+    synchronises, so it captures), the replay timed with CUDA events, the
+    median of 5 over the launches."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -986,12 +1001,7 @@ def k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks, main):
     else:
         r["ms"] = time_ms(torch, kernel)
         r["device_ms"] = stream_device_ms(torch, kernel)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(HOST_REPS):
-        kernel()
-    r["host_ms"] = (time.perf_counter() - t0) * 1e3 / HOST_REPS
-    torch.cuda.synchronize()
+    r["host_ms"] = host_call_ms(torch, kernel)
     r.update(plain_ms=time_ms(torch, plain),
              library_ms=time_ms(torch, library),
              bound_ms=1e3 * max(flops / bf16_peak, nbytes / bw_peak),
@@ -1369,7 +1379,7 @@ def lm_serving_phase(torch, np, dev, counters, card, model, init_s, expect):
 #: device-kernel names of the port's kernels, for the profile's breakdown
 PROFILE_GROUPS = (("K3", ("mm_wgmma", "mm_tiled", "mm_stream")),
                   ("K10", ("flash_wgmma", "flash_fwd")),
-                  ("K11", ("wkv6_fwd",)))
+                  ("K11", ("wkv6_chunk", "wkv6_walk")))
 #: K3's device kernels by path
 K3_PROFILE_PATHS = (("stream", "mm_stream"), ("tiles", "mm_tiled"),
                     ("wgmma", "mm_wgmma"))
@@ -1443,9 +1453,11 @@ RWKV_PARITY_PROMPT = 100  # two chunks of 64, the second padded
 #: K11 cases: (tokens, dtype, decays).  b 1 and rwkv6-1.6b's 32 heads of
 #: 64; decays "normal" logw = -exp(N(0, 0.5)), "strong" -exp(N(2, 1)),
 #: whose sums within a chunk go far below the -88 where exp overflows a
-#: product of two factors.  The kernels line takes the 4500-token bf16
-#: case with normal decays.
-K11_CASES = ((16, "bfloat16", "normal"), (300, "bfloat16", "normal"),
+#: product of two factors.  37 tokens: one chunk whose last sub-chunk has
+#: 5 rows.  The kernels line takes the 4500-token bf16 case with normal
+#: decays.
+K11_CASES = ((16, "bfloat16", "normal"), (37, "bfloat16", "normal"),
+             (300, "bfloat16", "normal"),
              (1500, "bfloat16", "normal"), (4500, "bfloat16", "normal"),
              (4500, "bfloat16", "strong"), (4500, "float32", "normal"))
 K11_DECAYS = {"normal": (0.0, 0.5), "strong": (2.0, 1.0)}
@@ -1483,11 +1495,26 @@ def wkv6_cost(b, s, h, e, chunk, dtype_bytes):
     return b * h * ops, float(nbytes)
 
 
+def wkv6_design_bytes(plan, s, h, dtype_bytes, b=1):
+    """Bytes K11's three passes move (``wkv6_plan``'s geometry): pass 1
+    reads k, v and logw and writes U and the decays; pass 2 reads and
+    writes U, reads the decays and writes the final state; pass 3 reads
+    r, k, v, logw, u and S_prev and writes o once."""
+    elems = b * s * h * 64
+    u_bytes = 4 * plan.items * 64 * 64
+    d_bytes = 4 * plan.items * 64
+    pass1 = 2 * dtype_bytes * elems + 4 * elems + u_bytes + d_bytes
+    pass2 = 2 * u_bytes + d_bytes + 4 * plan.walkers
+    pass3 = 4 * dtype_bytes * elems + 4 * elems + 4 * h * 64 + u_bytes
+    return float(pass1 + pass2 + pass3)
+
+
 def rwkv_kernel_cases(torch, F, dev, peaks):
     """Phase 8a: K11 at rwkv6-1.6b's shapes (``K11_CASES``, then a state
     hand-off) and K3 (bf16) at its projections against their plain
     versions, repeated bit for bit, timed; returns the records."""
-    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.kernels.common import sm_count
+    from repro_torch.kernels.wkv6.ops import wkv6, wkv6_plan
     from repro_torch.kernels.wkv6.ref import wkv6_chunked_ref
 
     fp32_peak, bw_peak, _ = peaks
@@ -1521,6 +1548,9 @@ def rwkv_kernel_cases(torch, F, dev, peaks):
             fail(f"{label}: a repeated launch differs")
         flops, nbytes = wkv6_cost(1, s, K11_HEADS, 64, 64,
                                   out_o.element_size())
+        plan = wkv6_plan(1, s, K11_HEADS, min(64, s), sm_count(dev))
+        design_bytes = wkv6_design_bytes(plan, s, K11_HEADS,
+                                         out_o.element_size())
         rec = {"kernel": "K11", "tokens": s, "heads": K11_HEADS,
                "dtype": dname, "decays": decay, "max_abs_err": err,
                "state_max_abs_err": s_err,
@@ -1529,9 +1559,19 @@ def rwkv_kernel_cases(torch, F, dev, peaks):
                "rms_plain": ref_o.float().square().mean().sqrt().item(),
                "max_abs_plain": ref_o.float().abs().max().item(),
                "ms": time_ms(torch, kernel),
+               "host_ms": host_call_ms(torch, kernel),
+               "device_ms": stream_device_ms(torch, kernel),
                "plain_ms": time_ms(torch, plain, reps=5),
                "library_ms": None,
                "library_note": "no single PyTorch call computes WKV6",
+               "design": {
+                   "launches": 3, "grids": plan.grids,
+                   "items": plan.items, "walkers": plan.walkers,
+                   "waves": plan.waves, "exps": plan.exps,
+                   "operations": plan.operations, "bytes": design_bytes,
+                   "scratch_bytes": 4 * plan.scratch_elems,
+                   "bound_ms": 1e3 * max(plan.operations / fp32_peak,
+                                         design_bytes / bw_peak)},
                "bound_ms": 1e3 * max(flops / fp32_peak, nbytes / bw_peak),
                "bound_by": "operations" if flops / fp32_peak > nbytes / bw_peak
                else "bytes", "flops": flops, "bytes": nbytes,

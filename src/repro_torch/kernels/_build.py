@@ -45,8 +45,8 @@ SIGNATURES = {
     "conv_pool_carry_f32": [_P] * 9,
     "conv_chain_ocb_f32": [_P] * 10,
     "stage_major_blocks_per_sm": [],
-    "wkv6_f32": [_P] * 8 + [_I] * 4 + [_P],
-    "wkv6_bf16": [_P] * 8 + [_I] * 4 + [_P],
+    "wkv6_f32": [_P] * 9 + [_I] * 4 + [_P],
+    "wkv6_bf16": [_P] * 9 + [_I] * 4 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

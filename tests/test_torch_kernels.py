@@ -340,6 +340,168 @@ def test_pool2d_rejects_a_window_larger_than_the_input():
         pool_out_hw(2, 9, (3, 3), (2, 2))
 
 
+# -- K9: the plane-per-block walk of csrc/pool2d.cu ------------------------------
+
+
+def _pool_constants():
+    src = (_build.CSRC / "pool2d.cu").read_text()
+    return {name: int(v) for name, v in
+            re.findall(r"\b(POOL_[A-Z]+) = (\d+);", src)}
+
+
+def _net_pool_shapes():
+    """(C, H, W, kernel, stride, kind, relu) of every pool of the three
+    nets' unfused plans (the pools K9 runs)."""
+    from repro_torch.core.methods import Method
+    from repro_torch.core.netdefs import NETWORKS
+    from repro_torch.core.plan import compile_plan
+
+    out = []
+    for name in ("alexnet", "lenet5", "cifar10"):
+        for step in compile_plan(NETWORKS[name](),
+                                 method=Method("advanced_simd_8"),
+                                 fuse=False).steps:
+            if step.kind == "pool":
+                sp = step.spec
+                out.append((*step.in_shape, tuple(sp.kernel),
+                            tuple(sp.stride), sp.pool_kind,
+                            bool(sp.relu or step.relu)))
+    return out
+
+
+def _emulate_k9(x, kernel, stride, kind, relu):
+    """K9's launch in numpy fp32, block by block and thread by thread as
+    ``pool2d_kernel`` walks (``pool_plan``'s grid: whole planes a block,
+    one output a thread, its window in row-major order) -> (y, how many
+    times each output was written)."""
+    from repro_torch.kernels.pool2d import ops as pool_ops
+
+    n, c, h, w = x.shape
+    kh, kw = kernel
+    sy, sx = stride
+    oh, ow = pool_ops.pool_out_hw(h, w, kernel, stride)
+    planes = x.reshape(n * c, h, w)
+    plan = pool_ops.pool_plan(n * c, oh, ow)
+    y = np.zeros((n * c, oh, ow), np.float32)
+    writes = np.zeros((n * c, oh, ow), int)
+    for blk in range(plan.blocks):
+        for t in range(plan.ppb * plan.per_plane):
+            pl = blk * plan.ppb + t // plan.per_plane
+            if pl >= n * c:
+                break
+            it = t % plan.per_plane
+            oy, ox = it // ow, it % ow
+            v = np.float32(-np.inf if kind == "max" else 0.0)
+            for i in range(kh):
+                for j in range(kw):
+                    e = planes[pl, oy * sy + i, ox * sx + j]
+                    v = max(v, e) if kind == "max" else np.float32(v + e)
+            if kind == "avg":
+                v = np.float32(v / np.float32(kh * kw))
+            y[pl, oy, ox] = max(v, np.float32(0)) if relu else v
+            writes[pl, oy, ox] += 1
+    return y.reshape(n, c, oh, ow), writes
+
+
+def _one_thread_an_output(x, kernel, stride, kind, relu):
+    """The previous kernel's order: one output a thread, its window in
+    row-major order (fp32)."""
+    n, c, h, w = x.shape
+    (kh, kw), (sy, sx) = kernel, stride
+    oh, ow = (h - kh) // sy + 1, (w - kw) // sx + 1
+    acc = np.full((n, c, oh, ow), -np.inf if kind == "max" else 0.0,
+                  np.float32)
+    for i in range(kh):
+        for j in range(kw):
+            win = x[:, :, i:i + sy * (oh - 1) + 1:sy, j:j + sx * (ow - 1) + 1:sx]
+            acc = np.maximum(acc, win) if kind == "max" else (
+                acc + win).astype(np.float32)
+    if kind == "avg":
+        acc = (acc / np.float32(kh * kw)).astype(np.float32)
+    return np.maximum(acc, np.float32(0)) if relu else acc
+
+
+def test_pool_constants_match_the_wrapper():
+    from repro_torch.kernels.pool2d import ops as pool_ops
+
+    assert _pool_constants() == {"POOL_THREADS": pool_ops.THREADS}
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("kind", ["max", "avg"])
+@pytest.mark.parametrize("shape", _net_pool_shapes()
+                         + [(3, 13, 12, (3, 2), (1, 2), "max", False)])
+def test_k9_walk_matches_jax(shape, kind, relu):
+    """The plane-per-block walk writes every output once and equals JAX's
+    ``pool2d_ref`` at every pool shape of the three nets' unfused plans
+    (channels cut to 3, batch 2) and a ragged one, max and avg, with and
+    without ReLU, with the bits of the previous kernel's order."""
+    c, h, w, kernel, stride, _, _ = shape
+    rng = np.random.default_rng(h * 100 + w + sum(kernel))
+    x = _arr(rng, 2, min(c, 3), h, w)
+    y, writes = _emulate_k9(x, kernel, stride, kind, relu)
+    assert (writes == 1).all()
+    _close(y, jax_pool2d_ref(jnp.asarray(x), kernel, stride, kind, relu))
+    assert np.array_equal(y, _one_thread_an_output(x, kernel, stride, kind,
+                                                   relu))
+
+
+@pytest.mark.parametrize("n", [1, 16])
+def test_k9_grid_fills_the_card_at_batch_16(n):
+    """AlexNet's pools: whole planes a block, 32-bit offsets inside a
+    plane, and at batch 16 at least one block an SM."""
+    from repro_torch.kernels.pool2d import ops as pool_ops
+
+    for c, h, w, kernel, stride, _, _ in _net_pool_shapes()[:3]:
+        oh, ow = pool_ops.pool_out_hw(h, w, kernel, stride)
+        plan = pool_ops.pool_plan(n * c, oh, ow)
+        assert plan.ppb * plan.per_plane <= max(pool_ops.THREADS,
+                                                plan.per_plane)
+        assert plan.blocks * plan.ppb >= n * c > (plan.blocks - 1) * plan.ppb
+        assert h * w < 2 ** 31
+        if n == 16:
+            assert plan.blocks >= REPORT_SMS
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("kind", ["max", "avg"])
+def test_k9_launch_passes_live_tensors(kind, relu, monkeypatch):
+    """``_launch`` hands ``pool2d_f32`` the input and the one tensor it
+    allocates (the output it returns), both alive when it is called, the
+    geometry, the kind code and the stream handle, and steps the counter
+    once."""
+    import weakref
+
+    from repro_torch.kernels.pool2d import ops as pool_ops
+
+    x = torch.zeros(2, 5, 13, 12)
+    calls, tensors = [], [weakref.ref(x)]
+    empty = torch.empty
+
+    def recording(*a, **kw):
+        out = empty(*a, **kw)
+        tensors.append(weakref.ref(out))
+        return out
+
+    def entry(*args):
+        live = {t.data_ptr() for t in (r() for r in tensors) if t is not None}
+        calls.append((args, [p in live for p in args[:2]]))
+        return 0
+
+    fake = type("Lib", (), {"pool2d_f32": staticmethod(entry)})()
+    monkeypatch.setattr(pool_ops, "check_cuda_f32", lambda *a: None)
+    monkeypatch.setattr(pool_ops, "stream_handle", lambda dev: 55)
+    monkeypatch.setattr(pool_ops.torch, "empty", recording)
+    monkeypatch.setattr(_build, "library", lambda: fake)
+    monkeypatch.setattr(pool2d, "launches", 0)
+    y = pool_ops._launch(x, (3, 2), (1, 2), kind, relu)
+    (args, live), = calls
+    assert live == [True, True] and len(tensors) == 2
+    assert args == (x.data_ptr(), y.data_ptr(), 10, 13, 12, 11, 6, 3, 2, 1, 2,
+                    pool_ops.KIND_CODES[kind], int(relu), 55)
+    assert y.shape == (2, 5, 11, 6) and pool2d.launches == 1
+
+
 # -- K7 and K8: the register-tiled cores, read from their sources ---------------
 
 #: every per-layer conv of the three nets: (in_chw, OIHW w shape, stride,

@@ -13,7 +13,9 @@ kernel that read the wrong channel of the decays or dropped the bonus
 would pass.
 """
 import dataclasses
+import functools
 import importlib.util
+import re
 from pathlib import Path
 
 import jax
@@ -27,6 +29,8 @@ from repro.models import registry as jregistry
 from repro.nn import rwkv as jrwkv
 from repro.serving import engine as jengine
 from repro_torch.core import config as tconfig
+from repro_torch.kernels import _build
+from repro_torch.kernels.wkv6 import ops as wkv6_ops
 from repro_torch.kernels.wkv6.ops import wkv6
 from repro_torch.kernels.wkv6.ref import wkv6_chunked_ref, wkv6_reference
 from repro_torch.launch import serve as tserve
@@ -234,6 +238,444 @@ def test_k11_smoke_limit_rejects_seeded_faults(dtype, fault):
     ok = bool(((got.float() - plain.float()).abs()
                <= rtol * plain.float().abs() + atol).all())
     assert ok == (fault == "none")
+
+
+# -- K11's chunk-parallel schedule (csrc/wkv6.cu) on the CPU -----------------
+
+LOG2E = np.float32(1.4426950408889634)
+
+
+def _wk_constants():
+    """The integer constants ``WK_*`` as ``csrc/wkv6.cu`` declares them."""
+    src = (_build.CSRC / "wkv6.cu").read_text()
+    return {name: int(v) for name, v in
+            re.findall(r"\b(WK_[A-Z_]+) = (\d+);", src)}
+
+
+def _emulate_k11(r, k, v, logw, u, chunk, state=None, exps=None, slices=4):
+    """K11's three passes in numpy fp32, as ``csrc/wkv6.cu`` orders them ->
+    (o, final state), both fp32.  cw by one sequential sum a channel and
+    cw_prev = cw - logw, as the plain version forms them; anchors C_q =
+    cw_prev at each sub-chunk's first row (C_4 = cw_L).  Pass 1 the chunks'
+    U_c = sum_j (k_j exp(cw_L - cw_j)) v_j^T and D_c = exp(cw_L); pass 2
+    the walk S_c = D_c S_{c-1} + U_c, its value columns in ``slices``
+    slices walked apart; pass 3 A from the factored off-diagonal blocks
+    (r exp(cw_prev - C_q), k exp(C_{p+1} - cw), pair factors exp(C_q -
+    C_{p+1})), the diagonal blocks' pairwise exps and the bonus, then o =
+    A v + (r exp(cw_prev - C_q) exp(C_q)) S_{c-1}.  Each exp is taken as
+    2^(x log2 e); ``exps`` gets (the largest exponent, the largest |cw| it
+    came from) of each."""
+    f32 = np.float32
+    r, k, v, logw = (np.asarray(x, f32) for x in (r, k, v, logw))
+    b, s, h, e = r.shape
+    L = min(chunk, s)
+    nc = -(-s // L)
+    lm, sub = wkv6_ops.MAX_CHUNK, wkv6_ops.SUB
+    nsub = lm // sub
+
+    def decay(x, cw):
+        x = np.asarray(x, f32)
+        if exps is not None:
+            exps.append((float(x.max()), float(np.abs(cw).max())))
+        return np.exp2(x * LOG2E).astype(f32)
+
+    def rows(x, c):  # chunk c of x as [b, h, lm, e], rows past s zero
+        out = np.zeros((b, h, lm, e), f32)
+        t0 = c * L
+        n = min(L, s - t0)
+        out[:, :, :n] = x[:, t0:t0 + n].transpose(0, 2, 1, 3)
+        return out
+
+    def cumulative(c):  # cw and cw_prev, rows in order
+        w = rows(logw, c)
+        cw = np.empty_like(w)
+        acc = np.zeros((b, h, e), f32)
+        for t in range(lm):
+            acc = (acc + w[:, :, t]).astype(f32)
+            cw[:, :, t] = acc
+        return cw, (cw - w).astype(f32)
+
+    U = np.empty((nc, b, h, e, e), f32)
+    D = np.empty((nc, b, h, e), f32)
+    for c in range(nc):  # pass 1
+        cw, _ = cumulative(c)
+        total = cw[:, :, -1:]
+        D[c] = decay(total[:, :, 0], cw)
+        kp = rows(k, c) * decay(total - cw, cw)
+        U[c] = np.einsum("bhje,bhjf->bhef", kp, rows(v, c))
+    S = (np.zeros((b, h, e, e), f32) if state is None
+         else np.array(state, f32))
+    Sp = np.empty_like(U)
+    width = e // slices
+    for sl in range(slices):  # pass 2, one slice of value columns at a time
+        cols = slice(sl * width, (sl + 1) * width)
+        walk = S[..., cols].copy()
+        for c in range(nc):
+            Sp[c][..., cols] = walk
+            walk = (D[c][..., None] * walk + U[c][..., cols]).astype(f32)
+        S[..., cols] = walk
+    o = np.zeros((b, s, h, e), f32)
+    mi, mj = np.nonzero(np.tril(np.ones((sub, sub), bool), -1))
+    per_row = functools.partial(np.repeat, repeats=sub, axis=2)
+    for c in range(nc):  # pass 3
+        rc, kc, vc = rows(r, c), rows(k, c), rows(v, c)
+        cw, cp = cumulative(c)
+        C = np.concatenate([cp[:, :, ::sub], cw[:, :, -1:]], axis=2)
+        G = decay(C[:, :, :nsub], cw)
+        pair = {(2, 0): decay(C[:, :, 2] - C[:, :, 1], cw),
+                (3, 1): decay(C[:, :, 3] - C[:, :, 2], cw),
+                (3, 0): decay(C[:, :, 3] - C[:, :, 1], cw)}
+        A = np.zeros((b, h, lm, lm), f32)
+        for q in range(nsub):
+            i, j = q * sub + mi, q * sub + mj
+            fac = decay(cp[:, :, i] - cw[:, :, j], cw)
+            A[:, :, i, j] = np.einsum("bhpe,bhpe->bhp",
+                                      rc[:, :, i] * kc[:, :, j], fac)
+            d = q * sub + np.arange(sub)
+            A[:, :, d, d] = np.einsum("bhie,he,bhie->bhi", rc[:, :, d],
+                                      np.asarray(u, f32), kc[:, :, d])
+        rt = rc * decay(cp - per_row(C[:, :, :nsub]), cw)
+        kt = kc * decay(per_row(C[:, :, 1:]) - cw, cw)
+        for q in range(1, nsub):
+            for p in range(q):
+                kk = kt[:, :, p * sub:(p + 1) * sub]
+                if (q, p) in pair:
+                    kk = kk * pair[(q, p)][:, :, None]
+                A[:, :, q * sub:(q + 1) * sub, p * sub:(p + 1) * sub] = (
+                    np.einsum("bhie,bhje->bhij",
+                              rt[:, :, q * sub:(q + 1) * sub], kk))
+        oc = (np.einsum("bhij,bhjf->bhif", A, vc)
+              + np.einsum("bhie,bhef->bhif", rt * per_row(G), Sp[c]))
+        t0 = c * L
+        n = min(L, s - t0)
+        o[:, t0:t0 + n] = oc[:, :, :n].transpose(0, 2, 1, 3)
+    return o, S
+
+
+def _exponents_at_most_noise(exps):
+    """Every exponent the emulation forms is <= 0 up to the rounding of
+    the cumulative sums it is a difference of (4 ulps of the largest): no
+    factor grows past 1 + 2^-21 |cw|."""
+    assert exps
+    for top, cw in exps:
+        assert top <= 4 * np.spacing(np.float32(max(cw, 1.0))), (top, cw)
+
+
+def _kernel_close(ours, ref, dtype):
+    """Element by element within ``chip_smoke.LM_KERNEL_TOL``: the limit
+    the card holds K11 to against its plain version."""
+    rtol, atol = SMOKE.LM_KERNEL_TOL[dtype]
+    a, b = _f32(ours), _f32(ref)
+    assert a.shape == b.shape and np.isfinite(a).all()
+    over = np.abs(a - b) - (rtol * np.abs(b) + atol)
+    assert over.max() <= 0.0, (float(np.abs(a - b).max()), float(over.max()))
+
+
+def _card_cumsum(x, dim):
+    """``torch.cumsum`` as PyTorch's CUDA kernel takes it along an outer
+    dim of fp32: one fp32 sum a column, rows in order (the CPU kernel
+    accumulates in fp64 and rounds each output)."""
+    out = torch.empty_like(x)
+    acc = torch.zeros_like(x.select(dim, 0))
+    for t in range(x.shape[dim]):
+        acc = acc + x.select(dim, t)
+        out.select(dim, t).copy_(acc)
+    return out
+
+
+def _plain_on_card(monkeypatch, *args):
+    """The plain version with the card's cumulative sums: what the smoke
+    holds the kernel to."""
+    with monkeypatch.context() as m:
+        m.setattr(torch, "cumsum", _card_cumsum)
+        return wkv6_chunked_ref(*args)
+
+
+def test_card_cumsum_is_a_cumsum():
+    x = torch.from_numpy(_wkv_inputs(13, 1, 64, 2)[3])
+    got = _card_cumsum(x, 1)
+    assert torch.allclose(got, torch.cumsum(x, 1), rtol=1e-5, atol=1e-5)
+    seq = np.zeros((1, 2, 64), np.float32)
+    for t in range(64):
+        seq = seq + x[:, t].numpy()
+        assert np.array_equal(got[:, t].numpy(), seq)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("chunk", [32, 64])
+@pytest.mark.parametrize("s", [1, 15, 16, 17, 37, 64, 100, 300])
+def test_k11_schedule_matches_jax(s, chunk, with_state, dtype, monkeypatch):
+    """The emulated chunk-parallel order (sub-chunk factoring, U_c, the walk
+    in value-column slices, o) against JAX's chunked form and per-step
+    recurrence (within TOL) and the port's plain version (element by
+    element within the smoke's limit, its cumulative sums taken as on the
+    card), below, at and past a sub-chunk, a chunk and a short sub-chunk
+    tail; every exponent it forms is <= 0 but for rounding noise."""
+    r, k, v, logw, u, st = _wkv_inputs(100 + s, 1, s, 2)
+    st = st if with_state else None
+    tdt = getattr(torch, dtype)
+    rt, kt, vt = _t(r, k, v, dtype=tdt)
+    r32, k32, v32 = (x.float().numpy() for x in (rt, kt, vt))
+    exps = []
+    o, S = _emulate_k11(r32, k32, v32, logw, u, chunk, st, exps)
+    _exponents_at_most_noise(exps)
+    o = torch.from_numpy(o).to(tdt)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    j = [jnp.asarray(x, jdt) for x in (r, k, v)]
+    js = None if st is None else jnp.asarray(st)
+    jo, jS = jrwkv._wkv6_chunked(*j, jnp.asarray(logw), jnp.asarray(u),
+                                 chunk, js)
+    _close(o, jo, TOL[dtype])
+    _close(S, jS, TOL["float32"])
+    if dtype == "float32":
+        ro, rS = jrwkv.wkv6_reference(*j, jnp.asarray(logw), jnp.asarray(u),
+                                      js)
+        _close(o, ro, TOL[dtype])
+        _close(S, rS, TOL["float32"])
+    po, pS = _plain_on_card(monkeypatch, rt, kt, vt, *_t(logw, u), chunk,
+                            None if st is None else torch.from_numpy(st))
+    _kernel_close(o, po, dtype)
+    _kernel_close(S, pS, "float32")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("chunk", [32, 64])
+def test_k11_schedule_with_strong_decays(chunk, dtype, monkeypatch):
+    """logw = -exp(N(2, 1)): the decays of one sub-chunk already sum below
+    -88, where exp(cw_prev_i) exp(-cw_j) would overflow, yet every
+    exponent of the factored order is <= 0 and o and the state stay finite
+    and within the limits of the normal case."""
+    r, k, v, logw, u, st = _wkv_inputs(11, 1, 130, 2, mean=2.0, sd=1.0)
+    assert float(np.cumsum(logw[0, :16], axis=0).min()) < -88
+    tdt = getattr(torch, dtype)
+    rt, kt, vt = _t(r, k, v, dtype=tdt)
+    r32, k32, v32 = (x.float().numpy() for x in (rt, kt, vt))
+    exps = []
+    o, S = _emulate_k11(r32, k32, v32, logw, u, chunk, st, exps)
+    _exponents_at_most_noise(exps)
+    assert np.isfinite(o).all() and np.isfinite(S).all()
+    o = torch.from_numpy(o).to(tdt)
+    jo, jS = jrwkv.wkv6_reference(*(jnp.asarray(x) for x in
+                                    (r32, k32, v32, logw, u)),
+                                  jnp.asarray(st))
+    _close(o, jo, TOL[dtype])
+    _close(S, jS, TOL["float32"])
+    po, pS = _plain_on_card(monkeypatch, rt, kt, vt, *_t(logw, u), chunk,
+                            torch.from_numpy(st))
+    _kernel_close(o, po, dtype)
+    _kernel_close(S, pS, "float32")
+
+
+def test_k11_walk_slices_give_the_whole_walk():
+    """The walk of one slice of value columns reads only its own columns:
+    one slice, four and sixty-four give the same bits."""
+    r, k, v, logw, u, st = _wkv_inputs(12, 1, 150, 2)
+    outs = [_emulate_k11(r, k, v, logw, u, 64, st, slices=n)
+            for n in (1, 4, 64)]
+    for o, S in outs[1:]:
+        assert np.array_equal(o, outs[0][0]) and np.array_equal(S, outs[0][1])
+
+
+def test_k11_constants_match_the_wrapper():
+    """``csrc/wkv6.cu``'s constants against ``kernels.wkv6.ops``'s."""
+    c = _wk_constants()
+    assert c == {"WK_E": wkv6_ops.HEAD_DIM, "WK_LMAX": wkv6_ops.MAX_CHUNK,
+                 "WK_SUB": wkv6_ops.SUB, "WK_P": wkv6_ops.ROW_STRIDE,
+                 "WK_THREADS": wkv6_ops.THREADS,
+                 "WK_WALK_THREADS": wkv6_ops.WALK_THREADS,
+                 "WK_WALK_AHEAD": 8,
+                 "WK_STATE_BLOCKS": wkv6_ops.STATE_BLOCKS,
+                 "WK_OUT_BLOCKS": wkv6_ops.OUT_BLOCKS}
+    # a thread a (channel, sub-chunk); 16-byte rows; 16 x 16 thread tiles
+    assert c["WK_THREADS"] == c["WK_E"] * c["WK_LMAX"] // c["WK_SUB"] == 256
+    assert c["WK_P"] % 4 == 0 and c["WK_P"] >= c["WK_E"]
+    assert (c["WK_E"] * c["WK_E"]) % c["WK_WALK_THREADS"] == 0
+    src = (_build.CSRC / "wkv6.cu").read_text()
+    flat = " ".join(src.split())
+    assert "STATE_SMEM = (int)sizeof(float) * 3 * TILE;" in flat
+    assert ("OUT_SMEM = (int)sizeof(float) * (6 * TILE + NSUB * WK_E + 3 * "
+            "WK_E + WK_E + WK_LMAX + NSUB * WK_SUB * WK_SUB);") in flat
+    assert "TILE = WK_LMAX * WK_P;" in flat
+    assert re.search(r"\batomic[A-Z]\w*\(", src) is None  # no atomics
+
+
+def test_k11_diagonal_pairs_cover_each_lower_pair_once():
+    """``wkv6_chunk_out`` lays the 120 strictly lower pairs of a diagonal
+    16 x 16 block on a 15 x 8 rectangle, two blocks a round over 240 of its
+    256 threads: each pair once, none on or above the diagonal."""
+    src = " ".join((_build.CSRC / "wkv6.cu").read_text().split())
+    assert ("const int ti = x <= y ? y + 1 : WK_SUB - 1 - y; const int tj = "
+            "x <= y ? x : WK_SUB - 1 - x;") in src
+    sub = wkv6_ops.SUB
+    seen = []
+    for tid in range(wkv6_ops.THREADS):
+        if tid >= 2 * (sub * (sub - 1) // 2):
+            continue
+        y, x = (tid % 120) // (sub // 2), tid % (sub // 2)
+        ti, tj = (y + 1, x) if x <= y else (sub - 1 - y, sub - 1 - x)
+        seen += [(2 * rnd + tid // 120, ti, tj) for rnd in range(2)]
+    assert sorted(seen) == [(a, i, j) for a in range(4) for i in range(sub)
+                            for j in range(i)]
+
+
+#: dynamic shared memory a block may opt in to, and an SM's, on the H100
+SMEM_LIMIT, SM_SMEM = 232448, 233472
+
+
+@pytest.mark.parametrize("b,s,h,L", [(1, 4500, 32, 64), (1, 1500, 32, 64),
+                                     (1, 300, 32, 64), (1, 16, 32, 16),
+                                     (1, 37, 32, 37), (2, 100, 3, 32),
+                                     (1, 8192, 32, 64), (4, 1, 2, 1)])
+def test_wkv6_plan_covers_every_chunk_and_sub_chunk_once(b, s, h, L):
+    """The items of passes 1 and 3 are every (batch, head, chunk) once, the
+    chunks' rows cover the sequence once, and the sub-chunks a chunk's
+    rows once; the walk has one thread a state element."""
+    plan = wkv6_ops.wkv6_plan(b, s, h, L, 132)
+
+    def item_of(idx):  # as the kernels read blockIdx.x
+        bh, ch = divmod(idx, plan.chunks)
+        return bh // h, bh % h, ch
+
+    seen = {item_of(i) for i in range(plan.items)}
+    assert len(seen) == plan.items == b * h * plan.chunks
+    assert seen == {(bb, hh, c) for bb in range(b) for hh in range(h)
+                    for c in range(plan.chunks)}
+    covered = np.zeros(s, int)
+    for c in range(plan.chunks):
+        covered[c * L:min(s, (c + 1) * L)] += 1
+    assert (covered == 1).all()
+    in_chunk = np.zeros(L, int)
+    for r0, n in plan.sub_rows:
+        assert 1 <= n <= wkv6_ops.SUB and r0 % wkv6_ops.SUB == 0
+        in_chunk[r0:r0 + n] += 1
+    assert (in_chunk == 1).all()
+    assert plan.grids == (plan.items, plan.walkers // wkv6_ops.WALK_THREADS,
+                          plan.items)
+    assert plan.walkers == b * h * 64 * 64
+    assert plan.walkers % wkv6_ops.WALK_THREADS == 0
+
+
+def test_wkv6_plan_fills_the_card_at_the_prefill():
+    """rwkv6-1.6b's 4500-token prefill (b 1, 32 heads, chunks of 64): 2272
+    chunk blocks, over 132 SMs' worth, and 512 walk blocks."""
+    plan = wkv6_ops.wkv6_plan(1, 4500, 32, 64, 132)
+    assert plan.items == 2272 and min(plan.grids) >= 132
+    assert plan.grids[1] == 512
+    assert plan.waves == pytest.approx(2272 / 264)
+    # exps: the factored A needs about 39 k a chunk (164 k before)
+    lower = 4 * 16 * 15 // 2 * 64
+    assert lower + 2 * 64 * 64 + 3 * 64 < 40_000
+    assert plan.exps < 60_000 * plan.items
+
+
+def test_wkv6_plan_shared_memory_fits_the_card():
+    """A chunk-state block and a chunk-output block fit an H100 block's
+    227 KB, and as many of each as their launch bounds ask fit an SM (1 KB
+    of each block reserved)."""
+    plan = wkv6_ops.wkv6_plan(1, 4500, 32, 64, 132)
+    state, walk, out = plan.smem
+    assert walk == 0 and max(state, out) <= SMEM_LIMIT
+    assert wkv6_ops.STATE_BLOCKS * (state + 1024) <= SM_SMEM
+    assert wkv6_ops.OUT_BLOCKS * (out + 1024) <= SM_SMEM
+
+
+@pytest.mark.parametrize("s,mb", [(4500, 37.8), (8192, 68.2)])
+def test_wkv6_plan_scratch(s, mb):
+    """U (then S_prev) and the decays, fp32: 37 MB at 4500 tokens, 67 MB at
+    8192 (``max_len``), b 1 and 32 heads."""
+    plan = wkv6_ops.wkv6_plan(1, s, 32, 64, 132)
+    nc = -(-s // 64)
+    assert plan.scratch_elems == 32 * nc * (64 * 64 + 64)
+    assert 4 * plan.scratch_elems / 1e6 == pytest.approx(mb, abs=0.1)
+
+
+class _WkvEntry:
+    """A stand-in of the C entries ``wkv6_f32`` / ``wkv6_bf16`` that records
+    its arguments and which pointers are the data of live tensors."""
+
+    def __init__(self):
+        self.tensors, self.calls = [], []
+
+    def __call__(self, *args):
+        live = {t.data_ptr(): t for t in (w() for w in self.tensors)
+                if t is not None}
+        self.calls.append((args, [p is None or p in live for p in args[:9]],
+                           {p: live[p].numel() for p in args[:9]
+                            if p in live}))
+        return 0
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [37, 4500])
+def test_k11_launch_passes_live_tensors_and_its_scratch(s, dtype,
+                                                        with_state,
+                                                        monkeypatch):
+    """``_launch`` hands the C entry of r's type r, k, v, logw, u, the state
+    (or null), o, the final state and one scratch tensor of the plan's
+    size, all alive when it is called; b, s, h, L and the stream handle;
+    and steps the counter once a call."""
+    import weakref
+
+    h = 32 if s == 4500 else 2
+    tdt = getattr(torch, dtype)
+    r, k, v = (torch.zeros(1, s, h, 64, dtype=tdt) for _ in range(3))
+    logw = torch.zeros(1, s, h, 64)
+    u = torch.zeros(h, 64)
+    st = torch.zeros(1, h, 64, 64) if with_state else None
+    entry = _WkvEntry()
+    entry.tensors = [weakref.ref(t) for t in (r, k, v, logw, u)
+                     + (() if st is None else (st,))]
+    empty, empty_like = torch.empty, torch.empty_like
+    allocs = []
+
+    def recording(fn):
+        def alloc(*a, **kw):
+            out = fn(*a, **kw)
+            entry.tensors.append(weakref.ref(out))
+            allocs.append(out.numel())
+            return out
+        return alloc
+
+    name = "wkv6_bf16" if dtype == "bfloat16" else "wkv6_f32"
+    fake = type("Lib", (), {name: entry})()
+    monkeypatch.setattr(wkv6_ops, "check_cuda", lambda *a, **kw: None)
+    monkeypatch.setattr(wkv6_ops, "check_cuda_f32", lambda *a: None)
+    monkeypatch.setattr(wkv6_ops, "stream_handle", lambda dev: 77)
+    monkeypatch.setattr(wkv6_ops, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(wkv6_ops.torch, "empty", recording(empty))
+    monkeypatch.setattr(wkv6_ops.torch, "empty_like", recording(empty_like))
+    monkeypatch.setattr(_build, "library", lambda: fake)
+    monkeypatch.setattr(wkv6, "launches", 0)
+    for call in (1, 2):
+        o, S = wkv6_ops._launch(r, k, v, logw, u, min(64, s), st)
+        args, live, sizes = entry.calls[-1]
+        assert all(live)
+        assert args[:9] == (r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            logw.data_ptr(), u.data_ptr(),
+                            None if st is None else st.data_ptr(),
+                            o.data_ptr(), S.data_ptr(), args[8])
+        plan = wkv6_ops.wkv6_plan(1, s, h, min(64, s), 132)
+        assert sizes[args[8]] == plan.scratch_elems
+        assert args[9:] == (1, s, h, min(64, s), 77)
+        assert o.shape == r.shape and o.dtype == r.dtype
+        assert S.shape == (1, h, 64, 64) and S.dtype == torch.float32
+        assert wkv6.launches == call
+    # o, the final state and the scratch: three allocations a call
+    assert len(allocs) == 6
+
+
+def test_k11_launch_refuses_unaligned_tensors(monkeypatch):
+    """A logw that does not start on a 16-byte boundary cannot be read as
+    float4 rows: ``_launch`` raises before the C entry is reached."""
+    monkeypatch.setattr(wkv6_ops, "check_cuda", lambda *a, **kw: None)
+    monkeypatch.setattr(wkv6_ops, "check_cuda_f32", lambda *a: None)
+    monkeypatch.setattr(_build, "library", lambda: pytest.fail("launched"))
+    r = torch.zeros(1, 4, 2, 64)
+    logw = torch.zeros(4 * 2 * 64 + 1)[1:].view(1, 4, 2, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        wkv6_ops._launch(r, r, r, logw, torch.zeros(2, 64), 4, None)
 
 
 # -- the layers and the model -------------------------------------------------
