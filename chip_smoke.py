@@ -58,6 +58,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    nothing else, match the CPU engine (max abs <= 1e-4, same argmax),
    repeat bit for bit, and is timed beside the default fused engine on the
    same weights and frames;
+5b. the cost model on the card, on phase 4's seeded weights: the
+   network ladder (every net × method × fused and unfused where the
+   method fuses, 24 rows) measured at batch 16 by
+   ``repro_torch.tools.cost_fit.measure_ladder`` (the mean of
+   ``COST_ITERS`` readings of ``CNNEngine.time_forward`` a row,
+   round-robin over the rows, as the committed fit); the committed
+   ``cuda`` model (``src/repro_torch/core/COST_MODEL.json``) validated on
+   those fresh rows by ``repro_torch.tools.cost_validate.validate`` — its
+   Spearman rank correlation over all rows must reach ``COST_RHO`` — and
+   refitted on them as the committed model was fitted and with the JAX
+   package's holdout of every 3rd point (every fit's coefficients and
+   Spearman values printed); ``repro_torch.tools.autotune.tune`` with the committed model
+   for LeNet-5, CIFAR-10 and AlexNet at batch 16, each written with the
+   seeded weights by ``write_and_check`` (which must return 0) and
+   rebuilt by ``load_engine`` on the card and on the CPU; the cost gate
+   (``compile_plan(cost_gate=fusion_cost_gate(model, batch=16))``) for
+   every net × fusable method, its groups printed beside the ungated
+   ones.  Each tuned deployment and AlexNet's gated plan run at batch 16
+   with the counters set to 0 just before and read just after, and must
+   launch exactly what the plan's steps name (``plan_launches``), match
+   the CPU (max abs <= 1e-4 · max(1, max|CPU|), same argmax), repeat bit
+   for bit, and are timed with CUDA events beside the default fused
+   forward on the same weights and frames;
 6. serving: ``CNNServer`` over full-width AlexNet on the card
    (``max_batch=16``, a fake clock, the default degradation ladder with
    ``queue_high=0, degrade_after=1, cooldown=0``) takes ragged waves of
@@ -103,8 +126,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
       time;
    b. CPU parity: the model with its depth cut to one local/global pair,
       float32, random weights from ``--seed`` on the card and the same on
-      the CPU; a 64-token prompt prefilled (K10 once a layer on the card,
-      on the CUDA-core kernel)
+      the CPU, the CPU's calls in one fixed order (one intra-op thread,
+      and MKL's conditional numerical reproducibility ``MKL_CBWR`` set
+      before torch loads); a 64-token prompt prefilled (K10 once a layer
+      on the card, on the CUDA-core kernel)
       and 8 greedy tokens decoded on
       both must agree (``LM_TOL``) and give the same tokens, and the
       final bf16 KV caches must agree within one rounding
@@ -180,7 +205,9 @@ toolkit, and imports nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -248,6 +275,21 @@ WAVE_RUNGS = ("advanced_simd_8/fused", "advanced_simd_4/fused",
 MAX_BATCH = 16
 REPS = 25
 HOST_REPS = 20
+#: phase 5b: the readings a ladder row is the mean of, taken round-robin
+#: over the rows as the committed model's fit took them
+#: (``cost_fit.measure_ladder``), and the least Spearman rank correlation
+#: the committed model must reach on the run's fresh rows (the JAX
+#: package's CI threshold)
+COST_ITERS = 40
+COST_RHO = 0.8
+COST_NETS = ("alexnet", "cifar10", "lenet5")
+#: the kernel a per-layer conv of each method launches (seq_ref: none)
+CONV_KERNEL = {"advanced_simd_4": "K1", "advanced_simd_8": "K1",
+               "basic_simd": "K7", "basic_parallel": "K8"}
+#: MKL's conditional numerical reproducibility mode, set before torch
+#: loads: the CPU reference's MKL sums then do not depend on how its
+#: buffers are aligned (ROADMAP F3)
+MKL_CBWR = "AUTO"
 
 
 def fail(msg: str) -> None:
@@ -278,6 +320,40 @@ def time_ms(torch, fn, reps: int = REPS) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+@contextlib.contextmanager
+def one_thread(torch):
+    """The CPU reference's calls on one intra-op thread, the thread count
+    restored after (ROADMAP F3): one fixed summation order."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def plan_launches(plan, kernels):
+    """Launches of each kernel in ``kernels`` one forward of ``plan`` makes:
+    a fused or chain step its cell's (``fusion_report``), a per-layer conv
+    its method's (``CONV_KERNEL``), an fc K3 unless the method is
+    ``seq_ref``, a standalone pool K9."""
+    want = dict.fromkeys(kernels, 0)
+    cells = iter(plan.fusion_report())
+    for step in plan.steps:
+        kid = None
+        if step.kind in ("fused", "chain"):
+            kid = next(cells)["cell"]
+        elif step.kind == "conv":
+            kid = CONV_KERNEL.get(step.method.value)
+        elif step.kind == "fc" and step.method.value != "seq_ref":
+            kid = "K3"
+        elif step.kind == "pool":
+            kid = "K9"
+        if kid is not None:
+            want[kid] += 1
+    return want
 
 
 def he_params(shapes, rng):
@@ -686,6 +762,160 @@ def tuned_phase(torch, np, net, np_params, rng, dev, counters, card):
               f" launches {launches}, max abs err vs CPU {err:.3g} [{card}]",
               flush=True)
     return {"knobs": knobs, "fusion_report": report, "forwards": rows}
+
+
+def check_forward(torch, label, run, run_cpu, plan, x, counters, card,
+                  default):
+    """Phase 5b's checks of one forward on the card: ``run(x)`` with the
+    counters set to 0 just before and read just after must launch what
+    ``plan`` names, match ``run_cpu`` (the same plan on the CPU; max abs
+    <= 1e-4 · max(1, max|CPU|), same argmax) and repeat bit for bit; then
+    it is timed beside ``default`` (the default fused forward).  Returns
+    its record."""
+    want = plan_launches(plan, counters)
+    for fn in counters.values():
+        fn.launches = 0
+    y = run(x)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if launches != want:
+        fail(f"{label}: launches {launches}, its plan names {want}")
+    if not torch.isfinite(y).all():
+        fail(f"{label}: non-finite output")
+    y_cpu = run_cpu(x.cpu())
+    if tuple(y.shape) != tuple(y_cpu.shape):
+        fail(f"{label}: output shape {tuple(y.shape)}, the CPU's "
+             f"{tuple(y_cpu.shape)}")
+    err = (y.cpu() - y_cpu).abs().max().item()
+    tol = 1e-4 * max(1.0, y_cpu.abs().max().item())
+    if not err <= tol:
+        fail(f"{label}: max abs err vs CPU {err} > {tol}")
+    if not torch.equal(y.argmax(-1).cpu(), y_cpu.argmax(-1)):
+        fail(f"{label}: argmax differs from the CPU")
+    if not (torch.equal(y, run(x)) and torch.equal(y, run(x))):
+        fail(f"{label}: repeated forwards differ")
+    ms = time_ms(torch, lambda: run(x), TUNED_REPS)
+    default_ms = time_ms(torch, lambda: default(x), TUNED_REPS)
+    print(f"{label}: forward {ms:.3f} ms, default fused forward "
+          f"{default_ms:.3f} ms (event medians of {TUNED_REPS}), launches "
+          f"{ {k: v for k, v in launches.items() if v} }, max abs err vs "
+          f"CPU {err:.3g} [{card}]", flush=True)
+    return {"forward_ms": ms, "default_fused_forward_ms": default_ms,
+            "launches": launches, "max_abs_err_vs_cpu": err}
+
+
+def cost_phase(torch, np, nets, np_params, dev, counters, card):
+    """Phase 5b (see the module docstring); returns its record.  Its
+    frames come from a generator of its own, so the later phases see the
+    frames they saw before it was added."""
+    import tempfile
+
+    from repro_torch.core.cost import (DEFAULT_MODEL_PATH, CostModel,
+                                       fusion_cost_gate)
+    from repro_torch.core.deploy import (knobs_to_manifest, load_engine,
+                                         params_from_numpy)
+    from repro_torch.core.engine import CNNEngine
+    from repro_torch.core.fusion import FUSABLE_METHODS, fusion_summary
+    from repro_torch.core.plan import compile_plan
+    from repro_torch.tools.autotune import decision_table, tune, write_and_check
+    from repro_torch.tools.cost_fit import fit_model, measure_ladder
+    from repro_torch.tools.cost_validate import validate
+
+    rng = np.random.default_rng([SEED, 5])
+    params = {n: params_from_numpy(np_params[n], dev) for n in COST_NETS}
+    cpu_params = {n: params_from_numpy(np_params[n], "cpu")
+                  for n in COST_NETS}
+    # 1. the ladder, measured on the card
+    t0 = time.perf_counter()
+    bench = measure_ladder(COST_NETS, ENGINE_BATCH, COST_ITERS, dev,
+                           params=params, seed=SEED)
+    rows = {f"{net}/{r['method']}/{v}": r[v]["us_per_call"]
+            for net, rec in bench["networks"].items() for r in rec["rows"]
+            for v in ("unfused", "fused") if v in r}
+    print(f"cost ladder ({len(rows)} rows, batch {ENGINE_BATCH}, mean of "
+          f"{COST_ITERS} round-robin readings, "
+          f"{time.perf_counter() - t0:.1f} s) [{card}] "
+          + json.dumps(rows), flush=True)
+    # 2. the committed model against the fresh rows; a fresh fit beside it
+    model = CostModel.load()
+    if model.backend != "cuda" or model.fallback_from is not None:
+        fail(f"cost model: the committed file has no cuda entry "
+             f"(loaded {model.backend}, fallback from {model.fallback_from})")
+    committed = json.loads(DEFAULT_MODEL_PATH.read_text())["backends"]["cuda"]
+    report = validate(bench, model)
+    # the fresh rows refitted as the committed model was (all 24 points),
+    # and with the JAX package's holdout of every 3rd point, whose fits
+    # fall into a degenerate solution on the card (PERF.md, PR 23)
+    fits = {}
+    for every in sorted({committed["validation"]["holdout_every"], 3}):
+        fresh, fresh_val = fit_model(bench, every)
+        fits[f"holdout_every_{every}"] = {**fresh.to_dict(),
+                                          "validation": fresh_val}
+    rec = {"rows_us": rows, "spearman_all": report["spearman"],
+           "per_network": report["per_network"],
+           "committed": {**model.to_dict(),
+                         "validation": committed["validation"]},
+           "fresh_fits": fits}
+    print("cost validate " + json.dumps(
+        {k: rec[k] for k in ("spearman_all", "per_network")}), flush=True)
+    print("cost fits " + json.dumps(
+        {"committed": rec["committed"], "fresh": fits}), flush=True)
+    if not report["spearman"] >= COST_RHO:
+        fail(f"cost model: Spearman {report['spearman']:.4f} of the "
+             f"committed cuda model on this run's rows < {COST_RHO}")
+    # 3-4. tune each net, write and reload it, run it
+    rec["tuned"] = {}
+    for name in COST_NETS:
+        net = nets[name]
+        x = torch.from_numpy(rng.standard_normal(
+            (ENGINE_BATCH, *net.input_shape)).astype(np.float32)).to(dev)
+        default = CNNEngine(net)
+        result = tune(net, model, batch=ENGINE_BATCH)
+        print(decision_table(result, model), flush=True)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            code = write_and_check(result, model, tmp, np_params[name])
+            if code != 0:
+                fail(f"autotune {name}: write_and_check returned {code}")
+            eng, p, _ = load_engine(tmp)
+            cpu, p_cpu, _ = load_engine(tmp, device="cpu")
+        if eng.device.type != "cuda":
+            fail(f"autotune {name}: engine on {eng.device}")
+        r = check_forward(
+            torch, f"tuned {name} batch {ENGINE_BATCH}",
+            lambda x: eng.forward(p, x), lambda x: cpu.forward(p_cpu, x),
+            eng.plan(), x, counters, card,
+            lambda x: default.forward(params[name], x))
+        r.update(knobs=knobs_to_manifest(result["knobs"]),
+                 decisions=result["decisions"],
+                 modelled_us=result["cost"].us,
+                 default_modelled_us=result["default_cost"].us,
+                 groups=[g["group"] + ":" + g["cell"]
+                         for g in eng.fusion_report()])
+        rec["tuned"][name] = r
+    # 5. the cost gate, every net × fusable method; AlexNet's run
+    rec["gate"] = {}
+    for name in COST_NETS:
+        for m in sorted(FUSABLE_METHODS, key=lambda m: m.value):
+            gate = fusion_cost_gate(model, batch=ENGINE_BATCH)
+            gated = compile_plan(nets[name], method=m, cost_gate=gate)
+            plain = compile_plan(nets[name], method=m)
+            rec["gate"][f"{name}/{m.value}"] = {
+                "gated": ["+".join(g) for g in fusion_summary(gated)],
+                "ungated": ["+".join(g) for g in fusion_summary(plain)],
+                "cells": [g["cell"] for g in gated.fusion_report()]}
+    print("cost gate " + json.dumps(rec["gate"]), flush=True)
+    alex = nets["alexnet"]
+    gated = compile_plan(alex, cost_gate=fusion_cost_gate(
+        model, batch=ENGINE_BATCH))
+    default = CNNEngine(alex)
+    x = torch.from_numpy(rng.standard_normal(
+        (ENGINE_BATCH, *alex.input_shape)).astype(np.float32)).to(dev)
+    rec["gated_alexnet"] = check_forward(
+        torch, f"gated alexnet batch {ENGINE_BATCH}",
+        lambda x: gated.execute(params["alexnet"], x),
+        lambda x: gated.execute(cpu_params["alexnet"], x), gated, x,
+        counters, card, lambda x: default.forward(params["alexnet"], x))
+    return rec
 
 
 def serving_phase(torch, np, net, np_params, rng, dev, counters):
@@ -1166,7 +1396,9 @@ def lm_parity_phase(torch, np, dev, counter, arch=LM_ARCH,
     logits, tokens, worst = {}, {"gpu": [], "cpu": []}, {}
     label = f"{arch} parity"
     table, paths = getattr(counter, "path_launches", None), None
-    with torch.no_grad():
+    # the CPU reference in one fixed order (ROADMAP F3): one intra-op
+    # thread here, MKL_CBWR set before torch loaded
+    with torch.no_grad(), one_thread(torch):
         for side, m in models.items():
             t = torch.from_numpy(prompt).to(m.device)
             counter.launches = 0
@@ -1210,6 +1442,8 @@ def lm_parity_phase(torch, np, dev, counter, arch=LM_ARCH,
                 f"{label} final cache", a.cpu(), b,
                 tol * max(1.0, b.float().abs().max().item())))
     rec = {"arch": arch, "layers": cfg.num_layers, "prompt": prompt_len,
+           "cpu_threads": 1, "mkl": torch.backends.mkl.is_available(),
+           "mkl_cbwr": os.environ.get("MKL_CBWR"),
            "tokens": tokens["gpu"], "max_abs_err": worst,
            "tol": {**LM_TOL, "cache": LM_CACHE_TOL}}
     if paths:
@@ -1648,6 +1882,8 @@ def main() -> int:
     args = ap.parse_args()
     SEED = args.seed
 
+    # before torch loads: MKL reads its reproducibility mode once (F3)
+    os.environ["MKL_CBWR"] = MKL_CBWR
     import torch
     import torch.nn.functional as F
 
@@ -1818,6 +2054,11 @@ def main() -> int:
                         rng, dev, counters, card_line)
     print("tuned " + json.dumps(tuned), flush=True)
 
+    # -- 5b. the cost model on the card: fit check, autotune, gate ------------
+    cost = cost_phase(torch, np, nets, np_params, dev, counters, card_line)
+    print("cost " + json.dumps({k: v for k, v in cost.items()
+                                if k not in ("rows_us",)}), flush=True)
+
     # -- 6. serving: CNNServer walks the degradation ladder -----------------
     serving = serving_phase(torch, np, nets["alexnet"], np_params["alexnet"],
                             rng, dev, counters)
@@ -1958,6 +2199,7 @@ def main() -> int:
             {"card": card_line, "kind": kind, "torch": torch.__version__,
              "cuda": torch.version.cuda, "build_log": _build.build_log,
              "cases": cases, "engine": engine_rows, "tuned": tuned,
+             "cost": cost,
              "serving": serving, "lm_cases": lm_cases,
              "lm_parity": lm_parity, "lm": lm, "rwkv_cases": rwkv_cases,
              "rwkv_parity": rwkv_parity, "rwkv": rwkv,

@@ -6,11 +6,13 @@ A ``Finding`` is one rule violation: ``severity`` (``error`` — the
 configuration is wrong and must not run; ``warning`` — suspect;
 ``info`` — advisory), the ``step`` it anchors to (a plan step label), the
 ``rule`` ID, and a human-readable ``detail``.  ``RULES`` is the taxonomy:
-every finding's ``rule`` must be a key of it.
+every finding's ``rule`` must be a key of it.  ``PlanVerificationError``
+carries a plan's error findings out of ``compile_plan(verify=True)``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Sequence
 
 SEVERITIES = ("error", "warning", "info")
 
@@ -43,3 +45,17 @@ class Finding:
 
     def __str__(self) -> str:
         return f"[{self.rule}:{self.severity}] {self.step}: {self.detail}"
+
+
+class PlanVerificationError(ValueError):
+    """Raised by ``compile_plan(verify=True)`` on error-severity findings.
+    A ``ValueError``, so call sites that guard deployment artifacts with
+    ``except ValueError`` treat it as they treat a checksum fault; the
+    findings stay on ``.findings``."""
+
+    def __init__(self, findings: Sequence[Finding]):
+        self.findings = list(findings)
+        detail = "; ".join(str(f) for f in self.findings)
+        super().__init__(
+            f"plan verification failed with {len(self.findings)} "
+            f"error finding(s): {detail}")

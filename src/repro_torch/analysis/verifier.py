@@ -5,7 +5,8 @@
 no kernel execution, that every step's output shape re-derives from its
 input shape and layer spec (V101), that consecutive steps chain (V102)
 and that conv/fc parameter geometry matches ``infer_param_shapes``
-(V103).
+(V103).  ``compile_plan(verify=True)`` raises ``PlanVerificationError``
+(re-exported here, as in the JAX package) on an error finding.
 
 Not ported: the JAX verifier's band-coverage rules (V2xx) and its VMEM
 budget audit (V3xx).  Both prove the TPU kernels' row-band tiling and
@@ -18,7 +19,10 @@ from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
-from repro_torch.analysis.findings import Finding
+from repro_torch.analysis.findings import (  # noqa: F401  (re-exported)
+    Finding,
+    PlanVerificationError,
+)
 from repro_torch.core.fusion import _conv_out_hw, _pool_out_hw
 from repro_torch.core.plan import ExecutionPlan, PlanStep, infer_param_shapes
 

@@ -86,7 +86,7 @@ def knobs_from_manifest(d: dict) -> dict:
     return out
 
 
-def _plan_knobs(knobs: dict) -> dict:
+def plan_knobs(knobs: dict) -> dict:
     """A knob dict as ``compile_plan`` takes it: the TPU knobs dropped."""
     return {k: v for k, v in knobs.items() if k not in TPU_ONLY_KNOBS}
 
@@ -208,7 +208,7 @@ def load_model(path, device: Optional[Union[str, torch.device]] = None
     # pass the shape-flow verifier: a tampered tuning fails the load, not
     # the first batch
     tuned = manifest.get("tuned_plan")
-    knobs = _plan_knobs(knobs_from_manifest(tuned)) if tuned else {}
+    knobs = plan_knobs(knobs_from_manifest(tuned)) if tuned else {}
     errors = [f for f in verify_plan(compile_plan(net, **knobs))
               if f.severity == "error"]
     if errors:
@@ -234,7 +234,7 @@ def load_engine(path, device: Optional[Union[str, torch.device]] = None
     ``knobs`` but not applied."""
     net, params, _extra = load_model(path, device)
     knobs = load_tuned_knobs(path)
-    kwargs = _plan_knobs(knobs or {})
+    kwargs = plan_knobs(knobs or {})
     if "fuse" in kwargs:
         kwargs["fuse_pool"] = kwargs.pop("fuse")
     return CNNEngine(net, device=device, **kwargs), params, knobs

@@ -22,17 +22,26 @@ versions run; with no GPU and no device it raises.
   shape-flow verifier (``repro_torch.analysis.verifier``): the
   degradation ladder's check before a rung is served.
 * Assigning ``method`` / ``fuse_pool`` / ``fuse_relu``, or mutating a
-  ``per_layer_*`` map, drops the memoized plans and bucket records so
-  the next call compiles against the new configuration.
+  ``per_layer_*`` map, drops the memoized plans, forwards and bucket
+  records so the next call compiles against the new configuration.
+* The timing helpers, as the JAX engine's: ``forward_fn`` (the cached
+  forward a fuse setting runs, JAX's ``jit_forward``), ``time_forward``
+  (seconds a call, on the host clock with the card synchronized after
+  each call), ``heaviest_conv`` (the conv with the most MACs and its
+  input) and ``conv_layer_fn`` (one conv through the method dispatch:
+  K1, K7 or K8 on the card).  ``repro_torch.tools.cost_fit`` measures
+  the cost model's rows with ``time_forward``.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Set, Tuple, Union
+import time
+from functools import partial
+from typing import Callable, Dict, List, Optional, Set, Tuple, Union
 
 import torch
 
 from repro_torch.analysis.findings import Finding
-from repro_torch.core.methods import Method
+from repro_torch.core.methods import Method, conv2d
 from repro_torch.core.netdefs import NetworkDef
 from repro_torch.core.plan import ExecutionPlan, compile_plan, infer_param_shapes
 from repro_torch.kernels.common import resolve_device
@@ -158,6 +167,7 @@ class CNNEngine:
         # last clear; each bucket only ever sees its one padded batch
         # shape, so their number is the compile count
         self._plans: Dict[bool, ExecutionPlan] = {}
+        self._forwards: Dict[bool, Callable] = {}
         self._buckets: Set[Tuple[bool, int]] = set()
         self.method = method
         self.fuse_relu = fuse_relu
@@ -172,9 +182,10 @@ class CNNEngine:
         self._shapes = infer_param_shapes(net)
 
     def clear_caches(self) -> None:
-        """Drop the memoized execution plans and bucket records (the knob
-        setters call it)."""
+        """Drop the memoized execution plans, forwards and bucket records
+        (the knob setters call it)."""
         self._plans.clear()
+        self._forwards.clear()
         self._buckets.clear()
 
     # -- parameters -----------------------------------------------------------
@@ -272,6 +283,69 @@ class CNNEngine:
             fuse = False  # instrumentation needs every per-layer output
         x = torch.as_tensor(x, device=self.device).contiguous()
         return self.plan(fuse).execute(params, x, collect=collect)
+
+    def forward_fn(self, fuse: Optional[bool] = None) -> Callable:
+        """The forward of one fuse setting as a callable ``fn(params, x)``,
+        memoized per setting — JAX's ``jit_forward``.  There is nothing to
+        trace: the plan is compiled once (``plan``) and its kernels are
+        built at their first launch, so repeated calls (``time_forward``)
+        reuse both."""
+        key = self.fuse_pool if fuse is None else bool(fuse)
+        if key not in self._forwards:
+            self._forwards[key] = partial(self.forward, fuse=key)
+        return self._forwards[key]
+
+    def time_forward(self, params, x, iters: int = 3,
+                     fuse: Optional[bool] = None) -> float:
+        """Seconds a forward takes: one warm-up call (which builds the
+        kernels), then the host clock over ``iters`` calls, with the card
+        synchronized after each one on cuda (JAX's ``block_until_ready``
+        after each call)."""
+        fn = self.forward_fn(fuse)
+        x = torch.as_tensor(x, device=self.device)
+        sync = (torch.cuda.synchronize if self.device.type == "cuda"
+                else (lambda: None))
+        fn(params, x)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn(params, x)
+            sync()
+        return (time.perf_counter() - t0) / iters
+
+    def heaviest_conv(self, params, x) -> Tuple[str, torch.Tensor]:
+        """The conv layer with the most MACs (paper Table 4's target) and
+        its input activation, from one unfused ``forward(collect=...)``."""
+        best, best_macs, best_in = None, -1, None
+        acts: dict = {}
+        x = torch.as_tensor(x, device=self.device)
+        self.forward(params, x, collect=acts)
+        cur = x
+        for spec in self.net.layers:
+            if spec.kind == "conv":
+                _, ic, kh, kw = self._shapes[spec.name]
+                macs = acts[spec.name].numel() * ic * kh * kw
+                if macs > best_macs:
+                    best, best_macs, best_in = spec, macs, cur
+            cur = acts[spec.name]
+        return best.name, best_in
+
+    def conv_layer_fn(self, name: str, method: Method,
+                      oh_block: Optional[int] = None) -> Callable:
+        """``fn(params, x)``: conv ``name`` alone (with its ReLU) through
+        the method dispatch of ``core.methods`` — on the card K1 for the
+        advanced methods, K7 for basic SIMD, K8 for basic parallel.
+        ``oh_block`` is JAX's row band, accepted and not applied (the
+        port's kernels have no row bands)."""
+        spec = next(s for s in self.net.layers if s.name == name)
+
+        def fn(params, x):
+            p = params[name]
+            x = torch.as_tensor(x, device=self.device).contiguous()
+            return conv2d(x, p["w"], p["b"], method, spec.stride,
+                          spec.padding, True)
+
+        return fn
 
     # -- batch-bucketed forward (serving path) --------------------------------
     @staticmethod

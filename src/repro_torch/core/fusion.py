@@ -14,11 +14,16 @@ pool kind is not max/avg or its window exceeds the conv output, when a
 layer is named in ``no_fuse``, or when a standalone ReLU follows a conv
 and ``fuse_relu`` is off.  A lone conv with no pool is not a group.
 
-The JAX planner also checks each group against a TPU VMEM budget (or a
-cost model) and shortens it when it does not fit.  Those are TPU
-geometry; the port's kernels take every group this planner forms, so it
-has no admission check and forms the groups the JAX planner forms on its
-jnp path.
+With no ``cost_gate`` the planner admits every group it forms (the port's
+kernels take them all) and forms the groups the JAX planner forms on its
+jnp path.  Given a ``cost_gate`` (``repro_torch.core.cost.
+fusion_cost_gate``), a group is admitted only when the cost model scores
+its one launch no slower than its per-layer ladder; a declined group
+walks JAX's admission ladder: drop the LRN tail, then block the final
+stage of a chain (``oc_block_final``, K6), then shorten the chain (the
+detached layers re-enter the scan), and decline only at a single
+conv+pool.  JAX's other admission check, the VMEM budget of the TPU
+cell, is TPU geometry and has no counterpart here.
 
 ``group_geometry`` reports what a group executes: the kernel it resolves
 to (K1, K4, K5 or K7 for a single conv with its tail, K2 or K6 for a
@@ -40,6 +45,10 @@ FUSABLE_METHODS = frozenset({
 })
 
 SUPPORTED_POOL_KINDS = frozenset({"max", "avg"})
+
+#: the final-stage oc block the admission ladder's chain rung asks for,
+#: by method (JAX's ``_ADVANCED_OC_BLOCK``; 8 for any other method)
+_ADVANCED_OC_BLOCK = {Method.ADVANCED_SIMD_4: 4, Method.ADVANCED_SIMD_8: 8}
 
 
 @dataclass(frozen=True)
@@ -91,33 +100,48 @@ def _pool_out_hw(h: int, w: int, spec: LayerSpec) -> Tuple[int, int]:
             (w - kw) // spec.stride[1] + 1)
 
 
+#: a fusion cost gate: ``gate(candidate_group, method, in_shape) -> bool``
+#: — True admits the group, False sends the planner down its admission
+#: ladder.  Built by ``repro_torch.core.cost.fusion_cost_gate``.
+CostGate = Callable[["FusedLayerSpec", Optional[Method],
+                     Tuple[int, int, int]], bool]
+
+
 def plan_fusion(net: NetworkDef, *,
                 method_for: Optional[Callable[[str], Method]] = None,
                 no_fuse: Iterable[str] = (),
-                fuse_relu: bool = True) -> List[PlanItem]:
+                fuse_relu: bool = True,
+                cost_gate: Optional[CostGate] = None) -> List[PlanItem]:
     """Greedy left-to-right grouping of conv-chain[+relu][+pool][+lrn]
     runs.  ``method_for`` maps a conv layer name to its ``Method`` (None:
-    every conv is fusable).  Returns the layer sequence with each fused
-    run replaced by one ``FusedLayerSpec``; other layers pass through."""
+    every conv is fusable).  ``cost_gate`` (None: every group formed is
+    admitted) decides each candidate group on its modelled cost; a
+    declined candidate drops its LRN tail, then (a chain) blocks its
+    final stage's oc grid, then loses trailing convs, and is declined
+    only as a single conv+pool.  Returns the layer sequence with each
+    fused run replaced by one ``FusedLayerSpec``; other layers pass
+    through."""
     no_fuse = frozenset(no_fuse)
     layers = list(net.layers)
     plan: List[PlanItem] = []
-    _, h, w = net.input_shape
+    c, h, w = net.input_shape
     i = 0
     while i < len(layers):
         spec = layers[i]
         if spec.kind == "conv":
             group = _try_group(layers, i, method_for, no_fuse, fuse_relu,
-                               h, w)
+                               c, h, w, cost_gate)
             if group is not None:
                 plan.append(group)
                 for cv in group.convs:
                     h, w = _conv_out_hw(h, w, cv)
+                c = group.convs[-1].out_channels
                 if group.pool is not None:
                     h, w = _pool_out_hw(h, w, group.pool)
                 i += len(group.names)
                 continue
             h, w = _conv_out_hw(h, w, spec)
+            c = spec.out_channels
         elif spec.kind == "pool":
             h, w = _pool_out_hw(h, w, spec)
         plan.append(spec)
@@ -125,7 +149,8 @@ def plan_fusion(net: NetworkDef, *,
     return plan
 
 
-def _try_group(layers, i, method_for, no_fuse, fuse_relu, h_in, w_in,
+def _try_group(layers, i, method_for, no_fuse, fuse_relu, cin, h_in, w_in,
+               cost_gate: Optional[CostGate] = None,
                ) -> Optional[FusedLayerSpec]:
     """A FusedLayerSpec for the run starting at conv ``layers[i]``, or
     None when any eligibility check fails (the per-layer fallback)."""
@@ -186,12 +211,46 @@ def _try_group(layers, i, method_for, no_fuse, fuse_relu, h_in, w_in,
             if (k < len(layers) and layers[k].kind == "lrn"
                     and layers[k].name not in no_fuse):
                 lrn = layers[k]
+    # -- admission (with a cost gate): JAX's ladder ------------------------
+    # a declined group first drops its LRN tail, then (a chain) blocks its
+    # final stage's oc grid — whose channels feed no further stage — then
+    # loses its last conv (the detached pool/convs re-enter the greedy
+    # scan), and is declined only as a single conv+pool
+    oc_block_final = None
+    if cost_gate is not None:
+        while True:
+            if len(convs) == 1 and pool is None:
+                return None
+            cand = _group(convs, relus, conv_names, pool, pool_relu,
+                          pool_names, lrn, oc_block_final)
+            if cost_gate(cand, method, (cin, h_in, w_in)):
+                return cand
+            if lrn is not None:
+                lrn = None
+                continue
+            if len(convs) > 1 and oc_block_final is None:
+                oc_block_final = _ADVANCED_OC_BLOCK.get(method, 8)
+                continue
+            if len(convs) == 1:
+                return None
+            convs.pop()
+            relus.pop()
+            conv_names.pop()
+            pool, pool_relu, pool_names = None, False, []
+            oc_block_final = None
     if len(convs) == 1 and pool is None:
         return None  # a lone conv is not a super-layer
+    return _group(convs, relus, conv_names, pool, pool_relu, pool_names,
+                  lrn, oc_block_final)
+
+
+def _group(convs, relus, conv_names, pool, pool_relu, pool_names, lrn,
+           oc_block_final) -> FusedLayerSpec:
     names = (tuple(n for stage in conv_names for n in stage)
              + tuple(pool_names) + ((lrn.name,) if lrn is not None else ()))
     return FusedLayerSpec(convs=tuple(convs), relus=tuple(relus), pool=pool,
-                          pool_relu=pool_relu, names=names, lrn=lrn)
+                          pool_relu=pool_relu, names=names, lrn=lrn,
+                          oc_block_final=oc_block_final)
 
 
 def fusion_summary(plan: Iterable[PlanItem]) -> List[Tuple[str, ...]]:

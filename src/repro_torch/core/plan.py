@@ -10,12 +10,19 @@ for basic SIMD) or ``chain`` (several convs, K2) step, and per-layer
 methods are resolved.  ``ExecutionPlan.execute`` is a thin loop over step
 executors; an unfused plan's standalone pools run on K9.
 
-The shape-flow rules of the JAX package's static verifier run in
-``repro_torch.analysis.verifier`` (``CNNEngine.verify``), not inside
-``compile_plan``.  ``ExecutionPlan.fusion_report`` reads each fused
-group's kernel and band off the steps (``fusion.group_geometry``).  Not
-ported: its TPU band overrides (``oh_block``), its band and VMEM verifier
-rules and its cost gate — all TPU geometry.
+``compile_plan(cost_gate=...)`` admits each fused group through the cost
+model (``repro_torch.core.cost.fusion_cost_gate``; see
+``fusion.plan_fusion``), and ``ExecutionPlan.cost`` prices a plan with
+it.  ``knob_space`` is the per-layer grid the autotuner
+(``repro_torch.tools.autotune``) searches.  ``compile_plan(verify=True)``
+runs the shape-flow rules of ``repro_torch.analysis.verifier`` and
+raises ``PlanVerificationError`` on an error finding; the default stays
+False (the engine verifies in ``CNNEngine.verify``) until the port's
+static analysis decides it (``ROADMAP.md`` queue 1).
+``ExecutionPlan.fusion_report`` reads each fused group's kernel and band
+off the steps (``fusion.group_geometry``).  Not ported: the TPU band
+overrides (``oh_block``), which ``knob_space`` still lists so that knob
+sets round-trip, and the band and VMEM verifier rules — TPU geometry.
 """
 from __future__ import annotations
 
@@ -25,6 +32,8 @@ from typing import Callable, Dict, List, Mapping, Optional, Tuple
 import torch
 
 from repro_torch.core.fusion import (
+    FUSABLE_METHODS,
+    CostGate,
     FusedLayerSpec,
     PlanItem,
     _conv_out_hw,
@@ -71,6 +80,51 @@ def infer_param_shapes(net: NetworkDef) -> Dict[str, Tuple]:
             shapes[spec.name] = (d_in, spec.out_channels)
             flat = spec.out_channels
     return shapes
+
+
+#: the conv methods worth sweeping per layer: the three fusable SIMD
+#: rungs (seq_ref / basic_parallel are reference semantics, never faster)
+SIMD_METHODS: Tuple[Method, ...] = tuple(
+    m for m in Method if m in FUSABLE_METHODS)
+
+#: JAX's per-layer band candidates; the port has no row bands, so these
+#: are listed (the knob sets round-trip) and never applied
+OH_BLOCK_CANDIDATES: Tuple[int, ...] = (4, 8, 16, 32, 64)
+
+
+def knob_space(net: NetworkDef) -> Dict[str, Dict[str, list]]:
+    """The per-layer candidate knob grid an offline autotuner sweeps, the
+    dict JAX's ``knob_space`` returns: ``{layer_name: {"methods": [...],
+    "oh_blocks": [None, ...], "fuse": [True, False], ...}}``.
+
+    Each conv's ``oh_blocks`` list is clipped to bands strictly smaller
+    than its output height (``None`` leads).  Conv layers also expose the
+    second-generation cell axes: ``pool_carry`` and ``lrn_oc_block`` bind
+    when the conv leads a fused conv+pool group (K5, K4),
+    ``oc_block_final`` when it ends a fused chain (K6).  Pool and LRN
+    layers expose only ``fuse``; fc and the pointwise layers expose no
+    axis."""
+    space: Dict[str, Dict[str, list]] = {}
+    c, h, w = net.input_shape
+    for spec in net.layers:
+        if spec.kind == "conv":
+            oh, ow = _conv_out_hw(h, w, spec)
+            space[spec.name] = {
+                "methods": list(SIMD_METHODS),
+                "oh_blocks": [None] + [b for b in OH_BLOCK_CANDIDATES
+                                       if b < oh],
+                "fuse": [True, False],
+                "pool_carry": [None, False],
+                "lrn_oc_block": [None, True, False],
+                "oc_block_final": [None, 4, 8],
+            }
+            c, h, w = spec.out_channels, oh, ow
+        elif spec.kind == "pool":
+            space[spec.name] = {"fuse": [True, False]}
+            h, w = _pool_out_hw(h, w, spec)
+        elif spec.kind == "lrn":
+            space[spec.name] = {"fuse": [True, False]}
+    return space
 
 
 @dataclass(frozen=True)
@@ -229,6 +283,16 @@ class ExecutionPlan:
                     lrn_oc_block=s.kwargs.get("lrn_oc_block"))
                 for s in self.steps if s.kind in ("fused", "chain")]
 
+    def cost(self, model=None, batch: int = 1):
+        """Modelled cost of this plan: a ``repro_torch.core.cost.PlanCost``
+        with per-step FLOPs, bytes and launches and, under ``model`` (a
+        fitted ``CostModel``; None = unit coefficients), predicted
+        microseconds.  Deferred import: the cost model sits above the
+        plan IR."""
+        from repro_torch.core.cost import plan_cost
+
+        return plan_cost(self, model=model, batch=batch)
+
 
 def compile_plan(net: NetworkDef, *,
                  method: Method = Method.ADVANCED_SIMD_8,
@@ -239,16 +303,29 @@ def compile_plan(net: NetworkDef, *,
                  per_layer_pool_carry: Optional[Mapping[str, bool]] = None,
                  per_layer_lrn_oc_block: Optional[Mapping[str, bool]] = None,
                  per_layer_oc_block_final: Optional[Mapping[str, int]] = None,
-                 ) -> ExecutionPlan:
+                 cost_gate: Optional[CostGate] = None,
+                 verify: bool = False) -> ExecutionPlan:
     """Lower ``net`` into an ``ExecutionPlan``: run the fusion planner
     (``fuse=True``), fold standalone ReLUs (``fuse_relu``), resolve each
     layer's method and propagate activation shapes.
+
+    ``cost_gate`` (see ``fusion.plan_fusion``; built by
+    ``repro_torch.core.cost.fusion_cost_gate``) admits a fused group only
+    when the cost model scores its one launch no slower than its
+    per-layer ladder; None admits every group formed.
 
     ``per_layer_pool_carry`` / ``per_layer_lrn_oc_block`` (keyed by the
     conv leading a fused conv+pool group) and ``per_layer_oc_block_final``
     (keyed by the conv ending a chain) select the second-generation cells
     (K5, K4, K6), which compute the same result; the resolvers of
     ``kernels.conv2d.ops`` decide where each takes effect.
+
+    ``verify=True`` runs the shape-flow verifier
+    (``repro_torch.analysis.verifier.verify_plan``) over the compiled
+    plan and raises ``PlanVerificationError`` on any error finding, as
+    JAX's ``compile_plan`` does.  The default is False: the port's engine
+    verifies in ``CNNEngine.verify``, and whether compiling should
+    verify too waits for the port's static analysis.
     """
     per_layer_methods = per_layer_methods or {}
     per_layer_pool_carry = per_layer_pool_carry or {}
@@ -261,7 +338,8 @@ def compile_plan(net: NetworkDef, *,
     if fuse:
         no = frozenset(n for n, v in (per_layer_fuse or {}).items() if not v)
         items: List[PlanItem] = plan_fusion(
-            net, method_for=method_for, no_fuse=no, fuse_relu=fuse_relu)
+            net, method_for=method_for, no_fuse=no, fuse_relu=fuse_relu,
+            cost_gate=cost_gate)
     else:
         items = list(net.layers)
 
@@ -346,5 +424,14 @@ def compile_plan(net: NetworkDef, *,
                                   spec=spec))
         else:
             raise ValueError(spec.kind)
-    return ExecutionPlan(net=net, fuse=fuse, steps=tuple(steps),
+    plan = ExecutionPlan(net=net, fuse=fuse, steps=tuple(steps),
                          items=tuple(final_items))
+    if verify:
+        # deferred import: the verifier imports this module
+        from repro_torch.analysis.verifier import (PlanVerificationError,
+                                                   verify_plan)
+
+        errors = [f for f in verify_plan(plan) if f.severity == "error"]
+        if errors:
+            raise PlanVerificationError(errors)
+    return plan

@@ -22,6 +22,10 @@ prompt from the same seed.  Then:
    call whose output differs from the first prefill's and whether its
    inputs were the same.
 
+Every CPU prefill runs in the smoke's fixed order (``chip_smoke.
+one_thread``: one intra-op thread; ``MKL_CBWR`` set to the smoke's
+``MKL_CBWR`` before torch loads).
+
 Prints the card, then one JSON line a part; exits 1 if any bits moved or
 any run was over the limit.
 
@@ -85,6 +89,13 @@ def _wrapped(recording, kernels_only=False):
 
 
 def main() -> int:
+    import os
+
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import MKL_CBWR, one_thread
+
+    # before torch loads, as the smoke does
+    os.environ["MKL_CBWR"] = MKL_CBWR
     import numpy as np
     import torch
 
@@ -132,7 +143,7 @@ def main() -> int:
 
     def cpu_prefill():
         calls.clear()
-        with _wrapped(recording):
+        with _wrapped(recording), one_thread(torch):
             lg = prefill(cpu)
         return lg, list(calls)
 
@@ -211,7 +222,8 @@ def main() -> int:
                 break
         bad += not rec["bitwise_equal_to_first"]
         out.append(rec)
-    print("cpu " + json.dumps({"threads": torch.get_num_threads(),
+    print("cpu " + json.dumps({"threads": 1, "mkl_cbwr": MKL_CBWR,
+                               "mkl": torch.backends.mkl.is_available(),
                                "runs": out}), flush=True)
     return 1 if bad else 0
 
