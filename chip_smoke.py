@@ -177,12 +177,39 @@ Phases, each of which fails the run (non-zero exit, no result line):
    d. the launcher ``repro_torch.launch.serve.main(["--arch",
       "rwkv6-1.6b"])`` on the card: a token list for every request, K11
       once a layer in every prefill;
-9. stream capture: K2 on AlexNet's chain and K1 on its conv2+pool2+norm2
+9. qwen3-moe-30b-a3b at full width (the same engine over the MoE
+   ``TransformerLM``, ``nn/moe.py``), phases 7 and 8's models freed
+   first, its wall time and peak device memory printed:
+   a. kernel cases at its attention's shapes, held, repeated and timed as
+      in 7a: K10 in bf16 (32 heads over 4, head_dim 128, causal, no cap,
+      no window) at 1500 and 4500 tokens, SDPA ``is_causal`` its
+      yardstick; K3 in bf16 at q (2048 -> 4096), k and v (2048 -> 512)
+      and o (4096 -> 2048) for the M of 7a; none feeds the kernels line;
+   b. CPU parity as 7b: two layers in float32, a 64-token prompt
+      prefilled (capacity 8 an expert: pairs may drop) and 8 greedy
+      tokens decoded; logits (``LM_TOL``), tokens and caches
+      (``LM_CACHE_TOL``) must agree, and every MoE call on the card must
+      choose the CPU's experts and keep its pairs (``record_routing``
+      wraps ``moe_apply``; the smallest margin between a token's k-th and
+      (k+1)-th router probability is printed); no decode step may drop;
+   c. the full model: 48 layers in bf16 (61.09 GB of weights, drawn on
+      the card from ``--seed``, large leaves slice by slice) with a bf16
+      KV cache, served as in 7c: every prefill must launch K3 192 times (4
+      a layer: the experts are batched ``torch.matmul``) and K10 48 times
+      on the wgmma path, every decode step K3 192 times and no K10,
+      nothing K11, K3's paths as in 7c, a second run must repeat the
+      tokens; the peak device memory must stay under 80 GB;
+   d. the profile of 7d, with the device time of the MoE block and of its
+      routing and expert products (``record_function`` ranges);
+   e. the launcher ``repro_torch.launch.serve.main(["--arch",
+      "qwen3-moe-30b-a3b"])`` (reduced) on the card: a token list for
+      every request, K10 once a layer in every prefill;
+10. stream capture: K2 on AlexNet's chain and K1 on its conv2+pool2+norm2
    group at batch 16, each captured into a ``torch.cuda.CUDAGraph`` and
    replayed (``capture`` line: per kernel, whether the cooperative launch
    was accepted and the replay gave the bits of the launch; a refusal is
    reported, not failed);
-10. prints one JSON line ``{"kernels": [...]}``: per kernel, ``launches``
+11. prints one JSON line ``{"kernels": [...]}``: per kernel, ``launches``
    is its count summed over the AlexNet forwards of phase 4 (K1-K3,
    K7-K9) or phase 5 (K4-K6), or over the first LM serving run of phase
    7c (K10's wgmma path as ``flash_attention``, and K3's bf16 launches as
@@ -197,7 +224,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    of its own, its launches those
    of the wgmma path in the first run of 7c, its times its phase-7a cases
    at M = 4500; the error is the largest over every case;
-11. prints ``{"ok": true, "device": {...}}`` as its last line.
+12. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Run it from the repository root; it needs one CUDA device and the CUDA
 toolkit, and imports nothing of the JAX package.
@@ -1364,8 +1391,9 @@ def lm_kernel_cases(torch, F, dev, peaks):
 
 def lm_parity_phase(torch, np, dev, counter, arch=LM_ARCH,
                     prompt_len=LM_PARITY_PROMPT, redraw=False):
-    """Phase 7b (gemma2-2b, one local/global pair) and 8b (rwkv6-1.6b, two
-    layers): ``arch`` at full width with its depth cut to 2 layers, float32,
+    """Phase 7b (gemma2-2b, one local/global pair), 8b (rwkv6-1.6b, two
+    layers) and 9b (qwen3-moe-30b-a3b, two layers): ``arch`` at full
+    width with its depth cut to 2 layers, float32,
     on the card and on the CPU with the same weights (``redraw``: with
     ``rwkv_redraw``'s leaves); a ``prompt_len``-token prefill and
     ``LM_PARITY_DECODE`` greedy tokens must agree (``LM_TOL``), as must
@@ -1473,10 +1501,11 @@ def build_model(torch, arch, dev, redraw=False):
 
 
 def lm_serving_phase(torch, np, dev, counters, card, model, init_s, expect):
-    """Phase 7c (gemma2-2b) and 8c (rwkv6-1.6b): ``model`` served by
-    ``ServingEngine`` on the card, twice.  ``expect`` gives the launches of
-    each kernel that ``counters`` names in every prefill and every decode
-    step; every other counter must stay at 0.  Returns the record of both
+    """Phase 7c (gemma2-2b), 8c (rwkv6-1.6b) and 9c (qwen3-moe-30b-a3b):
+    ``model`` served by ``ServingEngine`` on the card, twice.  ``expect``
+    gives the launches of each kernel that ``counters`` names in every
+    prefill and every decode step; every other counter must stay at 0.
+    Returns the record of both
     runs."""
     from repro_torch.kernels.attention.ops import k10_path
     from repro_torch.serving.engine import Request, ServingEngine
@@ -1619,15 +1648,19 @@ K3_PROFILE_PATHS = (("stream", "mm_stream"), ("tiles", "mm_tiled"),
                     ("wgmma", "mm_wgmma"))
 
 
-def lm_profile(torch, model, card):
-    """Phase 7d and 8c: ``torch.profiler`` over one prefill of
+def lm_profile(torch, model, card, ranges=()):
+    """Phase 7d, 8c and 9d: ``torch.profiler`` over one prefill of
     ``LM_PROFILE_PROMPT`` tokens and three decode steps at
     ``LM_MAX_BATCH`` active slots of the full model; returns, per window,
     the wall time, the device time summed over kernels and copies, their
-    ratio (the device's busy share), the device time of each kernel of the
-    port and of the rest, and the largest device-time names."""
+    ratio (the device's busy share), their count, the device time of each
+    kernel of the port and of the rest, and the largest device-time
+    names.  ``ranges`` names functions (label, module, attribute) to run
+    inside a ``record_function`` of their label while profiling: each
+    label's device time (its kernels and its callees') joins the
+    window's record."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.serving.engine import Request, ServingEngine
 
@@ -1644,21 +1677,36 @@ def lm_profile(torch, model, card):
             0, Request(9, prompt, max_new_tokens=LM_NEW_TOKENS)),
         "decode_x3": lambda: [eng._decode_step() for _ in range(3)],
     }
+    def labelled(label, fn):
+        def call(*args, **kw):
+            with record_function(label):
+                return fn(*args, **kw)
+        return call
+
+    labels = [label for label, _, _ in ranges]
     out = {}
     for name, fn in windows.items():
+        saved = [(mod, attr, getattr(mod, attr)) for _, mod, attr in ranges]
+        for (label, _, _), (mod, attr, real) in zip(ranges, saved):
+            setattr(mod, attr, labelled(label, real))
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t) * 1e3
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t) * 1e3
+        finally:
+            for mod, attr, real in saved:
+                setattr(mod, attr, real)
         # device-side events only (kernels, copies): an operator's own
-        # entry would count its kernels' time a second time
+        # entry would count its kernels' time a second time, and a
+        # range's device-side entry the time of the kernels inside it
         rows = [(e.key, e.self_device_time_total / 1e3, e.count)
                 for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.self_device_time_total > 0]
+                and e.self_device_time_total > 0 and e.key not in labels]
         dev = sum(r[1] for r in rows)
         by_kernel = {kid: sum(ms for key, ms, _ in rows
                               if any(nm in key for nm in names))
@@ -1666,18 +1714,30 @@ def lm_profile(torch, model, card):
         by_kernel["rest"] = dev - sum(by_kernel.values())
         k3_by_path = {path: sum(ms for key, ms, _ in rows if nm in key)
                       for path, nm in K3_PROFILE_PATHS}
+        # a range's device time: its CPU-side events' kernels and their
+        # callees' (``device_time_total`` of the host event)
+        by_range = {label: sum(e.device_time_total for e in prof.events()
+                               if e.name == label
+                               and e.device_type
+                               == torch.autograd.DeviceType.CPU) / 1e3
+                    for label in labels}
         rows.sort(key=lambda r: -r[1])
         out[name] = {"wall_ms": wall, "device_ms": dev,
                      "busy_share": dev / wall if dev else None,
+                     "device_calls": sum(n for _, _, n in rows),
                      "device_ms_by_kernel": by_kernel,
                      "k3_device_ms_by_path": k3_by_path,
                      "top": [{"name": k[:80], "ms": ms, "calls": n}
                              for k, ms, n in rows[:10]]}
+        if labels:
+            out[name]["device_ms_by_range"] = by_range
         print(f"{model.cfg.name} profile {name}: wall {wall:.2f} ms, device "
-              f"{dev:.2f} ms, by kernel "
+              f"{dev:.2f} ms in {out[name]['device_calls']} kernels and "
+              f"copies, by kernel "
               f"{ {k: round(v, 3) for k, v in by_kernel.items()} }, K3 by "
-              f"path { {k: round(v, 3) for k, v in k3_by_path.items()} } "
-              f"[{card}]", flush=True)
+              f"path { {k: round(v, 3) for k, v in k3_by_path.items()} }"
+              + (f", by range { {k: round(v, 3) for k, v in by_range.items()} }"
+                 if labels else "") + f" [{card}]", flush=True)
     return out
 
 
@@ -1845,29 +1905,139 @@ def rwkv_kernel_cases(torch, F, dev, peaks):
     return rows
 
 
-def launcher_phase(torch, counters):
-    """Phase 8d: ``repro_torch.launch.serve.main(["--arch", RWKV_ARCH])`` on
-    the card (its default device): a token list for every request, and
-    K11 once a layer in every prefill."""
+def launcher_phase(torch, counters, arch, kid):
+    """Phase 8d and 9e: ``repro_torch.launch.serve.main(["--arch", arch])``
+    on the card (its default device, the reduced model): a token list for
+    every request, and ``kid`` (K11 for rwkv6, K10 for a transformer) once
+    a layer in every prefill."""
     from repro_torch.core.config import get_arch
     from repro_torch.launch.serve import main as serve_main
 
     for fn in counters.values():
         fn.launches = 0
-    out = serve_main(["--arch", RWKV_ARCH])
+    out = serve_main(["--arch", arch])
     torch.cuda.synchronize()
     n_req = 6  # the launcher's default --requests
-    want = get_arch(RWKV_ARCH).reduced().num_layers * n_req
+    want = get_arch(arch).reduced().num_layers * n_req
     done = out["done"]
     if sorted(done) != list(range(n_req)) or not all(done.values()):
-        fail(f"launcher: finished {sorted(done)}")
-    if counters["K11"].launches != want:
-        fail(f"launcher: K11 launched {counters['K11'].launches} times, "
-             f"expected {want}")
-    rec = {"requests": n_req, "tokens": out["tokens"],
-           "seconds": out["seconds"], "k11_launches": want,
+        fail(f"{arch} launcher: finished {sorted(done)}")
+    if counters[kid].launches != want:
+        fail(f"{arch} launcher: {kid} launched {counters[kid].launches} "
+             f"times, expected {want}")
+    rec = {"arch": arch, "requests": n_req, "tokens": out["tokens"],
+           "seconds": out["seconds"], f"{kid.lower()}_launches": want,
            "k3_launches": counters["K3"].launches}
     print("launcher " + json.dumps(rec), flush=True)
+    return rec
+
+
+#: phase 9: qwen3-moe-30b-a3b and K3/K10 at its attention's shapes
+MOE_ARCH = "qwen3-moe-30b-a3b"
+#: K3's three distinct projection shapes (K, N, activation) in a qwen3
+#: attention: q; k and v; o (the MoE experts are batched torch.matmul)
+K3_MOE_SHAPES = ((2048, 4096, "none"), (2048, 512, "none"),
+                 (4096, 2048, "none"))
+#: K10 at qwen3's attention (32 heads over 4, head_dim 128, causal, no cap,
+#: no window) at its two longest prompts, as K10_CASES
+K10_MOE_CASES = ((1500, 0, 0.0, "bfloat16", 32, 4, 128, True),
+                 (4500, 0, 0.0, "bfloat16", 32, 4, 128, True))
+
+
+def memory_budget(model):
+    """GB the served model needs on the card: its weights, the KV cache
+    of ``LM_MAX_BATCH`` slots of ``LM_MAX_LEN`` rows, and the fp32 logits
+    of the longest prompt."""
+    import math
+
+    from repro_torch.nn.param import tree_leaves
+
+    cfg = model.cfg
+    cache = model.cache_spec(LM_MAX_BATCH, LM_MAX_LEN)
+    return {"weights": sum(p.numel() * p.element_size()
+                           for p in model.parameters()) / 1e9,
+            "kv_cache": sum(2 * math.prod(p.shape)
+                            for p in tree_leaves(cache)) / 1e9,
+            "logits": 4 * max(LM_PROMPTS) * cfg.padded_vocab / 1e9}
+
+
+def moe_kernel_cases(torch, F, dev, peaks):
+    """Phase 9a: K10 and K3 (bf16) at qwen3-moe-30b-a3b's attention shapes
+    against their plain versions, repeated bit for bit, timed as in 7a;
+    returns the records (none of them feeds the kernels line)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = [k10_case(torch, F, gen, dev, case, peaks)
+            for case in K10_MOE_CASES]
+    for m in K3_LM_ROWS:
+        for kk, n, act in K3_MOE_SHAPES:
+            rows.append(k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks,
+                                     False))
+    for r in rows:
+        r["arch"] = MOE_ARCH
+    return rows
+
+
+@contextlib.contextmanager
+def record_routing(torch, log):
+    """Every MoE block's routing while inside: ``repro_torch.models.
+    common.moe_apply`` wrapped so that each call appends, from
+    ``repro_torch.nn.moe.route`` on the same inputs, its device, mode and
+    capacity, the chosen experts, the kept pairs in flat (token, k) order,
+    the dropped count, and the smallest margin between a token's k-th and
+    (k+1)-th router probability."""
+    from repro_torch.models import common
+    from repro_torch.nn import moe
+
+    real = common.moe_apply
+
+    def wrapped(params, x, cfg, *, dp_size=1, mode="train"):
+        r = moe.route(params, x, cfg, dp_size=dp_size, mode=mode)
+        k = cfg.moe.num_experts_per_token
+        top = torch.topk(r.probs, k + 1, dim=-1).values
+        kept = torch.empty_like(r.keep).scatter_(1, r.order, r.keep)
+        log.append({"device": x.device.type, "mode": mode, "cap": r.cap,
+                    "experts": r.e_k.cpu(), "kept": kept.cpu(),
+                    "dropped": int((~r.keep).sum()),
+                    "margin": (top[..., k - 1] - top[..., k]).min().item()})
+        return real(params, x, cfg, dp_size=dp_size, mode=mode)
+
+    common.moe_apply = wrapped
+    try:
+        yield
+    finally:
+        common.moe_apply = real
+
+
+def check_routing(log):
+    """Phase 9b: the card's blocks chose the CPU's experts and kept its
+    pairs, call by call; returns the summary."""
+    sides = {d: [r for r in log if r["device"] == d] for d in ("cuda", "cpu")}
+    gpu, cpu = sides["cuda"], sides["cpu"]
+    if not gpu or len(gpu) != len(cpu):
+        fail(f"{MOE_ARCH} parity: {len(gpu)} MoE calls on the card, "
+             f"{len(cpu)} on the CPU")
+    for i, (a, b) in enumerate(zip(gpu, cpu)):
+        if (a["mode"], a["cap"]) != (b["mode"], b["cap"]):
+            fail(f"{MOE_ARCH} parity: MoE call {i} ran {a['mode']} cap "
+                 f"{a['cap']} on the card, {b['mode']} cap {b['cap']} on "
+                 f"the CPU")
+        if not a["experts"].equal(b["experts"]):
+            fail(f"{MOE_ARCH} parity: MoE call {i} ({a['mode']}) chose other "
+                 f"experts on the card than on the CPU (smallest margin "
+                 f"{min(a['margin'], b['margin'])})")
+        if not a["kept"].equal(b["kept"]):
+            fail(f"{MOE_ARCH} parity: MoE call {i} ({a['mode']}) kept other "
+                 f"pairs on the card than on the CPU")
+    prefill = [r for r in gpu if r["mode"] == "prefill"]
+    if any(r["dropped"] for r in gpu if r["mode"] == "decode"):
+        fail(f"{MOE_ARCH} parity: a decode step dropped pairs")
+    rec = {"calls": len(gpu), "prefill_cap": prefill[0]["cap"],
+           "prefill_dropped": [r["dropped"] for r in prefill],
+           "decode_dropped": sum(r["dropped"] for r in gpu
+                                 if r["mode"] == "decode"),
+           "min_margin": min(r["margin"] for r in gpu + cpu),
+           "min_margin_prefill": min(r["margin"] for r in prefill)}
+    print(f"{MOE_ARCH} routing " + json.dumps(rec), flush=True)
     return rec
 
 
@@ -2100,13 +2270,71 @@ def main() -> int:
     rwkv["profile"] = lm_profile(torch, model, card_line)
     del model
     torch.cuda.empty_cache()
-    rwkv["launcher"] = launcher_phase(torch, counters)
+    rwkv["launcher"] = launcher_phase(torch, counters, RWKV_ARCH, "K11")
     rwkv["phase_s"] = time.perf_counter() - t8
     print("rwkv " + json.dumps({k: v for k, v in rwkv.items()
                                 if k != "runs"}), flush=True)
     print(f"phase 8 wall time {rwkv['phase_s']:.1f} s", flush=True)
 
-    # -- 10. the kernels line -----------------------------------------------
+    # -- 9. qwen3-moe-30b-a3b: K3/K10 at its shapes, the served MoE model ----
+    import gc
+
+    from repro_torch.models import common as lm_common
+    from repro_torch.nn import moe as moe_mod
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t9 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"phase 9 start: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"allocated", flush=True)
+    moe_cases = moe_kernel_cases(torch, F, dev, peaks)
+    routing = []
+    with record_routing(torch, routing):
+        moe_parity = lm_parity_phase(torch, np, dev, attn_ops.flash_attention,
+                                     MOE_ARCH)
+    moe_parity["routing"] = check_routing(routing)
+    if moe_parity["paths"] != {"simt": moe_parity["layers"], "wgmma": 0}:
+        fail(f"{MOE_ARCH} parity: the fp32 prefill took K10's paths "
+             f"{moe_parity['paths']}, not the CUDA-core kernel alone")
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, init_s = build_model(torch, MOE_ARCH, dev)
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    n_layers = model.cfg.num_layers
+    moe = lm_serving_phase(
+        torch, np, dev, counters, card_line, model, init_s,
+        {"prefill": {"K3": 4 * n_layers, "K10": n_layers, "K11": 0},
+         "decode": {"K3": 4 * n_layers, "K10": 0, "K11": 0}})
+    if moe["k10_paths"] != {"simt": 0, "wgmma": moe["launches"]["K10"]}:
+        fail(f"{MOE_ARCH} serving: K10's prefill launches took the paths "
+             f"{moe['k10_paths']}, not the wgmma path alone")
+    moe["init_peak_memory_gb"] = init_peak
+    moe["budget_gb"] = memory_budget(model)
+    moe["profile"] = lm_profile(
+        torch, model, card_line,
+        (("moe block", lm_common, "moe_apply"),
+         ("moe routing", moe_mod, "route"),
+         ("moe experts", moe_mod, "experts")))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe["launcher"] = launcher_phase(torch, counters, MOE_ARCH, "K10")
+    moe["phase_s"] = time.perf_counter() - t9
+    # the peak since the serving phase's reset, or the init's before it
+    moe["phase_peak_memory_gb"] = max(
+        init_peak, torch.cuda.max_memory_allocated() / 1e9)
+    print("moe " + json.dumps({k: v for k, v in moe.items() if k != "runs"}),
+          flush=True)
+    print(f"phase 9 wall time {moe['phase_s']:.1f} s, peak memory "
+          f"{moe['phase_peak_memory_gb']:.2f} GB (init "
+          f"{init_peak:.2f}, serving {moe['peak_memory_gb']:.2f}; budget "
+          f"{ {k: round(v, 2) for k, v in moe['budget_gb'].items()} }) "
+          f"[{card_line}]", flush=True)
+    if not moe["phase_peak_memory_gb"] < 80.0:
+        fail(f"{MOE_ARCH}: peak memory {moe['phase_peak_memory_gb']:.2f} GB")
+
+    # -- 11. the kernels line -----------------------------------------------
     kernels = []
     for kid, (name, src, replaces) in sources.items():
         mine = [c for c in cases if c["kernel"] == kid]
@@ -2189,7 +2417,7 @@ def main() -> int:
         if k["launches"] < 1:
             fail(f"{k['name']} never launched on the main path")
 
-    # -- 9. stream capture of the cooperative K2 and K1 launches -------------
+    # -- 10. stream capture of the cooperative K2 and K1 launches ------------
     capture = capture_phase(torch, nets["alexnet"],
                             params_from_numpy(np_params["alexnet"], dev), dev)
     print("capture " + json.dumps(capture), flush=True)
@@ -2203,6 +2431,7 @@ def main() -> int:
              "serving": serving, "lm_cases": lm_cases,
              "lm_parity": lm_parity, "lm": lm, "rwkv_cases": rwkv_cases,
              "rwkv_parity": rwkv_parity, "rwkv": rwkv,
+             "moe_cases": moe_cases, "moe_parity": moe_parity, "moe": moe,
              "capture": capture, "kernels": kernels}, indent=1))
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

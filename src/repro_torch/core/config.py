@@ -155,10 +155,17 @@ class ModelConfig:
         return self.num_kv_heads * self.head_dim
 
     def num_params(self) -> int:
-        """Parameter count of the port's model (dense and RWKV6 families)."""
+        """Parameter count of the port's model (dense, MoE and RWKV6
+        families)."""
         from repro_torch.models.registry import analytic_param_count
 
         return analytic_param_count(self)
+
+    def active_params(self) -> int:
+        """Parameters a token meets: an MoE model's experts at k of E."""
+        from repro_torch.models.registry import analytic_param_count
+
+        return analytic_param_count(self, active_only=True)
 
     def reduced(self) -> "ModelConfig":
         """A tiny same-family variant for CPU smoke tests (<=2 layers,

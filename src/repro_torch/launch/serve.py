@@ -9,7 +9,8 @@ It runs on ``cuda`` unless ``--device`` names another device
 (``--device cpu`` runs the plain versions), and raises when there is no
 GPU and no device is named.  As in the JAX package,
 ``--reduced`` is a flag whose default is already on, so the launcher
-always serves the reduced model (ROADMAP.md §3).
+always serves the reduced model (ROADMAP.md §3), the MoE archs
+(qwen3-moe-30b-a3b, grok-1-314b) among them.
 """
 from __future__ import annotations
 

@@ -24,6 +24,7 @@ from repro_torch.core.config import ModelConfig
 from repro_torch.kernels.common import resolve_device
 from repro_torch.nn.attention import attention_apply, attention_spec
 from repro_torch.nn.mlp import mlp_apply, mlp_spec
+from repro_torch.nn.moe import moe_apply, moe_spec
 from repro_torch.nn.norm import (layernorm_apply, layernorm_spec,
                                  rmsnorm_apply, rmsnorm_spec)
 from repro_torch.nn.param import (DTYPES, Param, init_tree, is_param,
@@ -53,16 +54,16 @@ def norm_apply(params, x, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# Standard pre-norm transformer block (dense)
+# Standard pre-norm transformer block (dense or MoE)
 # ---------------------------------------------------------------------------
 
 
-def block_spec(cfg: ModelConfig) -> dict:
+def block_spec(cfg: ModelConfig, use_moe: bool = False) -> dict:
     spec = {
         "ln_attn": norm_spec(cfg),
         "attn": attention_spec(cfg),
         "ln_mlp": norm_spec(cfg),
-        "mlp": mlp_spec(cfg),
+        "mlp": moe_spec(cfg) if use_moe else mlp_spec(cfg),
     }
     if cfg.post_block_norms:
         spec["ln_attn_post"] = norm_spec(cfg)
@@ -72,8 +73,12 @@ def block_spec(cfg: ModelConfig) -> dict:
 
 def block_apply(params, x, cfg: ModelConfig, *, window: int = 0,
                 positions=None, mode: str = "full",
-                cache: Optional[dict] = None) -> torch.Tensor:
-    """The block's output; its k/v go into ``cache`` in place."""
+                cache: Optional[dict] = None, use_moe: bool = False,
+                dp_size: int = 1, moe_mode: str = "train"):
+    """(the block's output, its aux: the MoE block's, else ``{}``); its
+    k/v go into ``cache`` in place.  The MoE block runs in ``decode`` in
+    a decode step, else in ``moe_mode`` (``train`` or ``prefill``)."""
+    aux: dict = {}
     h = norm_apply(params["ln_attn"], x, cfg)
     a = attention_apply(params["attn"], h, cfg, window=window,
                         positions=positions, mode=mode, cache=cache)
@@ -81,10 +86,31 @@ def block_apply(params, x, cfg: ModelConfig, *, window: int = 0,
         a = norm_apply(params["ln_attn_post"], a, cfg)
     x = x + a
     h = norm_apply(params["ln_mlp"], x, cfg)
-    m = mlp_apply(params["mlp"], h, cfg)
+    if use_moe:
+        m, aux = moe_apply(params["mlp"], h, cfg, dp_size=dp_size,
+                           mode="decode" if mode == "decode" else moe_mode)
+    else:
+        m = mlp_apply(params["mlp"], h, cfg)
     if cfg.post_block_norms:
         m = norm_apply(params["ln_mlp_post"], m, cfg)
-    return x + m
+    return x + m, aux
+
+
+#: the aux losses summed over the layers (``expert_fraction`` is not)
+AUX_LOSSES = ("load_balance_loss", "router_z_loss")
+
+
+def _zero_aux(device) -> dict:
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in AUX_LOSSES}
+
+
+def _accumulate_aux(acc: dict, aux: dict) -> dict:
+    out = dict(acc)
+    for k in AUX_LOSSES:
+        if aux and k in aux:
+            out[k] = acc[k] + aux[k]
+    return out
 
 
 # ---------------------------------------------------------------------------

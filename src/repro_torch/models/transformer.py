@@ -1,10 +1,12 @@
-"""Decoder-only transformer LM, dense: the port of
+"""Decoder-only transformer LM, dense and MoE: the port of
 ``repro.models.transformer``.
 
-Covers internlm2 / qwen1.5 / starcoder2 (uniform layers) and gemma2
+Covers internlm2 / qwen1.5 / starcoder2 (uniform layers), gemma2
 (alternating local/global attention, softcaps, post-block norms), whose
-layer unit is a (local, global) *pair*.  The MoE variant (``nn/moe.py``)
-is not ported yet (ROADMAP.md, "Modules still to port").
+layer unit is a (local, global) *pair*, and grok-1 / qwen3-moe, whose
+blocks' feed-forward is the MoE block (``nn/moe.py``): ``train`` or
+``prefill`` capacity in :meth:`TransformerLM.forward` (its ``mode``),
+worst-case capacity in :meth:`TransformerLM.decode_step`.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ import torch
 from torch import nn
 
 from repro_torch.core.config import ModelConfig
-from repro_torch.models.common import (BaseModel, block_apply, block_spec,
+from repro_torch.models.common import (BaseModel, _accumulate_aux,
+                                       _zero_aux, block_apply, block_spec,
                                        cache_index, kv_cache_param,
                                        norm_apply, norm_spec)
 from repro_torch.nn.embedding import embed_tokens, embedding_spec, lm_logits
@@ -22,15 +25,12 @@ from repro_torch.nn.param import ParamTree, stack_spec
 
 
 class TransformerLM(BaseModel):
-    """Dense decoder-only LM: ``embed``, ``layers`` (an ``nn.ModuleList``
-    of ``n_scan`` units) and ``ln_f``."""
+    """Dense or MoE decoder-only LM: ``embed``, ``layers`` (an
+    ``nn.ModuleList`` of ``n_scan`` units) and ``ln_f``."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__(cfg)
-        if cfg.moe is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: the MoE transformer (nn/moe.py) is not ported "
-                f"yet (ROADMAP.md, \"Modules still to port\")")
+        self.use_moe = cfg.moe is not None
         self.pair = cfg.local_global_interval == 2
         assert cfg.local_global_interval in (0, 2), "only k=2 alternation"
         if self.pair:
@@ -46,9 +46,9 @@ class TransformerLM(BaseModel):
     # -- params ---------------------------------------------------------------
     def _unit_spec(self) -> dict:
         if self.pair:
-            return {"local": block_spec(self.cfg),
-                    "global": block_spec(self.cfg)}
-        return block_spec(self.cfg)
+            return {"local": block_spec(self.cfg, self.use_moe),
+                    "global": block_spec(self.cfg, self.use_moe)}
+        return block_spec(self.cfg, self.use_moe)
 
     def param_spec(self) -> dict:
         return {
@@ -72,21 +72,25 @@ class TransformerLM(BaseModel):
             return cfg.sliding_window, window_override
         return cfg.sliding_window or window_override, 0
 
-    def _layers(self, x, positions, mode, cache, lw, gw):
+    def _layers(self, x, positions, mode, cache, lw, gw, moe_mode="train",
+                aux=None):
+        """(the final norm of the last block's output, ``aux`` plus the
+        blocks' aux losses; None stays None: a decode step sums none)."""
+        kw = dict(positions=positions, mode=mode, use_moe=self.use_moe,
+                  moe_mode=moe_mode)
         for i, unit in enumerate(self.layers):
             c_i = cache_index(cache, i)
             if self.pair:
-                x = block_apply(
-                    unit["local"], x, self.cfg, window=lw, positions=positions,
-                    mode=mode, cache=None if c_i is None else c_i["local"])
-                x = block_apply(
-                    unit["global"], x, self.cfg, window=gw,
-                    positions=positions, mode=mode,
-                    cache=None if c_i is None else c_i["global"])
+                blocks = [(unit[k], w, None if c_i is None else c_i[k])
+                          for k, w in (("local", lw), ("global", gw))]
             else:
-                x = block_apply(unit, x, self.cfg, window=lw,
-                                positions=positions, mode=mode, cache=c_i)
-        return norm_apply(self.ln_f, x, self.cfg)
+                blocks = [(unit, lw, c_i)]
+            for params, window, c in blocks:
+                x, a = block_apply(params, x, self.cfg, window=window,
+                                   cache=c, **kw)
+                if aux is not None:
+                    aux = _accumulate_aux(aux, a)
+        return norm_apply(self.ln_f, x, self.cfg), aux
 
     # -- forward (prefill) ------------------------------------------------------
     def forward(self, batch: dict, mode: str = "train", *,
@@ -94,7 +98,9 @@ class TransformerLM(BaseModel):
         """batch: {"tokens": [b, s], "positions": optional [b, s]} ->
         (fp32 logits [b, s, V] at every position, aux), or with ``cache``
         (logits, cache, aux): the prompt's k/v written into ``cache`` in
-        place."""
+        place.  ``mode`` (``train`` or ``prefill``) sets the MoE blocks'
+        capacity; aux holds the MoE losses summed over the blocks (zeros
+        for a dense model), as the JAX package's."""
         tokens = batch["tokens"]
         positions = batch.get("positions")
         if positions is None:
@@ -103,11 +109,12 @@ class TransformerLM(BaseModel):
         x = embed_tokens(self.embed, tokens, self.cfg,
                          scale_by_dim=self.cfg.rms_plus_one)
         lw, gw = self._windows(window_override)
-        x = self._layers(x, positions, "full", cache, lw, gw)
+        x, aux = self._layers(x, positions, "full", cache, lw, gw, mode,
+                              _zero_aux(x.device))
         logits = lm_logits(self.embed, x, self.cfg)
         if cache is not None:
-            return logits, cache, {}
-        return logits, {}
+            return logits, cache, aux
+        return logits, aux
 
     # -- caches ----------------------------------------------------------------
     def cache_spec(self, batch: int, cache_len: int, window: int = 0) -> dict:
@@ -132,5 +139,5 @@ class TransformerLM(BaseModel):
         x = embed_tokens(self.embed, tokens, self.cfg,
                          scale_by_dim=self.cfg.rms_plus_one)
         lw, gw = self._windows(window)
-        x = self._layers(x, positions, "decode", cache, lw, gw)
+        x, _ = self._layers(x, positions, "decode", cache, lw, gw)
         return lm_logits(self.embed, x, self.cfg), cache

@@ -68,14 +68,41 @@ def _initialize(p: Param, gen: torch.Generator, default_dtype: str):
         std = p.scale / math.sqrt(fan_in)
     else:
         raise ValueError(f"unknown init {p.init!r}")
-    x = torch.randn(p.shape, generator=gen, device=dev, dtype=torch.float32)
-    return (std * x).to(dtype)
+    if math.prod(p.shape) <= DRAW_LIMIT:
+        x = torch.randn(p.shape, generator=gen, device=dev,
+                        dtype=torch.float32)
+        return (std * x).to(dtype)
+    out = torch.empty(p.shape, dtype=dtype, device=dev)
+    _draw_sliced(out, std, gen)
+    return out
+
+
+#: the most elements a leaf draws in one fp32 ``randn``.  A larger leaf is
+#: drawn slice by slice along its leading (stacked) axis, each slice
+#: scaled in place and written into the leaf, so its draw costs one fp32
+#: slice beside the leaf, not two fp32 copies of it (qwen3-moe-30b-a3b's
+#: stacked experts hold 9.66 G elements, 48 slices of 201 M).  It lies
+#: above the largest leaf of the models drawn whole so far, gemma2-2b's
+#: embedding (256000 x 2304 = 590 M elements), whose draws stay as they
+#: were, bit for bit.
+DRAW_LIMIT = 1 << 30
+
+
+def _draw_sliced(out: torch.Tensor, std: float, gen: torch.Generator):
+    for sl in out:
+        if sl.numel() <= DRAW_LIMIT or sl.dim() == 1:
+            x = torch.randn(sl.shape, generator=gen, device=sl.device,
+                            dtype=torch.float32)
+            sl.copy_(x.mul_(std))
+        else:
+            _draw_sliced(sl, std, gen)
 
 
 def init_tree(spec, generator: torch.Generator,
               default_dtype: str = "bfloat16"):
     """Materialize a tree of Params into tensors on ``generator``'s
-    device, one draw per leaf in the JAX package's leaf order."""
+    device, one draw per leaf (per slice past ``DRAW_LIMIT``) in the JAX
+    package's leaf order."""
     return tree_map(lambda p: _initialize(p.check(), generator,
                                           default_dtype), spec)
 
@@ -84,10 +111,6 @@ def stack_spec(spec, n: int, axis_name: Optional[str] = "layers"):
     """Prepend a stacked (layer) dimension of size `n` to every Param."""
     return tree_map(lambda p: Param((n,) + p.shape, (axis_name,) + p.axes,
                                     p.init, p.scale, p.dtype), spec)
-
-
-def param_count(spec) -> int:
-    return sum(math.prod(p.shape) for p in tree_leaves(spec))
 
 
 class ParamTree(nn.Module):

@@ -117,15 +117,29 @@ def test_configs_match_jax(arch):
 
 @pytest.mark.parametrize("arch", jconfig.list_archs())
 def test_get_model_dense_only(arch):
-    """Dense archs and RWKV6 (``ssm``) build, with JAX's parameter count
-    (rwkv6-1.6b: 1,599,673,856 at full width); every other family raises
-    and names the ROADMAP item."""
+    """Dense, MoE and RWKV6 (``ssm``) archs build, with JAX's parameter
+    counts: all, active (an MoE model's experts at k of E) and without the
+    embedding (rwkv6-1.6b: 1,599,673,856 at full width; qwen3-moe-30b-a3b:
+    30,532,122,624, 3,353,032,704 active, 29,909,792,768 without the
+    embedding); zamba2 and the cross-attention families raise and name the
+    ROADMAP item."""
     cfg = tconfig.get_arch(arch)
-    if cfg.family in ("dense", "ssm") and cfg.moe is None:
-        assert cfg.num_params() == jregistry.analytic_param_count(
-            jconfig.get_arch(arch))
+    if cfg.family in ("dense", "ssm", "moe"):
+        jcfg = jconfig.get_arch(arch)
+        counts = [tregistry.analytic_param_count(cfg, **kw) for kw in (
+            {}, {"active_only": True}, {"non_embedding": True})]
+        assert counts == [jregistry.analytic_param_count(jcfg, **kw)
+                          for kw in ({}, {"active_only": True},
+                                     {"non_embedding": True})]
+        assert (cfg.num_params(), cfg.active_params()) == (
+            jcfg.num_params(), jcfg.active_params()) == tuple(counts[:2])
         if cfg.family == "ssm":
             assert cfg.num_params() == 1_599_673_856
+        if arch == "qwen3-moe-30b-a3b":
+            assert counts == [30_532_122_624, 3_353_032_704,
+                              29_909_792_768]
+        if cfg.moe is None:
+            assert counts[1] == counts[0]
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tregistry.get_model(cfg)
@@ -295,10 +309,11 @@ def test_k3_plain_version_takes_bf16(act, m):
 
 
 #: K3's projection shapes (K, N) in a gemma2-2b block (q, k/v, o, gate/up,
-#: down) and an rwkv6-1.6b layer (2048 -> 2048, the channel mix's key and
-#: value)
+#: down), an rwkv6-1.6b layer (2048 -> 2048, the channel mix's key and
+#: value) and a qwen3-moe-30b-a3b attention (q, k/v, o)
 LM_K3_SHAPES = ((2304, 2048), (2304, 1024), (2048, 2304), (2304, 9216),
-                (9216, 2304), (2048, 2048), (2048, 7168), (7168, 2048))
+                (9216, 2304), (2048, 2048), (2048, 7168), (7168, 2048),
+                (2048, 4096), (2048, 512), (4096, 2048))
 #: the M of the served prompts (16, 300, 1500, 4500 tokens), a decode step
 #: at 4 slots, and the edges of the tiled paths
 LM_K3_ROWS = (1, 4, 16, 63, 64, 300, 1500, 4500)
