@@ -204,12 +204,48 @@ Phases, each of which fails the run (non-zero exit, no result line):
    e. the launcher ``repro_torch.launch.serve.main(["--arch",
       "qwen3-moe-30b-a3b"])`` (reduced) on the card: a token list for
       every request, K10 once a layer in every prefill;
-10. stream capture: K2 on AlexNet's chain and K1 on its conv2+pool2+norm2
+10. zamba2-1.2b at full width (the same engine over ``Zamba2LM``: 38
+   Mamba2 (SSD) blocks, ``nn/ssm.py``, and one shared attention block at
+   width 4096 after every 6), phase 9's model freed first, its wall time
+   and peak device memory printed (28–40 s and 13.85 GB on an NVIDIA
+   H100 80GB HBM3 at 700 W, PERF.md: 2.56 GB of weights, 3.39 GB of
+   cache, 0.58 GB of fp32 logits at 4500 tokens, the 4500-token
+   prefill's temporaries, and before them the fp32 parity model):
+   a. kernel cases at its shapes, held, repeated and timed as in 7a: K10
+      in bf16 (32 heads over 32, head_dim 128, causal, no cap, no window)
+      at 1500 and 4500 tokens, SDPA ``is_causal`` its yardstick; K3 in
+      bf16 at its seven projections (``K3_ZAMBA_SHAPES``: in_proj 2048 ->
+      8384, whose last 128-wide tile of the wgmma path is half past the
+      end of w and y and is held on its own, every row; out_proj, the
+      shared q/k/v/o, gate (silu), up, down and shared_out) for the M of
+      7a, each launch stepping the counter of the path ``k3_path`` names;
+      none feeds the kernels line;
+   b. CPU parity as 7b: float32, the depth cut to three layers (one group
+      of two Mamba blocks, one shared invocation, a tail of one), the
+      leaves the init rules leave at zeros or ones redrawn
+      (``repro_torch.nn.ssm.SSM_REDRAW``), a 200-token prompt (two chunks
+      of 128, the second padded) prefilled with K10 once (the CUDA-core
+      kernel) and 8 greedy tokens decoded; logits (``LM_TOL``), tokens,
+      the bf16 KV cache and the fp32 conv rows and SSD states
+      (``LM_CACHE_TOL``) must agree with the CPU;
+   c. the full model: 38 layers in bf16, the same redraw, served as in
+      7c: every prefill must launch K3 124 times (2 a Mamba block, 8 a
+      shared invocation: q, k, v, o, gate, up, down, shared_out) and K10
+      6 times on the wgmma path, every decode step K3 124 times and no
+      K10, nothing K11, K3's paths as in 7c, a second run must repeat the
+      tokens;
+   d. the profile of 7d, with the device and host time of the Mamba
+      block, its conv, its SSD scan and the shared block
+      (``record_function`` ranges);
+   e. the launcher ``repro_torch.launch.serve.main(["--arch",
+      "zamba2-1.2b"])`` (reduced) on the card: a token list for every
+      request, K10 once a shared invocation in every prefill;
+11. stream capture: K2 on AlexNet's chain and K1 on its conv2+pool2+norm2
    group at batch 16, each captured into a ``torch.cuda.CUDAGraph`` and
    replayed (``capture`` line: per kernel, whether the cooperative launch
    was accepted and the replay gave the bits of the launch; a refusal is
    reported, not failed);
-11. prints one JSON line ``{"kernels": [...]}``: per kernel, ``launches``
+12. prints one JSON line ``{"kernels": [...]}``: per kernel, ``launches``
    is its count summed over the AlexNet forwards of phase 4 (K1-K3,
    K7-K9) or phase 5 (K4-K6), or over the first LM serving run of phase
    7c (K10's wgmma path as ``flash_attention``, and K3's bf16 launches as
@@ -224,7 +260,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    of its own, its launches those
    of the wgmma path in the first run of 7c, its times its phase-7a cases
    at M = 4500; the error is the largest over every case;
-12. prints ``{"ok": true, "device": {...}}`` as its last line.
+13. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Run it from the repository root; it needs one CUDA device and the CUDA
 toolkit, and imports nothing of the JAX package.
@@ -233,6 +269,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import os
 import statistics
@@ -1116,6 +1153,9 @@ STREAM_ROWS_READ_ONCE = 2.0
 #: stream calls captured into one CUDA graph, whose replay times the
 #: device alone (no host gap between launches)
 STREAM_GRAPH_LAUNCHES = 20
+#: the wgmma path's tile width in output columns (``WG_BN`` in
+#: csrc/matmul_fused.cu)
+K3_WGMMA_BN = 128
 #: at this M every projection shape must run on the wgmma path at least
 #: this many times faster than on the CUDA-core tile, timed in one call
 K3_WGMMA_GAIN = (4500, 5.0)
@@ -1187,7 +1227,7 @@ def stream_device_ms(torch, call):
     return ms
 
 
-def k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks, main):
+def k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks, main, **extra):
     """K3 on bf16 operands at one projection shape, held against its plain
     version element by element, repeated bit for bit and timed beside
     ``torch.matmul`` (+ the activation), with its host time a call
@@ -1196,7 +1236,7 @@ def k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks, main):
     give the bits of the same row called alone, and the device time a call
     comes from a captured graph (``stream_device_ms``); from 64 rows on
     the CUDA-core tile is timed beside it, in the order tile, wgmma,
-    wgmma, tile.  Returns the record."""
+    wgmma, tile.  ``extra`` joins the record.  Returns the record."""
     from repro_torch.kernels.matmul_fused import ops as mm_ops
     from repro_torch.kernels.matmul_fused.ops import k3_path, matmul_fused
     from repro_torch.kernels.matmul_fused.ref import matmul_fused_ref
@@ -1213,6 +1253,8 @@ def k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks, main):
         y = torch.matmul(x, w)
         if act == "gelu":
             return F.gelu(y, approximate="tanh")
+        if act == "silu":
+            return F.silu(y)
         return F.relu(y) if act == "relu" else y
 
     label = f"K3 bf16 M={m} {kk}->{n} {act}"
@@ -1229,6 +1271,15 @@ def k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks, main):
         fail(f"{label}: path counters moved by {stepped}, expected one "
              f"{path} launch")
     rtol, atol = LM_KERNEL_TOL["bfloat16"]
+    # a partial last tile of the wgmma path (N not a multiple of its 128
+    # columns): every row of its columns first, so that a store clipped
+    # short names the tile; one that ran past column N - 1 lands in the
+    # next row's first columns, which the whole output's check holds
+    last = n - n % K3_WGMMA_BN if path == "wgmma" and n % K3_WGMMA_BN \
+        else None
+    if last is not None:
+        last_err = _check_close(f"{label} last tile (columns {last}..)",
+                                out[:, last:], ref[:, last:], atol, rtol)
     err = _check_close(label, out, ref, atol, rtol)
     if out.dtype != torch.bfloat16:
         fail(f"{label}: output {out.dtype}")
@@ -1242,6 +1293,8 @@ def k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks, main):
     nbytes = 2.0 * (m * kk + kk * n + m * n)
     r = {"kernel": "K3-bf16", "rows": m, "k": kk, "n": n, "act": act,
          "path": path, "max_abs_err": err,
+         **({"last_tile_from": last, "last_tile_max_abs_err": last_err}
+            if last is not None else {}),
          "tol": {"rtol": rtol, "atol": atol},
          "library_max_abs_err": lib_err,
          "library_note": f"torch.matmul in bf16 (+ {act})"}
@@ -1264,7 +1317,7 @@ def k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks, main):
              bound_ms=1e3 * max(flops / bf16_peak, nbytes / bw_peak),
              bound_by="operations"
              if flops / bf16_peak > nbytes / bw_peak else "bytes",
-             flops=flops, bytes=nbytes, peak=bf16_peak, main=main)
+             flops=flops, bytes=nbytes, peak=bf16_peak, main=main, **extra)
     print("case " + json.dumps(r), flush=True)
     return r
 
@@ -1352,6 +1405,7 @@ def k10_case(torch, F, gen, dev, case, peaks):
                  f"kernel's {r['simt_ms']:.4f}, under {gain}x")
     else:
         r["ms"] = time_ms(torch, kernel)
+    r["host_ms"] = host_call_ms(torch, kernel)
     if causal and (window <= 0 or window >= sq):
         r["library_causal_ms"] = time_ms(torch, library_causal)
     r.update(plain_ms=time_ms(torch, plain),
@@ -1390,29 +1444,34 @@ def lm_kernel_cases(torch, F, dev, peaks):
 
 
 def lm_parity_phase(torch, np, dev, counter, arch=LM_ARCH,
-                    prompt_len=LM_PARITY_PROMPT, redraw=False):
+                    prompt_len=LM_PARITY_PROMPT, redraw=None, cut=None,
+                    per_prefill=None):
     """Phase 7b (gemma2-2b, one local/global pair), 8b (rwkv6-1.6b, two
-    layers) and 9b (qwen3-moe-30b-a3b, two layers): ``arch`` at full
-    width with its depth cut to 2 layers, float32,
-    on the card and on the CPU with the same weights (``redraw``: with
-    ``rwkv_redraw``'s leaves); a ``prompt_len``-token prefill and
-    ``LM_PARITY_DECODE`` greedy tokens must agree (``LM_TOL``), as must
-    the final caches (``LM_CACHE_TOL``).  ``counter``, a kernel wrapper,
-    must launch once a layer in the card's prefill."""
+    layers), 9b (qwen3-moe-30b-a3b, two layers) and 10b (zamba2-1.2b,
+    ``cut`` to three layers in one group of two and a tail of one):
+    ``arch`` at full width with its depth cut (``cut``: the config's
+    changes, default 2 layers), float32, on the card and on the CPU with
+    the same weights (``redraw``: a function that then redraws leaves of
+    the tree from the same generator, ``rwkv_redraw`` or ``ssm_redraw``);
+    a ``prompt_len``-token prefill and ``LM_PARITY_DECODE`` greedy tokens
+    must agree (``LM_TOL``), as must the final caches (``LM_CACHE_TOL``
+    by the leaf's dtype).  ``counter``, a kernel wrapper, must launch
+    ``per_prefill`` times (default once a layer) in the card's
+    prefill."""
     import dataclasses
 
     from repro_torch.core.config import get_arch
     from repro_torch.models.registry import get_model
     from repro_torch.nn.param import init_tree, tree_leaves, tree_map
-    from repro_torch.nn.rwkv import rwkv_redraw
 
-    cfg = dataclasses.replace(get_arch(arch), num_layers=2,
+    cfg = dataclasses.replace(get_arch(arch), **(cut or {"num_layers": 2}),
                               dtype="float32", param_dtype="float32")
+    per_prefill = cfg.num_layers if per_prefill is None else per_prefill
     gpu = get_model(cfg)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     tree = init_tree(gpu.param_spec(), gen, cfg.param_dtype)
-    if redraw:
-        rwkv_redraw(tree, gen)
+    if redraw is not None:
+        redraw(tree, gen)
     gpu.load_tree(tree)
     cpu = get_model(cfg).load_tree(tree_map(lambda t: t.cpu(), tree))
     rng = np.random.default_rng(SEED)
@@ -1436,9 +1495,9 @@ def lm_parity_phase(torch, np, dev, counter, arch=LM_ARCH,
                                    cache=caches[side])
             if side == "gpu":
                 torch.cuda.synchronize()
-                if counter.launches != cfg.num_layers:
+                if counter.launches != per_prefill:
                     fail(f"{label}: the card's prefill launched its kernel "
-                         f"{counter.launches} times, not {cfg.num_layers}")
+                         f"{counter.launches} times, not {per_prefill}")
                 paths = table and dict(table)
         ref = logits["cpu"]
         worst["prefill"] = _check_close(
@@ -1480,21 +1539,21 @@ def lm_parity_phase(torch, np, dev, counter, arch=LM_ARCH,
     return rec
 
 
-def build_model(torch, arch, dev, redraw=False):
+def build_model(torch, arch, dev, redraw=None):
     """``arch`` at full width and depth with weights drawn on ``dev`` from
-    ``SEED`` (``redraw``: then ``rwkv_redraw``'s leaves from the same
-    generator); returns (model, seconds)."""
+    ``SEED`` (``redraw``: then that function's leaves, ``rwkv_redraw``'s
+    or ``ssm_redraw``'s, from the same generator); returns (model,
+    seconds)."""
     from repro_torch.core.config import get_arch
     from repro_torch.models.registry import get_model
     from repro_torch.nn.param import init_tree
-    from repro_torch.nn.rwkv import rwkv_redraw
 
     t0 = time.perf_counter()
     model = get_model(get_arch(arch))
     gen = torch.Generator(device=dev).manual_seed(SEED)
     tree = init_tree(model.param_spec(), gen, model.cfg.param_dtype)
-    if redraw:
-        rwkv_redraw(tree, gen)
+    if redraw is not None:
+        redraw(tree, gen)
     model.load_tree(tree)
     torch.cuda.synchronize()
     return model, time.perf_counter() - t0
@@ -1649,7 +1708,7 @@ K3_PROFILE_PATHS = (("stream", "mm_stream"), ("tiles", "mm_tiled"),
 
 
 def lm_profile(torch, model, card, ranges=()):
-    """Phase 7d, 8c and 9d: ``torch.profiler`` over one prefill of
+    """Phase 7d, 8c, 9d and 10d: ``torch.profiler`` over one prefill of
     ``LM_PROFILE_PROMPT`` tokens and three decode steps at
     ``LM_MAX_BATCH`` active slots of the full model; returns, per window,
     the wall time, the device time summed over kernels and copies, their
@@ -1657,8 +1716,8 @@ def lm_profile(torch, model, card, ranges=()):
     kernel of the port and of the rest, and the largest device-time
     names.  ``ranges`` names functions (label, module, attribute) to run
     inside a ``record_function`` of their label while profiling: each
-    label's device time (its kernels and its callees') joins the
-    window's record."""
+    label's device time (its kernels and its callees') and host time
+    join the window's record."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1716,11 +1775,16 @@ def lm_profile(torch, model, card, ranges=()):
                       for path, nm in K3_PROFILE_PATHS}
         # a range's device time: its CPU-side events' kernels and their
         # callees' (``device_time_total`` of the host event)
-        by_range = {label: sum(e.device_time_total for e in prof.events()
-                               if e.name == label
-                               and e.device_type
-                               == torch.autograd.DeviceType.CPU) / 1e3
+        host_events = [e for e in prof.events()
+                       if e.name in labels
+                       and e.device_type == torch.autograd.DeviceType.CPU]
+        by_range = {label: sum(e.device_time_total for e in host_events
+                               if e.name == label) / 1e3
                     for label in labels}
+        # and its host time: the range's wall time on the host, callees in
+        host_by_range = {label: sum(e.cpu_time_total for e in host_events
+                                    if e.name == label) / 1e3
+                         for label in labels}
         rows.sort(key=lambda r: -r[1])
         out[name] = {"wall_ms": wall, "device_ms": dev,
                      "busy_share": dev / wall if dev else None,
@@ -1731,12 +1795,14 @@ def lm_profile(torch, model, card, ranges=()):
                              for k, ms, n in rows[:10]]}
         if labels:
             out[name]["device_ms_by_range"] = by_range
+            out[name]["host_ms_by_range"] = host_by_range
         print(f"{model.cfg.name} profile {name}: wall {wall:.2f} ms, device "
               f"{dev:.2f} ms in {out[name]['device_calls']} kernels and "
               f"copies, by kernel "
               f"{ {k: round(v, 3) for k, v in by_kernel.items()} }, K3 by "
               f"path { {k: round(v, 3) for k, v in k3_by_path.items()} }"
               + (f", by range { {k: round(v, 3) for k, v in by_range.items()} }"
+                 f" (host ms { {k: round(v, 3) for k, v in host_by_range.items()} })"
                  if labels else "") + f" [{card}]", flush=True)
     return out
 
@@ -1905,11 +1971,12 @@ def rwkv_kernel_cases(torch, F, dev, peaks):
     return rows
 
 
-def launcher_phase(torch, counters, arch, kid):
-    """Phase 8d and 9e: ``repro_torch.launch.serve.main(["--arch", arch])``
-    on the card (its default device, the reduced model): a token list for
-    every request, and ``kid`` (K11 for rwkv6, K10 for a transformer) once
-    a layer in every prefill."""
+def launcher_phase(torch, counters, arch, kid, per_prefill=None):
+    """Phase 8d, 9e and 10e: ``repro_torch.launch.serve.main(["--arch",
+    arch])`` on the card (its default device, the reduced model): a token
+    list for every request, and ``kid`` (K11 for rwkv6, K10 for a
+    transformer or zamba2's shared block) ``per_prefill`` times (default
+    once a layer) in every prefill."""
     from repro_torch.core.config import get_arch
     from repro_torch.launch.serve import main as serve_main
 
@@ -1918,7 +1985,9 @@ def launcher_phase(torch, counters, arch, kid):
     out = serve_main(["--arch", arch])
     torch.cuda.synchronize()
     n_req = 6  # the launcher's default --requests
-    want = get_arch(arch).reduced().num_layers * n_req
+    if per_prefill is None:
+        per_prefill = get_arch(arch).reduced().num_layers
+    want = per_prefill * n_req
     done = out["done"]
     if sorted(done) != list(range(n_req)) or not all(done.values()):
         fail(f"{arch} launcher: finished {sorted(done)}")
@@ -1945,19 +2014,22 @@ K10_MOE_CASES = ((1500, 0, 0.0, "bfloat16", 32, 4, 128, True),
 
 
 def memory_budget(model):
-    """GB the served model needs on the card: its weights, the KV cache
-    of ``LM_MAX_BATCH`` slots of ``LM_MAX_LEN`` rows, and the fp32 logits
-    of the longest prompt."""
+    """GB the served model needs on the card: its weights, the cache of
+    ``LM_MAX_BATCH`` slots of ``LM_MAX_LEN`` rows (the bf16 k/v leaves
+    and the fp32 recurrent ones: zamba2's conv rows and SSD states), and
+    the fp32 logits of the longest prompt."""
     import math
 
     from repro_torch.nn.param import tree_leaves
 
     cfg = model.cfg
-    cache = model.cache_spec(LM_MAX_BATCH, LM_MAX_LEN)
+    leaves = tree_leaves(model.cache_spec(LM_MAX_BATCH, LM_MAX_LEN))
     return {"weights": sum(p.numel() * p.element_size()
                            for p in model.parameters()) / 1e9,
-            "kv_cache": sum(2 * math.prod(p.shape)
-                            for p in tree_leaves(cache)) / 1e9,
+            "kv_cache": sum(2 * math.prod(p.shape) for p in leaves
+                            if p.dtype != "float32") / 1e9,
+            "state_cache": sum(4 * math.prod(p.shape) for p in leaves
+                               if p.dtype == "float32") / 1e9,
             "logits": 4 * max(LM_PROMPTS) * cfg.padded_vocab / 1e9}
 
 
@@ -2041,6 +2113,109 @@ def check_routing(log):
     return rec
 
 
+#: phase 10: zamba2-1.2b, its Mamba2 (SSD) blocks and the shared block
+ZAMBA_ARCH = "zamba2-1.2b"
+#: the parity phase's depth cut: one group of two Mamba blocks, one
+#: shared-block invocation and a tail of one; its prompt is two chunks of
+#: 128, the second padded by 56 zero rows
+ZAMBA_CUT = {"num_layers": 3, "shared_attn_every": 2}
+ZAMBA_PARITY_PROMPT = 200
+#: K3's seven projections (name, K, N, activation) in zamba2-1.2b: a Mamba
+#: block's in_proj (N = 8384 = 65 * 128 + 64: the wgmma path's last tile
+#: is half past the end of w and y) and out_proj; the shared block's q, k,
+#: v and o, its gate (silu) and up, its down; shared_out
+K3_ZAMBA_SHAPES = (("in_proj", 2048, 8384, "none"),
+                   ("out_proj", 4096, 2048, "none"),
+                   ("shared_qkvo", 4096, 4096, "none"),
+                   ("shared_gate", 4096, 8192, "silu"),
+                   ("shared_up", 4096, 8192, "none"),
+                   ("shared_down", 8192, 4096, "none"),
+                   ("shared_out", 4096, 2048, "none"))
+#: K10 at the shared block's attention (32 heads over 32, head_dim 128,
+#: causal, no cap, no window) at the two longest prompts, as K10_CASES
+K10_ZAMBA_CASES = ((1500, 0, 0.0, "bfloat16", 32, 32, 128, True),
+                   (4500, 0, 0.0, "bfloat16", 32, 32, 128, True))
+
+
+def zamba_kernel_cases(torch, F, dev, peaks):
+    """Phase 10a: K10 and K3 (bf16) at zamba2-1.2b's shapes against their
+    plain versions, repeated bit for bit, timed as in 7a (the K3 case at
+    N = 8384 also every row of its last tile on its own); returns the
+    records (none of them feeds the kernels line)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = [k10_case(torch, F, gen, dev, case, peaks)
+            for case in K10_ZAMBA_CASES]
+    for m in K3_LM_ROWS:
+        for name, kk, n, act in K3_ZAMBA_SHAPES:
+            rows.append(k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks,
+                                     False, projection=name))
+    for r in rows:
+        r["arch"] = ZAMBA_ARCH
+    return rows
+
+
+def zamba_phase(torch, F, np, dev, peaks, counters, card):
+    """Phase 10 (see the module docstring): zamba2-1.2b's kernel cases,
+    its CPU parity, the served model, its profile and the launcher;
+    returns (cases, parity record, serving record)."""
+    from repro_torch.core.config import get_arch
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.models import zamba2 as zamba_mod
+    from repro_torch.nn import ssm as ssm_mod
+
+    t10 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cases = zamba_kernel_cases(torch, F, dev, peaks)
+    parity = lm_parity_phase(
+        torch, np, dev, attn_ops.flash_attention, ZAMBA_ARCH,
+        ZAMBA_PARITY_PROMPT, redraw=ssm_mod.ssm_redraw, cut=ZAMBA_CUT,
+        per_prefill=ZAMBA_CUT["num_layers"] // ZAMBA_CUT["shared_attn_every"])
+    if parity["paths"] != {"simt": 1, "wgmma": 0}:
+        fail(f"{ZAMBA_ARCH} parity: the fp32 prefill took K10's paths "
+             f"{parity['paths']}, not the CUDA-core kernel alone")
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, init_s = build_model(torch, ZAMBA_ARCH, dev,
+                                redraw=ssm_mod.ssm_redraw)
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    # two projections a Mamba block, eight a shared-block invocation (q, k,
+    # v, o, gate, up, down, shared_out); K10 once an invocation
+    n_k3 = 2 * model.cfg.num_layers + 8 * model.n_groups
+    rec = lm_serving_phase(
+        torch, np, dev, counters, card, model, init_s,
+        {"prefill": {"K3": n_k3, "K10": model.n_groups, "K11": 0},
+         "decode": {"K3": n_k3, "K10": 0, "K11": 0}})
+    if rec["k10_paths"] != {"simt": 0, "wgmma": rec["launches"]["K10"]}:
+        fail(f"{ZAMBA_ARCH} serving: K10's prefill launches took the paths "
+             f"{rec['k10_paths']}, not the wgmma path alone")
+    rec["init_peak_memory_gb"] = init_peak
+    rec["budget_gb"] = memory_budget(model)
+    rec["profile"] = lm_profile(
+        torch, model, card,
+        (("mamba block", zamba_mod.Zamba2LM, "_mamba_block"),
+         ("ssm conv", ssm_mod, "_causal_conv"),
+         ("ssd scan", ssm_mod, "_ssd_chunked"),
+         ("shared block", zamba_mod.Zamba2LM, "_shared_apply")))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    reduced = get_arch(ZAMBA_ARCH).reduced()
+    rec["launcher"] = launcher_phase(
+        torch, counters, ZAMBA_ARCH, "K10",
+        reduced.num_layers // reduced.shared_attn_every)
+    rec["phase_s"] = time.perf_counter() - t10
+    rec["phase_peak_memory_gb"] = max(
+        init_peak, torch.cuda.max_memory_allocated() / 1e9)
+    print("zamba " + json.dumps({k: v for k, v in rec.items()
+                                 if k != "runs"}), flush=True)
+    print(f"phase 10 wall time {rec['phase_s']:.1f} s, peak memory "
+          f"{rec['phase_peak_memory_gb']:.2f} GB (init "
+          f"{init_peak:.2f}, serving {rec['peak_memory_gb']:.2f}; budget "
+          f"{ {k: round(v, 2) for k, v in rec['budget_gb'].items()} }) "
+          f"[{card}]", flush=True)
+    return cases, parity, rec
+
+
 def main() -> int:
     global SEED
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2075,6 +2250,7 @@ def main() -> int:
     from repro_torch.kernels.matmul_fused import ops as mm_ops
     from repro_torch.kernels.pool2d import ops as pool_ops
     from repro_torch.kernels.wkv6 import ops as wkv6_ops
+    from repro_torch.nn.rwkv import rwkv_redraw
 
     # -- 1. card ------------------------------------------------------------
     smi = subprocess.run(
@@ -2260,8 +2436,8 @@ def main() -> int:
     t8 = time.perf_counter()
     rwkv_cases = rwkv_kernel_cases(torch, F, dev, peaks)
     rwkv_parity = lm_parity_phase(torch, np, dev, wkv6_ops.wkv6, RWKV_ARCH,
-                                  RWKV_PARITY_PROMPT, redraw=True)
-    model, init_s = build_model(torch, RWKV_ARCH, dev, redraw=True)
+                                  RWKV_PARITY_PROMPT, redraw=rwkv_redraw)
+    model, init_s = build_model(torch, RWKV_ARCH, dev, redraw=rwkv_redraw)
     n_layers = model.cfg.num_layers
     rwkv = lm_serving_phase(
         torch, np, dev, counters, card_line, model, init_s,
@@ -2277,8 +2453,6 @@ def main() -> int:
     print(f"phase 8 wall time {rwkv['phase_s']:.1f} s", flush=True)
 
     # -- 9. qwen3-moe-30b-a3b: K3/K10 at its shapes, the served MoE model ----
-    import gc
-
     from repro_torch.models import common as lm_common
     from repro_torch.nn import moe as moe_mod
 
@@ -2334,7 +2508,13 @@ def main() -> int:
     if not moe["phase_peak_memory_gb"] < 80.0:
         fail(f"{MOE_ARCH}: peak memory {moe['phase_peak_memory_gb']:.2f} GB")
 
-    # -- 11. the kernels line -----------------------------------------------
+    # -- 10. zamba2-1.2b: the Mamba2 blocks and the shared block ------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    zamba_cases, zamba_parity, zamba = zamba_phase(
+        torch, F, np, dev, peaks, counters, card_line)
+
+    # -- 12. the kernels line -----------------------------------------------
     kernels = []
     for kid, (name, src, replaces) in sources.items():
         mine = [c for c in cases if c["kernel"] == kid]
@@ -2417,7 +2597,7 @@ def main() -> int:
         if k["launches"] < 1:
             fail(f"{k['name']} never launched on the main path")
 
-    # -- 10. stream capture of the cooperative K2 and K1 launches ------------
+    # -- 11. stream capture of the cooperative K2 and K1 launches ------------
     capture = capture_phase(torch, nets["alexnet"],
                             params_from_numpy(np_params["alexnet"], dev), dev)
     print("capture " + json.dumps(capture), flush=True)
@@ -2432,6 +2612,8 @@ def main() -> int:
              "lm_parity": lm_parity, "lm": lm, "rwkv_cases": rwkv_cases,
              "rwkv_parity": rwkv_parity, "rwkv": rwkv,
              "moe_cases": moe_cases, "moe_parity": moe_parity, "moe": moe,
+             "zamba_cases": zamba_cases, "zamba_parity": zamba_parity,
+             "zamba": zamba,
              "capture": capture, "kernels": kernels}, indent=1))
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

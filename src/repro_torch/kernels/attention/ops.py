@@ -18,6 +18,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.attention.ref import flash_attention_ref
 from repro_torch.kernels.common import check_cuda
+from repro_torch.kernels.common import stream_handle as _stream
 
 HEAD_DIMS = (64, 128, 256)
 #: the C entry's path codes
@@ -35,10 +36,6 @@ def k10_path(dtype, sq: int, skv: int, hd: int) -> str:
     if dtype == torch.bfloat16 and hd in HEAD_DIMS:
         return "wgmma"
     return "simt"
-
-
-def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _launch(q, k, v, causal, window, cap, scale, path=None):

@@ -10,7 +10,8 @@ It runs on ``cuda`` unless ``--device`` names another device
 GPU and no device is named.  As in the JAX package,
 ``--reduced`` is a flag whose default is already on, so the launcher
 always serves the reduced model (ROADMAP.md §3), the MoE archs
-(qwen3-moe-30b-a3b, grok-1-314b) among them.
+(qwen3-moe-30b-a3b, grok-1-314b) and zamba2-1.2b among them; the
+cross-attention archs are refused, as in the JAX package.
 """
 from __future__ import annotations
 

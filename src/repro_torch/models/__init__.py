@@ -1,3 +1,4 @@
 """The language models of the port: the counterparts of ``repro.models``
-(the decoder-only transformer, dense and MoE, and RWKV6; zamba2 and the
-cross-attention families are in ROADMAP.md, "Modules still to port")."""
+(the decoder-only transformer, dense and MoE; RWKV6; the zamba2 hybrid of
+Mamba2 blocks and a shared attention block; the cross-attention families
+are in ROADMAP.md, "Modules still to port")."""

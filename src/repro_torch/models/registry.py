@@ -1,6 +1,6 @@
 """Model registry: family -> class, and parameter counts over the port's
-spec — the port of ``repro.models.registry`` for the dense, MoE and
-RWKV6 families."""
+spec — the port of ``repro.models.registry`` for the dense, MoE, RWKV6
+and hybrid (zamba2) families."""
 from __future__ import annotations
 
 import math
@@ -9,14 +9,14 @@ from repro_torch.core.config import ModelConfig
 from repro_torch.nn.param import is_param
 
 #: families the JAX package runs that the port does not run yet
-UNPORTED = {"hybrid": "zamba2 (nn/ssm.py, models/zamba2.py)",
-            "vlm": "the cross-attention families (models/vision_lm.py)",
+UNPORTED = {"vlm": "the cross-attention families (models/vision_lm.py)",
             "audio": "the cross-attention families (models/encdec.py)"}
 
 
 def get_model(cfg: ModelConfig):
     from repro_torch.models.rwkv6 import RWKV6LM
     from repro_torch.models.transformer import TransformerLM
+    from repro_torch.models.zamba2 import Zamba2LM
 
     if cfg.family in UNPORTED:
         raise NotImplementedError(
@@ -24,6 +24,8 @@ def get_model(cfg: ModelConfig):
             f"{UNPORTED[cfg.family]} (ROADMAP.md, \"Modules still to port\")")
     if cfg.family == "ssm":
         return RWKV6LM(cfg)
+    if cfg.family == "hybrid":
+        return Zamba2LM(cfg)
     return TransformerLM(cfg)  # dense + moe
 
 

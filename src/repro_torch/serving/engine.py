@@ -19,16 +19,26 @@ then leaves the prompt's final state there, and each decode step advances
 it by one token.  ``max_len`` bounds the prompt and the generated tokens
 as it does for a KV cache, though the state does not grow with them.
 
+A hybrid model (zamba2) keeps both kinds in one tree: per Mamba2 block
+and slot, fp32 conv rows and an SSD state, and per shared-block
+invocation a bf16 KV cache.  Every leaf has its batch on
+``CACHE_BATCH_AXIS``, so the same slot view serves the whole tree, and
+zeroing it before a prefill gives the JAX engine's fresh one-request
+cache for both kinds.  A decode step advances every slot, idle ones on
+filler tokens too; an idle slot's state is never read before its next
+prefill zeroes it.
+
 An MoE model (``nn/moe.py``) routes a prefill's tokens at the
 ``prefill`` capacity: one request a prefill, so the capacity bound couples
 only a prompt's own tokens, as in the JAX engine.  A decode step runs all
 ``max_batch`` slots, active or not, at the worst-case capacity, where no
 pair drops and the slots' rows do not interact.
 
-On the card every prefill's attention runs K10 (a transformer) or its WKV
-runs K11 (RWKV6), and every projection K3 (a dense block's feed-forward
-too; an MoE block's experts are batched ``torch.matmul``); a decode step
-runs K3 and the plain decode attention or the plain per-step WKV.  Sampling draws
+On the card every prefill's attention runs K10 (a transformer, zamba2's
+shared block) or its WKV runs K11 (RWKV6), and every projection K3 (a
+dense block's feed-forward too; an MoE block's experts are batched
+``torch.matmul``); a decode step runs K3 and the plain decode attention,
+the plain per-step WKV or the plain one-step SSD.  Sampling draws
 from one ``torch.Generator`` on the CPU, seeded with ``seed``, in slot
 order: repeatable for a seed, but not the JAX engine's tokens at a
 temperature above 0 (its PRNG differs).  Greedy requests never draw.

@@ -117,14 +117,14 @@ def test_configs_match_jax(arch):
 
 @pytest.mark.parametrize("arch", jconfig.list_archs())
 def test_get_model_dense_only(arch):
-    """Dense, MoE and RWKV6 (``ssm``) archs build, with JAX's parameter
-    counts: all, active (an MoE model's experts at k of E) and without the
-    embedding (rwkv6-1.6b: 1,599,673,856 at full width; qwen3-moe-30b-a3b:
-    30,532,122,624, 3,353,032,704 active, 29,909,792,768 without the
-    embedding); zamba2 and the cross-attention families raise and name the
-    ROADMAP item."""
+    """Dense, MoE, RWKV6 (``ssm``) and zamba2 (``hybrid``) archs build,
+    with JAX's parameter counts: all, active (an MoE model's experts at k
+    of E) and without the embedding (rwkv6-1.6b: 1,599,673,856 at full
+    width; qwen3-moe-30b-a3b: 30,532,122,624, 3,353,032,704 active,
+    29,909,792,768 without the embedding; zamba2-1.2b: 1,279,542,144);
+    the cross-attention families raise and name the ROADMAP item."""
     cfg = tconfig.get_arch(arch)
-    if cfg.family in ("dense", "ssm", "moe"):
+    if cfg.family in ("dense", "ssm", "moe", "hybrid"):
         jcfg = jconfig.get_arch(arch)
         counts = [tregistry.analytic_param_count(cfg, **kw) for kw in (
             {}, {"active_only": True}, {"non_embedding": True})]
@@ -135,12 +135,15 @@ def test_get_model_dense_only(arch):
             jcfg.num_params(), jcfg.active_params()) == tuple(counts[:2])
         if cfg.family == "ssm":
             assert cfg.num_params() == 1_599_673_856
+        if cfg.family == "hybrid":
+            assert cfg.num_params() == 1_279_542_144
         if arch == "qwen3-moe-30b-a3b":
             assert counts == [30_532_122_624, 3_353_032_704,
                               29_909_792_768]
         if cfg.moe is None:
             assert counts[1] == counts[0]
     else:
+        assert cfg.family in ("vlm", "audio")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tregistry.get_model(cfg)
 
