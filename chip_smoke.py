@@ -199,8 +199,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
       on the wgmma path, every decode step K3 192 times and no K10,
       nothing K11, K3's paths as in 7c, a second run must repeat the
       tokens; the peak device memory must stay under 80 GB;
-   d. the profile of 7d, with the device time of the MoE block and of its
-      routing and expert products (``record_function`` ranges);
+   d. the profile of 7d, with ranges (``profile_windows``: device time,
+      the port's launches and host time of each) on the MoE block and on
+      its routing and expert products;
    e. the launcher ``repro_torch.launch.serve.main(["--arch",
       "qwen3-moe-30b-a3b"])`` (reduced) on the card: a token list for
       every request, K10 once a layer in every prefill;
@@ -234,33 +235,82 @@ Phases, each of which fails the run (non-zero exit, no result line):
       6 times on the wgmma path, every decode step K3 124 times and no
       K10, nothing K11, K3's paths as in 7c, a second run must repeat the
       tokens;
-   d. the profile of 7d, with the device and host time of the Mamba
-      block, its conv, its SSD scan and the shared block
-      (``record_function`` ranges);
+   d. the profile of 7d, with ranges (as 9d) on the Mamba block, its
+      conv, its SSD scan and the shared block;
    e. the launcher ``repro_torch.launch.serve.main(["--arch",
       "zamba2-1.2b"])`` (reduced) on the card: a token list for every
       request, K10 once a shared invocation in every prefill;
-11. stream capture: K2 on AlexNet's chain and K1 on its conv2+pool2+norm2
+11. the cross-attention families at full width, zamba2-1.2b freed first,
+   the phase's wall time and peak device memory printed (about 76 s and
+   27.68 GB on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md: llama's 19.6
+   GB of weights, its cache at 4 slots and the 4500-token prefill's fp32
+   logits):
+   llama-3.2-vision-11b (``VisionLM``: 8 groups of 4 self layers and one
+   gated cross layer, 6400 media tokens of width 4096; 9.79 B parameters,
+   19.6 GB in bf16) and seamless-m4t-large-v2 (``EncDecLM``: 24
+   bidirectional encoder layers over 4096 frames, 24 decoder layers of
+   self-attention, cross-attention and a plain gelu MLP with biases;
+   3.27 GB):
+   a. kernel cases, held, repeated and timed as in 7a, each with its
+      ``host_ms``: K10 in bf16, non-causal, 32 heads over 8 at head_dim
+      128 with 16, 1500 and 4500 queries against 6400 keys, 16 over 16 at
+      head_dim 64 at 4096 x 4096 (SDPA without a mask the yardstick), and
+      seamless's causal decoder self-attention at 1500; K3 in bf16 with a
+      bias at 1024 -> 8192 (gelu) and 8192 -> 1024 and without at
+      seamless's q/k/v/o 1024 -> 1024 (on the stream 8 K slices of 2 ring
+      stages each) and llama's q/o, k/v, gate (silu) and down, for the M
+      of 7a and the media's 6400 (the frames' 4096), and the projector and frontend with their
+      biases at 6400 and 4096 rows (``K3_CROSS_SHAPES``); none feeds the
+      kernels line's times;
+   b. CPU parity as 7b, float32, on weights through ``vision_redraw``
+      (llama's gates drawn away from 0, its doubly stacked self matrices
+      at std 1/sqrt(d_in)): llama cut to one self and one cross layer,
+      seamless to one encoder and one decoder layer, both with their media
+      (frames) cut to ``CROSS_PARITY_MEDIA``; a 64-token prefill (K10 on
+      the CUDA-core kernel, 2 and 3 launches) and 8 greedy tokens: logits
+      (``LM_TOL``), tokens and the self and bf16 cross caches
+      (``LM_CACHE_TOL``);
+   c. both full models in bf16, weights drawn on the card from ``--seed``
+      (llama's through ``vision_redraw``), seeded bf16 media (frames):
+      for each prompt of ``LM_PROMPTS`` one ``forward(batch, "prefill",
+      cache)`` into a cache of ``LM_MAX_LEN`` rows and 16 greedy
+      ``decode_step``s, then 4 prompts of 300 tokens and 16 steps at 4
+      slots, twice (the same tokens).  With the counters set to 0 before
+      each call: llama's prefill K3 281 (the projector, 7 a layer), K10 40
+      (32 causal, 8 non-causal), a step K3 264 (7 a self layer, 5 a cross
+      layer), no K10; seamless's prefill K3 385 (the frontend, 6 an
+      encoder layer, 10 a decoder layer), K10 72 (24 encoder, 24 cross,
+      24 causal), a step K3 192; K3 on wgmma for the media's and frames'
+      rows and for a prompt's from 64 rows on, the weight stream below;
+      every K10 launch on wgmma; finite logits; zeroing llama's gates must
+      change the greedy tokens of the 300-token prompt;
+   d. the profile of 7d, one prefill of 1500 tokens and three decode
+      steps at 4 slots, with ranges as 9d (llama: ``self block``,
+      ``cross block``, ``cross decode attention``; seamless: ``encoder``,
+      ``decoder layer``, ``cross decode attention``);
+   e. the launcher refuses both archs with ``SystemExit`` ("text-only");
+12. stream capture: K2 on AlexNet's chain and K1 on its conv2+pool2+norm2
    group at batch 16, each captured into a ``torch.cuda.CUDAGraph`` and
    replayed (``capture`` line: per kernel, whether the cooperative launch
    was accepted and the replay gave the bits of the launch; a refusal is
    reported, not failed);
-12. prints one JSON line ``{"kernels": [...]}``: per kernel, ``launches``
+13. prints one JSON line ``{"kernels": [...]}``: per kernel, ``launches``
    is its count summed over the AlexNet forwards of phase 4 (K1-K3,
    K7-K9) or phase 5 (K4-K6), or over the first LM serving run of phase
-   7c (K10's wgmma path as ``flash_attention``, and K3's bf16 launches as
-   ``matmul_fused_bf16``) or of phase 8c (K11, as ``wkv6``), each counted
-   from 0; the times and bound are summed over its distinct AlexNet
-   batch-16 shapes on that path (K10: the bf16 4500-token cases at
-   gemma2-2b's shape with cap 50; K3 bf16: its phase-7a cases at M = 4
-   and 4500; K11: its bf16 4500-token case, which no library call
-   computes); K10's CUDA-core kernel has an entry of its own
-   (``flash_attention_simt``), its launches those of the fp32 prefill of
-   7b, its times the fp32 4500-token case; K3's wgmma path has an entry
-   of its own, its launches those
-   of the wgmma path in the first run of 7c, its times its phase-7a cases
-   at M = 4500; the error is the largest over every case;
-13. prints ``{"ok": true, "device": {...}}`` as its last line.
+   7c and the first runs of phase 11c (K10's wgmma path as
+   ``flash_attention``, and K3's bf16 launches as ``matmul_fused_bf16``)
+   or of phase 8c (K11, as ``wkv6``), each counted from 0; the times and
+   bound are summed over its distinct AlexNet batch-16 shapes on that
+   path (K10: the bf16 4500-token cases at gemma2-2b's shape with cap 50;
+   K3 bf16: its phase-7a cases at M = 4 and 4500; K11: its bf16
+   4500-token case, which no library call computes); K10's CUDA-core
+   kernel has an entry of its own (``flash_attention_simt``), its
+   launches those of the fp32 prefills of 7b and 11b, its times the fp32
+   4500-token case; K3's wgmma path has an entry of its own, its
+   launches those of the wgmma path in the first runs of 7c and 11c, its
+   times its phase-7a cases at M = 4500; the error is the largest over
+   every case;
+14. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Run it from the repository root; it needs one CUDA device and the CUDA
 toolkit, and imports nothing of the JAX package.
@@ -1165,11 +1215,12 @@ K3_WGMMA_GAIN = (4500, 5.0)
 K10_WGMMA_GAIN = (4500, 5.0)
 
 
-def _visible_pairs(sq, window, causal=True):
+def _visible_pairs(sq, window, causal=True, skv=None):
     """(query, key) pairs an attention over ``sq`` tokens with ``window``
-    computes."""
+    computes (non-causal: every query against each of ``skv`` keys, ``sq``
+    by default)."""
     if not causal:
-        return sq * sq
+        return sq * (sq if skv is None else skv)
     if window <= 0:
         return sq * (sq + 1) // 2
     w = min(window, sq)
@@ -1227,7 +1278,8 @@ def stream_device_ms(torch, call):
     return ms
 
 
-def k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks, main, **extra):
+def k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks, main, bias=False,
+                 **extra):
     """K3 on bf16 operands at one projection shape, held against its plain
     version element by element, repeated bit for bit and timed beside
     ``torch.matmul`` (+ the activation), with its host time a call
@@ -1236,7 +1288,9 @@ def k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks, main, **extra):
     give the bits of the same row called alone, and the device time a call
     comes from a captured graph (``stream_device_ms``); from 64 rows on
     the CUDA-core tile is timed beside it, in the order tile, wgmma,
-    wgmma, tile.  ``extra`` joins the record.  Returns the record."""
+    wgmma, tile.  ``bias``: with a seeded fp32 bias, added in the
+    epilogue before the activation (the library: ``torch.addmm`` with the
+    bias in bf16).  ``extra`` joins the record.  Returns the record."""
     from repro_torch.kernels.matmul_fused import ops as mm_ops
     from repro_torch.kernels.matmul_fused.ops import k3_path, matmul_fused
     from repro_torch.kernels.matmul_fused.ref import matmul_fused_ref
@@ -1245,19 +1299,21 @@ def k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks, main, **extra):
     x = torch.randn((m, kk), generator=gen, device=dev).bfloat16()
     w = (torch.randn((kk, n), generator=gen, device=dev) / kk ** 0.5
          ).bfloat16()
-    kernel = lambda: matmul_fused(x, w, None, act)  # noqa: E731
-    plain = lambda: matmul_fused_ref(x, w, None, act)  # noqa: E731
-    tile = lambda: mm_ops._launch(x, w, None, act, path="tiles")  # noqa: E731
+    b = torch.randn((n,), generator=gen, device=dev) if bias else None
+    kernel = lambda: matmul_fused(x, w, b, act)  # noqa: E731
+    plain = lambda: matmul_fused_ref(x, w, b, act)  # noqa: E731
+    tile = lambda: mm_ops._launch(x, w, b, act, path="tiles")  # noqa: E731
+    b16 = None if b is None else b.bfloat16()
 
     def library():
-        y = torch.matmul(x, w)
+        y = torch.matmul(x, w) if b16 is None else torch.addmm(b16, x, w)
         if act == "gelu":
             return F.gelu(y, approximate="tanh")
         if act == "silu":
             return F.silu(y)
         return F.relu(y) if act == "relu" else y
 
-    label = f"K3 bf16 M={m} {kk}->{n} {act}"
+    label = f"K3 bf16 M={m} {kk}->{n} {act}" + (" +bias" if bias else "")
     path = k3_path(x.dtype, m, kk, n, x.data_ptr(), w.data_ptr())
     if path != ("stream" if m < 64 else "wgmma"):
         fail(f"{label}: path {path}")
@@ -1286,18 +1342,19 @@ def k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks, main, **extra):
     if not torch.equal(kernel(), out):
         fail(f"{label}: a repeated launch differs")
     if path == "stream" and m > 1 and not torch.equal(
-            matmul_fused(x[:1], w, None, act), out[:1]):
+            matmul_fused(x[:1], w, b, act), out[:1]):
         fail(f"{label}: row 0 differs from the same row called alone")
     lib_err = (library().float() - ref.float()).abs().max().item()
     flops = 2.0 * m * kk * n
-    nbytes = 2.0 * (m * kk + kk * n + m * n)
+    nbytes = 2.0 * (m * kk + kk * n + m * n) + 4.0 * n * bias
     r = {"kernel": "K3-bf16", "rows": m, "k": kk, "n": n, "act": act,
-         "path": path, "max_abs_err": err,
+         "bias": bias, "path": path, "max_abs_err": err,
          **({"last_tile_from": last, "last_tile_max_abs_err": last_err}
             if last is not None else {}),
          "tol": {"rtol": rtol, "atol": atol},
          "library_max_abs_err": lib_err,
-         "library_note": f"torch.matmul in bf16 (+ {act})"}
+         "library_note": ("torch.addmm, bf16 bias" if bias
+                          else "torch.matmul") + f" in bf16 (+ {act})"}
     if path == "wgmma":
         _check_close(f"{label} CUDA-core tile", tile(), ref, atol, rtol)
         runs = [time_ms(torch, f) for f in (tile, kernel, kernel, tile)]
@@ -1322,23 +1379,30 @@ def k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks, main, **extra):
     return r
 
 
-def k10_case(torch, F, gen, dev, case, peaks):
+def k10_case(torch, F, gen, dev, case, peaks, skv=None):
     """K10 at one case of ``K10_CASES``, held against its plain version
     element by element, repeated bit for bit and timed beside SDPA (the
     same boolean mask, and with ``is_causal`` where the window does not
     bite); the launch must take the path ``k10_path`` names, and on the
     wgmma path the CUDA-core kernel is held and timed beside it (simt,
     wgmma, wgmma, simt) and must be at least ``K10_WGMMA_GAIN`` times
-    slower at gemma2-2b's shape at 4500 tokens.  Returns the record."""
+    slower at gemma2-2b's shape at 4500 tokens.  ``skv``: that many keys
+    (a cross-attention, non-causal, no window), SDPA then without a mask.
+    Returns the record."""
     from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.kernels.attention.ref import flash_attention_ref
 
     fp32_peak, bw_peak, bf16_peak = peaks
     sq, window, cap, dname, h, kvh, hd, causal = case
+    cross = skv is not None
+    if cross and (causal or window):
+        fail(f"K10 case {case}: skv {skv} needs a non-causal case without "
+             f"a window")
+    skv = sq if skv is None else skv
     dt = getattr(torch, dname)
     q = torch.randn((1, sq, h, hd), generator=gen, device=dev).to(dt)
-    k = torch.randn((1, sq, kvh, hd), generator=gen, device=dev).to(dt)
-    v = torch.randn((1, sq, kvh, hd), generator=gen, device=dev).to(dt)
+    k = torch.randn((1, skv, kvh, hd), generator=gen, device=dev).to(dt)
+    v = torch.randn((1, skv, kvh, hd), generator=gen, device=dev).to(dt)
     kw = dict(causal=causal, window=window, attn_softcap=cap)
     scale = 1.0 / hd ** 0.5
     kernel = lambda: attn_ops.flash_attention(q, k, v, **kw)  # noqa: E731
@@ -1346,11 +1410,13 @@ def k10_case(torch, F, gen, dev, case, peaks):
     simt = lambda: attn_ops._launch(  # noqa: E731
         q, k, v, causal, window, cap, scale, path="simt")
     pos = torch.arange(sq, device=dev)
-    mask = torch.ones((sq, sq), dtype=torch.bool, device=dev)
-    if causal:
-        mask &= pos[:, None] >= pos[None, :]
-    if window:
-        mask &= pos[None, :] > pos[:, None] - window
+    mask = None
+    if not cross:
+        mask = torch.ones((sq, sq), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= pos[:, None] >= pos[None, :]
+        if window:
+            mask &= pos[None, :] > pos[:, None] - window
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
     def library():  # SDPA has no softcap: the cap-0 function
@@ -1361,9 +1427,10 @@ def k10_case(torch, F, gen, dev, case, peaks):
         return F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
 
-    label = (f"K10 {dname} s={sq} window={window} cap={cap} h={h}/{kvh} "
-             f"hd={hd} causal={causal}")
-    path = attn_ops.k10_path(dt, sq, sq, hd)
+    label = (f"K10 {dname} s={sq}" + (f" skv={skv}" if cross else "")
+             + f" window={window} cap={cap} h={h}/{kvh} hd={hd} "
+             f"causal={causal}")
+    path = attn_ops.k10_path(dt, sq, skv, hd)
     if path != ("wgmma" if dt == torch.bfloat16 else "simt"):
         fail(f"{label}: path {path}")
     ref = plain()
@@ -1380,18 +1447,20 @@ def k10_case(torch, F, gen, dev, case, peaks):
     if not torch.equal(kernel(), out):
         fail(f"{label}: a repeated launch differs")
     lib_err = (library().float() - ref.float()).abs().max().item()
-    flops = 4.0 * _visible_pairs(sq, window, causal) * h * hd
+    flops = 4.0 * _visible_pairs(sq, window, causal, skv) * h * hd
     nbytes = float(out.element_size() * (2 * q.numel() + 2 * k.numel()))
     peak = bf16_peak if dt == torch.bfloat16 else fp32_peak
     gemma2 = (h, kvh, hd, causal) == (8, 4, 256, True) and dname == "bfloat16"
-    r = {"kernel": "K10", "tokens": sq, "window": window, "cap": cap,
+    r = {"kernel": "K10", "tokens": sq, "keys": skv, "window": window,
+         "cap": cap,
          "dtype": dname, "heads": h, "kv_heads": kvh, "head_dim": hd,
          "causal": causal, "path": path, "max_abs_err": err,
          "tol": {"rtol": rtol, "atol": atol},
          "rms_plain": ref.float().square().mean().sqrt().item(),
          "max_abs_plain": ref.float().abs().max().item(),
          "library_max_abs_err": lib_err,
-         "library_note": "SDPA, same boolean mask, no softcap"}
+         "library_note": "SDPA, no mask" if cross
+         else "SDPA, same boolean mask, no softcap"}
     if path == "wgmma":
         r["simt_max_abs_err"] = _check_close(f"{label} CUDA-core kernel",
                                              simt(), ref, atol, rtol)
@@ -1445,19 +1514,23 @@ def lm_kernel_cases(torch, F, dev, peaks):
 
 def lm_parity_phase(torch, np, dev, counter, arch=LM_ARCH,
                     prompt_len=LM_PARITY_PROMPT, redraw=None, cut=None,
-                    per_prefill=None):
+                    per_prefill=None, media_key=None):
     """Phase 7b (gemma2-2b, one local/global pair), 8b (rwkv6-1.6b, two
-    layers), 9b (qwen3-moe-30b-a3b, two layers) and 10b (zamba2-1.2b,
-    ``cut`` to three layers in one group of two and a tail of one):
+    layers), 9b (qwen3-moe-30b-a3b, two layers), 10b (zamba2-1.2b,
+    ``cut`` to three layers in one group of two and a tail of one) and
+    11b (the cross-attention families, their media cut too):
     ``arch`` at full width with its depth cut (``cut``: the config's
     changes, default 2 layers), float32, on the card and on the CPU with
     the same weights (``redraw``: a function that then redraws leaves of
-    the tree from the same generator, ``rwkv_redraw`` or ``ssm_redraw``);
-    a ``prompt_len``-token prefill and ``LM_PARITY_DECODE`` greedy tokens
-    must agree (``LM_TOL``), as must the final caches (``LM_CACHE_TOL``
-    by the leaf's dtype).  ``counter``, a kernel wrapper, must launch
-    ``per_prefill`` times (default once a layer) in the card's
-    prefill."""
+    the tree from the same generator, ``rwkv_redraw``, ``ssm_redraw`` or
+    ``vision_redraw``); a ``prompt_len``-token prefill and
+    ``LM_PARITY_DECODE`` greedy tokens must agree (``LM_TOL``), as must
+    the final caches (``LM_CACHE_TOL`` by the leaf's dtype).
+    ``media_key``: the prefill's batch also carries seeded fp32 media
+    under that key (``media_embeds`` or ``frames``, [1,
+    ``num_media_tokens``, ``media_dim``]).  ``counter``, a kernel
+    wrapper, must launch ``per_prefill`` times (default once a layer) in
+    the card's prefill."""
     import dataclasses
 
     from repro_torch.core.config import get_arch
@@ -1476,6 +1549,9 @@ def lm_parity_phase(torch, np, dev, counter, arch=LM_ARCH,
     cpu = get_model(cfg).load_tree(tree_map(lambda t: t.cpu(), tree))
     rng = np.random.default_rng(SEED)
     prompt = rng.integers(0, cfg.vocab_size, (1, prompt_len))
+    media = None if media_key is None else rng.standard_normal(
+        (1, cfg.cross_attn.num_media_tokens, cfg.cross_attn.media_dim)
+    ).astype(np.float32)
     cache_len = prompt_len + LM_PARITY_DECODE + 8
     caches = {"gpu": gpu.init_cache(1, cache_len),
               "cpu": cpu.init_cache(1, cache_len)}
@@ -1487,11 +1563,13 @@ def lm_parity_phase(torch, np, dev, counter, arch=LM_ARCH,
     # thread here, MKL_CBWR set before torch loaded
     with torch.no_grad(), one_thread(torch):
         for side, m in models.items():
-            t = torch.from_numpy(prompt).to(m.device)
+            batch = {"tokens": torch.from_numpy(prompt).to(m.device)}
+            if media is not None:
+                batch[media_key] = torch.from_numpy(media).to(m.device)
             counter.launches = 0
             for k in table or ():
                 table[k] = 0
-            logits[side], _, _ = m({"tokens": t}, mode="prefill",
+            logits[side], _, _ = m(batch, mode="prefill",
                                    cache=caches[side])
             if side == "gpu":
                 torch.cuda.synchronize()
@@ -1529,6 +1607,8 @@ def lm_parity_phase(torch, np, dev, counter, arch=LM_ARCH,
                 f"{label} final cache", a.cpu(), b,
                 tol * max(1.0, b.float().abs().max().item())))
     rec = {"arch": arch, "layers": cfg.num_layers, "prompt": prompt_len,
+           **({"media": cfg.cross_attn.num_media_tokens}
+              if media is not None else {}),
            "cpu_threads": 1, "mkl": torch.backends.mkl.is_available(),
            "mkl_cbwr": os.environ.get("MKL_CBWR"),
            "tokens": tokens["gpu"], "max_abs_err": worst,
@@ -1715,11 +1795,10 @@ def lm_profile(torch, model, card, ranges=()):
     ratio (the device's busy share), their count, the device time of each
     kernel of the port and of the rest, and the largest device-time
     names.  ``ranges`` names functions (label, module, attribute) to run
-    inside a ``record_function`` of their label while profiling: each
-    label's device time (its kernels and its callees') and host time
-    join the window's record."""
+    inside a ``record_function`` of their label while profiling; each
+    label's device time, launches and host time join the window's record
+    (see ``profile_windows``)."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.serving.engine import Request, ServingEngine
 
@@ -1736,18 +1815,50 @@ def lm_profile(torch, model, card, ranges=()):
             0, Request(9, prompt, max_new_tokens=LM_NEW_TOKENS)),
         "decode_x3": lambda: [eng._decode_step() for _ in range(3)],
     }
-    def labelled(label, fn):
+    return profile_windows(torch, model.cfg.name, windows, card, ranges)
+
+
+def profile_windows(torch, title, windows, card, ranges=()):
+    """``torch.profiler`` over each of ``windows`` (name -> a function to
+    run), as ``lm_profile`` describes; ``title`` labels the printed
+    lines.  Each range of ``ranges`` gives, summed over its calls:
+    ``device_ms_by_range``, the device time of every kernel and copy
+    launched inside it, and ``port_device_ms_by_range``, that of K3's,
+    K10's and K11's kernels among them: a kernel belongs to the ranges
+    that enclose the host call which launched it (the runtime's launch
+    event, which shares the kernel's correlation id).  The profiler's own
+    device time of a range (``device_time_total``) would miss the port's
+    kernels: their launch events carry no kernel, as the launch comes
+    through ctypes and no ATen operator.  Also ``port_launches_by_range``
+    (the wrappers' counters) and ``host_ms_by_range``.  Returns the
+    record of each window."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.kernels.attention.ops import flash_attention
+    from repro_torch.kernels.matmul_fused.ops import matmul_fused
+    from repro_torch.kernels.wkv6.ops import wkv6
+
+    port = (matmul_fused, flash_attention, wkv6)
+    labels = list(dict.fromkeys(label for label, _, _ in ranges))
+
+    def counts():
+        return [w.launches for w in port]
+
+    def labelled(label, fn, calls):
         def call(*args, **kw):
+            before = counts()
             with record_function(label):
-                return fn(*args, **kw)
+                out = fn(*args, **kw)
+            calls.append((label, before, counts()))
+            return out
         return call
 
-    labels = [label for label, _, _ in ranges]
     out = {}
     for name, fn in windows.items():
+        calls = []
         saved = [(mod, attr, getattr(mod, attr)) for _, mod, attr in ranges]
         for (label, _, _), (mod, attr, real) in zip(ranges, saved):
-            setattr(mod, attr, labelled(label, real))
+            setattr(mod, attr, labelled(label, real, calls))
         torch.cuda.synchronize()
         try:
             with profile(activities=[ProfilerActivity.CPU,
@@ -1773,17 +1884,37 @@ def lm_profile(torch, model, card, ranges=()):
         by_kernel["rest"] = dev - sum(by_kernel.values())
         k3_by_path = {path: sum(ms for key, ms, _ in rows if nm in key)
                       for path, nm in K3_PROFILE_PATHS}
-        # a range's device time: its CPU-side events' kernels and their
-        # callees' (``device_time_total`` of the host event)
-        host_events = [e for e in prof.events()
-                       if e.name in labels
-                       and e.device_type == torch.autograd.DeviceType.CPU]
-        by_range = {label: sum(e.device_time_total for e in host_events
-                               if e.name == label) / 1e3
-                    for label in labels}
-        # and its host time: the range's wall time on the host, callees in
-        host_by_range = {label: sum(e.cpu_time_total for e in host_events
-                                    if e.name == label) / 1e3
+        events = prof.events()
+        cpu, cuda = (torch.autograd.DeviceType.CPU,
+                     torch.autograd.DeviceType.CUDA)
+        # the runtime's launch and copy calls by correlation id (an
+        # operator's id is from another count, so only ``cu*`` calls)
+        launch_calls = {e.id: e for e in events
+                        if e.device_type == cpu and e.name.startswith("cu")}
+        port_names = [nm for _, names in PROFILE_GROUPS for nm in names]
+        dev_by_range = dict.fromkeys(labels, 0.0)
+        port_by_range = dict.fromkeys(labels, 0.0)
+        for e in events:
+            call = launch_calls.get(e.id)
+            if e.device_type != cuda or e.name in labels or call is None:
+                continue
+            ms = e.self_device_time_total / 1e3
+            ours = any(nm in e.name for nm in port_names)
+            within = set()
+            while call is not None:
+                if call.name in labels:
+                    within.add(call.name)
+                call = call.cpu_parent
+            for label in within:
+                dev_by_range[label] += ms
+                port_by_range[label] += ms if ours else 0.0
+        launches = dict.fromkeys(labels, 0)
+        for label, before, after in calls:
+            launches[label] += sum(after) - sum(before)
+        # the range's wall time on the host, callees in
+        host_by_range = {label: sum(e.cpu_time_total for e in events
+                                    if e.name == label
+                                    and e.device_type == cpu) / 1e3
                          for label in labels}
         rows.sort(key=lambda r: -r[1])
         out[name] = {"wall_ms": wall, "device_ms": dev,
@@ -1794,15 +1925,18 @@ def lm_profile(torch, model, card, ranges=()):
                      "top": [{"name": k[:80], "ms": ms, "calls": n}
                              for k, ms, n in rows[:10]]}
         if labels:
-            out[name]["device_ms_by_range"] = by_range
-            out[name]["host_ms_by_range"] = host_by_range
-        print(f"{model.cfg.name} profile {name}: wall {wall:.2f} ms, device "
+            out[name].update(device_ms_by_range=dev_by_range,
+                             port_device_ms_by_range=port_by_range,
+                             port_launches_by_range=launches,
+                             host_ms_by_range=host_by_range)
+        rnd = lambda d: {k: round(v, 3) for k, v in d.items()}  # noqa: E731
+        print(f"{title} profile {name}: wall {wall:.2f} ms, device "
               f"{dev:.2f} ms in {out[name]['device_calls']} kernels and "
-              f"copies, by kernel "
-              f"{ {k: round(v, 3) for k, v in by_kernel.items()} }, K3 by "
-              f"path { {k: round(v, 3) for k, v in k3_by_path.items()} }"
-              + (f", by range { {k: round(v, 3) for k, v in by_range.items()} }"
-                 f" (host ms { {k: round(v, 3) for k, v in host_by_range.items()} })"
+              f"copies, by kernel {rnd(by_kernel)}, K3 by path "
+              f"{rnd(k3_by_path)}"
+              + (f", by range: device {rnd(dev_by_range)} (the port's "
+                 f"{rnd(port_by_range)} in {launches} launches), host "
+                 f"{rnd(host_by_range)}"
                  if labels else "") + f" [{card}]", flush=True)
     return out
 
@@ -2216,6 +2350,367 @@ def zamba_phase(torch, F, np, dev, peaks, counters, card):
     return cases, parity, rec
 
 
+#: phase 11: the cross-attention families
+VLM_ARCH = "llama-3.2-vision-11b"
+AUDIO_ARCH = "seamless-m4t-large-v2"
+#: the parity phase cuts both families' media (frames) to this many, so
+#: that the CPU side stays small; the served runs keep 6400 and 4096
+CROSS_PARITY_MEDIA = 512
+#: the prompt length of the batch whose decode step phase 11c times at
+#: ``LM_MAX_BATCH`` slots, and of the prompt whose greedy tokens must move
+#: when llama's gates are zeroed
+CROSS_BATCH_PROMPT = 300
+#: K10 at the cross families' shapes, (case as ``K10_CASES``, keys; a
+#: non-causal case names its keys, so that SDPA without a mask is its
+#: yardstick): the cross-attention of a llama prefill (32 heads over 8,
+#: head_dim 128) against its 6400 media tokens at 16, 1500 and 4500
+#: prompt tokens; seamless's encoder (16 over 16, head_dim 64, 4096 x
+#: 4096) and its decoder's causal self-attention at 1500
+K10_CROSS_CASES = (((16, 0, 0.0, "bfloat16", 32, 8, 128, False), 6400),
+                   ((1500, 0, 0.0, "bfloat16", 32, 8, 128, False), 6400),
+                   ((4500, 0, 0.0, "bfloat16", 32, 8, 128, False), 6400),
+                   ((4096, 0, 0.0, "bfloat16", 16, 16, 64, False), 4096),
+                   ((1500, 0, 0.0, "bfloat16", 16, 16, 64, True), None))
+#: K3 at the cross families' projections: (arch, name, K, N, activation,
+#: bias, rows).  seamless's MLP carries fp32 biases (up with gelu) and its
+#: attention's q/k/v/o none (1024 -> 1024: on the weight stream 8 K slices
+#: of 2 ring stages, fewer than ``SW_STAGES``), at a decoder's rows and the
+#: encoder's 4096; llama's q/o, k/v, gate (silu) and down at a prompt's
+#: rows and the media's 6400; the projector and the frontend (with biases)
+#: at the media's and the frames' rows
+K3_CROSS_SHAPES = (
+    (AUDIO_ARCH, "w_up", 1024, 8192, "gelu", True, K3_LM_ROWS + (4096,)),
+    (AUDIO_ARCH, "w_down", 8192, 1024, "none", True, K3_LM_ROWS + (4096,)),
+    (AUDIO_ARCH, "qkvo", 1024, 1024, "none", False, K3_LM_ROWS + (4096,)),
+    (AUDIO_ARCH, "frontend", 1024, 1024, "none", True, (4096,)),
+    (VLM_ARCH, "qo", 4096, 4096, "none", False, K3_LM_ROWS + (6400,)),
+    (VLM_ARCH, "kv", 4096, 1024, "none", False, K3_LM_ROWS + (6400,)),
+    (VLM_ARCH, "gate", 4096, 14336, "silu", False, K3_LM_ROWS + (6400,)),
+    (VLM_ARCH, "down", 14336, 4096, "none", False, K3_LM_ROWS + (6400,)),
+    (VLM_ARCH, "projector", 4096, 4096, "none", True, (6400,)))
+
+
+def cross_kernel_cases(torch, F, dev, peaks):
+    """Phase 11a: K10 non-causal at sq != skv (head_dim 128) and at
+    head_dim 64, and K3 in bf16 with and without a bias, at the cross
+    families' shapes, against their plain versions, repeated bit for bit,
+    timed as in 7a; returns the records (each with its ``arch``)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    for case, skv in K10_CROSS_CASES:
+        r = k10_case(torch, F, gen, dev, case, peaks, skv=skv)
+        r["arch"] = VLM_ARCH if case[6] == 128 else AUDIO_ARCH
+        rows.append(r)
+    for arch, name, kk, n, act, bias, ms in K3_CROSS_SHAPES:
+        for m in ms:
+            r = k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks, False,
+                             bias=bias, projection=name)
+            r["arch"] = arch
+            rows.append(r)
+    return rows
+
+
+def cross_serving_phase(torch, np, dev, counters, card, model, init_s,
+                        expect, media_key):
+    """Phase 11c: ``model`` (llama-3.2-vision-11b or seamless-m4t-large-v2,
+    full width and depth, bf16) driven through ``forward(batch,
+    "prefill", cache)`` and ``decode_step`` on the card, twice: for each
+    prompt of ``LM_PROMPTS`` one prefill into a ``LM_MAX_LEN`` cache and
+    ``LM_NEW_TOKENS`` greedy steps, then a batch of ``LM_MAX_BATCH``
+    prompts of ``CROSS_BATCH_PROMPT`` tokens and its steps at that many
+    slots.  Seeded bf16 media under ``media_key``.  With the counters set
+    to 0 before each call and read after, every prefill and step must
+    launch ``expect[kind]`` (every other counter 0), K3 on the wgmma path
+    for the media's ``expect["media_k3"]`` projections and for the
+    prompt's from 64 rows on (the weight stream below), K10 on the wgmma
+    path; the logits must be finite and the second run must repeat the
+    tokens.  Returns the record and the function that generates a
+    prompt's tokens (``generate(prompt, log)``)."""
+    cfg = model.cfg
+    torch.cuda.reset_peak_memory_stats()
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, (1, n)) for n in LM_PROMPTS]
+    prompts.append(rng.integers(0, cfg.vocab_size,
+                                (LM_MAX_BATCH, CROSS_BATCH_PROMPT)))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    media = torch.randn((LM_MAX_BATCH, cfg.cross_attn.num_media_tokens,
+                         cfg.cross_attn.media_dim), generator=gen,
+                        device=dev).bfloat16()
+    k3_paths = counters["K3"].path_launches
+    k10_paths = counters["K10"].path_launches
+    label = f"{cfg.name} serving"
+
+    def timed(kind, fn, rows, log):
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        for table in (k3_paths, k10_paths):
+            for k in table:
+                table[k] = 0
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        got = {k: c.launches for k, c in counters.items() if c.launches}
+        want = {k: n for k, n in expect[kind].items() if n}
+        what = (f"a prefill of {rows} rows" if kind == "prefill"
+                else f"a decode step at {rows} slots")
+        if got != want:
+            fail(f"{label}: {what} launched {got}, expected {want}")
+        n3 = expect[kind]["K3"]
+        wg = n3 if rows >= 64 else expect["media_k3"] * (kind == "prefill")
+        want3 = {**dict.fromkeys(k3_paths, 0), "wgmma": wg}
+        want3["stream"] = n3 - wg
+        if dict(k3_paths) != want3:
+            fail(f"{label}: {what} took K3's paths {dict(k3_paths)}, "
+                 f"expected {want3}")
+        want10 = {**dict.fromkeys(k10_paths, 0),
+                  "wgmma": expect[kind].get("K10", 0)}
+        if dict(k10_paths) != want10:
+            fail(f"{label}: {what} took K10's paths {dict(k10_paths)}, "
+                 f"expected {want10}")
+        log.append({"kind": kind, "rows": rows, "ms": ms, **got,
+                    "k3_paths": dict(k3_paths),
+                    "k10_paths": dict(k10_paths)})
+        return out
+
+    def generate(prompt, log):
+        b, s = prompt.shape
+        cache = model.init_cache(b, LM_MAX_LEN)
+        batch = {"tokens": torch.from_numpy(prompt).to(dev),
+                 media_key: media[:b]}
+        logits, _, _ = timed("prefill", lambda: model(
+            batch, mode="prefill", cache=cache), b * s, log)
+        if tuple(logits.shape) != (b, s, cfg.padded_vocab) or not bool(
+                torch.isfinite(logits).all()):
+            fail(f"{label}: prefill logits {tuple(logits.shape)}, finite "
+                 f"{bool(torch.isfinite(logits).all())}")
+        toks = [logits[:, -1].argmax(-1)]
+        del logits
+        for i in range(LM_NEW_TOKENS):
+            pos = torch.full((b,), s + i, dtype=torch.long, device=dev)
+            lg, _ = timed("decode", lambda: model.decode_step(
+                toks[-1][:, None], pos, cache), b, log)
+            if not bool(torch.isfinite(lg).all()):
+                fail(f"{label}: non-finite decode logits")
+            toks.append(lg[:, 0].argmax(-1))
+        del cache
+        out = torch.stack(toks, 1).cpu().tolist()
+        if not all(0 <= t < cfg.vocab_size for row in out for t in row):
+            fail(f"{label}: tokens outside the vocabulary: {out}")
+        return out
+
+    runs = []
+    with torch.no_grad():
+        for _ in range(2):
+            log = []
+            t = time.perf_counter()
+            tokens = [generate(p, log) for p in prompts]
+            runs.append({"tokens": tokens, "log": log,
+                         "wall_s": time.perf_counter() - t})
+    if runs[1]["tokens"] != runs[0]["tokens"]:
+        fail(f"{label}: a second run gave other tokens")
+    first = runs[0]["log"]
+    rec = {"arch": cfg.name, "params": n_params, "init_s": init_s,
+           "max_len": LM_MAX_LEN, "prompts": list(LM_PROMPTS),
+           "batch": [LM_MAX_BATCH, CROSS_BATCH_PROMPT],
+           "media": list(media.shape[1:]),
+           "decode_steps": LM_NEW_TOKENS,
+           "tokens": runs[0]["tokens"],
+           "launches": {k: sum(r.get(k, 0) for r in first)
+                        for k in expect["prefill"]},
+           "k3_paths": {k: sum(r["k3_paths"][k] for r in first)
+                        for k in k3_paths},
+           "k10_paths": {k: sum(r["k10_paths"][k] for r in first)
+                         for k in k10_paths},
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "runs": [{"wall_s": r["wall_s"], "log": r["log"]} for r in runs]}
+    for i, r in enumerate(runs):
+        pre = [x for x in r["log"] if x["kind"] == "prefill"]
+        one = ", ".join(f"{x['rows']}: {x['ms']:.1f}" for x in pre[:-1])
+        dec1 = [x["ms"] for x in r["log"]
+                if x["kind"] == "decode" and x["rows"] == 1]
+        dec4 = [x["ms"] for x in r["log"]
+                if x["kind"] == "decode" and x["rows"] == LM_MAX_BATCH]
+        print(f"{label} run {i + 1}: prefill ms by prompt length {{{one}}}, "
+              f"{LM_MAX_BATCH} x {CROSS_BATCH_PROMPT}: {pre[-1]['ms']:.1f}; "
+              f"decode step median {statistics.median(dec1):.2f} ms at 1 "
+              f"slot, {statistics.median(dec4):.2f} at {LM_MAX_BATCH}; "
+              f"wall {r['wall_s']:.2f} s, peak memory "
+              f"{rec['peak_memory_gb']:.2f} GB [{card}]", flush=True)
+    return rec, generate
+
+
+def cross_profile(torch, np, dev, model, card, media_key, ranges):
+    """Phase 11d: ``profile_windows`` over one prefill of
+    ``LM_PROFILE_PROMPT`` tokens and three decode steps at ``LM_MAX_BATCH``
+    slots (after a prefill of that many ``CROSS_BATCH_PROMPT``-token
+    prompts), with ``ranges``."""
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED + 1)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    media = torch.randn((LM_MAX_BATCH, cfg.cross_attn.num_media_tokens,
+                         cfg.cross_attn.media_dim), generator=gen,
+                        device=dev).bfloat16()
+    one = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (1, LM_PROFILE_PROMPT))).to(dev)
+    four = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LM_MAX_BATCH, CROSS_BATCH_PROMPT))).to(dev)
+    cache1 = model.init_cache(1, LM_MAX_LEN)
+    cache4 = model.init_cache(LM_MAX_BATCH, LM_MAX_LEN)
+    with torch.no_grad():
+        lg, _, _ = model({"tokens": four, media_key: media}, mode="prefill",
+                         cache=cache4)
+        state = {"tok": lg[:, -1].argmax(-1)[:, None], "pos": four.shape[1]}
+        del lg
+        model({"tokens": one, media_key: media[:1]}, mode="prefill",
+              cache=cache1)  # warm
+
+        def decode_x3():
+            for _ in range(3):
+                pos = torch.full((LM_MAX_BATCH,), state["pos"],
+                                 dtype=torch.long, device=dev)
+                lg, _ = model.decode_step(state["tok"], pos, cache4)
+                state["tok"] = lg[:, 0].argmax(-1)[:, None]
+                state["pos"] += 1
+
+        windows = {"prefill": lambda: model(
+            {"tokens": one, media_key: media[:1]}, mode="prefill",
+            cache=cache1), "decode_x3": decode_x3}
+        return profile_windows(torch, cfg.name, windows, card, ranges)
+
+
+def cross_phase(torch, F, np, dev, peaks, counters, card):
+    """Phase 11 (see the module docstring): the cross families' kernel
+    cases, their CPU parity, both models served, their profiles, the
+    llama gates' check and the launcher's refusal; returns (cases, parity
+    records, serving records)."""
+    import dataclasses
+
+    from repro_torch.core.config import get_arch
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models import encdec as encdec_mod
+    from repro_torch.models import vision_lm as vlm_mod
+
+    t11 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cases = cross_kernel_cases(torch, F, dev, peaks)
+    keys = {VLM_ARCH: "media_embeds", AUDIO_ARCH: "frames"}
+    redraws = {VLM_ARCH: vlm_mod.vision_redraw, AUDIO_ARCH: None}
+    parity = {}
+    for arch, cut, n10 in (
+            (VLM_ARCH, {"num_layers": 2}, 2),
+            (AUDIO_ARCH, {"num_layers": 1, "num_encoder_layers": 1}, 3)):
+        base = get_arch(arch).cross_attn
+        cut["cross_attn"] = dataclasses.replace(
+            base, num_media_tokens=CROSS_PARITY_MEDIA,
+            interval=min(base.interval, 2))
+        parity[arch] = lm_parity_phase(
+            torch, np, dev, attn_ops.flash_attention, arch,
+            redraw=redraws[arch], cut=cut, per_prefill=n10,
+            media_key=keys[arch])
+        if parity[arch]["paths"] != {"simt": n10, "wgmma": 0}:
+            fail(f"{arch} parity: the fp32 prefill took K10's paths "
+                 f"{parity[arch]['paths']}, not the CUDA-core kernel alone")
+        gc.collect()
+        torch.cuda.empty_cache()
+    served = {}
+    ranges = {
+        VLM_ARCH: (("self block", vlm_mod.VisionLM, "_self_layers"),
+                   ("cross block", vlm_mod.VisionLM, "_cross_prefill"),
+                   ("cross block", vlm_mod.VisionLM, "_cross_decode"),
+                   ("cross decode attention", vlm_mod,
+                    "cross_attention_cached")),
+        AUDIO_ARCH: (("encoder", encdec_mod.EncDecLM, "encode"),
+                     ("decoder layer", encdec_mod.EncDecLM, "_dec_layer"),
+                     ("cross decode attention", encdec_mod,
+                      "cross_attention_cached"))}
+    for arch in (AUDIO_ARCH, VLM_ARCH):
+        torch.cuda.reset_peak_memory_stats()
+        model, init_s = build_model(torch, arch, dev, redraw=redraws[arch])
+        init_peak = torch.cuda.max_memory_allocated() / 1e9
+        cfg = model.cfg
+        if arch == VLM_ARCH:
+            # the projector; q, k, v, o, gate, up, down of every layer; K10
+            # once a layer (the cross layers non-causal); a decode step's
+            # cross layers: q, o, gate, up, down
+            n_self, n_cross = model.n_groups * model.n_self, model.n_groups
+            expect = {"prefill": {"K3": 1 + 7 * (n_self + n_cross),
+                                  "K10": n_self + n_cross, "K11": 0},
+                      "decode": {"K3": 7 * n_self + 5 * n_cross, "K10": 0,
+                                 "K11": 0},
+                      "media_k3": 1 + 2 * n_cross}
+        else:
+            # the frontend; an encoder block's q, k, v, o, up, down; a
+            # decoder layer's self q, k, v, o, cross q, k, v, o, up, down;
+            # K10 once an encoder block and twice a decoder layer; a
+            # decode step's self q, k, v, o, cross q, o, up, down
+            ne, nd = cfg.num_encoder_layers, cfg.num_layers
+            expect = {"prefill": {"K3": 1 + 6 * ne + 10 * nd,
+                                  "K10": ne + 2 * nd, "K11": 0},
+                      "decode": {"K3": 8 * nd, "K10": 0, "K11": 0},
+                      "media_k3": 1 + 6 * ne + 2 * nd}
+        rec, generate = cross_serving_phase(torch, np, dev, counters, card,
+                                            model, init_s, expect,
+                                            keys[arch])
+        rec["init_peak_memory_gb"] = init_peak
+        rec["expect"] = expect
+        if arch == VLM_ARCH:
+            # the cross path matters: with every gate at 0 the greedy
+            # tokens of the same prompt must change
+            i = LM_PROMPTS.index(CROSS_BATCH_PROMPT)
+            rng = np.random.default_rng(SEED)
+            prompts = [rng.integers(0, cfg.vocab_size, (1, n))
+                       for n in LM_PROMPTS]
+            saved = [(u["gate_attn"].clone(), u["gate_mlp"].clone())
+                     for u in model.cross_layers]
+            for u in model.cross_layers:
+                u["gate_attn"].zero_()
+                u["gate_mlp"].zero_()
+            with torch.no_grad():
+                gated_off = generate(prompts[i], [])
+            for u, (ga, gm) in zip(model.cross_layers, saved):
+                u["gate_attn"].copy_(ga)
+                u["gate_mlp"].copy_(gm)
+            rec["gates_zeroed"] = {"prompt": CROSS_BATCH_PROMPT,
+                                   "tokens": gated_off,
+                                   "served": rec["tokens"][i]}
+            if gated_off == rec["tokens"][i]:
+                fail(f"{arch}: zeroing the gates left the greedy tokens of "
+                     f"the {CROSS_BATCH_PROMPT}-token prompt as they were")
+        rec["profile"] = cross_profile(torch, np, dev, model, card,
+                                       keys[arch], ranges[arch])
+        rec["phase_peak_memory_gb"] = max(
+            init_peak, torch.cuda.max_memory_allocated() / 1e9)
+        print("cross " + json.dumps({k: v for k, v in rec.items()
+                                     if k != "runs"}), flush=True)
+        print(f"{arch}: peak memory {rec['phase_peak_memory_gb']:.2f} GB "
+              f"(init {init_peak:.2f}, serving {rec['peak_memory_gb']:.2f}) "
+              f"[{card}]", flush=True)
+        served[arch] = rec
+        del model, generate
+        gc.collect()
+        torch.cuda.empty_cache()
+    # 11e: the launcher serves tokens only and refuses both families
+    for arch in (VLM_ARCH, AUDIO_ARCH):
+        try:
+            serve_main(["--arch", arch])
+        except SystemExit as e:
+            if "text-only" not in str(e):
+                fail(f"{arch} launcher: refused with {e}")
+        else:
+            fail(f"{arch} launcher: served a cross-attention arch")
+    wall = time.perf_counter() - t11
+    peak = max(r["phase_peak_memory_gb"] for r in served.values())
+    for r in served.values():
+        r["phase_s"] = wall
+    print(f"phase 11 wall time {wall:.1f} s, peak memory {peak:.2f} GB "
+          f"[{card}]", flush=True)
+    return cases, parity, served
+
+
 def main() -> int:
     global SEED
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2514,7 +3009,13 @@ def main() -> int:
     zamba_cases, zamba_parity, zamba = zamba_phase(
         torch, F, np, dev, peaks, counters, card_line)
 
-    # -- 12. the kernels line -----------------------------------------------
+    # -- 11. the cross-attention families: llama-3.2-vision, seamless -------
+    gc.collect()
+    torch.cuda.empty_cache()
+    cross_cases, cross_parity, cross = cross_phase(
+        torch, F, np, dev, peaks, counters, card_line)
+
+    # -- 13. the kernels line -----------------------------------------------
     kernels = []
     for kid, (name, src, replaces) in sources.items():
         mine = [c for c in cases if c["kernel"] == kid]
@@ -2551,36 +3052,50 @@ def main() -> int:
             else "bytes",
             "library_ms": sum(c["library_ms"] for c in main), **extra}
 
-    # K10: the wgmma path (every bf16 prefill of 7c) and the CUDA-core
-    # kernel (the fp32 prefill of 7b; its time the fp32 4500-token case)
-    k10 = [c for c in lm_cases if c["kernel"] == "K10"]
+    # K10: the wgmma path (every bf16 prefill of 7c and 11c) and the
+    # CUDA-core kernel (the fp32 prefills of 7b and 11b; its time the fp32
+    # 4500-token case)
+    k10 = [c for c in lm_cases + cross_cases if c["kernel"] == "K10"]
     k10_src = "src/repro_torch/csrc/flash_attention.cu"
     k10_pallas = "src/repro/kernels/attention/kernel.py:116"
+    k10_wgmma = {p: lm["k10_paths"][p] + sum(r["k10_paths"][p]
+                                             for r in cross.values())
+                 for p in lm["k10_paths"]}
+    k10_simt = {p: lm_parity["paths"][p] + sum(r["paths"][p]
+                                               for r in cross_parity.values())
+                for p in lm_parity["paths"]}
     kernels.append(lm_entry(
         "flash_attention", k10_src, k10_pallas,
-        [c for c in k10 if c["main"]], lm["k10_paths"]["wgmma"],
+        [c for c in k10 if c["main"]], k10_wgmma["wgmma"],
         max(c["max_abs_err"] for c in k10 if c["path"] == "wgmma"),
-        path="wgmma", paths=lm["k10_paths"]))
+        path="wgmma", paths=k10_wgmma))
     kernels.append(lm_entry(
         "flash_attention_simt", k10_src, k10_pallas,
         [c for c in k10 if c["dtype"] == "float32"
-         and c["tokens"] == max(LM_PROMPTS)], lm_parity["paths"]["simt"],
+         and c["tokens"] == max(LM_PROMPTS)], k10_simt["simt"],
         max([c["max_abs_err"] for c in k10 if c["path"] == "simt"]
             + [c["simt_max_abs_err"] for c in k10 if c["path"] == "wgmma"]),
-        path="simt", paths=lm_parity["paths"]))
+        path="simt", paths=k10_simt))
+    # K3 bf16: its times at gemma2-2b's shapes (7a), its launches those of
+    # 7c's first run and 11c's, its error the largest of every case
     k3 = [c for c in lm_cases if c["kernel"] == "K3-bf16"]
+    k3_all = [c for c in k3 + rwkv_cases + cross_cases
+              if c["kernel"] == "K3-bf16"]
     kernels.append(lm_entry(
         "matmul_fused_bf16", "src/repro_torch/csrc/matmul_fused.cu",
         "src/repro/kernels/matmul_fused/kernel.py:37",
-        [c for c in k3 if c["main"]], lm["launches"]["K3"],
-        max(c["max_abs_err"] for c in k3)))
+        [c for c in k3 if c["main"]],
+        lm["launches"]["K3"] + sum(r["launches"]["K3"]
+                                   for r in cross.values()),
+        max(c["max_abs_err"] for c in k3_all)))
     kernels.append(lm_entry(
         "matmul_fused_bf16_wgmma", "src/repro_torch/csrc/matmul_fused.cu",
         "src/repro/kernels/matmul_fused/kernel.py:37",
         [c for c in k3 if c["path"] == "wgmma"
-         and c["rows"] == K3_WGMMA_GAIN[0]], lm["k3_paths"]["wgmma"],
-        max(c["max_abs_err"] for c in k3 + rwkv_cases
-            if c["kernel"] == "K3-bf16" and c["path"] == "wgmma")))
+         and c["rows"] == K3_WGMMA_GAIN[0]],
+        lm["k3_paths"]["wgmma"] + sum(r["k3_paths"]["wgmma"]
+                                      for r in cross.values()),
+        max(c["max_abs_err"] for c in k3_all if c["path"] == "wgmma")))
     k11 = next(c for c in rwkv_cases if c["kernel"] == "K11" and c["main"])
     kernels.append({
         "name": "wkv6", "route": "cuda",
@@ -2597,7 +3112,7 @@ def main() -> int:
         if k["launches"] < 1:
             fail(f"{k['name']} never launched on the main path")
 
-    # -- 11. stream capture of the cooperative K2 and K1 launches ------------
+    # -- 12. stream capture of the cooperative K2 and K1 launches ------------
     capture = capture_phase(torch, nets["alexnet"],
                             params_from_numpy(np_params["alexnet"], dev), dev)
     print("capture " + json.dumps(capture), flush=True)
@@ -2613,7 +3128,8 @@ def main() -> int:
              "rwkv_parity": rwkv_parity, "rwkv": rwkv,
              "moe_cases": moe_cases, "moe_parity": moe_parity, "moe": moe,
              "zamba_cases": zamba_cases, "zamba_parity": zamba_parity,
-             "zamba": zamba,
+             "zamba": zamba, "cross_cases": cross_cases,
+             "cross_parity": cross_parity, "cross": cross,
              "capture": capture, "kernels": kernels}, indent=1))
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

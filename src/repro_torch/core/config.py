@@ -155,8 +155,7 @@ class ModelConfig:
         return self.num_kv_heads * self.head_dim
 
     def num_params(self) -> int:
-        """Parameter count of the port's model (dense, MoE, RWKV6 and
-        hybrid families)."""
+        """Parameter count of the port's model (every family)."""
         from repro_torch.models.registry import analytic_param_count
 
         return analytic_param_count(self)

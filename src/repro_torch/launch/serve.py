@@ -10,8 +10,10 @@ It runs on ``cuda`` unless ``--device`` names another device
 GPU and no device is named.  As in the JAX package,
 ``--reduced`` is a flag whose default is already on, so the launcher
 always serves the reduced model (ROADMAP.md §3), the MoE archs
-(qwen3-moe-30b-a3b, grok-1-314b) and zamba2-1.2b among them; the
-cross-attention archs are refused, as in the JAX package.
+(qwen3-moe-30b-a3b, grok-1-314b) and zamba2-1.2b among them.  The
+cross-attention archs are refused, as in the JAX package: the engine
+passes tokens only, and their models take media or frames through
+``forward(batch, mode, cache)`` and ``decode_step``.
 """
 from __future__ import annotations
 
@@ -44,8 +46,9 @@ def main(argv=None) -> dict:
     if args.reduced:
         cfg = cfg.reduced()
     if cfg.family in ("vlm", "audio"):
-        raise SystemExit("serve launcher supports text-only archs; "
-                         "use examples/deploy_and_serve.py for media stubs")
+        raise SystemExit("serve launcher supports text-only archs; drive "
+                         "the model's forward(batch, mode, cache) with "
+                         "media_embeds or frames, then decode_step")
     device = resolve_device(args.device)
     model = get_model(cfg).init(torch.Generator(device).manual_seed(args.seed))
     eng = ServingEngine(model, max_batch=args.max_batch, max_len=args.max_len,

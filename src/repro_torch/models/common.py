@@ -58,33 +58,52 @@ def norm_apply(params, x, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def block_spec(cfg: ModelConfig, use_moe: bool = False) -> dict:
+def block_spec(cfg: ModelConfig, use_moe: bool = False, cross: bool = False,
+               d_in: int = 0) -> dict:
+    """A pre-norm block; ``cross=True``: its attention reads K/V from a
+    context of width ``d_in`` (default d_model), and the fp32 tanh gates
+    of llama-3.2-vision's cross layers scale its two residuals."""
     spec = {
         "ln_attn": norm_spec(cfg),
-        "attn": attention_spec(cfg),
+        "attn": attention_spec(cfg, cross=cross, kv_dim=d_in or None),
         "ln_mlp": norm_spec(cfg),
         "mlp": moe_spec(cfg) if use_moe else mlp_spec(cfg),
     }
     if cfg.post_block_norms:
         spec["ln_attn_post"] = norm_spec(cfg)
         spec["ln_mlp_post"] = norm_spec(cfg)
+    if cross:
+        spec["gate_attn"] = Param((1,), (None,), init="zeros", dtype="float32")
+        spec["gate_mlp"] = Param((1,), (None,), init="zeros", dtype="float32")
     return spec
+
+
+def _gated(y, params, name: str, cross: bool):
+    """``y * tanh(gate)`` in y's dtype where the block attends to a
+    context (``cross``) and has the gate, else ``y``."""
+    if cross and name in params:
+        return y * torch.tanh(params[name]).to(y.dtype)
+    return y
 
 
 def block_apply(params, x, cfg: ModelConfig, *, window: int = 0,
                 positions=None, mode: str = "full",
-                cache: Optional[dict] = None, use_moe: bool = False,
-                dp_size: int = 1, moe_mode: str = "train"):
+                cache: Optional[dict] = None, context=None,
+                use_moe: bool = False, dp_size: int = 1,
+                moe_mode: str = "train"):
     """(the block's output, its aux: the MoE block's, else ``{}``); its
     k/v go into ``cache`` in place.  The MoE block runs in ``decode`` in
-    a decode step, else in ``moe_mode`` (``train`` or ``prefill``)."""
+    a decode step, else in ``moe_mode`` (``train`` or ``prefill``).  With
+    a ``context`` the attention is cross-attention without RoPE, and each
+    residual is scaled by its gate's tanh (``gate_attn``, ``gate_mlp``)."""
     aux: dict = {}
     h = norm_apply(params["ln_attn"], x, cfg)
     a = attention_apply(params["attn"], h, cfg, window=window,
-                        positions=positions, mode=mode, cache=cache)
+                        positions=positions, mode=mode, cache=cache,
+                        context=context, use_rope=context is None)
     if cfg.post_block_norms:
         a = norm_apply(params["ln_attn_post"], a, cfg)
-    x = x + a
+    x = x + _gated(a, params, "gate_attn", context is not None)
     h = norm_apply(params["ln_mlp"], x, cfg)
     if use_moe:
         m, aux = moe_apply(params["mlp"], h, cfg, dp_size=dp_size,
@@ -93,7 +112,7 @@ def block_apply(params, x, cfg: ModelConfig, *, window: int = 0,
         m = mlp_apply(params["mlp"], h, cfg)
     if cfg.post_block_norms:
         m = norm_apply(params["ln_mlp_post"], m, cfg)
-    return x + m, aux
+    return x + _gated(m, params, "gate_mlp", context is not None), aux
 
 
 #: the aux losses summed over the layers (``expert_fraction`` is not)
@@ -134,6 +153,16 @@ def kv_cache_param(cfg: ModelConfig, batch: int, cache_len: int,
         "k": Param(shape, axes, init="zeros", dtype=dtype),
         "v": Param(shape, axes, init="zeros", dtype=dtype),
     }
+
+
+def cross_cache_param(cfg: ModelConfig, batch: int, stacked: int) -> dict:
+    """The bf16 cross K/V of ``stacked`` layers: [stacked, batch, t, kvh,
+    hd] each, ``t`` the media (or frame) count of the config."""
+    shape = (stacked, batch, cfg.cross_attn.num_media_tokens,
+             cfg.num_kv_heads, cfg.head_dim)
+    axes = ("layers", "batch", "media", "kv_heads", None)
+    return {n: Param(shape, axes, init="zeros", dtype="bfloat16")
+            for n in ("k", "v")}
 
 
 def cache_index(cache, i: int):
@@ -210,12 +239,13 @@ def _to_tensor(arr) -> torch.Tensor:
 def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
     """The JAX package's parameter tree for ``cfg`` (nested dicts of numpy
     arrays, units stacked on a leading ``[n_scan]`` axis, gemma's units
-    ``{"local", "global"}``) as a tree of tensors on ``device`` that the
+    ``{"local", "global"}``, the VLM's self layers stacked twice, ``[n_groups,
+    n_self, ...]``) as a tree of tensors on ``device`` that the
     port's model of ``cfg`` loads with ``load_tree``: ``cuda`` unless the
     caller asks for another (``resolve_device``; with no GPU and no device
     it raises, after the tree's keys and shapes are checked).  bf16
-    leaves are carried bit for bit; every leaf's shape is checked against
-    the port's spec."""
+    leaves are carried bit for bit, fp32 ones (gates, biases, norms)
+    exactly; every leaf's shape is checked against the port's spec."""
     from repro_torch.models.registry import get_model
 
     spec = get_model(cfg).param_spec()

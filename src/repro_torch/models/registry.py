@@ -1,6 +1,7 @@
 """Model registry: family -> class, and parameter counts over the port's
-spec — the port of ``repro.models.registry`` for the dense, MoE, RWKV6
-and hybrid (zamba2) families."""
+spec — the port of ``repro.models.registry`` for every family: dense,
+MoE, RWKV6 (``ssm``), zamba2 (``hybrid``) and the cross-attention
+families (``vlm``, ``audio``)."""
 from __future__ import annotations
 
 import math
@@ -8,24 +9,21 @@ import math
 from repro_torch.core.config import ModelConfig
 from repro_torch.nn.param import is_param
 
-#: families the JAX package runs that the port does not run yet
-UNPORTED = {"vlm": "the cross-attention families (models/vision_lm.py)",
-            "audio": "the cross-attention families (models/encdec.py)"}
-
-
 def get_model(cfg: ModelConfig):
+    from repro_torch.models.encdec import EncDecLM
     from repro_torch.models.rwkv6 import RWKV6LM
     from repro_torch.models.transformer import TransformerLM
+    from repro_torch.models.vision_lm import VisionLM
     from repro_torch.models.zamba2 import Zamba2LM
 
-    if cfg.family in UNPORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet — "
-            f"{UNPORTED[cfg.family]} (ROADMAP.md, \"Modules still to port\")")
     if cfg.family == "ssm":
         return RWKV6LM(cfg)
     if cfg.family == "hybrid":
         return Zamba2LM(cfg)
+    if cfg.family == "vlm":
+        return VisionLM(cfg)
+    if cfg.family == "audio":
+        return EncDecLM(cfg)
     return TransformerLM(cfg)  # dense + moe
 
 

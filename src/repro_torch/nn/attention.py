@@ -1,6 +1,6 @@
-"""Attention: GQA, RoPE, sliding window, softcap and the KV cache — the
-port of the paths of ``repro.nn.attention`` that serving a dense model
-runs.
+"""Attention: GQA, RoPE, sliding window, softcap, cross-attention and the
+KV cache — the port of the paths of ``repro.nn.attention`` that serving a
+model runs.
 
 * Full mode (prefill) calls K10's wrapper,
   ``repro_torch.kernels.attention.ops.flash_attention``: the kernel for a
@@ -9,12 +9,16 @@ runs.
 * Decode mode writes one k/v per request into the cache and runs
   :func:`decode_attention`, plain PyTorch on every device, as the JAX
   package's jnp is on every backend.
+* Cross-attention (``context`` given: ``models/vision_lm.py``,
+  ``models/encdec.py``) reads k/v from the context stream, without RoPE,
+  and runs K10 with ``causal=False``; with a cache it writes those k/v
+  there, rounded to the cache's dtype.  A decode step reads them back
+  through :func:`cross_attention_cached`, plain PyTorch.
 
 Unlike the JAX package, the cache is updated in place: ``attention_apply``
 writes into the tensors of ``cache`` (views of the model's stacked cache)
 and returns only its output.  The int8 cache (``quantize_kv`` /
-``dequantize_kv``), cross-attention (``models/vision_lm.py``,
-``models/encdec.py``) and the backward are not ported yet (ROADMAP.md,
+``dequantize_kv``) and the backward are not ported yet (ROADMAP.md,
 "Modules still to port").
 """
 from __future__ import annotations
@@ -33,13 +37,18 @@ from repro_torch.nn.rope import apply_rope
 NEG_INF = -1e30
 
 
-def attention_spec(cfg: ModelConfig) -> dict:
-    """QKV + output projections."""
+def attention_spec(cfg: ModelConfig, cross: bool = False,
+                   kv_dim: Optional[int] = None) -> dict:
+    """QKV + output projections.  ``cross=True`` reads K/V from a context
+    stream of width ``kv_dim`` (defaults to d_model)."""
     d = cfg.d_model
+    kv_in = kv_dim or d
     spec = {
         "wq": linear_spec(d, cfg.q_dim, "embed", "heads", bias=cfg.use_qkv_bias),
-        "wk": linear_spec(d, cfg.kv_dim, "embed", "kv_heads", bias=cfg.use_qkv_bias),
-        "wv": linear_spec(d, cfg.kv_dim, "embed", "kv_heads", bias=cfg.use_qkv_bias),
+        "wk": linear_spec(kv_in, cfg.kv_dim, "embed", "kv_heads",
+                          bias=cfg.use_qkv_bias),
+        "wv": linear_spec(kv_in, cfg.kv_dim, "embed", "kv_heads",
+                          bias=cfg.use_qkv_bias),
         "wo": linear_spec(cfg.q_dim, d, "heads", "embed"),
     }
     if cfg.qk_norm:
@@ -127,6 +136,36 @@ def _prefill_cache(cache: dict, k, v) -> None:
             c.copy_(torch.roll(src[:, -S:], (s - S) % S, dims=1).to(c.dtype))
 
 
+def cross_kv(params, context, cfg: ModelConfig):
+    """K/V of the stream [b, t, d_ctx] that the keys come from (a
+    cross-attention's context, or ``attention_apply``'s own input): each
+    [b, t, kvh, hd], k after ``k_norm`` where the config has QK-norm."""
+    b, t, _ = context.shape
+    k = dense(params["wk"], context).reshape(b, t, cfg.num_kv_heads,
+                                             cfg.head_dim)
+    v = dense(params["wv"], context).reshape(b, t, cfg.num_kv_heads,
+                                             cfg.head_dim)
+    if cfg.qk_norm:
+        k = rmsnorm_apply(params["k_norm"], k, cfg.norm_eps)
+    return k, v
+
+
+def cross_attention_cached(params, x, ck, cv, cfg: ModelConfig):
+    """Decode-time cross-attention against precomputed K/V, every slot
+    visible: :func:`decode_attention` at position ``t - 1``.  x: [b, s,
+    d]; ck/cv: [b, t, kvh, hd]."""
+    b, s, _ = x.shape
+    q = dense(params["wq"], x).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rmsnorm_apply(params["q_norm"], q, cfg.norm_eps)
+    pos = torch.full((b,), ck.shape[1] - 1, dtype=torch.long,
+                     device=x.device)
+    out = decode_attention(q, ck, cv, pos, window=0,
+                           attn_softcap=cfg.attn_softcap,
+                           scale=cfg.attn_logit_scale or None)
+    return dense(params["wo"], out.reshape(b, s, cfg.q_dim))
+
+
 def attention_apply(
     params,
     x,  # [b, s, d]
@@ -137,19 +176,28 @@ def attention_apply(
     positions=None,  # [b, s] or None -> arange; [b] in decode
     mode: str = "full",  # "full" | "decode"
     cache: Optional[dict] = None,  # {"k","v"} for decode / cache prefill
+    context=None,  # [b, t, d_ctx] for cross-attention (no rope on q or k)
     use_rope: bool = True,
 ):
-    """Returns out [b, s, d]; k/v go into ``cache`` in place."""
+    """Returns out [b, s, d]; k/v go into ``cache`` in place.  With a
+    ``context`` it is cross-attention whatever ``mode`` is: k/v from the
+    context, no RoPE, no causal mask or window, K10 over every key; a
+    ``cache`` then takes those k/v whole (``cache_spec``'s cross leaves,
+    [b, t, kvh, hd]), rounded to its dtype."""
     b, s, _ = x.shape
     q = dense(params["wq"], x).reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = dense(params["wk"], x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = dense(params["wv"], x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rmsnorm_apply(params["q_norm"], q, cfg.norm_eps)
-        k = rmsnorm_apply(params["k_norm"], k, cfg.norm_eps)
+    k, v = cross_kv(params, x if context is None else context, cfg)
     scale = cfg.attn_logit_scale or None
 
-    if mode == "full":
+    if context is not None:
+        out = flash_attention(q, k, v, causal=False, window=0,
+                              attn_softcap=cfg.attn_softcap, scale=scale)
+        if cache is not None:
+            cache["k"].copy_(k)
+            cache["v"].copy_(v)
+    elif mode == "full":
         if positions is None:
             positions = torch.arange(s, device=x.device)[None, :]
         if use_rope:

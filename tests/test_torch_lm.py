@@ -117,35 +117,40 @@ def test_configs_match_jax(arch):
 
 @pytest.mark.parametrize("arch", jconfig.list_archs())
 def test_get_model_dense_only(arch):
-    """Dense, MoE, RWKV6 (``ssm``) and zamba2 (``hybrid``) archs build,
-    with JAX's parameter counts: all, active (an MoE model's experts at k
-    of E) and without the embedding (rwkv6-1.6b: 1,599,673,856 at full
-    width; qwen3-moe-30b-a3b: 30,532,122,624, 3,353,032,704 active,
-    29,909,792,768 without the embedding; zamba2-1.2b: 1,279,542,144);
-    the cross-attention families raise and name the ROADMAP item."""
+    """Every arch builds, dense, MoE, RWKV6 (``ssm``), zamba2 (``hybrid``)
+    and the cross-attention families (``vlm``, ``audio``), with JAX's
+    parameter counts: all, active (an MoE model's experts at k of E) and
+    without the embedding (rwkv6-1.6b: 1,599,673,856 at full width;
+    qwen3-moe-30b-a3b: 30,532,122,624, 3,353,032,704 active,
+    29,909,792,768 without the embedding; zamba2-1.2b: 1,279,542,144;
+    llama-3.2-vision-11b: 9,791,938,576 and 8,741,265,424;
+    seamless-m4t-large-v2: 1,633,850,368 and 1,109,038,080).  The name
+    is the one the test had while only the text families built."""
     cfg = tconfig.get_arch(arch)
-    if cfg.family in ("dense", "ssm", "moe", "hybrid"):
-        jcfg = jconfig.get_arch(arch)
-        counts = [tregistry.analytic_param_count(cfg, **kw) for kw in (
-            {}, {"active_only": True}, {"non_embedding": True})]
-        assert counts == [jregistry.analytic_param_count(jcfg, **kw)
-                          for kw in ({}, {"active_only": True},
-                                     {"non_embedding": True})]
-        assert (cfg.num_params(), cfg.active_params()) == (
-            jcfg.num_params(), jcfg.active_params()) == tuple(counts[:2])
-        if cfg.family == "ssm":
-            assert cfg.num_params() == 1_599_673_856
-        if cfg.family == "hybrid":
-            assert cfg.num_params() == 1_279_542_144
-        if arch == "qwen3-moe-30b-a3b":
-            assert counts == [30_532_122_624, 3_353_032_704,
-                              29_909_792_768]
-        if cfg.moe is None:
-            assert counts[1] == counts[0]
-    else:
-        assert cfg.family in ("vlm", "audio")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tregistry.get_model(cfg)
+    assert cfg.family in ("dense", "ssm", "moe", "hybrid", "vlm", "audio")
+    jcfg = jconfig.get_arch(arch)
+    counts = [tregistry.analytic_param_count(cfg, **kw) for kw in (
+        {}, {"active_only": True}, {"non_embedding": True})]
+    assert counts == [jregistry.analytic_param_count(jcfg, **kw)
+                      for kw in ({}, {"active_only": True},
+                                 {"non_embedding": True})]
+    assert (cfg.num_params(), cfg.active_params()) == (
+        jcfg.num_params(), jcfg.active_params()) == tuple(counts[:2])
+    assert type(tregistry.get_model(cfg)).__name__ == type(
+        jregistry.get_model(jcfg)).__name__
+    if cfg.family == "ssm":
+        assert cfg.num_params() == 1_599_673_856
+    if cfg.family == "hybrid":
+        assert cfg.num_params() == 1_279_542_144
+    if arch == "qwen3-moe-30b-a3b":
+        assert counts == [30_532_122_624, 3_353_032_704,
+                          29_909_792_768]
+    if cfg.family == "vlm":
+        assert counts[::2] == [9_791_938_576, 8_741_265_424]
+    if cfg.family == "audio":
+        assert counts[::2] == [1_633_850_368, 1_109_038_080]
+    if cfg.moe is None:
+        assert counts[1] == counts[0]
 
 
 def test_gemma2_full_width_shape():
@@ -546,9 +551,15 @@ def _stream_smem(dtype, m):
 
 #: AlexNet's fc layers (K, N), fp32: fc6, fc7, fc8
 ALEX_FC = ((9216, 4096), (4096, 4096), (4096, 1000))
-#: every stream shape of the main paths: gemma2-2b's and rwkv6-1.6b's
-#: projections in bf16, AlexNet's fc layers in fp32
-STREAM_SHAPES = ([("bfloat16", k, n) for k, n in LM_K3_SHAPES]
+#: the cross families' projections (K, N), bf16: seamless-m4t-large-v2's
+#: q/k/v/o (8 K slices of 2 ring stages), MLP up and down;
+#: llama-3.2-vision-11b's q/o, k/v, gate/up and down
+CROSS_K3_SHAPES = ((1024, 1024), (1024, 8192), (8192, 1024), (4096, 4096),
+                   (4096, 1024), (4096, 14336), (14336, 4096))
+#: every stream shape of the main paths: the language models' projections
+#: in bf16, AlexNet's fc layers in fp32
+STREAM_SHAPES = ([("bfloat16", k, n) for k, n in LM_K3_SHAPES
+                  + CROSS_K3_SHAPES]
                  + [("float32", k, n) for k, n in ALEX_FC])
 #: SMs of the cards the slicing is checked for: H100 SXM, H100 PCIe, and
 #: a small one
