@@ -289,12 +289,53 @@ Phases, each of which fails the run (non-zero exit, no result line):
       ``cross block``, ``cross decode attention``; seamless: ``encoder``,
       ``decoder layer``, ``cross decode attention``);
    e. the launcher refuses both archs with ``SystemExit`` ("text-only");
-12. stream capture: K2 on AlexNet's chain and K1 on its conv2+pool2+norm2
+12. gemma2-2b on the int8 KV cache (``dataclasses.replace(cfg,
+   kv_quant=True)``: int8 k/v and fp16 scales, ``nn/attention.py``),
+   plain PyTorch on every device as in the JAX package: ``quantize_kv``
+   on the card bit for bit against the CPU (all-zero rows included) and
+   ``decode_attention_quant`` against the CPU within ``KVQ_ATTN_TOL`` on
+   a full 8192-slot cache and a 4096-slot ring (timed beside the bf16
+   cache's ``decode_attention``); then the full model with the same
+   weights served on the int8 cache and on the bf16 cache
+   (``lm_serving_phase``: 4 slots of 8192 rows, prompts of
+   ``KVQ_PROMPTS``, ``KVQ_NEW_TOKENS`` greedy tokens, twice, the launch
+   counts of 7c), printing each cache's bytes, the decode step ms, the
+   peak memory and where each request's greedy tokens first part from
+   the bf16 cache's (recorded, not gated: near-ties part by design);
+13. training (``repro_torch.train``): a. kernel gradient cases at
+   M = ``TRAIN_BATCH`` x ``TRAIN_SEQ`` = 4096: K3's Function
+   (``K3_TRAIN_SHAPES``: gemma2-2b's and rwkv6-1.6b's projections, each
+   act, with and without a bias) against autograd through
+   ``matmul_fused_ref`` on the card within ``LM_KERNEL_TOL`` (plus the
+   bf16 rounding of z and dz for silu and gelu), every launch of the
+   forward, z, dx and dw on the wgmma path, the products timed beside
+   ``torch.matmul`` and the transposes' copies alone; K10 with m and l
+   (``K10_TRAIN_CASES``: gemma2's batch and a 4500-token row where its
+   window bites; out bit for bit the launch without them, m and l within
+   fp32's ``LM_KERNEL_TOL``) and its Function's plain backward against
+   autograd through its plain version (``K10_GRAD_TOL``); K11's Function
+   at rwkv6's shape with strong decays against autograd through
+   ``wkv6_chunked_ref``; b. CPU parity: one fp32 train step of each
+   model cut to one unit (gemma2's local/global pair, two rwkv6 layers)
+   at full width, the CPU on one intra-op thread: loss, metrics, every
+   gradient leaf, moment and updated parameter (``TRAIN_PARITY_TOL``);
+   c. ``TRAIN_STEPS`` AdamW steps of gemma2-2b, then of rwkv6-1.6b (each
+   freed before the next), bf16, through ``make_train_step`` on
+   ``MarkovLM(TRAIN_VOCAB)`` batches: the first step taken twice from the
+   same state (loss, grad norm and parameters bit for bit, or the
+   differing leaves named), its launches held to the structure (K3 7 or 8
+   a layer in the forward, again in the remat recompute, dx and dw, z for
+   gemma2's gelu gate; K10 and K11 once a layer in each of the forward and
+   the recompute, every K10 launch writing m and l), CE finite and
+   falling, step ms, tokens/s, peak memory against
+   ``TRAIN_RECKONED_GB``, and the profile of one more step (device ms by
+   kernel, busy share, the plain backwards' and AdamW's ranges);
+14. stream capture: K2 on AlexNet's chain and K1 on its conv2+pool2+norm2
    group at batch 16, each captured into a ``torch.cuda.CUDAGraph`` and
    replayed (``capture`` line: per kernel, whether the cooperative launch
    was accepted and the replay gave the bits of the launch; a refusal is
    reported, not failed);
-13. prints one JSON line ``{"kernels": [...]}``: per kernel, ``launches``
+15. prints one JSON line ``{"kernels": [...]}``: per kernel, ``launches``
    is its count summed over the AlexNet forwards of phase 4 (K1-K3,
    K7-K9) or phase 5 (K4-K6), or over the first LM serving run of phase
    7c and the first runs of phase 11c (K10's wgmma path as
@@ -309,8 +350,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    4500-token case; K3's wgmma path has an entry of its own, its
    launches those of the wgmma path in the first runs of 7c and 11c, its
    times its phase-7a cases at M = 4500; the error is the largest over
-   every case;
-14. prints ``{"ok": true, "device": {...}}`` as its last line.
+   every case.  Phase 13c's first steps add, apart:
+   ``train_backward_launches`` (K3's z, dx and dw) on the K3 entries,
+   ``train_ml_launches`` on ``flash_attention`` and ``train_launches``
+   on ``wkv6``;
+16. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Run it from the repository root; it needs one CUDA device and the CUDA
 toolkit, and imports nothing of the JAX package.
@@ -1639,22 +1683,27 @@ def build_model(torch, arch, dev, redraw=None):
     return model, time.perf_counter() - t0
 
 
-def lm_serving_phase(torch, np, dev, counters, card, model, init_s, expect):
-    """Phase 7c (gemma2-2b), 8c (rwkv6-1.6b) and 9c (qwen3-moe-30b-a3b):
-    ``model`` served by ``ServingEngine`` on the card, twice.  ``expect``
-    gives the launches of each kernel that ``counters`` names in every
-    prefill and every decode step; every other counter must stay at 0.
-    Returns the record of both
-    runs."""
+def lm_serving_phase(torch, np, dev, counters, card, model, init_s, expect,
+                     prompt_lens=None, new_tokens=None):
+    """Phase 7c (gemma2-2b), 8c (rwkv6-1.6b), 9c (qwen3-moe-30b-a3b) and
+    12 (gemma2-2b with the int8 cache): ``model`` served by
+    ``ServingEngine`` on the card, twice, a request of ``new_tokens`` for
+    each of ``prompt_lens``.  ``expect`` gives the launches of each kernel
+    that ``counters`` names in every prefill and every decode step; every
+    other counter must stay at 0.  ``prompt_lens`` and ``new_tokens``
+    default to ``LM_PROMPTS`` and ``LM_NEW_TOKENS``.  Returns the record
+    of both runs."""
     from repro_torch.kernels.attention.ops import k10_path
     from repro_torch.serving.engine import Request, ServingEngine
 
+    prompt_lens = LM_PROMPTS if prompt_lens is None else prompt_lens
+    new_tokens = LM_NEW_TOKENS if new_tokens is None else new_tokens
     cfg = model.cfg
     torch.cuda.reset_peak_memory_stats()
     n_params = sum(p.numel() for p in model.parameters())
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
-               for n in LM_PROMPTS]
+               for n in prompt_lens]
     watched = {k: counters[k] for k in expect["prefill"]}
     k3_paths = counters["K3"].path_launches
     k10_paths = counters["K10"].path_launches
@@ -1688,7 +1737,7 @@ def lm_serving_phase(torch, np, dev, counters, card, model, init_s, expect):
         eng._prefill_into_slot = timed(eng._prefill_into_slot, log, "prefill")
         eng._decode_step = timed(eng._decode_step, log, "decode")
         for rid, p in enumerate(prompts):
-            eng.submit(Request(rid, p, max_new_tokens=LM_NEW_TOKENS))
+            eng.submit(Request(rid, p, max_new_tokens=new_tokens))
         for fn in counters.values():
             fn.launches = 0
         for table in (k3_paths, k10_paths):
@@ -1712,7 +1761,7 @@ def lm_serving_phase(torch, np, dev, counters, card, model, init_s, expect):
     if sorted(first["done"]) != list(range(len(prompts))):
         fail(f"{label}: finished {sorted(first['done'])}")
     for rid, toks in first["done"].items():
-        if len(toks) != LM_NEW_TOKENS or not all(
+        if len(toks) != new_tokens or not all(
                 0 <= t < cfg.vocab_size for t in toks):
             fail(f"{label}: request {rid} gave {toks}")
     if second["done"] != first["done"]:
@@ -1723,7 +1772,7 @@ def lm_serving_phase(torch, np, dev, counters, card, model, init_s, expect):
         steps = {kind: [r for r in run["log"] if r["kind"] == kind]
                  for kind in ("prefill", "decode")}
         if (len(steps["prefill"]) != len(prompts)
-                or len(steps["decode"]) != LM_NEW_TOKENS - 1):
+                or len(steps["decode"]) != new_tokens - 1):
             fail(f"{label}: {len(steps['prefill'])} prefills, "
                  f"{len(steps['decode'])} decode steps")
         for kind, rows in steps.items():
@@ -1759,7 +1808,7 @@ def lm_serving_phase(torch, np, dev, counters, card, model, init_s, expect):
     tokens = sum(len(t) for t in first["done"].values())
     rec = {"arch": cfg.name, "params": n_params, "init_s": init_s,
            "max_batch": LM_MAX_BATCH, "max_len": LM_MAX_LEN,
-           "prompts": list(LM_PROMPTS), "new_tokens": LM_NEW_TOKENS,
+           "prompts": list(prompt_lens), "new_tokens": new_tokens,
            "tokens": {str(k): v for k, v in first["done"].items()},
            "launches": first["launches"], "k3_paths": first["k3_paths"],
            "k10_paths": first["k10_paths"],
@@ -2711,6 +2760,691 @@ def cross_phase(torch, F, np, dev, peaks, counters, card):
     return cases, parity, served
 
 
+#: phase 12: gemma2-2b served with the int8 KV cache (``kv_quant``), the
+#: same weights served with the bf16 cache beside it
+KVQ_PROMPTS = (16, 300, 1500)
+KVQ_NEW_TOKENS = 8
+#: ``decode_attention_quant`` on the card against the CPU on the same int8
+#: cache, fp32 q: the same fp32 arithmetic in another order, relative to
+#: max(1, max|CPU|)
+KVQ_ATTN_TOL = 1e-5
+
+
+def kvq_phase(torch, np, dev, counters, card):
+    """Phase 12 (see the module docstring); returns its record."""
+    import dataclasses
+    import math
+
+    from repro_torch.core.config import get_arch
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn import attention as attn
+    from repro_torch.nn.param import DTYPES, init_tree, tree_leaves
+
+    t12 = time.perf_counter()
+    base = get_arch(LM_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b, kvh, hd, h = LM_MAX_BATCH, base.num_kv_heads, base.head_dim, \
+        base.num_heads
+    rec = {"arch": LM_ARCH}
+    # a. quantize_kv bit for bit, decode_attention_quant within its limit
+    x = torch.randn((b, LM_PROFILE_PROMPT, kvh, hd), generator=gen,
+                    device=dev)
+    x = (x * torch.exp(torch.randn((b, LM_PROFILE_PROMPT, kvh, 1),
+                                   generator=gen, device=dev))).bfloat16()
+    x[0, :3] = 0  # all-zero rows: the 1e-8 floor, 0 in fp16
+    vals, scales = attn.quantize_kv(x)
+    cvals, cscales = attn.quantize_kv(x.cpu())
+    if not (torch.equal(vals.cpu(), cvals) and torch.equal(
+            scales.cpu().view(torch.int16), cscales.view(torch.int16))):
+        fail("quantize_kv: the card's int8 values or fp16 scales differ "
+             "from the CPU's")
+    rec["quantize_bitwise"] = True
+    cases = []
+    for window, S, pos in ((0, LM_MAX_LEN, (15, 299, 1499, 8191)),
+                           (base.sliding_window, base.sliding_window,
+                            (15, 4100, 6000, 8191))):
+        k = torch.randn((b, S, kvh, hd), generator=gen, device=dev).bfloat16()
+        v = torch.randn((b, S, kvh, hd), generator=gen, device=dev).bfloat16()
+        q = torch.randn((b, 1, h, hd), generator=gen, device=dev)
+        kq, ks = attn.quantize_kv(k)
+        vq, vs = attn.quantize_kv(v)
+        p_t = torch.tensor(pos, device=dev)
+        kw = dict(window=window, attn_softcap=base.attn_softcap)
+        quant = lambda: attn.decode_attention_quant(  # noqa: E731
+            q, kq, ks, vq, vs, p_t, **kw)
+        bf16 = lambda: attn.decode_attention(  # noqa: E731
+            q.bfloat16(), k, v, p_t, **kw)
+        out = quant()
+        ref = attn.decode_attention_quant(
+            q.cpu(), kq.cpu(), ks.cpu(), vq.cpu(), vs.cpu(), p_t.cpu(), **kw)
+        top = max(1.0, ref.abs().max().item())
+        err = _check_close(f"decode_attention_quant window={window}",
+                           out.cpu(), ref, KVQ_ATTN_TOL * top)
+        cases.append({"window": window, "slots": S, "positions": list(pos),
+                      "max_abs_err": err, "tol": KVQ_ATTN_TOL * top,
+                      "ms": time_ms(torch, quant),
+                      "bf16_cache_ms": time_ms(torch, bf16)})
+        print("kvq case " + json.dumps(cases[-1]), flush=True)
+    rec["attention_cases"] = cases
+    del x, vals, scales, k, v, kq, vq
+    # b. the full model served on each cache, the same weights
+    quant_cfg = dataclasses.replace(base, kv_quant=True)
+    models = {"int8": get_model(quant_cfg), "bf16": get_model(base)}
+    t0 = time.perf_counter()
+    tree = init_tree(models["int8"].param_spec(),
+                     torch.Generator(device=dev).manual_seed(SEED),
+                     base.param_dtype)
+    for m in models.values():
+        m.load_tree(tree)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    per_step = 7 * base.num_layers
+    expect = {"prefill": {"K3": per_step, "K10": base.num_layers},
+              "decode": {"K3": per_step, "K10": 0}}
+    served = {}
+    for name, m in models.items():
+        served[name] = lm_serving_phase(
+            torch, np, dev, counters, card, m, init_s, expect,
+            prompt_lens=KVQ_PROMPTS, new_tokens=KVQ_NEW_TOKENS)
+        leaves = tree_leaves(m.cache_spec(LM_MAX_BATCH, LM_MAX_LEN))
+        served[name]["cache_gb"] = sum(
+            math.prod(p.shape) * DTYPES[p.dtype].itemsize
+            for p in leaves) / 1e9
+    parted = {}
+    for rid, toks in served["int8"]["tokens"].items():
+        ref = served["bf16"]["tokens"][rid]
+        parted[rid] = next((i for i, (a, c) in enumerate(zip(toks, ref))
+                            if a != c), None)
+    del models, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, r in served.items():
+        dec = [x["ms"] for x in r["runs"][0]["log"] if x["kind"] == "decode"]
+        rec[name] = {"cache_gb": r["cache_gb"],
+                     "peak_memory_gb": r["peak_memory_gb"],
+                     "decode_step_ms": statistics.median(dec),
+                     "prefill_ms": {str(x["tokens"]): x["ms"]
+                                    for x in r["runs"][0]["log"]
+                                    if x["kind"] == "prefill"},
+                     "launches": r["launches"], "tokens": r["tokens"]}
+    rec["first_parting_index"] = parted
+    rec["phase_s"] = time.perf_counter() - t12
+    print("kvq " + json.dumps(rec), flush=True)
+    print(f"phase 12 wall time {rec['phase_s']:.1f} s: int8 cache "
+          f"{rec['int8']['cache_gb']:.3f} GB against bf16 "
+          f"{rec['bf16']['cache_gb']:.3f} GB, decode step "
+          f"{rec['int8']['decode_step_ms']:.2f} ms against "
+          f"{rec['bf16']['decode_step_ms']:.2f}, peak "
+          f"{rec['int8']['peak_memory_gb']:.2f} GB against "
+          f"{rec['bf16']['peak_memory_gb']:.2f}, greedy tokens first part "
+          f"at {parted} [{card}]", flush=True)
+    return rec
+
+
+#: phase 13: training.  The two models, the batch (b * s = 4096 rows, a
+#: multiple of 64, so that every K3 product of the step is TMA-describable
+#: and takes the wgmma path), the steps, and the corpus: a Markov chain
+#: over ``TRAIN_VOCAB`` symbols, ids that lie inside every vocab
+TRAIN_ARCHS = (LM_ARCH, "rwkv6-1.6b")
+TRAIN_BATCH, TRAIN_SEQ = 2, 2048
+TRAIN_STEPS = 8
+TRAIN_VOCAB = 1024
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 2
+#: the peak device memory reckoned before the run (GB): bf16 weights and
+#: grads, fp32 moments, about three fp32 logits tensors of 4096 x vocab
+TRAIN_RECKONED_GB = {LM_ARCH: 45.0, "rwkv6-1.6b": 25.0}
+#: K3's training shapes (K, N, activation, bias): gemma2-2b's five
+#: projections, rwkv6-1.6b's three, and the silu and gelu epilogues with a
+#: bias; M = TRAIN_BATCH * TRAIN_SEQ
+K3_TRAIN_SHAPES = ((2304, 2048, "none", False), (2304, 1024, "none", False),
+                   (2048, 2304, "none", False), (2304, 9216, "gelu", False),
+                   (9216, 2304, "none", False), (2048, 2048, "none", False),
+                   (2048, 7168, "relu", False), (7168, 2048, "none", False),
+                   (2304, 9216, "gelu", True), (2048, 2048, "silu", True))
+#: K10's: (batch, tokens, heads, kv heads, head_dim, window, cap):
+#: gemma2-2b's training batch, and a 4500-token row where its window bites
+K10_TRAIN_CASES = ((TRAIN_BATCH, TRAIN_SEQ, 8, 4, 256, 4096, 50.0),
+                   (1, 4500, 8, 4, 256, 4096, 50.0))
+#: the gradients of K10's Function (its plain backward on the kernel's
+#: out, m and l) against autograd through the plain version on the card,
+#: element by element: |err| <= rtol * |plain| + atol * max|plain|.  The
+#: backward's D = rowsum(do * out) reads the bf16 out, as the JAX
+#: package's does, where autograd through the plain version keeps it fp32
+#: (2^-8 of each out), and both round once to bf16.  A backward that
+#: skipped a visible pair would be off by about all of a gradient there.
+K10_GRAD_TOL = (2.0 ** -6, 2.0 ** -7)
+#: one fp32 train step of each model cut to one unit on the card against
+#: the CPU: every gradient leaf, moment and the loss within this of
+#: max(1, max|CPU|) (fp32 sums in another order, as LM_TOL's prefill);
+#: a parameter whose gradient is not tiny against its leaf's within
+#: 1e-6 |p| + 1e-3 lr, the others within 2 lr (Adam's first step is
+#: about lr sign(g): a gradient within rounding of 0 may flip it)
+TRAIN_PARITY_TOL = 1e-4
+TRAIN_PARITY_SEQ = 64
+
+
+def k3_grad_case(torch, gen, dev, kk, n, act, bias, peaks):
+    """K3's Function at M = TRAIN_BATCH * TRAIN_SEQ: forward and backward
+    on the card (dx and dw on K3 over transposed copies, z recomputed by
+    K3 for silu and gelu) against autograd through ``matmul_fused_ref``
+    on the card, within ``LM_KERNEL_TOL``, the bf16 rounding of z and dz
+    that the kernel's backward takes added to the limit for silu and gelu
+    (JAX's dense differentiates at its bf16 z too); for relu the plain
+    version takes the kernel's mask, and the entries where its own mask
+    parts from it are counted (``relu_mask_flips``); every launch on the
+    wgmma path; the products timed beside ``torch.matmul`` and the copies
+    of the transposes timed alone.  Returns the record."""
+    from repro_torch.kernels.matmul_fused import ops as mm_ops
+    from repro_torch.kernels.matmul_fused.ref import matmul_fused_ref
+
+    _, bw_peak, bf16_peak = peaks
+    m = TRAIN_BATCH * TRAIN_SEQ
+    x = torch.randn((m, kk), generator=gen, device=dev).bfloat16()
+    w = (torch.randn((kk, n), generator=gen, device=dev) / kk ** 0.5
+         ).bfloat16()
+    b = torch.randn((n,), generator=gen, device=dev) if bias else None
+    dy = torch.randn((m, n), generator=gen, device=dev).bfloat16()
+    label = f"K3 grad M={m} {kk}->{n} {act}" + (" +bias" if bias else "")
+
+    def grads(fn):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (x, w, b) if t is not None]
+        fn(*leaves, *([None] if b is None else []), act).backward(dy)
+        return [t.grad for t in leaves]
+
+    roles, paths = mm_ops.matmul_fused.role_launches, \
+        mm_ops.matmul_fused.path_launches
+    before_r, before_p = dict(roles), dict(paths)
+    got = grads(mm_ops.matmul_fused)
+    torch.cuda.synchronize()
+    stepped = {k: roles[k] - before_r[k] for k in roles}
+    want = {"forward": 1, "z": int(act in ("silu", "gelu")), "dx": 1,
+            "dw": 1}
+    if stepped != want:
+        fail(f"{label}: launches by role {stepped}, expected {want}")
+    on = {k: paths[k] - before_p[k] for k in paths}
+    if on != {**dict.fromkeys(paths, 0), "wgmma": sum(want.values())}:
+        fail(f"{label}: paths {on}, not the wgmma path alone")
+    plain, flips = matmul_fused_ref, None
+    if act == "relu":
+        # relu's kink: where the kernel's fp32 z and the plain version's
+        # lie on either side of 0 (their sums part in the last bits) the
+        # masks part, and a gradient there moves by dy (x or w) whole.
+        # The gradients are held against the plain version on the
+        # kernel's mask; the parted mask entries are counted
+        mask = mm_ops.matmul_fused(x, w, b, "relu") > 0
+        z = x.float() @ w.float() + (0.0 if b is None else b)
+        flips = int((mask != (z >= 0)).sum())
+        del z
+
+        def plain(xx, ww, bb, _):
+            return (matmul_fused_ref(xx, ww, bb, "none").float()
+                    * mask).to(xx.dtype)
+    ref = grads(plain)
+    rtol, atol = LM_KERNEL_TOL["bfloat16"]
+    extra = [0.0, 0.0, 0.0]
+    if act in ("silu", "gelu"):
+        # what dz may differ by, element by element, before the products:
+        # the bf16 rounding of z and of dz (at most 2^-9 of each, act''
+        # at most 1)
+        z = x.float() @ w.float() + (0.0 if b is None else b)
+        dz = dy.float() * mm_ops.act_grad(act, z)
+        slack = 2.0 ** -8 * (dz.abs() + dy.float().abs() * z.abs())
+        extra = [slack @ w.float().abs().t(), x.float().abs().t() @ slack,
+                 slack.sum(0)]
+        del z, dz, slack
+    errs = {}
+    for name, a, r, e in zip(("dx", "dw", "db"), got, ref, extra):
+        if name == "db":
+            rtol, atol = LM_KERNEL_TOL["float32"]
+        errs[name] = _check_close(f"{label} {name}", a, r, atol + e, rtol)
+    # the backward's pieces timed alone: the copies of the transposes, the
+    # two products on K3 (the wgmma path) and in the library, on dy as dz
+    dz = dy
+    wt, xt = w.t().contiguous(), x.t().contiguous()
+    flops = 2.0 * m * kk * n
+    rec = {"kernel": "K3-bf16-grad", "rows": m, "k": kk, "n": n, "act": act,
+           "bias": bias, "max_abs_err": errs, "tol": {
+               "rtol": LM_KERNEL_TOL["bfloat16"][0],
+               "atol": LM_KERNEL_TOL["bfloat16"][1],
+               "db": LM_KERNEL_TOL["float32"],
+               "z_dz_rounding": act in ("silu", "gelu")},
+           "relu_mask_flips": flips,
+           "k3_path": {
+               "dx": mm_ops.k3_path(x.dtype, m, n, kk, dz.data_ptr(),
+                                    wt.data_ptr()),
+               "dw": mm_ops.k3_path(x.dtype, kk, m, n, xt.data_ptr(),
+                                    dz.data_ptr())},
+           "copies_ms": time_ms(torch, lambda: (w.t().contiguous(),
+                                                x.t().contiguous())),
+           "dx_ms": time_ms(torch, lambda: mm_ops._launch(
+               dz, wt, None, "none", role="dx")),
+           "dw_ms": time_ms(torch, lambda: mm_ops._launch(
+               xt, dz, None, "none", role="dw")),
+           "library_dx_ms": time_ms(torch, lambda: torch.matmul(dz, w.t())),
+           "library_dw_ms": time_ms(torch, lambda: torch.matmul(x.t(), dz)),
+           "fwd_bwd_ms": time_ms(torch, lambda: grads(mm_ops.matmul_fused),
+                                 reps=10),
+           "plain_ms": time_ms(torch, lambda: grads(matmul_fused_ref),
+                               reps=5),
+           "bound_product_ms": 1e3 * max(
+               flops / bf16_peak, 2.0 * (m * n + kk * n + m * kk) / bw_peak),
+           "flops": 3 * flops}
+    rec["library_ms"] = rec["library_dx_ms"] + rec["library_dw_ms"]
+    rec["ms"] = rec["dx_ms"] + rec["dw_ms"]
+    rec["bound_ms"] = 2 * rec["bound_product_ms"]
+    print("train case " + json.dumps(rec), flush=True)
+    return rec
+
+
+def k10_grad_case(torch, gen, dev, case, peaks):
+    """K10 with m and l at a training shape: the launch's out equal bit for
+    bit to the launch without them, m and l against the plain version's
+    within fp32's ``LM_KERNEL_TOL``; the Function's gradients (the plain
+    backward over ``attn_chunk`` pairs) against autograd through the plain
+    version on the card (``K10_GRAD_TOL``); timed: the launch with and
+    without m and l, forward + backward, and the plain backward alone.
+    Returns the record."""
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.attention.ref import flash_attention_ref
+
+    bsz, s, h, kvh, hd, window, cap = case
+    q = torch.randn((bsz, s, h, hd), generator=gen, device=dev).bfloat16()
+    k = torch.randn((bsz, s, kvh, hd), generator=gen, device=dev).bfloat16()
+    v = torch.randn((bsz, s, kvh, hd), generator=gen, device=dev).bfloat16()
+    do = torch.randn((bsz, s, h, hd), generator=gen, device=dev).bfloat16()
+    scale = 1.0 / hd ** 0.5
+    kw = dict(causal=True, window=window, attn_softcap=cap)
+    label = f"K10 grad b={bsz} s={s} window={window} cap={cap} h={h}/{kvh}"
+    ml_before = attn_ops.flash_attention.ml_launches
+    out_ml, m, l = attn_ops._launch(q, k, v, True, window, cap, scale,
+                                    ml=True)
+    out = attn_ops._launch(q, k, v, True, window, cap, scale)
+    torch.cuda.synchronize()
+    if attn_ops.flash_attention.ml_launches != ml_before + 1:
+        fail(f"{label}: the m/l launch was not counted")
+    if not torch.equal(out, out_ml):
+        fail(f"{label}: writing m and l changed the output")
+    _, m_ref, l_ref = flash_attention_ref(q, k, v, scale=scale,
+                                          return_ml=True, **kw)
+    rtol, atol = LM_KERNEL_TOL["float32"]
+    m_err = _check_close(f"{label} m", m, m_ref, atol, rtol)
+    l_err = _check_close(f"{label} l", l, l_ref, atol, rtol)
+    del out_ml, m, l, m_ref, l_ref
+
+    def grads(fn):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        fn(*leaves).backward(do)
+        return [t.grad for t in leaves]
+
+    kernel = lambda *a: attn_ops.flash_attention(*a, chunk=512, **kw)  # noqa
+    plain = lambda *a: flash_attention_ref(*a, **kw)  # noqa: E731
+    got = grads(kernel)
+    ref = grads(plain)
+    g_rtol, g_atol = K10_GRAD_TOL
+    errs = {name: _check_close(
+        f"{label} {name}", a, r, g_atol * r.float().abs().max().item(),
+        g_rtol) for name, a, r in zip(("dq", "dk", "dv"), got, ref)}
+    del got, ref
+    out_ml, m, l = attn_ops._launch(q, k, v, True, window, cap, scale,
+                                    ml=True)
+    bwd = lambda: attn_ops.flash_attention_bwd(  # noqa: E731
+        q, k, v, out_ml, m, l, do, scale=scale, chunk=512, **kw)
+    rec = {"kernel": "K10-grad", "batch": bsz, "tokens": s, "heads": h,
+           "kv_heads": kvh, "head_dim": hd, "window": window, "cap": cap,
+           "m_max_abs_err": m_err, "l_max_abs_err": l_err,
+           "max_abs_err": errs, "tol": {"m_l": LM_KERNEL_TOL["float32"],
+                                        "grad": K10_GRAD_TOL},
+           "ms": time_ms(torch, lambda: attn_ops._launch(
+               q, k, v, True, window, cap, scale)),
+           "ml_ms": time_ms(torch, lambda: attn_ops._launch(
+               q, k, v, True, window, cap, scale, ml=True)),
+           "plain_backward_ms": time_ms(torch, bwd, reps=5),
+           "fwd_bwd_ms": time_ms(torch, lambda: grads(kernel), reps=5),
+           "plain_fwd_bwd_ms": time_ms(torch, lambda: grads(plain), reps=3)}
+    print("train case " + json.dumps(rec), flush=True)
+    return rec
+
+
+def k11_grad_case(torch, gen, dev):
+    """K11's Function at rwkv6-1.6b's training shape (32 heads of 64,
+    chunks of 64) with strong decays: the kernel's forward, the plain
+    backward (autodiff of ``wkv6_chunked_ref``), against autograd through
+    the plain version on the card within ``LM_KERNEL_TOL``, and whether
+    the two agree bit for bit (they run the same backward); timed.
+    Returns the record."""
+    from repro_torch.kernels.wkv6 import ops as wkv6_ops
+    from repro_torch.kernels.wkv6.ref import wkv6_chunked_ref
+
+    mean, std = K11_DECAYS["strong"]
+    shape = (TRAIN_BATCH, TRAIN_SEQ, K11_HEADS, 64)
+    r, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16()
+               for _ in range(3))
+    logw = -torch.exp(mean + std * torch.randn(shape, generator=gen,
+                                               device=dev))
+    u = 0.5 * torch.randn((K11_HEADS, 64), generator=gen, device=dev)
+    do = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    label = f"K11 grad b={TRAIN_BATCH} s={TRAIN_SEQ} strong decays"
+
+    def grads(fn):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (r, k, v, logw, u)]
+        fn(*leaves)[0].backward(do)
+        return [t.grad for t in leaves]
+
+    kernel = lambda *a: wkv6_ops.wkv6(*a, chunk=64)  # noqa: E731
+    plain = lambda *a: wkv6_chunked_ref(*a, 64)  # noqa: E731
+    before = wkv6_ops.wkv6.launches
+    got = grads(kernel)
+    torch.cuda.synchronize()
+    if wkv6_ops.wkv6.launches != before + 1:
+        fail(f"{label}: the forward did not launch K11 once")
+    ref = grads(plain)
+    errs, bitwise = {}, True
+    for name, a, b in zip(("dr", "dk", "dv", "dlogw", "du"), got, ref):
+        rtol, atol = LM_KERNEL_TOL[str(b.dtype).replace("torch.", "")]
+        errs[name] = _check_close(f"{label} {name}", a, b, atol, rtol)
+        bitwise = bitwise and torch.equal(a, b)
+    rec = {"kernel": "K11-grad", "batch": TRAIN_BATCH, "tokens": TRAIN_SEQ,
+           "heads": K11_HEADS, "max_abs_err": errs, "bitwise": bitwise,
+           "tol": LM_KERNEL_TOL,
+           "ms": time_ms(torch, lambda: kernel(r, k, v, logw, u)),
+           "fwd_bwd_ms": time_ms(torch, lambda: grads(kernel), reps=3),
+           "plain_fwd_bwd_ms": time_ms(torch, lambda: grads(plain), reps=3)}
+    rec["plain_backward_ms"] = rec["fwd_bwd_ms"] - rec["ms"]
+    print("train case " + json.dumps(rec), flush=True)
+    return rec
+
+
+def _train_batch(torch, lm, rng, dev, b, s):
+    tokens = torch.from_numpy(lm.sample(rng, b, s)).long().to(dev)
+    return {"tokens": tokens[:, :-1].contiguous(),
+            "labels": tokens[:, 1:].contiguous()}
+
+
+def train_parity(torch, np, dev, arch, redraw=None):
+    """One fp32 train step of ``arch`` cut to one layer unit (two layers:
+    gemma2-2b's local/global pair) at full width, on the card and on the
+    CPU (one intra-op thread) from the same weights and batch: the loss,
+    the metrics, every gradient leaf, every moment and every updated
+    parameter (``TRAIN_PARITY_TOL``).  Returns the record."""
+    import dataclasses
+
+    from repro_torch.core.config import TrainConfig, get_arch
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.param import init_tree, tree_leaves, tree_map
+    from repro_torch.train.data import MarkovLM
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.step import make_train_step
+
+    cfg = dataclasses.replace(get_arch(arch), num_layers=2, dtype="float32",
+                              param_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    trees = {"gpu": init_tree(get_model(cfg).param_spec(), gen, "float32")}
+    if redraw is not None:
+        redraw(trees["gpu"], gen)
+    trees["cpu"] = tree_map(lambda t: t.detach().cpu().clone(), trees["gpu"])
+    batch = _train_batch(torch, MarkovLM(TRAIN_VOCAB, seed=SEED),
+                         np.random.default_rng(SEED), "cpu", TRAIN_BATCH,
+                         TRAIN_PARITY_SEQ)
+    tcfg = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                       total_steps=TRAIN_STEPS)
+    out, grads = {}, {}
+    for side in ("gpu", "cpu"):
+        model = get_model(cfg).load_tree(trees[side])
+        step = make_train_step(model, tcfg)
+        with one_thread(torch):
+            out[side] = step(trees[side], adamw_init(trees[side]),
+                             {k: t.to(model.device) for k, t in
+                              batch.items()})
+        grads[side] = step.grads
+        torch.cuda.synchronize()
+    (gp, gs, gm), (cp, cs, cm) = out["gpu"], out["cpu"]
+    label = f"{arch} train parity"
+    worst = {}
+    for k in cm:
+        ref = cm[k].item()
+        err = abs(gm[k].item() - ref)
+        if not err <= TRAIN_PARITY_TOL * max(1.0, abs(ref)):
+            fail(f"{label}: {k} {gm[k].item()} on the card, {ref} on the "
+                 f"CPU")
+        worst[k] = err
+    for name, a_tree, b_tree in (("grad", grads["gpu"], grads["cpu"]),
+                                 ("m", gs["m"], cs["m"]),
+                                 ("v", gs["v"], cs["v"])):
+        worst[name] = 0.0
+        for a, b in zip(tree_leaves(a_tree), tree_leaves(b_tree)):
+            worst[name] = max(worst[name], _check_close(
+                f"{label} {name}", a.cpu(), b,
+                TRAIN_PARITY_TOL * max(1.0, b.abs().max().item())))
+    lr = cm["lr"].item()
+    worst["param"], flips = 0.0, 0
+    for a, b, mom in zip(tree_leaves(gp), tree_leaves(cp),
+                         tree_leaves(cs["m"])):
+        err = (a.cpu() - b).abs()
+        tiny = mom.abs() <= 1e-3 * max(mom.abs().max().item(), 1e-30)
+        lim = torch.where(tiny, torch.full_like(b, 2.02 * lr + 1e-6),
+                          1e-6 * b.abs().clamp_min(1.0) + 1e-3 * lr)
+        if not bool((err <= lim).all()):
+            fail(f"{label}: an updated parameter off by "
+                 f"{(err - lim).max().item()} past its limit")
+        worst["param"] = max(worst["param"], err.max().item())
+        flips += int((tiny & (err > 1e-3 * lr)).sum())
+    rec = {"arch": arch, "layers": cfg.num_layers, "batch": TRAIN_BATCH,
+           "tokens": TRAIN_PARITY_SEQ, "cpu_threads": 1,
+           "loss": cm["loss"].item(), "max_abs_err": worst,
+           "tiny_gradient_flips": flips, "tol": TRAIN_PARITY_TOL}
+    print(f"{label} " + json.dumps(rec), flush=True)
+    return rec
+
+
+def train_full(torch, np, dev, counters, card, arch, expect, redraw=None):
+    """``TRAIN_STEPS`` AdamW steps of ``arch`` at full width and depth in
+    bf16 through ``make_train_step``, on ``MarkovLM(TRAIN_VOCAB)`` batches
+    of ``TRAIN_BATCH`` x ``TRAIN_SEQ``.  The first step is taken twice
+    from the same state (the determinism check: the same loss, grad norm
+    and parameters bit for bit, or the leaves that differ named), with
+    the launches counted: ``expect`` gives K3's by role (the forward, the
+    remat recompute, the backward's z, dx, dw: all on the wgmma path) and
+    K10's and K11's a step, the forward's and the backward's.  The CE must
+    be finite and fall from the first step to the last, which is
+    profiled.  Returns the record."""
+    import math
+
+    from repro_torch.core.config import TrainConfig, get_arch
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.wkv6 import ops as wkv6_ops
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.param import init_tree, tree_leaves
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.data import MarkovLM
+    from repro_torch.train.optimizer import adamw_init
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = get_arch(arch)
+    model = get_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tree = init_tree(model.param_spec(), gen, cfg.param_dtype)
+    if redraw is not None:
+        redraw(tree, gen)
+    model.load_tree(tree)
+    opt = adamw_init(tree)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(tree))
+    tcfg = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                       total_steps=TRAIN_STEPS)
+    step_fn = step_mod.make_train_step(model, tcfg)
+    lm, rng = MarkovLM(TRAIN_VOCAB, seed=SEED), np.random.default_rng(SEED)
+    batches = [_train_batch(torch, lm, rng, dev, TRAIN_BATCH, TRAIN_SEQ)
+               for _ in range(TRAIN_STEPS)]
+    label = f"{arch} train"
+    k3 = counters["K3"]
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+        for table in (k3.path_launches, k3.role_launches):
+            for key in table:
+                table[key] = 0
+        attn_ops.flash_attention.ml_launches = 0
+
+    def counts():
+        return {"K3": dict(k3.role_launches), "K3_paths": dict(
+            k3.path_launches), "K10": counters["K10"].launches,
+            "K10_ml": attn_ops.flash_attention.ml_launches,
+            "K11": counters["K11"].launches}
+
+    def timed_step(batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step_fn(tree, opt, batch)
+        torch.cuda.synchronize()
+        return out[2], (time.perf_counter() - t) * 1e3
+
+    # the first step, twice from the same state, counted
+    start = [t.clone() for t in tree_leaves(tree)]
+    at_forward_end = {}
+    hook = model.register_forward_hook(
+        lambda *_: at_forward_end.update(counts()))
+    zero()
+    first, first_ms = timed_step(batches[0])
+    hook.remove()
+    total = counts()
+    after_first = [t.clone() for t in tree_leaves(tree)]
+    for t, s in zip(tree_leaves(tree), start):
+        t.copy_(s)
+    for t in tree_leaves(opt):
+        t.zero_()
+    del start
+    again, _ = timed_step(batches[0])
+    differ = [i for i, (a, b) in enumerate(zip(tree_leaves(tree),
+                                               after_first))
+              if not torch.equal(a, b)]
+    same = {k: bool(torch.equal(first[k], again[k]))
+            for k in ("loss", "ce", "grad_norm")}
+    del after_first
+    keys = []
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for key in sorted(t):
+                walk(t[key], path + (key,))
+        else:
+            keys.append("/".join(path))
+
+    walk(tree, ())
+    determinism = {"deterministic": not differ and all(same.values()),
+                   "metrics_equal": same,
+                   "differing_leaves": [keys[i] for i in differ]}
+    # the launches a step: the forward's by the hook, the backward's after
+    fwd = at_forward_end
+    got = {"K3_forward": fwd["K3"]["forward"],
+           "K3_recompute": total["K3"]["forward"] - fwd["K3"]["forward"],
+           "K3_z": total["K3"]["z"], "K3_dx": total["K3"]["dx"],
+           "K3_dw": total["K3"]["dw"], "K10_forward": fwd["K10"],
+           "K10_backward": total["K10"] - fwd["K10"],
+           "K10_ml": total["K10_ml"], "K11_forward": fwd["K11"],
+           "K11_backward": total["K11"] - fwd["K11"]}
+    if got != expect:
+        fail(f"{label}: launches a step {got}, expected {expect}")
+    n3 = sum(total["K3"].values())
+    if total["K3_paths"] != {**dict.fromkeys(k3.path_launches, 0),
+                             "wgmma": n3}:
+        fail(f"{label}: K3's paths {total['K3_paths']}, not the wgmma "
+             f"path alone for its {n3} launches")
+    steps = [{"step": 1, "ce": again["ce"].item(),
+              "grad_norm": again["grad_norm"].item(), "ms": first_ms}]
+    for i in range(1, TRAIN_STEPS - 1):
+        m, ms = timed_step(batches[i])
+        steps.append({"step": i + 1, "ce": m["ce"].item(),
+                      "grad_norm": m["grad_norm"].item(), "ms": ms})
+        print(f"{label} step {i + 1}: ce {steps[-1]['ce']:.4f}, grad norm "
+              f"{steps[-1]['grad_norm']:.4f}, {ms:.1f} ms", flush=True)
+    med = statistics.median(s["ms"] for s in steps[1:])
+    # the last step under the profiler (its wall time carries the
+    # profiler's cost, so the median above leaves it out)
+    ranges = (("k10 plain backward", attn_ops, "flash_attention_bwd"),
+              ("k11 plain backward", wkv6_ops, "wkv6_bwd"),
+              ("adamw", step_mod, "adamw_update"))
+    last = {}
+    profile = profile_windows(
+        torch, label, {"step": lambda: last.update(
+            m=step_fn(tree, opt, batches[TRAIN_STEPS - 1])[2])},
+        card, ranges)
+    steps.append({"step": TRAIN_STEPS, "ce": last["m"]["ce"].item(),
+                  "grad_norm": last["m"]["grad_norm"].item(),
+                  "ms": profile["step"]["wall_ms"], "profiled": True})
+    ces = [s["ce"] for s in steps]
+    if not all(math.isfinite(c) for c in ces) or not ces[-1] < ces[0]:
+        fail(f"{label}: CE {ces} is not finite and falling")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rec = {"arch": arch, "params": n_params, "init_s": init_s,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "lr": TRAIN_LR,
+           "warmup": TRAIN_WARMUP, "corpus_vocab": TRAIN_VOCAB,
+           "corpus_entropy": lm.entropy(), "steps": steps,
+           "step_ms_median": med,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med * 1e3,
+           "launches": got, "k3_paths": total["K3_paths"],
+           "determinism": determinism, "peak_memory_gb": peak,
+           "reckoned_gb": TRAIN_RECKONED_GB.get(arch), "profile": profile}
+    print(f"{label}: " + json.dumps({k: v for k, v in rec.items()
+                                     if k != "profile"}), flush=True)
+    print(f"{label}: {n_params / 1e9:.3f} G parameters, CE "
+          f"{ces[0]:.4f} -> {ces[-1]:.4f}, step {med:.1f} ms median "
+          f"({rec['tokens_per_s']:.0f} tokens/s), peak memory {peak:.2f} GB "
+          f"(reckoned {rec['reckoned_gb']}), deterministic "
+          f"{determinism['deterministic']} [{card}]", flush=True)
+    del model, tree, opt, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_phase(torch, np, dev, peaks, counters, card):
+    """Phase 13 (see the module docstring); returns (cases, parity
+    records, full-width records)."""
+    from repro_torch.core.config import get_arch
+    from repro_torch.nn.rwkv import rwkv_redraw
+
+    t13 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cases = [k3_grad_case(torch, gen, dev, kk, n, act, bias, peaks)
+             for kk, n, act, bias in K3_TRAIN_SHAPES]
+    cases += [k10_grad_case(torch, gen, dev, c, peaks)
+              for c in K10_TRAIN_CASES]
+    cases.append(k11_grad_case(torch, gen, dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_b = time.perf_counter()
+    redraws = {LM_ARCH: None, "rwkv6-1.6b": rwkv_redraw}
+    parity = {a: train_parity(torch, np, dev, a, redraws[a])
+              for a in TRAIN_ARCHS}
+    t_c = time.perf_counter()
+    full = {}
+    for arch in TRAIN_ARCHS:
+        cfg = get_arch(arch)
+        n = cfg.num_layers
+        if cfg.family == "ssm":  # 8 projections a layer, K11 once
+            k3, z, k10, k11 = 8 * n, 0, 0, n
+        else:  # 7 projections a layer, the gate's gelu, K10 once
+            k3, z, k10, k11 = 7 * n, n, n, 0
+        expect = {"K3_forward": k3, "K3_recompute": k3, "K3_z": z,
+                  "K3_dx": k3, "K3_dw": k3, "K10_forward": k10,
+                  "K10_backward": k10, "K10_ml": 2 * k10,
+                  "K11_forward": k11, "K11_backward": k11}
+        full[arch] = train_full(torch, np, dev, counters, card, arch, expect,
+                                redraws[arch])
+    t_end = time.perf_counter()
+    print(f"phase 13 wall time {t_end - t13:.1f} s (cases "
+          f"{t_b - t13:.1f}, CPU parity {t_c - t_b:.1f}, full width "
+          f"{t_end - t_c:.1f})", flush=True)
+    return cases, parity, full
+
+
 def main() -> int:
     global SEED
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3015,7 +3749,16 @@ def main() -> int:
     cross_cases, cross_parity, cross = cross_phase(
         torch, F, np, dev, peaks, counters, card_line)
 
-    # -- 13. the kernels line -----------------------------------------------
+    # -- 12. gemma2-2b on the int8 KV cache -----------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    kvq = kvq_phase(torch, np, dev, counters, card_line)
+
+    # -- 13. training: gemma2-2b and rwkv6-1.6b ---------------------------------
+    train_cases, train_parity_recs, train = train_phase(
+        torch, np, dev, peaks, counters, card_line)
+
+    # -- 15. the kernels line -----------------------------------------------
     kernels = []
     for kid, (name, src, replaces) in sources.items():
         mine = [c for c in cases if c["kernel"] == kid]
@@ -3064,11 +3807,18 @@ def main() -> int:
     k10_simt = {p: lm_parity["paths"][p] + sum(r["paths"][p]
                                                for r in cross_parity.values())
                 for p in lm_parity["paths"]}
+    # the training steps of phase 13 (counted apart, each row's launches
+    # keeping their meaning): K3's backward launches by role, K10's
+    # launches that also wrote m and l
+    trained = list(train.values())
+    k3_backward = {role: sum(t["launches"][f"K3_{role}"] for t in trained)
+                   for role in ("z", "dx", "dw")}
     kernels.append(lm_entry(
         "flash_attention", k10_src, k10_pallas,
         [c for c in k10 if c["main"]], k10_wgmma["wgmma"],
         max(c["max_abs_err"] for c in k10 if c["path"] == "wgmma"),
-        path="wgmma", paths=k10_wgmma))
+        path="wgmma", paths=k10_wgmma,
+        train_ml_launches=sum(t["launches"]["K10_ml"] for t in trained)))
     kernels.append(lm_entry(
         "flash_attention_simt", k10_src, k10_pallas,
         [c for c in k10 if c["dtype"] == "float32"
@@ -3087,7 +3837,8 @@ def main() -> int:
         [c for c in k3 if c["main"]],
         lm["launches"]["K3"] + sum(r["launches"]["K3"]
                                    for r in cross.values()),
-        max(c["max_abs_err"] for c in k3_all)))
+        max(c["max_abs_err"] for c in k3_all),
+        train_backward_launches=k3_backward))
     kernels.append(lm_entry(
         "matmul_fused_bf16_wgmma", "src/repro_torch/csrc/matmul_fused.cu",
         "src/repro/kernels/matmul_fused/kernel.py:37",
@@ -3095,7 +3846,8 @@ def main() -> int:
          and c["rows"] == K3_WGMMA_GAIN[0]],
         lm["k3_paths"]["wgmma"] + sum(r["k3_paths"]["wgmma"]
                                       for r in cross.values()),
-        max(c["max_abs_err"] for c in k3_all if c["path"] == "wgmma")))
+        max(c["max_abs_err"] for c in k3_all if c["path"] == "wgmma"),
+        train_backward_launches=k3_backward))
     k11 = next(c for c in rwkv_cases if c["kernel"] == "K11" and c["main"])
     kernels.append({
         "name": "wkv6", "route": "cuda",
@@ -3107,12 +3859,15 @@ def main() -> int:
         "ms": k11["ms"], "plain_ms": k11["plain_ms"],
         "bound_ms": k11["bound_ms"], "bound_by": k11["bound_by"],
         "library_ms": None,  # no single PyTorch call computes WKV6
+        "train_launches": sum(t["launches"]["K11_forward"]
+                              + t["launches"]["K11_backward"]
+                              for t in trained),
     })
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} never launched on the main path")
 
-    # -- 12. stream capture of the cooperative K2 and K1 launches ------------
+    # -- 14. stream capture of the cooperative K2 and K1 launches ------------
     capture = capture_phase(torch, nets["alexnet"],
                             params_from_numpy(np_params["alexnet"], dev), dev)
     print("capture " + json.dumps(capture), flush=True)
@@ -3129,8 +3884,10 @@ def main() -> int:
              "moe_cases": moe_cases, "moe_parity": moe_parity, "moe": moe,
              "zamba_cases": zamba_cases, "zamba_parity": zamba_parity,
              "zamba": zamba, "cross_cases": cross_cases,
-             "cross_parity": cross_parity, "cross": cross,
-             "capture": capture, "kernels": kernels}, indent=1))
+             "cross_parity": cross_parity, "cross": cross, "kvq": kvq,
+             "train_cases": train_cases, "train_parity": train_parity_recs,
+             "train": train, "capture": capture, "kernels": kernels},
+            indent=1))
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -211,6 +211,26 @@ class ModelConfig:
         return dataclasses.replace(self, **changes)
 
 
+@dataclass(frozen=True)
+class TrainConfig:
+    """AdamW and its schedule, the JAX package's ``TrainConfig``.  ``remat``
+    is recorded (the models remat every layer unit in train mode, JAX's
+    "full"); ``zero1`` too, for the optimizer's spec annotations, though
+    the single-card trainer shards nothing."""
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    # remat policy for the layer scan: "none" | "full" | "dots"
+    remat: str = "full"
+    zero1: bool = True  # shard optimizer state over the dp axes
+    seed: int = 0
+
+
 # ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------

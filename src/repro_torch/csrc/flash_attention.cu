@@ -9,7 +9,11 @@
 // q >= k, window k > q - window), the same running max m, sum l and
 // accumulator in fp32, p = 0 on a row that has seen no visible key, p.v
 // with p in fp32, out = acc / max(l, 1e-30) stored once in the output
-// type.  Every block walks the kv tiles its rows can see, in order (the
+// type.  With m and l given (the backward's residuals, fp32 [b, h, sq]),
+// each row's final running max and sum are stored beside out (l before
+// the 1e-30 floor), as JAX's _flash_fwd_scan returns them; a call without
+// them launches the same kernel and stores nothing more.  Every block
+// walks the kv tiles its rows can see, in order (the
 // TPU kernel's pl.when skip), so every sum has a fixed order: no atomics,
 // no split over kv, the same bits on every run.
 //
@@ -91,8 +95,10 @@ constexpr size_t smem_bytes() {
 template <int HD, typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ out, int sq, int skv,
-          int H, int KVH, int causal, int window, float scale, float cap) {
+          const T* __restrict__ v, T* __restrict__ out,
+          float* __restrict__ m_out, float* __restrict__ l_out, int sq,
+          int skv, int H, int KVH, int causal, int window, float scale,
+          float cap) {
   extern __shared__ float smem[];
   constexpr int QS = HD + 1;  // padded rows: a warp's 16 k rows hit 16 banks
   constexpr int SS = BK + 1;
@@ -242,6 +248,10 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
     if (q0 + r >= sq) continue;
+    if (m_out != nullptr && tx == 0) {
+      m_out[(long)bh * sq + q0 + r] = m_s[r];
+      l_out[(long)bh * sq + q0 + r] = l_s[r];
+    }
     const float l = fmaxf(l_s[r], 1e-30f);
     T* o = out + ((long)bb * sq + q0 + r) * q_step + (long)hh * HD;
 #pragma unroll
@@ -250,9 +260,10 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <int HD, typename T>
-int launch_simt(const void* q, const void* k, const void* v, void* out, int b,
-                int sq, int skv, int H, int KVH, int causal, int window,
-                float scale, float cap, cudaStream_t st) {
+int launch_simt(const void* q, const void* k, const void* v, void* out,
+                float* m, float* l, int b, int sq, int skv, int H, int KVH,
+                int causal, int window, float scale, float cap,
+                cudaStream_t st) {
   static std::atomic<unsigned long long> opted{0};
   const size_t smem = smem_bytes<HD>();
   cudaError_t e = opt_in_smem(flash_fwd<HD, T>, (int)smem, opted);
@@ -260,8 +271,8 @@ int launch_simt(const void* q, const void* k, const void* v, void* out, int b,
   dim3 grid((sq + BQ - 1) / BQ, b * H);
   flash_fwd<HD, T><<<grid, THREADS, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), sq, skv, H, KVH, causal,
-      window, scale, cap);
+      static_cast<const T*>(v), static_cast<T*>(out), m, l, sq, skv, H, KVH,
+      causal, window, scale, cap);
   return (int)cudaGetLastError();
 }
 
@@ -377,9 +388,9 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
 flash_wgmma(const __grid_constant__ CUtensorMap qmap,
             const __grid_constant__ CUtensorMap kmap,
             const __grid_constant__ CUtensorMap vmap,
-            __nv_bfloat16* __restrict__ out, int n_bh, int n_q, int sq,
-            int skv, int H, int KVH, int causal, int window, float scale,
-            float cap) {
+            __nv_bfloat16* __restrict__ out, float* __restrict__ m_out,
+            float* __restrict__ l_out, int n_bh, int n_q, int sq, int skv,
+            int H, int KVH, int causal, int window, float scale, float cap) {
   using SM = FaSmem<HD>;
   constexpr int BOXES = HD / FA_BOX;
   constexpr int Q_BOX = FA_BQ * 128;  // bytes of a q box
@@ -555,6 +566,10 @@ flash_wgmma(const __grid_constant__ CUtensorMap qmap,
     l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 2);
     const int row = row0 + 8 * h;
     if (row >= sq) continue;
+    if (m_out != nullptr && lane % 4 == 0) {
+      m_out[(long)bh * sq + row] = m_r[h];
+      l_out[(long)bh * sq + row] = l_r[h];
+    }
     const float l = fmaxf(l_r[h], 1e-30f);
     __nv_bfloat16* dst = out + (((long)bb * sq + row) * H + hh) * HD + col;
 #pragma unroll
@@ -578,8 +593,9 @@ bool head_map(CUtensorMap* map, const void* base, int b, int rows, int heads,
 
 template <int HD>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                 int b, int sq, int skv, int H, int KVH, int causal,
-                 int window, float scale, float cap, cudaStream_t st) {
+                 float* m, float* l, int b, int sq, int skv, int H, int KVH,
+                 int causal, int window, float scale, float cap,
+                 cudaStream_t st) {
   static std::atomic<unsigned long long> opted{0};
   CUtensorMap qmap, kmap, vmap;
   if (!head_map(&qmap, q, b, sq, H, HD, FA_BQ) ||
@@ -590,25 +606,26 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   if (e != cudaSuccess) return (int)e;
   const int n_q = (sq + FA_BQ - 1) / FA_BQ, n_bh = b * H;
   flash_wgmma<HD><<<n_q * n_bh, FA_THREADS, FaSmem<HD>::BYTES, st>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), n_bh, n_q, sq, skv,
-      H, KVH, causal, window, scale, cap);
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), m, l, n_bh, n_q,
+      sq, skv, H, KVH, causal, window, scale, cap);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int sq, int skv, int H, int KVH, int causal, int window,
-           float scale, float cap, int bf16, int path, cudaStream_t st) {
+int launch(const void* q, const void* k, const void* v, void* out, float* m,
+           float* l, int b, int sq, int skv, int H, int KVH, int causal,
+           int window, float scale, float cap, int bf16, int path,
+           cudaStream_t st) {
   if (path == 1)
-    return bf16 ? launch_wgmma<HD>(q, k, v, out, b, sq, skv, H, KVH, causal,
-                                   window, scale, cap, st)
+    return bf16 ? launch_wgmma<HD>(q, k, v, out, m, l, b, sq, skv, H, KVH,
+                                   causal, window, scale, cap, st)
                 : (int)cudaErrorInvalidValue;
   if (path != 0) return (int)cudaErrorInvalidValue;
   if (bf16)
-    return launch_simt<HD, __nv_bfloat16>(q, k, v, out, b, sq, skv, H, KVH,
-                                          causal, window, scale, cap, st);
-  return launch_simt<HD, float>(q, k, v, out, b, sq, skv, H, KVH, causal,
-                                window, scale, cap, st);
+    return launch_simt<HD, __nv_bfloat16>(q, k, v, out, m, l, b, sq, skv, H,
+                                          KVH, causal, window, scale, cap, st);
+  return launch_simt<HD, float>(q, k, v, out, m, l, b, sq, skv, H, KVH,
+                                causal, window, scale, cap, st);
 }
 
 }  // namespace
@@ -616,23 +633,37 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
 // hd one of 64, 128, 256; H a multiple of KVH; window 0 = none; cap 0 =
 // none; bf16 = 1 for bfloat16 tensors, 0 for float32; path 0 the CUDA-core
 // kernel, 1 the TMA + wgmma kernel (bf16 only; q, k, v and out 16-byte
-// aligned).  Returns a CUDA error code, 0 when the launch was taken.
+// aligned); m and l fp32 [b, H, sq], both or neither (null).  Returns a
+// CUDA error code, 0 when the launch was taken.
+extern "C" int flash_attention_fwd_ml(const void* q, const void* k,
+                                      const void* v, void* out, float* m,
+                                      float* l, int b, int sq, int skv, int H,
+                                      int KVH, int hd, int causal, int window,
+                                      float scale, float cap, int bf16,
+                                      int path, void* stream) {
+  if (b < 1 || sq < 1 || skv < 1 || KVH < 1 || H % KVH != 0 ||
+      (m == nullptr) != (l == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (hd == 64)
+    return launch<64>(q, k, v, out, m, l, b, sq, skv, H, KVH, causal, window,
+                      scale, cap, bf16, path, st);
+  if (hd == 128)
+    return launch<128>(q, k, v, out, m, l, b, sq, skv, H, KVH, causal,
+                       window, scale, cap, bf16, path, st);
+  if (hd == 256)
+    return launch<256>(q, k, v, out, m, l, b, sq, skv, H, KVH, causal,
+                       window, scale, cap, bf16, path, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// the forward alone: flash_attention_fwd_ml without m and l
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* out, int b, int sq, int skv, int H,
                                    int KVH, int hd, int causal, int window,
                                    float scale, float cap, int bf16, int path,
                                    void* stream) {
-  if (b < 1 || sq < 1 || skv < 1 || KVH < 1 || H % KVH != 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (hd == 64)
-    return launch<64>(q, k, v, out, b, sq, skv, H, KVH, causal, window, scale,
-                      cap, bf16, path, st);
-  if (hd == 128)
-    return launch<128>(q, k, v, out, b, sq, skv, H, KVH, causal, window,
-                       scale, cap, bf16, path, st);
-  if (hd == 256)
-    return launch<256>(q, k, v, out, b, sq, skv, H, KVH, causal, window,
-                       scale, cap, bf16, path, st);
-  return (int)cudaErrorInvalidValue;
+  return flash_attention_fwd_ml(q, k, v, out, nullptr, nullptr, b, sq, skv, H,
+                                KVH, hd, causal, window, scale, cap, bf16,
+                                path, stream);
 }

@@ -36,6 +36,8 @@ SIGNATURES = {
     "matmul_fused_bf16": [_P, _P, _P, _P] + [_I] * 7 + [_P],
     "flash_attention_fwd": [_P, _P, _P, _P] + [_I] * 8
     + [ctypes.c_float, ctypes.c_float, _I, _I, _P],
+    "flash_attention_fwd_ml": [_P] * 6 + [_I] * 8
+    + [ctypes.c_float, ctypes.c_float, _I, _I, _P],
     "conv_pool_lrn_f32": [_P] * 9,
     "conv_chain_f32": [_P] * 9,
     "pool2d_f32": [_P, _P, _L] + [_I] * 10 + [_P],

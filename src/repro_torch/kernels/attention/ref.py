@@ -12,8 +12,10 @@ NEG_INF = -1e30
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0, attn_softcap=0.0,
-                        scale=None):
-    """q: [b, sq, h, hd]; k/v: [b, skv, kvh, hd] -> [b, sq, h, hd].
+                        scale=None, return_ml=False):
+    """q: [b, sq, h, hd]; k/v: [b, skv, kvh, hd] -> [b, sq, h, hd], and
+    with ``return_ml`` each row's fp32 max ``m`` and sum ``l`` [b, h, sq]
+    (the residuals of the backward: ``p = exp(s - m) / l``).
 
     The TPU kernel's semantics: fp32 scores ``q.k * scale``, then the
     optional ``cap * tanh(s / cap)``; masked keys (causal, window) get
@@ -40,4 +42,7 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, attn_softcap=0.0,
     l = p.sum(dim=-1, keepdim=True)
     acc = torch.einsum("bjgqk,bkjd->bjgqd", p, v.to(ACC_DTYPE))
     out = (acc / torch.clamp_min(l, 1e-30)).permute(0, 3, 1, 2, 4)
-    return out.reshape(b, sq, h, hd).to(q.dtype)
+    out = out.reshape(b, sq, h, hd).to(q.dtype)
+    if return_ml:
+        return out, m.reshape(b, h, sq), l.reshape(b, h, sq)
+    return out

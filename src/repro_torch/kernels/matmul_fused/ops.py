@@ -9,6 +9,16 @@ alone, before the launch (``k3_path``): the weight stream below
 function of K, N and the SM count, memoized), TMA + wgmma tiles for bf16
 from there on when TMA can describe both operands, CUDA-core tiles
 otherwise.  A refused launch raises; nothing retries on another path.
+
+Under autograd (grad enabled and x, w or b requiring grad) the call goes
+through :class:`MatmulFusedFn`, whose backward is K3 too, on transposed
+operands: ``dz = dy * act'(z)``, ``dx = dz w^T`` and ``dw = x^T dz``, each
+one K3 call (the kernel on the card, the plain version on the CPU), and
+``db`` the fp32 column sum of dz.  ``z`` (before the activation) is
+recomputed by one more K3 call with ``act="none"`` where the activation
+needs it (silu, gelu); relu reads its mask from y.  The first version
+passes ``w.t().contiguous()`` and ``x.t().contiguous()``: K3 reads
+row-major ``[K, N]`` only.
 """
 from __future__ import annotations
 
@@ -19,7 +29,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import check_cuda, sm_count
+from repro_torch.kernels.common import ACC_DTYPE, check_cuda, sm_count
 from repro_torch.kernels.common import stream_handle as _stream
 from repro_torch.kernels.matmul_fused.ref import _ACTS, matmul_fused_ref
 
@@ -83,11 +93,12 @@ def split_k_aimed(dtype, k: int, n: int, sms: int,
     return math.ceil(steps / per), per * bk
 
 
-def _launch(x, w, b, act, path=None):
+def _launch(x, w, b, act, path=None, role="forward"):
     """Launch K3 on CUDA tensors: one call of the C entry, which launches
     one kernel, with nothing allocated but y.  ``path`` (default:
     ``k3_path``'s choice) may name another path, for timing one beside the
-    other."""
+    other; ``role`` names what the launch computes for the counters
+    (``forward``, or a backward's ``z``, ``dx``, ``dw``)."""
     check_cuda("matmul_fused", x, w)
     m, k = x.shape
     n = w.shape[1]
@@ -114,12 +125,74 @@ def _launch(x, w, b, act, path=None):
     _build.check(rc, entry)
     matmul_fused.launches += 1
     matmul_fused.path_launches[path] += 1
+    matmul_fused.role_launches[role] += 1
     return y
+
+
+def _call(x, w, b, act, role="forward"):
+    """One K3 call on 2-D operands: the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if x.device.type == "cuda":
+        return _launch(x, w, b, act, role=role)
+    if x.device.type == "cpu":
+        return matmul_fused_ref(x, w, b, act)
+    raise ValueError(f"matmul_fused: unsupported device {x.device}")
+
+
+def act_grad(act: str, z):
+    """act'(z) in the accumulation type (fp32), for the activations of
+    ``_ACTS`` (gelu in its tanh form)."""
+    z = z.to(ACC_DTYPE)
+    if act == "silu":
+        sg = torch.sigmoid(z)
+        return sg * (1.0 + z * (1.0 - sg))
+    if act == "gelu":
+        c = 0.7978845608028654
+        t = torch.tanh(c * (z + 0.044715 * z ** 3))
+        return 0.5 * (1.0 + t) + 0.5 * z * (1.0 - t * t) * c * (
+            1.0 + 3 * 0.044715 * z * z)
+    raise ValueError(f"act_grad: {act!r}")
+
+
+class MatmulFusedFn(torch.autograd.Function):
+    """K3 with its backward on K3: ``dx = dz w^T`` and ``dw = x^T dz`` on
+    copies of the transposed operands, ``dz = dy act'(z)`` in fp32 cast to
+    x's dtype, ``db`` its fp32 column sum.  x is 2-D."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, act):
+        ctx.act = act
+        y = _call(x, w, b, act)
+        # relu's act'(z) is y > 0 (y and z share their sign)
+        ctx.save_for_backward(x, w, b, y if act == "relu" else None)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, b, y = ctx.saved_tensors
+        act = ctx.act
+        dy = dy.contiguous()
+        if act == "none":
+            dz = dy
+        elif act == "relu":
+            dz = dy * (y > 0).to(dy.dtype)
+        else:
+            z = _call(x, w, b, "none", role="z")
+            dz = (dy.to(ACC_DTYPE) * act_grad(act, z)).to(x.dtype)
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = _call(dz, w.t().contiguous(), None, "none", role="dx")
+        if ctx.needs_input_grad[1]:
+            dw = _call(x.t().contiguous(), dz, None, "none", role="dw")
+        if b is not None and ctx.needs_input_grad[2]:
+            db = dz.to(ACC_DTYPE).sum(dim=0)
+        return dx, dw, db, None
 
 
 def matmul_fused(x, w, b=None, act: str = "none"):
     """y = act(x @ w + b).  Leading dims of x are flattened to M.  fp32
-    accumulation, bias and activation; one cast to x's dtype."""
+    accumulation, bias and activation; one cast to x's dtype.  Under
+    autograd it goes through :class:`MatmulFusedFn`."""
     if act not in _ACTS:
         raise ValueError(f"unknown activation {act!r}")
     if x.shape[-1] != w.shape[0]:
@@ -128,13 +201,16 @@ def matmul_fused(x, w, b=None, act: str = "none"):
     if x.dim() != 2:
         return matmul_fused(x.reshape(-1, x.shape[-1]), w, b, act).reshape(
             *x.shape[:-1], w.shape[-1])
-    if x.device.type == "cuda":
-        return _launch(x, w, b, act)
-    if x.device.type == "cpu":
-        return matmul_fused_ref(x, w, b, act)
-    raise ValueError(f"matmul_fused: unsupported device {x.device}")
+    if torch.is_grad_enabled() and (
+            x.requires_grad or w.requires_grad
+            or (b is not None and b.requires_grad)):
+        return MatmulFusedFn.apply(x, w, b, act)
+    return _call(x, w, b, act)
 
 
-#: kernel launches since the count was last set to 0, in all and by path
+#: kernel launches since the count was last set to 0, in all, by path and
+#: by role (``forward``: a forward or a remat recompute; a backward's
+#: ``z``, ``dx`` and ``dw``)
 matmul_fused.launches = 0
 matmul_fused.path_launches = dict.fromkeys(PATH_CODES, 0)
+matmul_fused.role_launches = dict.fromkeys(("forward", "z", "dx", "dw"), 0)

@@ -10,6 +10,13 @@ raises.  One call is three launches on the current stream (the chunks'
 own states, the walk of the state over the chunks, the chunks' outputs;
 ``wkv6_plan`` has their geometry) over one fp32 scratch tensor allocated
 here.
+
+Under autograd (grad enabled and an input requiring grad) the call goes
+through :class:`Wkv6Fn`, whose backward is plain PyTorch by design
+(:func:`wkv6_bwd`): it re-runs the chunked plain version
+``wkv6_chunked_ref`` under autograd and takes its gradients for r, k, v,
+logw, u and the initial state, as the JAX package's backward is autodiff
+through ``_wkv6_chunked``'s scan.
 """
 from __future__ import annotations
 
@@ -132,6 +139,44 @@ def _launch(r, k, v, logw, u, L, state):
     return o, s_out
 
 
+def wkv6_bwd(saved, needs, chunk, do, ds):
+    """The plain backward of K11: ``wkv6_chunked_ref`` re-run under
+    autograd on the saved inputs (r, k, v, logw, u, state), differentiated
+    with the cotangents of o and of the final state (either may be None)
+    -> the gradients of the inputs ``needs`` flags, None for the others."""
+    ins = [None if t is None else t.detach().requires_grad_(need)
+           for t, need in zip(saved, needs)]
+    with torch.enable_grad():
+        o, s_out = wkv6_chunked_ref(*ins[:5], chunk, ins[5])
+        pairs = [(t, g) for t, g in ((o, do), (s_out, ds)) if g is not None]
+        wrt = [t for t, need in zip(ins, needs) if t is not None and need]
+        got = iter(torch.autograd.grad([t for t, _ in pairs], wrt,
+                                       [g for _, g in pairs],
+                                       allow_unused=True))
+    return [next(got) if t is not None and need else None
+            for t, need in zip(ins, needs)]
+
+
+class Wkv6Fn(torch.autograd.Function):
+    """K11 (or its plain version on the CPU) forward; :func:`wkv6_bwd`,
+    plain by design, as its backward."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, state, chunk):
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)  # an unused final state: None
+        ctx.save_for_backward(r, k, v, logw, u, state)
+        if r.device.type == "cuda":
+            return _launch(r, k, v, logw, u, min(chunk, r.shape[1]), state)
+        return wkv6_chunked_ref(r, k, v, logw, u, chunk, state)
+
+    @staticmethod
+    def backward(ctx, do, ds):
+        grads = wkv6_bwd(ctx.saved_tensors, ctx.needs_input_grad[:6],
+                         ctx.chunk, do, ds)
+        return (*grads, None)
+
+
 def wkv6(r, k, v, logw, u, *, chunk: int, state=None):
     """r, k, v, logw: [b, s, h, e]; u: [h, e]; state: [b, h, e, e] or None
     (zero) -> (o [b, s, h, e] in r's dtype, final state [b, h, e, e] fp32),
@@ -145,6 +190,10 @@ def wkv6(r, k, v, logw, u, *, chunk: int, state=None):
             f"{tuple(v.shape)}, logw {tuple(logw.shape)}, u {tuple(u.shape)}"
             f", state {None if state is None else tuple(state.shape)}, "
             f"chunk {chunk}")
+    if r.device.type in ("cpu", "cuda") and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (r, k, v, logw, u, state)):
+        return Wkv6Fn.apply(r, k, v, logw, u, state, chunk)
     if r.device.type == "cpu":
         return wkv6_chunked_ref(r, k, v, logw, u, chunk, state)
     if r.device.type == "cuda":

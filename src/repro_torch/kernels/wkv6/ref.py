@@ -41,10 +41,14 @@ def wkv6_chunked_ref(r, k, v, logw, u, chunk: int, state=None):
         r_c, k_c, v_c, w_c = rc[:, c], kc[:, c], vc[:, c], wc[:, c]
         cw = torch.cumsum(w_c, dim=1)  # inclusive
         cw_prev = cw - w_c  # exclusive
-        # A[i, j] = sum_e r_i k_j exp(cw_prev_i - cw_j), j < i
-        decay = torch.exp(cw_prev[:, :, None] - cw[:, None])  # [b,I,J,h,e]
+        # A[i, j] = sum_e r_i k_j exp(cw_prev_i - cw_j), j < i.  The pairs
+        # j >= i are selected away in the exponent (exp(-inf) = 0), not
+        # after it: there the exponent is positive and may overflow, and
+        # an inf times a zero cotangent would make the backward NaN
+        expo = cw_prev[:, :, None] - cw[:, None]  # [b,I,J,h,e]
+        decay = torch.exp(torch.where(strict[:, :, None, None], expo,
+                                      float("-inf")))
         A = torch.einsum("bihe,bijhe,bjhe->bhij", r_c, decay, k_c)
-        A = torch.where(strict, A, 0.0)
         diag = torch.einsum("bihe,he,bihe->bih", r_c, uf, k_c)
         o = torch.einsum("bhij,bjhe->bihe", A, v_c)
         o = o + diag[..., None] * v_c

@@ -19,6 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.kernels.common import resolve_device
@@ -115,6 +116,25 @@ def block_apply(params, x, cfg: ModelConfig, *, window: int = 0,
     return x + _gated(m, params, "gate_mlp", context is not None), aux
 
 
+def layer_call(remat: bool):
+    """How a model calls a layer unit, ``call(fn, *args)``: with ``remat``
+    while grad is enabled, under ``torch.utils.checkpoint`` (non-reentrant:
+    the unit's activations are dropped after its forward and recomputed in
+    the backward), as the JAX package's ``remat="full"`` in train mode;
+    else a plain call."""
+    if remat and torch.is_grad_enabled():
+        return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False,
+                                            preserve_rng_state=False)
+    return lambda fn, *args: fn(*args)
+
+
+def _sum_aux(a1: dict, a2: dict) -> dict:
+    """Two blocks' aux losses added, as the JAX package's pair unit adds
+    them before the scan's accumulation."""
+    return {k: a1.get(k, 0.0) + a2.get(k, 0.0) for k in set(a1) | set(a2)
+            if k.endswith("loss")}
+
+
 #: the aux losses summed over the layers (``expert_fraction`` is not)
 AUX_LOSSES = ("load_balance_loss", "router_z_loss")
 
@@ -139,16 +159,23 @@ def _accumulate_aux(acc: dict, aux: dict) -> dict:
 
 def kv_cache_param(cfg: ModelConfig, batch: int, cache_len: int,
                    stacked: int = 0, dtype: str = "bfloat16") -> dict:
-    if cfg.kv_quant:
-        raise NotImplementedError(
-            "the int8 KV cache (quantize_kv / dequantize_kv in "
-            "nn/attention.py) is not ported yet (ROADMAP.md, \"Modules "
-            "still to port\")")
+    """The KV cache of ``stacked`` layers (0: one, unstacked): bf16 ``k``
+    and ``v`` [.., batch, S, kvh, hd], or with ``cfg.kv_quant`` int8
+    ``k``/``v`` and fp16 ``k_scale``/``v_scale`` [.., batch, S, kvh]; every
+    leaf's batch on ``CACHE_BATCH_AXIS`` when stacked."""
     shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
     axes = ("batch", "kv_seq", "kv_heads", None)
     if stacked:
         shape = (stacked,) + shape
         axes = ("layers",) + axes
+    if cfg.kv_quant:
+        s_shape, s_axes = shape[:-1], axes[:-1]
+        return {
+            "k": Param(shape, axes, init="zeros", dtype="int8"),
+            "k_scale": Param(s_shape, s_axes, init="zeros", dtype="float16"),
+            "v": Param(shape, axes, init="zeros", dtype="int8"),
+            "v_scale": Param(s_shape, s_axes, init="zeros", dtype="float16"),
+        }
     return {
         "k": Param(shape, axes, init="zeros", dtype=dtype),
         "v": Param(shape, axes, init="zeros", dtype=dtype),

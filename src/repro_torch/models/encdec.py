@@ -23,7 +23,8 @@ from torch import nn
 from repro_torch.core.config import ModelConfig
 from repro_torch.models.common import (BaseModel, _zero_aux, block_spec,
                                        cache_index, cross_cache_param,
-                                       kv_cache_param, norm_apply, norm_spec)
+                                       kv_cache_param, layer_call, norm_apply,
+                                       norm_spec)
 from repro_torch.nn.attention import (attention_apply, attention_spec,
                                       cross_attention_cached)
 from repro_torch.nn.embedding import embed_tokens, embedding_spec, lm_logits
@@ -104,12 +105,14 @@ class EncDecLM(BaseModel):
         h = norm_apply(unit["ln_mlp"], x, cfg)
         return x + mlp_apply(unit["mlp"], h, cfg)
 
-    def encode(self, frames):
-        """frames [b, t, media_dim] -> the encoder's output [b, t, d]."""
+    def encode(self, frames, remat=False):
+        """frames [b, t, media_dim] -> the encoder's output [b, t, d]; with
+        ``remat`` each layer is rematted while grad is enabled."""
         x = dense(self.frontend, frames)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        call = layer_call(remat)
         for unit in self.encoder:
-            x = self._enc_layer(unit, x, positions)
+            x = call(self._enc_layer, unit, x, positions)
         return norm_apply(self.ln_enc, x, self.cfg)
 
     # -- decoder -----------------------------------------------------------------
@@ -135,11 +138,13 @@ class EncDecLM(BaseModel):
         h = norm_apply(unit["ln_mlp"], x, cfg)
         return x + mlp_apply(unit["mlp"], h, cfg)
 
-    def _decode_stack(self, x, *, enc_out, positions, window, mode, cache):
+    def _decode_stack(self, x, *, enc_out, positions, window, mode, cache,
+                      remat=False):
+        call = layer_call(remat and cache is None)
         for i, unit in enumerate(self.decoder):
-            x = self._dec_layer(unit, x, enc_out=enc_out, positions=positions,
-                                window=window, mode=mode,
-                                cache=cache_index(cache, i))
+            x = call(lambda u, xx, c: self._dec_layer(
+                u, xx, enc_out=enc_out, positions=positions, window=window,
+                mode=mode, cache=c), unit, x, cache_index(cache, i))
         x = norm_apply(self.ln_f, x, self.cfg)
         return lm_logits(self.embed, x, self.cfg)
 
@@ -154,11 +159,13 @@ class EncDecLM(BaseModel):
         tokens = batch["tokens"]
         positions = torch.arange(tokens.shape[1],
                                  device=tokens.device)[None, :]
-        enc_out = self.encode(batch["frames"])
+        remat = mode == "train" and cache is None
+        enc_out = self.encode(batch["frames"], remat)
         x = embed_tokens(self.embed, tokens, self.cfg)
         window = self.cfg.sliding_window or window_override
         logits = self._decode_stack(x, enc_out=enc_out, positions=positions,
-                                    window=window, mode="full", cache=cache)
+                                    window=window, mode="full", cache=cache,
+                                    remat=remat)
         aux = _zero_aux(logits.device)
         if cache is not None:
             return logits, cache, aux

@@ -13,8 +13,8 @@ from __future__ import annotations
 from torch import nn
 
 from repro_torch.core.config import ModelConfig
-from repro_torch.models.common import (BaseModel, cache_index, norm_apply,
-                                       norm_spec)
+from repro_torch.models.common import (BaseModel, cache_index, layer_call,
+                                       norm_apply, norm_spec)
 from repro_torch.nn.embedding import embed_tokens, embedding_spec, lm_logits
 from repro_torch.nn.param import Param, ParamTree, stack_spec
 from repro_torch.nn.rwkv import (rwkv_channel_apply, rwkv_channel_spec,
@@ -58,19 +58,22 @@ class RWKV6LM(BaseModel):
         return self
 
     # -- compute --------------------------------------------------------------
-    def _run(self, tokens, mode, cache):
+    def _layer(self, unit, x, mode, c_i):
+        cfg = self.cfg
+        h = norm_apply(unit["ln1"], x, cfg)
+        x = x + rwkv_time_apply(unit["time"], h, cfg, mode=mode,
+                                cache=None if c_i is None else c_i["time"])
+        h = norm_apply(unit["ln2"], x, cfg)
+        return x + rwkv_channel_apply(
+            unit["chan"], h, cfg, cache=None if c_i is None else c_i["chan"])
+
+    def _run(self, tokens, mode, cache, remat=False):
         cfg = self.cfg
         x = embed_tokens(self.embed, tokens, cfg)
         x = norm_apply(self.ln0, x, cfg)
+        call = layer_call(remat and cache is None)
         for i, unit in enumerate(self.layers):
-            c_i = cache_index(cache, i)
-            h = norm_apply(unit["ln1"], x, cfg)
-            x = x + rwkv_time_apply(unit["time"], h, cfg, mode=mode,
-                                    cache=None if c_i is None else c_i["time"])
-            h = norm_apply(unit["ln2"], x, cfg)
-            x = x + rwkv_channel_apply(
-                unit["chan"], h, cfg,
-                cache=None if c_i is None else c_i["chan"])
+            x = call(self._layer, unit, x, mode, cache_index(cache, i))
         x = norm_apply(self.ln_f, x, cfg)
         return lm_logits(self.embed, x, cfg)
 
@@ -79,9 +82,11 @@ class RWKV6LM(BaseModel):
         """batch: {"tokens": [b, s]} -> (fp32 logits [b, s, V], aux), or
         with ``cache`` (logits, cache, aux): the prompt's last tokens and
         final states written into ``cache`` in place.  The body always runs
-        in full (chunked) mode, as in the JAX package; ``window_override``
-        is accepted and ignored (no attention)."""
-        logits = self._run(batch["tokens"], "full", cache)
+        in full (chunked) mode, as in the JAX package, each layer rematted
+        in train mode; ``window_override`` is accepted and ignored (no
+        attention)."""
+        logits = self._run(batch["tokens"], "full", cache,
+                           remat=mode == "train")
         if cache is not None:
             return logits, cache, {}
         return logits, {}

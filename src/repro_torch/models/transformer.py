@@ -17,8 +17,9 @@ from torch import nn
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.models.common import (BaseModel, _accumulate_aux,
-                                       _zero_aux, block_apply, block_spec,
-                                       cache_index, kv_cache_param,
+                                       _sum_aux, _zero_aux, block_apply,
+                                       block_spec, cache_index,
+                                       kv_cache_param, layer_call,
                                        norm_apply, norm_spec)
 from repro_torch.nn.embedding import embed_tokens, embedding_spec, lm_logits
 from repro_torch.nn.param import ParamTree, stack_spec
@@ -72,24 +73,35 @@ class TransformerLM(BaseModel):
             return cfg.sliding_window, window_override
         return cfg.sliding_window or window_override, 0
 
+    def _unit(self, unit, x, c_i, lw, gw, kw):
+        """One layer unit (a local/global pair for gemma2) -> (its output,
+        its blocks' aux losses summed)."""
+        if self.pair:
+            blocks = [(unit[k], w, None if c_i is None else c_i[k])
+                      for k, w in (("local", lw), ("global", gw))]
+        else:
+            blocks = [(unit, lw, c_i)]
+        aux: dict = {}
+        for params, window, c in blocks:
+            x, a = block_apply(params, x, self.cfg, window=window, cache=c,
+                               **kw)
+            aux = _sum_aux(aux, a) if self.pair else a
+        return x, aux
+
     def _layers(self, x, positions, mode, cache, lw, gw, moe_mode="train",
                 aux=None):
         """(the final norm of the last block's output, ``aux`` plus the
-        blocks' aux losses; None stays None: a decode step sums none)."""
+        blocks' aux losses; None stays None: a decode step sums none).  A
+        forward in train mode without a cache remats each unit."""
         kw = dict(positions=positions, mode=mode, use_moe=self.use_moe,
                   moe_mode=moe_mode)
+        call = layer_call(mode == "full" and moe_mode == "train"
+                          and cache is None)
         for i, unit in enumerate(self.layers):
-            c_i = cache_index(cache, i)
-            if self.pair:
-                blocks = [(unit[k], w, None if c_i is None else c_i[k])
-                          for k, w in (("local", lw), ("global", gw))]
-            else:
-                blocks = [(unit, lw, c_i)]
-            for params, window, c in blocks:
-                x, a = block_apply(params, x, self.cfg, window=window,
-                                   cache=c, **kw)
-                if aux is not None:
-                    aux = _accumulate_aux(aux, a)
+            x, a = call(self._unit, unit, x, cache_index(cache, i), lw, gw,
+                        kw)
+            if aux is not None:
+                aux = _accumulate_aux(aux, a)
         return norm_apply(self.ln_f, x, self.cfg), aux
 
     # -- forward (prefill) ------------------------------------------------------

@@ -30,7 +30,7 @@ from repro_torch.core.config import ModelConfig
 from repro_torch.models.common import (BaseModel, _gated, _zero_aux,
                                        block_apply, block_spec, cache_index,
                                        cross_cache_param, kv_cache_param,
-                                       norm_apply, norm_spec)
+                                       layer_call, norm_apply, norm_spec)
 from repro_torch.nn.attention import cross_attention_cached
 from repro_torch.nn.embedding import embed_tokens, embedding_spec, lm_logits
 from repro_torch.nn.linear import dense, linear_spec
@@ -116,6 +116,13 @@ class VisionLM(BaseModel):
                            cache=cache)
         return x
 
+    def _group(self, g, x, media, window, positions, self_c, cross_c):
+        """Group ``g`` in full mode: its self layers, then its cross layer
+        (the JAX package's scan unit, rematted in train mode)."""
+        x = self._self_layers(g, x, window=window, positions=positions,
+                              mode="full", cache=self_c)
+        return self._cross_prefill(g, x, media, positions, cross_c)
+
     def forward(self, batch: dict, mode: str = "train", *,
                 window_override: int = 0, cache=None):
         """batch: {"tokens": [b, s], "media_embeds": [b, t, media_dim]} ->
@@ -132,11 +139,10 @@ class VisionLM(BaseModel):
         window = cfg.sliding_window or window_override
         self_c = None if cache is None else cache["self"]
         cross_c = None if cache is None else cache["cross"]
+        call = layer_call(mode == "train" and cache is None)
         for g in range(self.n_groups):
-            x = self._self_layers(g, x, window=window, positions=positions,
-                                  mode="full", cache=self_c)
-            x = self._cross_prefill(g, x, media, positions,
-                                    cache_index(cross_c, g))
+            x = call(self._group, g, x, media, window, positions, self_c,
+                     cache_index(cross_c, g))
         x = norm_apply(self.ln_f, x, cfg)
         logits = lm_logits(self.embed, x, cfg)
         aux = _zero_aux(logits.device)

@@ -28,7 +28,8 @@ from torch import nn
 from repro_torch.core.config import ModelConfig
 from repro_torch.models.common import (BaseModel, _zero_aux, block_apply,
                                        block_spec, cache_index,
-                                       kv_cache_param, norm_apply, norm_spec)
+                                       kv_cache_param, layer_call, norm_apply,
+                                       norm_spec)
 from repro_torch.nn.embedding import embed_tokens, embedding_spec, lm_logits
 from repro_torch.nn.linear import dense, linear_spec
 from repro_torch.nn.param import Param, ParamTree, stack_spec
@@ -142,20 +143,28 @@ class Zamba2LM(BaseModel):
         scale = self.layerscale["scale"][gi].to(out.dtype)
         return x + out * scale
 
-    def _run(self, x, embeds, *, mode, positions, window, cache):
+    def _run(self, x, embeds, *, mode, positions, window, cache,
+             remat=False):
         mamba_c = None if cache is None else cache["mamba"]
+        call = layer_call(remat and cache is None)
+        shared = (lambda xx, ee, gi: self._shared_apply(
+            xx, ee, gi, window=window, positions=positions, mode=mode,
+            cache=None))
         for gi in range(self.n_groups):
             for j in range(self.group):
                 i = gi * self.group + j
-                x = self._mamba_block(self.mamba[i], x, mode,
-                                      cache_index(mamba_c, i))
-            x = self._shared_apply(
-                x, embeds, gi, window=window, positions=positions, mode=mode,
-                cache=None if cache is None
-                else cache_index(cache["shared_kv"], gi))
+                x = call(self._mamba_block, self.mamba[i], x, mode,
+                         cache_index(mamba_c, i))
+            if cache is None:
+                x = call(shared, x, embeds, gi)
+            else:
+                x = self._shared_apply(
+                    x, embeds, gi, window=window, positions=positions,
+                    mode=mode, cache=cache_index(cache["shared_kv"], gi))
         tail_c = None if cache is None else cache.get("mamba_tail")
         for i, unit in enumerate(self.mamba_tail):
-            x = self._mamba_block(unit, x, mode, cache_index(tail_c, i))
+            x = call(self._mamba_block, unit, x, mode,
+                     cache_index(tail_c, i))
         x = norm_apply(self.ln_f, x, self.cfg)
         return lm_logits(self.embed, x, self.cfg)
 
@@ -165,14 +174,17 @@ class Zamba2LM(BaseModel):
         with ``cache`` (logits, cache, aux): the prompt's conv rows, final
         SSD states and k/v written into ``cache`` in place.  Whatever
         ``mode`` is, the Mamba blocks run the chunked scan and the shared
-        block its full attention, as in the JAX package; aux is zeros."""
+        block its full attention, as in the JAX package; in train mode each
+        Mamba block and each shared invocation is rematted; aux is
+        zeros."""
         tokens = batch["tokens"]
         positions = torch.arange(tokens.shape[1],
                                  device=tokens.device)[None, :]
         embeds = embed_tokens(self.embed, tokens, self.cfg)
         window = self.cfg.sliding_window or window_override
         logits = self._run(embeds, embeds, mode="full", positions=positions,
-                           window=window, cache=cache)
+                           window=window, cache=cache,
+                           remat=mode == "train")
         aux = _zero_aux(logits.device)
         if cache is not None:
             return logits, cache, aux

@@ -15,11 +15,17 @@ model runs.
   there, rounded to the cache's dtype.  A decode step reads them back
   through :func:`cross_attention_cached`, plain PyTorch.
 
+The int8 cache (``cfg.kv_quant``: int8 ``k``/``v`` and fp16
+``k_scale``/``v_scale``, one scale a (slot, kv head)) takes the prefill's
+k/v through :func:`quantize_kv` and a decode step's through
+:func:`cache_update_quant`, and a decode step attends over it with
+:func:`decode_attention_quant`: plain PyTorch on every device, as the JAX
+package's jnp is on every backend (it has no kernel for any of it).
+
 Unlike the JAX package, the cache is updated in place: ``attention_apply``
 writes into the tensors of ``cache`` (views of the model's stacked cache)
-and returns only its output.  The int8 cache (``quantize_kv`` /
-``dequantize_kv``) and the backward are not ported yet (ROADMAP.md,
-"Modules still to port").
+and returns only its output.  Training passes no cache, so no in-place
+write ever touches a tensor that autograd saved.
 """
 from __future__ import annotations
 
@@ -122,12 +128,103 @@ def cache_update(k_cache, v_cache, k_new, v_new, positions, window: int = 0):
     return k_cache, v_cache
 
 
+def quantize_kv(x):
+    """x: [b, s, kvh, hd] -> (int8 values, fp16 scales [b, s, kvh]), as
+    the JAX package's ``quantize_kv``: the scale max|x| / 127 is floored
+    at 1e-8 and rounded to fp16 *before* the division, so the
+    dequantization error is at most scale / 2; then ``round`` (half to
+    even, as ``jnp.round``) and a clip to [-127, 127].  The floor itself
+    rounds to 0 in fp16, so an all-zero row has a zero scale; its 0 / 0
+    is taken as 0 and a nonzero x / 0 clips to +-127, as JAX's
+    conversion gives them."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(dim=-1) / 127.0, 1e-8).to(
+        torch.float16)
+    y = torch.round(xf / scale.float()[..., None])
+    q = torch.nan_to_num(y, nan=0.0).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_kv(q, scale):
+    return q.to(torch.bfloat16) * scale[..., None].to(torch.bfloat16)
+
+
+def decode_attention_quant(
+    q,  # [b, 1, h, hd]
+    k_q, k_s, v_q, v_s,  # int8 caches [b, S, kvh, hd] + fp16 scales [b, S, kvh]
+    positions,  # [b]
+    *,
+    window: int = 0,
+    attn_softcap: float = 0.0,
+    scale: Optional[float] = None,
+    block: int = 4096,
+):
+    """One token per request against an int8 cache, as the JAX package's
+    ``decode_attention_quant``: an online softmax over ``block``-row
+    blocks of the cache (``S`` a multiple of the block), the int8 values
+    upcast to fp32 as dot operands, and each slot's scales folded into the
+    fp32 score (k) and probability (v) vectors."""
+    b, _, h, hd = q.shape
+    S, kvh = k_q.shape[1], k_q.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    blk = min(block, S)
+    assert S % blk == 0, (S, blk)
+    qf = _grouped(q, kvh)[:, 0].float()  # [b, kvh, group, hd]
+    pos = positions.to(q.device).long()[:, None]  # [b, 1]
+    group = h // kvh
+    m = torch.full((b, kvh, group), NEG_INF, device=q.device)
+    l = torch.zeros((b, kvh, group), device=q.device)
+    acc = torch.zeros((b, kvh, group, hd), device=q.device)
+    for j in range(S // blk):
+        rows = slice(j * blk, (j + 1) * blk)
+        ks = k_s[:, rows].float().permute(0, 2, 1)[:, :, None]  # [b,kvh,1,k]
+        vs = v_s[:, rows].float().permute(0, 2, 1)[:, :, None]
+        s = torch.einsum("bjgd,bkjd->bjgk", qf, k_q[:, rows].float()) * ks
+        s = softcap(s * scale, attn_softcap)
+        idx = j * blk + torch.arange(blk, device=q.device)[None, :]
+        if window > 0:
+            p_slot = pos - torch.remainder(pos - idx, S)
+            valid = (p_slot >= 0) & (p_slot >= pos - window + 1)
+        else:
+            valid = idx <= pos
+        s = torch.where(valid[:, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        row_ok = m_new > NEG_INF / 2
+        p = torch.exp(s - m_new[..., None]) * row_ok[..., None]
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bjgk,bkjd->bjgd", p * vs, v_q[:, rows].float())
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def cache_update_quant(cache: dict, k_new, v_new, positions,
+                       window: int = 0) -> dict:
+    """Quantize one new (k, v) per request and write values and scales
+    into the int8 cache in place (the slot as :func:`cache_update`)."""
+    S = cache["k"].shape[1]
+    pos = positions.to(cache["k"].device).long()
+    slots = torch.remainder(pos, S) if window > 0 else pos
+    bidx = torch.arange(cache["k"].shape[0], device=cache["k"].device)
+    for name, new in (("k", k_new), ("v", v_new)):
+        vals, scales = quantize_kv(new)
+        cache[name][bidx, slots] = vals[:, 0]
+        cache[name + "_scale"][bidx, slots] = scales[:, 0]
+    return cache
+
+
 def _prefill_cache(cache: dict, k, v) -> None:
-    """Write a prompt's k/v into the cache rows.  For a ring buffer
-    (S < s) position p lives in slot p % S, so the last S tokens are
-    written rolled by (s - S) % S."""
+    """Write a prompt's k/v into the cache rows, quantized first for an
+    int8 cache.  For a ring buffer (S < s) position p lives in slot p % S,
+    so the last S tokens are written rolled by (s - S) % S."""
     s = k.shape[1]
-    for name, src in (("k", k), ("v", v)):
+    srcs = {"k": k, "v": v}
+    if "k_scale" in cache:
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        srcs = {"k": kq, "k_scale": ks, "v": vq, "v_scale": vs}
+    for name, src in srcs.items():
         c = cache[name]
         S = c.shape[1]
         if S >= s:
@@ -193,7 +290,8 @@ def attention_apply(
 
     if context is not None:
         out = flash_attention(q, k, v, causal=False, window=0,
-                              attn_softcap=cfg.attn_softcap, scale=scale)
+                              attn_softcap=cfg.attn_softcap, scale=scale,
+                              chunk=cfg.attn_chunk)
         if cache is not None:
             cache["k"].copy_(k)
             cache["v"].copy_(v)
@@ -204,7 +302,8 @@ def attention_apply(
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
         out = flash_attention(q, k, v, causal=causal, window=window,
-                              attn_softcap=cfg.attn_softcap, scale=scale)
+                              attn_softcap=cfg.attn_softcap, scale=scale,
+                              chunk=cfg.attn_chunk)
         if cache is not None:
             _prefill_cache(cache, k, v)
     elif mode == "decode":
@@ -213,9 +312,17 @@ def attention_apply(
         if use_rope:
             q = apply_rope(q, pos[:, None], cfg.rope_theta)
             k = apply_rope(k, pos[:, None], cfg.rope_theta)
-        kc, vc = cache_update(cache["k"], cache["v"], k, v, pos, window)
-        out = decode_attention(q, kc, vc, pos, window=window,
-                               attn_softcap=cfg.attn_softcap, scale=scale)
+        if "k_scale" in cache:  # int8 cache
+            cache_update_quant(cache, k, v, pos, window)
+            out = decode_attention_quant(
+                q, cache["k"], cache["k_scale"], cache["v"],
+                cache["v_scale"], pos, window=window,
+                attn_softcap=cfg.attn_softcap, scale=scale)
+        else:
+            kc, vc = cache_update(cache["k"], cache["v"], k, v, pos, window)
+            out = decode_attention(q, kc, vc, pos, window=window,
+                                   attn_softcap=cfg.attn_softcap,
+                                   scale=scale)
     else:
         raise ValueError(f"unknown attention mode {mode!r}")
     return dense(params["wo"], out.reshape(b, s, cfg.q_dim))

@@ -4,6 +4,7 @@ the padding is masked out of the logits."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.nn.attention import NEG_INF, softcap
@@ -22,7 +23,11 @@ def embedding_spec(cfg: ModelConfig) -> dict:
 
 
 def embed_tokens(params, tokens, cfg: ModelConfig, scale_by_dim: bool = False):
-    x = params["tok"][tokens]
+    """The table's rows at ``tokens``, through ``F.embedding``: the values
+    of the gather ``params["tok"][tokens]``, with a backward that sums a
+    row's gradients in a fixed order on the card (the gather's
+    accumulating ``index_put_`` does not)."""
+    x = F.embedding(tokens, params["tok"])
     if scale_by_dim:  # gemma convention, the scale in the activation dtype
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)

@@ -8,6 +8,12 @@ package's init rules, and :class:`ParamTree` holds one as an
 (``params["attn"]["wq"]["w"]``).  The two packages draw different
 numbers from the same seed, so weights cross between them through
 ``repro_torch.models.common.params_from_jax``, never through the seed.
+
+A loaded leaf is a frozen parameter aliasing the tree's tensor (or entry
+``index`` of a stacked leaf), so a trainer (``train/step.py``) can make
+the leaves trainable and point each one's ``.grad`` at the matching view
+of a stacked gradient buffer: autograd then accumulates in place, and the
+gradients come out as a tree with the JAX package's keys and shapes.
 """
 from __future__ import annotations
 

@@ -183,8 +183,15 @@ def _ssd_chunked(x, dt, A, B, C, chunk: int):
     S_in = x.new_zeros((nc + 1, b, h, p, n), dtype=torch.float32)
     Sc = Sc.transpose(0, 1).contiguous()
     decay = decay.transpose(0, 1)[..., None, None].contiguous()
-    for c in range(nc):
-        torch.addcmul(Sc[c], S_in[c], decay[c], out=S_in[c + 1])
+    if torch.is_grad_enabled() and (Sc.requires_grad or decay.requires_grad):
+        # the same sums out of place, so that autograd can follow them
+        states = [S_in[0]]
+        for c in range(nc):
+            states.append(torch.addcmul(Sc[c], states[c], decay[c]))
+        S_in = torch.stack(states)
+    else:
+        for c in range(nc):
+            torch.addcmul(Sc[c], S_in[c], decay[c], out=S_in[c + 1])
     # contribution of the state entering each chunk
     Sp = S_in[:nc].transpose(0, 1).reshape(b, nc, h * p, n)
     ys = (Cc @ Sp.transpose(-1, -2)).reshape(b, nc, L, h, p)
