@@ -81,6 +81,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the CPU (max abs <= 1e-4 · max(1, max|CPU|), same argmax), repeat bit
    for bit, and are timed with CUDA events beside the default fused
    forward on the same weights and frames;
+5c. static analysis on the card: every plan phases 4 and 5 launched (the
+   rungs of the three nets and the tuned deployment) verified by
+   ``repro_torch.analysis.verifier.verify_plan`` at batch 1 and 16 on the
+   card's SMs, which must find nothing; each plan run again at batch 1
+   and 16 with the wrappers' launch-geometry functions recorded, and the
+   geometry each launch computed must be the one the verifier read
+   (``step_launch_geometry``: the same call and the same memo entry);
+   the stage-major kernel's resident blocks an SM (the occupancy query)
+   at least ``CH_MIN_BLOCKS``, which the verifier's V304 assumes; the
+   largest dynamic shared memory the verifier admitted, per kernel,
+   within the card's opt-in limit.  It prints one ``static_analysis``
+   line and its wall time;
 6. serving: ``CNNServer`` over full-width AlexNet on the card
    (``max_batch=16``, a fake clock, the default degradation ladder with
    ``queue_high=0, degrade_after=1, cooldown=0``) takes ragged waves of
@@ -441,6 +453,8 @@ HOST_REPS = 20
 COST_ITERS = 40
 COST_RHO = 0.8
 COST_NETS = ("alexnet", "cifar10", "lenet5")
+#: phase 5c: the batches the verifier and the recorded forwards run at
+STATIC_BATCHES = (1, 16)
 #: the kernel a per-layer conv of each method launches (seq_ref: none)
 CONV_KERNEL = {"advanced_simd_4": "K1", "advanced_simd_8": "K1",
                "basic_simd": "K7", "basic_parallel": "K8"}
@@ -1073,6 +1087,97 @@ def cost_phase(torch, np, nets, np_params, dev, counters, card):
         lambda x: gated.execute(params["alexnet"], x),
         lambda x: gated.execute(cpu_params["alexnet"], x), gated, x,
         counters, card, lambda x: default.forward(params["alexnet"], x))
+    return rec
+
+
+def static_phase(torch, np, nets, np_params, dev, card):
+    """Phase 5c (see the module docstring); returns its record."""
+    from repro_torch.analysis.verifier import (launch_smem,
+                                               step_launch_geometry,
+                                               verify_plan)
+    from repro_torch.core.deploy import params_from_numpy
+    from repro_torch.core.engine import CNNEngine
+    from repro_torch.core.methods import Method
+    from repro_torch.core.plan import compile_plan
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.conv2d import ops as conv_ops
+    from repro_torch.kernels.pool2d import ops as pool_ops
+
+    t0 = time.perf_counter()
+    props = torch.cuda.get_device_properties(dev)
+    sms = props.multi_processor_count
+    optin = props.shared_memory_per_block_optin
+    plans = [(name, f"{m}/{'fused' if f else 'unfused'}",
+              CNNEngine(net, method=Method(m), fuse_pool=f).plan())
+             for name, net in nets.items() for m, f in RUNGS]
+    plans.append(("alexnet", "tuned", compile_plan(nets["alexnet"], **TUNED)))
+    # what the verifier reads, before the launch functions are recorded
+    want, findings, steps, max_smem = {}, [], 0, {}
+    for name, label, plan in plans:
+        findings += [f"{name} {label}: {f}" for f in verify_plan(
+            plan, batches=STATIC_BATCHES, sms=sms)]
+        for n in STATIC_BATCHES:
+            got = [step_launch_geometry(plan, s, n, sms) for s in plan.steps]
+            want[name, label, n] = [g for g in got if g is not None]
+            steps += len(want[name, label, n])
+            for kid, launch in want[name, label, n]:
+                max_smem[kid] = max(max_smem.get(kid, 0),
+                                    launch_smem(kid, launch))
+    if findings:
+        fail(f"static analysis: {len(findings)} finding(s): {findings[:5]}")
+    # what the forwards launch: every launch-geometry call recorded
+    calls = []
+    mods = ((conv_ops, "chain_launch"), (conv_ops, "k7_launch"),
+            (conv_ops, "k8_launch"), (pool_ops, "pool_launch"))
+    real = {fn: getattr(mod, fn) for mod, fn in mods}
+
+    def recorder(fn):
+        def call(*args):
+            out = real[fn](*args)
+            calls.append((fn, args, out))
+            return out
+        return call
+
+    rng = np.random.default_rng(SEED)
+    try:
+        for mod, fn in mods:
+            setattr(mod, fn, recorder(fn))
+        for name, label, plan in plans:
+            params = params_from_numpy(np_params[name], dev)
+            for n in STATIC_BATCHES:
+                x = torch.from_numpy(rng.standard_normal(
+                    (n, *nets[name].input_shape)).astype(np.float32)).to(dev)
+                calls.clear()
+                plan.execute(params, x)
+                torch.cuda.synchronize()
+                exp = want[name, label, n]
+                same = len(calls) == len(exp) and all(
+                    (fn, args) == (launch.fn, launch.args)
+                    and (out is launch.geometry if fn != "pool_launch"
+                         else out == launch.geometry)
+                    for (fn, args, out), (_, launch) in zip(calls, exp))
+                if not same:
+                    fail(f"static analysis: {name} {label} batch {n} "
+                         f"launched the geometry of {[c[:2] for c in calls]}"
+                         f", the verifier read "
+                         f"{[(g.fn, g.args) for _, g in exp]}")
+    finally:
+        for mod, fn in mods:
+            setattr(mod, fn, real[fn])
+    per_sm = _build.library().stage_major_blocks_per_sm()
+    if per_sm < conv_ops.CH_MIN_BLOCKS:
+        fail(f"static analysis: the stage-major kernel holds {per_sm} "
+             f"blocks an SM, V304 assumes {conv_ops.CH_MIN_BLOCKS}")
+    if max(max_smem.values()) > optin:
+        fail(f"static analysis: admitted shared memory {max_smem} past the "
+             f"card's opt-in {optin} B")
+    wall = time.perf_counter() - t0
+    rec = {"plans": len(plans), "steps": steps,
+           "batches": list(STATIC_BATCHES), "findings": len(findings),
+           "sms": sms, "blocks_per_sm": per_sm,
+           "ch_min_blocks": conv_ops.CH_MIN_BLOCKS,
+           "smem_optin": optin, "max_smem": max_smem, "wall_s": wall}
+    print(f"phase 5c wall time {wall:.1f} s [{card}]", flush=True)
     return rec
 
 
@@ -3634,6 +3739,10 @@ def main() -> int:
     print("cost " + json.dumps({k: v for k, v in cost.items()
                                 if k not in ("rows_us",)}), flush=True)
 
+    # -- 5c. static analysis on the card ------------------------------------
+    static = static_phase(torch, np, nets, np_params, dev, card_line)
+    print(json.dumps({"static_analysis": static}), flush=True)
+
     # -- 6. serving: CNNServer walks the degradation ladder -----------------
     serving = serving_phase(torch, np, nets["alexnet"], np_params["alexnet"],
                             rng, dev, counters)
@@ -3877,7 +3986,7 @@ def main() -> int:
             {"card": card_line, "kind": kind, "torch": torch.__version__,
              "cuda": torch.version.cuda, "build_log": _build.build_log,
              "cases": cases, "engine": engine_rows, "tuned": tuned,
-             "cost": cost,
+             "cost": cost, "static_analysis": static,
              "serving": serving, "lm_cases": lm_cases,
              "lm_parity": lm_parity, "lm": lm, "rwkv_cases": rwkv_cases,
              "rwkv_parity": rwkv_parity, "rwkv": rwkv,

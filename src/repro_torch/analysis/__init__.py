@@ -1,2 +1,4 @@
-"""Static analysis of the port's execution plans: findings and the
-shape-flow verifier."""
+"""Static analysis of the port: findings, the plan verifier (shape flow
+and the CUDA kernels' launch geometry) and the lint.  ``README.md`` has
+the rules; ``repro_torch.tools.sanitize`` runs compute-sanitizer on the
+card."""

@@ -8,8 +8,9 @@ format: for the same net, weights, ``extra`` and ``tuned`` both packages
 write a byte-identical manifest, so an artifact written by either loads
 in the other.  ``load_model`` reads it with the same integrity and
 geometry checks into tensors on the requested device and verifies the
-plan (under the tuned knobs, if any) with the port's shape-flow verifier
-(V101–V103).  ``load_engine`` rebuilds a ``CNNEngine`` configured to the
+plan (under the tuned knobs, if any) with the port's plan verifier (shape
+flow and every kernel's launch geometry at the serving buckets, on the
+device's SMs).  ``load_engine`` rebuilds a ``CNNEngine`` configured to the
 tuned plan, on ``cuda`` unless asked for another device.
 ``params_from_numpy`` carries a JAX parameter tree (as numpy arrays)
 across: conv weights stay OIHW and fc weights ``[d_in, d_out]``, so both
@@ -31,12 +32,12 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.analysis.verifier import verify_plan
+from repro_torch.analysis.verifier import DEFAULT_SMS, verify_plan
 from repro_torch.core.engine import CNNEngine
 from repro_torch.core.methods import Method
 from repro_torch.core.netdefs import LayerSpec, NetworkDef
 from repro_torch.core.plan import compile_plan, infer_param_shapes
-from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.common import resolve_device, sm_count
 
 FORMAT_VERSION = 1
 
@@ -205,11 +206,13 @@ def load_model(path, device: Optional[Union[str, torch.device]] = None
                     f"{want} for the declared architecture, manifest "
                     f"records {got}")
     # the plan, under the tuned knobs if there are any, must lower and
-    # pass the shape-flow verifier: a tampered tuning fails the load, not
-    # the first batch
+    # pass the verifier at the serving buckets on the device's SMs: a
+    # tampered tuning or geometry fails the load, not the first batch
     tuned = manifest.get("tuned_plan")
     knobs = plan_knobs(knobs_from_manifest(tuned)) if tuned else {}
-    errors = [f for f in verify_plan(compile_plan(net, **knobs))
+    sms = sm_count(dev) if dev.type == "cuda" else DEFAULT_SMS
+    errors = [f for f in verify_plan(compile_plan(net, verify=False, **knobs),
+                                     sms=sms)
               if f.severity == "error"]
     if errors:
         raise ValueError("plan verification failed: "

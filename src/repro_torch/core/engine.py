@@ -19,8 +19,11 @@ versions run; with no GPU and no device it raises.
   compilations (there is no compiled artifact per bucket yet): batch
   sizes ``1..max_batch`` cost at most ``log2(max_batch)+1``.
 * ``verify`` / ``switch_verified`` gate a configuration change on the
-  shape-flow verifier (``repro_torch.analysis.verifier``): the
-  degradation ladder's check before a rung is served.
+  plan verifier (``repro_torch.analysis.verifier``) at the batch buckets
+  served and the engine's SMs (the card's on cuda): the degradation
+  ladder's check before a rung is served.  ``plan`` compiles with
+  ``compile_plan``'s own check, so a plan with an error finding raises
+  ``PlanVerificationError`` before anything launches.
 * Assigning ``method`` / ``fuse_pool`` / ``fuse_relu``, or mutating a
   ``per_layer_*`` map, drops the memoized plans, forwards and bucket
   records so the next call compiles against the new configuration.
@@ -44,7 +47,7 @@ from repro_torch.analysis.findings import Finding
 from repro_torch.core.methods import Method, conv2d
 from repro_torch.core.netdefs import NetworkDef
 from repro_torch.core.plan import ExecutionPlan, compile_plan, infer_param_shapes
-from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.common import resolve_device, sm_count
 
 
 class _KnobDict(dict):
@@ -217,27 +220,49 @@ class CNNEngine:
         return params
 
     # -- forward ----------------------------------------------------------------
+    def _compile(self, use_fuse: bool, verify: bool) -> ExecutionPlan:
+        return compile_plan(
+            self.net, method=self.method,
+            per_layer_methods=self.per_layer_methods,
+            fuse=use_fuse, fuse_relu=self.fuse_relu,
+            per_layer_fuse=self.per_layer_fuse,
+            per_layer_pool_carry=self.per_layer_pool_carry,
+            per_layer_lrn_oc_block=self.per_layer_lrn_oc_block,
+            per_layer_oc_block_final=self.per_layer_oc_block_final,
+            verify=verify)
+
     def plan(self, fuse: Optional[bool] = None) -> ExecutionPlan:
         """The compiled ``ExecutionPlan`` for this configuration, memoized
-        per fuse flag."""
+        per fuse flag; raises ``PlanVerificationError`` when it has an
+        error finding (``compile_plan``'s check)."""
         use_fuse = self.fuse_pool if fuse is None else bool(fuse)
         if use_fuse not in self._plans:
-            self._plans[use_fuse] = compile_plan(
-                self.net, method=self.method,
-                per_layer_methods=self.per_layer_methods,
-                fuse=use_fuse, fuse_relu=self.fuse_relu,
-                per_layer_fuse=self.per_layer_fuse,
-                per_layer_pool_carry=self.per_layer_pool_carry,
-                per_layer_lrn_oc_block=self.per_layer_lrn_oc_block,
-                per_layer_oc_block_final=self.per_layer_oc_block_final)
+            self._plans[use_fuse] = self._compile(use_fuse, True)
         return self._plans[use_fuse]
 
-    def verify(self, fuse: Optional[bool] = None) -> List[Finding]:
-        """Every finding of the shape-flow verifier on this engine's
-        compiled plan."""
-        from repro_torch.analysis.verifier import verify_plan
+    @property
+    def sms(self) -> int:
+        """SMs the kernels' geometry is planned for: the card's on cuda,
+        the verifier's default (an H100 SXM's 132) elsewhere."""
+        from repro_torch.analysis.verifier import DEFAULT_SMS
 
-        return verify_plan(self.plan(fuse))
+        return (sm_count(self.device) if self.device.type == "cuda"
+                else DEFAULT_SMS)
+
+    def verify(self, fuse: Optional[bool] = None,
+               batches: Optional[Tuple[int, ...]] = None) -> List[Finding]:
+        """Every finding of the plan verifier on this engine's compiled
+        plan, at ``batches`` (default: the buckets of ``max_batch`` 16)
+        on the engine's SMs.  Returns the findings of a plan that
+        ``plan`` would refuse too."""
+        from repro_torch.analysis.verifier import DEFAULT_BATCHES, verify_plan
+
+        use_fuse = self.fuse_pool if fuse is None else bool(fuse)
+        plan = self._plans.get(use_fuse)
+        if plan is None:
+            plan = self._compile(use_fuse, False)
+        return verify_plan(plan, batches=batches or DEFAULT_BATCHES,
+                           sms=self.sms)
 
     #: knob names switch_verified accepts: the port's plan-invalidating
     #: configuration surface (the _knob/_dict_knob descriptors above; the
@@ -246,11 +271,13 @@ class CNNEngine:
              "per_layer_fuse", "per_layer_pool_carry",
              "per_layer_lrn_oc_block", "per_layer_oc_block_final")
 
-    def switch_verified(self, **knobs) -> Tuple[bool, List[Finding]]:
+    def switch_verified(self, *, batches: Optional[Tuple[int, ...]] = None,
+                        **knobs) -> Tuple[bool, List[Finding]]:
         """Apply a candidate knob configuration only if its compiled plan
-        has no error-severity finding; otherwise roll every knob back.
-        Returns ``(switched, findings)``.  Unknown knob names raise — a
-        typo must not silently verify the unchanged configuration."""
+        has no error-severity finding at ``batches`` (``verify``'s
+        default if None); otherwise roll every knob back.  Returns
+        ``(switched, findings)``.  Unknown knob names raise — a typo must
+        not silently verify the unchanged configuration."""
         unknown = set(knobs) - set(self.KNOBS)
         if unknown:
             raise ValueError(f"unknown knob(s): {sorted(unknown)}")
@@ -258,7 +285,7 @@ class CNNEngine:
                         else getattr(self, k)) for k in knobs}
         for k, v in knobs.items():
             setattr(self, k, v)
-        findings = self.verify()
+        findings = self.verify(batches=batches)
         if any(f.severity == "error" for f in findings):
             for k, v in snapshot.items():
                 setattr(self, k, v)

@@ -23,6 +23,12 @@ form of that method.  On CUDA each goes to a hand-written kernel:
 ``SEQ_REF`` is the paper's sequential reference and runs as plain PyTorch
 on any device, as it runs without Pallas in the JAX package.
 
+``conv_geometry``, ``fused_geometry`` and ``chain_geometry`` give, from shapes
+alone, the kernel a conv, a fused group or a chain runs on and the launch
+geometry its wrapper computes (a ``kernels.common.Launch``), through the
+same cell choice and the same geometry functions as the dispatch: the
+plan verifier reads them.
+
 The method names keep the JAX package's enum.  ``ADVANCED_SIMD_4``/``_8``
 name the paper's 4/8-outputs-per-thread blocking; the CUDA kernels pick
 their own tiles, so on CUDA both map to the same kernels.
@@ -32,7 +38,7 @@ from __future__ import annotations
 import enum
 from typing import Optional, Tuple
 
-from repro_torch.kernels.common import ACC_DTYPE
+from repro_torch.kernels.common import ACC_DTYPE, Launch
 from repro_torch.kernels.conv2d import ops as conv_ops
 from repro_torch.kernels.conv2d.ref import conv2d_ref
 from repro_torch.kernels.matmul_fused import ops as mm_ops
@@ -113,6 +119,24 @@ def chain_cell(oc_f: int, oc_block_final, lrn_n) -> Tuple[str,
     return ("K2", None) if obf is None else ("K6", obf)
 
 
+def _fused_tail(cell: str, pool_kernel, pool_stride, pool_kind, pool_relu,
+                lrn_n, lrn_alpha, lrn_beta, lrn_k) -> dict:
+    """The tail keywords the wrapper of ``cell`` takes: K5's has no LRN."""
+    tail = dict(pool_kernel=pool_kernel, pool_stride=pool_stride,
+                pool_kind=pool_kind, pool_relu=pool_relu)
+    if cell != "K5":
+        tail.update(lrn_n=lrn_n, lrn_alpha=lrn_alpha, lrn_beta=lrn_beta,
+                    lrn_k=lrn_k)
+    return tail
+
+
+#: the wrapper of each cell of a fused conv + pool[+LRN] group
+_FUSED_WRAPPERS = {"K7": conv_ops.conv2d_basic_simd,
+                   "K4": conv_ops.conv2d_pool_lrn_halo,
+                   "K5": conv_ops.conv2d_pool_carry,
+                   "K1": conv_ops.conv2d_pool_fused}
+
+
 def conv2d_pool_fused(x, w, b, method: Method, stride=(1, 1),
                       padding=(0, 0), relu=False, pool_kernel=(2, 2),
                       pool_stride=(2, 2), pool_kind: str = "max",
@@ -126,25 +150,39 @@ def conv2d_pool_fused(x, w, b, method: Method, stride=(1, 1),
     JAX package does), and K1, K4 or K5 for the advanced methods.  Every
     cell computes the same result; on the CPU each wrapper runs K1's plain
     version."""
-    tail = dict(pool_kernel=pool_kernel, pool_stride=pool_stride,
-                pool_kind=pool_kind, pool_relu=pool_relu, lrn_n=lrn_n,
-                lrn_alpha=lrn_alpha, lrn_beta=lrn_beta, lrn_k=lrn_k)
     cell = fused_cell(method, tuple(x.shape[1:]), tuple(w.shape), stride,
                       padding, pool_kernel, pool_stride, lrn_n, pool_carry,
                       lrn_oc_block)
+    tail = _fused_tail(cell, pool_kernel, pool_stride, pool_kind, pool_relu,
+                       lrn_n, lrn_alpha, lrn_beta, lrn_k)
+    return _FUSED_WRAPPERS[cell](x, w, b, stride, padding, relu, **tail)
+
+
+def fused_geometry(method: Method, n: int, in_chw, w_shape, sms: int,
+                   stride=(1, 1), padding=(0, 0), relu=False,
+                   pool_kernel=(2, 2), pool_stride=(2, 2),
+                   pool_kind: str = "max", pool_relu: bool = False,
+                   lrn_n=None, lrn_alpha: float = 1e-4,
+                   lrn_beta: float = 0.75, lrn_k: float = 1.0,
+                   pool_carry: bool = None,
+                   lrn_oc_block: bool = None) -> Tuple[str, Launch]:
+    """``(cell, launch)`` of ``conv2d_pool_fused`` on ``n`` frames of
+    ``in_chw`` on ``sms`` SMs: the cell ``fused_cell`` picks and the
+    launch geometry its wrapper computes."""
+    cell = fused_cell(method, tuple(in_chw), tuple(w_shape), stride, padding,
+                      pool_kernel, pool_stride, lrn_n, pool_carry,
+                      lrn_oc_block)
+    tail = _fused_tail(cell, pool_kernel, pool_stride, pool_kind, pool_relu,
+                       lrn_n, lrn_alpha, lrn_beta, lrn_k)
+    pool, lrn = conv_ops._pool_lrn(pool_kernel, pool_stride, pool_kind,
+                                   tail.get("lrn_n"), lrn_alpha, lrn_beta,
+                                   lrn_k)
     if cell == "K7":
-        return conv_ops.conv2d_basic_simd(x, w, b, stride, padding, relu,
-                                          **tail)
-    if cell == "K4":
-        return conv_ops.conv2d_pool_lrn_halo(x, w, b, stride, padding, relu,
-                                             **tail)
-    if cell == "K5":
-        return conv_ops.conv2d_pool_carry(
-            x, w, b, stride, padding, relu, pool_kernel=pool_kernel,
-            pool_stride=pool_stride, pool_kind=pool_kind,
-            pool_relu=pool_relu)
-    return conv_ops.conv2d_pool_fused(x, w, b, stride, padding, relu,
-                                      **tail)
+        return cell, conv_ops.k7_geometry(n, in_chw, w_shape, stride,
+                                          padding, relu, pool, pool_relu, lrn)
+    return cell, conv_ops.stage_major_geometry(
+        n, in_chw, [w_shape], [stride], [padding], [relu], pool, pool_relu,
+        lrn, sms)
 
 
 def conv2d_chain_fused(x, ws, bs, method: Method, strides, paddings, relus,
@@ -173,6 +211,29 @@ def conv2d_chain_fused(x, ws, bs, method: Method, strides, paddings, relus,
         lrn_alpha=lrn_alpha, lrn_beta=lrn_beta, lrn_k=lrn_k)
 
 
+def chain_geometry(method: Method, n: int, in_chw, w_shapes, sms: int,
+                   strides, paddings, relus, pool_kernel=None,
+                   pool_stride=None, pool_kind: str = "max",
+                   pool_relu: bool = False, lrn_n=None,
+                   lrn_alpha: float = 1e-4, lrn_beta: float = 0.75,
+                   lrn_k: float = 1.0,
+                   oc_block_final: int = None) -> Tuple[str, Launch]:
+    """``(cell, launch)`` of ``conv2d_chain_fused`` on ``n`` frames of
+    ``in_chw`` on ``sms`` SMs: K2 or K6 (``chain_cell``, which raises for
+    K6 with an LRN tail, as the dispatch does) and its wrapper's launch
+    geometry."""
+    if method not in _SIMD:
+        raise ValueError(f"fused conv chain requires a SIMD method: {method}")
+    cell, obf = chain_cell(w_shapes[-1][0], oc_block_final, lrn_n)
+    if cell == "K6":
+        lrn_n = None
+    pool, lrn = conv_ops._pool_lrn(pool_kernel, pool_stride, pool_kind,
+                                   lrn_n, lrn_alpha, lrn_beta, lrn_k)
+    return cell, conv_ops.stage_major_geometry(
+        n, in_chw, w_shapes, strides, paddings, relus, pool, pool_relu, lrn,
+        sms, obf)
+
+
 def fc_seq_ref(x, w, b, relu=False):
     """x: [N, D]; w: [D, F].  A plain fp32 product."""
     out = x.to(ACC_DTYPE) @ w.to(ACC_DTYPE) + b.to(ACC_DTYPE)
@@ -185,6 +246,30 @@ def fc_fused(x, w, b, relu=False):
     """Fused bias+activation matmul — the paper's FC acceleration; on
     CUDA the K3 kernel."""
     return mm_ops.matmul_fused(x, w, b, act="relu" if relu else "none")
+
+
+#: the kernel of the per-layer conv of each method (``SEQ_REF``: none)
+CONV_KERNELS = {Method.BASIC_PARALLEL: "K8", Method.BASIC_SIMD: "K7",
+                Method.ADVANCED_SIMD_4: "K1", Method.ADVANCED_SIMD_8: "K1"}
+
+
+def conv_geometry(method: Method, n: int, in_chw, w_shape, sms: int,
+                  stride=(1, 1), padding=(0, 0), relu=False
+                  ) -> Optional[Tuple[str, Launch]]:
+    """``(kernel, launch)`` of ``conv2d`` on ``n`` frames of ``in_chw`` on
+    ``sms`` SMs, or None for ``SEQ_REF`` (no kernel)."""
+    kid = CONV_KERNELS.get(method)
+    if kid == "K8":
+        return kid, conv_ops.k8_geometry(n, in_chw, w_shape, stride, padding,
+                                         relu)
+    if kid == "K7":
+        return kid, conv_ops.k7_geometry(n, in_chw, w_shape, stride, padding,
+                                         relu, None, False, None)
+    if kid == "K1":
+        return kid, conv_ops.stage_major_geometry(
+            n, in_chw, [w_shape], [stride], [padding], [relu], None, False,
+            None, sms)
+    return None
 
 
 def conv2d(x, w, b, method: Method, stride=(1, 1), padding=(0, 0),

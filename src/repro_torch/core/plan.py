@@ -14,15 +14,17 @@ executors; an unfused plan's standalone pools run on K9.
 model (``repro_torch.core.cost.fusion_cost_gate``; see
 ``fusion.plan_fusion``), and ``ExecutionPlan.cost`` prices a plan with
 it.  ``knob_space`` is the per-layer grid the autotuner
-(``repro_torch.tools.autotune``) searches.  ``compile_plan(verify=True)``
-runs the shape-flow rules of ``repro_torch.analysis.verifier`` and
-raises ``PlanVerificationError`` on an error finding; the default stays
-False (the engine verifies in ``CNNEngine.verify``) until the port's
-static analysis decides it (``ROADMAP.md`` queue 1).
-``ExecutionPlan.fusion_report`` reads each fused group's kernel and band
-off the steps (``fusion.group_geometry``).  Not ported: the TPU band
-overrides (``oh_block``), which ``knob_space`` still lists so that knob
-sets round-trip, and the band and VMEM verifier rules — TPU geometry.
+(``repro_torch.tools.autotune``) searches.  ``compile_plan`` verifies
+by default, as JAX's does: ``repro_torch.analysis.verifier`` proves the
+shape flow and every conv and pool step's launch geometry (coverage,
+halo, packed arrays, shared memory, scratch, cooperative grid) at
+batches 1, 2, 4, 8 and 16 on 132 SMs (the plan carries no batch), and an
+error finding raises ``PlanVerificationError`` before anything launches.
+``call_kwargs`` is what a step's executor hands its method, which the
+verifier reads too.  ``ExecutionPlan.fusion_report`` reads each fused
+group's kernel and band off the steps (``fusion.group_geometry``).  Not
+ported: the TPU band overrides (``oh_block``), which ``knob_space``
+still lists so that knob sets round-trip.
 """
 from __future__ import annotations
 
@@ -158,12 +160,16 @@ def _lrn_kwargs(lrn: Optional[LayerSpec]) -> Dict:
 # -- step executors (every decision is already resolved in the step) --------
 
 
+def _pool_kwargs(spec: LayerSpec, relu: bool) -> dict:
+    return dict(kernel=spec.kernel, stride=spec.stride, kind=spec.pool_kind,
+                relu=spec.relu or relu)
+
+
 def _pool(x, spec: LayerSpec, relu: bool = False):
     """Standalone VALID pooling on K9 (its plain version on the CPU);
     ``relu`` is the folded standalone activation (applied on top of the
     spec's own)."""
-    return pool2d(x, spec.kernel, spec.stride, spec.pool_kind,
-                  relu=spec.relu or relu)
+    return pool2d(x, **_pool_kwargs(spec, relu))
 
 
 def _lrn(x, spec: LayerSpec):
@@ -172,35 +178,54 @@ def _lrn(x, spec: LayerSpec):
     return lrn_ref(x, spec.lrn_n, spec.lrn_alpha, spec.lrn_beta, spec.lrn_k)
 
 
+def call_kwargs(step: PlanStep) -> dict:
+    """The keywords a conv, fused, chain or pool step's executor hands its
+    method (``conv2d``, ``conv2d_pool_fused``, ``conv2d_chain_fused``,
+    ``pool2d``) beside the tensors; the plan verifier reads the same
+    through the methods' ``*_geometry`` functions."""
+    if step.kind == "conv":
+        return dict(stride=step.spec.stride, padding=step.spec.padding,
+                    relu=step.relu)
+    if step.kind == "fused":
+        g = step.group
+        return dict(stride=g.conv.stride, padding=g.conv.padding,
+                    relu=g.relu, pool_kernel=g.pool.kernel,
+                    pool_stride=g.pool.stride, pool_kind=g.pool.pool_kind,
+                    pool_relu=g.pool_relu, **step.kwargs)
+    if step.kind == "chain":
+        g = step.group
+        pool = g.pool
+        return dict(strides=tuple(cv.stride for cv in g.convs),
+                    paddings=tuple(cv.padding for cv in g.convs),
+                    relus=g.relus,
+                    pool_kernel=pool.kernel if pool is not None else None,
+                    pool_stride=pool.stride if pool is not None else None,
+                    pool_kind=pool.pool_kind if pool is not None else "max",
+                    pool_relu=g.pool_relu, **step.kwargs)
+    if step.kind == "pool":
+        return _pool_kwargs(step.spec, step.relu)
+    raise ValueError(f"a {step.kind} step calls no method")
+
+
 def _exec_conv(step: PlanStep, params, x):
     p = params[step.spec.name]
-    return conv2d(x, p["w"], p["b"], step.method, step.spec.stride,
-                  step.spec.padding, step.relu)
+    return conv2d(x, p["w"], p["b"], step.method, **call_kwargs(step))
 
 
 def _exec_fused(step: PlanStep, params, x):
-    # single conv + pool[+LRN]: K1 (advanced SIMD) or K7 (basic SIMD)
-    g = step.group
-    p = params[g.conv.name]
-    return conv2d_pool_fused(
-        x, p["w"], p["b"], step.method, g.conv.stride, g.conv.padding,
-        g.relu, g.pool.kernel, g.pool.stride, g.pool.pool_kind, g.pool_relu,
-        **step.kwargs)
+    # single conv + pool[+LRN]: K1, K4, K5 (advanced SIMD) or K7 (basic)
+    p = params[step.group.conv.name]
+    return conv2d_pool_fused(x, p["w"], p["b"], step.method,
+                             **call_kwargs(step))
 
 
 def _exec_chain(step: PlanStep, params, x):
-    # conv chain (optional pool/LRN tail): K2
-    g = step.group
-    pool = g.pool
+    # conv chain (optional pool/LRN tail): K2 or K6
+    convs = step.group.convs
     return conv2d_chain_fused(
-        x, tuple(params[cv.name]["w"] for cv in g.convs),
-        tuple(params[cv.name]["b"] for cv in g.convs),
-        step.method, tuple(cv.stride for cv in g.convs),
-        tuple(cv.padding for cv in g.convs), g.relus,
-        pool_kernel=pool.kernel if pool is not None else None,
-        pool_stride=pool.stride if pool is not None else None,
-        pool_kind=pool.pool_kind if pool is not None else "max",
-        pool_relu=g.pool_relu, **step.kwargs)
+        x, tuple(params[cv.name]["w"] for cv in convs),
+        tuple(params[cv.name]["b"] for cv in convs), step.method,
+        **call_kwargs(step))
 
 
 def _exec_pool(step, params, x):
@@ -304,7 +329,7 @@ def compile_plan(net: NetworkDef, *,
                  per_layer_lrn_oc_block: Optional[Mapping[str, bool]] = None,
                  per_layer_oc_block_final: Optional[Mapping[str, int]] = None,
                  cost_gate: Optional[CostGate] = None,
-                 verify: bool = False) -> ExecutionPlan:
+                 verify: bool = True) -> ExecutionPlan:
     """Lower ``net`` into an ``ExecutionPlan``: run the fusion planner
     (``fuse=True``), fold standalone ReLUs (``fuse_relu``), resolve each
     layer's method and propagate activation shapes.
@@ -320,12 +345,11 @@ def compile_plan(net: NetworkDef, *,
     (K5, K4, K6), which compute the same result; the resolvers of
     ``kernels.conv2d.ops`` decide where each takes effect.
 
-    ``verify=True`` runs the shape-flow verifier
-    (``repro_torch.analysis.verifier.verify_plan``) over the compiled
-    plan and raises ``PlanVerificationError`` on any error finding, as
-    JAX's ``compile_plan`` does.  The default is False: the port's engine
-    verifies in ``CNNEngine.verify``, and whether compiling should
-    verify too waits for the port's static analysis.
+    ``verify=True`` (the default, as in JAX's ``compile_plan``) runs
+    ``repro_torch.analysis.verifier.verify_plan`` over the compiled plan
+    at its default batches (1, 2, 4, 8, 16) and SMs (132) and raises
+    ``PlanVerificationError`` on any error finding; ``CNNEngine.verify``
+    checks the buckets and SMs an engine serves.
     """
     per_layer_methods = per_layer_methods or {}
     per_layer_pool_carry = per_layer_pool_carry or {}

@@ -1,4 +1,5 @@
-"""Kernel-wide constants and the device rule of the port.
+"""Kernel-wide constants, the device rule of the port and the record of
+a wrapper's launch geometry (``Launch``, ``LaunchGeometryError``).
 
 ``ACC_DTYPE`` is the accumulation type of every kernel and plain version:
 operands are read as fp32 (a bf16 operand is converted on load, or, on
@@ -11,11 +12,33 @@ operands.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Union
+from typing import NamedTuple, Optional, Union
 
 import torch
 
 ACC_DTYPE = torch.float32
+
+
+class LaunchGeometryError(ValueError):
+    """A launch geometry the kernel cannot take.  ``kind`` names what
+    does not fit: ``"smem"`` (a block's shared memory), ``"scratch"``
+    (the stage-major scratch's 32-bit offsets) or ``"floor"`` (even the
+    smallest geometry of the launch: K7 at one tile group, K8 at one
+    channel)."""
+
+    def __init__(self, msg: str, kind: str):
+        super().__init__(msg)
+        self.kind = kind
+
+
+class Launch(NamedTuple):
+    """A wrapper's launch geometry for one call signature: the function
+    that computed it (``chain_launch``, ``k7_launch`` and ``k8_launch``,
+    memoized, or K9's ``pool_launch``), its arguments and what it
+    returned."""
+    fn: str
+    args: tuple
+    geometry: tuple
 
 
 def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:

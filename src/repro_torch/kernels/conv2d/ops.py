@@ -50,7 +50,12 @@ The launch geometry (which rows K7's band block computes; the
 stage-major items, partials and scratch) is computed here in Python and
 handed to the kernels (the band by ``band_rows`` in
 ``csrc/conv_common.cuh``, the stage-major schedule by ``plan[]``), so it
-is checked on the CPU too.
+is checked on the CPU too.  Each wrapper reads it from shapes alone
+through one function (``stage_major_geometry``, ``k7_geometry``,
+``k8_geometry``), which the plan verifier
+(``repro_torch.analysis.verifier``) calls too, so the geometry it proves
+is the one the wrapper launches.  A geometry the kernel cannot take
+raises ``LaunchGeometryError``.
 """
 from __future__ import annotations
 
@@ -66,7 +71,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.layout import nchw_to_nhwc, oihw_to_hwio, pad_axis
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import (ACC_DTYPE, check_cuda_f32,
+from repro_torch.kernels.common import (ACC_DTYPE, Launch,
+                                        LaunchGeometryError, check_cuda_f32,
                                         sm_count as _sms,
                                         stream_handle as _stream)
 from repro_torch.kernels.conv2d.ref import (
@@ -447,8 +453,9 @@ def chain_plan(stages, pool, n: int, sms: int, ocb: Optional[int] = None
             math.ceil(math.ceil(tw / CH_CK) / split), unit, q, items, whole,
             floats, act))
     if off + part >= CH_SCRATCH_LIMIT:
-        raise ValueError(f"chain scratch of {off + part} floats is past the "
-                         "kernel's 32-bit offsets")
+        raise LaunchGeometryError(f"chain scratch of {off + part} floats is "
+                                  "past the kernel's 32-bit offsets",
+                                  "scratch")
     _, out_h, out_w = final_rows(stages, pool)
     return ChainPlan(grid, tuple(plans), off, off + part,
                      barriers + (pool is not None),
@@ -560,8 +567,9 @@ def chain_launch(n, in_chw, w_shapes, strides, paddings, relus, pool,
         tile = _tile(ocb, stages[-1].OC)
     plan = chain_plan(stages, pool, n, sms, ocb)
     if lrn is not None and stages[-1].OC > CH_SMEM // 4:
-        raise ValueError(f"the LRN tail holds {stages[-1].OC} channels of a "
-                         f"pixel, more than {CH_SMEM // 4}")
+        raise LaunchGeometryError(f"the LRN tail holds {stages[-1].OC} "
+                                  f"channels of a pixel, more than "
+                                  f"{CH_SMEM // 4}", "smem")
     geo, lrn_f = pack_geo(n, stages, pool, pool_relu, lrn,
                           final_rows(stages, pool)[0])
     geo.setflags(write=False)
@@ -571,19 +579,30 @@ def chain_launch(n, in_chw, w_shapes, strides, paddings, relus, pool,
     return stages, plan, arrays, tuple(a.ctypes.data for a in arrays)
 
 
+def stage_major_geometry(n, in_chw, w_shapes, strides, paddings, relus,
+                         pool, pool_relu, lrn, sms,
+                         oc_block_final=None) -> Launch:
+    """The launch geometry of a stage-major kernel (K1, K2, K4, K5, K6) for
+    ``n`` frames of ``in_chw`` on ``sms`` SMs, from shapes alone: what
+    ``_launch_stage_major`` launches (``chain_launch``'s memo)."""
+    if not 1 <= len(w_shapes) <= MAX_STAGES:
+        raise ValueError(f"a chain takes 1 to {MAX_STAGES} stages")
+    args = (n, tuple(in_chw), tuple(tuple(w) for w in w_shapes),
+            tuple(map(tuple, strides)), tuple(map(tuple, paddings)),
+            tuple(map(bool, relus)), pool, bool(pool_relu), lrn, sms,
+            oc_block_final)
+    return Launch("chain_launch", args, chain_launch(*args))
+
+
 def _launch_stage_major(wrapper, entry: str, x, ws, bs, strides, paddings,
                         relus, pool, pool_relu, lrn, oc_block_final=None):
     """One launch of the stage-major C entry ``entry`` (K1, K2, K4, K5 or, with
     ``oc_block_final``, K6) on CUDA tensors; counts it on
     ``wrapper.launches``."""
-    if not 1 <= len(ws) <= MAX_STAGES:
-        raise ValueError(f"a chain takes 1 to {MAX_STAGES} stages")
     n = x.shape[0]
-    stages, plan, _, ptrs = chain_launch(
-        n, tuple(x.shape[1:]), tuple(tuple(w.shape) for w in ws),
-        tuple(map(tuple, strides)), tuple(map(tuple, paddings)),
-        tuple(map(bool, relus)), pool, bool(pool_relu), lrn, _sms(x.device),
-        oc_block_final)
+    stages, plan, _, ptrs = stage_major_geometry(
+        n, x.shape[1:], [w.shape for w in ws], strides, paddings, relus,
+        pool, pool_relu, lrn, _sms(x.device), oc_block_final).geometry
     for st, b in zip(stages, bs):
         if tuple(b.shape) != (st.OC,):
             raise ValueError(f"bias shape {tuple(b.shape)} != ({st.OC},)")
@@ -677,9 +696,10 @@ def k7_groups(stages, pool, lrn: bool) -> int:
     while groups and k7_smem(stages, pool, lrn, groups) > K7_SMEM_LIMIT:
         groups -= 1
     if not groups:
-        raise ValueError(f"K7 band of one pooled row and one tile ring need "
-                         f"{k7_smem(stages, pool, lrn, 1)} bytes of shared "
-                         f"memory, more than {K7_SMEM_LIMIT}")
+        raise LaunchGeometryError(
+            f"K7 band of one pooled row and one tile ring need "
+            f"{k7_smem(stages, pool, lrn, 1)} bytes of shared memory, more "
+            f"than {K7_SMEM_LIMIT}", "floor")
     return groups
 
 
@@ -703,6 +723,18 @@ def k7_launch(n, in_chw, w_shape, stride, padding, relu, pool, pool_relu,
     geo.setflags(write=False)
     lrn_f.setflags(write=False)
     return stages, smem, geo, lrn_f
+
+
+def k7_geometry(n, in_chw, w_shape, stride, padding, relu, pool, pool_relu,
+                lrn) -> Launch:
+    """K7's launch geometry from the unpadded NCHW/OIHW shapes: the
+    channels padded to ``K7_ALIGN``, as ``conv2d_basic_simd`` pads the
+    tensors, then ``k7_launch``'s memo."""
+    c, h, w = in_chw
+    cp = -(-c // K7_ALIGN) * K7_ALIGN
+    args = (n, (cp, h, w), (w_shape[0], cp, *w_shape[2:]), tuple(stride),
+            tuple(padding), bool(relu), pool, bool(pool_relu), lrn)
+    return Launch("k7_launch", args, k7_launch(*args))
 
 
 def k8_halo_rows(st: Stage) -> int:
@@ -737,13 +769,21 @@ def k8_launch(n, in_chw, w_shape, stride, padding, relu):
         cc += 1
     smem = 2 * 4 * k8_stage(st, cc)
     if smem > K7_SMEM_LIMIT:
-        raise ValueError(f"K8 stage of one channel needs {smem} bytes of "
-                         f"shared memory, more than {K7_SMEM_LIMIT}")
+        raise LaunchGeometryError(f"K8 stage of one channel needs {smem} "
+                                  f"bytes of shared memory, more than "
+                                  f"{K7_SMEM_LIMIT}", "floor")
     dims = np.asarray([n, *st[:10], st.OH, st.OW, int(relu), cc],
                       dtype=np.int32)
     dims.setflags(write=False)
     grid = (math.ceil(st.OH * st.OW / ST_TP) * n, math.ceil(st.OC / ST_TO))
     return st, dims, smem, grid
+
+
+def k8_geometry(n, in_chw, w_shape, stride, padding, relu) -> Launch:
+    """K8's launch geometry from shapes: ``k8_launch``'s memo."""
+    args = (n, tuple(in_chw), tuple(w_shape), tuple(stride), tuple(padding),
+            bool(relu))
+    return Launch("k8_launch", args, k8_launch(*args))
 
 
 def conv2d_basic_simd(x, w, b, stride=(1, 1), padding=(0, 0), relu=False,
@@ -770,14 +810,13 @@ def conv2d_basic_simd(x, w, b, stride=(1, 1), padding=(0, 0), relu=False,
                           lrn_alpha, lrn_beta, lrn_k)
     if tuple(b.shape) != (w.shape[0],):
         raise ValueError(f"bias shape {tuple(b.shape)} != ({w.shape[0]},)")
+    n, oc = x.shape[0], w.shape[0]
+    stages, smem, geo, lrn_f = k7_geometry(
+        n, x.shape[1:], w.shape, stride, padding, relu, pool, pool_relu,
+        lrn).geometry
     xh, _ = pad_axis(nchw_to_nhwc(x), 3, K7_ALIGN)
     wh, _ = pad_axis(oihw_to_hwio(w), 2, K7_ALIGN)
     xh, wh = xh.contiguous(), wh.contiguous()
-    n, h, wd, cp = xh.shape
-    kh, kw, _, oc = wh.shape
-    stages, smem, geo, lrn_f = k7_launch(
-        n, (cp, h, wd), (oc, cp, kh, kw), tuple(stride), tuple(padding),
-        bool(relu), pool, bool(pool_relu), lrn)
     _, out_h, out_w = final_rows(stages, pool)
     out = torch.empty((n, oc, out_h, out_w), dtype=torch.float32,
                       device=x.device)
@@ -804,8 +843,8 @@ def conv2d_basic_parallel(x, w, b, stride=(1, 1), padding=(0, 0),
     oc = w.shape[0]
     if tuple(b.shape) != (oc,):
         raise ValueError(f"bias shape {tuple(b.shape)} != ({oc},)")
-    st, dims, _, _ = k8_launch(n, tuple(x.shape[1:]), tuple(w.shape),
-                               tuple(stride), tuple(padding), bool(relu))
+    st, dims, _, _ = k8_geometry(n, x.shape[1:], w.shape, stride, padding,
+                                 relu).geometry
     out = torch.empty((n, oc, st.OH, st.OW), dtype=torch.float32,
                       device=x.device)
     rc = _build.library().conv_basic_parallel_f32(

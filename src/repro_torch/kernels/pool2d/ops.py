@@ -6,7 +6,9 @@ plain version ``pool2d_ref``; a CUDA tensor launches the kernel (fp32
 only) or raises; any other device raises.  The kernel works on the port's
 NCHW activations directly, so no layout swap and no channel padding
 surround it.  One call is one ``torch.empty`` and one launch; its
-geometry (one output a thread, whole planes a block) is ``pool_plan``'s.
+geometry (one output a thread, whole planes a block) is ``pool_plan``'s,
+read from shapes by ``pool_geometry``, which the plan verifier calls
+too.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import check_cuda_f32, stream_handle
+from repro_torch.kernels.common import Launch, check_cuda_f32, stream_handle
 from repro_torch.kernels.pool2d.ref import pool2d_ref
 
 KIND_CODES = {"max": 1, "avg": 2}
@@ -49,10 +51,24 @@ def pool_out_hw(h: int, w: int, kernel, stride):
     return oh, ow
 
 
+def pool_launch(n: int, c: int, h: int, w: int, kernel, stride):
+    """K9's launch geometry for ``n`` frames of ``c`` planes of ``h x w``:
+    ``(oh, ow, plan)``, the output size and ``pool_plan``'s grid, which
+    ``pool2d_f32`` computes from the same sizes."""
+    oh, ow = pool_out_hw(h, w, kernel, stride)
+    return oh, ow, pool_plan(n * c, oh, ow)
+
+
+def pool_geometry(n, c, h, w, kernel, stride) -> Launch:
+    """K9's launch geometry from shapes, as ``pool2d`` reads it."""
+    args = (n, c, h, w, tuple(kernel), tuple(stride))
+    return Launch("pool_launch", args, pool_launch(*args))
+
+
 def _launch(x, kernel, stride, kind, relu):
     check_cuda_f32("pool2d", x)
     n, c, h, w = x.shape
-    oh, ow = pool_out_hw(h, w, kernel, stride)
+    oh, ow, _ = pool_geometry(n, c, h, w, kernel, stride).geometry
     y = torch.empty((n, c, oh, ow), dtype=torch.float32, device=x.device)
     rc = _build.library().pool2d_f32(
         x.data_ptr(), y.data_ptr(), n * c, h, w, oh, ow, kernel[0],

@@ -34,7 +34,8 @@ in **dynamic batches**:
   **degradation controller** (``serving.degrade``) walks the method
   ladder under sustained queue pressure or p95-vs-SLO drift — every
   candidate rung pre-validated through ``CNNEngine.switch_verified``
-  before it is served;
+  at the server's batch buckets before it is served (the engine's own
+  plan is verified at them when the server is built);
 * each served request resolves to an ``ImageResult`` with its top-k
   classes and probabilities plus the submit→complete latency and the
   dynamic batch it rode in.
@@ -58,6 +59,7 @@ from typing import (Callable, Deque, Dict, List, Optional, Sequence, Tuple,
 import numpy as np
 import torch
 
+from repro_torch.analysis.findings import PlanVerificationError
 from repro_torch.core.engine import CNNEngine
 from repro_torch.serving.degrade import DegradeController
 from repro_torch.serving.faults import FaultInjector, TransientEngineFault
@@ -218,6 +220,15 @@ class CNNServer:
         self.degrade = degrade
         self.fault_injector = fault_injector
         self.sleep = sleep
+        #: the batch buckets this server runs (powers of two up to
+        #: max_batch's): its plan is verified at each, as is every rung
+        #: the degradation ladder moves to
+        self.buckets = tuple(1 << i for i in range(
+            engine.batch_bucket(max_batch).bit_length()))
+        errors = [f for f in engine.verify(fuse, batches=self.buckets)
+                  if f.severity == "error"]
+        if errors:
+            raise PlanVerificationError(errors)
         self._input_shape = tuple(engine.net.input_shape)
         self._pending: Deque[_Pending] = deque()
         self.done: Dict[int, Result] = {}
@@ -513,7 +524,8 @@ class CNNServer:
         for idx in ctl.candidates(direction):
             rung = ctl.ladder[idx]
             ok, findings = self.engine.switch_verified(
-                method=rung.method, fuse_pool=rung.fuse)
+                method=rung.method, fuse_pool=rung.fuse,
+                batches=self.buckets)
             if ok:
                 self.fuse = None  # serve on the engine's verified fuse_pool
                 ctl.commit(idx)

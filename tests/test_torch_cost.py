@@ -351,8 +351,12 @@ def test_compile_plan_verify_raises_as_jax():
         jcompile_plan(_bad_net(jnetdefs), fuse=False, verify=True)
     assert isinstance(ours.value, ValueError)
     assert {f.rule for f in ours.value.findings} == {"V101"}
-    # the default does not verify (the engine verifies in CNNEngine.verify)
-    assert compile_plan(_bad_net(tnetdefs), fuse=False).steps
+    # the default verifies, as JAX's does; verify=False skips the check
+    with pytest.raises(PlanVerificationError):
+        compile_plan(_bad_net(tnetdefs), fuse=False)
+    with pytest.raises(JError):
+        jcompile_plan(_bad_net(jnetdefs), fuse=False)
+    assert compile_plan(_bad_net(tnetdefs), fuse=False, verify=False).steps
 
 
 # -- the fit's inputs and the committed model -----------------------------------

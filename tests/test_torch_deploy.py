@@ -175,7 +175,7 @@ def test_tuned_plan_failing_verification_fails_the_load(tmp_path,
     tdeploy.load_model(tmp_path, device="cpu")  # clean as written
     seen = []
 
-    def verify(plan):
+    def verify(plan, **kw):
         seen.append(plan.steps[0].method)
         return [Finding("error", "step0:conv1+pool1", "V101", "injected")]
 

@@ -592,7 +592,7 @@ def test_degradation_and_recovery_integration(lenet):
     assert all(isinstance(srv.done[r], ImageResult) for r in range(8))
 
 
-def _reject_advanced_4(self, fuse=None):
+def _reject_advanced_4(self, fuse=None, batches=None):
     if self.method == Method.ADVANCED_SIMD_4:
         return [Finding("error", "plan", "V101", "injected bust")]
     return []

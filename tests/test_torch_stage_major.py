@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from repro.core import methods as jm
+from repro_torch.analysis import verifier
 from repro_torch.kernels import _build
 from repro_torch.kernels.conv2d import ops as conv_ops
 from torch_kernels_common import (
@@ -95,6 +96,16 @@ def test_chain_constants_match_the_wrapper():
                 if "conv_band(" in p.read_text()]
 
 
+def _schedule_launch(stages, pool, n):
+    """The stage-major launch geometry of a schedule, as a wrapper reads
+    it (``stage_major_geometry``)."""
+    return conv_ops.stage_major_geometry(
+        n, (stages[0].C, stages[0].H, stages[0].W),
+        [(st.OC, st.C, st.KH, st.KW) for st in stages],
+        [(st.sy, st.sx) for st in stages], [(st.py, st.px) for st in stages],
+        [st.relu for st in stages], pool, False, None, REPORT_SMS)
+
+
 @pytest.mark.parametrize("chain", sorted(SCHEDULES))
 @pytest.mark.parametrize("n", [1, 2, 5, 16])
 def test_chain_items_cover_every_output_once(chain, n):
@@ -102,9 +113,13 @@ def test_chain_items_cover_every_output_once(chain, n):
     once (a whole item: every output), and through their chunks each
     (chunk, pixel tile, channel tile) of the stage's GEMM once, the chunks
     covering every float of every tap's run; the scratch regions do not
-    overlap."""
+    overlap.  The verifier's rules (V201 is this walk) find nothing on the
+    launch."""
     stages, pool = SCHEDULES[chain]
     plan = conv_ops.chain_plan(stages, pool, n, REPORT_SMS)
+    launch = _schedule_launch(stages, pool, n)
+    assert launch.geometry[1] == plan
+    assert verifier.launch_rules("K2", launch) == []
     regions = [(0, n * stages[0].H * stages[0].W * _round4(stages[0].C))]
     tp, to = conv_ops.ST_TP, conv_ops.ST_TO
     for st, sp in zip(stages, plan.stages):
@@ -193,6 +208,9 @@ def test_chain_grid_fits_the_card(chain, n):
     scratch stays in the 50 MB L2."""
     stages, pool = SCHEDULES[chain]
     plan = conv_ops.chain_plan(stages, pool, n, REPORT_SMS)
+    # the verifier's V304 and V301 hold the same launch
+    assert not [r for r in verifier.launch_rules(
+        "K2", _schedule_launch(stages, pool, n)) if r[0] in ("V301", "V304")]
     per_sm = min(233472 // (conv_ops.CH_SMEM + 1024),
                  2048 // conv_ops.CH_THREADS)
     assert per_sm == conv_ops.CH_MIN_BLOCKS == 3
