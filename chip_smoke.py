@@ -93,6 +93,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    largest dynamic shared memory the verifier admitted, per kernel,
    within the card's opt-in limit.  It prints one ``static_analysis``
    line and its wall time;
+5d. the guard pass on the card (``repro_torch.analysis.guard``, through
+   ``repro_torch.tools.sanitize.guard_pass``): every case of
+   ``sanitize.cases`` — the CNN forwards on six rungs at batch 1 and 3,
+   AlexNet at 16, the tuned deployment with ``oc_block_final`` 8 and 64,
+   K3 in bf16 from 1 to 1500 rows at gemma2's gate and zamba2's in_proj,
+   with a bias, relu, silu and its backward, in fp32 on the CUDA-core
+   tiles and the stream, K10 from 16 to 4096 tokens (head_dim 64, 128,
+   256; windowed, soft-capped, grouped, non-causal, with m and l, fp32),
+   K11 from 16 to 1500 tokens in bf16 and fp32 — run four times in guard
+   mode (each operand inside guard bands, fresh outputs prefilled) and
+   once unguarded, in this process; every one of the 14 units of
+   ``sanitize.GLOBALS`` must run and no rule may find anything: K101 (a
+   band written or read), K102 (an output element never written, or
+   read before it was written), K109 (an input written), K110 (a launch
+   not repeatable bit for bit) and K111 (a pointer the pass did not
+   stage).  It prints one row per unit and one column per rule, headed
+   by the card's name and power limit, and its wall time; the wrappers'
+   launch counters are left as they were;
 6. serving: ``CNNServer`` over full-width AlexNet on the card
    (``max_batch=16``, a fake clock, the default degradation ladder with
    ``queue_high=0, degrade_after=1, cooldown=0``) takes ragged waves of
@@ -1179,6 +1197,35 @@ def static_phase(torch, np, nets, np_params, dev, card):
            "smem_optin": optin, "max_smem": max_smem, "wall_s": wall}
     print(f"phase 5c wall time {wall:.1f} s [{card}]", flush=True)
     return rec
+
+
+def guard_phase(torch, card):
+    """Phase 5d (see the module docstring); returns its record."""
+    from repro_torch.analysis import guard
+    from repro_torch.tools import sanitize
+
+    t0 = time.perf_counter()
+    findings, ran = sanitize.guard_pass()
+    wall = time.perf_counter() - t0
+    launched = {u for _, units in ran for u in units}
+    table = guard.guard_table(findings, launched, sanitize.COVERED)
+    print(f"phase 5d guard pass, {len(ran)} cases [{card}]", flush=True)
+    print(guard.table_markdown(table), flush=True)
+    for f in findings:
+        print(f, flush=True)
+    print(f"phase 5d wall time {wall:.1f} s [{card}]", flush=True)
+    missing = [u for u in sanitize.COVERED if u not in launched]
+    if missing:
+        fail(f"guard pass: no case launched {missing}")
+    errors = [f for f in findings if f.severity == "error"]
+    if errors:
+        fail(f"guard pass: {len(errors)} error finding(s): "
+             f"{[str(f) for f in errors[:5]]}")
+    return {"cases": len(ran), "units": sorted(launched),
+            "cases_by_unit": {u: sum(u in us for _, us in ran)
+                              for u in sanitize.COVERED},
+            "findings": [str(f) for f in findings], "table": table,
+            "wall_s": wall}
 
 
 def serving_phase(torch, np, net, np_params, rng, dev, counters):
@@ -3195,6 +3242,24 @@ def k10_grad_case(torch, gen, dev, case, peaks):
                                     ml=True)
     bwd = lambda: attn_ops.flash_attention_bwd(  # noqa: E731
         q, k, v, out_ml, m, l, do, scale=scale, chunk=512, **kw)
+    # the library's flash attention with its logsumexp, causal, no
+    # softcap or window: a yardstick only (the kv heads repeated outside
+    # the timed call, as its kernel takes one kv head a query head)
+    qt = q.transpose(1, 2)
+    kt, vt = (t.repeat_interleave(h // kvh, dim=2).transpose(1, 2)
+              for t in (k, v))
+    library = lambda: torch.ops.aten._scaled_dot_product_flash_attention(  # noqa: E731
+        qt, kt, vt, 0.0, True, False, scale=scale)
+    try:
+        library_ms, library_note = time_ms(torch, library), (
+            "aten._scaled_dot_product_flash_attention, causal, with its "
+            "logsumexp, no softcap or window")
+    except RuntimeError as e:  # a backend that refuses the shape
+        library_ms, library_note = None, f"refused: {e}"
+    del qt, kt, vt
+    flops = 4.0 * _visible_pairs(s, window) * h * hd * bsz
+    nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel()) + 8.0 * bsz * h * s
+    bf16_peak, bw_peak = peaks[2], peaks[1]
     rec = {"kernel": "K10-grad", "batch": bsz, "tokens": s, "heads": h,
            "kv_heads": kvh, "head_dim": hd, "window": window, "cap": cap,
            "m_max_abs_err": m_err, "l_max_abs_err": l_err,
@@ -3206,7 +3271,11 @@ def k10_grad_case(torch, gen, dev, case, peaks):
                q, k, v, True, window, cap, scale, ml=True)),
            "plain_backward_ms": time_ms(torch, bwd, reps=5),
            "fwd_bwd_ms": time_ms(torch, lambda: grads(kernel), reps=5),
-           "plain_fwd_bwd_ms": time_ms(torch, lambda: grads(plain), reps=3)}
+           "plain_fwd_bwd_ms": time_ms(torch, lambda: grads(plain), reps=3),
+           "library_ms": library_ms, "library_note": library_note,
+           "bound_ms": 1e3 * max(flops / bf16_peak, nbytes / bw_peak),
+           "bound_by": "operations" if flops / bf16_peak > nbytes / bw_peak
+           else "bytes", "flops": flops, "bytes": nbytes}
     print("train case " + json.dumps(rec), flush=True)
     return rec
 
@@ -3743,6 +3812,12 @@ def main() -> int:
     static = static_phase(torch, np, nets, np_params, dev, card_line)
     print(json.dumps({"static_analysis": static}), flush=True)
 
+    # -- 5d. the guard pass on the card ---------------------------------------
+    guarded = guard_phase(torch, card_line)
+    print(json.dumps({"guard": guarded}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- 6. serving: CNNServer walks the degradation ladder -----------------
     serving = serving_phase(torch, np, nets["alexnet"], np_params["alexnet"],
                             rng, dev, counters)
@@ -3986,7 +4061,7 @@ def main() -> int:
             {"card": card_line, "kind": kind, "torch": torch.__version__,
              "cuda": torch.version.cuda, "build_log": _build.build_log,
              "cases": cases, "engine": engine_rows, "tuned": tuned,
-             "cost": cost, "static_analysis": static,
+             "cost": cost, "static_analysis": static, "guard": guarded,
              "serving": serving, "lm_cases": lm_cases,
              "lm_parity": lm_parity, "lm": lm, "rwkv_cases": rwkv_cases,
              "rwkv_parity": rwkv_parity, "rwkv": rwkv,

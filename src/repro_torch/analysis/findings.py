@@ -23,7 +23,9 @@ SEVERITIES = ("error", "warning", "info")
 #: rule ID -> (pass, one-line summary).  V1xx: shape flow.  V2xx: the
 #: CUDA kernels' launch geometry.  V3xx: shared memory, scratch and the
 #: cooperative grid.  R0xx: lint of the port's source (AST).  K1xx:
-#: NVIDIA compute-sanitizer over launches on the card.
+#: launches on the card, checked by NVIDIA compute-sanitizer (K100,
+#: K107, K108), by the guard pass (``analysis/guard.py``: K109-K111) or
+#: by either (K101, K102).
 RULES = {
     "V101": ("verifier",
              "step output shape disagrees with its re-derivation from the "
@@ -91,23 +93,42 @@ RULES = {
              "a plain version under kernels/ converts with .to(...) to an "
              "inline float dtype: accumulation must target the named "
              "ACC_DTYPE constant or a tensor's .dtype"),
+    "R008": ("lint",
+             "a wrapper under kernels/*/ops.py that calls _build.library() "
+             "allocates a tensor with torch.empty, zeros, empty_like or "
+             "zeros_like instead of common.alloc (the guard pass's hook)"),
     "K100": ("sanitizer",
              "compute-sanitizer could not analyse a launch (the tool "
              "failed, or cannot see the kernel's accesses: TMA and wgmma "
              "traffic through the async proxy under racecheck) — "
              "unanalysed, not clean"),
     "K101": ("sanitizer",
-             "memcheck: a kernel accessed memory outside its allocation "
-             "(out of bounds or misaligned, global or shared)"),
+             "a kernel accessed memory outside its operand: memcheck (out "
+             "of bounds or misaligned, global or shared) or the guard pass "
+             "(a guard band written, or read: the result changes with the "
+             "bands' contents)"),
     "K102": ("sanitizer",
-             "initcheck: a kernel read global memory that nothing wrote "
-             "(an output or scratch element never written)"),
+             "an output not covered: initcheck (global memory read that "
+             "nothing wrote) or the guard pass (an output element never "
+             "written, or an output or its scratch read before it was "
+             "written)"),
     "K107": ("sanitizer",
              "racecheck: a shared-memory hazard between threads of a "
              "block (read/write ordering without a barrier)"),
     "K108": ("sanitizer",
              "synccheck: a barrier misused (a block, grid or cluster "
              "barrier in divergent code, or an invalid barrier)"),
+    "K109": ("guard",
+             "a kernel wrote to an input: a byte of an operand it only "
+             "reads changed"),
+    "K110": ("guard",
+             "a launch is not bit for bit repeatable: a repeat under the "
+             "same conditions differs (the determinism contract; a race), "
+             "or the result depends on where the buffers sit"),
+    "K111": ("guard",
+             "a pointer a wrapper hands its C entry (or an element of a "
+             "pointer array) lies in no buffer the guard pass staged: the "
+             "pass is incomplete"),
 }
 
 

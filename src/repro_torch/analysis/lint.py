@@ -32,6 +32,13 @@ Rules (see ``findings.RULES`` / ``analysis/README.md``):
   kernels are held to.  The counterpart of JAX's R007 (kernel-body
   ``astype``).
 
+* **R008** — the guard pass's hook: a function of a wrapper module
+  (``kernels/*/ops.py``) that calls ``_build.library()`` allocates no
+  tensor with ``torch.empty``, ``zeros``, ``empty_like`` or
+  ``zeros_like``; it goes through ``common.alloc``, which guard mode
+  (``analysis/guard.py``) turns into a guarded, prefilled buffer.  An
+  allocation past the hook is a tensor the guard pass cannot check.
+
 JAX's R003 (``pl.Unblocked`` index maps) reads Pallas source and has no
 counterpart.  All rules are file-local AST walks — no imports of the
 linted modules, so the linter runs on any tree (including deliberately
@@ -375,7 +382,43 @@ def _r007(tree: ast.AST, path: str) -> List[Finding]:
     return out
 
 
-_RULES = (_r001, _r002, _r004, _r005, _r006, _r007)
+# -- R008 -------------------------------------------------------------------
+
+#: torch allocations a launching wrapper makes through ``common.alloc``
+_R008_ALLOCS = frozenset({"empty", "zeros", "empty_like", "zeros_like"})
+
+
+def _r008(tree: ast.AST, path: str) -> List[Finding]:
+    """kernels/*/ops.py: a function that calls ``library()`` makes no
+    ``torch.<alloc>(...)`` call (nested functions count on their own)."""
+    parts = path.replace("\\", "/").split("/")
+    if len(parts) < 3 or parts[-3:][0] != "kernels" or parts[-1] != "ops.py":
+        return []
+    out = []
+    for fn in ast.walk(tree):
+        if not isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        nested = {id(n) for d in ast.walk(fn) if d is not fn and isinstance(
+            d, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda))
+            for n in ast.walk(d)}
+        calls = [n for n in ast.walk(fn) if isinstance(n, ast.Call)
+                 and id(n) not in nested]
+        if not any(_call_name(c) == "library" for c in calls):
+            continue
+        for c in calls:
+            f = c.func
+            if (isinstance(f, ast.Attribute) and f.attr in _R008_ALLOCS
+                    and isinstance(f.value, ast.Name)
+                    and f.value.id == "torch"):
+                out.append(Finding(
+                    "error", _loc(path, c), "R008",
+                    f"torch.{f.attr} in a function that launches a kernel: "
+                    f"allocate through common.alloc, so that the guard pass "
+                    f"can guard and prefill the tensor"))
+    return out
+
+
+_RULES = (_r001, _r002, _r004, _r005, _r006, _r007, _r008)
 
 
 def lint_source(src: str, path: str = "<string>",

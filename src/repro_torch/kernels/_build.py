@@ -20,6 +20,8 @@ import time
 from pathlib import Path
 from typing import Optional
 
+from repro_torch.kernels import common
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -124,7 +126,8 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
+    """The loaded kernel library (built on first use); under guard mode
+    (``repro_torch.analysis.guard``) a proxy that checks every launch."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
@@ -133,7 +136,8 @@ def library() -> ctypes.CDLL:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         _lib = lib
-    return _lib
+    g = common._guard
+    return _lib if g is None else g.proxy(_lib)
 
 
 def check(rc: int, name: str) -> None:

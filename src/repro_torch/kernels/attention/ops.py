@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.attention.ref import NEG_INF, flash_attention_ref
-from repro_torch.kernels.common import ACC_DTYPE, check_cuda
+from repro_torch.kernels.common import ACC_DTYPE, alloc, check_cuda, operand
 from repro_torch.kernels.common import stream_handle as _stream
 
 HEAD_DIMS = (64, 128, 256)
@@ -64,21 +64,22 @@ def _launch(q, k, v, causal, window, cap, scale, path=None, ml=False):
     if path == "wgmma" and any(t.data_ptr() % TMA_ALIGN for t in (q, k, v)):
         raise ValueError("flash_attention: the wgmma path needs q, k and v "
                          f"{TMA_ALIGN}-byte aligned")
-    out = torch.empty_like(q)
+    out = alloc(q)
     args = (b, sq, skv, h, kvh, hd, int(causal), int(window), scale,
             float(cap or 0.0), int(q.dtype == torch.bfloat16),
             PATH_CODES[path], _stream(q.device))
     if ml:
-        m = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-        l = torch.empty_like(m)
+        m = alloc((b, h, sq), torch.float32, q.device)
+        l = alloc(m)
         rc = _build.library().flash_attention_fwd_ml(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            *(operand(t).data_ptr() for t in (q, k, v)), out.data_ptr(),
             m.data_ptr(), l.data_ptr(), *args)
         _build.check(rc, "flash_attention_fwd_ml")
         flash_attention.ml_launches += 1
     else:
         rc = _build.library().flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *args)
+            *(operand(t).data_ptr() for t in (q, k, v)), out.data_ptr(),
+            *args)
         _build.check(rc, "flash_attention_fwd")
     flash_attention.launches += 1
     flash_attention.path_launches[path] += 1

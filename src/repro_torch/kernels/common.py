@@ -18,6 +18,10 @@ import torch
 
 ACC_DTYPE = torch.float32
 
+#: the guard pass's run while guard mode is on
+#: (``repro_torch.analysis.guard.guarded``), else None
+_guard = None
+
 
 class LaunchGeometryError(ValueError):
     """A launch geometry the kernel cannot take.  ``kind`` names what
@@ -52,6 +56,35 @@ def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
                 "plain PyTorch versions on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def alloc(spec, dtype=None, device=None, *, scratch: bool = False):
+    """A wrapper's output or scratch tensor: ``torch.empty(spec, dtype=,
+    device=)`` for a shape, ``torch.empty_like(spec)`` for a tensor.
+    Under guard mode, a tensor inside a guarded buffer, prefilled."""
+    g = _guard
+    if g is not None:
+        return g.alloc(spec, dtype, device, scratch)
+    if isinstance(spec, torch.Tensor):
+        return torch.empty_like(spec)
+    return torch.empty(spec, dtype=dtype, device=device)
+
+
+def operand(t):
+    """What a wrapper hands its C entry for input ``t`` (a tensor or a
+    host array): ``t`` itself, or under guard mode a staged copy in a
+    guarded buffer."""
+    g = _guard
+    return t if g is None or t is None else g.stage_operand(t)
+
+
+def operand_ptrs(arrays, ptrs):
+    """The addresses of the read-only host arrays ``arrays`` a C entry
+    reads: ``ptrs``, memoized beside them, or under guard mode those of
+    their staged copies (``operand``)."""
+    if _guard is None:
+        return ptrs
+    return tuple(operand(a).ctypes.data for a in arrays)
 
 
 def check_cuda(name: str, *tensors: torch.Tensor,

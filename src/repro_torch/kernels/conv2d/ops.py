@@ -72,7 +72,9 @@ import torch.nn.functional as F
 from repro_torch.core.layout import nchw_to_nhwc, oihw_to_hwio, pad_axis
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (ACC_DTYPE, Launch,
-                                        LaunchGeometryError, check_cuda_f32,
+                                        LaunchGeometryError, alloc,
+                                        check_cuda_f32, operand,
+                                        operand_ptrs,
                                         sm_count as _sms,
                                         stream_handle as _stream)
 from repro_torch.kernels.conv2d.ref import (
@@ -600,26 +602,26 @@ def _launch_stage_major(wrapper, entry: str, x, ws, bs, strides, paddings,
     ``oc_block_final``, K6) on CUDA tensors; counts it on
     ``wrapper.launches``."""
     n = x.shape[0]
-    stages, plan, _, ptrs = stage_major_geometry(
+    stages, plan, arrays, ptrs = stage_major_geometry(
         n, x.shape[1:], [w.shape for w in ws], strides, paddings, relus,
         pool, pool_relu, lrn, _sms(x.device), oc_block_final).geometry
     for st, b in zip(stages, bs):
         if tuple(b.shape) != (st.OC,):
             raise ValueError(f"bias shape {tuple(b.shape)} != ({st.OC},)")
     _, out_h, out_w = final_rows(stages, pool)
-    out = torch.empty((n, stages[-1].OC, out_h, out_w), dtype=torch.float32,
-                      device=x.device)
-    scratch = torch.empty(plan.scratch, dtype=torch.float32, device=x.device)
+    out = alloc((n, stages[-1].OC, out_h, out_w), torch.float32, x.device)
+    scratch = alloc(plan.scratch, torch.float32, x.device, scratch=True)
     # host arrays of the stages' device pointers; ``wts`` keeps the
     # converted weights alive until the launch is queued (an inference
     # tensor's copy is not cached, and a freed block may be reused by the
     # next stage's conversion before the kernel reads it)
-    wts = [chain_weights(w) for w in ws]
+    wts = [operand(chain_weights(w)) for w in ws]
+    bs = [operand(b) for b in bs]
     w_ptrs = (ctypes.c_void_p * len(wts))(*[w.data_ptr() for w in wts])
     b_ptrs = (ctypes.c_void_p * len(bs))(*[b.data_ptr() for b in bs])
     rc = getattr(_build.library(), entry)(
-        x.data_ptr(), w_ptrs, b_ptrs, out.data_ptr(), scratch.data_ptr(),
-        *ptrs, _stream(x.device))
+        operand(x).data_ptr(), w_ptrs, b_ptrs, out.data_ptr(),
+        scratch.data_ptr(), *operand_ptrs(arrays, ptrs), _stream(x.device))
     _build.check(rc, entry)
     wrapper.launches += 1
     return out
@@ -818,11 +820,11 @@ def conv2d_basic_simd(x, w, b, stride=(1, 1), padding=(0, 0), relu=False,
     wh, _ = pad_axis(oihw_to_hwio(w), 2, K7_ALIGN)
     xh, wh = xh.contiguous(), wh.contiguous()
     _, out_h, out_w = final_rows(stages, pool)
-    out = torch.empty((n, oc, out_h, out_w), dtype=torch.float32,
-                      device=x.device)
+    out = alloc((n, oc, out_h, out_w), torch.float32, x.device)
     rc = _build.library().conv_basic_simd_f32(
-        xh.data_ptr(), wh.data_ptr(), b.data_ptr(), out.data_ptr(),
-        geo.ctypes.data, lrn_f.ctypes.data, smem, _stream(x.device))
+        operand(xh).data_ptr(), operand(wh).data_ptr(),
+        operand(b).data_ptr(), out.data_ptr(), operand(geo).ctypes.data,
+        operand(lrn_f).ctypes.data, smem, _stream(x.device))
     _build.check(rc, "conv_basic_simd_f32")
     conv2d_basic_simd.launches += 1
     return out
@@ -845,11 +847,10 @@ def conv2d_basic_parallel(x, w, b, stride=(1, 1), padding=(0, 0),
         raise ValueError(f"bias shape {tuple(b.shape)} != ({oc},)")
     st, dims, _, _ = k8_geometry(n, x.shape[1:], w.shape, stride, padding,
                                  relu).geometry
-    out = torch.empty((n, oc, st.OH, st.OW), dtype=torch.float32,
-                      device=x.device)
+    out = alloc((n, oc, st.OH, st.OW), torch.float32, x.device)
     rc = _build.library().conv_basic_parallel_f32(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-        dims.ctypes.data, _stream(x.device))
+        operand(x).data_ptr(), operand(w).data_ptr(), operand(b).data_ptr(),
+        out.data_ptr(), operand(dims).ctypes.data, _stream(x.device))
     _build.check(rc, "conv_basic_parallel_f32")
     conv2d_basic_parallel.launches += 1
     return out

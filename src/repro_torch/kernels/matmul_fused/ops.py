@@ -29,7 +29,8 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import ACC_DTYPE, check_cuda, sm_count
+from repro_torch.kernels.common import (ACC_DTYPE, alloc, check_cuda,
+                                        operand, sm_count)
 from repro_torch.kernels.common import stream_handle as _stream
 from repro_torch.kernels.matmul_fused.ref import _ACTS, matmul_fused_ref
 
@@ -115,11 +116,12 @@ def _launch(x, w, b, act, path=None, role="forward"):
                          f"{x.dtype} [{m}, {k}] x [{k}, {n}]")
     splits, kchunk = (split_k(x.dtype, k, n, sm_count(x.device))
                       if path == "stream" else (0, 0))
-    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    y = alloc((m, n), x.dtype, x.device)
     entry = ("matmul_fused_bf16" if x.dtype == torch.bfloat16
              else "matmul_fused_f32")
+    xs, ws, bs = operand(x), operand(w), operand(b)
     rc = getattr(_build.library(), entry)(
-        x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
+        xs.data_ptr(), ws.data_ptr(), None if bs is None else bs.data_ptr(),
         y.data_ptr(), m, n, k, PATH_CODES[path], splits, kchunk,
         ACT_CODES[act], _stream(x.device))
     _build.check(rc, entry)

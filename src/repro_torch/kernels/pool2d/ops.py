@@ -17,7 +17,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import Launch, check_cuda_f32, stream_handle
+from repro_torch.kernels.common import (Launch, alloc, check_cuda_f32,
+                                        operand, stream_handle)
 from repro_torch.kernels.pool2d.ref import pool2d_ref
 
 KIND_CODES = {"max": 1, "avg": 2}
@@ -69,9 +70,9 @@ def _launch(x, kernel, stride, kind, relu):
     check_cuda_f32("pool2d", x)
     n, c, h, w = x.shape
     oh, ow, _ = pool_geometry(n, c, h, w, kernel, stride).geometry
-    y = torch.empty((n, c, oh, ow), dtype=torch.float32, device=x.device)
+    y = alloc((n, c, oh, ow), torch.float32, x.device)
     rc = _build.library().pool2d_f32(
-        x.data_ptr(), y.data_ptr(), n * c, h, w, oh, ow, kernel[0],
+        operand(x).data_ptr(), y.data_ptr(), n * c, h, w, oh, ow, kernel[0],
         kernel[1], stride[0], stride[1], KIND_CODES[kind], int(relu),
         stream_handle(x.device))
     _build.check(rc, "pool2d_f32")

@@ -27,8 +27,10 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (
+    alloc,
     check_cuda,
     check_cuda_f32,
+    operand,
     sm_count,
     stream_handle,
 )
@@ -125,13 +127,14 @@ def _launch(r, k, v, logw, u, L, state):
                          f"state {ALIGN}-byte aligned")
     dev = r.device
     plan = wkv6_plan(b, s, h, L, sm_count(dev))
-    o = torch.empty_like(r)
-    s_out = torch.empty((b, h, e, e), dtype=torch.float32, device=dev)
-    scratch = torch.empty(plan.scratch_elems, dtype=torch.float32, device=dev)
+    o = alloc(r)
+    s_out = alloc((b, h, e, e), torch.float32, dev)
+    scratch = alloc(plan.scratch_elems, torch.float32, dev, scratch=True)
     entry = "wkv6_bf16" if r.dtype == torch.bfloat16 else "wkv6_f32"
+    rs, ks, vs, lws, us, ss = (operand(t) for t in (r, k, v, logw, u, state))
     rc = getattr(_build.library(), entry)(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
-        u.data_ptr(), None if state is None else state.data_ptr(),
+        rs.data_ptr(), ks.data_ptr(), vs.data_ptr(), lws.data_ptr(),
+        us.data_ptr(), None if ss is None else ss.data_ptr(),
         o.data_ptr(), s_out.data_ptr(), scratch.data_ptr(), b, s, h, L,
         stream_handle(dev))
     _build.check(rc, entry)

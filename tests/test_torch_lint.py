@@ -176,6 +176,44 @@ def test_r007_only_plain_versions_under_kernels():
     assert lint_source(ref, "src/repro_torch/nn/attention.py") == []
 
 
+# -- R008: a launching wrapper allocates through the guard pass's hook --------
+
+
+R008_SRC = """
+def _launch(x):
+    y = torch.empty((4, 4), dtype=x.dtype, device=x.device)
+    s = torch.zeros_like(y)
+    rc = _build.library().pool2d_f32(operand(x).data_ptr(), y.data_ptr())
+    _build.check(rc, "pool2d_f32")
+    return y
+
+
+def helper(x):
+    return torch.empty_like(x)
+
+
+def hooked(x):
+    y = alloc((4, 4), x.dtype, x.device)
+    rc = _build.library().pool2d_f32(operand(x).data_ptr(), y.data_ptr())
+    _build.check(rc, "pool2d_f32")
+    return y
+"""
+
+
+def test_r008_allocation_past_the_hook():
+    """A function of a wrapper module that calls ``_build.library()`` and
+    allocates with ``torch.empty``/``zeros_like`` fires R008 at each
+    allocation; a helper that launches nothing, and the hooked launch,
+    are clean; so is the same source outside ``kernels/*/ops.py``."""
+    findings = lint_source(R008_SRC, KERNEL_OPS)
+    assert rules_of(findings) == {"R008"}
+    assert [f.step for f in findings] == [f"{KERNEL_OPS}:3",
+                                          f"{KERNEL_OPS}:4"]
+    assert "torch.empty" in findings[0].detail
+    assert lint_source(R008_SRC, KERNEL_REF) == []
+    assert lint_source(R008_SRC, "src/repro_torch/kernels/common.py") == []
+
+
 def test_lint_imports_nothing_of_the_jax_package():
     """A fresh interpreter that imports the port's lint, its CLI and the
     sweep loads no module of ``repro`` and no ``jax``."""

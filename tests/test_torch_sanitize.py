@@ -9,7 +9,7 @@ import re
 
 import pytest
 
-from repro_torch.analysis.findings import RULES
+from repro_torch.analysis.findings import RULES, Finding
 from repro_torch.kernels import _build
 from repro_torch.tools import sanitize
 
@@ -163,6 +163,12 @@ def test_every_tool_has_a_rule_and_every_kernel_its_globals():
             src.read_text()))
     named = {g for names in sanitize.GLOBALS.values() for g in names}
     assert named == declared
+    # the cases cover every unit, K3's CUDA-core tiles included; the
+    # guard pass runs first, its rules in the taxonomy
+    assert sanitize.COVERED == tuple(sanitize.GLOBALS)
+    assert "K3/tiles" in sanitize.COVERED and len(sanitize.COVERED) == 14
+    assert sanitize.DEFAULT_TOOLS == (sanitize.GUARD,) + sanitize.TOOLS
+    assert all(rule in RULES for rule in ("K109", "K110", "K111"))
     # the async-proxy kernels read their shared memory with wgmma
     for name, src in (("mm_wgmma", "matmul_fused.cu"),
                       ("flash_wgmma", "flash_attention.cu")):
@@ -202,3 +208,46 @@ def test_each_tool_runs_the_cases(tool, monkeypatch):
     assert seen["cmd"][-3:] == ["-m", "repro_torch.tools.sanitize",
                                 "--run-cases"]
     assert seen["env"]["PYTORCH_NO_CUDA_MEMORY_CACHING"] == "1"
+
+
+def _guard_result(findings, analysed=True):
+    ran = [("k3/bf16/gate/m4", ["K3/stream"])]
+    return findings, analysed, ran if analysed else []
+
+
+def test_guard_pass_alone_exits_0_without_compute_sanitizer(monkeypatch,
+                                                            capsys):
+    """The guard pass runs first; with it analysed, a missing
+    compute-sanitizer is no exit 2, and its column reads clean."""
+    monkeypatch.setattr(sanitize, "run_guard",
+                        lambda: _guard_result([]))
+    monkeypatch.setattr(sanitize, "find_sanitizer", lambda: None)
+    assert sanitize.main([]) == 0
+    out = capsys.readouterr().out
+    assert "compute-sanitizer not found" in out
+    assert "| K3/stream | clean |" in out and "| K1 | not run |" in out
+    assert "| unit | K101 | K102 | K109 | K110 | K111 |" in out
+
+
+def test_guard_finding_exits_1(monkeypatch, capsys):
+    bad = Finding("error", "guard:k3/bf16/gate/m4:K3/stream", "K102",
+                  "launch 0 (matmul_fused_bf16): y: 1 element(s) never "
+                  "written")
+    monkeypatch.setattr(sanitize, "run_guard",
+                        lambda: _guard_result([bad]))
+    assert sanitize.main(["--tools", "guard"]) == 1
+    out = capsys.readouterr().out
+    assert "| K3/stream | finding |" in out
+    assert "| K3/stream | clean | 1 | clean | clean | clean |" in out
+
+
+def test_guard_without_a_card_is_unanalysed(monkeypatch, capsys):
+    """On a machine with no CUDA device the guard pass does not run: not
+    analysed, exit 2."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert sanitize.main(["--tools", "guard"]) == 2
+    out = capsys.readouterr().out
+    assert "the guard pass did not run" in out
+    assert "| K1 | unanalysed |" in out

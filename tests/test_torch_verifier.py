@@ -297,7 +297,7 @@ def test_rules_cover_the_ported_taxonomy():
         "V101", "V102", "V103", "V201", "V203", "V205", "V301", "V302",
         "V303", "V304"}
     assert {r for r in RULES if r.startswith("R")} == {
-        "R001", "R002", "R004", "R005", "R006", "R007"}
+        "R001", "R002", "R004", "R005", "R006", "R007", "R008"}
 
 
 # -- deployment, the engine, the server ----------------------------------------
