@@ -365,10 +365,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    replayed (``capture`` line: per kernel, whether the cooperative launch
    was accepted and the replay gave the bits of the launch; a refusal is
    reported, not failed);
-15. prints one JSON line ``{"kernels": [...]}``: per kernel, ``launches``
+15. the last four registered language models at full width, one after
+   another, each freed before the next (``dense_phase``):
+   starcoder2-15b (LayerNorm, q/k/v biases, a plain gelu MLP with
+   biases, a 4096-row window), internlm2-20b, qwen1.5-32b (40 heads
+   over 40, q/k/v biases) and grok-1-314b (8 gelu experts of d_ff 32768,
+   top 2, softcaps 30): a. K3 bf16 at each arch's distinct projections
+   (``K3_DENSE_SHAPES``, a shape an earlier arch ran not again) over
+   ``K3_LM_ROWS``, as 7a — the weight stream's ``split_k`` on every
+   stream case's line, one K slice at starcoder2's up and qwen1.5's
+   gate/up — and K10 at each arch's attention (``K10_DENSE_CASES``:
+   starcoder2's window at head_dim 128 at every prompt length, the
+   others at 1500 and 4500 tokens, grok's with its softcap); b. CPU
+   parity as 7b on two fp32 layers (grok on one, ``DENSE_PARITY_CUTS``;
+   its routing recorded and checked as 9b), the fp32 prefill on K10's CUDA-core kernel alone; c. the
+   model served as 7c, twice, weights drawn on the card, cut only as
+   ``DENSE_CUTS`` says (qwen1.5 to 32 of 64 layers, grok to 4 of 64;
+   printed as ``reduced`` with the reason): K3 ``K3_DENSE_PER_LAYER`` a
+   layer in every prefill and decode step, K10 once a layer in a prefill,
+   on wgmma alone, the peak under 80 GB, ``memory_budget`` and the
+   bounds (``dense_bounds``: a decode step's weight read, a 4500-token
+   prefill's projections) printed beside the times; d. the profile of
+   7d (grok's with 9d's MoE ranges); each arch's wall time;
+16. prints one JSON line ``{"kernels": [...]}``: per kernel, ``launches``
    is its count summed over the AlexNet forwards of phase 4 (K1-K3,
    K7-K9) or phase 5 (K4-K6), or over the first LM serving run of phase
-   7c and the first runs of phase 11c (K10's wgmma path as
+   7c and the first runs of phases 11c and 15c (K10's wgmma path as
    ``flash_attention``, and K3's bf16 launches as ``matmul_fused_bf16``)
    or of phase 8c (K11, as ``wkv6``), each counted from 0; the times and
    bound are summed over its distinct AlexNet batch-16 shapes on that
@@ -376,15 +398,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    K3 bf16: its phase-7a cases at M = 4 and 4500; K11: its bf16
    4500-token case, which no library call computes); K10's CUDA-core
    kernel has an entry of its own (``flash_attention_simt``), its
-   launches those of the fp32 prefills of 7b and 11b, its times the fp32
-   4500-token case; K3's wgmma path has an entry of its own, its
-   launches those of the wgmma path in the first runs of 7c and 11c, its
-   times its phase-7a cases at M = 4500; the error is the largest over
-   every case.  Phase 13c's first steps add, apart:
+   launches those of the fp32 prefills of 7b, 11b and 15b, its times the
+   fp32 4500-token case; K3's wgmma path has an entry of its own, its
+   launches those of the wgmma path in the first runs of 7c, 11c and 15c,
+   its times its phase-7a cases at M = 4500; the error is the largest over
+   every case, phase 15a's among them.  Phase 13c's first steps add, apart:
    ``train_backward_launches`` (K3's z, dx and dw) on the K3 entries,
    ``train_ml_launches`` on ``flash_attention`` and ``train_launches``
    on ``wkv6``;
-16. prints ``{"ok": true, "device": {...}}`` as its last line.
+17. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Run it from the repository root; it needs one CUDA device and the CUDA
 toolkit, and imports nothing of the JAX package.
@@ -1815,17 +1837,22 @@ def lm_parity_phase(torch, np, dev, counter, arch=LM_ARCH,
     return rec
 
 
-def build_model(torch, arch, dev, redraw=None):
-    """``arch`` at full width and depth with weights drawn on ``dev`` from
-    ``SEED`` (``redraw``: then that function's leaves, ``rwkv_redraw``'s
-    or ``ssm_redraw``'s, from the same generator); returns (model,
-    seconds)."""
+def build_model(torch, arch, dev, redraw=None, layers=None):
+    """``arch`` at full width and depth (``layers``: that many layers
+    instead) with weights drawn on ``dev`` from ``SEED`` (``redraw``: then
+    that function's leaves, ``rwkv_redraw``'s or ``ssm_redraw``'s, from
+    the same generator); returns (model, seconds)."""
+    import dataclasses
+
     from repro_torch.core.config import get_arch
     from repro_torch.models.registry import get_model
     from repro_torch.nn.param import init_tree
 
     t0 = time.perf_counter()
-    model = get_model(get_arch(arch))
+    cfg = get_arch(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    model = get_model(cfg)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     tree = init_tree(model.param_spec(), gen, model.cfg.param_dtype)
     if redraw is not None:
@@ -1907,7 +1934,10 @@ def lm_serving_phase(torch, np, dev, counters, card, model, init_s, expect,
                      "launches": launches, "other_launches": others,
                      "k3_paths": dict(k3_paths),
                      "k10_paths": dict(k10_paths)})
+        # the timed wrappers hold the engine in a reference cycle: collect
+        # it now, or its cache stays on the card beside the next run's
         del eng
+        gc.collect()
     first, second = runs
     label = f"{cfg.name} serving"
     if sorted(first["done"]) != list(range(len(prompts))):
@@ -2415,36 +2445,37 @@ def record_routing(torch, log):
         common.moe_apply = real
 
 
-def check_routing(log):
-    """Phase 9b: the card's blocks chose the CPU's experts and kept its
-    pairs, call by call; returns the summary."""
+def check_routing(log, arch=MOE_ARCH):
+    """Phase 9b (and 15b for grok-1-314b, ``arch``): the card's blocks
+    chose the CPU's experts and kept its pairs, call by call; returns the
+    summary."""
     sides = {d: [r for r in log if r["device"] == d] for d in ("cuda", "cpu")}
     gpu, cpu = sides["cuda"], sides["cpu"]
     if not gpu or len(gpu) != len(cpu):
-        fail(f"{MOE_ARCH} parity: {len(gpu)} MoE calls on the card, "
+        fail(f"{arch} parity: {len(gpu)} MoE calls on the card, "
              f"{len(cpu)} on the CPU")
     for i, (a, b) in enumerate(zip(gpu, cpu)):
         if (a["mode"], a["cap"]) != (b["mode"], b["cap"]):
-            fail(f"{MOE_ARCH} parity: MoE call {i} ran {a['mode']} cap "
+            fail(f"{arch} parity: MoE call {i} ran {a['mode']} cap "
                  f"{a['cap']} on the card, {b['mode']} cap {b['cap']} on "
                  f"the CPU")
         if not a["experts"].equal(b["experts"]):
-            fail(f"{MOE_ARCH} parity: MoE call {i} ({a['mode']}) chose other "
+            fail(f"{arch} parity: MoE call {i} ({a['mode']}) chose other "
                  f"experts on the card than on the CPU (smallest margin "
                  f"{min(a['margin'], b['margin'])})")
         if not a["kept"].equal(b["kept"]):
-            fail(f"{MOE_ARCH} parity: MoE call {i} ({a['mode']}) kept other "
+            fail(f"{arch} parity: MoE call {i} ({a['mode']}) kept other "
                  f"pairs on the card than on the CPU")
     prefill = [r for r in gpu if r["mode"] == "prefill"]
     if any(r["dropped"] for r in gpu if r["mode"] == "decode"):
-        fail(f"{MOE_ARCH} parity: a decode step dropped pairs")
+        fail(f"{arch} parity: a decode step dropped pairs")
     rec = {"calls": len(gpu), "prefill_cap": prefill[0]["cap"],
            "prefill_dropped": [r["dropped"] for r in prefill],
            "decode_dropped": sum(r["dropped"] for r in gpu
                                  if r["mode"] == "decode"),
            "min_margin": min(r["margin"] for r in gpu + cpu),
            "min_margin_prefill": min(r["margin"] for r in prefill)}
-    print(f"{MOE_ARCH} routing " + json.dumps(rec), flush=True)
+    print(f"{arch} routing " + json.dumps(rec), flush=True)
     return rec
 
 
@@ -3619,6 +3650,213 @@ def train_phase(torch, np, dev, peaks, counters, card):
     return cases, parity, full
 
 
+#: phase 15: the last four registered language models at full width
+DENSE_ARCHS = ("starcoder2-15b", "internlm2-20b", "qwen1.5-32b",
+               "grok-1-314b")
+#: the served models' depth cuts, the only cuts of the phase (layers, why);
+#: width, heads, experts and vocab stay as published
+DENSE_CUTS = {
+    "qwen1.5-32b": (32, "64 layers: 70.4 GB of bf16 weights, no room for "
+                        "the 42.9-GB cache of 4 x 8192 rows; 32 layers: "
+                        "36.7 GB of weights, 21.5 GB of cache"),
+    "grok-1-314b": (4, "64 layers: 633 GB; a layer is 9.84 GB (8 experts "
+                       "of d_ff 32768): 4 layers, 39.4 GB, and 3.2 GB of "
+                       "embeddings fit one card"),
+}
+#: 15b's depth cuts below 7b's two layers (layers, why): at two layers
+#: grok's CPU side reads 38.6 GB of fp32 experts in every decode step on
+#: one thread, 109-158 s, and the whole smoke came to 1006 s of the 1200
+#: it may take
+DENSE_PARITY_CUTS = {
+    "grok-1-314b": (1, "the CPU side of two fp32 layers took 109-158 s"),
+}
+#: K3's distinct projections (K, N, activation, bias) in each arch's block;
+#: a shape an earlier arch of the phase ran is not run again
+K3_DENSE_SHAPES = {
+    "starcoder2-15b": ((6144, 6144, "none", True),     # q
+                       (6144, 512, "none", True),      # k, v
+                       (6144, 6144, "none", False),    # o
+                       (6144, 24576, "gelu", True),    # up: one K slice
+                       (24576, 6144, "none", True)),   # down
+    "internlm2-20b": ((6144, 6144, "none", False),     # q, o
+                      (6144, 1024, "none", False),     # k, v
+                      (6144, 16384, "silu", False),    # gate, up
+                      (16384, 6144, "none", False)),   # down
+    "qwen1.5-32b": ((5120, 5120, "none", True),        # q, k, v
+                    (5120, 5120, "none", False),       # o
+                    (5120, 27392, "silu", False),      # gate, up: one slice
+                    (27392, 5120, "none", False)),     # down
+    "grok-1-314b": ((6144, 6144, "none", False),       # q, o
+                    (6144, 1024, "none", False)),      # k, v
+}
+#: K10 at each arch's attention (``K10_CASES``' order) at the two longest
+#: prompts; starcoder2's window, new at head_dim 128, at all four
+K10_DENSE_CASES = {
+    "starcoder2-15b": tuple((s, 4096, 0.0, "bfloat16", 48, 4, 128, True)
+                            for s in LM_PROMPTS),
+    "internlm2-20b": tuple((s, 0, 0.0, "bfloat16", 48, 8, 128, True)
+                           for s in (1500, 4500)),
+    "qwen1.5-32b": tuple((s, 0, 0.0, "bfloat16", 40, 40, 128, True)
+                         for s in (1500, 4500)),
+    "grok-1-314b": tuple((s, 0, 30.0, "bfloat16", 48, 8, 128, True)
+                         for s in (1500, 4500)),
+}
+#: K3 launches a layer in a prefill and in a decode step: q, k, v, o and
+#: the MLP's (starcoder2: up and down; grok: none, its experts are
+#: batched torch.matmul)
+K3_DENSE_PER_LAYER = {"starcoder2-15b": 6, "internlm2-20b": 7,
+                      "qwen1.5-32b": 7, "grok-1-314b": 4}
+
+
+def dense_kernel_cases(torch, F, dev, peaks, arch, done):
+    """Phase 15a: K3 (bf16) at ``arch``'s projection shapes over
+    ``K3_LM_ROWS`` (those not in ``done``, which it extends) and K10 at
+    its attention, as 9a; a stream case's line carries its ``split_k``.
+    Returns the records."""
+    from repro_torch.kernels.matmul_fused.ops import TILED_MIN_M, split_k
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = [k10_case(torch, F, gen, dev, case, peaks)
+            for case in K10_DENSE_CASES[arch]]
+    for kk, n, act, bias in K3_DENSE_SHAPES[arch]:
+        if (kk, n, act, bias) in done:
+            continue
+        done.add((kk, n, act, bias))
+        splits = split_k(torch.bfloat16, kk, n, sms)
+        for m in K3_LM_ROWS:
+            extra = {"split_k": list(splits)} if m < TILED_MIN_M else {}
+            rows.append(k3_bf16_case(torch, F, gen, dev, m, kk, n, act,
+                                     peaks, False, bias=bias, **extra))
+    for r in rows:
+        r["arch"] = arch
+    one = sorted({(r["k"], r["n"]) for r in rows
+                  if r.get("split_k", [0])[0] == 1})
+    print(f"{arch} K3 stream with one K slice (split_k (1, K), no cluster "
+          f"reduction) at {one}", flush=True)
+    return rows
+
+
+def dense_bounds(model, peaks, tokens=max(LM_PROMPTS)):
+    """The served model's bounds in ms: a decode step reads every weight
+    once (``decode_weight_read``); a ``tokens``-token prefill's
+    projections, every weight but the embedding and head once a token
+    (an MoE model's experts at k of E: ``prefill_projections``; at the
+    prefill's capacity, ``cap`` rows an expert: ``prefill_at_capacity``),
+    at the bf16 peak."""
+    import math
+
+    cfg = model.cfg
+    _, bw_peak, bf16_peak = peaks
+    params = dict(model.named_parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    embed = sum(p.numel() for n, p in params.items()
+                if n.startswith("embed"))
+    expert = sum(p.numel() for n, p in params.items()
+                 if n.split(".")[-1].startswith("we_"))
+    dense = sum(p.numel() for p in params.values()) - embed - expert
+    rec = {"decode_weight_read": 1e3 * weight_bytes / bw_peak}
+    active = expert
+    if cfg.moe is not None:
+        k, E = cfg.moe.num_experts_per_token, cfg.moe.num_experts
+        active = expert * k / E
+        cap = min(math.ceil(tokens * k * cfg.moe.eval_capacity_factor / E),
+                  tokens * k)
+        rec["prefill_at_capacity"] = 1e3 * 2.0 * (
+            tokens * dense + cap * expert) / bf16_peak
+    rec["prefill_projections"] = 1e3 * 2.0 * tokens * (dense + active) \
+        / bf16_peak
+    return rec
+
+
+def dense_phase(torch, F, np, dev, peaks, counters, card):
+    """Phase 15 (see the module docstring): for each of ``DENSE_ARCHS``,
+    one after another, its kernel cases, its CPU parity (grok's routing
+    recorded), the served model (``DENSE_CUTS`` its only cuts) and its
+    profile, each model freed before the next; returns (cases, parity
+    records, serving records)."""
+    from repro_torch.core.config import get_arch
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.models import common as lm_common
+    from repro_torch.nn import moe as moe_mod
+
+    t15 = time.perf_counter()
+    cases, parity, served, done = [], {}, {}, set()
+    for arch in DENSE_ARCHS:
+        t = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cases += dense_kernel_cases(torch, F, dev, peaks, arch, done)
+        t_b = time.perf_counter()
+        moe = get_arch(arch).moe is not None
+        routing = []
+        with (record_routing(torch, routing) if moe
+              else contextlib.nullcontext()):
+            cut, why = DENSE_PARITY_CUTS.get(arch, (2, None))
+            par = lm_parity_phase(torch, np, dev, attn_ops.flash_attention,
+                                  arch, cut={"num_layers": cut})
+        par["reduced"] = {"num_layers": cut, "why": why} if why else None
+        if moe:
+            par["routing"] = check_routing(routing, arch)
+        if par["paths"] != {"simt": par["layers"], "wgmma": 0}:
+            fail(f"{arch} parity: the fp32 prefill took K10's paths "
+                 f"{par['paths']}, not the CUDA-core kernel alone")
+        parity[arch] = par
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_c = time.perf_counter()
+        layers, why = DENSE_CUTS.get(arch, (None, None))
+        model, init_s = build_model(torch, arch, dev, layers=layers)
+        init_peak = torch.cuda.max_memory_allocated() / 1e9
+        n = model.cfg.num_layers
+        k3 = K3_DENSE_PER_LAYER[arch] * n
+        rec = lm_serving_phase(
+            torch, np, dev, counters, card, model, init_s,
+            {"prefill": {"K3": k3, "K10": n, "K11": 0},
+             "decode": {"K3": k3, "K10": 0, "K11": 0}})
+        if rec["k10_paths"] != {"simt": 0, "wgmma": rec["launches"]["K10"]}:
+            fail(f"{arch} serving: K10's prefill launches took the paths "
+                 f"{rec['k10_paths']}, not the wgmma path alone")
+        rec["layers"] = n
+        rec["reduced"] = ({"num_layers": [get_arch(arch).num_layers, n],
+                           "why": why} if layers else None)
+        rec["init_peak_memory_gb"] = init_peak
+        rec["budget_gb"] = memory_budget(model)
+        rec["bounds_ms"] = dense_bounds(model, peaks)
+        rec["profile"] = lm_profile(
+            torch, model, card,
+            (("moe block", lm_common, "moe_apply"),
+             ("moe routing", moe_mod, "route"),
+             ("moe experts", moe_mod, "experts")) if moe else ())
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_end = time.perf_counter()
+        rec["phase_s"] = t_end - t
+        rec["phase_split_s"] = {"cases": t_b - t, "parity": t_c - t_b,
+                                "served": t_end - t_c}
+        rec["phase_peak_memory_gb"] = max(
+            init_peak, torch.cuda.max_memory_allocated() / 1e9)
+        served[arch] = rec
+        print("dense " + json.dumps({k: v for k, v in rec.items()
+                                     if k != "runs"}), flush=True)
+        bounds = {k: round(v, 2) for k, v in rec["bounds_ms"].items()}
+        print(f"phase 15 {arch}: wall time {rec['phase_s']:.1f} s (cases "
+              f"{t_b - t:.1f}, parity {t_c - t_b:.1f}, served "
+              f"{t_end - t_c:.1f}), {n} layers, reduced "
+              f"{json.dumps(rec['reduced'])}, peak memory "
+              f"{rec['phase_peak_memory_gb']:.2f} GB (init "
+              f"{init_peak:.2f}, serving {rec['peak_memory_gb']:.2f}; "
+              f"budget { {k: round(v, 2) for k, v in rec['budget_gb'].items()} }"
+              f"), bounds ms {bounds} [{card}]", flush=True)
+        if not rec["phase_peak_memory_gb"] < 80.0:
+            fail(f"{arch}: peak memory {rec['phase_peak_memory_gb']:.2f} GB")
+    print(f"phase 15 wall time {time.perf_counter() - t15:.1f} s",
+          flush=True)
+    return cases, parity, served
+
+
 def main() -> int:
     global SEED
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3942,7 +4180,13 @@ def main() -> int:
     train_cases, train_parity_recs, train = train_phase(
         torch, np, dev, peaks, counters, card_line)
 
-    # -- 15. the kernels line -----------------------------------------------
+    # -- 15. starcoder2-15b, internlm2-20b, qwen1.5-32b, grok-1-314b ----------
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense_cases, dense_parity, dense = dense_phase(
+        torch, F, np, dev, peaks, counters, card_line)
+
+    # -- 16. the kernels line -----------------------------------------------
     kernels = []
     for kid, (name, src, replaces) in sources.items():
         mine = [c for c in cases if c["kernel"] == kid]
@@ -3979,17 +4223,19 @@ def main() -> int:
             else "bytes",
             "library_ms": sum(c["library_ms"] for c in main), **extra}
 
-    # K10: the wgmma path (every bf16 prefill of 7c and 11c) and the
-    # CUDA-core kernel (the fp32 prefills of 7b and 11b; its time the fp32
-    # 4500-token case)
-    k10 = [c for c in lm_cases + cross_cases if c["kernel"] == "K10"]
+    # K10: the wgmma path (every bf16 prefill of 7c, 11c and 15c) and the
+    # CUDA-core kernel (the fp32 prefills of 7b, 11b and 15b; its time the
+    # fp32 4500-token case)
+    k10 = [c for c in lm_cases + cross_cases + dense_cases
+           if c["kernel"] == "K10"]
     k10_src = "src/repro_torch/csrc/flash_attention.cu"
     k10_pallas = "src/repro/kernels/attention/kernel.py:116"
-    k10_wgmma = {p: lm["k10_paths"][p] + sum(r["k10_paths"][p]
-                                             for r in cross.values())
+    k10_wgmma = {p: lm["k10_paths"][p] + sum(
+        r["k10_paths"][p] for r in (*cross.values(), *dense.values()))
                  for p in lm["k10_paths"]}
-    k10_simt = {p: lm_parity["paths"][p] + sum(r["paths"][p]
-                                               for r in cross_parity.values())
+    k10_simt = {p: lm_parity["paths"][p] + sum(
+        r["paths"][p] for r in (*cross_parity.values(),
+                                *dense_parity.values()))
                 for p in lm_parity["paths"]}
     # the training steps of phase 13 (counted apart, each row's launches
     # keeping their meaning): K3's backward launches by role, K10's
@@ -4011,16 +4257,17 @@ def main() -> int:
             + [c["simt_max_abs_err"] for c in k10 if c["path"] == "wgmma"]),
         path="simt", paths=k10_simt))
     # K3 bf16: its times at gemma2-2b's shapes (7a), its launches those of
-    # 7c's first run and 11c's, its error the largest of every case
+    # the first runs of 7c, 11c and 15c, its error the largest of every
+    # case
     k3 = [c for c in lm_cases if c["kernel"] == "K3-bf16"]
-    k3_all = [c for c in k3 + rwkv_cases + cross_cases
+    k3_all = [c for c in k3 + rwkv_cases + cross_cases + dense_cases
               if c["kernel"] == "K3-bf16"]
+    served_k3 = (*cross.values(), *dense.values())
     kernels.append(lm_entry(
         "matmul_fused_bf16", "src/repro_torch/csrc/matmul_fused.cu",
         "src/repro/kernels/matmul_fused/kernel.py:37",
         [c for c in k3 if c["main"]],
-        lm["launches"]["K3"] + sum(r["launches"]["K3"]
-                                   for r in cross.values()),
+        lm["launches"]["K3"] + sum(r["launches"]["K3"] for r in served_k3),
         max(c["max_abs_err"] for c in k3_all),
         train_backward_launches=k3_backward))
     kernels.append(lm_entry(
@@ -4029,7 +4276,7 @@ def main() -> int:
         [c for c in k3 if c["path"] == "wgmma"
          and c["rows"] == K3_WGMMA_GAIN[0]],
         lm["k3_paths"]["wgmma"] + sum(r["k3_paths"]["wgmma"]
-                                      for r in cross.values()),
+                                      for r in served_k3),
         max(c["max_abs_err"] for c in k3_all if c["path"] == "wgmma"),
         train_backward_launches=k3_backward))
     k11 = next(c for c in rwkv_cases if c["kernel"] == "K11" and c["main"])
@@ -4070,7 +4317,9 @@ def main() -> int:
              "zamba": zamba, "cross_cases": cross_cases,
              "cross_parity": cross_parity, "cross": cross, "kvq": kvq,
              "train_cases": train_cases, "train_parity": train_parity_recs,
-             "train": train, "capture": capture, "kernels": kernels},
+             "train": train, "dense_cases": dense_cases,
+             "dense_parity": dense_parity, "dense": dense,
+             "capture": capture, "kernels": kernels},
             indent=1))
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,7 +3,7 @@ port of ``repro.core.cost``.
 
 The model of "Modeling the Resource Requirements of CNNs on Mobile
 Devices" (arxiv 1709.09503), adapted to the plan IR.  Every step is
-reduced to three measurable resources:
+reduced to four measurable resources:
 
 * **FLOPs** — the arithmetic the step must do (2 × MACs for conv/fc;
   window/pointwise op counts for the tail kinds), attributed to a
@@ -15,10 +15,17 @@ reduced to three measurable resources:
 * **bytes streamed** from device memory — input activation + weights +
   output: a fused/chain step streams no intermediate activation (the
   fusion win, visible to the model),
-* **launches** (``dispatches``) — one per step that runs a kernel.
+* **launches** (``dispatches``) — one per step that runs a kernel,
+* **host operations** (``host_ops``) — the calls the host makes to put
+  the step's work on the card: one per kernel wrapper call, and for a
+  plain step (``SEQ_REF``'s conv and fc, LRN, ReLU, softmax) each torch
+  op it enqueues (``plain_host_ops``).  The port's own resource: the
+  JAX package's model has no such column, and a model without the
+  coefficient (the root ``cpu`` model) prices it at 0.
 
 Predicted microseconds come from fitted per-backend coefficients
-(``us_per_gflop[bucket]``, ``us_per_gb``, ``dispatch_us``) loaded from
+(``us_per_gflop[bucket]``, ``us_per_gb``, ``dispatch_us``,
+``host_op_us``) loaded from
 the port's committed ``COST_MODEL.json`` (beside this module, backend
 ``cuda``), fitted on the card by ``repro_torch.tools.cost_fit`` and
 checked by ``repro_torch.tools.cost_validate`` (Spearman rank
@@ -94,6 +101,7 @@ class StepCost:
     flops: float
     hbm_bytes: float
     dispatches: int
+    host_ops: int = 0
     us: float = 0.0
 
 
@@ -120,6 +128,10 @@ class PlanCost:
     @property
     def dispatches(self) -> int:
         return sum(s.dispatches for s in self.steps)
+
+    @property
+    def host_ops(self) -> int:
+        return sum(s.host_ops for s in self.steps)
 
     @property
     def us(self) -> float:
@@ -157,8 +169,11 @@ class PlanCost:
 
 @dataclass(frozen=True)
 class CostModel:
-    """Fitted per-backend coefficients pricing the three resources.
+    """Fitted per-backend coefficients pricing the resources.
 
+    ``host_op_us`` prices the host operations; it is 0 in a model fitted
+    without them (the root ``cpu`` model, the unit model), and then
+    absent from ``to_dict``, so such a model equals the JAX package's.
     ``fallback_from`` records a cross-backend substitution made by
     ``load``: the backend that was requested when the file had no entry
     for it and another backend's coefficients were returned instead
@@ -167,13 +182,15 @@ class CostModel:
     us_per_gflop: Mapping[str, float]
     us_per_gb: float
     dispatch_us: float
+    host_op_us: float = 0.0
     fallback_from: Optional[str] = None
 
     def predict(self, flops_by_key: Mapping[str, float], hbm_bytes: float,
-                dispatches: int) -> float:
+                dispatches: int, host_ops: int = 0) -> float:
         """Price aggregate features (a whole plan's, or one step's)."""
         us = (dispatches * self.dispatch_us
-              + hbm_bytes * 1e-9 * self.us_per_gb)
+              + hbm_bytes * 1e-9 * self.us_per_gb
+              + host_ops * self.host_op_us)
         for k, f in flops_by_key.items():
             a = self.us_per_gflop.get(k)
             if a is None:
@@ -182,8 +199,8 @@ class CostModel:
         return us
 
     def step_us(self, key: str, flops: float, hbm_bytes: float,
-                dispatches: int) -> float:
-        return self.predict({key: flops}, hbm_bytes, dispatches)
+                dispatches: int, host_ops: int = 0) -> float:
+        return self.predict({key: flops}, hbm_bytes, dispatches, host_ops)
 
     @staticmethod
     def unit(backend: str = "unit") -> "CostModel":
@@ -194,16 +211,20 @@ class CostModel:
                          us_per_gb=1.0, dispatch_us=1.0)
 
     def to_dict(self) -> dict:
-        return {"us_per_gflop": dict(self.us_per_gflop),
-                "us_per_gb": self.us_per_gb,
-                "dispatch_us": self.dispatch_us}
+        d = {"us_per_gflop": dict(self.us_per_gflop),
+             "us_per_gb": self.us_per_gb,
+             "dispatch_us": self.dispatch_us}
+        if self.host_op_us:
+            d["host_op_us"] = self.host_op_us
+        return d
 
     @classmethod
     def from_dict(cls, d: Mapping, backend: str) -> "CostModel":
         return cls(backend=backend,
                    us_per_gflop=dict(d["us_per_gflop"]),
                    us_per_gb=float(d["us_per_gb"]),
-                   dispatch_us=float(d["dispatch_us"]))
+                   dispatch_us=float(d["dispatch_us"]),
+                   host_op_us=float(d.get("host_op_us", 0.0)))
 
     @classmethod
     def load(cls, path: Optional[str] = None,
@@ -251,6 +272,32 @@ def _conv_weight_bytes(spec: LayerSpec, cin: int) -> int:
     return (spec.out_channels * cin * kh * kw + spec.out_channels) * ITEMSIZE
 
 
+#: host operations of one kernel wrapper call
+WRAPPER_HOST_OPS = 1
+
+
+def plain_host_ops(kind: str, spec: Optional[LayerSpec] = None,
+                   relu: bool = False) -> int:
+    """The torch ops a plain step enqueues on the card, counted from its
+    code: ``conv2d_ref`` (``SEQ_REF``'s conv) a pad, the zero
+    accumulator, an einsum and an add per kernel position and the bias
+    add; ``fc_seq_ref`` a matmul and the bias add; ``lrn_ref`` the
+    square, the pad, the zero accumulator, ``n`` adds and four
+    elementwise ops; a ReLU or a softmax one (a ReLU folded into a conv
+    or fc adds its clamp).  Casts to fp32 of fp32 tensors enqueue
+    nothing."""
+    if kind == "conv":
+        kh, kw = spec.kernel
+        return 3 + 2 * kh * kw + int(relu)
+    if kind == "fc":
+        return 2 + int(relu)
+    if kind == "lrn":
+        return spec.lrn_n + 7
+    if kind in ("relu", "softmax"):
+        return 1
+    raise ValueError(f"no plain step of kind {kind}")
+
+
 def _group_resources(group: FusedLayerSpec, method: Optional[Method],
                      in_shape: Tuple[int, int, int],
                      batch: int) -> StepCost:
@@ -279,7 +326,7 @@ def _group_resources(group: FusedLayerSpec, method: Optional[Method],
                          else Method.ADVANCED_SIMD_8)
     kind = "chain" if len(group.convs) > 1 else "fused"
     return StepCost(label=group.name, kind=kind, key=key, flops=flops,
-                    hbm_bytes=hbm, dispatches=1)
+                    hbm_bytes=hbm, dispatches=1, host_ops=WRAPPER_HOST_OPS)
 
 
 def _unfused_group_resources(group: FusedLayerSpec,
@@ -301,7 +348,7 @@ def _unfused_group_resources(group: FusedLayerSpec,
             hbm_bytes=(batch * _act_bytes((c, h, w))
                        + _conv_weight_bytes(cv, c)
                        + batch * _act_bytes((cv.out_channels, oh, ow))),
-            dispatches=1))
+            dispatches=1, host_ops=WRAPPER_HOST_OPS))
         c, h, w = cv.out_channels, oh, ow
     if group.pool is not None:
         ph, pw = _pool_out_hw(h, w, group.pool)
@@ -311,14 +358,14 @@ def _unfused_group_resources(group: FusedLayerSpec,
             * group.pool.kernel[0] * group.pool.kernel[1],
             hbm_bytes=batch * (_act_bytes((c, h, w))
                                + _act_bytes((c, ph, pw))),
-            dispatches=1))
+            dispatches=1, host_ops=WRAPPER_HOST_OPS))
         h, w = ph, pw
     if group.lrn is not None:
         out.append(StepCost(
             label=group.lrn.name, kind="lrn", key="other",
             flops=batch * c * h * w * (group.lrn.lrn_n + 4),
             hbm_bytes=batch * 2 * _act_bytes((c, h, w)),
-            dispatches=1))
+            dispatches=1, host_ops=plain_host_ops("lrn", group.lrn)))
     return out
 
 
@@ -339,7 +386,10 @@ def step_resources(plan: ExecutionPlan, step: PlanStep,
             hbm_bytes=(batch * _act_bytes(step.in_shape)
                        + _conv_weight_bytes(spec, c)
                        + batch * _act_bytes(step.out_shape)),
-            dispatches=1)
+            dispatches=1,
+            host_ops=(plain_host_ops("conv", spec, step.relu)
+                      if step.method == Method.SEQ_REF
+                      else WRAPPER_HOST_OPS))
     if step.kind == "fc":
         d_in = step.d_in
         d_out = step.spec.out_channels
@@ -349,7 +399,10 @@ def step_resources(plan: ExecutionPlan, step: PlanStep,
             hbm_bytes=(batch * d_in * ITEMSIZE
                        + (d_in * d_out + d_out) * ITEMSIZE
                        + batch * d_out * ITEMSIZE),
-            dispatches=1)
+            dispatches=1,
+            host_ops=(plain_host_ops("fc", relu=step.relu)
+                      if step.method == Method.SEQ_REF
+                      else WRAPPER_HOST_OPS))
     if step.kind == "pool":
         c = step.in_shape[0]
         oh, ow = step.out_shape[1], step.out_shape[2]
@@ -359,20 +412,20 @@ def step_resources(plan: ExecutionPlan, step: PlanStep,
             * step.spec.kernel[0] * step.spec.kernel[1],
             hbm_bytes=batch * (_act_bytes(step.in_shape)
                                + _act_bytes(step.out_shape)),
-            dispatches=1)
+            dispatches=1, host_ops=WRAPPER_HOST_OPS)
     if step.kind == "lrn":
         return StepCost(
             label=label, kind="lrn", key="other",
             flops=batch * _elems(step.in_shape) * (step.spec.lrn_n + 4),
             hbm_bytes=batch * 2 * _act_bytes(step.in_shape),
-            dispatches=1)
+            dispatches=1, host_ops=plain_host_ops("lrn", step.spec))
     if step.kind in ("relu", "softmax"):
         per_elem = 1 if step.kind == "relu" else 5
         return StepCost(
             label=label, kind=step.kind, key="other",
             flops=batch * _elems(step.in_shape) * per_elem,
             hbm_bytes=batch * 2 * _act_bytes(step.in_shape),
-            dispatches=1)
+            dispatches=1, host_ops=plain_host_ops(step.kind))
     # flatten: a view — free
     return StepCost(label=label, kind=step.kind, key="other",
                     flops=0.0, hbm_bytes=0.0, dispatches=0)
@@ -388,7 +441,8 @@ def plan_cost(plan: ExecutionPlan, model: Optional[CostModel] = None,
     for step in plan.steps:
         sc = step_resources(plan, step, batch)
         steps.append(replace(
-            sc, us=m.step_us(sc.key, sc.flops, sc.hbm_bytes, sc.dispatches)))
+            sc, us=m.step_us(sc.key, sc.flops, sc.hbm_bytes, sc.dispatches,
+                             sc.host_ops)))
     return PlanCost(steps=tuple(steps), batch=batch,
                     model_backend=m.backend,
                     model_fallback_from=m.fallback_from)
@@ -409,9 +463,9 @@ def fusion_cost_gate(model: Optional[CostModel] = None, *, batch: int = 1):
              in_shape: Tuple[int, int, int]) -> bool:
         fused = _group_resources(group, method, in_shape, batch)
         fused_us = m.step_us(fused.key, fused.flops, fused.hbm_bytes,
-                             fused.dispatches)
+                             fused.dispatches, fused.host_ops)
         unfused_us = sum(
-            m.step_us(s.key, s.flops, s.hbm_bytes, s.dispatches)
+            m.step_us(s.key, s.flops, s.hbm_bytes, s.dispatches, s.host_ops)
             for s in _unfused_group_resources(group, method, in_shape, batch))
         return fused_us <= unfused_us
 
@@ -456,7 +510,9 @@ def spearman(xs: Sequence[float], ys: Sequence[float]) -> float:
 def fit_coefficients(rows: Sequence[Mapping], backend: str) -> CostModel:
     """Fit the coefficient vector from measured rows — each row
     ``{"flops_by_key": {bucket: flops}, "hbm_bytes": b, "dispatches": d,
-    "us": measured}`` — by relative least squares (each row scaled by
+    "us": measured}``, and ``"host_ops": h`` where the rows count them
+    (then ``host_op_us`` is fitted beside the others; rows without
+    them fit the JAX package's columns alone) — by relative least squares (each row scaled by
     1/measured-us, so a small net's row pulls as hard as a big one's)
     with iterative negative-column pruning (the most negative
     coefficient is dropped and the system re-solved until all are >= 0),
@@ -467,7 +523,9 @@ def fit_coefficients(rows: Sequence[Mapping], backend: str) -> CostModel:
 
     keys = sorted({k for r in rows
                    for k, v in r["flops_by_key"].items() if v > 0})
-    cols = list(keys) + ["__gb__", "__dispatch__"]
+    host = any(r.get("host_ops", 0) > 0 for r in rows)
+    cols = list(keys) + ["__gb__", "__dispatch__"] + (["__host__"] if host
+                                                      else [])
     A = np.zeros((len(rows), len(cols)))
     y = np.ones(len(rows))  # each row normalized by its measured us
     for i, r in enumerate(rows):
@@ -476,6 +534,8 @@ def fit_coefficients(rows: Sequence[Mapping], backend: str) -> CostModel:
             A[i, j] = r["flops_by_key"].get(k, 0.0) * 1e-9 / us
         A[i, len(keys)] = float(r["hbm_bytes"]) * 1e-9 / us
         A[i, len(keys) + 1] = float(r["dispatches"]) / us
+        if host:
+            A[i, len(keys) + 2] = float(r["host_ops"]) / us
     coef = np.zeros(len(cols))
     active = list(range(len(cols)))
     while active:
@@ -493,4 +553,5 @@ def fit_coefficients(rows: Sequence[Mapping], backend: str) -> CostModel:
                     for k in FLOP_KEYS}
     return CostModel(backend=backend, us_per_gflop=us_per_gflop,
                      us_per_gb=float(coef[len(keys)]),
-                     dispatch_us=float(coef[len(keys) + 1]))
+                     dispatch_us=float(coef[len(keys) + 1]),
+                     host_op_us=float(coef[len(keys) + 2]) if host else 0.0)

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+from dataclasses import replace
 import json
 import subprocess
 import sys
@@ -66,8 +67,14 @@ def bench_backend(bench: Mapping) -> str:
 
 def ladder_points(bench: Mapping) -> List[Dict]:
     """One calibration point per measured ladder row-variant, its features
-    extracted from the plan the row ran."""
+    extracted from the plan the row ran.  Rows measured on a card also
+    carry the plan's host operations (``PlanCost.host_ops``): there the
+    host only enqueues the work, and a small net's rows follow it.  On
+    the CPU every wrapper runs its plain version in the host's own
+    thread, so the count does not describe the work, and the points are
+    the JAX package's."""
     batch = int(bench["batch"])
+    host = bench_backend(bench) != "cpu"
     pts: List[Dict] = []
     for net_name in sorted(bench["networks"]):
         net = NETWORKS[net_name]()
@@ -94,6 +101,7 @@ def ladder_points(bench: Mapping) -> List[Dict]:
                         pc.flops},
                     "hbm_bytes": pc.hbm_bytes,
                     "dispatches": pc.dispatches,
+                    **({"host_ops": pc.host_ops} if host else {}),
                     "us": float(r["us_per_call"]),
                 })
     return pts
@@ -114,7 +122,8 @@ def split_points(pts: List[Dict],
 
 def _rho(model: CostModel, pts: List[Dict]) -> float:
     pred = [model.predict(p["flops_by_key"], p["hbm_bytes"],
-                          p["dispatches"]) for p in pts]
+                          p["dispatches"], p.get("host_ops", 0))
+            for p in pts]
     return spearman(pred, [p["us"] for p in pts])
 
 
@@ -135,9 +144,7 @@ def fit_model(bench: Mapping, holdout_every: int = 3) -> Tuple[CostModel,
     # dominate)
     coeffs = dict(model.us_per_gflop)
     coeffs["fc"] = coeffs["other"] = coeffs[Method.ADVANCED_SIMD_8.value]
-    model = CostModel(backend=model.backend, us_per_gflop=coeffs,
-                      us_per_gb=model.us_per_gb,
-                      dispatch_us=model.dispatch_us)
+    model = replace(model, us_per_gflop=coeffs)
     validation = {
         "points": len(pts),
         "fit_points": len(fit_pts),
@@ -300,7 +307,8 @@ def main(argv=None) -> int:
           f"all={validation['spearman_all']}")
     print(f"  us_per_gflop={ {k: round(v, 3) for k, v in model.us_per_gflop.items()} }")
     print(f"  us_per_gb={model.us_per_gb:.4f} "
-          f"dispatch_us={model.dispatch_us:.4f}")
+          f"dispatch_us={model.dispatch_us:.4f} "
+          f"host_op_us={model.host_op_us:.4f}")
     print(f"wrote {args.out}")
     return 0
 

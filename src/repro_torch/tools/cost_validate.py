@@ -31,7 +31,7 @@ def validate(bench: dict, model: CostModel) -> dict:
     rows = []
     for p in ladder_points(bench):
         pred = model.predict(p["flops_by_key"], p["hbm_bytes"],
-                             p["dispatches"])
+                             p["dispatches"], p.get("host_ops", 0))
         rows.append({"id": p["id"], "predicted_us": pred,
                      "measured_us": p["us"]})
     rho = spearman([r["predicted_us"] for r in rows],

@@ -252,6 +252,11 @@ CNN_BATCHES = (1, 3)
 K3_SHAPES = (("gate", 2304, 9216, "gelu", False),
              ("in_proj", 2048, 8384, "none", False))
 K3_ROWS = (1, 4, 16, 17, 48, 63, 64, 65, 300, 1500)
+#: K3 bf16 products where the weight stream takes one K slice on 132 SMs
+#: (no cluster reduction) and wgmma's widest N: (name, K, N, activation,
+#: bias, rows) — starcoder2-15b's up, qwen1.5-32b's gate
+K3_ONE_SLICE = (("starcoder2_up+bias", 6144, 24576, "gelu", True, (4,)),
+                ("qwen1.5_gate", 5120, 27392, "silu", False, (4, 300)))
 #: K10 cases: (sq, skv, heads, kv heads, head_dim, causal, window, cap,
 #: dtype); skv None: sq
 K10_CASES = (
@@ -261,6 +266,7 @@ K10_CASES = (
     + [(s, None, 32, 4, 128, True, 0, 0.0, "bfloat16")
        for s in (37, 300, 1500)]                           # qwen3-moe
     + [(s, None, 16, 16, 64, True, 0, 0.0, "bfloat16") for s in (37, 300)]
+    + [(300, None, 48, 4, 128, True, 4096, 0.0, "bfloat16")]  # starcoder2
     + [(1500, None, 32, 32, 128, True, 0, 0.0, "bfloat16")]  # zamba2
     + [(300, 6400, 32, 8, 128, False, 0, 0.0, "bfloat16"),   # llama cross
        (4096, None, 16, 16, 64, False, 0, 0.0, "bfloat16")]  # seamless
@@ -277,7 +283,8 @@ def cases(dev) -> Dict[str, Callable]:
     rung at batch 1 and 3, AlexNet at 16, the tuned deployment (K4, K5,
     K6 at ``oc_block_final`` 8 and 64); K3 in bf16 at gemma2's gate and
     zamba2's in_proj (N = 8384: a half-empty last wgmma tile) for every
-    row count of ``K3_ROWS``, seamless's ``w_up`` with a bias, relu and
+    row count of ``K3_ROWS``, ``K3_ONE_SLICE`` (the stream's one K slice,
+    N = 27392 on wgmma), seamless's ``w_up`` with a bias, relu and
     silu, ``MatmulFusedFn``'s dx and dw at M = 4096, K3 in fp32 on the
     CUDA-core tiles at M = 64 and 65 and AlexNet's fc6-fc8 on the stream;
     K10 (``K10_CASES``, and its launch with m and l at 2 x 2048); K11 at
@@ -382,6 +389,9 @@ def cases(dev) -> Dict[str, Callable]:
                 "alexnet", batch, "advanced_simd_8", True, knobs)
     for shape, kk, n, act, bias in K3_SHAPES:
         for m in K3_ROWS:
+            out[f"k3/bf16/{shape}/m{m}"] = k3(m, kk, n, act, bias)
+    for shape, kk, n, act, bias, rows in K3_ONE_SLICE:
+        for m in rows:
             out[f"k3/bf16/{shape}/m{m}"] = k3(m, kk, n, act, bias)
     for m in (4, 300):
         out[f"k3/bf16/w_up+bias/m{m}"] = k3(m, 1024, 8192, "gelu", True)

@@ -20,6 +20,8 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
+from torch import overrides as torch_overrides
 
 from repro.core import cost as jcost
 from repro.core import netdefs as jnetdefs
@@ -471,3 +473,91 @@ def test_the_tools_import_no_jax():
                          env={**os.environ,
                               "PYTHONPATH": str(ROOT / "src")})
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+# -- the host term (the port's own resource) -------------------------------------
+
+
+class _TorchCalls(torch_overrides.TorchFunctionMode):
+    """Counts the torch calls that enqueue work: every call but views
+    (``__getitem__``), attribute reads and casts that return their
+    input."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = getattr(func, "__name__", "")
+        if name not in ("__getitem__", "__get__") and not (
+                name == "to" and args and out is args[0]):
+            self.n += 1
+        return out
+
+
+@pytest.mark.parametrize("name", NETS)
+def test_host_ops_of_a_plain_step_are_its_torch_calls(name):
+    """``plain_host_ops`` of every plain step of ``SEQ_REF``'s plan (conv,
+    fc, LRN, ReLU, softmax) equals the torch calls its executor makes,
+    counted while it runs on the CPU; a kernel step counts one wrapper
+    call, a flatten none."""
+    from repro_torch.core import plan as tplan
+    from repro_torch.core.engine import CNNEngine
+
+    net = tnetdefs.NETWORKS[name]()
+    params = CNNEngine(net, device="cpu").init(torch.Generator().manual_seed(0))
+    for method in (Method.SEQ_REF, Method.ADVANCED_SIMD_8):
+        plan = compile_plan(net, method=method, fuse=False)
+        x = torch.randn((1, *net.input_shape),
+                        generator=torch.Generator().manual_seed(1))
+        for step in plan.steps:
+            sc = tcost.step_resources(plan, step, 1)
+            counter = _TorchCalls()
+            with counter:
+                x = tplan._EXECUTORS[step.kind](step, params, x)
+            plain = step.kind in ("lrn", "relu", "softmax") or (
+                method == Method.SEQ_REF and step.kind in ("conv", "fc"))
+            if plain:
+                assert sc.host_ops == counter.n, (step.names, step.kind)
+            elif step.kind == "flatten":
+                assert sc.host_ops == 0
+            else:
+                assert sc.host_ops == tcost.WRAPPER_HOST_OPS
+
+
+def test_host_term_is_absent_from_the_cpu_model_and_fits_on_a_card():
+    """The root ``cpu`` model and the unit model carry no host coefficient
+    (``to_dict`` equals JAX's); the ladder points of a card's bench carry
+    each plan's host operations and a CPU bench's do not; a fit on rows
+    with them recovers their coefficient, non-negative, beside the
+    others, and the coefficient round-trips through the file."""
+    cpu = CostModel.load(str(ROOT / "COST_MODEL.json"), backend="cpu")
+    assert cpu.host_op_us == 0.0 and "host_op_us" not in cpu.to_dict()
+    assert CostModel.unit().host_op_us == 0.0
+    bench = json.loads((ROOT / "BENCH_network.json").read_text())
+    assert all("host_ops" not in p for p in cost_fit.ladder_points(bench))
+    card = json.loads(tcost.DEFAULT_MODEL_PATH.read_text())["backends"][
+        "cuda"]["fitted_from"]["ladder"]
+    pts = cost_fit.ladder_points(card)
+    for p in pts:
+        net, method, variant = p["id"].split("/")
+        plan = compile_plan(tnetdefs.NETWORKS[net](), method=Method(method),
+                            fuse=variant == "fused")
+        assert p["host_ops"] == plan_cost(plan, batch=16).host_ops > 0
+    seq = {p["id"]: p["host_ops"] for p in pts}
+    assert seq["alexnet/seq_ref/unfused"] > 10 * seq[
+        "alexnet/advanced_simd_8/unfused"]
+    rows = [{"flops_by_key": {"fc": 1e9 * (i + 1)}, "hbm_bytes": 0.0,
+             "dispatches": 1 + i % 3, "host_ops": 5 + 7 * i,
+             "us": 30.0 * (i + 1) + 4.0 * (1 + i % 3) + 25.0 * (5 + 7 * i)}
+            for i in range(6)]
+    m = fit_coefficients(rows, backend="t")
+    assert m.host_op_us == pytest.approx(25.0)
+    assert m.dispatch_us == pytest.approx(4.0)
+    assert m.us_per_gflop["fc"] == pytest.approx(30.0)
+    again = CostModel.from_dict(m.to_dict(), "t")
+    assert again == m and again.predict({"fc": 1e9}, 0.0, 1, 2) == \
+        pytest.approx(30.0 + 4.0 + 50.0)
+    committed = CostModel.load()
+    assert committed.host_op_us > 0

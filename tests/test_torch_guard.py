@@ -457,3 +457,33 @@ def test_compare_placement_and_nan_from_the_fill():
     assert f.rule == "K102" and "holds NaNs" in f.detail
     runs, plain = _runs(*[[1.0, 2.0]] * 5)
     assert guard.compare("c", runs, plain) == []
+
+
+# -- the one-slice weight stream (phase 15's geometry) ----------------------------
+
+
+def test_one_slice_stream_is_clean(stand_in):
+    """A bf16 stream product with one K slice (``split_k`` (1, K): N wide
+    enough that its column blocks alone fill the card, as starcoder2's
+    up and qwen1.5's gate on 132 SMs) hands the entry one slice of the
+    whole K, and its launch through a clean stand-in gives no finding."""
+    m, k, n = 4, 128, 16896
+    assert mm_ops.split_k(torch.bfloat16, k, n, 132) == (1, k)
+    seen = []
+
+    def entry(x, w, b, y, m_, n_, k_, path, splits, kchunk, act, stream):
+        seen.append((m_, n_, k_, path, splits, kchunk))
+        bf = torch.bfloat16
+        xs = _at(x, m_ * k_, bf).view(m_, k_).float()
+        ws = _at(w, k_ * n_, bf).view(k_, n_).float()
+        _at(y, m_ * n_, bf).view(m_, n_).copy_(xs @ ws)
+        return 0
+
+    stand_in(matmul_fused_bf16=entry)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(m, k, generator=g).bfloat16()
+    w = (torch.randn(k, n, generator=g) / k ** 0.5).bfloat16()
+    findings, units = guard.check_case(
+        "one slice", lambda: mm_ops._launch(x, w, None, "none"))
+    assert findings == [] and units == ["K3/stream"]
+    assert set(seen) == {(m, n, k, mm_ops.PATH_CODES["stream"], 1, k)}

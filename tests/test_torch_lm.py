@@ -318,10 +318,20 @@ def test_k3_plain_version_takes_bf16(act, m):
 
 #: K3's projection shapes (K, N) in a gemma2-2b block (q, k/v, o, gate/up,
 #: down), an rwkv6-1.6b layer (2048 -> 2048, the channel mix's key and
-#: value) and a qwen3-moe-30b-a3b attention (q, k/v, o)
+#: value), a qwen3-moe-30b-a3b attention (q, k/v, o), a starcoder2-15b
+#: block (q/o, k/v, up, down; grok-1-314b's q/o too), internlm2-20b's (k/v
+#: and grok-1-314b's, gate/up, down) and qwen1.5-32b's (q/k/v/o, gate/up,
+#: down).  starcoder2's up and qwen1.5's gate/up stream in one K slice
+#: on 132 SMs
 LM_K3_SHAPES = ((2304, 2048), (2304, 1024), (2048, 2304), (2304, 9216),
                 (9216, 2304), (2048, 2048), (2048, 7168), (7168, 2048),
-                (2048, 4096), (2048, 512), (4096, 2048))
+                (2048, 4096), (2048, 512), (4096, 2048),
+                (6144, 6144), (6144, 512), (6144, 24576), (24576, 6144),
+                (6144, 1024), (6144, 16384), (16384, 6144),
+                (5120, 5120), (5120, 27392), (27392, 5120))
+#: the shapes whose weight stream takes one K slice on 132 SMs: every
+#: column block alone, no cluster reduction
+ONE_SLICE_SHAPES = ((6144, 24576), (5120, 27392))
 #: the M of the served prompts (16, 300, 1500, 4500 tokens), a decode step
 #: at 4 slots, and the edges of the tiled paths
 LM_K3_ROWS = (1, 4, 16, 63, 64, 300, 1500, 4500)
@@ -745,6 +755,51 @@ def _stream_emulated(x, w, b, act, sms=132):
 #: a stream shape of several K slices with a ragged K tail and a ragged
 #: last column block
 STREAM_EMU = (300, 100)
+
+
+def test_one_slice_shapes_are_the_lm_shapes_with_one_slice():
+    """On 132 SMs the stream slices K once exactly at starcoder2-15b's up
+    (6144 -> 24576, 384 column blocks) and qwen1.5-32b's gate/up (5120 ->
+    27392, 428): ``(1, K)``, K a whole number of ring stages; every
+    other language-model shape takes 2 to 8 slices."""
+    for k, n in LM_K3_SHAPES:
+        splits, kchunk = split_k(torch.bfloat16, k, n, 132)
+        if (k, n) in ONE_SLICE_SHAPES:
+            assert (splits, kchunk) == (1, k)
+            assert k % mm_ops.STREAM_BK[torch.bfloat16] == 0
+            assert math.ceil(n / mm_ops.STREAM_BN) >= \
+                mm_ops.STREAM_BLOCKS_PER_SM * 132
+        else:
+            assert 2 <= splits <= mm_ops.STREAM_CLUSTER, (k, n)
+
+
+#: a one-slice stream shape on a card of ``ONE_SLICE_EMU[2]`` SMs, with a
+#: ragged K tail and a ragged last column block
+ONE_SLICE_EMU = (300, 580, 4)
+
+
+@pytest.mark.parametrize("m", [1, 4, 16, 48])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_one_slice_stream_order_matches_jax(dtype, m):
+    """The stream's summation order with one K slice (no cluster sum: the
+    block's own partial tile, the bias, the activation, one cast)
+    reproduces JAX's ``matmul_fused_ref`` within today's tolerance, as
+    the sliced order does."""
+    k, n, sms = ONE_SLICE_EMU
+    dt = getattr(torch, dtype)
+    assert split_k(dt, k, n, sms) == (1, math.ceil(
+        k / mm_ops.STREAM_BK[dt]) * mm_ops.STREAM_BK[dt])
+    rng = np.random.default_rng(m + 100)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = (rng.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32)
+    b = rng.standard_normal(n).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    ours = _stream_emulated(torch.from_numpy(x).to(dt),
+                            torch.from_numpy(w).to(dt), torch.from_numpy(b),
+                            "gelu", sms=sms)
+    ref = jax_mm_ref(jnp.asarray(x, jdt), jnp.asarray(w, jdt),
+                     jnp.asarray(b), "gelu")
+    _close(ours, ref, 2.0 ** -7 if dtype == "bfloat16" else 1e-4)
 
 
 @pytest.mark.parametrize("m", [1, 4, 16, 48])

@@ -251,3 +251,27 @@ def test_guard_without_a_card_is_unanalysed(monkeypatch, capsys):
     out = capsys.readouterr().out
     assert "the guard pass did not run" in out
     assert "| K1 | unanalysed |" in out
+
+
+def test_cases_hold_the_one_slice_stream_and_starcoder2s_window():
+    """The 100 cases include K3 where the weight stream takes one K slice
+    on 132 SMs (starcoder2-15b's up with a bias and gelu at M = 4,
+    qwen1.5-32b's gate at M = 4) and N = 27392 on wgmma (the gate at
+    300), and K10's window at head_dim 128, 48 heads over 4."""
+    import torch
+
+    from repro_torch.kernels.attention.ops import k10_path
+    from repro_torch.kernels.matmul_fused.ops import k3_path, split_k
+
+    names = sanitize.cases("cpu")
+    assert len(names) == 100
+    for name, kk, n, act, bias, rows in sanitize.K3_ONE_SLICE:
+        assert split_k(torch.bfloat16, kk, n, 132) == (1, kk)
+        for m in rows:
+            assert f"k3/bf16/{name}/m{m}" in names
+            assert k3_path(torch.bfloat16, m, kk, n) == (
+                "stream" if m < 64 else "wgmma")
+    assert [c for c in sanitize.K10_CASES if c[2:5] == (48, 4, 128)] == [
+        (300, None, 48, 4, 128, True, 4096, 0.0, "bfloat16")]
+    assert "k10/bfloat16/300x300/h48-4/hd128/causal/w4096/cap0" in names
+    assert k10_path(torch.bfloat16, 300, 300, 128) == "wgmma"
