@@ -332,34 +332,53 @@ Phases, each of which fails the run (non-zero exit, no result line):
    counts of 7c), printing each cache's bytes, the decode step ms, the
    peak memory and where each request's greedy tokens first part from
    the bf16 cache's (recorded, not gated: near-ties part by design);
-13. training (``repro_torch.train``): a. kernel gradient cases at
-   M = ``TRAIN_BATCH`` x ``TRAIN_SEQ`` = 4096: K3's Function
+13. training (``repro_torch.train``), every family the JAX trainer
+   takes (``TRAIN_ARCHS``): a. kernel gradient cases: K3's Function
    (``K3_TRAIN_SHAPES``: gemma2-2b's and rwkv6-1.6b's projections, each
-   act, with and without a bias) against autograd through
-   ``matmul_fused_ref`` on the card within ``LM_KERNEL_TOL`` (plus the
-   bf16 rounding of z and dz for silu and gelu), every launch of the
-   forward, z, dx and dw on the wgmma path, the products timed beside
-   ``torch.matmul`` and the transposes' copies alone; K10 with m and l
-   (``K10_TRAIN_CASES``: gemma2's batch and a 4500-token row where its
-   window bites; out bit for bit the launch without them, m and l within
-   fp32's ``LM_KERNEL_TOL``) and its Function's plain backward against
-   autograd through its plain version (``K10_GRAD_TOL``); K11's Function
-   at rwkv6's shape with strong decays against autograd through
+   act, with and without a bias; zamba2's in_proj at N = 8384, seamless's
+   w_up with gelu and its bias, starcoder2's q, k/v, up and down with
+   biases, llama's k/v on the media's 12800 rows) against autograd
+   through ``matmul_fused_ref`` on the card within ``LM_KERNEL_TOL``
+   (plus the bf16 rounding of z and dz for silu and gelu), every launch
+   of the forward, z, dx and dw on the wgmma path, the products timed
+   beside ``torch.matmul`` and the transposes' copies alone; K10 with m
+   and l (``K10_TRAIN_CASES``: gemma2's batch and a 4500-token row where
+   its window bites, zamba2's 32 heads over 32, seamless's non-causal
+   encoder at 4096 x 4096 and cross-attention at 2048 x 4096 (hd 64),
+   starcoder2's 48 over 4 with its window, llama's non-causal 2048 x
+   6400; out bit for bit the launch without them, m and l within fp32's
+   ``LM_KERNEL_TOL``) and its Function's plain backward against autograd
+   through its plain version (``K10_GRAD_TOL``), the library's flash
+   attention with its logsumexp timed beside it; K11's Function at
+   rwkv6's shape with strong decays against autograd through
    ``wkv6_chunked_ref``; b. CPU parity: one fp32 train step of each
-   model cut to one unit (gemma2's local/global pair, two rwkv6 layers)
-   at full width, the CPU on one intra-op thread: loss, metrics, every
-   gradient leaf, moment and updated parameter (``TRAIN_PARITY_TOL``);
-   c. ``TRAIN_STEPS`` AdamW steps of gemma2-2b, then of rwkv6-1.6b (each
-   freed before the next), bf16, through ``make_train_step`` on
-   ``MarkovLM(TRAIN_VOCAB)`` batches: the first step taken twice from the
-   same state (loss, grad norm and parameters bit for bit, or the
-   differing leaves named), its launches held to the structure (K3 7 or 8
-   a layer in the forward, again in the remat recompute, dx and dw, z for
-   gemma2's gelu gate; K10 and K11 once a layer in each of the forward and
-   the recompute, every K10 launch writing m and l), CE finite and
-   falling, step ms, tokens/s, peak memory against
-   ``TRAIN_RECKONED_GB``, and the profile of one more step (device ms by
-   kernel, busy share, the plain backwards' and AdamW's ranges);
+   model cut to one unit (``TRAIN_PARITY_CUTS``: gemma2's local/global
+   pair, two rwkv6 layers, one Mamba2 block and the shared block, one
+   MoE layer at 2 microbatches, one starcoder2 layer, one self and one
+   cross layer, one encoder and one decoder layer; the media cut to
+   ``CROSS_PARITY_MEDIA``) at full width, the CPU's forward and backward
+   on one intra-op thread and its AdamW on the machine's: loss, metrics,
+   every gradient leaf, moment and updated parameter
+   (``TRAIN_PARITY_TOL``); c. for each model, freed before the next,
+   ``TRAIN_STEPS`` AdamW steps in bf16 through ``make_train_step`` on
+   ``MarkovLM(TRAIN_VOCAB)`` batches (the cross families with seeded
+   media or frames, qwen3-moe at ``TRAIN_MICROBATCHES``), at full width
+   and the depth ``train_cut`` chooses from ``train_memory_budget``
+   (zamba2, seamless, gemma2, rwkv6 whole; qwen3-moe, starcoder2 and
+   llama cut, printed as ``reduced``): the first step taken twice from
+   the same state (loss, CE and grad norm bit for bit, every parameter's
+   and moment's bits by ``bits_fingerprint``), its launches by role
+   equal to ``train_expect``'s (K3 in the forward, again in the remat
+   recompute, dx, dw and z for each silu or gelu projection, on the wgmma
+   path alone; K10 and K11 in each of the forward and the recompute,
+   every K10 launch writing m and l), CE finite and falling, step ms
+   (the median of steps 2 to ``TRAIN_STEPS``), tokens/s, the peak memory
+   within the reckoning printed beside it, the profile of one more step
+   (device ms by kernel, busy share, the plain backwards', the SSD
+   scan's, the experts' and AdamW's ranges), each model's wall time; d.
+   ``repro_torch.launch.train`` on the card for reduced qwen3-moe, 3
+   steps at ``microbatches=2``: CE finite and falling, K3 and K10
+   launched;
 14. stream capture: K2 on AlexNet's chain and K1 on its conv2+pool2+norm2
    group at batch 16, each captured into a ``torch.cuda.CUDAGraph`` and
    replayed (``capture`` line: per kernel, whether the cooperative launch
@@ -402,7 +421,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    fp32 4500-token case; K3's wgmma path has an entry of its own, its
    launches those of the wgmma path in the first runs of 7c, 11c and 15c,
    its times its phase-7a cases at M = 4500; the error is the largest over
-   every case, phase 15a's among them.  Phase 13c's first steps add, apart:
+   every case, phase 15a's among them.  Phase 13c's first steps (every
+   trained model's, summed) add, apart:
    ``train_backward_launches`` (K3's z, dx and dw) on the K3 entries,
    ``train_ml_launches`` on ``flash_attention`` and ``train_launches``
    on ``wkv6``;
@@ -414,6 +434,7 @@ toolkit, and imports nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import bisect
 import contextlib
 import gc
 import json
@@ -2101,13 +2122,35 @@ def profile_windows(torch, title, windows, card, ranges=()):
         finally:
             for mod, attr, real in saved:
                 setattr(mod, attr, real)
-        # device-side events only (kernels, copies): an operator's own
-        # entry would count its kernels' time a second time, and a
-        # range's device-side entry the time of the kernels inside it
-        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-                for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.self_device_time_total > 0 and e.key not in labels]
+        # the profiler's raw events (reading them through ``events()`` or
+        # ``key_averages()`` builds a Python object an event first, about
+        # 80 us each: minutes for a train step's million host events).
+        # Device events: kernels and copies, not the ranges' device-side
+        # annotations; the runtime's launch and copy calls (``cu*``) by
+        # correlation id, which their kernels share (an operator's id is
+        # from another count); each range's spans by thread
+        cpu, cuda = (torch.autograd.DeviceType.CPU,
+                     torch.autograd.DeviceType.CUDA)
+        kernels, launch_calls = [], {}
+        spans = {label: [] for label in labels}
+        for e in prof.profiler.kineto_results.events():
+            key, kind = e.name(), e.device_type()
+            if kind == cuda:
+                if not e.is_user_annotation() and key not in labels:
+                    kernels.append((key, e.duration_ns() / 1e6,
+                                    e.correlation_id()))
+            elif kind == cpu:
+                if key in spans:
+                    spans[key].append((e.start_thread_id(), e.start_ns(),
+                                       e.end_ns()))
+                elif key.startswith("cu"):
+                    launch_calls[e.correlation_id()] = (e.start_thread_id(),
+                                                        e.start_ns())
+        by_key = {}
+        for key, ms, _ in kernels:
+            total, n = by_key.get(key, (0.0, 0))
+            by_key[key] = (total + ms, n + 1)
+        rows = [(k, ms, n) for k, (ms, n) in by_key.items() if ms > 0]
         dev = sum(r[1] for r in rows)
         by_kernel = {kid: sum(ms for key, ms, _ in rows
                               if any(nm in key for nm in names))
@@ -2115,38 +2158,36 @@ def profile_windows(torch, title, windows, card, ranges=()):
         by_kernel["rest"] = dev - sum(by_kernel.values())
         k3_by_path = {path: sum(ms for key, ms, _ in rows if nm in key)
                       for path, nm in K3_PROFILE_PATHS}
-        events = prof.events()
-        cpu, cuda = (torch.autograd.DeviceType.CPU,
-                     torch.autograd.DeviceType.CUDA)
-        # the runtime's launch and copy calls by correlation id (an
-        # operator's id is from another count, so only ``cu*`` calls)
-        launch_calls = {e.id: e for e in events
-                        if e.device_type == cpu and e.name.startswith("cu")}
         port_names = [nm for _, names in PROFILE_GROUPS for nm in names]
         dev_by_range = dict.fromkeys(labels, 0.0)
         port_by_range = dict.fromkeys(labels, 0.0)
-        for e in events:
-            call = launch_calls.get(e.id)
-            if e.device_type != cuda or e.name in labels or call is None:
+        # a kernel belongs to every range whose span, on the launching
+        # thread, holds its launch call (the nesting of host calls); a
+        # range's spans on one thread do not overlap, so the last to start
+        # before the call is the only one that can hold it
+        starts = {label: {} for label in labels}
+        for label, items in spans.items():
+            for th, t0, t1 in sorted(items):
+                starts[label].setdefault(th, ([], []))
+                starts[label][th][0].append(t0)
+                starts[label][th][1].append(t1)
+        for key, ms, corr in kernels:
+            call = launch_calls.get(corr)
+            if call is None:
                 continue
-            ms = e.self_device_time_total / 1e3
-            ours = any(nm in e.name for nm in port_names)
-            within = set()
-            while call is not None:
-                if call.name in labels:
-                    within.add(call.name)
-                call = call.cpu_parent
-            for label in within:
-                dev_by_range[label] += ms
-                port_by_range[label] += ms if ours else 0.0
+            ours = any(nm in key for nm in port_names)
+            for label in labels:
+                t0s, t1s = starts[label].get(call[0], ((), ()))
+                i = bisect.bisect_right(t0s, call[1]) - 1
+                if i >= 0 and call[1] <= t1s[i]:
+                    dev_by_range[label] += ms
+                    port_by_range[label] += ms if ours else 0.0
         launches = dict.fromkeys(labels, 0)
         for label, before, after in calls:
             launches[label] += sum(after) - sum(before)
         # the range's wall time on the host, callees in
-        host_by_range = {label: sum(e.cpu_time_total for e in events
-                                    if e.name == label
-                                    and e.device_type == cpu) / 1e3
-                         for label in labels}
+        host_by_range = {label: sum(t1 - t0 for _, t0, t1 in spans[label])
+                         / 1e6 for label in labels}
         rows.sort(key=lambda r: -r[1])
         out[name] = {"wall_ms": wall, "device_ms": dev,
                      "busy_share": dev / wall if dev else None,
@@ -3064,30 +3105,91 @@ def kvq_phase(torch, np, dev, counters, card):
     return rec
 
 
-#: phase 13: training.  The two models, the batch (b * s = 4096 rows, a
-#: multiple of 64, so that every K3 product of the step is TMA-describable
-#: and takes the wgmma path), the steps, and the corpus: a Markov chain
-#: over ``TRAIN_VOCAB`` symbols, ids that lie inside every vocab
-TRAIN_ARCHS = (LM_ARCH, "rwkv6-1.6b")
+#: phase 13: training.  The batch (b * s = 4096 rows, a multiple of 64, so
+#: that every K3 product of the step is TMA-describable and takes the
+#: wgmma path), the steps, and the corpus: a Markov chain over
+#: ``TRAIN_VOCAB`` symbols, ids that lie inside every vocab.  The models,
+#: in the order they are brought up: gemma2-2b and rwkv6-1.6b, then
+#: zamba2-1.2b and seamless-m4t-large-v2 at full width, qwen3-moe-30b-a3b,
+#: starcoder2-15b and llama-3.2-vision-11b cut in depth by
+#: ``train_cut``.  grok-1-314b does not fit one card at one layer (4.9 G
+#: parameters a layer, about 59 GB at 12 bytes a parameter before its
+#: embedding), and internlm2-20b and qwen1.5-32b run starcoder2's dense
+#: path: the three are held in the CPU tests only
+TRAIN_ARCHS = (LM_ARCH, "rwkv6-1.6b", "zamba2-1.2b", "seamless-m4t-large-v2",
+               "qwen3-moe-30b-a3b", "starcoder2-15b", "llama-3.2-vision-11b")
 TRAIN_BATCH, TRAIN_SEQ = 2, 2048
-TRAIN_STEPS = 8
+TRAIN_ROWS = TRAIN_BATCH * TRAIN_SEQ
+#: the timed steps (the first taken twice, the median of the others the
+#: step time); one more step runs under the profiler
+TRAIN_STEPS = 4
 TRAIN_VOCAB = 1024
 TRAIN_LR, TRAIN_WARMUP = 1e-3, 2
-#: the peak device memory reckoned before the run (GB): bf16 weights and
-#: grads, fp32 moments, about three fp32 logits tensors of 4096 x vocab
-TRAIN_RECKONED_GB = {LM_ARCH: 45.0, "rwkv6-1.6b": 25.0}
-#: K3's training shapes (K, N, activation, bias): gemma2-2b's five
-#: projections, rwkv6-1.6b's three, and the silu and gelu epilogues with a
-#: bias; M = TRAIN_BATCH * TRAIN_SEQ
-K3_TRAIN_SHAPES = ((2304, 2048, "none", False), (2304, 1024, "none", False),
-                   (2048, 2304, "none", False), (2304, 9216, "gelu", False),
-                   (9216, 2304, "none", False), (2048, 2048, "none", False),
-                   (2048, 7168, "relu", False), (7168, 2048, "none", False),
-                   (2304, 9216, "gelu", True), (2048, 2048, "silu", True))
-#: K10's: (batch, tokens, heads, kv heads, head_dim, window, cap):
-#: gemma2-2b's training batch, and a 4500-token row where its window bites
-K10_TRAIN_CASES = ((TRAIN_BATCH, TRAIN_SEQ, 8, 4, 256, 4096, 50.0),
-                   (1, 4500, 8, 4, 256, 4096, 50.0))
+#: JAX's strided split with fp32 accumulation, on the card for qwen3-moe
+TRAIN_MICROBATCHES = {"qwen3-moe-30b-a3b": 2}
+#: the archs whose trees are redrawn after the init (``rwkv_redraw``,
+#: ``ssm_redraw``, ``vision_redraw`` as the serving phases redraw them;
+#: ``moe_redraw``: at a few layers JAX's fan-in rule draws the stacked
+#: experts at std 1/sqrt(layers), and silu's gradient turns NaN)
+TRAIN_REDRAWS = {"rwkv6-1.6b": "rwkv", "zamba2-1.2b": "ssm",
+                 "llama-3.2-vision-11b": "vision",
+                 "qwen3-moe-30b-a3b": "moe"}
+#: a cut model is given the most whole units (a layer; gemma2's
+#: local/global pair; llama's group of 4 self and 1 cross layer) whose
+#: reckoned peak (``train_memory_budget``, a sum of parts that never all
+#: meet: 5-13 GB above the peaks measured) stays within this many GB of
+#: the card's 80 GiB (85.9 GB)
+TRAIN_MEMORY_LIMIT_GB = 76.0
+#: the one-unit fp32 step of each model held against the CPU (the
+#: config's changes): gemma2's local/global pair, two rwkv6 layers, one
+#: Mamba2 block and one shared-block invocation, one MoE layer, one
+#: starcoder2 layer, one self and one cross layer, one encoder and one
+#: decoder layer; the cross families' media cut to ``CROSS_PARITY_MEDIA``
+TRAIN_PARITY_CUTS = {
+    LM_ARCH: {"num_layers": 2}, "rwkv6-1.6b": {"num_layers": 2},
+    "zamba2-1.2b": {"num_layers": 1, "shared_attn_every": 1},
+    "seamless-m4t-large-v2": {"num_layers": 1, "num_encoder_layers": 1},
+    "qwen3-moe-30b-a3b": {"num_layers": 1},
+    "starcoder2-15b": {"num_layers": 1},
+    "llama-3.2-vision-11b": {"num_layers": 2}}
+#: K3's training shapes (K, N, activation, bias, rows): gemma2-2b's five
+#: projections, rwkv6-1.6b's three, the silu and gelu epilogues with a
+#: bias; zamba2's in_proj (N = 8384: dw's last wgmma tile half empty,
+#: dx's K = 8384), seamless's w_up (gelu, the bias's db), starcoder2's q,
+#: k/v, up (gelu) and down with biases, and llama's k/v on the media's
+#: 2 x 6400 rows
+K3_TRAIN_SHAPES = (
+    (2304, 2048, "none", False, TRAIN_ROWS),
+    (2304, 1024, "none", False, TRAIN_ROWS),
+    (2048, 2304, "none", False, TRAIN_ROWS),
+    (2304, 9216, "gelu", False, TRAIN_ROWS),
+    (9216, 2304, "none", False, TRAIN_ROWS),
+    (2048, 2048, "none", False, TRAIN_ROWS),
+    (2048, 7168, "relu", False, TRAIN_ROWS),
+    (7168, 2048, "none", False, TRAIN_ROWS),
+    (2304, 9216, "gelu", True, TRAIN_ROWS),
+    (2048, 2048, "silu", True, TRAIN_ROWS),
+    (2048, 8384, "none", False, TRAIN_ROWS),
+    (1024, 8192, "gelu", True, TRAIN_ROWS),
+    (6144, 6144, "none", True, TRAIN_ROWS),
+    (6144, 512, "none", True, TRAIN_ROWS),
+    (6144, 24576, "gelu", True, TRAIN_ROWS),
+    (24576, 6144, "none", True, TRAIN_ROWS),
+    (4096, 1024, "none", False, TRAIN_BATCH * 6400))
+#: K10's: (batch, query tokens, keys (None: the queries'), heads, kv
+#: heads, head_dim, causal, window, cap): gemma2-2b's training batch and
+#: a 4500-token row where its window bites; zamba2's shared block (32
+#: over 32, hd 128); seamless's encoder (non-causal 4096 x 4096, hd 64)
+#: and cross-attention (2048 x 4096); starcoder2's (48 over 4, its
+#: window); llama's cross-attention (non-causal 2048 x 6400, 32 over 8)
+K10_TRAIN_CASES = (
+    (TRAIN_BATCH, TRAIN_SEQ, None, 8, 4, 256, True, 4096, 50.0),
+    (1, 4500, None, 8, 4, 256, True, 4096, 50.0),
+    (TRAIN_BATCH, TRAIN_SEQ, None, 32, 32, 128, True, 0, 0.0),
+    (TRAIN_BATCH, 4096, None, 16, 16, 64, False, 0, 0.0),
+    (TRAIN_BATCH, TRAIN_SEQ, 4096, 16, 16, 64, False, 0, 0.0),
+    (TRAIN_BATCH, TRAIN_SEQ, None, 48, 4, 128, True, 4096, 0.0),
+    (TRAIN_BATCH, TRAIN_SEQ, 6400, 32, 8, 128, False, 0, 0.0))
 #: the gradients of K10's Function (its plain backward on the kernel's
 #: out, m and l) against autograd through the plain version on the card,
 #: element by element: |err| <= rtol * |plain| + atol * max|plain|.  The
@@ -3106,8 +3208,189 @@ TRAIN_PARITY_TOL = 1e-4
 TRAIN_PARITY_SEQ = 64
 
 
-def k3_grad_case(torch, gen, dev, kk, n, act, bias, peaks):
-    """K3's Function at M = TRAIN_BATCH * TRAIN_SEQ: forward and backward
+def train_memory_budget(model, batch, seq, microbatches=1):
+    """GB a train step of ``model`` on ``batch`` x ``seq`` tokens reckons
+    on the card, by part, and their ``total``, reckoned before the run
+    and printed beside its peak: the weights and the gradient buffers
+    (each leaf's dtype: bf16, the fp32 leaves at 4 bytes), JAX's fp32
+    accumulation of the microbatches' gradients, the fp32 moments,
+    AdamW's fp32 temporaries (about five of its largest leaf at once:
+    ``train/optimizer.py`` updates a stacked leaf whole), five fp32
+    tensors of a microbatch's rows x the padded vocab (the logits the
+    log-sum-exp keeps, its backward's exp, the gold logit's gradient,
+    their sum, the mask's; a softcap keeps its tanh and adds a product in
+    its backward: two more), the bf16 media or frames,
+    and the activations (the bf16 input each rematted unit keeps, and
+    eight fp32 tensors of the widest projection's output over the most
+    rows a product takes: the working set of one unit's recompute and
+    backward).  The parts are summed, though the optimizer's temporaries
+    never meet the logits, so the total bounds the peak from above."""
+    import math
+
+    from repro_torch.nn.param import tree_leaves
+
+    cfg = model.cfg
+    params = list(model.parameters())
+    n = sum(p.numel() for p in params)
+    weight_bytes = sum(p.numel() * p.element_size() for p in params)
+    largest = max(math.prod(p.shape) for p in tree_leaves(model.param_spec()))
+    tokens = batch * seq // microbatches
+    xa = cfg.cross_attn if cfg.family in ("vlm", "audio") else None
+    media_rows = batch // microbatches * xa.num_media_tokens if xa else 0
+    act_bytes = 2 if cfg.dtype == "bfloat16" else 4
+    unit_rows = (cfg.num_layers * tokens
+                 + cfg.num_encoder_layers * media_rows)
+    parts = {
+        "weights": weight_bytes / 1e9,
+        "grads": weight_bytes / 1e9,
+        "grad_accumulation": (4 * n if microbatches > 1 else 0) / 1e9,
+        "moments": 8 * n / 1e9,
+        "optimizer": 5 * 4 * largest / 1e9,
+        "logits": ((5 + 2 * bool(cfg.logit_softcap)) * 4 * tokens
+                   * cfg.padded_vocab / 1e9),
+        "media": (2 * batch * xa.num_media_tokens * xa.media_dim / 1e9
+                  if xa else 0.0),
+        "activations": (unit_rows * cfg.d_model * act_bytes
+                        + 8 * 4 * max(tokens, media_rows)
+                        * max(cfg.d_ff, 4 * cfg.d_model)) / 1e9,
+    }
+    parts["total"] = sum(parts.values())
+    return parts
+
+
+def train_cut(arch):
+    """The config phase 13c trains ``arch`` at: the full model if its
+    reckoned peak (``train_memory_budget`` at ``TRAIN_BATCH`` x
+    ``TRAIN_SEQ`` and the arch's microbatches) stays within
+    ``TRAIN_MEMORY_LIMIT_GB``, else the most whole units (a layer,
+    gemma2's local/global pair, a VLM group of interval layers) that do;
+    widths, heads, experts and vocab as published.  Returns (config, the
+    cut as ``reduced`` prints it or None, the budget)."""
+    import dataclasses
+
+    from repro_torch.core.config import get_arch
+    from repro_torch.models.registry import get_model
+
+    full = get_arch(arch)
+    unit = (full.cross_attn.interval if full.family == "vlm"
+            else max(1, full.local_global_interval))
+    mb = TRAIN_MICROBATCHES.get(arch, 1)
+    layers = full.num_layers
+    while True:
+        cfg = dataclasses.replace(full, num_layers=layers)
+        budget = train_memory_budget(get_model(cfg), TRAIN_BATCH, TRAIN_SEQ,
+                                     mb)
+        if budget["total"] <= TRAIN_MEMORY_LIMIT_GB or layers <= unit:
+            break
+        layers -= unit
+    if layers == full.num_layers:
+        return full, None, budget
+    whole = train_memory_budget(get_model(full), TRAIN_BATCH, TRAIN_SEQ, mb)
+    return cfg, {"num_layers": [full.num_layers, layers], "why": (
+        f"{full.num_layers} layers reckon {whole['total']:.1f} GB to train; "
+        f"{layers} reckon {budget['total']:.1f}, the most whole "
+        f"{'groups' if unit > 1 else 'layers'} within "
+        f"{TRAIN_MEMORY_LIMIT_GB:.0f}")}, budget
+
+
+def train_expect(cfg, microbatches=1):
+    """The launches one train step of ``cfg`` makes, by role, from its
+    structure: K3 ``p`` times in the forward over the layers (``+ m``
+    over the media or frames: llama's projector, seamless's frontend),
+    ``p`` again in the remat recompute (the media's product lies outside
+    the rematted units), ``p`` dx (no gradient flows to the media) and
+    ``p + m`` dw, ``z`` recomputed z (one a silu or gelu projection); K10
+    ``a`` times in each of the forward and the recompute, every launch
+    writing m and l; K11 ``k`` times in each; all of it once a
+    microbatch.  A block's projections: q, k, v, o and the MLP's two or
+    three; qwen3-moe's and grok's experts are batched ``torch.matmul``;
+    a zamba2 Mamba2 block has in_proj and out_proj, a shared-block
+    invocation its block at width 2 x d_model and shared_out; a seamless
+    decoder layer has a cross block's q, k, v and o too."""
+    L = cfg.num_layers
+    block = 4 + (3 if cfg.mlp_gated else 2)
+    zb = int(cfg.act in ("silu", "gelu"))
+    media, k11 = 0, 0
+    if cfg.family == "ssm":  # rwkv6: 8 projections a layer, K11 once
+        p, z, a, k11 = 8 * L, 0, 0, L
+    elif cfg.family == "hybrid":
+        g = L // cfg.shared_attn_every
+        p, z, a = 2 * L + (block + 1) * g, zb * g, g
+    elif cfg.family == "audio":
+        e = cfg.num_encoder_layers
+        p, z, a = block * e + (block + 4) * L, zb * (e + L), e + 2 * L
+        media = 1
+    elif cfg.family == "vlm":
+        p, z, a = block * L, zb * L, L
+        media = 1
+    elif cfg.moe is not None:
+        p, z, a = 4 * L, 0, L
+    else:
+        p, z, a = block * L, zb * L, L
+    mb = microbatches
+    return {"K3_forward": (p + media) * mb, "K3_recompute": p * mb,
+            "K3_z": z * mb, "K3_dx": p * mb, "K3_dw": (p + media) * mb,
+            "K10_forward": a * mb, "K10_backward": a * mb,
+            "K10_ml": 2 * a * mb, "K11_forward": k11 * mb,
+            "K11_backward": k11 * mb}
+
+
+def _train_redraw(arch):
+    """``TRAIN_REDRAWS``' function for ``arch``, or None."""
+    name = TRAIN_REDRAWS.get(arch)
+    if name == "rwkv":
+        from repro_torch.nn.rwkv import rwkv_redraw
+        return rwkv_redraw
+    if name == "ssm":
+        from repro_torch.nn.ssm import ssm_redraw
+        return ssm_redraw
+    if name == "vision":
+        from repro_torch.models.vision_lm import vision_redraw
+        return vision_redraw
+    if name == "moe":
+        from repro_torch.nn.moe import moe_redraw
+        return moe_redraw
+    return None
+
+
+def _train_media(torch, cfg, batch, gen, dev, dtype):
+    """Seeded media (frames) of ``batch`` rows for a cross family, as the
+    batch entry its forward reads ({} for another family)."""
+    if cfg.family not in ("vlm", "audio"):
+        return {}
+    xa = cfg.cross_attn
+    key = "media_embeds" if cfg.family == "vlm" else "frames"
+    return {key: torch.randn((batch, xa.num_media_tokens, xa.media_dim),
+                             generator=gen, device=dev).to(dtype)}
+
+
+@contextlib.contextmanager
+def optimizer_threads(torch, n):
+    """``make_train_step``'s AdamW on ``n`` intra-op threads while inside,
+    whatever count the step's forward and backward run on: its updates
+    are elementwise (the same bits on any count), its one sum, the grad
+    norm's, in the fixed order of ``n`` threads."""
+    from repro_torch.train import step as step_mod
+
+    real = step_mod.adamw_update
+
+    def update(*args, **kw):
+        inner = torch.get_num_threads()
+        torch.set_num_threads(n)
+        try:
+            return real(*args, **kw)
+        finally:
+            torch.set_num_threads(inner)
+
+    step_mod.adamw_update = update
+    try:
+        yield
+    finally:
+        step_mod.adamw_update = real
+
+
+def k3_grad_case(torch, gen, dev, kk, n, act, bias, m, peaks):
+    """K3's Function at M = ``m`` rows: forward and backward
     on the card (dx and dw on K3 over transposed copies, z recomputed by
     K3 for silu and gelu) against autograd through ``matmul_fused_ref``
     on the card, within ``LM_KERNEL_TOL``, the bf16 rounding of z and dz
@@ -3121,7 +3404,6 @@ def k3_grad_case(torch, gen, dev, kk, n, act, bias, peaks):
     from repro_torch.kernels.matmul_fused.ref import matmul_fused_ref
 
     _, bw_peak, bf16_peak = peaks
-    m = TRAIN_BATCH * TRAIN_SEQ
     x = torch.randn((m, kk), generator=gen, device=dev).bfloat16()
     w = (torch.randn((kk, n), generator=gen, device=dev) / kk ** 0.5
          ).bfloat16()
@@ -3221,28 +3503,35 @@ def k3_grad_case(torch, gen, dev, kk, n, act, bias, peaks):
 
 
 def k10_grad_case(torch, gen, dev, case, peaks):
-    """K10 with m and l at a training shape: the launch's out equal bit for
+    """K10 with m and l at a training shape (``K10_TRAIN_CASES``: causal or
+    not, keys other than the queries): the launch's out equal bit for
     bit to the launch without them, m and l against the plain version's
     within fp32's ``LM_KERNEL_TOL``; the Function's gradients (the plain
     backward over ``attn_chunk`` pairs) against autograd through the plain
     version on the card (``K10_GRAD_TOL``); timed: the launch with and
-    without m and l, forward + backward, and the plain backward alone.
-    Returns the record."""
+    without m and l, forward + backward, the plain backward alone, and
+    the library's flash attention with its logsumexp (the same function
+    where no softcap is set and the window does not bite).  Returns the
+    record."""
     from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.kernels.attention.ref import flash_attention_ref
 
-    bsz, s, h, kvh, hd, window, cap = case
+    bsz, s, skv, h, kvh, hd, causal, window, cap = case
+    skv = s if skv is None else skv
     q = torch.randn((bsz, s, h, hd), generator=gen, device=dev).bfloat16()
-    k = torch.randn((bsz, s, kvh, hd), generator=gen, device=dev).bfloat16()
-    v = torch.randn((bsz, s, kvh, hd), generator=gen, device=dev).bfloat16()
+    k = torch.randn((bsz, skv, kvh, hd), generator=gen, device=dev
+                    ).bfloat16()
+    v = torch.randn((bsz, skv, kvh, hd), generator=gen, device=dev
+                    ).bfloat16()
     do = torch.randn((bsz, s, h, hd), generator=gen, device=dev).bfloat16()
     scale = 1.0 / hd ** 0.5
-    kw = dict(causal=True, window=window, attn_softcap=cap)
-    label = f"K10 grad b={bsz} s={s} window={window} cap={cap} h={h}/{kvh}"
+    kw = dict(causal=causal, window=window, attn_softcap=cap)
+    label = (f"K10 grad b={bsz} s={s} keys={skv} causal={causal} "
+             f"window={window} cap={cap} h={h}/{kvh} hd={hd}")
     ml_before = attn_ops.flash_attention.ml_launches
-    out_ml, m, l = attn_ops._launch(q, k, v, True, window, cap, scale,
+    out_ml, m, l = attn_ops._launch(q, k, v, causal, window, cap, scale,
                                     ml=True)
-    out = attn_ops._launch(q, k, v, True, window, cap, scale)
+    out = attn_ops._launch(q, k, v, causal, window, cap, scale)
     torch.cuda.synchronize()
     if attn_ops.flash_attention.ml_launches != ml_before + 1:
         fail(f"{label}: the m/l launch was not counted")
@@ -3269,37 +3558,43 @@ def k10_grad_case(torch, gen, dev, case, peaks):
         f"{label} {name}", a, r, g_atol * r.float().abs().max().item(),
         g_rtol) for name, a, r in zip(("dq", "dk", "dv"), got, ref)}
     del got, ref
-    out_ml, m, l = attn_ops._launch(q, k, v, True, window, cap, scale,
+    out_ml, m, l = attn_ops._launch(q, k, v, causal, window, cap, scale,
                                     ml=True)
     bwd = lambda: attn_ops.flash_attention_bwd(  # noqa: E731
         q, k, v, out_ml, m, l, do, scale=scale, chunk=512, **kw)
-    # the library's flash attention with its logsumexp, causal, no
-    # softcap or window: a yardstick only (the kv heads repeated outside
-    # the timed call, as its kernel takes one kv head a query head)
+    # the library's flash attention with its logsumexp, with the causal
+    # mask or none, no softcap or window: a yardstick only (the kv heads
+    # repeated outside the timed call, as its kernel takes one kv head a
+    # query head); the same function where no cap is set and the window
+    # does not bite
     qt = q.transpose(1, 2)
     kt, vt = (t.repeat_interleave(h // kvh, dim=2).transpose(1, 2)
               for t in (k, v))
     library = lambda: torch.ops.aten._scaled_dot_product_flash_attention(  # noqa: E731
-        qt, kt, vt, 0.0, True, False, scale=scale)
+        qt, kt, vt, 0.0, causal, False, scale=scale)
+    same = not cap and (window <= 0 or window >= s)
     try:
         library_ms, library_note = time_ms(torch, library), (
-            "aten._scaled_dot_product_flash_attention, causal, with its "
-            "logsumexp, no softcap or window")
+            "aten._scaled_dot_product_flash_attention, "
+            + ("causal" if causal else "no mask") + ", with its logsumexp"
+            + (": the same function" if same
+               else ", no softcap or window: not the same function"))
     except RuntimeError as e:  # a backend that refuses the shape
         library_ms, library_note = None, f"refused: {e}"
     del qt, kt, vt
-    flops = 4.0 * _visible_pairs(s, window) * h * hd * bsz
+    flops = 4.0 * _visible_pairs(s, window, causal, skv) * h * hd * bsz
     nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel()) + 8.0 * bsz * h * s
     bf16_peak, bw_peak = peaks[2], peaks[1]
-    rec = {"kernel": "K10-grad", "batch": bsz, "tokens": s, "heads": h,
-           "kv_heads": kvh, "head_dim": hd, "window": window, "cap": cap,
+    rec = {"kernel": "K10-grad", "batch": bsz, "tokens": s, "keys": skv,
+           "causal": causal, "heads": h, "kv_heads": kvh, "head_dim": hd,
+           "window": window, "cap": cap,
            "m_max_abs_err": m_err, "l_max_abs_err": l_err,
            "max_abs_err": errs, "tol": {"m_l": LM_KERNEL_TOL["float32"],
                                         "grad": K10_GRAD_TOL},
            "ms": time_ms(torch, lambda: attn_ops._launch(
-               q, k, v, True, window, cap, scale)),
+               q, k, v, causal, window, cap, scale)),
            "ml_ms": time_ms(torch, lambda: attn_ops._launch(
-               q, k, v, True, window, cap, scale, ml=True)),
+               q, k, v, causal, window, cap, scale, ml=True)),
            "plain_backward_ms": time_ms(torch, bwd, reps=5),
            "fwd_bwd_ms": time_ms(torch, lambda: grads(kernel), reps=5),
            "plain_fwd_bwd_ms": time_ms(torch, lambda: grads(plain), reps=3),
@@ -3361,18 +3656,57 @@ def k11_grad_case(torch, gen, dev):
     return rec
 
 
+#: the prime of ``bits_fingerprint``'s forms, and the seed of their
+#: multipliers
+FINGERPRINT_PRIME = 2 ** 31 - 1
+FINGERPRINT_SEED = 1234
+
+
+def bits_fingerprint(torch, t, chunk=1 << 26):
+    """Two fingerprints of ``t``'s bits, computed on its device: each
+    element's bit pattern as an integer b_i, and the forms sum_i r_i b_i
+    mod p (p = ``FINGERPRINT_PRIME``), two of them, with multipliers r_i
+    drawn uniformly from [1, p) from ``FINGERPRINT_SEED`` chunk by chunk.
+    Two tensors of different bits share both with probability about
+    p^-2, 2^-62 (the forms are exact integer arithmetic: no product or
+    chunk sum passes 2^62).  The phase compares a train step's state
+    taken twice by them, where a copy of every parameter and moment would
+    cost 12 bytes a parameter of memory or minutes of copies."""
+    ints = t.detach().reshape(-1).view(
+        {1: torch.int8, 2: torch.int16, 4: torch.int32}[t.element_size()])
+    gen = torch.Generator(device=t.device)
+    out = []
+    for form in range(2):
+        total = 0
+        for i, start in enumerate(range(0, ints.numel(), chunk)):
+            part = ints[start:start + chunk].long().remainder(
+                FINGERPRINT_PRIME)
+            gen.manual_seed(FINGERPRINT_SEED + 1_000_003 * form + i)
+            r = torch.randint(1, FINGERPRINT_PRIME, part.shape,
+                              generator=gen, device=t.device)
+            total += int((part * r).remainder(FINGERPRINT_PRIME).sum())
+        out.append(total % FINGERPRINT_PRIME)
+    return tuple(out)
+
+
 def _train_batch(torch, lm, rng, dev, b, s):
     tokens = torch.from_numpy(lm.sample(rng, b, s)).long().to(dev)
     return {"tokens": tokens[:, :-1].contiguous(),
             "labels": tokens[:, 1:].contiguous()}
 
 
-def train_parity(torch, np, dev, arch, redraw=None):
-    """One fp32 train step of ``arch`` cut to one layer unit (two layers:
-    gemma2-2b's local/global pair) at full width, on the card and on the
-    CPU (one intra-op thread) from the same weights and batch: the loss,
-    the metrics, every gradient leaf, every moment and every updated
-    parameter (``TRAIN_PARITY_TOL``).  Returns the record."""
+def train_parity(torch, np, dev, arch):
+    """One fp32 train step of ``arch`` cut to one unit
+    (``TRAIN_PARITY_CUTS``; the cross families' media cut to
+    ``CROSS_PARITY_MEDIA``) at full width, with its microbatches, on the
+    card and on the CPU from the same weights (``TRAIN_REDRAWS``' redraw
+    applied), batch and media: the loss, the metrics, every gradient
+    leaf, every moment and every updated parameter
+    (``TRAIN_PARITY_TOL``).  The CPU side's forward and backward run on
+    one intra-op thread (one fixed summation order, ROADMAP F3), its
+    AdamW on the machine's threads (``optimizer_threads``: on one thread
+    the updates of the full vocab's embeddings took most of the phase).
+    Returns the record, with each side's seconds."""
     import dataclasses
 
     from repro_torch.core.config import TrainConfig, get_arch
@@ -3382,28 +3716,46 @@ def train_parity(torch, np, dev, arch, redraw=None):
     from repro_torch.train.optimizer import adamw_init
     from repro_torch.train.step import make_train_step
 
-    cfg = dataclasses.replace(get_arch(arch), num_layers=2, dtype="float32",
+    full = get_arch(arch)
+    cut = dict(TRAIN_PARITY_CUTS[arch])
+    if full.family in ("vlm", "audio"):
+        cut["cross_attn"] = dataclasses.replace(
+            full.cross_attn, num_media_tokens=CROSS_PARITY_MEDIA,
+            interval=min(full.cross_attn.interval, 2))
+    cfg = dataclasses.replace(full, **cut, dtype="float32",
                               param_dtype="float32")
+    mb = TRAIN_MICROBATCHES.get(arch, 1)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     trees = {"gpu": init_tree(get_model(cfg).param_spec(), gen, "float32")}
+    redraw = _train_redraw(arch)
     if redraw is not None:
         redraw(trees["gpu"], gen)
     trees["cpu"] = tree_map(lambda t: t.detach().cpu().clone(), trees["gpu"])
     batch = _train_batch(torch, MarkovLM(TRAIN_VOCAB, seed=SEED),
                          np.random.default_rng(SEED), "cpu", TRAIN_BATCH,
                          TRAIN_PARITY_SEQ)
+    batch.update(_train_media(torch, cfg, TRAIN_BATCH,
+                              torch.Generator().manual_seed(SEED), "cpu",
+                              torch.float32))
     tcfg = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
                        total_steps=TRAIN_STEPS)
-    out, grads = {}, {}
+    out, grads, seconds = {}, {}, {}
+    threads = torch.get_num_threads()
     for side in ("gpu", "cpu"):
+        t = time.perf_counter()
         model = get_model(cfg).load_tree(trees[side])
-        step = make_train_step(model, tcfg)
-        with one_thread(torch):
+        step = make_train_step(model, tcfg, microbatches=mb)
+        with one_thread(torch), optimizer_threads(torch, threads):
             out[side] = step(trees[side], adamw_init(trees[side]),
                              {k: t.to(model.device) for k, t in
                               batch.items()})
         grads[side] = step.grads
         torch.cuda.synchronize()
+        seconds[side] = time.perf_counter() - t
+    # the comparisons on the card, the CPU's leaves brought over one at a
+    # time (on the CPU their passes over the embeddings took longer than
+    # the step)
+    t_check = time.perf_counter()
     (gp, gs, gm), (cp, cs, cm) = out["gpu"], out["cpu"]
     label = f"{arch} train parity"
     worst = {}
@@ -3419,14 +3771,16 @@ def train_parity(torch, np, dev, arch, redraw=None):
                                  ("v", gs["v"], cs["v"])):
         worst[name] = 0.0
         for a, b in zip(tree_leaves(a_tree), tree_leaves(b_tree)):
+            b = b.to(a.device)
             worst[name] = max(worst[name], _check_close(
-                f"{label} {name}", a.cpu(), b,
+                f"{label} {name}", a, b,
                 TRAIN_PARITY_TOL * max(1.0, b.abs().max().item())))
     lr = cm["lr"].item()
     worst["param"], flips = 0.0, 0
     for a, b, mom in zip(tree_leaves(gp), tree_leaves(cp),
                          tree_leaves(cs["m"])):
-        err = (a.cpu() - b).abs()
+        b, mom = b.to(a.device), mom.to(a.device)
+        err = (a - b).abs()
         tiny = mom.abs() <= 1e-3 * max(mom.abs().max().item(), 1e-30)
         lim = torch.where(tiny, torch.full_like(b, 2.02 * lr + 1e-6),
                           1e-6 * b.abs().clamp_min(1.0) + 1e-3 * lr)
@@ -3435,32 +3789,49 @@ def train_parity(torch, np, dev, arch, redraw=None):
                  f"{(err - lim).max().item()} past its limit")
         worst["param"] = max(worst["param"], err.max().item())
         flips += int((tiny & (err > 1e-3 * lr)).sum())
-    rec = {"arch": arch, "layers": cfg.num_layers, "batch": TRAIN_BATCH,
-           "tokens": TRAIN_PARITY_SEQ, "cpu_threads": 1,
+    seconds["check"] = time.perf_counter() - t_check
+    rec = {"arch": arch, "cut": {k: v for k, v in cut.items()
+                                 if k != "cross_attn"},
+           "layers": cfg.num_layers, "batch": TRAIN_BATCH,
+           "tokens": TRAIN_PARITY_SEQ, "microbatches": mb,
+           "media": (cfg.cross_attn.num_media_tokens
+                     if cfg.family in ("vlm", "audio") else None),
+           "params": sum(t.numel() for t in tree_leaves(cp)),
+           "cpu_threads": {"step": 1, "optimizer": threads},
            "loss": cm["loss"].item(), "max_abs_err": worst,
-           "tiny_gradient_flips": flips, "tol": TRAIN_PARITY_TOL}
+           "tiny_gradient_flips": flips, "tol": TRAIN_PARITY_TOL,
+           "seconds": seconds}
     print(f"{label} " + json.dumps(rec), flush=True)
     return rec
 
 
-def train_full(torch, np, dev, counters, card, arch, expect, redraw=None):
-    """``TRAIN_STEPS`` AdamW steps of ``arch`` at full width and depth in
-    bf16 through ``make_train_step``, on ``MarkovLM(TRAIN_VOCAB)`` batches
-    of ``TRAIN_BATCH`` x ``TRAIN_SEQ``.  The first step is taken twice
-    from the same state (the determinism check: the same loss, grad norm
-    and parameters bit for bit, or the leaves that differ named), with
-    the launches counted: ``expect`` gives K3's by role (the forward, the
-    remat recompute, the backward's z, dx, dw: all on the wgmma path) and
-    K10's and K11's a step, the forward's and the backward's.  The CE must
-    be finite and fall from the first step to the last, which is
-    profiled.  Returns the record."""
+def train_full(torch, np, dev, counters, card, arch):
+    """``TRAIN_STEPS`` AdamW steps of ``arch`` at full width in bf16
+    through ``make_train_step``, its depth cut only as ``train_cut``
+    says (printed as ``reduced``), with its microbatches, on
+    ``MarkovLM(TRAIN_VOCAB)`` batches of ``TRAIN_BATCH`` x ``TRAIN_SEQ``
+    (the cross families with seeded bf16 media or frames), weights drawn
+    on the card from ``SEED`` (``TRAIN_REDRAWS``' redraw applied).  The
+    first step is taken twice from the same state (the determinism check:
+    the same loss, CE and grad norm bit for bit, and every parameter's
+    and moment's bits the same by ``bits_fingerprint``, or the leaves that
+    differ named; the state drawn again from the seed for the second
+    run), with the launches counted by role against
+    ``train_expect``: K3's (the forward, the remat recompute, the
+    backward's z, dx, dw: all on the wgmma path) and K10's and K11's, the
+    forward's and the backward's.  The CE must be finite and fall from
+    the first step to the last, one more step is profiled, and the peak
+    memory must stay within ``train_memory_budget``'s total.  Returns the
+    record."""
     import math
 
-    from repro_torch.core.config import TrainConfig, get_arch
+    from repro_torch.core.config import TrainConfig
     from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.kernels.wkv6 import ops as wkv6_ops
     from repro_torch.models.registry import get_model
-    from repro_torch.nn.param import init_tree, tree_leaves
+    from repro_torch.nn import moe as moe_mod
+    from repro_torch.nn import ssm as ssm_mod
+    from repro_torch.nn.param import DTYPES, init_tree, tree_leaves
     from repro_torch.train import step as step_mod
     from repro_torch.train.data import MarkovLM
     from repro_torch.train.optimizer import adamw_init
@@ -3469,24 +3840,37 @@ def train_full(torch, np, dev, counters, card, arch, expect, redraw=None):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cfg = get_arch(arch)
+    cfg, reduced, budget = train_cut(arch)
+    mb = TRAIN_MICROBATCHES.get(arch, 1)
+    expect = train_expect(cfg, mb)
+    label = f"{arch} train"
+    print(f"{label}: {cfg.num_layers} layers, reduced "
+          f"{json.dumps(reduced)}, microbatches {mb}, reckoned peak "
+          f"{ {k: round(v, 2) for k, v in budget.items()} } GB", flush=True)
     model = get_model(cfg)
+    redraw = _train_redraw(arch)
+
+    def draw(gen):
+        tree = init_tree(model.param_spec(), gen, cfg.param_dtype)
+        if redraw is not None:
+            redraw(tree, gen)
+        return tree
+
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    tree = init_tree(model.param_spec(), gen, cfg.param_dtype)
-    if redraw is not None:
-        redraw(tree, gen)
+    tree = draw(gen)
     model.load_tree(tree)
     opt = adamw_init(tree)
+    media = _train_media(torch, cfg, TRAIN_BATCH, gen, dev,
+                         DTYPES[cfg.param_dtype])
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in tree_leaves(tree))
     tcfg = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
-                       total_steps=TRAIN_STEPS)
-    step_fn = step_mod.make_train_step(model, tcfg)
+                       total_steps=TRAIN_STEPS + 1)
+    step_fn = step_mod.make_train_step(model, tcfg, microbatches=mb)
     lm, rng = MarkovLM(TRAIN_VOCAB, seed=SEED), np.random.default_rng(SEED)
-    batches = [_train_batch(torch, lm, rng, dev, TRAIN_BATCH, TRAIN_SEQ)
-               for _ in range(TRAIN_STEPS)]
-    label = f"{arch} train"
+    batches = [{**_train_batch(torch, lm, rng, dev, TRAIN_BATCH, TRAIN_SEQ),
+                **media} for _ in range(TRAIN_STEPS + 1)]
     k3 = counters["K3"]
 
     def zero():
@@ -3510,28 +3894,45 @@ def train_full(torch, np, dev, counters, card, arch, expect, redraw=None):
         torch.cuda.synchronize()
         return out[2], (time.perf_counter() - t) * 1e3
 
-    # the first step, twice from the same state, counted
-    start = [t.clone() for t in tree_leaves(tree)]
-    at_forward_end = {}
-    hook = model.register_forward_hook(
-        lambda *_: at_forward_end.update(counts()))
+    def fingerprints():
+        return {part: [bits_fingerprint(torch, t) for t in tree_leaves(v)]
+                for part, v in (("params", tree), ("m", opt["m"]),
+                                ("v", opt["v"]))}
+
+    # the first step, twice from the same state, counted: the launches
+    # inside the model's forward calls (one a microbatch) by hooks, the
+    # rest in the backward (the remat recompute among them)
+    t_det = time.perf_counter()
+    in_forward = {"K3": dict.fromkeys(k3.role_launches, 0), "K10": 0,
+                  "K11": 0}
+    entered = {}
+
+    def pre_hook(*_):
+        entered.update(counts())
+
+    def post_hook(*_):
+        now = counts()
+        for role in in_forward["K3"]:
+            in_forward["K3"][role] += now["K3"][role] - entered["K3"][role]
+        for kid in ("K10", "K11"):
+            in_forward[kid] += now[kid] - entered[kid]
+
+    hooks = [model.register_forward_pre_hook(pre_hook),
+             model.register_forward_hook(post_hook)]
     zero()
     first, first_ms = timed_step(batches[0])
-    hook.remove()
+    for h in hooks:
+        h.remove()
     total = counts()
-    after_first = [t.clone() for t in tree_leaves(tree)]
-    for t, s in zip(tree_leaves(tree), start):
+    after_first = fingerprints()
+    # the same state again: the same draws from a fresh generator
+    start = draw(torch.Generator(device=dev).manual_seed(SEED))
+    for t, s in zip(tree_leaves(tree), tree_leaves(start)):
         t.copy_(s)
+    del start
     for t in tree_leaves(opt):
         t.zero_()
-    del start
     again, _ = timed_step(batches[0])
-    differ = [i for i, (a, b) in enumerate(zip(tree_leaves(tree),
-                                               after_first))
-              if not torch.equal(a, b)]
-    same = {k: bool(torch.equal(first[k], again[k]))
-            for k in ("loss", "ce", "grad_norm")}
-    del after_first
     keys = []
 
     def walk(t, path):
@@ -3542,11 +3943,22 @@ def train_full(torch, np, dev, counters, card, arch, expect, redraw=None):
             keys.append("/".join(path))
 
     walk(tree, ())
+    after_again = fingerprints()
+    differ = [f"{part}:{keys[i]}" for part, fps in after_again.items()
+              for i, (a, b) in enumerate(zip(fps, after_first[part]))
+              if a != b]
+    same = {k: bool(torch.equal(first[k], again[k]))
+            for k in ("loss", "ce", "grad_norm")}
     determinism = {"deterministic": not differ and all(same.values()),
-                   "metrics_equal": same,
-                   "differing_leaves": [keys[i] for i in differ]}
-    # the launches a step: the forward's by the hook, the backward's after
-    fwd = at_forward_end
+                   "metrics_equal": same, "differing_leaves": differ,
+                   "compared": {k: len(v) for k, v in after_first.items()},
+                   "by": "bits_fingerprint",
+                   "seconds": time.perf_counter() - t_det}
+    if not determinism["deterministic"]:
+        fail(f"{label}: the first step taken twice differs: {same}, "
+             f"leaves {differ[:20]}")
+    # the launches a step: the forward's by the hooks, the backward's after
+    fwd = in_forward
     got = {"K3_forward": fwd["K3"]["forward"],
            "K3_recompute": total["K3"]["forward"] - fwd["K3"]["forward"],
            "K3_z": total["K3"]["z"], "K3_dx": total["K3"]["dx"],
@@ -3563,91 +3975,131 @@ def train_full(torch, np, dev, counters, card, arch, expect, redraw=None):
              f"path alone for its {n3} launches")
     steps = [{"step": 1, "ce": again["ce"].item(),
               "grad_norm": again["grad_norm"].item(), "ms": first_ms}]
-    for i in range(1, TRAIN_STEPS - 1):
+    for i in range(1, TRAIN_STEPS):
         m, ms = timed_step(batches[i])
         steps.append({"step": i + 1, "ce": m["ce"].item(),
                       "grad_norm": m["grad_norm"].item(), "ms": ms})
         print(f"{label} step {i + 1}: ce {steps[-1]['ce']:.4f}, grad norm "
               f"{steps[-1]['grad_norm']:.4f}, {ms:.1f} ms", flush=True)
     med = statistics.median(s["ms"] for s in steps[1:])
-    # the last step under the profiler (its wall time carries the
+    # one more step under the profiler (its wall time carries the
     # profiler's cost, so the median above leaves it out)
+    t_prof = time.perf_counter()
     ranges = (("k10 plain backward", attn_ops, "flash_attention_bwd"),
               ("k11 plain backward", wkv6_ops, "wkv6_bwd"),
+              ("ssd scan", ssm_mod, "_ssd_chunked"),
+              ("moe experts", moe_mod, "experts"),
               ("adamw", step_mod, "adamw_update"))
     last = {}
     profile = profile_windows(
         torch, label, {"step": lambda: last.update(
-            m=step_fn(tree, opt, batches[TRAIN_STEPS - 1])[2])},
+            m=step_fn(tree, opt, batches[TRAIN_STEPS])[2])},
         card, ranges)
-    steps.append({"step": TRAIN_STEPS, "ce": last["m"]["ce"].item(),
+    steps.append({"step": TRAIN_STEPS + 1, "ce": last["m"]["ce"].item(),
                   "grad_norm": last["m"]["grad_norm"].item(),
                   "ms": profile["step"]["wall_ms"], "profiled": True})
+    profile_s = time.perf_counter() - t_prof
     ces = [s["ce"] for s in steps]
     if not all(math.isfinite(c) for c in ces) or not ces[-1] < ces[0]:
         fail(f"{label}: CE {ces} is not finite and falling")
     peak = torch.cuda.max_memory_allocated() / 1e9
-    rec = {"arch": arch, "params": n_params, "init_s": init_s,
-           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "lr": TRAIN_LR,
+    rec = {"arch": arch, "layers": cfg.num_layers, "reduced": reduced,
+           "params": n_params, "init_s": init_s, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "microbatches": mb, "lr": TRAIN_LR,
            "warmup": TRAIN_WARMUP, "corpus_vocab": TRAIN_VOCAB,
-           "corpus_entropy": lm.entropy(), "steps": steps,
-           "step_ms_median": med,
-           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med * 1e3,
+           "corpus_entropy": lm.entropy(), "media": {
+               k: list(v.shape) for k, v in media.items()},
+           "steps": steps, "step_ms_median": med,
+           "tokens_per_s": TRAIN_ROWS / med * 1e3,
            "launches": got, "k3_paths": total["K3_paths"],
            "determinism": determinism, "peak_memory_gb": peak,
-           "reckoned_gb": TRAIN_RECKONED_GB.get(arch), "profile": profile}
+           "reckoned_gb": budget, "profile_s": profile_s,
+           "profile": profile, "card": card}
+    rec["phase_s"] = time.perf_counter() - t0
     print(f"{label}: " + json.dumps({k: v for k, v in rec.items()
                                      if k != "profile"}), flush=True)
-    print(f"{label}: {n_params / 1e9:.3f} G parameters, CE "
-          f"{ces[0]:.4f} -> {ces[-1]:.4f}, step {med:.1f} ms median "
-          f"({rec['tokens_per_s']:.0f} tokens/s), peak memory {peak:.2f} GB "
-          f"(reckoned {rec['reckoned_gb']}), deterministic "
-          f"{determinism['deterministic']} [{card}]", flush=True)
-    del model, tree, opt, step_fn
+    print(f"{label}: {n_params / 1e9:.3f} G parameters, {cfg.num_layers} "
+          f"layers (reduced {json.dumps(reduced)}), CE {ces[0]:.4f} -> "
+          f"{ces[-1]:.4f}, step {med:.1f} ms median of steps 2-"
+          f"{TRAIN_STEPS} ({rec['tokens_per_s']:.0f} tokens/s), peak "
+          f"memory {peak:.2f} GB (reckoned {budget['total']:.2f}), "
+          f"deterministic {determinism['deterministic']}, wall time "
+          f"{rec['phase_s']:.1f} s (determinism "
+          f"{determinism['seconds']:.1f}, profile {profile_s:.1f}) "
+          f"[{card}]", flush=True)
+    if not peak <= budget["total"]:
+        fail(f"{label}: peak memory {peak:.2f} GB past its reckoning "
+             f"{budget['total']:.2f}")
+    del model, tree, opt, step_fn, batches, media
     gc.collect()
     torch.cuda.empty_cache()
     return rec
 
 
+def train_launcher_phase(torch, counters):
+    """Phase 13d: ``repro_torch.launch.train.main`` on the card (its
+    default device) for the reduced qwen3-moe-30b-a3b, 3 steps at
+    ``microbatches=2``, the JAX launcher's counterpart: its CE history,
+    finite and falling, and the launches of the run (K3 and K10 every
+    step).  Returns the record."""
+    import math
+
+    from repro_torch.launch.train import main as train_main
+
+    arch = "qwen3-moe-30b-a3b"
+    for fn in counters.values():
+        fn.launches = 0
+    t = time.perf_counter()
+    out = train_main(["--arch", arch, "--reduced", "--steps", "3",
+                      "--microbatches", "2", "--log-every", "1"])
+    torch.cuda.synchronize()
+    ces = [ce for _, ce in out["history"]]
+    rec = {"arch": arch, "reduced": True, "steps": 3, "microbatches": 2,
+           "history": out["history"], "seconds": time.perf_counter() - t,
+           "launches": {k: counters[k].launches for k in ("K3", "K10")}}
+    print("train launcher " + json.dumps(rec), flush=True)
+    if ([s for s, _ in out["history"]] != [1, 2, 3]
+            or not all(math.isfinite(c) for c in ces) or not ces[-1] < ces[0]):
+        fail(f"{arch} train launcher: CE history {out['history']} is not "
+             f"finite and falling")
+    if not (counters["K3"].launches and counters["K10"].launches):
+        fail(f"{arch} train launcher: launches {rec['launches']}")
+    return rec
+
+
 def train_phase(torch, np, dev, peaks, counters, card):
     """Phase 13 (see the module docstring); returns (cases, parity
-    records, full-width records)."""
-    from repro_torch.core.config import get_arch
-    from repro_torch.nn.rwkv import rwkv_redraw
-
+    records, full-width records, the launcher's record)."""
     t13 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    cases = [k3_grad_case(torch, gen, dev, kk, n, act, bias, peaks)
-             for kk, n, act, bias in K3_TRAIN_SHAPES]
+    cases = [k3_grad_case(torch, gen, dev, kk, n, act, bias, m, peaks)
+             for kk, n, act, bias, m in K3_TRAIN_SHAPES]
+    gc.collect()
+    torch.cuda.empty_cache()
     cases += [k10_grad_case(torch, gen, dev, c, peaks)
               for c in K10_TRAIN_CASES]
     cases.append(k11_grad_case(torch, gen, dev))
     gc.collect()
     torch.cuda.empty_cache()
     t_b = time.perf_counter()
-    redraws = {LM_ARCH: None, "rwkv6-1.6b": rwkv_redraw}
-    parity = {a: train_parity(torch, np, dev, a, redraws[a])
-              for a in TRAIN_ARCHS}
-    t_c = time.perf_counter()
-    full = {}
+    parity = {}
     for arch in TRAIN_ARCHS:
-        cfg = get_arch(arch)
-        n = cfg.num_layers
-        if cfg.family == "ssm":  # 8 projections a layer, K11 once
-            k3, z, k10, k11 = 8 * n, 0, 0, n
-        else:  # 7 projections a layer, the gate's gelu, K10 once
-            k3, z, k10, k11 = 7 * n, n, n, 0
-        expect = {"K3_forward": k3, "K3_recompute": k3, "K3_z": z,
-                  "K3_dx": k3, "K3_dw": k3, "K10_forward": k10,
-                  "K10_backward": k10, "K10_ml": 2 * k10,
-                  "K11_forward": k11, "K11_backward": k11}
-        full[arch] = train_full(torch, np, dev, counters, card, arch, expect,
-                                redraws[arch])
+        parity[arch] = train_parity(torch, np, dev, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    t_c = time.perf_counter()
+    full = {arch: train_full(torch, np, dev, counters, card, arch)
+            for arch in TRAIN_ARCHS}
+    t_d = time.perf_counter()
+    launcher = train_launcher_phase(torch, counters)
     t_end = time.perf_counter()
     print(f"phase 13 wall time {t_end - t13:.1f} s (cases "
           f"{t_b - t13:.1f}, CPU parity {t_c - t_b:.1f}, full width "
-          f"{t_end - t_c:.1f})", flush=True)
-    return cases, parity, full
+          f"{t_d - t_c:.1f}: "
+          + ", ".join(f"{a} {r['phase_s']:.1f}" for a, r in full.items())
+          + f"; launcher {t_end - t_d:.1f})", flush=True)
+    return cases, parity, full, launcher
+
 
 
 #: phase 15: the last four registered language models at full width
@@ -3859,6 +4311,7 @@ def dense_phase(torch, F, np, dev, peaks, counters, card):
 
 def main() -> int:
     global SEED
+    t_smoke = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", help="also write every case's numbers here")
     ap.add_argument("--ptxas", action="store_true",
@@ -4176,8 +4629,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     kvq = kvq_phase(torch, np, dev, counters, card_line)
 
-    # -- 13. training: gemma2-2b and rwkv6-1.6b ---------------------------------
-    train_cases, train_parity_recs, train = train_phase(
+    # -- 13. training: every family the JAX trainer takes ---------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_cases, train_parity_recs, train, train_launcher = train_phase(
         torch, np, dev, peaks, counters, card_line)
 
     # -- 15. starcoder2-15b, internlm2-20b, qwen1.5-32b, grok-1-314b ----------
@@ -4317,10 +4772,13 @@ def main() -> int:
              "zamba": zamba, "cross_cases": cross_cases,
              "cross_parity": cross_parity, "cross": cross, "kvq": kvq,
              "train_cases": train_cases, "train_parity": train_parity_recs,
-             "train": train, "dense_cases": dense_cases,
+             "train": train, "train_launcher": train_launcher,
+             "dense_cases": dense_cases,
              "dense_parity": dense_parity, "dense": dense,
              "capture": capture, "kernels": kernels},
             indent=1))
+    print(f"smoke wall time {time.perf_counter() - t_smoke:.1f} s",
+          flush=True)
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

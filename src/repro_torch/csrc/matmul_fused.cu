@@ -75,7 +75,16 @@
 //   each own 64 rows of the tile and run wgmma m64n128k16 (B transposed)
 //   four times a stage into fp32 registers, releasing a stage once the
 //   next one's products are issued.  No split of K: each block sums K from
-//   0 to K in order.  The epilogue adds the bias and applies the activation in fp32
+//   0 to K in order.  The tensor cores' own additions do not round to
+//   nearest, so a running sum over all of K drifts with K: on an H100 a
+//   dw over 12800 rows of N(0, 1) operands (K = 12800) came 2.8e-3 from
+//   the exact sum at a 0.02 result, past the port's bf16 limit, where the
+//   library's bf16 product drifts alike.  So each group of WG_PROMOTE
+//   steps sums into fresh registers, and the group's sum is added to the
+//   tile's fp32 sums with IEEE adds, in order, once the group's last
+//   products are done (the next group's products wait for that: about
+//   7 % more time at the LM shapes, ``tools/k3_accuracy_probe.py``).
+//   The epilogue adds the bias and applies the activation in fp32
 //   on the registers, stages the bf16 tile in shared memory and stores it
 //   in coalesced 16-byte chunks, rows at and past M masked (TMA fills the
 //   missing rows and the K tail with zeros on load).
@@ -571,8 +580,12 @@ mm_tiled(const T* __restrict__ x, const T* __restrict__ w,
 // -- path 2: TMA + wgmma ---------------------------------------------------
 
 // a block's tile is WG_BM x WG_BN; it walks K in steps of WG_BK through a
-// ring of WG_STAGES stages, each an x box and WG_BN / 64 w boxes
+// ring of WG_STAGES stages, each an x box and WG_BN / 64 w boxes.  The
+// tensor cores sum the products of WG_PROMOTE steps into one running sum
+// (their own additions do not round to nearest: the error grows with K);
+// each group's sum is then added into fp32 registers with IEEE adds
 constexpr int WG_BM = 128, WG_BN = 128, WG_BK = 64, WG_STAGES = 4;
+constexpr int WG_PROMOTE = 4;
 constexpr int WG_THREADS = 384;
 constexpr int WG_A_BYTES = WG_BM * WG_BK * 2;  // x box [128 rows, 64 K]
 constexpr int WG_BOX_BYTES = WG_BK * 64 * 2;   // w box [64 K rows, 64 N]
@@ -648,12 +661,16 @@ mm_wgmma(const __grid_constant__ CUtensorMap xmap,
     // consumers: warpgroup c owns rows 64 c .. 64 c + 63 of the tile
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int c = wg - 1;
-    // the first product writes d without reading it: no instruction but
-    // a wgmma defines the accumulators, so the products of a stage issue
-    // back to back
-    float d[WG_BN / 2];
+    // the first product of a group writes d without reading it: no
+    // instruction but a wgmma defines d within a group, so the products
+    // of a stage issue back to back; sum holds the groups' sums
+    float d[WG_BN / 2], sum[WG_BN / 2];
+#pragma unroll
+    for (int i = 0; i < WG_BN / 2; ++i) sum[i] = 0.f;
+    int released = 0;  // the steps whose stages are given back
     for (int kb = 0; kb < nk; ++kb) {
       const int s = kb % WG_STAGES;
+      const bool last = kb % WG_PROMOTE == WG_PROMOTE - 1 || kb == nk - 1;
       mbar_wait(full(s), (kb / WG_STAGES) & 1);
       const uint32_t a = a_at(s) + c * 64 * 128;
       const uint32_t bt = a_at(s) + WG_A_BYTES;
@@ -663,21 +680,29 @@ mm_wgmma(const __grid_constant__ CUtensorMap xmap,
       for (int kk = 0; kk < WG_BK / 16; ++kk)
         wgmma_n128(d, wg_desc(a + 32 * kk, 16, 1024),
                    wg_desc(bt + 16 * 128 * kk, WG_BOX_BYTES, 1024),
-                   kb > 0 || kk > 0);
+                   kb % WG_PROMOTE > 0 || kk > 0);
       wg_commit();
-      // the previous stage's products are done: release its buffers
-      wg_wait<1>();
-      fence_acc(d);
-      if (kb > 0 && (tid & 31) == 0)
-        mbar_arrive(empty((kb - 1) % WG_STAGES));
+      // the previous step's products are done (at a group's last step,
+      // this one's too: its sum is added in); release their stages
+      int done = kb;
+      if (last) {
+        wg_wait<0>();
+        fence_acc(d);
+#pragma unroll
+        for (int i = 0; i < WG_BN / 2; ++i) sum[i] += d[i];
+        done = kb + 1;
+      } else {
+        wg_wait<1>();
+        fence_acc(d);
+      }
+      for (; released < done; ++released)
+        if ((tid & 31) == 0) mbar_arrive(empty(released % WG_STAGES));
     }
-    wg_wait<0>();
-    fence_acc(d);
     // Epilogue: the bias and the activation in fp32 on the registers, then
     // bf16 pairs into this warpgroup's halves of the x boxes, which nobody
     // reads any more (16-byte chunks swizzled by row, so the pairs of one
     // store hit 32 banks), then coalesced 16-byte stores of whole rows.
-    // d[4 j + 2 h + e] holds row 16 warp + lane / 4 + 8 h and column
+    // sum[4 j + 2 h + e] holds row 16 warp + lane / 4 + 8 h and column
     // 8 j + 2 (lane % 4) + e of the warpgroup's 64 x 128 slice; a box half
     // holds 32 of its rows.
     constexpr int ROW_BYTES = WG_BN * 2, ROWS_PER_BOX = 8192 / ROW_BYTES;
@@ -695,7 +720,7 @@ mm_wgmma(const __grid_constant__ CUtensorMap xmap,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = r0 + 8 * h;
-        float v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
+        float v0 = sum[4 * j + 2 * h], v1 = sum[4 * j + 2 * h + 1];
         if (b) {
           v0 += b0;
           v1 += b1;

@@ -17,6 +17,12 @@ drops, as in the JAX package.  Within a group:
   past its expert's capacity is dropped.  Kept pairs map to rows of an
   ``[E * cap]`` buffer plus the JAX package's sentinel row ``E * cap``,
   which gathers zeros and is never read back;
+* the dispatch (token rows into the buffer) and the combine (buffer rows
+  back to the pairs) are gathers whose backwards gather as well
+  (``_GatherRows``): a token's gradient sums its k buffer rows' in the
+  order of its picks, with no atomic add, so a train step gives the same
+  bits on the card from run to run, as ROADMAP.md's determinism contract
+  asks (``index_select``'s backward is an atomic ``index_add_`` there);
 * the experts run as three batched ``torch.matmul`` over the expert axis,
   bf16 operands and a bf16 result for a bf16 model, as the JAX package's
   ``jnp.einsum`` (outside any Pallas kernel, so no kernel of the port);
@@ -59,6 +65,28 @@ def moe_spec(cfg: ModelConfig) -> dict:
         "we_up": Param((E, d, f), (e_ax, "embed", f_ax), init="fan_in"),
         "we_down": Param((E, f, d), (e_ax, f_ax, "embed"), init="fan_in"),
     }
+
+
+def moe_redraw(tree: dict, generator: torch.Generator) -> None:
+    """Redraw the expert matrices of every MoE layer of a transformer's
+    parameter tree (JAX layout: ``layers/mlp/we_*`` stacked ``[layers, E,
+    d_in, d_out]``) in place, on ``generator``'s device, at std
+    1/sqrt(d_in), a layer at a time.
+
+    The init's fan-in rule (the JAX package's, kept) takes a 4-D leaf's
+    first axis as its fan-in, so the stacked experts are drawn at std
+    1/sqrt(layers).  At 48 layers the gate's pre-activations stay within
+    exp's range; at a model cut to a few layers they reach |x| of a
+    hundred, and silu's ``1 / (1 + exp(-x))`` (JAX's form) has a NaN
+    gradient there.  ``chip_smoke.py`` (phase 13) applies it to a cut model
+    before both sides get the tree; ``init_tree`` itself keeps JAX's
+    rule."""
+    mlp = tree["layers"]["mlp"]
+    for name in ("we_gate", "we_up", "we_down"):
+        for t in mlp[name]:
+            t.copy_(torch.randn(t.shape, generator=generator,
+                                device=t.device, dtype=torch.float32)
+                    / math.sqrt(t.shape[-2]))
 
 
 def _group_count(tokens: int, dp_size: int) -> int:
@@ -124,12 +152,65 @@ def _rows(table, index):
     return flat.reshape(D, -1, d)
 
 
+def _pad_row(table):
+    """``table`` [D, R, d] with a zero row ``R`` appended to each group."""
+    return torch.cat([table, table.new_zeros((table.shape[0], 1,
+                                              table.shape[2]))], dim=1)
+
+
+class _GatherRows(torch.autograd.Function):
+    """``out = _rows(_pad_row(table), index)``: row ``index[g, i]`` of
+    group ``g``, the zero row where the index is ``R``.  Its backward
+    gathers too, with no ``index_add_``, scatter or atomic: ``readers``
+    [D, R, k] lists, for each table row, the output rows that read it
+    (``n``, the count of output rows, where fewer than k do), and row
+    ``r``'s gradient is the sum of those output rows' gradients taken in
+    order ``j = 0 .. k-1``, one fixed order on every device.  (The
+    backward of ``index_select`` is an ``index_add_``, whose sum on the
+    card is an atomic one in no fixed order.)"""
+
+    @staticmethod
+    def forward(ctx, table, index, readers):
+        ctx.save_for_backward(readers)
+        return _rows(_pad_row(table), index)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (readers,) = ctx.saved_tensors
+        D, R, k = readers.shape
+        parts = _rows(_pad_row(dout), readers.reshape(D, R * k)).reshape(
+            D, R, k, -1)
+        dtable = parts[:, :, 0]
+        for j in range(1, k):
+            dtable = dtable + parts[:, :, j]
+        return dtable, None, None
+
+
 def experts(params, buf, act: str):
     """buf [E, n, d] -> [E, n, d]: expert e's gated feed-forward on its n
     rows, as three batched products over the experts."""
     g = torch.matmul(buf, params["we_gate"])
     u = torch.matmul(buf, params["we_up"])
     return torch.matmul(act_fn(act)(g) * u, params["we_down"])
+
+
+def dispatch_maps(r: Routing, k: int):
+    """The dispatch's index maps of a routing, per group: each buffer row's
+    source token (``T_l``, the zero row, where the row is empty) and its
+    (token, k) pair in flat order (``T_l * k``, the zero row), [D, E *
+    cap]; each pair's buffer row (``E * cap``, the sentinel, where it is
+    dropped), [D, T_l * k]."""
+    D, T_l, E = r.logits.shape
+    rows = E * r.cap
+    # every dropped entry writes the extra column E * cap, cut off after
+    src_map = torch.full((D, rows + 1), T_l, dtype=torch.long,
+                         device=r.slot.device)
+    src_map.scatter_(1, r.slot, r.order // k)
+    pair_of_row = torch.full((D, rows + 1), T_l * k, dtype=torch.long,
+                             device=r.slot.device)
+    pair_of_row.scatter_(1, r.slot, r.order)
+    inv_slot = torch.empty_like(r.slot).scatter_(1, r.order, r.slot)
+    return src_map[:, :rows], pair_of_row[:, :rows], inv_slot
 
 
 def moe_apply(params, x, cfg: ModelConfig, *, dp_size: int = 1,
@@ -141,27 +222,21 @@ def moe_apply(params, x, cfg: ModelConfig, *, dp_size: int = 1,
     b, s, d = x.shape
     r = route(params, x, cfg, dp_size=dp_size, mode=mode)
     D, T_l, _ = r.logits.shape
-    cap, sentinel = r.cap, E * r.cap
+    cap = r.cap
 
-    # buffer row -> source token (the sentinel row T_l of xf_pad is zeros);
-    # every dropped entry writes the extra column E * cap, cut off after
-    src_map = torch.full((D, sentinel + 1), T_l, dtype=torch.long,
-                         device=x.device)
-    src_map.scatter_(1, r.slot, r.order // k)
-    xf_pad = torch.cat([x.reshape(D, T_l, d),
-                        x.new_zeros((D, 1, d))], dim=1)
+    src_map, pair_of_row, inv_slot = dispatch_maps(r, k)
     # [E, D * cap, d]: the expert axis leads, so each product is one
-    # batched matmul over the experts (a view when D == 1)
-    buf = _rows(xf_pad, src_map[:, :sentinel]).reshape(D, E, cap, d)
-    buf = buf.transpose(0, 1).reshape(E, D * cap, d)
+    # batched matmul over the experts (a view when D == 1).  The dispatch
+    # and the combine gather; each one's backward is the other's gather,
+    # a token's k buffer rows summed in a fixed order
+    buf = _GatherRows.apply(x.reshape(D, T_l, d), src_map,
+                            inv_slot.reshape(D, T_l, k))
+    buf = buf.reshape(D, E, cap, d).transpose(0, 1).reshape(E, D * cap, d)
 
     y = experts(params, buf, cfg.act).reshape(E, D, cap, d)
     y = y.transpose(0, 1).reshape(D, E * cap, d)
-    y_pad = torch.cat([y, y.new_zeros((D, 1, d))], dim=1)
-
-    # buffer row of each (token, k) pair in flat order (sentinel if dropped)
-    inv_slot = torch.empty_like(r.slot).scatter_(1, r.order, r.slot)
-    picked = _rows(y_pad, inv_slot).reshape(D, T_l, k, d)
+    picked = _GatherRows.apply(y, inv_slot, pair_of_row[..., None]
+                               ).reshape(D, T_l, k, d)
     out = (picked * r.p_k.to(picked.dtype)[..., None]).float().sum(dim=2)
 
     # Switch-style load balance: E * sum_e f_e * P_e, f_e counting every

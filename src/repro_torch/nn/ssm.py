@@ -164,12 +164,14 @@ def _ssd_chunked(x, dt, A, B, C, chunk: int):
 
     cs = torch.cumsum(dtc * A, dim=2)  # inclusive cumulative log-decay
     scores = Cc @ Bc.transpose(-1, -2)  # [b, nc, L(l), L(m)]
-    # decay from step m (exclusive) to step l (inclusive), selected (not
-    # multiplied) under the causal mask: above the diagonal the exponent
-    # is positive and may be inf
+    # decay from step m (exclusive) to step l (inclusive), 0 above the
+    # diagonal.  There the exponent is positive and may overflow: it is
+    # set to -inf before the exp, not the exp's inf selected away after
+    # (the JAX package's ``where``), whose backward multiplies a zero
+    # gradient by inf and gives NaN; the values are the same bits
     causal = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
-    M = torch.exp(cs[:, :, :, None, :] - cs[:, :, None, :, :])
-    M = torch.where(causal[:, :, None], M, 0.0)  # [b, nc, l, m, h]
+    M = torch.exp((cs[:, :, :, None, :] - cs[:, :, None, :, :]).masked_fill(
+        ~causal[:, :, None], float("-inf")))  # [b, nc, l, m, h]
     W = scores[..., None] * M * dtc[:, :, None, :, :]
     # y[l, h, p] = sum_m W[l, m, h] x[m, h, p], one product per (b, c, h)
     y = (W.permute(0, 1, 4, 2, 3) @ xc.permute(0, 1, 3, 2, 4)

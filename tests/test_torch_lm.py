@@ -429,7 +429,7 @@ def wgmma_geometry(m, k, n):
     tiles = (math.ceil(n / bn), math.ceil(m / bm))
     stage = 2 * (x_box[0] * x_box[1] + bn // WG_BOX_N * w_box[0] * w_box[1])
     return {"bm": bm, "bn": bn, "bk": bk, "stages": stages,
-            "threads": c["WG_THREADS"],
+            "promote": c["WG_PROMOTE"], "threads": c["WG_THREADS"],
             "grid": tiles[::-1] if m < n else tiles,
             "k_steps": math.ceil(k / bk),
             "x_box": x_box, "w_box": w_box, "w_boxes": bn // WG_BOX_N,
@@ -449,6 +449,7 @@ def test_wgmma_geometry_at_lm_shapes(m, k, n):
     covering the tile's width."""
     g = wgmma_geometry(m, k, n)
     assert (g["bm"], g["bn"], g["bk"]) == (128, 128, 64)
+    assert 1 <= g["promote"] <= 8
     assert g["threads"] == 128 * (1 + g["bm"] // 64)
     tiles = g["grid"] if m >= n else g["grid"][::-1]
     assert (tiles[0] - 1) * g["bn"] < n <= tiles[0] * g["bn"]
@@ -470,7 +471,8 @@ def test_wgmma_geometry_at_lm_shapes(m, k, n):
 def _wgmma_emulated(x, w, b, act):
     """The wgmma path's tile walk in plain PyTorch: 128 x bn output tiles,
     each summing K in steps of 64 from boxes that TMA fills with zeros past
-    M, K and N, the bias and the activation on the fp32 sums, one cast to
+    M, K and N, the steps in groups of ``promote`` whose sums are added in
+    order, the bias and the activation on the fp32 sums, one cast to
     bf16, the rows and columns past M and N dropped."""
     m, k = x.shape
     n = w.shape[1]
@@ -485,9 +487,12 @@ def _wgmma_emulated(x, w, b, act):
     for i in range(tiles[1]):
         for j in range(tiles[0]):
             acc = torch.zeros(bm, bn)
-            for s in range(g["k_steps"]):
-                acc += (xp[i * bm:(i + 1) * bm, s * bk:(s + 1) * bk]
-                        @ wp[s * bk:(s + 1) * bk, j * bn:(j + 1) * bn])
+            for g0 in range(0, g["k_steps"], g["promote"]):
+                group = torch.zeros(bm, bn)
+                for s in range(g0, min(g0 + g["promote"], g["k_steps"])):
+                    group += (xp[i * bm:(i + 1) * bm, s * bk:(s + 1) * bk]
+                              @ wp[s * bk:(s + 1) * bk, j * bn:(j + 1) * bn])
+                acc += group
             if b is not None:
                 bt = torch.zeros(bn)
                 cols = b[j * bn:(j + 1) * bn]

@@ -187,6 +187,145 @@ def test_moe_apply_matches_jax_where_capacity_drops(dp, dtype):
     assert (~r.keep).any(dim=1).all()  # drops in every group
 
 
+# -- the dispatch's fixed-order backward -----------------------------------------
+
+
+def _dispatch_indices(dp, seed=7):
+    """The routing of 12 tokens over 4 experts, top-2, at
+    ``capacity_factor=1`` (at this seed, pairs dropped and buffer rows
+    left empty in every group) -> (cfg, x [D, T_l, d], src_map, inv_slot,
+    pair_of_row) as ``moe_apply`` takes them (``dispatch_maps``)."""
+    _, tcfg = _cfgs(ARCHS[0], capacity_factor=1.0)
+    _, tp = _both(_weights(tcfg, seed=seed), "float32")
+    _, tx = _x((2, 6, 64), "float32", seed=seed + 1)
+    r = tmoe.route(tp, tx, tcfg, dp_size=dp, mode="train")
+    D, T_l, _ = r.logits.shape
+    src_map, pair_of_row, inv_slot = tmoe.dispatch_maps(
+        r, tcfg.moe.num_experts_per_token)
+    assert (~r.keep).any(dim=1).all()
+    assert (src_map == T_l).any(dim=1).all()
+    return tcfg, tx.reshape(D, T_l, -1), src_map, inv_slot, pair_of_row
+
+
+def _index_select_path(table, index):
+    """The gather as ``moe_apply`` took it before: a zero row appended,
+    ``_rows`` (one ``index_select``, whose backward is an
+    ``index_add_``)."""
+    pad = torch.cat([table, table.new_zeros((table.shape[0], 1,
+                                             table.shape[2]))], dim=1)
+    return tmoe._rows(pad, index)
+
+
+@pytest.mark.parametrize("side", ["dispatch", "combine"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("dp", [1, 2, 3])
+def test_gather_rows_forward_and_backward(dp, dtype, side):
+    """``_GatherRows`` at a routing with dropped pairs and empty buffer
+    rows (the sentinel's): its forward equals the ``index_select`` path
+    bit for bit; its gradient equals autograd through that path (fp32:
+    within a few roundings of a sum of k = 2 terms; bf16: each sum of two
+    bf16 terms rounds once on both sides, the same bits); two backward
+    runs give the same bits."""
+    tcfg, x, src_map, inv_slot, pair_of_row = _dispatch_indices(dp)
+    tdt = DTYPES[dtype][0]
+    D, T_l, d = x.shape
+    k = tcfg.moe.num_experts_per_token
+    if side == "dispatch":
+        table, index, readers = x.to(tdt), src_map, inv_slot.reshape(
+            D, T_l, k)
+    else:
+        table = torch.randn((D, src_map.shape[1], d),
+                            generator=torch.Generator().manual_seed(5)
+                            ).to(tdt)
+        index, readers = inv_slot, pair_of_row[..., None]
+    n_out = index.shape[1]
+    dout = torch.randn((D, n_out, d),
+                       generator=torch.Generator().manual_seed(6)).to(tdt)
+
+    def grad(fn):
+        t = table.detach().clone().requires_grad_(True)
+        out = fn(t)
+        out.backward(dout)
+        return out.detach(), t.grad
+
+    out, g = grad(lambda t: tmoe._GatherRows.apply(t, index, readers))
+    ref_out, ref_g = grad(lambda t: _index_select_path(t, index))
+    assert out.dtype == tdt and torch.equal(out, ref_out)
+    tol = 1e-6 if dtype == "float32" else 0.0
+    _close(g, ref_g, tol)
+    _, g2 = grad(lambda t: tmoe._GatherRows.apply(t, index, readers))
+    assert torch.equal(g, g2)
+
+
+def test_gather_rows_sums_a_tokens_picks_in_order():
+    """A token's gradient is its k buffer rows' summed j = 0 first, in the
+    rows' own dtype: with bf16 terms 1, 2^-8 and 2^-8 (k = 3) the sum in
+    order rounds 1 + 2^-8 to 1 twice; a dropped pick adds nothing."""
+    table = torch.zeros((1, 2, 1), dtype=torch.bfloat16, requires_grad=True)
+    index = torch.tensor([[0, 0, 0, 1]])
+    readers = torch.tensor([[[0, 1, 2], [3, 4, 4]]])  # 4: no reader
+    out = tmoe._GatherRows.apply(table, index, readers)
+    out.backward(torch.tensor([[[1.0], [2.0 ** -8], [2.0 ** -8], [5.0]]],
+                              dtype=torch.bfloat16))
+    assert table.grad.flatten().tolist() == [1.0, 5.0]
+
+
+@pytest.mark.parametrize("dp", [1, 2])
+def test_moe_apply_gradients_match_jax(dp):
+    """The gradients of ``moe_apply`` (of sum(out * g) plus both aux
+    losses) with respect to x and every weight, in fp32 at
+    ``capacity_factor=0.5`` (pairs dropped in every group), against
+    ``jax.grad`` of JAX's ``moe_apply``: the dispatch's and the combine's
+    gathers, the experts' products, the router through top-k and the aux
+    losses."""
+    jcfg, tcfg = _cfgs(ARCHS[0], capacity_factor=0.5)
+    jp, tp = _both(_weights(tcfg, seed=2), "float32")
+    jx, tx = _x((2, 6, 64), "float32", seed=3)
+    gy = np.random.default_rng(8).standard_normal((2, 6, 64)).astype(
+        np.float32)
+
+    def jloss(p, x):
+        out, aux = jmoe.moe_apply(p, x, jcfg, dp_size=dp, mode="train")
+        return (jnp.sum(out * gy) + aux["load_balance_loss"]
+                + aux["router_z_loss"])
+
+    jgp, jgx = jax.jit(jax.grad(jloss, argnums=(0, 1)))(jp, jx)
+    tp = {k: v.requires_grad_(True) for k, v in tp.items()}
+    tx.requires_grad_(True)
+    out, aux = tmoe.moe_apply(tp, tx, tcfg, dp_size=dp, mode="train")
+    ((out * torch.from_numpy(gy)).sum() + aux["load_balance_loss"]
+     + aux["router_z_loss"]).backward()
+    _close(tx.grad, jgx, MOE_TOL["float32"])
+    for name in tp:
+        _close(tp[name].grad, jgp[name], MOE_TOL["float32"])
+
+
+def test_moe_redraw_draws_the_experts_at_their_fan_in():
+    """``moe_redraw`` on a 3-layer tree: every layer's expert matrices at
+    std 1/sqrt(d_in) (JAX's rule drew the stacked 4-D leaves at
+    1/sqrt(layers)), from the generator alone (two redraws from one seed
+    give the same bits), every other leaf untouched."""
+    _, tcfg = _cfgs(ARCHS[0])
+    tcfg = dataclasses.replace(tcfg, num_layers=3)
+    spec = tregistry.get_model(tcfg).param_spec()
+    trees = [init_tree(spec, torch.Generator().manual_seed(0), "float32")
+             for _ in range(2)]
+    before = [t.clone() for t in tree_leaves(trees[0])]
+    for tree in trees:
+        tmoe.moe_redraw(tree, torch.Generator().manual_seed(1))
+    mlp = trees[0]["layers"]["mlp"]
+    for name in ("we_gate", "we_up", "we_down"):
+        d_in = mlp[name].shape[-2]
+        assert mlp[name].shape[0] == 3
+        for layer in mlp[name]:
+            assert abs(layer.std().item() * math.sqrt(d_in) - 1.0) < 0.05
+    for a, b in zip(tree_leaves(trees[0]), tree_leaves(trees[1])):
+        assert torch.equal(a, b)
+    changed = [not torch.equal(a, b) for a, b in
+               zip(tree_leaves(trees[0]), before)]
+    assert sum(changed) == 3
+
+
 @pytest.mark.parametrize("dp", [1, 2])
 @pytest.mark.parametrize("mode", ["train", "prefill"])
 def test_overflowing_expert_keeps_its_first_tokens(mode, dp):

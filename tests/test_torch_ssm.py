@@ -199,6 +199,44 @@ def test_ssd_strong_decays_stay_finite():
         _close(S, ref_S, TOL["strong"])
 
 
+@pytest.mark.parametrize("strong", [False, True])
+def test_ssd_gradients_match_jax(strong):
+    """The scan's gradients (of sum(y * gy) + sum(S * gS)) against
+    ``jax.grad`` of JAX's per-step recurrence.  Moderate decays: also
+    against JAX's chunked form.  Strong decays (as above): the exponent
+    above the diagonal overflows, where JAX's chunked form, selecting the
+    exp's inf away after it, has NaN gradients (0 * inf in the backward);
+    the port sets the exponent to -inf before the exp, and its gradients
+    stay finite."""
+    arrs = (_ssd_inputs(5, 1, 100, a_mean=3.0, dt_shift=1.0) if strong
+            else _ssd_inputs(9, 2, 45))
+    rng = np.random.default_rng(11)
+    b, s, h, p = arrs[0].shape
+    gy = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    gS = rng.standard_normal((b, h, p, arrs[3].shape[-1])).astype(np.float32)
+    chunk = 32 if strong else 16
+
+    def loss(fn):
+        return lambda *a: (jnp.sum(fn(*a)[0] * gy)
+                           + jnp.sum(fn(*a)[1] * gS))
+
+    argnums = (0, 1, 2, 3, 4)
+    ref = jax.grad(loss(jssm.ssd_reference), argnums)(*arrs)
+    chunked = jax.grad(loss(lambda *a: jssm._ssd_chunked(*a, chunk)),
+                       argnums)(*arrs)
+    leaves = [_t(jnp.asarray(a)).requires_grad_(True) for a in arrs]
+    y, S = tssm._ssd_chunked(*leaves, chunk)
+    ((y * _t(jnp.asarray(gy))).sum() + (S * _t(jnp.asarray(gS))).sum()
+     ).backward()
+    for t, r, c in zip(leaves, ref, chunked):
+        assert torch.isfinite(t.grad).all()
+        _close(t.grad, r, TOL["strong" if strong else "float32"])
+        if not strong:
+            _close(t.grad, c, TOL["float32"])
+    assert strong == any(not np.isfinite(np.asarray(c)).all()
+                         for c in chunked)
+
+
 def test_ssd_dt_raw_above_20():
     """dt_raw + dt_bias above 20 (dt = softplus, the value itself): the
     scan on such steps against JAX's, finite."""

@@ -1,8 +1,10 @@
 """The port's trainer (``repro_torch.train``, ``launch.train``) against the
 JAX package's (``repro.train``), on the CPU: the optimizer's pieces on the
-same trees, one ``make_train_step`` step of four families in fp32 from the
-JAX init's weights (``params_from_jax``), microbatching, the corpus, and
-checkpoints crossing between the packages both ways.
+same trees, one ``make_train_step`` step of every registered arch in fp32
+from the JAX init's weights (``params_from_jax``; a VLM's tree through
+``vision_redraw``, the cross families with seeded media or frames),
+microbatching, the corpus, and checkpoints crossing between the packages
+both ways.
 """
 import dataclasses
 
@@ -22,13 +24,18 @@ from repro_torch.core import config as tconfig
 from repro_torch.launch import train as tlaunch
 from repro_torch.models import registry as tregistry
 from repro_torch.models.common import params_from_jax
+from repro_torch.models.vision_lm import vision_redraw
 from repro_torch.nn.param import Param, init_tree, tree_leaves, tree_map
 from repro_torch.train import checkpoint as tckpt
 from repro_torch.train import data as tdata
 from repro_torch.train import optimizer as topt
 from repro_torch.train import step as tstep
 
-ARCHS = ["gemma2-2b", "qwen3-moe-30b-a3b", "rwkv6-1.6b", "zamba2-1.2b"]
+ARCHS = ["gemma2-2b", "qwen3-moe-30b-a3b", "rwkv6-1.6b", "zamba2-1.2b",
+         "starcoder2-15b", "internlm2-20b", "qwen1.5-32b", "grok-1-314b",
+         "llama-3.2-vision-11b", "seamless-m4t-large-v2"]
+#: the batch key a cross family's forward reads its media (frames) from
+MEDIA_KEY = {"vlm": "media_embeds", "audio": "frames"}
 
 
 def _np(x):
@@ -161,17 +168,27 @@ def _cfgs(arch):
 def _step_both(arch, microbatches=1, b=2, s=24):
     """One train step of each package from the JAX init's weights on the
     same batch -> (JAX's new params, opt state, metrics; the port's; the
-    JAX lr)."""
+    JAX lr).  A VLM's tree goes through ``vision_redraw`` before both
+    packages get it (at the init its gates are 0 and its self matrices at
+    std 1/sqrt(n_groups) swamp the gated residual); the cross families
+    get seeded media (frames)."""
     jcfg, tcfg = _cfgs(arch)
     jm = jregistry.get_model(jcfg)
     jp = jm.init(jax.random.PRNGKey(0))
     tree = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tcfg,
                            device="cpu")
+    if tcfg.family == "vlm":
+        vision_redraw(tree, torch.Generator().manual_seed(1))
+        jp = jax.tree_util.tree_map(lambda t: jnp.array(t.numpy()), tree)
     tm = tregistry.get_model(tcfg).load_tree(tree)
     tc = dict(learning_rate=1e-3, warmup_steps=2, total_steps=10)
     rng = np.random.default_rng(7)
     toks = rng.integers(0, tcfg.vocab_size, (b, s + 1))
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if tcfg.family in MEDIA_KEY:
+        xa = tcfg.cross_attn
+        batch[MEDIA_KEY[tcfg.family]] = rng.standard_normal(
+            (b, xa.num_media_tokens, xa.media_dim)).astype(np.float32)
     jfn = jax.jit(jstep.make_train_step(jm, jconfig.TrainConfig(**tc),
                                         microbatches=microbatches))
     j_out = jfn(jp, jopt.adamw_init(jp),
@@ -212,8 +229,13 @@ def _check_step(j_out, t_out, tree):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_step_matches_jax(arch):
     """Reduced fp32 gemma2 (local/global pairs, softcaps, the tied
-    embedding), qwen3-moe (the aux losses), rwkv6 (K11's backward) and
-    zamba2 (the shared block): loss, CE, aux losses, grad norm, lr, every
+    embedding), qwen3-moe and grok (the aux losses, the experts, the
+    fixed-order dispatch backward), rwkv6 (K11's backward), zamba2 (the
+    Mamba2 block, the shared block's gradients from each call site),
+    starcoder2 (LayerNorm, biases on q/k/v and the plain gelu MLP, the
+    window), internlm2, qwen1.5 (q/k/v biases), llama-3.2-vision (the
+    gated cross layers over the media) and seamless (the encoder over the
+    frames, the cross layers): loss, CE, aux losses, grad norm, lr, every
     moment and every new parameter."""
     _check_step(*_step_both(arch))
 
@@ -222,6 +244,14 @@ def test_train_step_microbatches_match_jax():
     """``microbatches=2``: JAX's strided split, fp32 accumulation, the
     gradients and metrics divided by 2."""
     _check_step(*_step_both("gemma2-2b", microbatches=2, b=4, s=16))
+
+
+def test_train_step_microbatches_match_jax_moe():
+    """``microbatches=2`` for qwen3-moe: each microbatch routes its own
+    tokens, and the aux losses of the two routings are summed and divided
+    by 2 with the CE, as JAX's scan divides its metrics."""
+    _check_step(*_step_both("qwen3-moe-30b-a3b", microbatches=2, b=4,
+                            s=16))
 
 
 def test_train_step_grads_land_in_the_stacked_tree():
