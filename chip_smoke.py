@@ -406,7 +406,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    bounds (``dense_bounds``: a decode step's weight read, a 4500-token
    prefill's projections) printed beside the times; d. the profile of
    7d (grok's with 9d's MoE ranges); each arch's wall time;
-16. prints one JSON line ``{"kernels": [...]}``: per kernel, ``launches``
+16. qwen1.5-32b tensor parallel over a process group (``tp_phase``): a.
+   K3 bf16 at every shard shape of its projections for 2-, 4- and 8-way
+   tensor parallelism (``tp_k3_shapes``: q/k/v with biases and gate/up
+   column-parallel, o and down row-parallel on K3's fp32 store, held to
+   ``K3_F32_STORE_TOL``) at M = 4 and 4500, and K10 at 20, 10 and 5
+   heads over as many kv heads (head_dim 128, causal) at 1500 and 4500
+   tokens, as 15a; b. a 1 x 1 NCCL mesh: qwen1.5-32b at full width cut to
+   8 layers, prefilled with ``LM_PROMPTS`` into 4 slots of 8192 rows and
+   8 decode steps through the dry run's ``_build_step``, the logits and
+   tokens the unsharded port's bits, K3 7 and K10 1 launches a layer in a
+   prefill, K3 7 a layer in a step; c. two ranks on the one card over
+   gloo (mesh 1 x 2; this script started twice with ``--tp-rank``), the
+   model cut to 16 layers, the unsharded reference run first here and
+   freed: the ranks' logits within ``TP_BF16_TOL``-relative of it (on
+   the reference's tokens; an argmax apart only at a near tie), both
+   ranks' the same bits, a repeated first step the same bits, the
+   launches a call as 16b, a one-layer fp32 parity with the reference's
+   greedy tokens; each rank's prefill and step times, peak memory and
+   collectives a step (gloo through host memory on one card: nothing of
+   NCCL or NVLink); d. the dry run (``repro_torch.launch.dryrun``) for
+   qwen1.5-32b, starcoder2-15b and grok-1-314b at 1 x 4 and 1 x 8 with 4
+   slots of 8192 rows: bytes a card against 80 GB, and whether it fits
+   (qwen1.5-32b's 64 layers at 1 x 4 must);
+17. prints one JSON line ``{"kernels": [...]}``: per kernel, ``launches``
    is its count summed over the AlexNet forwards of phase 4 (K1-K3,
    K7-K9) or phase 5 (K4-K6), or over the first LM serving run of phase
    7c and the first runs of phases 11c and 15c (K10's wgmma path as
@@ -421,12 +444,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    fp32 4500-token case; K3's wgmma path has an entry of its own, its
    launches those of the wgmma path in the first runs of 7c, 11c and 15c,
    its times its phase-7a cases at M = 4500; the error is the largest over
-   every case, phase 15a's among them.  Phase 13c's first steps (every
+   every case, phase 15a's among them.  Phase 16's sharded runs (16b and
+   both ranks of 16c) add their K3 and K10 launches to those entries, and
+   K3's fp32 store has an entry of its own (``matmul_fused_bf16_f32``:
+   the launches of 16c's ranks, the times of 16a's 2-way o and down at
+   M = 4 and 4500).  Phase 13c's first steps (every
    trained model's, summed) add, apart:
    ``train_backward_launches`` (K3's z, dx and dw) on the K3 entries,
    ``train_ml_launches`` on ``flash_attention`` and ``train_launches``
    on ``wkv6``;
-17. prints ``{"ok": true, "device": {...}}`` as its last line.
+18. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Run it from the repository root; it needs one CUDA device and the CUDA
 toolkit, and imports nothing of the JAX package.
@@ -1518,7 +1545,7 @@ def stream_device_ms(torch, call):
 
 
 def k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks, main, bias=False,
-                 **extra):
+                 out_dtype=None, **extra):
     """K3 on bf16 operands at one projection shape, held against its plain
     version element by element, repeated bit for bit and timed beside
     ``torch.matmul`` (+ the activation), with its host time a call
@@ -1529,7 +1556,10 @@ def k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks, main, bias=False,
     the CUDA-core tile is timed beside it, in the order tile, wgmma,
     wgmma, tile.  ``bias``: with a seeded fp32 bias, added in the
     epilogue before the activation (the library: ``torch.addmm`` with the
-    bias in bf16).  ``extra`` joins the record.  Returns the record."""
+    bias in bf16).  ``out_dtype=torch.float32``: y stored in fp32 (a
+    row-parallel shard's partial), held to ``K3_F32_STORE_TOL``; the
+    library still stores bf16.  ``extra`` joins the record.  Returns the
+    record."""
     from repro_torch.kernels.matmul_fused import ops as mm_ops
     from repro_torch.kernels.matmul_fused.ops import k3_path, matmul_fused
     from repro_torch.kernels.matmul_fused.ref import matmul_fused_ref
@@ -1539,10 +1569,13 @@ def k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks, main, bias=False,
     w = (torch.randn((kk, n), generator=gen, device=dev) / kk ** 0.5
          ).bfloat16()
     b = torch.randn((n,), generator=gen, device=dev) if bias else None
-    kernel = lambda: matmul_fused(x, w, b, act)  # noqa: E731
-    plain = lambda: matmul_fused_ref(x, w, b, act)  # noqa: E731
-    tile = lambda: mm_ops._launch(x, w, b, act, path="tiles")  # noqa: E731
+    kernel = lambda: matmul_fused(x, w, b, act, out_dtype)  # noqa: E731
+    plain = lambda: matmul_fused_ref(x, w, b, act,  # noqa: E731
+                                     out_dtype=out_dtype)
+    tile = lambda: mm_ops._launch(x, w, b, act, path="tiles",  # noqa: E731
+                                  out_dtype=out_dtype)
     b16 = None if b is None else b.bfloat16()
+    f32 = out_dtype == torch.float32
 
     def library():
         y = torch.matmul(x, w) if b16 is None else torch.addmm(b16, x, w)
@@ -1552,7 +1585,8 @@ def k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks, main, bias=False,
             return F.silu(y)
         return F.relu(y) if act == "relu" else y
 
-    label = f"K3 bf16 M={m} {kk}->{n} {act}" + (" +bias" if bias else "")
+    label = (f"K3 bf16 M={m} {kk}->{n} {act}" + (" +bias" if bias else "")
+             + (" fp32 store" if f32 else ""))
     path = k3_path(x.dtype, m, kk, n, x.data_ptr(), w.data_ptr())
     if path != ("stream" if m < 64 else "wgmma"):
         fail(f"{label}: path {path}")
@@ -1565,7 +1599,7 @@ def k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks, main, bias=False,
     if stepped != {**dict.fromkeys(paths, 0), path: 1}:
         fail(f"{label}: path counters moved by {stepped}, expected one "
              f"{path} launch")
-    rtol, atol = LM_KERNEL_TOL["bfloat16"]
+    rtol, atol = K3_F32_STORE_TOL if f32 else LM_KERNEL_TOL["bfloat16"]
     # a partial last tile of the wgmma path (N not a multiple of its 128
     # columns): every row of its columns first, so that a store clipped
     # short names the tile; one that ran past column N - 1 lands in the
@@ -1576,24 +1610,27 @@ def k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks, main, bias=False,
         last_err = _check_close(f"{label} last tile (columns {last}..)",
                                 out[:, last:], ref[:, last:], atol, rtol)
     err = _check_close(label, out, ref, atol, rtol)
-    if out.dtype != torch.bfloat16:
+    if out.dtype != (torch.float32 if f32 else torch.bfloat16):
         fail(f"{label}: output {out.dtype}")
     if not torch.equal(kernel(), out):
         fail(f"{label}: a repeated launch differs")
     if path == "stream" and m > 1 and not torch.equal(
-            matmul_fused(x[:1], w, b, act), out[:1]):
+            matmul_fused(x[:1], w, b, act, out_dtype), out[:1]):
         fail(f"{label}: row 0 differs from the same row called alone")
     lib_err = (library().float() - ref.float()).abs().max().item()
     flops = 2.0 * m * kk * n
-    nbytes = 2.0 * (m * kk + kk * n + m * n) + 4.0 * n * bias
+    nbytes = (2.0 * (m * kk + kk * n) + (4.0 if f32 else 2.0) * m * n
+              + 4.0 * n * bias)
     r = {"kernel": "K3-bf16", "rows": m, "k": kk, "n": n, "act": act,
-         "bias": bias, "path": path, "max_abs_err": err,
+         "bias": bias, "path": path, "max_abs_err": err, "store":
+         "float32" if f32 else "bfloat16",
          **({"last_tile_from": last, "last_tile_max_abs_err": last_err}
             if last is not None else {}),
          "tol": {"rtol": rtol, "atol": atol},
          "library_max_abs_err": lib_err,
          "library_note": ("torch.addmm, bf16 bias" if bias
-                          else "torch.matmul") + f" in bf16 (+ {act})"}
+                          else "torch.matmul") + f" in bf16 (+ {act})"
+         + (", a bf16 store" if f32 else "")}
     if path == "wgmma":
         _check_close(f"{label} CUDA-core tile", tile(), ref, atol, rtol)
         runs = [time_ms(torch, f) for f in (tile, kernel, kernel, tile)]
@@ -4309,6 +4346,553 @@ def dense_phase(torch, F, np, dev, peaks, counters, card):
     return cases, parity, served
 
 
+#: phase 16: qwen1.5-32b tensor parallel over a process group
+TP_ARCH = "qwen1.5-32b"
+#: the tensor-parallel ways whose shard shapes 16a runs
+TP_WAYS = (2, 4, 8)
+#: 16a's rows: a decode step at 4 slots and the longest prompt
+TP_K3_ROWS = (4, 4500)
+TP_K10_TOKENS = (1500, 4500)
+#: 16b's depth on the 1 x 1 NCCL mesh and 16c's on two ranks (layers);
+#: the width, heads and vocab stay as published
+TP_CUTS = {"1x1": (8, "the 1 x 1 mesh is the unsharded model's bits: 8 "
+                      "layers show it"),
+           "1x2": (16, "two ranks share one 80-GB card: 16 layers, 18.4 "
+                       "GB of weights and 10.7 GB of cache in all, plus "
+                       "the unsharded reference run first")}
+#: 16c's fp32 parity: one layer, a prompt of LM_PARITY_PROMPT tokens and
+#: LM_PARITY_DECODE greedy tokens
+TP_PARITY_LAYERS = 1
+TP_DECODE = 8
+#: the ranks' processes may take this long (s) before the phase fails
+TP_RANK_TIMEOUT = 600
+#: 16c's bf16 logits against the unsharded reference, relative to
+#: max(1, max|reference|): the model-level bf16 limit of the CPU tests
+#: (tests/test_torch_lm.py's TOL).  The ranks' products sum in other
+#: orders (the row-parallel partials, the weight stream's K slices, a
+#: function of N), so other elements round apart in bf16 in every layer;
+#: at 16 layers the first run on the card measured 0.078 on logits of
+#: largest magnitude 5.1 (1.5 %), past ``LM_KERNEL_TOL``'s 2^-7, a
+#: single kernel's limit.  The fp32 parity holds the algorithm to
+#: ``LM_TOL``.
+TP_BF16_TOL = 2.0 ** -4
+#: K3's fp32 store against its plain version, element by element:
+#: |kernel - plain| <= rtol * |plain| + atol.  Both sides sum fp32 in
+#: another order (the tensor cores' own additions truncate, F7); the
+#: partial is rounded to bf16 once after the ranks' sum, so it must stay
+#: well inside one bf16 rounding (2^-9 of |y|)
+K3_F32_STORE_TOL = (2.0 ** -12, 2.0 ** -14)
+#: 16d: the dry run's rows, at 4 slots x 8192 rows
+TP_DRYRUN_ARCHS = ("qwen1.5-32b", "starcoder2-15b", "grok-1-314b")
+TP_DRYRUN_MESHES = ("1x4", "1x8")
+
+
+def tp_k3_shapes(ways):
+    """qwen1.5-32b's projections on a ``ways``-way shard (role, K, N,
+    activation, bias, fp32 store): q/k/v with their biases and gate/up
+    column-parallel, o and down row-parallel, stored in fp32."""
+    d, f = 5120, 27392
+    return (("qkv", d, d // ways, "none", True, False),
+            ("gate_up", d, f // ways, "silu", False, False),
+            ("o", d // ways, d, "none", False, True),
+            ("down", f // ways, d, "none", False, True))
+
+
+def tp_kernel_cases(torch, F, dev, peaks):
+    """Phase 16a: K3 at every shard shape of ``tp_k3_shapes`` for
+    ``TP_WAYS`` at ``TP_K3_ROWS`` (o and down on the fp32 store) and K10
+    at 40 / ways heads over as many kv heads, head_dim 128, causal, at
+    ``TP_K10_TOKENS``; returns the records (``main``: the 2-way shapes of
+    the executed 1 x 2 mesh)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    for ways in TP_WAYS:
+        for role, kk, n, act, bias, f32 in tp_k3_shapes(ways):
+            for m in TP_K3_ROWS:
+                rows.append(k3_bf16_case(
+                    torch, F, gen, dev, m, kk, n, act, peaks, ways == 2,
+                    bias=bias, out_dtype=torch.float32 if f32 else None,
+                    ways=ways, role=role))
+        h = 40 // ways
+        for s in TP_K10_TOKENS:
+            r = k10_case(torch, F, gen, dev,
+                         (s, 0, 0.0, "bfloat16", h, h, 128, True), peaks)
+            r.update(ways=ways, main=ways == 2 and s == max(TP_K10_TOKENS))
+            rows.append(r)
+    return rows
+
+
+def tp_prompts(np, vocab):
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(0, vocab, (1, s)) for s in LM_PROMPTS]
+
+
+def tp_serve(torch, prefill, decode, cache, prompts, steps, counters=None,
+             forced=None):
+    """Each prompt prefilled into its slot of ``cache`` (one request a
+    call, the slot's views), then ``steps`` decode steps of every slot:
+    the greedy tokens, or ``forced`` ([slots, steps + 1], the reference's
+    tokens).  ``counters`` (K3, K10 wrappers): set to 0 before each call
+    and read after.  Returns the prefills' last-position logits [slots,
+    V], each step's [steps, slots, V], the tokens [slots, steps + 1], the
+    first step's inputs, each call's launches and times (ms)."""
+    from repro_torch.models.common import cache_slot
+
+    dev = next(iter(cache.values())).device
+    last, launches, ms = [], {"prefill": [], "decode": []}, \
+        {"prefill": [], "decode": []}
+
+    k3_paths = {}
+
+    def timed(kind, fn):
+        for c in (counters or {}).values():
+            c.launches = 0
+            for p in getattr(c, "path_launches", {}):
+                c.path_launches[p] = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[kind].append(1e3 * (time.perf_counter() - t))
+        launches[kind].append({k: c.launches
+                               for k, c in (counters or {}).items()})
+        if counters and "K3" in counters:
+            for p, n in counters["K3"].path_launches.items():
+                k3_paths[p] = k3_paths.get(p, 0) + n
+        return out
+
+    with torch.no_grad():
+        for i, p in enumerate(prompts):
+            tok = torch.from_numpy(p).to(dev)
+            lg = timed("prefill", lambda: prefill({"tokens": tok},
+                                                  cache_slot(cache, i))[0])
+            last.append(lg[0, -1].float())
+            del lg
+        last = torch.stack(last)
+        nxt = last.argmax(-1) if forced is None else forced[:, 0].to(dev)
+        pos = torch.tensor([p.shape[1] for p in prompts], device=dev)
+        toks, outs, first = [nxt], [], None
+        for t in range(steps):
+            inputs = (nxt[:, None].clone(), pos.clone())
+            first = first or inputs
+            lg = timed("decode", lambda: decode(*inputs, cache)[0])
+            outs.append(lg[:, 0].float())
+            nxt = (lg[:, 0].argmax(-1) if forced is None
+                   else forced[:, t + 1].to(dev))
+            toks.append(nxt)
+            pos = pos + 1
+    return {"prefill_last": last, "steps": torch.stack(outs),
+            "tokens": torch.stack(toks, 1), "first": first,
+            "launches": launches, "ms": ms, "k3_paths": k3_paths}
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def tp_cfg(layers, dtype="bfloat16"):
+    import dataclasses
+
+    from repro_torch.core.config import get_arch
+
+    return dataclasses.replace(get_arch(TP_ARCH), num_layers=layers,
+                               dtype=dtype, param_dtype=dtype)
+
+
+def tp_steps(cfg, mesh_cfg, mesh, params, slots=LM_MAX_BATCH,
+             rows=LM_MAX_LEN):
+    """The dry run's prefill (one slot) and decode (``slots`` slots of
+    ``rows`` rows) steps over ``params``, the rank's shards; returns
+    (prefill, decode, model)."""
+    from repro_torch.core.config import ShapeConfig
+    from repro_torch.launch.dryrun import _build_step
+
+    pre = ShapeConfig("prefill", max(LM_PROMPTS), 1, "prefill")
+    dec = ShapeConfig("decode", rows, slots, "decode")
+    rules = tp_rules(cfg, mesh_cfg, slots, rows)
+    prefill, model = _build_step(cfg, pre, mesh_cfg, rules)(mesh, params)
+    decode, _ = _build_step(cfg, dec, mesh_cfg, rules)(mesh, params)
+    return prefill, decode, model
+
+
+def tp_one_phase(torch, np, dev, counters, card):
+    """Phase 16b: a 1 x 1 NCCL mesh.  ``TP_ARCH`` at full width cut to
+    ``TP_CUTS["1x1"]`` layers, its weights drawn from ``SEED``: the
+    unsharded port, then the dry run's ``_build_step`` on the mesh, each
+    prefilling ``LM_PROMPTS`` into ``LM_MAX_BATCH`` slots of
+    ``LM_MAX_LEN`` rows and taking ``TP_DECODE`` steps; the logits and
+    tokens must be the same bits, and the sharded run must launch K3 7
+    times and K10 once a layer in a prefill, K3 7 times a layer in a step.
+    Returns the record."""
+    import torch.distributed as dist
+
+    from repro_torch.core.config import TINY_MESH
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import shard_init
+
+    t0 = time.perf_counter()
+    layers, why = TP_CUTS["1x1"]
+    cfg = tp_cfg(layers)
+    prompts = tp_prompts(np, cfg.vocab_size)
+    model, _ = build_model(torch, TP_ARCH, dev, layers=layers)
+    cache = model.init_cache(LM_MAX_BATCH, LM_MAX_LEN)
+    whole = tp_serve(torch, lambda b, c: model.forward(b, "prefill", cache=c),
+                     lambda t, p, c: model.decode_step(t, p, c), cache,
+                     prompts, TP_DECODE)
+    del model, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh(TINY_MESH, "cuda")
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        prefill, decode, model = tp_steps(
+            cfg, TINY_MESH, mesh, shard_init(cfg, gen, mesh, tp_rules(
+                cfg, TINY_MESH)))
+        cache = model.init_cache(LM_MAX_BATCH, LM_MAX_LEN)
+        k3 = {"K3": counters["K3"], "K10": counters["K10"]}
+        sharded = tp_serve(torch, prefill, decode, cache, prompts, TP_DECODE,
+                           k3)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    label = f"{TP_ARCH} 1x1 mesh"
+    for key in ("prefill_last", "steps", "tokens"):
+        if not torch.equal(sharded[key], whole[key]):
+            fail(f"{label}: {key} differ from the unsharded port's bits")
+    tp_check_launches(label, sharded["launches"], layers)
+    del model, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = {"mesh": "1x1", "backend": backend, "layers": layers,
+           "reduced": {"num_layers": [64, layers], "why": why},
+           "prompts": list(LM_PROMPTS), "steps": TP_DECODE,
+           "bits_equal": True,
+           "tokens": sharded["tokens"].tolist(),
+           "launches": tp_sum_launches(sharded["launches"]),
+           "k3_paths": sharded["k3_paths"],
+           "prefill_ms": sharded["ms"]["prefill"],
+           "step_ms": statistics.median(sharded["ms"]["decode"]),
+           "unsharded_prefill_ms": whole["ms"]["prefill"],
+           "unsharded_step_ms": statistics.median(whole["ms"]["decode"]),
+           "phase_s": time.perf_counter() - t0}
+    print("tp16b " + json.dumps(rec), flush=True)
+    return rec
+
+
+def tp_rules(cfg, mesh_cfg, slots=LM_MAX_BATCH, rows=LM_MAX_LEN):
+    """``rules_for`` at a decode of ``slots`` slots of ``rows`` rows."""
+    from repro_torch.core.config import ShapeConfig
+    from repro_torch.sharding.auto import rules_for
+
+    return rules_for(cfg, mesh_cfg, ShapeConfig("decode", rows, slots,
+                                                "decode"))[0]
+
+
+def tp_check_launches(label, launches, layers):
+    """7 K3 launches and 1 K10 a layer in each prefill, 7 K3 a layer in
+    each decode step, and nothing else."""
+    for kind, want in (("prefill", {"K3": 7 * layers, "K10": layers}),
+                       ("decode", {"K3": 7 * layers, "K10": 0})):
+        for i, got in enumerate(launches[kind]):
+            if got != want:
+                fail(f"{label}: {kind} {i} launched {got}, not {want}")
+
+
+def tp_sum_launches(launches):
+    return {k: sum(c[k] for kind in launches for c in launches[kind])
+            for k in ("K3", "K10")}
+
+
+def tp_two_phase(torch, np, dev, card):
+    """Phase 16c: two ranks on the one card over gloo, mesh 1 x 2.  The
+    unsharded reference (``TP_CUTS["1x2"]`` layers of ``TP_ARCH`` at full
+    width, bf16, and ``TP_PARITY_LAYERS`` in fp32) runs first here and is
+    freed; then two processes of this script (``--tp-rank``) join a gloo
+    group, each draws its shards (``shard_init``, the reference's draws),
+    prefills ``LM_PROMPTS`` into ``LM_MAX_BATCH`` slots of ``LM_MAX_LEN``
+    rows and takes ``TP_DECODE`` steps on the reference's tokens, repeats
+    the first step, and runs the fp32 parity greedily.  Held: bf16 logits
+    within ``TP_BF16_TOL``-relative of the reference (a rank's argmax
+    apart from the reference's only at a near tie: within that limit of
+    the reference's top logit), both ranks' logits the same bits, the
+    repeated step the same bits, the launches a call; the fp32 parity's
+    tokens equal the reference's and its logits within ``LM_TOL``.
+    Returns the record."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    layers, why = TP_CUTS["1x2"]
+    cfg = tp_cfg(layers)
+    prompts = tp_prompts(np, cfg.vocab_size)
+    model, _ = build_model(torch, TP_ARCH, dev, layers=layers)
+    cache = model.init_cache(LM_MAX_BATCH, LM_MAX_LEN)
+    ref = tp_serve(torch, lambda b, c: model.forward(b, "prefill", cache=c),
+                   lambda t, p, c: model.decode_step(t, p, c), cache,
+                   prompts, TP_DECODE)
+    del model, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    par_ref = tp_parity_run(torch, np, dev, None, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        torch.save({"tokens": ref["tokens"].cpu()}, work / "reference.pt")
+        env = dict(os.environ, MKL_CBWR=MKL_CBWR)
+        logs = [open(work / f"rank{r}.log", "w") for r in range(2)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--seed",
+             str(SEED), "--tp-rank", str(r), "--tp-world", "2",
+             "--tp-work", str(work)], stdout=logs[r],
+            stderr=subprocess.STDOUT, env=env, cwd=str(ROOT))
+            for r in range(2)]
+        try:
+            deadline = time.perf_counter() + TP_RANK_TIMEOUT
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                tail = (work / f"rank{r}.log").read_text()[-4000:]
+                fail(f"{TP_ARCH} 1x2 rank {r} exited {p.returncode}:\n{tail}")
+        ranks = [torch.load(work / f"rank{r}.pt", weights_only=False)
+                 for r in range(2)]
+    label = f"{TP_ARCH} 1x2 mesh"
+    worst, rms = {}, {}
+    parted = []
+    for name, got_key, want in (("prefill", "prefill_last",
+                                 ref["prefill_last"]),
+                                ("decode", "steps", ref["steps"])):
+        want = want.cpu()
+        got = ranks[0][got_key]
+        lim = TP_BF16_TOL * max(1.0, want.abs().max().item())
+        worst[name] = _check_close(f"{label} {name} logits", got, want, lim)
+        rms[name] = ((got - want).square().mean().sqrt()
+                     / want.square().mean().sqrt()).item()
+        # the argmax may part from the reference's only at a near tie
+        g, w = got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1])
+        top = w.max(-1).values
+        pick = g.argmax(-1)
+        apart = pick != w.argmax(-1)
+        if bool((w.gather(1, pick[:, None])[:, 0] < top - lim)[apart].any()):
+            fail(f"{label}: a {name} argmax parts from the reference's "
+                 f"past a near tie")
+        parted.append(int(apart.sum()))
+    for key in ("prefill_last", "steps"):
+        if not torch.equal(ranks[0][key], ranks[1][key]):
+            fail(f"{label}: the ranks' {key} logits differ")
+    for r, rec in enumerate(ranks):
+        if not rec["repeat_equal"]:
+            fail(f"{label} rank {r}: a repeat of the first step differs")
+        tp_check_launches(f"{label} rank {r}", rec["launches"], layers)
+        if rec["parity"]["tokens"] != par_ref["tokens"]:
+            fail(f"{label} rank {r} fp32 parity: tokens "
+                 f"{rec['parity']['tokens']}, the reference's "
+                 f"{par_ref['tokens']}")
+        for name in ("prefill", "decode"):
+            want = par_ref["logits"][name]
+            _check_close(f"{label} rank {r} fp32 parity {name}",
+                         rec["parity"]["logits"][name], want,
+                         LM_TOL[name] * max(1.0, want.abs().max().item()))
+    out = {"mesh": "1x2", "backend": "gloo", "ranks": 2, "layers": layers,
+           "reduced": {"num_layers": [64, layers], "why": why},
+           "prompts": list(LM_PROMPTS), "slots": LM_MAX_BATCH,
+           "rows": LM_MAX_LEN, "steps": TP_DECODE,
+           "max_abs_err": worst, "relative_rms_err": rms,
+           "tol": TP_BF16_TOL,
+           "argmax_apart_at_near_ties": parted,
+           "parity": {"layers": TP_PARITY_LAYERS,
+                      "tokens": par_ref["tokens"]},
+           "reference_prefill_ms": ref["ms"]["prefill"],
+           "reference_step_ms": statistics.median(ref["ms"]["decode"]),
+           "reference_s": t_ref,
+           "per_rank": [{
+               "prefill_ms": rec["ms"]["prefill"],
+               "step_ms": statistics.median(rec["ms"]["decode"]),
+               "peak_memory_gb": rec["peak_gb"],
+               "collectives_a_step": rec["collectives_step"],
+               "collectives_prefills": rec["collectives_prefills"],
+               "launches": tp_sum_launches(rec["launches"]),
+               "k3_paths": rec["k3_paths"],
+               "store_launches": rec["store_launches"],
+               "init_s": rec["init_s"]} for rec in ranks],
+           "note": "gloo through host memory, two ranks on one card: the "
+                   "times measure nothing of NCCL or NVLink",
+           "card": card, "phase_s": time.perf_counter() - t0}
+    print("tp16c " + json.dumps(out), flush=True)
+    return out
+
+
+def tp_parity_run(torch, np, dev, mesh, mesh_cfg):
+    """The fp32 parity: ``TP_PARITY_LAYERS`` layers of ``TP_ARCH`` in fp32
+    at full width, weights from ``SEED``, a prompt of
+    ``LM_PARITY_PROMPT`` tokens into one slot and ``LM_PARITY_DECODE``
+    greedy tokens; unsharded without ``mesh``, else the rank's shards.
+    Returns the tokens and the logits (prefill's last position, the
+    steps')."""
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.transformer import shard_init
+    from repro_torch.nn.param import init_tree
+
+    cfg = tp_cfg(TP_PARITY_LAYERS, "float32")
+    rows = LM_PARITY_PROMPT + LM_PARITY_DECODE + 8
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    if mesh is None:
+        model = get_model(cfg)
+        model.load_tree(init_tree(model.param_spec(), gen, "float32"))
+        prefill = lambda b, c: model.forward(b, "prefill", cache=c)  # noqa
+        decode = lambda t, p, c: model.decode_step(t, p, c)  # noqa: E731
+    else:
+        prefill, decode, model = tp_steps(
+            cfg, mesh_cfg, mesh, shard_init(cfg, gen, mesh, tp_rules(
+                cfg, mesh_cfg, 1, rows)), 1, rows)
+    rng = np.random.default_rng(SEED)
+    prompt = rng.integers(0, cfg.vocab_size, (1, LM_PARITY_PROMPT))
+    cache = model.init_cache(1, rows)
+    run = tp_serve(torch, prefill, decode, cache, [prompt],
+                   LM_PARITY_DECODE - 1)
+    return {"tokens": run["tokens"][0].tolist(),
+            "logits": {"prefill": run["prefill_last"].cpu(),
+                       "decode": run["steps"].cpu()}}
+
+
+def rank_device(torch):
+    """The device a rank of phase 16c runs on: the one card."""
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    return dev
+
+
+def tp_rank_main(args) -> int:
+    """One rank of phase 16c (``--tp-rank``): see ``tp_two_phase``."""
+    os.environ["MKL_CBWR"] = MKL_CBWR
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.core.config import MeshConfig
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.matmul_fused import ops as mm_ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import shard_init
+    from repro_torch.sharding import collectives
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: a rank needs the GPU")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = rank_device(torch)
+    _build.library()
+    work, rank = Path(args.tp_work), args.tp_rank
+    forced = torch.load(work / "reference.pt")["tokens"]
+    dist.init_process_group("gloo", init_method=f"file://{work / 'store'}",
+                            rank=rank, world_size=args.tp_world)
+    try:
+        mesh_cfg = MeshConfig((1, args.tp_world), ("data", "model"))
+        mesh = make_mesh(mesh_cfg, "cuda", backend="gloo")
+        layers, _ = TP_CUTS["1x2"]
+        cfg = tp_cfg(layers)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        local = shard_init(cfg, gen, mesh, tp_rules(cfg, mesh_cfg))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        prefill, decode, model = tp_steps(cfg, mesh_cfg, mesh, local)
+        cache = model.init_cache(LM_MAX_BATCH, LM_MAX_LEN)
+        counters = {"K3": mm_ops.matmul_fused,
+                    "K10": attn_ops.flash_attention}
+        stores = mm_ops.matmul_fused.entry_launches
+        for k in stores:
+            stores[k] = 0
+        collectives.reset_counts()
+        run = tp_serve(torch, prefill, decode, cache,
+                       tp_prompts(np, cfg.vocab_size), TP_DECODE, counters,
+                       forced=forced)
+        store_launches = dict(stores)
+        prefill_counts = collectives.counts_by_name()
+        with torch.no_grad():
+            collectives.reset_counts()
+            again = decode(*run["first"], cache)[0][:, 0].float()
+            step_counts = collectives.counts_by_name()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        rec = {"prefill_last": run["prefill_last"].cpu(),
+               "steps": run["steps"].cpu(),
+               "repeat_equal": torch.equal(again, run["steps"][0]),
+               "launches": run["launches"], "ms": run["ms"],
+               "k3_paths": run["k3_paths"],
+               "store_launches": store_launches,
+               "collectives_run": prefill_counts,
+               "collectives_step": step_counts,
+               "peak_gb": peak, "init_s": init_s}
+        rec["collectives_prefills"] = {
+            k: {"calls": v["calls"] - step_counts.get(k, {}).get("calls", 0)
+                * TP_DECODE} for k, v in prefill_counts.items()}
+        del model, cache, local, prefill, decode, run
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["parity"] = tp_parity_run(torch, np, dev, mesh, mesh_cfg)
+        torch.save(rec, work / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def tp_dryrun_phase(card):
+    """Phase 16d: the dry run's rows for ``TP_DRYRUN_ARCHS`` on
+    ``TP_DRYRUN_MESHES`` at ``LM_MAX_BATCH`` slots of ``LM_MAX_LEN``
+    rows: bytes a card against its 80 GB, and whether it fits; the dense
+    archs' decode step traced (fake process group, meta tensors)."""
+    from repro_torch.core.config import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import parse_mesh
+
+    shape = ShapeConfig(f"serve_{LM_MAX_BATCH}x{LM_MAX_LEN}", LM_MAX_LEN,
+                        LM_MAX_BATCH, "decode")
+    rows = []
+    for arch in TP_DRYRUN_ARCHS:
+        for mesh in TP_DRYRUN_MESHES:
+            rec = dryrun.run_one(arch, shape, parse_mesh(mesh))
+            rows.append(rec)
+            print("tp16d " + dryrun.summary(rec) + f" [{card}]", flush=True)
+    return rows
+
+
+def tp_phase(torch, F, np, dev, peaks, counters, card):
+    """Phase 16: 16a-16d; returns (cases, 1x1 record, 1x2 record, dry-run
+    rows)."""
+    t16 = time.perf_counter()
+    cases = tp_kernel_cases(torch, F, dev, peaks)
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = tp_one_phase(torch, np, dev, counters, card)
+    two = tp_two_phase(torch, np, dev, card)
+    rows = tp_dryrun_phase(card)
+    qwen = next(r for r in rows if r["arch"] == TP_ARCH
+                and r["mesh"] == "1x4")
+    if not (qwen["fits"] and qwen["layers"] == 64):
+        fail(f"{TP_ARCH} at 1x4: {qwen['per_device_bytes']} does not fit")
+    print(f"phase 16 wall time {time.perf_counter() - t16:.1f} s "
+          f"(1x1 {one['phase_s']:.1f}, 1x2 {two['phase_s']:.1f}) [{card}]",
+          flush=True)
+    return cases, one, two, rows
+
+
 def main() -> int:
     global SEED
     t_smoke = time.perf_counter()
@@ -4318,8 +4902,14 @@ def main() -> int:
                     help="print nvcc's register/shared-memory report")
     ap.add_argument("--seed", type=int, default=SEED,
                     help="seed of every weight and input (default 0)")
+    # one rank of phase 16c, started by the smoke itself
+    ap.add_argument("--tp-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-world", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-work", help=argparse.SUPPRESS)
     args = ap.parse_args()
     SEED = args.seed
+    if args.tp_rank is not None:
+        return tp_rank_main(args)
 
     # before torch loads: MKL reads its reproducibility mode once (F3)
     os.environ["MKL_CBWR"] = MKL_CBWR
@@ -4641,7 +5231,14 @@ def main() -> int:
     dense_cases, dense_parity, dense = dense_phase(
         torch, F, np, dev, peaks, counters, card_line)
 
-    # -- 16. the kernels line -----------------------------------------------
+    # -- 16. qwen1.5-32b tensor parallel over a process group ----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_cases, tp_one, tp_two, tp_dry = tp_phase(
+        torch, F, np, dev, peaks, counters, card_line)
+    tp_runs = [tp_one] + tp_two["per_rank"]
+
+    # -- 17. the kernels line -----------------------------------------------
     kernels = []
     for kid, (name, src, replaces) in sources.items():
         mine = [c for c in cases if c["kernel"] == kid]
@@ -4688,6 +5285,8 @@ def main() -> int:
     k10_wgmma = {p: lm["k10_paths"][p] + sum(
         r["k10_paths"][p] for r in (*cross.values(), *dense.values()))
                  for p in lm["k10_paths"]}
+    # phase 16's bf16 prefills (16b and both ranks of 16c) on wgmma alone
+    k10_wgmma["wgmma"] += sum(r["launches"]["K10"] for r in tp_runs)
     k10_simt = {p: lm_parity["paths"][p] + sum(
         r["paths"][p] for r in (*cross_parity.values(),
                                 *dense_parity.values()))
@@ -4716,13 +5315,15 @@ def main() -> int:
     # case
     k3 = [c for c in lm_cases if c["kernel"] == "K3-bf16"]
     k3_all = [c for c in k3 + rwkv_cases + cross_cases + dense_cases
-              if c["kernel"] == "K3-bf16"]
+              + tp_cases if c["kernel"] == "K3-bf16"
+              and c.get("store", "bfloat16") == "bfloat16"]
     served_k3 = (*cross.values(), *dense.values())
     kernels.append(lm_entry(
         "matmul_fused_bf16", "src/repro_torch/csrc/matmul_fused.cu",
         "src/repro/kernels/matmul_fused/kernel.py:37",
         [c for c in k3 if c["main"]],
-        lm["launches"]["K3"] + sum(r["launches"]["K3"] for r in served_k3),
+        lm["launches"]["K3"] + sum(r["launches"]["K3"] for r in served_k3)
+        + sum(r["launches"]["K3"] for r in tp_runs),
         max(c["max_abs_err"] for c in k3_all),
         train_backward_launches=k3_backward))
     kernels.append(lm_entry(
@@ -4731,9 +5332,22 @@ def main() -> int:
         [c for c in k3 if c["path"] == "wgmma"
          and c["rows"] == K3_WGMMA_GAIN[0]],
         lm["k3_paths"]["wgmma"] + sum(r["k3_paths"]["wgmma"]
-                                      for r in served_k3),
+                                      for r in served_k3)
+        + sum(r["k3_paths"].get("wgmma", 0) for r in tp_runs),
         max(c["max_abs_err"] for c in k3_all if c["path"] == "wgmma"),
         train_backward_launches=k3_backward))
+    # K3's fp32 store of bf16 operands (the row-parallel o and down of
+    # 16c's ranks; 16b's 1 x 1 mesh cuts nothing): its times the 2-way
+    # shapes of 16a at M = 4 and 4500
+    k3_f32 = [c for c in tp_cases if c["kernel"] == "K3-bf16"
+              and c["store"] == "float32"]
+    kernels.append(lm_entry(
+        "matmul_fused_bf16_f32", "src/repro_torch/csrc/matmul_fused.cu",
+        "src/repro/kernels/matmul_fused/kernel.py:37",
+        [c for c in k3_f32 if c["main"]],
+        sum(r["store_launches"]["matmul_fused_bf16_f32"]
+            for r in tp_two["per_rank"]),
+        max(c["max_abs_err"] for c in k3_f32)))
     k11 = next(c for c in rwkv_cases if c["kernel"] == "K11" and c["main"])
     kernels.append({
         "name": "wkv6", "route": "cuda",
@@ -4775,6 +5389,8 @@ def main() -> int:
              "train": train, "train_launcher": train_launcher,
              "dense_cases": dense_cases,
              "dense_parity": dense_parity, "dense": dense,
+             "tp_cases": tp_cases, "tp_one": tp_one, "tp_two": tp_two,
+             "tp_dryrun": tp_dry,
              "capture": capture, "kernels": kernels},
             indent=1))
     print(f"smoke wall time {time.perf_counter() - t_smoke:.1f} s",

@@ -2,15 +2,16 @@
 
 Every architecture is a frozen :class:`ModelConfig`; the modules of
 ``repro_torch.configs`` register themselves on import, as in the JAX
-package.  The shape, mesh and training configurations of the JAX package
-belong to paths the port does not run yet: training, and the sharding
-decision (ROADMAP.md, "Modules still to port").
+package, as are its input shapes (:class:`ShapeConfig`, ``SHAPES``), its
+meshes (:class:`MeshConfig`: the JAX package's two pods, and a node of
+cards is just another ``MeshConfig((1, 4), ("data", "model"))``) and its
+training configuration.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 # ---------------------------------------------------------------------------
 # Model configuration
@@ -211,6 +212,81 @@ class ModelConfig:
         return dataclasses.replace(self, **changes)
 
 
+# ---------------------------------------------------------------------------
+# Input-shape configuration
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+# ---------------------------------------------------------------------------
+# Mesh / distribution configuration
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...] = (16, 16)
+    axes: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def num_devices(self) -> int:
+        return _prod(self.shape)
+
+    @property
+    def multi_pod(self) -> bool:
+        return "pod" in self.axes
+
+    @property
+    def dp_axes(self) -> Tuple[str, ...]:
+        """Axes over which the batch is sharded."""
+        return tuple(a for a in self.axes if a in ("pod", "data"))
+
+    @property
+    def dp_size(self) -> int:
+        return _prod(s for s, a in zip(self.shape, self.axes)
+                     if a in ("pod", "data"))
+
+    @property
+    def model_size(self) -> int:
+        return _prod(s for s, a in zip(self.shape, self.axes) if a == "model")
+
+    def size(self, axis: str) -> int:
+        """The size of mesh axis ``axis`` (1 for an axis the mesh lacks)."""
+        return dict(zip(self.axes, self.shape)).get(axis, 1)
+
+
+def _prod(xs) -> int:
+    out = 1
+    for x in xs:
+        out *= x
+    return out
+
+
+SINGLE_POD = MeshConfig((16, 16), ("data", "model"))
+MULTI_POD = MeshConfig((2, 16, 16), ("pod", "data", "model"))
+# CPU-sized meshes for tests.
+TINY_MESH = MeshConfig((1, 1), ("data", "model"))
+
+
 @dataclass(frozen=True)
 class TrainConfig:
     """AdamW and its schedule, the JAX package's ``TrainConfig``.  ``remat``
@@ -258,6 +334,12 @@ def get_arch(name: str) -> ModelConfig:
 def list_archs():
     _ensure_configs_imported()
     return sorted(_ARCH_REGISTRY)
+
+
+def get_shape(name: str) -> ShapeConfig:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; available: {sorted(SHAPES)}")
+    return SHAPES[name]
 
 
 def _ensure_configs_imported() -> None:

@@ -1,7 +1,12 @@
 // K3: y = act(x @ w + b), act one of none, relu, silu, gelu (tanh form).
 // x [M, K], w [K, N] and y [M, N] all fp32 or all bf16, b [N] fp32 or
 // null, all contiguous.  Every sum is fp32, the bias and the activation
-// are applied in fp32, and y is stored once in the operands' type.
+// are applied in fp32, and y is stored once in the operands' type, or, for
+// bf16 operands through matmul_fused_bf16_f32, in fp32 as the TPU kernel
+// stores it (its wrapper casts after): the partial product of a
+// row-parallel shard, which the ranks' partials are added to in fp32
+// before the one cast, so that a sharded product is rounded once as the
+// whole one is.
 //
 // Replaces the TPU kernel src/repro/kernels/matmul_fused/kernel.py
 // matmul_fused_pallas -> _kernel.
@@ -215,11 +220,11 @@ __device__ __forceinline__ void sw_load16(const __nv_bfloat16* x,
   }
 }
 
-template <int MT, bool VEC>
+template <int MT, bool VEC, typename OutT>
 __global__ void __launch_bounds__(SW_THREADS)
 mm_stream16(const __nv_bfloat16* __restrict__ x,
             const __nv_bfloat16* __restrict__ w, const float* __restrict__ b,
-            __nv_bfloat16* __restrict__ y, int M, int N, int K, int kslice,
+            OutT* __restrict__ y, int M, int N, int K, int kslice,
             int act) {
   extern __shared__ __align__(16) unsigned char sw_raw[];
   constexpr int W_ELEMS = SW_BK16 * SW_LD16, STAGE = W_ELEMS + 16 * MT * SW_LD16;
@@ -425,9 +430,9 @@ mm_stream32(const float* __restrict__ x, const float* __restrict__ w,
 
 // One launch of stream kernel Kern: a grid of (splits, column blocks), each
 // column block's splits one cluster.
-template <auto Kern, typename T>
-int sw_launch(int smem, const T* x, const T* w, const float* b, T* y, int M,
-              int N, int K, int splits, int kslice, int act,
+template <auto Kern, typename T, typename OutT>
+int sw_launch(int smem, const T* x, const T* w, const float* b, OutT* y,
+              int M, int N, int K, int splits, int kslice, int act,
               cudaStream_t st) {
   static std::atomic<unsigned long long> opted{0};
   cudaError_t e = opt_in_smem(Kern, smem, opted);
@@ -449,14 +454,15 @@ int sw_launch(int smem, const T* x, const T* w, const float* b, T* y, int M,
   return (int)cudaGetLastError();
 }
 
-template <int MT>
+template <int MT, typename OutT>
 int stream16(bool vec, const __nv_bfloat16* x, const __nv_bfloat16* w,
-             const float* b, __nv_bfloat16* y, int M, int N, int K,
-             int splits, int kslice, int act, cudaStream_t st) {
-  return vec ? sw_launch<mm_stream16<MT, true>>(sw_smem16(MT), x, w, b, y, M,
-                                                N, K, splits, kslice, act, st)
-             : sw_launch<mm_stream16<MT, false>>(sw_smem16(MT), x, w, b, y, M,
-                                                 N, K, splits, kslice, act, st);
+             const float* b, OutT* y, int M, int N, int K, int splits,
+             int kslice, int act, cudaStream_t st) {
+  return vec ? sw_launch<mm_stream16<MT, true, OutT>>(
+                   sw_smem16(MT), x, w, b, y, M, N, K, splits, kslice, act, st)
+             : sw_launch<mm_stream16<MT, false, OutT>>(
+                   sw_smem16(MT), x, w, b, y, M, N, K, splits, kslice, act,
+                   st);
 }
 
 template <int BM>
@@ -475,9 +481,11 @@ bool aligned16(const void* p) {
 
 // The weight stream: its row tile from M (16-row m tiles for bf16, 4 to
 // 64 rows for fp32), whole 16-byte chunks where the rows and bases allow.
+// bf16 operands store y in bf16 or (OutT float) fp32.
+template <typename OutT>
 int launch_stream(const __nv_bfloat16* x, const __nv_bfloat16* w,
-                  const float* b, __nv_bfloat16* y, int M, int N, int K,
-                  int splits, int kslice, int act, cudaStream_t st) {
+                  const float* b, OutT* y, int M, int N, int K, int splits,
+                  int kslice, int act, cudaStream_t st) {
   const bool vec = aligned16(x) && aligned16(w) && K % 8 == 0 && N % 8 == 0;
   switch ((M + 15) / 16) {
     case 1: return stream16<1>(vec, x, w, b, y, M, N, K, splits, kslice, act, st);
@@ -503,11 +511,11 @@ int launch_stream(const float* x, const float* w, const float* b, float* y,
 
 constexpr int TM = 128, TN = 128, TK = 8, TT = 256;
 
-template <typename T>
+template <typename T, typename OutT>
 __global__ void __launch_bounds__(TT)
 mm_tiled(const T* __restrict__ x, const T* __restrict__ w,
-         const float* __restrict__ b, T* __restrict__ y, int M, int N, int K,
-         int act) {
+         const float* __restrict__ b, OutT* __restrict__ y, int M, int N,
+         int K, int act) {
   __shared__ __align__(16) float As[2][TK][TM];  // x tile, k-major
   __shared__ __align__(16) float Bs[2][TK][TN];
   const int tid = threadIdx.x;
@@ -572,7 +580,7 @@ mm_tiled(const T* __restrict__ x, const T* __restrict__ w,
       if (n >= N) continue;
       float v = acc[i][j];
       if (b) v += b[n];
-      y[(long)m * N + n] = from_f<T>(activate(v, act));
+      y[(long)m * N + n] = from_f<OutT>(activate(v, act));
     }
   }
 }
@@ -618,11 +626,12 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
 
 #undef D8
 
+template <typename OutT>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 mm_wgmma(const __grid_constant__ CUtensorMap xmap,
          const __grid_constant__ CUtensorMap wmap,
-         const float* __restrict__ b, __nv_bfloat16* __restrict__ y, int M,
-         int N, int K, int act, int m_fast) {
+         const float* __restrict__ b, OutT* __restrict__ y, int M, int N,
+         int K, int act, int m_fast) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t ring = (raw + 1023) & ~1023u;
@@ -698,6 +707,31 @@ mm_wgmma(const __grid_constant__ CUtensorMap xmap,
       for (; released < done; ++released)
         if ((tid & 31) == 0) mbar_arrive(empty(released % WG_STAGES));
     }
+    const int lane = tid % 32, r0 = 16 * (tid / 32) + lane / 4;
+    if constexpr (sizeof(OutT) == 4) {
+      // fp32 store: the bias and the activation on the registers, then
+      // each thread's column pairs straight to y (a warp's store writes 8
+      // rows of 32 contiguous bytes: whole 32-byte sectors)
+#pragma unroll
+      for (int j = 0; j < WG_BN / 8; ++j) {
+        const int n = n0 + 8 * j + 2 * (lane % 4);
+        if (n >= N) continue;  // N is a multiple of 8: n + 1 < N too
+        const float b0 = b ? b[n] : 0.f, b1 = b ? b[n + 1] : 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = m0 + 64 * c + r0 + 8 * h;
+          if (m >= M) continue;
+          float v0 = sum[4 * j + 2 * h], v1 = sum[4 * j + 2 * h + 1];
+          if (b) {
+            v0 += b0;
+            v1 += b1;
+          }
+          *reinterpret_cast<float2*>(y + (long)m * N + n) =
+              make_float2(activate(v0, act), activate(v1, act));
+        }
+      }
+      return;
+    }
     // Epilogue: the bias and the activation in fp32 on the registers, then
     // bf16 pairs into this warpgroup's halves of the x boxes, which nobody
     // reads any more (16-byte chunks swizzled by row, so the pairs of one
@@ -711,7 +745,6 @@ mm_wgmma(const __grid_constant__ CUtensorMap xmap,
       return a_at(r / ROWS_PER_BOX) + c * 8192 +
              (r % ROWS_PER_BOX) * ROW_BYTES;
     };
-    const int lane = tid % 32, r0 = 16 * (tid / 32) + lane / 4;
 #pragma unroll
     for (int j = 0; j < WG_BN / 8; ++j) {
       const int n = n0 + 8 * j + 2 * (lane % 4);
@@ -743,11 +776,13 @@ mm_wgmma(const __grid_constant__ CUtensorMap xmap,
       asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
                    : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
                    : "r"(out_row(r) + 16 * (ch ^ (r % 8))));
-      *reinterpret_cast<uint4*>(y + (long)m * N + n) = v;
+      *reinterpret_cast<uint4*>(reinterpret_cast<__nv_bfloat16*>(y) +
+                                (long)m * N + n) = v;
     }
   }
 }
 
+template <typename OutT>
 int launch_wgmma(const void* x, const void* w, const float* b, void* y,
                  int M, int N, int K, int act, cudaStream_t st) {
   CUtensorMap xmap, wmap;
@@ -755,19 +790,19 @@ int launch_wgmma(const void* x, const void* w, const float* b, void* y,
       !tensor_map(&wmap, w, K, N, WG_BK, 64))
     return (int)cudaErrorInvalidValue;
   static std::atomic<unsigned long long> opted{0};
-  cudaError_t e = opt_in_smem(mm_wgmma, WG_SMEM, opted);
+  cudaError_t e = opt_in_smem(mm_wgmma<OutT>, WG_SMEM, opted);
   if (e != cudaSuccess) return (int)e;
   // consecutive blocks share the smaller operand's tiles in L2: they walk
   // M first when x is the smaller one (M < N), else N
   const int mt = (M + WG_BM - 1) / WG_BM, nt = (N + WG_BN - 1) / WG_BN;
   const int m_fast = M < N;
   dim3 grid(m_fast ? mt : nt, m_fast ? nt : mt);
-  mm_wgmma<<<grid, WG_THREADS, WG_SMEM, st>>>(
-      xmap, wmap, b, static_cast<__nv_bfloat16*>(y), M, N, K, act, m_fast);
+  mm_wgmma<OutT><<<grid, WG_THREADS, WG_SMEM, st>>>(
+      xmap, wmap, b, static_cast<OutT*>(y), M, N, K, act, m_fast);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename OutT>
 int run(const void* x, const void* w, const void* b, void* y, int M, int N,
         int K, int path, int splits, int kchunk, int act, void* stream) {
   if (M < 1 || N < 1 || K < 1) return (int)cudaErrorInvalidValue;
@@ -775,14 +810,14 @@ int run(const void* x, const void* w, const void* b, void* y, int M, int N,
   const T* xf = static_cast<const T*>(x);
   const T* wf = static_cast<const T*>(w);
   const float* bf = static_cast<const float*>(b);
-  T* yf = static_cast<T*>(y);
+  OutT* yf = static_cast<OutT*>(y);
   if (path == 2) {  // bf16 only
     if (sizeof(T) != 2) return (int)cudaErrorInvalidValue;
-    return launch_wgmma(x, w, bf, y, M, N, K, act, st);
+    return launch_wgmma<OutT>(x, w, bf, y, M, N, K, act, st);
   }
   if (path == 1) {
     dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM);
-    mm_tiled<T><<<grid, TT, 0, st>>>(xf, wf, bf, yf, M, N, K, act);
+    mm_tiled<T, OutT><<<grid, TT, 0, st>>>(xf, wf, bf, yf, M, N, K, act);
     return (int)cudaGetLastError();
   }
   if (path != 0) return (int)cudaErrorInvalidValue;
@@ -804,17 +839,27 @@ int run(const void* x, const void* w, const void* b, void* y, int M, int N,
 // multiples of 8, x and w 16-byte aligned.  splits and kchunk are read by
 // path 0 only.  act: 0 none, 1 relu, 2 silu, 3 gelu.  Return a CUDA error
 // code, 0 when the launch was taken.  No call allocates or synchronises.
+// matmul_fused_bf16_f32 takes bf16 x and w and stores y in fp32.
 extern "C" int matmul_fused_f32(const void* x, const void* w, const void* b,
                                 void* y, int M, int N, int K, int path,
                                 int splits, int kchunk, int act,
                                 void* stream) {
-  return run<float>(x, w, b, y, M, N, K, path, splits, kchunk, act, stream);
+  return run<float, float>(x, w, b, y, M, N, K, path, splits, kchunk, act,
+                          stream);
 }
 
 extern "C" int matmul_fused_bf16(const void* x, const void* w, const void* b,
                                  void* y, int M, int N, int K, int path,
                                  int splits, int kchunk, int act,
                                  void* stream) {
-  return run<__nv_bfloat16>(x, w, b, y, M, N, K, path, splits, kchunk, act,
-                            stream);
+  return run<__nv_bfloat16, __nv_bfloat16>(x, w, b, y, M, N, K, path, splits,
+                                           kchunk, act, stream);
+}
+
+extern "C" int matmul_fused_bf16_f32(const void* x, const void* w,
+                                     const void* b, void* y, int M, int N,
+                                     int K, int path, int splits, int kchunk,
+                                     int act, void* stream) {
+  return run<__nv_bfloat16, float>(x, w, b, y, M, N, K, path, splits, kchunk,
+                                   act, stream);
 }

@@ -36,6 +36,7 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "matmul_fused_f32": [_P, _P, _P, _P] + [_I] * 7 + [_P],
     "matmul_fused_bf16": [_P, _P, _P, _P] + [_I] * 7 + [_P],
+    "matmul_fused_bf16_f32": [_P, _P, _P, _P] + [_I] * 7 + [_P],
     "flash_attention_fwd": [_P, _P, _P, _P] + [_I] * 8
     + [ctypes.c_float, ctypes.c_float, _I, _I, _P],
     "flash_attention_fwd_ml": [_P] * 6 + [_I] * 8

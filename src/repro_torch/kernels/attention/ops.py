@@ -2,7 +2,8 @@
 the port of ``repro.kernels.attention``.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
-(fp32 or bf16, head_dim 64, 128 or 256) or raises.  The path is chosen
+(fp32 or bf16, head_dim 64, 128 or 256) or raises; a meta tensor (the
+dry run's trace) gives the output's shape and type and computes nothing.  The path is chosen
 from the type and the shape alone, before the launch (``k10_path``): TMA +
 wgmma on the tensor cores for bf16, CUDA-core FMAs for fp32.  A refused
 launch raises; nothing retries on another path.  The kernel reads kv head
@@ -218,6 +219,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, attn_softcap=0.0,
                                    attn_softcap=attn_softcap, scale=scale)
     if q.device.type == "cuda":
         return _launch(q, k, v, causal, window, attn_softcap, scale)
+    if q.device.type == "meta":  # the dry run's trace: the shape alone
+        return torch.empty_like(q)
     raise ValueError(f"flash_attention: unsupported device {q.device}")
 
 

@@ -3,7 +3,10 @@
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
 (x and w both fp32 or both bf16, read as they are; the bias fp32) or
-raises.  The path is chosen from the type, the shape and the pointers
+raises; a meta tensor (the dry run's trace) gives the plain version's
+output shape and type and computes nothing.  ``out_dtype=torch.float32``
+with bf16 operands stores y in fp32, as the TPU kernel stores it (the
+row-parallel partial of a sharded product, ``nn.linear.dense``).  The path is chosen from the type, the shape and the pointers
 alone, before the launch (``k3_path``): the weight stream below
 ``TILED_MIN_M`` rows (one launch a call, its K slicing ``split_k`` a
 function of K, N and the SM count, memoized), TMA + wgmma tiles for bf16
@@ -94,9 +97,10 @@ def split_k_aimed(dtype, k: int, n: int, sms: int,
     return math.ceil(steps / per), per * bk
 
 
-def _launch(x, w, b, act, path=None, role="forward"):
+def _launch(x, w, b, act, path=None, role="forward", out_dtype=None):
     """Launch K3 on CUDA tensors: one call of the C entry, which launches
-    one kernel, with nothing allocated but y.  ``path`` (default:
+    one kernel, with nothing allocated but y (in ``out_dtype``, x's type
+    by default; fp32 for bf16 operands).  ``path`` (default:
     ``k3_path``'s choice) may name another path, for timing one beside the
     other; ``role`` names what the launch computes for the counters
     (``forward``, or a backward's ``z``, ``dx``, ``dw``)."""
@@ -116,9 +120,11 @@ def _launch(x, w, b, act, path=None, role="forward"):
                          f"{x.dtype} [{m}, {k}] x [{k}, {n}]")
     splits, kchunk = (split_k(x.dtype, k, n, sm_count(x.device))
                       if path == "stream" else (0, 0))
-    y = alloc((m, n), x.dtype, x.device)
-    entry = ("matmul_fused_bf16" if x.dtype == torch.bfloat16
-             else "matmul_fused_f32")
+    out = _out_dtype(x.dtype, out_dtype)
+    y = alloc((m, n), out, x.device)
+    entry = ("matmul_fused_f32" if x.dtype == torch.float32
+             else "matmul_fused_bf16" if out == torch.bfloat16
+             else "matmul_fused_bf16_f32")
     xs, ws, bs = operand(x), operand(w), operand(b)
     rc = getattr(_build.library(), entry)(
         xs.data_ptr(), ws.data_ptr(), None if bs is None else bs.data_ptr(),
@@ -128,16 +134,33 @@ def _launch(x, w, b, act, path=None, role="forward"):
     matmul_fused.launches += 1
     matmul_fused.path_launches[path] += 1
     matmul_fused.role_launches[role] += 1
+    matmul_fused.entry_launches[entry] += 1
     return y
 
 
-def _call(x, w, b, act, role="forward"):
+def _out_dtype(dtype, out_dtype):
+    """y's type: x's, or fp32 asked for bf16 operands."""
+    if out_dtype is None or out_dtype == dtype:
+        return dtype
+    if dtype == torch.bfloat16 and out_dtype == torch.float32:
+        return out_dtype
+    raise ValueError(f"matmul_fused: {dtype} operands cannot store "
+                     f"{out_dtype}")
+
+
+def _call(x, w, b, act, role="forward", out_dtype=None):
     """One K3 call on 2-D operands: the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors, the output's shape and type alone for meta
+    tensors."""
     if x.device.type == "cuda":
-        return _launch(x, w, b, act, role=role)
+        return _launch(x, w, b, act, role=role, out_dtype=out_dtype)
     if x.device.type == "cpu":
-        return matmul_fused_ref(x, w, b, act)
+        return matmul_fused_ref(x, w, b, act,
+                                out_dtype=_out_dtype(x.dtype, out_dtype))
+    if x.device.type == "meta":
+        return torch.empty((x.shape[0], w.shape[1]),
+                           dtype=_out_dtype(x.dtype, out_dtype),
+                           device="meta")
     raise ValueError(f"matmul_fused: unsupported device {x.device}")
 
 
@@ -191,28 +214,35 @@ class MatmulFusedFn(torch.autograd.Function):
         return dx, dw, db, None
 
 
-def matmul_fused(x, w, b=None, act: str = "none"):
+def matmul_fused(x, w, b=None, act: str = "none", out_dtype=None):
     """y = act(x @ w + b).  Leading dims of x are flattened to M.  fp32
-    accumulation, bias and activation; one cast to x's dtype.  Under
-    autograd it goes through :class:`MatmulFusedFn`."""
+    accumulation, bias and activation; one cast to x's dtype, or to
+    ``out_dtype`` (fp32 for bf16 operands: no cast).  Under autograd it
+    goes through :class:`MatmulFusedFn` (x's dtype only)."""
     if act not in _ACTS:
         raise ValueError(f"unknown activation {act!r}")
     if x.shape[-1] != w.shape[0]:
         raise ValueError(f"matmul_fused: x {tuple(x.shape)} vs w "
                          f"{tuple(w.shape)}")
     if x.dim() != 2:
-        return matmul_fused(x.reshape(-1, x.shape[-1]), w, b, act).reshape(
-            *x.shape[:-1], w.shape[-1])
+        return matmul_fused(x.reshape(-1, x.shape[-1]), w, b, act,
+                            out_dtype).reshape(*x.shape[:-1], w.shape[-1])
     if torch.is_grad_enabled() and (
             x.requires_grad or w.requires_grad
             or (b is not None and b.requires_grad)):
+        if _out_dtype(x.dtype, out_dtype) != x.dtype:
+            raise NotImplementedError("matmul_fused: a gradient through an "
+                                      "fp32 store of bf16 operands")
         return MatmulFusedFn.apply(x, w, b, act)
-    return _call(x, w, b, act)
+    return _call(x, w, b, act, out_dtype=out_dtype)
 
 
-#: kernel launches since the count was last set to 0, in all, by path and
-#: by role (``forward``: a forward or a remat recompute; a backward's
-#: ``z``, ``dx`` and ``dw``)
+#: kernel launches since the count was last set to 0, in all, by path, by
+#: role (``forward``: a forward or a remat recompute; a backward's ``z``,
+#: ``dx`` and ``dw``) and by C entry (``matmul_fused_bf16_f32``: the fp32
+#: store of bf16 operands)
 matmul_fused.launches = 0
 matmul_fused.path_launches = dict.fromkeys(PATH_CODES, 0)
 matmul_fused.role_launches = dict.fromkeys(("forward", "z", "dx", "dw"), 0)
+matmul_fused.entry_launches = dict.fromkeys(
+    ("matmul_fused_f32", "matmul_fused_bf16", "matmul_fused_bf16_f32"), 0)

@@ -14,11 +14,12 @@ _ACTS = {
 }
 
 
-def matmul_fused_ref(x, w, b=None, act: str = "none"):
+def matmul_fused_ref(x, w, b=None, act: str = "none", out_dtype=None):
     """y = act(x @ w + b) with fp32 accumulation.  x: [M, K]; w: [K, N].
     A bf16 operand is upcast, the sums, bias and activation are fp32, and
-    the result is cast once to x's dtype."""
+    the result is cast once to x's dtype, or to ``out_dtype`` (fp32: the
+    TPU kernel's own store, no cast)."""
     y = x.to(ACC_DTYPE) @ w.to(ACC_DTYPE)
     if b is not None:
         y = y + b.to(ACC_DTYPE)
-    return _ACTS[act](y).to(x.dtype)
+    return _ACTS[act](y).to(x.dtype if out_dtype is None else out_dtype)

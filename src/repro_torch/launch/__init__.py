@@ -1,3 +1,3 @@
-"""Entry points of the port: the counterparts of ``repro.launch`` (the
-serving launcher so far; the training launcher waits for training, in
-ROADMAP.md, "Modules still to port")."""
+"""Entry points of the port: the counterparts of ``repro.launch`` — the
+serving and training launchers, and the mesh (``mesh``), the input specs
+(``inputs``), the variants (``variants``) and the dry run (``dryrun``)."""

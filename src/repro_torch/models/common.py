@@ -9,8 +9,9 @@ unit in an ``nn.ModuleList`` and runs them in a Python loop.  Parameter
 from the JAX package by :func:`params_from_jax` loads into a model with
 ``BaseModel.load_tree`` without a copy.  The KV cache stays stacked
 (``[n_scan, batch, S, kvh, hd]`` leaves) and the layers write into views
-of it in place.  The sharding annotations of the JAX package have no
-counterpart on one card.
+of it in place.  The JAX package's activation annotations are
+``sharding.ctx.shard_act`` checks of a rank's local shapes under a
+mesh's context, and the identity on one card.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from repro_torch.nn.norm import (layernorm_apply, layernorm_spec,
                                  rmsnorm_apply, rmsnorm_spec)
 from repro_torch.nn.param import (DTYPES, Param, init_tree, is_param,
                                   tree_map)
+from repro_torch.sharding.ctx import shard_act
 
 #: the batch axis of every cache leaf: [n_scan, batch, S, kvh, hd] for a
 #: KV cache, [layers, batch, ...] for an RWKV state
@@ -104,7 +106,8 @@ def block_apply(params, x, cfg: ModelConfig, *, window: int = 0,
                         context=context, use_rope=context is None)
     if cfg.post_block_norms:
         a = norm_apply(params["ln_attn_post"], a, cfg)
-    x = x + _gated(a, params, "gate_attn", context is not None)
+    x = shard_act(x + _gated(a, params, "gate_attn", context is not None),
+                  ("batch", "seq_res", "embed_act"))
     h = norm_apply(params["ln_mlp"], x, cfg)
     if use_moe:
         m, aux = moe_apply(params["mlp"], h, cfg, dp_size=dp_size,
@@ -113,7 +116,8 @@ def block_apply(params, x, cfg: ModelConfig, *, window: int = 0,
         m = mlp_apply(params["mlp"], h, cfg)
     if cfg.post_block_norms:
         m = norm_apply(params["ln_mlp_post"], m, cfg)
-    return x + _gated(m, params, "gate_mlp", context is not None), aux
+    return shard_act(x + _gated(m, params, "gate_mlp", context is not None),
+                     ("batch", "seq_res", "embed_act")), aux
 
 
 def layer_call(remat: bool):
@@ -234,6 +238,15 @@ class BaseModel(nn.Module):
     @property
     def device(self) -> torch.device:
         return next(self.parameters()).device
+
+    def effective_window(self, shape) -> int:
+        """The window of an input shape (a ``ShapeConfig``): the config's,
+        or past 131072 tokens its long-context fallback, as the JAX
+        package's ``effective_window``."""
+        cfg = self.cfg
+        if shape.seq_len > 131_072 and not cfg.is_attention_free:
+            return cfg.sliding_window or cfg.long_context_window
+        return cfg.sliding_window
 
     # -- compute -------------------------------------------------------------
     def cache_spec(self, batch: int, cache_len: int, window: int = 0) -> dict:

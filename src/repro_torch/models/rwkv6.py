@@ -96,13 +96,14 @@ class RWKV6LM(BaseModel):
         e = self.cfg.rwkv.head_dim
         n = self.cfg.num_layers
 
-        def leaf(*shape):
-            return Param((n, batch) + shape,
-                         ("layers", "batch") + (None,) * len(shape),
+        def leaf(shape, axes):
+            return Param((n, batch) + shape, ("layers", "batch") + axes,
                          init="zeros", dtype="float32")
 
-        return {"time": {"last": leaf(d), "state": leaf(h, e, e)},
-                "chan": {"last": leaf(d)}}
+        # the state's heads annotated as the JAX package's are
+        return {"time": {"last": leaf((d,), (None,)),
+                         "state": leaf((h, e, e), ("heads", None, None))},
+                "chan": {"last": leaf((d,), (None,))}}
 
     def decode_step(self, tokens, positions, cache, *, window: int = 0):
         """tokens [b, 1] -> (logits [b, 1, V], cache), the new last tokens

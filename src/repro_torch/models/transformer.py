@@ -7,29 +7,46 @@ layer unit is a (local, global) *pair*, and grok-1 / qwen3-moe, whose
 blocks' feed-forward is the MoE block (``nn/moe.py``): ``train`` or
 ``prefill`` capacity in :meth:`TransformerLM.forward` (its ``mode``),
 worst-case capacity in :meth:`TransformerLM.decode_step`.
+
+Built with a mesh's config and rules (``TransformerLM(cfg, mesh_cfg,
+rules)``), the model holds one rank's shards: its ``ParamTree``s take the
+local shapes (:func:`shard_params` or :func:`shard_init` carve them),
+:meth:`TransformerLM.init_cache` makes the local cache, and
+``forward``/``decode_step`` run on them under
+``sharding.ctx.activation_sharding`` — tensor parallel over "model" (q, k,
+v, gate and up column-parallel; o and down row-parallel; the vocab of the
+embedding and the head cut), the batch over "data", the residual stream
+replicated over "model".  :func:`check_executed` names what this path
+does not take yet, and raises.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
-from repro_torch.core.config import ModelConfig
+from repro_torch.core.config import MeshConfig, ModelConfig
 from repro_torch.models.common import (BaseModel, _accumulate_aux,
                                        _sum_aux, _zero_aux, block_apply,
                                        block_spec, cache_index,
                                        kv_cache_param, layer_call,
                                        norm_apply, norm_spec)
 from repro_torch.nn.embedding import embed_tokens, embedding_spec, lm_logits
-from repro_torch.nn.param import ParamTree, stack_spec
+from repro_torch.nn.param import (DTYPES, ParamTree, _initialize, is_param,
+                                  stack_spec, tree_map)
+from repro_torch.sharding.rules import (AxisRules, entry_axes, kv_cache_spec,
+                                        local_shape, local_slice, local_spec,
+                                        logical_to_spec, shards)
 
 
 class TransformerLM(BaseModel):
     """Dense or MoE decoder-only LM: ``embed``, ``layers`` (an
     ``nn.ModuleList`` of ``n_scan`` units) and ``ln_f``."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig,
+                 mesh_cfg: Optional[MeshConfig] = None,
+                 rules: Optional[AxisRules] = None):
         super().__init__(cfg)
         self.use_moe = cfg.moe is not None
         self.pair = cfg.local_global_interval == 2
@@ -37,12 +54,22 @@ class TransformerLM(BaseModel):
         if self.pair:
             assert cfg.num_layers % 2 == 0
         self.n_scan = cfg.num_layers // (2 if self.pair else 1)
+        self.mesh_cfg, self.rules = mesh_cfg, rules
+        if mesh_cfg is not None:
+            check_executed(cfg, mesh_cfg, rules)
         dt = cfg.param_dtype
-        spec = self.param_spec()
+        spec = self._local(self.param_spec())
         self.embed = ParamTree(spec["embed"], dt)
-        self.layers = nn.ModuleList(ParamTree(self._unit_spec(), dt)
-                                    for _ in range(self.n_scan))
+        self.layers = nn.ModuleList(
+            ParamTree(self._local(self._unit_spec()), dt)
+            for _ in range(self.n_scan))
         self.ln_f = ParamTree(spec["ln_f"], dt)
+
+    def _local(self, spec):
+        """``spec`` with a rank's shard shapes on a mesh, else as it is."""
+        if self.mesh_cfg is None:
+            return spec
+        return local_spec(spec, self.mesh_cfg, self.rules)
 
     # -- params ---------------------------------------------------------------
     def _unit_spec(self) -> dict:
@@ -144,6 +171,32 @@ class TransformerLM(BaseModel):
             }
         return kv_cache_param(self.cfg, batch, clen(lw), stacked=self.n_scan)
 
+    def init_cache(self, batch: int, cache_len: int, window: int = 0,
+                   device=None) -> dict:
+        """A zero cache (``BaseModel.init_cache``); on a mesh, the rank's
+        shard of it: every leaf [n_scan, batch, S, kvh, hd] (int8 scales
+        without hd) cut as ``kv_cache_spec`` chooses, the batch over the
+        dp axes and the kv heads over "model"."""
+        if self.mesh_cfg is None:
+            return super().init_cache(batch, cache_len, window, device)
+        m = self.mesh_cfg
+        kv = (None,) + kv_cache_spec(batch, self.cfg.num_kv_heads, m.dp_size,
+                                     m.model_size, m.axes, self.rules)
+        dev = torch.device(device) if device is not None else self.device
+
+        def leaf(p):
+            spec = kv[:len(p.shape)]
+            if logical_to_spec(p.axes, m.axes, self.rules) != spec:
+                raise NotImplementedError(
+                    f"a cache leaf {p.axes} sharded as "
+                    f"{logical_to_spec(p.axes, m.axes, self.rules)}, not as "
+                    f"kv_cache_spec's {spec}")
+            return torch.zeros(local_shape(p.shape, spec, m),
+                               dtype=DTYPES[p.dtype or "bfloat16"],
+                               device=dev)
+
+        return tree_map(leaf, self.cache_spec(batch, cache_len, window))
+
     # -- decode ------------------------------------------------------------------
     def decode_step(self, tokens, positions, cache, *, window: int = 0):
         """tokens [b, 1], positions [b] -> (logits [b, 1, V], cache), the
@@ -153,3 +206,99 @@ class TransformerLM(BaseModel):
         lw, gw = self._windows(window)
         x, _ = self._layers(x, positions, "decode", cache, lw, gw)
         return lm_logits(self.embed, x, self.cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: what the executed path takes, and the rank's shards
+# ---------------------------------------------------------------------------
+
+#: a rule the executed path does not take yet, where it cuts an axis: the
+#: logical axis and what it names
+UNSUPPORTED = (
+    ("kv_seq", "kv-sequence sharding ('kv_seq': kv heads that do not "
+               "divide 'model', or a batch below dp)"),
+    ("seq_res", "seq_sp's residual-stream sequence ('seq_res')"),
+    ("embed", "FSDP's 'embed'"),
+)
+
+
+def check_executed(cfg: ModelConfig, mesh_cfg: MeshConfig,
+                   rules: AxisRules) -> None:
+    """Raise NotImplementedError, naming the rule, where ``cfg`` on
+    ``mesh_cfg`` under ``rules`` needs what the executed tensor-parallel
+    path (the dense transformer's prefill and decode) does not take yet;
+    every spec is still reckoned by the dry run."""
+    if cfg.ssm is not None or cfg.rwkv is not None:
+        raise NotImplementedError(
+            f"the {cfg.family} family's 'ssm_inner' (the SSM / RWKV inner "
+            f"dimension) on a mesh: not in the executed path yet")
+    if cfg.cross_attn is not None:
+        raise NotImplementedError(
+            f"the {cfg.family} family's 'media' (the cross-attention "
+            f"context) on a mesh: not in the executed path yet")
+    if cfg.moe is not None and mesh_cfg.num_devices > 1:
+        raise NotImplementedError(
+            f"MoE blocks ('experts' / 'expert_ff', the capacity of a dp "
+            f"group) on the mesh {mesh_cfg.shape}: not in the executed "
+            f"path yet")
+    for axis, what in UNSUPPORTED:
+        entry = logical_to_spec((axis,), mesh_cfg.axes, rules)[0]
+        if shards(entry, mesh_cfg) > 1:
+            raise NotImplementedError(
+                f"{what} over {entry_axes(entry)} on the mesh "
+                f"{mesh_cfg.shape}: not in the executed path yet")
+    heads, kv = (shards(logical_to_spec((a,), mesh_cfg.axes, rules)[0],
+                        mesh_cfg) for a in ("heads", "kv_heads"))
+    if heads != kv:
+        raise NotImplementedError(
+            f"q heads in {heads} shards and kv heads in {kv}: the executed "
+            f"path cuts both alike")
+
+
+def _carve(spec, full, mesh, rules: AxisRules, device, path=""):
+    """The rank's tree: ``full(path, p)`` gives each leaf whole, one at a
+    time, and only its local slice is kept (a copy on ``device``)."""
+    from repro_torch.sharding.ctx import mesh_config_of
+
+    m = mesh_config_of(mesh)
+    coords = dict(zip(m.axes, (int(c) for c in mesh.get_coordinate())))
+
+    def walk(s, p):
+        if is_param(s):
+            whole = full(p, s)
+            spec_ = logical_to_spec(s.axes, m.axes, rules)
+            return local_slice(whole, spec_, m, coords).to(
+                whole.device if device is None else device, copy=True)
+        return {k: walk(s[k], f"{p}/{k}") for k in sorted(s)}
+
+    return walk(spec, path)
+
+
+def shard_params(cfg: ModelConfig, tree: dict, mesh, rules: AxisRules,
+                 device=None) -> dict:
+    """The rank's shards of the whole parameter tree ``tree`` (the JAX
+    package's layout: ``params_from_jax``'s, ``init_tree``'s) on ``mesh``
+    under ``rules``, leaf by leaf: each local slice is copied to
+    ``device`` (the leaf's own by default) as it is cut.  A
+    ``TransformerLM(cfg, mesh_cfg, rules)`` loads the result."""
+    spec = TransformerLM(cfg).param_spec()
+
+    def full(path, p):
+        t = tree
+        for k in path.strip("/").split("/"):
+            t = t[k]
+        return t
+
+    return _carve(spec, full, mesh, rules, device)
+
+
+def shard_init(cfg: ModelConfig, generator: torch.Generator, mesh,
+               rules: AxisRules) -> dict:
+    """The rank's shards of the tree ``init_tree`` draws from
+    ``generator`` (the same draws in the same order), each leaf drawn
+    whole on the generator's device and cut at once: no whole tree is
+    ever held."""
+    spec = TransformerLM(cfg).param_spec()
+    return _carve(spec, lambda path, p: _initialize(
+        p.check(), generator, cfg.param_dtype), mesh, rules,
+        generator.device)

@@ -26,6 +26,11 @@ Unlike the JAX package, the cache is updated in place: ``attention_apply``
 writes into the tensors of ``cache`` (views of the model's stacked cache)
 and returns only its output.  Training passes no cache, so no in-place
 write ever touches a tensor that autograd saved.
+
+The head counts are read from the projections' widths, so on a mesh
+(``sharding.ctx``) a rank attends over its local q and kv heads, its
+cache shard holding its kv heads (``sharding.rules.kv_cache_spec``), and
+``wo`` is row-parallel over "heads".
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from repro_torch.kernels.attention.ops import flash_attention
 from repro_torch.nn.linear import dense, linear_spec
 from repro_torch.nn.norm import rmsnorm_apply, rmsnorm_spec
 from repro_torch.nn.rope import apply_rope
+from repro_torch.sharding.ctx import shard_act
 
 NEG_INF = -1e30
 
@@ -236,12 +242,13 @@ def _prefill_cache(cache: dict, k, v) -> None:
 def cross_kv(params, context, cfg: ModelConfig):
     """K/V of the stream [b, t, d_ctx] that the keys come from (a
     cross-attention's context, or ``attention_apply``'s own input): each
-    [b, t, kvh, hd], k after ``k_norm`` where the config has QK-norm."""
+    [b, t, kvh, hd] (kvh: the local kv heads on a mesh), k after
+    ``k_norm`` where the config has QK-norm."""
     b, t, _ = context.shape
-    k = dense(params["wk"], context).reshape(b, t, cfg.num_kv_heads,
-                                             cfg.head_dim)
-    v = dense(params["wv"], context).reshape(b, t, cfg.num_kv_heads,
-                                             cfg.head_dim)
+    k = dense(params["wk"], context).reshape(b, t, -1, cfg.head_dim)
+    v = dense(params["wv"], context).reshape(b, t, -1, cfg.head_dim)
+    k = shard_act(k, ("batch", "seq", "kv_heads", None))
+    v = shard_act(v, ("batch", "seq", "kv_heads", None))
     if cfg.qk_norm:
         k = rmsnorm_apply(params["k_norm"], k, cfg.norm_eps)
     return k, v
@@ -252,7 +259,7 @@ def cross_attention_cached(params, x, ck, cv, cfg: ModelConfig):
     visible: :func:`decode_attention` at position ``t - 1``.  x: [b, s,
     d]; ck/cv: [b, t, kvh, hd]."""
     b, s, _ = x.shape
-    q = dense(params["wq"], x).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    q = dense(params["wq"], x).reshape(b, s, -1, cfg.head_dim)
     if cfg.qk_norm:
         q = rmsnorm_apply(params["q_norm"], q, cfg.norm_eps)
     pos = torch.full((b,), ck.shape[1] - 1, dtype=torch.long,
@@ -260,7 +267,7 @@ def cross_attention_cached(params, x, ck, cv, cfg: ModelConfig):
     out = decode_attention(q, ck, cv, pos, window=0,
                            attn_softcap=cfg.attn_softcap,
                            scale=cfg.attn_logit_scale or None)
-    return dense(params["wo"], out.reshape(b, s, cfg.q_dim))
+    return dense(params["wo"], out.reshape(b, s, -1), k_axis="heads")
 
 
 def attention_apply(
@@ -282,7 +289,8 @@ def attention_apply(
     ``cache`` then takes those k/v whole (``cache_spec``'s cross leaves,
     [b, t, kvh, hd]), rounded to its dtype."""
     b, s, _ = x.shape
-    q = dense(params["wq"], x).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    q = dense(params["wq"], x).reshape(b, s, -1, cfg.head_dim)
+    q = shard_act(q, ("batch", "seq", "heads", None))
     if cfg.qk_norm:
         q = rmsnorm_apply(params["q_norm"], q, cfg.norm_eps)
     k, v = cross_kv(params, x if context is None else context, cfg)
@@ -312,6 +320,8 @@ def attention_apply(
         if use_rope:
             q = apply_rope(q, pos[:, None], cfg.rope_theta)
             k = apply_rope(k, pos[:, None], cfg.rope_theta)
+        for name, c in cache.items():
+            shard_act(c, ("batch", "kv_seq", "kv_heads", None)[:c.dim()])
         if "k_scale" in cache:  # int8 cache
             cache_update_quant(cache, k, v, pos, window)
             out = decode_attention_quant(
@@ -325,4 +335,6 @@ def attention_apply(
                                    scale=scale)
     else:
         raise ValueError(f"unknown attention mode {mode!r}")
-    return dense(params["wo"], out.reshape(b, s, cfg.q_dim))
+    out = shard_act(out, ("batch", "seq", "heads", None))
+    o = dense(params["wo"], out.reshape(b, s, -1), k_axis="heads")
+    return shard_act(o, ("batch", "seq", "embed_act"))

@@ -7,6 +7,14 @@ bias and activation (gelu in its tanh form, as ``repro.nn.linear``)
 before the one cast to x's dtype, where the JAX package's jnp path
 applies them after its matmul's cast.
 
+On a mesh (``sharding.ctx``) a column-parallel product (``wq``, ``wk``,
+``wv``, ``w_gate``, ``w_up``: the output axis sharded) runs on the local
+weight as on one card.  A row-parallel one (``wo``, ``w_down``: the
+contraction axis ``k_axis`` sharded) has K3 store the fp32 partial, as
+the TPU kernel stores it; ``sum_over`` adds the ranks' partials in rank
+order, and then the bias, the activation and the one cast follow, so the
+product is rounded once, as the whole one is.
+
 :func:`act_fn` is the port's copy of the JAX package's ``_ACTS``, for the
 products that do not run K3 (the MoE experts, ``nn/moe.py``), with its
 dtype rules: silu multiplies x by an fp32 sigmoid cast to x's dtype, gelu
@@ -16,8 +24,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.common import ACC_DTYPE
+from repro_torch.kernels.matmul_fused import ref as mm_ref
 from repro_torch.kernels.matmul_fused.ops import matmul_fused
 from repro_torch.nn.param import Param
+from repro_torch.sharding.collectives import sum_over
+from repro_torch.sharding.ctx import shard_of
 
 _ACTS = {
     "relu": lambda x: torch.clamp_min(x, 0.0),
@@ -48,6 +60,16 @@ def linear_spec(
     return spec
 
 
-def dense(params, x, act: str = "none"):
-    """y = act(x @ w + b) through K3 (``kernels.matmul_fused``)."""
+def dense(params, x, act: str = "none", k_axis=None):
+    """y = act(x @ w + b) through K3 (``kernels.matmul_fused``).
+    ``k_axis``: the logical axis of w's contraction (input) dimension;
+    where the active sharding cuts it, the product is row-parallel."""
+    if k_axis is not None:
+        _, n, axes = shard_of(k_axis)
+        if n > 1:
+            y = sum_over(axes, matmul_fused(x, params["w"],
+                                            out_dtype=ACC_DTYPE))
+            if "b" in params:
+                y = y + params["b"].to(ACC_DTYPE)
+            return mm_ref._ACTS[act](y).to(x.dtype)
     return matmul_fused(x, params["w"], params.get("b"), act=act)

@@ -1,9 +1,12 @@
 """Feed-forward blocks, gated (SwiGLU/GeGLU) and plain: the port of
-``repro.nn.mlp``; every projection runs K3 through ``dense``."""
+``repro.nn.mlp``; every projection runs K3 through ``dense``.  On a mesh
+``w_gate``/``w_up`` are column-parallel and ``w_down`` row-parallel over
+"ff"."""
 from __future__ import annotations
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.nn.linear import dense, linear_spec
+from repro_torch.sharding.ctx import shard_act
 
 
 def mlp_spec(cfg: ModelConfig, d_ff: int = 0) -> dict:
@@ -24,5 +27,9 @@ def mlp_apply(params, x, cfg: ModelConfig):
     if cfg.mlp_gated:
         g = dense(params["w_gate"], x, act=cfg.act)
         u = dense(params["w_up"], x)
-        return dense(params["w_down"], g * u)
-    return dense(params["w_down"], dense(params["w_up"], x, act=cfg.act))
+        h = shard_act(g * u, ("batch", "seq", "ff"))
+    else:
+        h = shard_act(dense(params["w_up"], x, act=cfg.act),
+                      ("batch", "seq", "ff"))
+    return shard_act(dense(params["w_down"], h, k_axis="ff"),
+                     ("batch", "seq_res", "embed_act"))

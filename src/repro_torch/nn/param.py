@@ -57,6 +57,11 @@ def tree_leaves(tree):
     return [tree]
 
 
+def axes_tree(spec):
+    """The logical axes of every Param of a spec tree."""
+    return tree_map(lambda p: p.axes, spec)
+
+
 def _initialize(p: Param, gen: torch.Generator, default_dtype: str):
     dtype = DTYPES[p.dtype or default_dtype]
     dev = gen.device

@@ -306,9 +306,12 @@ def test_cache_update_matches_jax(window):
 
 
 def test_flash_attention_refuses_other_devices():
+    """A meta tensor (the dry run's trace) gives the output's shape and
+    type alone; a head count that does not divide raises."""
     meta = torch.empty((1, 4, 2, 64), device="meta")
-    with pytest.raises(ValueError, match="device"):
-        attn_ops.flash_attention(meta, meta, meta)
+    out = attn_ops.flash_attention(meta, meta, meta)
+    assert out.device.type == "meta" and out.shape == meta.shape
+    assert out.dtype == meta.dtype
     with pytest.raises(ValueError, match="flash_attention"):
         attn_ops.flash_attention(torch.zeros(1, 4, 3, 64),
                                  torch.zeros(1, 4, 2, 64),

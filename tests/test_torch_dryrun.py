@@ -1,0 +1,209 @@
+"""The port's dry run (``repro_torch.launch.dryrun``) on the CPU, without
+a card.
+
+Its per-device bytes of parameters, cache and optimizer moments equal a
+sum over the JAX package's own specs (``rules_for`` and
+``logical_to_spec`` of the JAX package, its ``adamw_init_spec``); its
+int8-KV switch is the JAX dry run's rule; qwen1.5-32b's traced decode
+step at 1 x 4 (all 64 layers, rank 0 of a fake process group of 4, meta
+tensors) counts two ``sum_over`` a layer (o and down), one for the
+embedding and one ``gather_over`` for the logits; a family or rule the
+executed path lacks is recorded with its reason.  The fake group is
+destroyed when each trace ends, so no other test sees a process group.
+"""
+import ast
+import math
+from pathlib import Path
+
+import pytest
+import torch.distributed as dist
+
+from repro.core import config as jconfig
+from repro.models import registry as jregistry
+from repro.sharding import auto as jauto
+from repro.sharding import rules as jrules
+from repro.train import optimizer as joptimizer
+from repro_torch.core import config as tconfig
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import fake_group, parse_mesh
+
+ROOT = Path(__file__).resolve().parent.parent
+BYTES = {"bfloat16": 2, "float16": 2, "float32": 4, "int8": 1, "int32": 4}
+MESHES = {"single_pod": "16x16", "multi_pod": "2x16x16", "1x4": "1x4",
+          "1x8": "1x8"}
+
+
+def _jax_threshold():
+    """``KV_QUANT_THRESHOLD_BYTES`` of the JAX dry run, read from its
+    source (importing it would set ``XLA_FLAGS`` for this process)."""
+    tree = ast.parse((ROOT / "src/repro/launch/dryrun.py").read_text())
+    for node in tree.body:
+        if (isinstance(node, ast.Assign) and getattr(
+                node.targets[0], "id", None) == "KV_QUANT_THRESHOLD_BYTES"):
+            return eval(compile(ast.Expression(node.value), "", "eval"))
+    raise AssertionError("no KV_QUANT_THRESHOLD_BYTES")
+
+
+def _jax_kv_quant(cfg, shape, mesh):
+    """The JAX dry run's int8-KV rule (``run_one``), on its configs."""
+    if not shape.is_decode or cfg.is_attention_free:
+        return False
+    win = cfg.sliding_window or (cfg.long_context_window
+                                 if shape.seq_len > 131_072 else 0)
+    s_eff = min(shape.seq_len, win) if win else shape.seq_len
+    n_attn = (cfg.num_layers if cfg.shared_attn_every == 0
+              else cfg.num_layers // cfg.shared_attn_every)
+    cache = (2 * n_attn * shape.global_batch * s_eff * cfg.num_kv_heads
+             * cfg.head_dim * 2)
+    return cache / mesh.num_devices > _jax_threshold()
+
+
+def _jax_bytes(tree, mesh, rules, default):
+    """Per-device bytes of a JAX spec tree under JAX's specs."""
+    sizes = dict(zip(mesh.axes, mesh.shape))
+    total = 0
+    stack = [tree]
+    while stack:
+        t = stack.pop()
+        if isinstance(t, dict):
+            stack.extend(t.values())
+            continue
+        n = 1
+        for dim, entry in zip(t.shape, jrules.logical_to_spec(
+                t.axes, mesh.axes, rules)):
+            axes = () if entry is None else (
+                entry if isinstance(entry, tuple) else (entry,))
+            n *= dim // math.prod(sizes[a] for a in axes)
+        total += n * BYTES[t.dtype or default]
+    return total
+
+
+def test_threshold_is_jax():
+    assert dryrun.KV_QUANT_THRESHOLD_BYTES == _jax_threshold()
+
+
+@pytest.mark.parametrize("mesh_name", ("single_pod", "1x4"))
+@pytest.mark.parametrize("shape_name", ("decode_32k", "train_4k"))
+@pytest.mark.parametrize("arch", ("qwen1.5-32b", "gemma2-2b", "grok-1-314b"))
+def test_per_device_bytes_equal_jax_specs(arch, shape_name, mesh_name):
+    import dataclasses
+
+    tmesh = parse_mesh(MESHES[mesh_name])
+    jmesh = jconfig.MeshConfig(tmesh.shape, tmesh.axes)
+    rec = dryrun.run_one(arch, shape_name, tmesh)
+    jcfg, shape = jconfig.get_arch(arch), jconfig.get_shape(shape_name)
+    quant = _jax_kv_quant(jcfg, shape, jmesh)
+    assert rec["kv_quant"] == quant
+    if quant:
+        jcfg = dataclasses.replace(jcfg, kv_quant=True)
+    rules, notes = jauto.rules_for(jcfg, jmesh, shape)
+    assert rec["sharding_notes"] == notes + (["int8 KV cache"] if quant
+                                             else [])
+    jm = jregistry.get_model(jcfg)
+    spec = jm.param_spec()
+    per = rec["per_device_bytes"]
+    assert per["params"] == _jax_bytes(spec, jmesh, rules, jcfg.param_dtype)
+    if shape.kind == "train":
+        fsdp = dict(rules.table).get("embed") is not None
+        big = jregistry.analytic_param_count(jcfg) > 100e9
+        opt = joptimizer.adamw_init_spec(
+            spec, zero1=True, dp_size=jmesh.dp_size, fsdp=fsdp,
+            moment_dtype="bfloat16" if big else "float32")
+        assert per["optimizer"] == _jax_bytes(opt, jmesh, rules, "float32")
+        assert not rec["traced"]
+    else:
+        window = jm.effective_window(shape)
+        assert per["cache"] == _jax_bytes(
+            jm.cache_spec(shape.global_batch, shape.seq_len, window),
+            jmesh, rules, "bfloat16")
+    assert per["total"] == sum(v for k, v in per.items() if k != "total")
+    assert rec["fits"] == (per["total"] <= dryrun.CARD_MEMORY_BYTES)
+    if arch == "grok-1-314b" and shape.kind != "train":
+        assert not rec["traced"] and "moe family" in rec["why_not_traced"]
+    if arch != "grok-1-314b" and shape.kind == "train":
+        assert "train step on a mesh" in rec["why_not_traced"]
+    if arch == "qwen1.5-32b" and mesh_name == "single_pod" and \
+            shape.kind != "train":
+        # 40 kv heads on 16: the kv sequence sharded, not in the path yet
+        assert not rec["traced"] and "kv_seq" in rec["why_not_traced"]
+    assert not dist.is_initialized()
+
+
+def test_traced_decode_step_counts_the_collectives():
+    """qwen1.5-32b at 64 layers on 1 x 4: per layer o and down summed over
+    "model", the embedding summed, the logits gathered; the bytes those
+    of fp32 [128, 1, 5120] partials and the [128, 1, 38016] logits
+    slices (each rank receives 3 others')."""
+    rec = dryrun.run_one("qwen1.5-32b", "decode_32k", parse_mesh("1x4"))
+    assert rec["traced"], rec.get("why_not_traced")
+    coll = rec["collectives"]
+    assert coll["sum_over/model"]["calls"] == 2 * 64 + 1
+    assert coll["gather_over/model"]["calls"] == 1
+    assert coll["gather_over/model"]["bytes"] == 3 * 128 * 38016 * 4
+    assert coll["sum_over/model"]["bytes"] == \
+        3 * (2 * 64 * 128 * 5120 * 4 + 128 * 5120 * 2)
+    assert rec["logits_shape"] == [128, 1, 152064]
+    assert not dist.is_initialized()
+
+
+def test_qwen_fits_four_cards_at_four_slots_of_8192_rows():
+    """The whole 64-layer qwen1.5-32b with 4 slots x 8192 rows at 1 x 4:
+    17.6 GB of weights a card; its bf16 cache would hold 10.7 GB a card,
+    past the JAX rule's 8 GiB, so the cache is int8 (5.45 GB with its
+    fp16 scales); traced."""
+    shape = tconfig.ShapeConfig("serve_4x8192", 8192, 4, "decode")
+    rec = dryrun.run_one("qwen1.5-32b", shape, parse_mesh("1x4"))
+    per = rec["per_device_bytes"]
+    assert rec["traced"] and rec["fits"] and rec["kv_quant"]
+    assert per["cache"] == 64 * 2 * 4 * 8192 * 10 * (128 + 2)
+    assert 23.0e9 < per["total"] < 23.1e9
+    one = dryrun.run_one("qwen1.5-32b", shape, parse_mesh("1x1"),
+                         trace=False)
+    assert not one["fits"]
+
+
+@pytest.mark.parametrize("mesh_name", tuple(MESHES))
+def test_every_arch_and_shape_reckoned(mesh_name):
+    mesh = parse_mesh(MESHES[mesh_name])
+    for arch in tconfig.list_archs():
+        for shape in tconfig.SHAPES:
+            rec = dryrun.run_one(arch, shape, mesh, trace=False)
+            per = rec["per_device_bytes"]
+            assert per["params"] > 0 and per["total"] >= per["params"]
+            assert rec["mesh"] == MESHES[mesh_name]
+            assert rec["card"] == dryrun.CARD
+
+
+def test_fake_group_is_destroyed_and_refuses_a_second():
+    with fake_group(4):
+        assert dist.get_world_size() == 4
+        with pytest.raises(RuntimeError, match="already exists"):
+            with fake_group(2):
+                pass
+    assert not dist.is_initialized()
+
+
+def test_cli_prints_a_record(capsys, tmp_path):
+    assert dryrun.main(["--arch", "gemma2-2b", "--shape", "decode_32k",
+                        "--mesh", "1x4", "--out", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "gemma2-2b decode_32k 1x4" in out and "sum_over/model" in out
+    assert (tmp_path / "gemma2-2b__decode_32k__1x4.json").exists()
+
+
+def test_isolated_from_jax():
+    """The sharding and launch modules load nothing of the JAX package."""
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.mesh\n"
+            "import repro_torch.launch.inputs, repro_torch.launch.variants\n"
+            "import repro_torch.sharding.auto, repro_torch.sharding.ctx\n"
+            "import repro_torch.sharding.collectives\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('repro', 'jax', 'jaxlib')))\n")
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env={"PYTHONPATH": str(ROOT / "src")})
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.strip() == "[]"

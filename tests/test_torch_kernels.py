@@ -249,8 +249,9 @@ def test_chain_cell_with_an_lrn_tail_raises_on_every_device():
 
 
 def test_wrappers_refuse_other_devices():
-    with pytest.raises(ValueError, match="device"):
-        matmul_fused(_meta(2, 4), _meta(4, 3))
+    # K3 on meta tensors (the dry run's trace): the output's shape alone
+    y = matmul_fused(_meta(2, 4), _meta(4, 3))
+    assert y.device.type == "meta" and y.shape == (2, 3)
     with pytest.raises(ValueError, match="device"):
         conv_ops.conv2d_pool_fused(_meta(1, 3, 8, 8), _meta(4, 3, 3, 3),
                                    _meta(4))
