@@ -352,11 +352,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    attention with its logsumexp timed beside it; K11's Function at
    rwkv6's shape with strong decays against autograd through
    ``wkv6_chunked_ref``; b. CPU parity: one fp32 train step of each
-   model cut to one unit (``TRAIN_PARITY_CUTS``: gemma2's local/global
-   pair, two rwkv6 layers, one Mamba2 block and the shared block, one
-   MoE layer at 2 microbatches, one starcoder2 layer, one self and one
-   cross layer, one encoder and one decoder layer; the media cut to
-   ``CROSS_PARITY_MEDIA``) at full width, the CPU's forward and backward
+   model of ``TRAIN_PARITY_ARCHS`` cut to one unit
+   (``TRAIN_PARITY_CUTS``: gemma2's local/global pair; the others' steps
+   tests/test_torch_train.py holds against JAX's) at full width, the CPU's forward and backward
    on one intra-op thread and its AdamW on the machine's: loss, metrics,
    every gradient leaf, moment and updated parameter
    (``TRAIN_PARITY_TOL``); c. for each model, freed before the next,
@@ -396,7 +394,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    gate/up — and K10 at each arch's attention (``K10_DENSE_CASES``:
    starcoder2's window at head_dim 128 at every prompt length, the
    others at 1500 and 4500 tokens, grok's with its softcap); b. CPU
-   parity as 7b on two fp32 layers (grok on one, ``DENSE_PARITY_CUTS``;
+   parity as 7b on two fp32 layers (grok on one and 3 greedy tokens,
+   ``DENSE_PARITY_CUTS``;
    its routing recorded and checked as 9b), the fp32 prefill on K10's CUDA-core kernel alone; c. the
    model served as 7c, twice, weights drawn on the card, cut only as
    ``DENSE_CUTS`` says (qwen1.5 to 32 of 64 layers, grok to 4 of 64;
@@ -429,7 +428,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    qwen1.5-32b, starcoder2-15b and grok-1-314b at 1 x 4 and 1 x 8 with 4
    slots of 8192 rows: bytes a card against 80 GB, and whether it fits
    (qwen1.5-32b's 64 layers at 1 x 4 must);
-17. prints one JSON line ``{"kernels": [...]}``: per kernel, ``launches``
+17. gemma2-2b training on a mesh (``mesh_phase``), at full width in
+   bf16, its rules ``rules_for``'s of the uncut arch on each mesh (FSDP's
+   "embed" on at dp 2), cut in depth only (``mesh_train_cut``, printed as
+   ``reduced``; 8 layers at 1 x 2, ``MESH_TRAIN_DEPTH``'s 4 on the
+   meshes whose FSDP gathers go through gloo): a. K3's fp32-store backward (dx, dw on dz = the fp32
+   cotangent cast to bf16) at the 2-way o and down shards, M = 4096,
+   against the plain products within ``LM_KERNEL_TOL``, timed beside
+   ``torch.matmul`` and the bound; b. a 1 x 1 NCCL mesh, 8 layers, two
+   steps: the loss, CE, grad norm and every new leaf and moment the
+   unsharded port's bits (``bits_fingerprint``); c. 2 x 1 (FSDP), 1 x 2
+   and 2 x 2 (FSDP) as gloo ranks on the one card (this script started
+   once a rank with ``--mt-rank``), 2 x 2048 tokens a data rank,
+   ``MESH_TRAIN_MICROBATCHES`` on the dp meshes, two steps against the
+   unsharded reference run first (``make_train_step`` on the global
+   batch): CE, loss and grad norm within ``TP_BF16_TOL``, the same bits
+   on every rank; every new leaf within 2.02 lr plus one bf16 ulp of the
+   reference's; a one-pair fp32 parity within ``_check_step``'s limits;
+   the leaves no model axis cuts the same bits on the model ranks of a
+   data group; the first step repeated from the same state the same
+   bits; K3 and K10 launches a step ``train_expect``'s, on wgmma; each
+   rank's step ms, tokens/s, peak beside the dry run's bytes, collectives
+   a step (forward and backward apart); d. the dry run's ``train_4k``
+   rows for gemma2-2b, starcoder2-15b, internlm2-20b and qwen1.5-32b at 1
+   x 4, 1 x 8 and 2 x 4 (two processes beside 17a-c; gemma2-2b and
+   qwen1.5-32b at 1 x 4 must be traced);
+18. prints one JSON line ``{"kernels": [...]}``: per kernel, ``launches``
    is its count summed over the AlexNet forwards of phase 4 (K1-K3,
    K7-K9) or phase 5 (K4-K6), or over the first LM serving run of phase
    7c and the first runs of phases 11c and 15c (K10's wgmma path as
@@ -452,8 +476,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    trained model's, summed) add, apart:
    ``train_backward_launches`` (K3's z, dx and dw) on the K3 entries,
    ``train_ml_launches`` on ``flash_attention`` and ``train_launches``
-   on ``wkv6``;
-18. prints ``{"ok": true, "device": {...}}`` as its last line.
+   on ``wkv6``; phase 17c's ranks' first steps add
+   ``mesh_train_launches`` on the K3 bf16 entry (by role) and on
+   ``flash_attention``, and their fp32 stores to the
+   ``matmul_fused_bf16_f32`` entry's launches, which carries 17a's times
+   under ``backward``;
+19. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Run it from the repository root; it needs one CUDA device and the CUDA
 toolkit, and imports nothing of the JAX package.
@@ -1790,7 +1818,8 @@ def lm_kernel_cases(torch, F, dev, peaks):
 
 def lm_parity_phase(torch, np, dev, counter, arch=LM_ARCH,
                     prompt_len=LM_PARITY_PROMPT, redraw=None, cut=None,
-                    per_prefill=None, media_key=None):
+                    per_prefill=None, media_key=None,
+                    decode=LM_PARITY_DECODE):
     """Phase 7b (gemma2-2b, one local/global pair), 8b (rwkv6-1.6b, two
     layers), 9b (qwen3-moe-30b-a3b, two layers), 10b (zamba2-1.2b,
     ``cut`` to three layers in one group of two and a tail of one) and
@@ -1800,8 +1829,8 @@ def lm_parity_phase(torch, np, dev, counter, arch=LM_ARCH,
     the same weights (``redraw``: a function that then redraws leaves of
     the tree from the same generator, ``rwkv_redraw``, ``ssm_redraw`` or
     ``vision_redraw``); a ``prompt_len``-token prefill and
-    ``LM_PARITY_DECODE`` greedy tokens must agree (``LM_TOL``), as must
-    the final caches (``LM_CACHE_TOL`` by the leaf's dtype).
+    ``decode`` greedy tokens (default ``LM_PARITY_DECODE``) must agree
+    (``LM_TOL``), as must the final caches (``LM_CACHE_TOL`` by the leaf's dtype).
     ``media_key``: the prefill's batch also carries seeded fp32 media
     under that key (``media_embeds`` or ``frames``, [1,
     ``num_media_tokens``, ``media_dim``]).  ``counter``, a kernel
@@ -1828,7 +1857,7 @@ def lm_parity_phase(torch, np, dev, counter, arch=LM_ARCH,
     media = None if media_key is None else rng.standard_normal(
         (1, cfg.cross_attn.num_media_tokens, cfg.cross_attn.media_dim)
     ).astype(np.float32)
-    cache_len = prompt_len + LM_PARITY_DECODE + 8
+    cache_len = prompt_len + decode + 8
     caches = {"gpu": gpu.init_cache(1, cache_len),
               "cpu": cpu.init_cache(1, cache_len)}
     models = {"gpu": gpu, "cpu": cpu}
@@ -1860,7 +1889,7 @@ def lm_parity_phase(torch, np, dev, counter, arch=LM_ARCH,
         worst["decode"] = 0.0
         for side in models:
             tokens[side].append(int(torch.argmax(logits[side][0, -1])))
-        for i in range(LM_PARITY_DECODE - 1):
+        for i in range(decode - 1):
             pos = prompt_len + i
             for side, m in models.items():
                 lg, _ = m.decode_step(
@@ -3243,6 +3272,13 @@ K10_GRAD_TOL = (2.0 ** -6, 2.0 ** -7)
 #: about lr sign(g): a gradient within rounding of 0 may flip it)
 TRAIN_PARITY_TOL = 1e-4
 TRAIN_PARITY_SEQ = 64
+#: the models whose one-unit step 13b holds against the CPU: gemma2-2b
+#: alone.  Each model's CPU side runs on one thread (about 24 s each on an
+#: H100 at 700 W's host, 272-306 s for all seven) and the smoke, with
+#: phase 17, ran past its 1200 s; the others' steps stay held against
+#: JAX's in tests/test_torch_train.py, their kernels' gradients in 13a
+#: and their bf16 steps, with the first taken twice, in 13c
+TRAIN_PARITY_ARCHS = (LM_ARCH,)
 
 
 def train_memory_budget(model, batch, seq, microbatches=1):
@@ -4120,7 +4156,7 @@ def train_phase(torch, np, dev, peaks, counters, card):
     torch.cuda.empty_cache()
     t_b = time.perf_counter()
     parity = {}
-    for arch in TRAIN_ARCHS:
+    for arch in TRAIN_PARITY_ARCHS:
         parity[arch] = train_parity(torch, np, dev, arch)
         gc.collect()
         torch.cuda.empty_cache()
@@ -4152,12 +4188,15 @@ DENSE_CUTS = {
                        "of d_ff 32768): 4 layers, 39.4 GB, and 3.2 GB of "
                        "embeddings fit one card"),
 }
-#: 15b's depth cuts below 7b's two layers (layers, why): at two layers
-#: grok's CPU side reads 38.6 GB of fp32 experts in every decode step on
-#: one thread, 109-158 s, and the whole smoke came to 1006 s of the 1200
-#: it may take
+#: 15b's cuts below 7b's two layers and ``LM_PARITY_DECODE`` greedy
+#: tokens (layers, tokens, why): grok's CPU side reads 19.3 GB of fp32
+#: experts a layer in the prefill and in every decode step, on one thread:
+#: two layers took 109-158 s, one layer's 8 tokens 46-63 s on an H100 at
+#: 700 W's host, and the whole smoke ran past its 1200 s once
 DENSE_PARITY_CUTS = {
-    "grok-1-314b": (1, "the CPU side of two fp32 layers took 109-158 s"),
+    "grok-1-314b": (1, 3, "the CPU side reads 19.3 GB of fp32 experts a "
+                          "layer a pass on one thread: two layers took "
+                          "109-158 s, one layer's 8 tokens 46-63 s"),
 }
 #: K3's distinct projections (K, N, activation, bias) in each arch's block;
 #: a shape an earlier arch of the phase ran is not run again
@@ -4282,10 +4321,13 @@ def dense_phase(torch, F, np, dev, peaks, counters, card):
         routing = []
         with (record_routing(torch, routing) if moe
               else contextlib.nullcontext()):
-            cut, why = DENSE_PARITY_CUTS.get(arch, (2, None))
+            cut, tokens, why = DENSE_PARITY_CUTS.get(
+                arch, (2, LM_PARITY_DECODE, None))
             par = lm_parity_phase(torch, np, dev, attn_ops.flash_attention,
-                                  arch, cut={"num_layers": cut})
-        par["reduced"] = {"num_layers": cut, "why": why} if why else None
+                                  arch, cut={"num_layers": cut},
+                                  decode=tokens)
+        par["reduced"] = ({"num_layers": cut, "tokens": tokens, "why": why}
+                          if why else None)
         if moe:
             par["routing"] = check_routing(routing, arch)
         if par["paths"] != {"simt": par["layers"], "wgmma": 0}:
@@ -4893,6 +4935,937 @@ def tp_phase(torch, F, np, dev, peaks, counters, card):
     return cases, one, two, rows
 
 
+# ---------------------------------------------------------------------------
+#: phase 17: training on a mesh.  gemma2-2b at full width in bf16 (d_model
+#: 2304, 8 heads over 4 kv heads of 256, d_ff 9216, vocab 256000), its
+#: rules ``rules_for``'s of the uncut arch on each mesh (FSDP's "embed"
+#: on at dp 2), cut in depth only
+MESH_TRAIN_ARCH = LM_ARCH
+#: 17c's meshes (data x model), gloo ranks sharing the one card (NCCL
+#: refuses two ranks on one device), and the mesh that takes microbatches
+MESH_TRAIN_MESHES = ("2x1", "1x2", "2x2")
+MESH_TRAIN_MICROBATCHES = {"2x1": 2, "2x2": 2}
+#: rows of TRAIN_SEQ tokens a data rank takes a step
+MESH_TRAIN_ROWS = 2
+#: the most layers a mesh trains (the phase's time: gloo moves about 0.36
+#: GB/s through host memory); ``mesh_train_cut`` cuts further, by whole
+#: local/global pairs, where the ranks sharing the card reckon past
+#: ``TRAIN_MEMORY_LIMIT_GB``
+MESH_TRAIN_LAYERS = 8
+#: the meshes with a data axis take fewer: each FSDP'd layer is gathered
+#: through gloo in the forward, again in the recompute, and summed back in
+#: the backward, once a microbatch (2 x 1 at 8 layers: 6.1 GB a rank and
+#: 13.3 s a step on an H100 at 700 W; at 4, 4.2 GB and 6.8 s once
+#: gathers went by broadcast; the smoke ran past its 1200 s once)
+MESH_TRAIN_DEPTH = {"2x1": 4, "2x2": 4}
+#: 17c's steps (the first taken twice from the same state)
+MESH_TRAIN_STEPS = 2
+#: the fp32 parity: one local/global pair at full width, this many rows of
+#: TRAIN_PARITY_SEQ tokens, its limits tests/test_torch_train.py's
+#: _check_step's
+MESH_PARITY_LAYERS = 2
+MESH_PARITY_ROWS = 4
+#: the ranks' processes may take this long (s) before the phase fails
+MESH_RANK_TIMEOUT = 900
+#: 17a: K3's fp32-store backward (dx, dw) at gemma2's 2-way o and down
+#: shards (role, K, N) over a data rank's rows
+K3_STORE_GRAD_SHAPES = (("o", 1024, 2304), ("down", 4608, 2304))
+#: 17d: the dry run's train_4k rows
+MESH_DRYRUN_ARCHS = ("gemma2-2b", "starcoder2-15b", "internlm2-20b",
+                     "qwen1.5-32b")
+MESH_DRYRUN_MESHES = ("1x4", "1x8", "2x4")
+#: 17d runs in this many processes beside 17a-17c (it needs no card)
+MESH_DRYRUN_PROCS = 2
+
+
+def k3_store_grad_case(torch, gen, dev, role, kk, n, m, peaks):
+    """Phase 17a: K3's fp32 store of bf16 operands under autograd at M =
+    ``m`` rows, ``[m, kk] x [kk, n]`` (a row-parallel o or down shard): the
+    forward on the fp32 store, dy an fp32 cotangent of bf16 values (the
+    ranks' sum's, whose adjoint over "model" is the identity, of the one
+    cast to bf16), and the backward's dx and dw on K3 against the plain
+    products on dz = dy cast to bf16, within ``LM_KERNEL_TOL``; every
+    launch on the wgmma path; dx and dw timed beside the plain version,
+    ``torch.matmul`` and their bound.  Returns the record."""
+    from repro_torch.kernels.matmul_fused import ops as mm_ops
+    from repro_torch.kernels.matmul_fused.ref import matmul_fused_ref
+
+    _, bw_peak, bf16_peak = peaks
+    x = torch.randn((m, kk), generator=gen, device=dev).bfloat16()
+    w = (torch.randn((kk, n), generator=gen, device=dev) / kk ** 0.5
+         ).bfloat16()
+    dy = torch.randn((m, n), generator=gen, device=dev).bfloat16().float()
+    label = f"K3 fp32-store grad {role} M={m} {kk}->{n}"
+    fn = mm_ops.matmul_fused
+    before = (dict(fn.role_launches), dict(fn.path_launches),
+              dict(fn.entry_launches))
+    xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    y = fn(xg, wg, out_dtype=torch.float32)
+    if y.dtype != torch.float32:
+        fail(f"{label}: the forward stored {y.dtype}")
+    y.backward(dy)
+    torch.cuda.synchronize()
+    roles = {k: fn.role_launches[k] - before[0][k] for k in fn.role_launches}
+    paths = {k: fn.path_launches[k] - before[1][k] for k in fn.path_launches}
+    stores = fn.entry_launches["matmul_fused_bf16_f32"] - before[2][
+        "matmul_fused_bf16_f32"]
+    if roles != {"forward": 1, "z": 0, "dx": 1, "dw": 1} or stores != 1:
+        fail(f"{label}: launches by role {roles}, fp32 stores {stores}")
+    if paths != {**dict.fromkeys(paths, 0), "wgmma": 3}:
+        fail(f"{label}: paths {paths}, not the wgmma path alone")
+    dz = dy.bfloat16()
+    wt, xt = w.t().contiguous(), x.t().contiguous()
+    rtol, atol = LM_KERNEL_TOL["bfloat16"]
+    errs = {
+        "dx": _check_close(f"{label} dx", xg.grad,
+                           matmul_fused_ref(dz, wt), atol, rtol),
+        "dw": _check_close(f"{label} dw", wg.grad,
+                           matmul_fused_ref(xt, dz), atol, rtol)}
+    flops = 2.0 * m * kk * n
+    product_bound = 1e3 * max(flops / bf16_peak,
+                              2.0 * (m * n + kk * n + m * kk) / bw_peak)
+    rec = {"kernel": "K3-bf16-f32-grad", "role": role, "rows": m, "k": kk,
+           "n": n, "max_abs_err": errs,
+           "tol": {"rtol": rtol, "atol": atol},
+           "dx_ms": time_ms(torch, lambda: mm_ops._launch(
+               dz, wt, None, "none", role="dx")),
+           "dw_ms": time_ms(torch, lambda: mm_ops._launch(
+               xt, dz, None, "none", role="dw")),
+           "plain_ms": time_ms(torch, lambda: (
+               matmul_fused_ref(dz, wt), matmul_fused_ref(xt, dz)), reps=5),
+           "library_ms": time_ms(torch, lambda: (
+               torch.matmul(dz, w.t()), torch.matmul(x.t(), dz))),
+           "bound_ms": 2 * product_bound, "bound_by": (
+               "operations" if flops / bf16_peak > 2.0 * (
+                   m * n + kk * n + m * kk) / bw_peak else "bytes"),
+           "flops": 2 * flops}
+    rec["ms"] = rec["dx_ms"] + rec["dw_ms"]
+    print("mesh train case " + json.dumps(rec), flush=True)
+    return rec
+
+
+def mesh_cfg_at(layers, dtype="bfloat16"):
+    """``MESH_TRAIN_ARCH`` at full width, ``layers`` deep, in ``dtype``."""
+    import dataclasses
+
+    from repro_torch.core.config import get_arch
+
+    return dataclasses.replace(get_arch(MESH_TRAIN_ARCH), num_layers=layers,
+                               dtype=dtype, param_dtype=dtype)
+
+
+def mesh_rules(mesh_cfg, rows):
+    """``rules_for`` of the uncut arch on ``mesh_cfg`` at a train shape of
+    ``rows`` global rows of ``TRAIN_SEQ`` tokens."""
+    from repro_torch.core.config import ShapeConfig, get_arch
+    from repro_torch.sharding.auto import rules_for
+
+    return rules_for(get_arch(MESH_TRAIN_ARCH), mesh_cfg, ShapeConfig(
+        "train", TRAIN_SEQ, rows, "train"))[0]
+
+
+def mesh_state_bytes(cfg, mesh_cfg, rules, microbatches):
+    """The dry run's bytes a card of a train step's arguments for ``cfg``
+    on ``mesh_cfg`` (``launch.dryrun``'s reckoning at the cut depth):
+    parameters, fp32 moments, gradients and, past one microbatch, their
+    fp32 accumulator."""
+    from repro_torch.launch.dryrun import spec_bytes
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.param import tree_map
+    from repro_torch.train.optimizer import adamw_init_spec
+
+    spec = get_model(cfg).param_spec()
+    fsdp = dict(rules.table).get("embed") is not None
+    out = {"params": spec_bytes(spec, mesh_cfg, rules, cfg.param_dtype)}
+    out["optimizer"] = spec_bytes(adamw_init_spec(
+        spec, zero1=True, dp_size=mesh_cfg.dp_size, fsdp=fsdp),
+        mesh_cfg, rules, "float32")
+    out["grads"] = out["params"]
+    if microbatches > 1:
+        out["grad_acc"] = spec_bytes(tree_map(
+            lambda p: p._replace(dtype="float32"), spec), mesh_cfg, rules,
+            "float32")
+    out["total"] = sum(out.values())
+    return out
+
+
+def mesh_memory_budget(cfg, mesh_cfg, rules, microbatches):
+    """GB the ranks of ``mesh_cfg`` reckon on the one card, by part of one
+    rank, and ``total`` (all ranks): ``mesh_state_bytes``, the logits (as
+    ``train_memory_budget``'s, over the rank's vocab shard and a
+    microbatch's rows), the activations (the rematted units' bf16 inputs
+    and eight fp32 tensors of the widest local projection), the whole
+    weights of one unit and of the embedding gathered over "data" (FSDP)
+    and a card context of 0.6 GB a process."""
+    from repro_torch.launch.dryrun import spec_bytes
+    from repro_torch.models.common import block_spec
+    from repro_torch.nn.embedding import embedding_spec
+    from repro_torch.sharding.rules import logical_to_spec, shards
+
+    dp, mp = mesh_cfg.dp_size, mesh_cfg.model_size
+    cut = lambda logical: shards(logical_to_spec(  # noqa: E731
+        (logical,), mesh_cfg.axes, rules)[0], mesh_cfg)
+    state = mesh_state_bytes(cfg, mesh_cfg, rules, microbatches)
+    tokens = MESH_TRAIN_ROWS * TRAIN_SEQ // microbatches
+    fsdp = cut("embed") > 1
+    unit = 2 * spec_bytes(block_spec(cfg), mesh_cfg, rules,
+                          cfg.param_dtype)
+    embed = spec_bytes(embedding_spec(cfg), mesh_cfg, rules,
+                       cfg.param_dtype)
+    parts = {k: v / 1e9 for k, v in state.items() if k != "total"}
+    parts.update({
+        "logits": ((5 + 2 * bool(cfg.logit_softcap)) * 4 * tokens
+                   * cfg.padded_vocab / cut("vocab") / 1e9),
+        "activations": (cfg.num_layers * tokens * cfg.d_model * 2
+                        + 8 * 4 * tokens * max(cfg.d_ff // cut("ff"),
+                                               4 * cfg.d_model)) / 1e9,
+        "gathered": (dp * (unit + embed) if fsdp else 0) / 1e9,
+        "context": 0.6})
+    per_rank = sum(parts.values())
+    return dict(parts, per_rank=per_rank, ranks=dp * mp,
+                total=per_rank * dp * mp)
+
+
+def mesh_train_cut(mesh_cfg, microbatches, most=MESH_TRAIN_LAYERS):
+    """(config, the cut as ``reduced`` prints it, the ranks' budget, the
+    reference's): the most whole local/global pairs, at most ``most``
+    layers, whose ranks' reckoning
+    (``mesh_memory_budget``) and whose unsharded reference's
+    (``train_memory_budget`` on the global batch at its microbatches)
+    stay within ``TRAIN_MEMORY_LIMIT_GB``."""
+    from repro_torch.core.config import get_arch
+    from repro_torch.models.registry import get_model
+
+    rows = mesh_cfg.dp_size * MESH_TRAIN_ROWS
+    rules = mesh_rules(mesh_cfg, rows)
+    layers = most
+    while True:
+        cfg = mesh_cfg_at(layers)
+        budget = mesh_memory_budget(cfg, mesh_cfg, rules, microbatches)
+        ref = train_memory_budget(get_model(cfg), rows, TRAIN_SEQ,
+                                  mesh_reference_microbatches(
+                                      mesh_cfg, microbatches))
+        if (max(budget["total"], ref["total"]) <= TRAIN_MEMORY_LIMIT_GB
+                or layers <= 2):
+            break
+        layers -= 2
+    full = get_arch(MESH_TRAIN_ARCH).num_layers
+    return cfg, {"num_layers": [full, layers], "why": (
+        f"{mesh_cfg.dp_size * mesh_cfg.model_size} ranks share one card: "
+        f"{layers} layers reckon {budget['total']:.1f} GB for the ranks "
+        f"and {ref['total']:.1f} GB for the unsharded reference, within "
+        f"{TRAIN_MEMORY_LIMIT_GB:.0f}; at most {most} for the phase's "
+        f"time (gloo through host memory)")}, budget, ref
+
+
+def mesh_reference_microbatches(mesh_cfg, microbatches):
+    """The unsharded reference's microbatches: the mesh's, or as many as
+    keep a microbatch to ``MESH_TRAIN_ROWS`` rows (its logits' memory)."""
+    return max(microbatches, mesh_cfg.dp_size)
+
+
+def mesh_batches(torch, np, rows, seq, steps, seed_offset=0):
+    """``steps`` batches of ``rows`` x ``seq`` tokens of the corpus
+    (``MarkovLM(TRAIN_VOCAB)``), on the CPU."""
+    from repro_torch.train.data import MarkovLM
+
+    lm = MarkovLM(TRAIN_VOCAB, seed=SEED)
+    rng = np.random.default_rng(SEED + seed_offset)
+    return [_train_batch(torch, lm, rng, "cpu", rows, seq)
+            for _ in range(steps)]
+
+
+def mesh_tcfg():
+    from repro_torch.core.config import TrainConfig
+
+    return TrainConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                       total_steps=MESH_TRAIN_STEPS + 1)
+
+
+def mesh_fingerprints(torch, tree):
+    """``bits_fingerprint`` of every leaf of ``tree``, keyed by path."""
+    out = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], path + (k,))
+        else:
+            out["/".join(path)] = bits_fingerprint(torch, t)
+
+    walk(tree, ())
+    return out
+
+
+def mesh_one_phase(torch, np, dev, counters, card):
+    """Phase 17b: a 1 x 1 NCCL mesh.  ``MESH_TRAIN_ARCH`` at full width
+    cut to ``MESH_TRAIN_LAYERS``, two steps on ``MESH_TRAIN_ROWS`` rows:
+    the unsharded port, then the dry run's ``_build_step`` on the mesh
+    from the same draws (``shard_init``): the loss, CE and grad norm bit
+    for bit, and every new leaf and moment the same bits
+    (``bits_fingerprint``) after each step.  Returns the record."""
+    import torch.distributed as dist
+
+    from repro_torch.core.config import TINY_MESH, ShapeConfig
+    from repro_torch.launch.dryrun import _build_step
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.transformer import shard_init
+    from repro_torch.nn.param import init_tree
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.step import make_train_step
+
+    t0 = time.perf_counter()
+    cfg = mesh_cfg_at(MESH_TRAIN_LAYERS)
+    batches = [{k: v.to(dev) for k, v in b.items()} for b in mesh_batches(
+        torch, np, MESH_TRAIN_ROWS, TRAIN_SEQ, MESH_TRAIN_STEPS)]
+    tcfg = mesh_tcfg()
+
+    def run(step, params, opt):
+        out = []
+        for b in batches:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, _, m = step(params, opt, b)
+            torch.cuda.synchronize()
+            out.append({"metrics": {k: v.item() for k, v in m.items()},
+                        "ms": 1e3 * (time.perf_counter() - t),
+                        "params": mesh_fingerprints(torch, params),
+                        "m": mesh_fingerprints(torch, opt["m"]),
+                        "v": mesh_fingerprints(torch, opt["v"])})
+        return out
+
+    model = get_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tree = init_tree(model.param_spec(), gen, cfg.param_dtype)
+    model.load_tree(tree)
+    whole = run(make_train_step(model, tcfg), tree, adamw_init(tree))
+    del model, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = MESH_TRAIN_ROWS
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh(TINY_MESH, "cuda")
+        rules = mesh_rules(TINY_MESH, rows)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        local = shard_init(cfg, gen, mesh, rules)
+        step, _ = _build_step(cfg, ShapeConfig("train", TRAIN_SEQ, rows,
+                                               "train"), TINY_MESH, rules,
+                              tcfg=tcfg, microbatches=1)(mesh, local)
+        counters["K3"].launches = 0
+        sharded = run(step, local, adamw_init(local, step.plan()))
+        launches = counters["K3"].launches
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    label = f"{MESH_TRAIN_ARCH} train 1x1 mesh"
+    for i, (a, b) in enumerate(zip(sharded, whole)):
+        for key in ("metrics", "params", "m", "v"):
+            if a[key] != b[key]:
+                differ = (sorted(k for k in a[key] if a[key][k] != b[key][k])
+                          if key != "metrics" else a[key])
+                fail(f"{label}: step {i + 1}'s {key} differ from the "
+                     f"unsharded port's bits: {differ[:10]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = {"mesh": "1x1", "backend": backend, "layers": cfg.num_layers,
+           "reduced": {"num_layers": [26, cfg.num_layers],
+                       "why": f"the 1 x 1 mesh is the unsharded port's "
+                              f"bits: {cfg.num_layers} layers show it"},
+           "rows": rows, "seq": TRAIN_SEQ, "steps": MESH_TRAIN_STEPS,
+           "bits_equal": True, "k3_launches": launches,
+           "metrics": [s["metrics"] for s in sharded],
+           "step_ms": [s["ms"] for s in sharded],
+           "unsharded_step_ms": [s["ms"] for s in whole],
+           "leaves_compared": len(whole[0]["params"]), "card": card,
+           "phase_s": time.perf_counter() - t0}
+    print("mesh17b " + json.dumps(rec), flush=True)
+    return rec
+
+
+def mesh_reference(torch, np, dev, cfg, mesh_cfg, microbatches, work):
+    """The unsharded reference of 17c on ``mesh_cfg``'s global batch:
+    ``cfg`` from ``SEED``'s draws, ``MESH_TRAIN_STEPS`` steps of
+    ``make_train_step`` (at ``mesh_reference_microbatches``); its metrics
+    a step, and its parameters after the first step written to
+    ``work/reference.pt`` (bf16, on the host) for the ranks.  The batches
+    go to ``work/batches.pt``.  Returns (metrics, seconds, step ms)."""
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.param import init_tree, tree_map
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.step import make_train_step
+
+    t0 = time.perf_counter()
+    rows = mesh_cfg.dp_size * MESH_TRAIN_ROWS
+    batches = mesh_batches(torch, np, rows, TRAIN_SEQ, MESH_TRAIN_STEPS)
+    torch.save(batches, work / "batches.pt")
+    model = get_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tree = init_tree(model.param_spec(), gen, cfg.param_dtype)
+    model.load_tree(tree)
+    opt = adamw_init(tree)
+    step = make_train_step(model, mesh_tcfg(), microbatches=(
+        mesh_reference_microbatches(mesh_cfg, microbatches)))
+    metrics, ms = [], []
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, _, m = step(tree, opt, {k: v.to(dev) for k, v in b.items()})
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+        metrics.append({k: v.item() for k, v in m.items()})
+        if i == 0:
+            torch.save(tree_map(lambda t: t.cpu(), tree),
+                       work / "reference.pt")
+    del model, tree, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return metrics, time.perf_counter() - t0, ms
+
+
+def mesh_split(counts):
+    """A collectives record split into the forward's exchanges and the
+    backward's (``".bwd"``)."""
+    out = {"forward": {}, "backward": {}}
+    for name, v in counts.items():
+        side = ("backward" if name.split("/")[0].endswith(".bwd")
+                else "forward")
+        out[side][name] = v
+    return out
+
+
+def mesh_two_phase(torch, np, dev, card, name):
+    """Phase 17c on mesh ``name`` (data x model) over gloo: the depth
+    ``mesh_train_cut``'s; the unsharded reference (``mesh_reference``) run
+    here first and freed; then the ranks, this script started once a rank
+    (``--mt-rank``), each taking ``MESH_TRAIN_STEPS`` steps on its rows
+    through the dry run's ``_build_step``, the first twice from the same
+    state, and the fp32 parity (``mesh_parity``).  Held: the first step's
+    CE, loss and grad norm within ``TP_BF16_TOL`` (relative to max(1,
+    |reference|)) of the reference's, the second's too, the same bits on
+    every rank; every new leaf within the Adam allowance of the
+    reference's (2.02 lr plus one bf16 ulp of the leaf); the parity's
+    metrics, moments and leaves within ``_check_step``'s limits; the
+    leaves that no model axis cuts the same bits on the model ranks of a
+    data group; the repeated step the same bits; the launches a step
+    ``train_expect``'s, on the wgmma path.  Returns the record."""
+    import tempfile
+
+    from repro_torch.launch.mesh import parse_mesh
+
+    t0 = time.perf_counter()
+    mesh_cfg = parse_mesh(name)
+    mb = MESH_TRAIN_MICROBATCHES.get(name, 1)
+    cfg, reduced, budget, ref_budget = mesh_train_cut(
+        mesh_cfg, mb, MESH_TRAIN_DEPTH.get(name, MESH_TRAIN_LAYERS))
+    world = mesh_cfg.num_devices
+    label = f"{MESH_TRAIN_ARCH} train {name} mesh"
+    print(f"{label}: {cfg.num_layers} layers, reduced "
+          f"{json.dumps(reduced)}, microbatches {mb}, reckoned "
+          f"{ {k: round(v, 2) for k, v in budget.items()} } GB", flush=True)
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        ref, ref_s, ref_ms = mesh_reference(torch, np, dev, cfg, mesh_cfg,
+                                            mb, work)
+        (work / "case.json").write_text(json.dumps(
+            {"mesh": name, "layers": cfg.num_layers, "microbatches": mb}))
+        env = dict(os.environ, MKL_CBWR=MKL_CBWR)
+        logs = [open(work / f"rank{r}.log", "w") for r in range(world)]
+        t_ranks = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--seed",
+             str(SEED), "--mt-rank", str(r), "--mt-world", str(world),
+             "--mt-work", str(work)], stdout=logs[r],
+            stderr=subprocess.STDOUT, env=env, cwd=str(ROOT))
+            for r in range(world)]
+        try:
+            deadline = time.perf_counter() + MESH_RANK_TIMEOUT
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                tail = (work / f"rank{r}.log").read_text()[-4000:]
+                fail(f"{label} rank {r} exited {p.returncode}:\n{tail}")
+        ranks = [torch.load(work / f"rank{r}.pt", weights_only=False)
+                 for r in range(world)]
+        ranks_s = time.perf_counter() - t_ranks
+    worst = {}
+    for i, want in enumerate(ref):
+        for k in ("ce", "loss", "grad_norm"):
+            got = [rec["steps"][i]["metrics"][k] for rec in ranks]
+            if len(set(got)) != 1:
+                fail(f"{label}: step {i + 1}'s {k} differs between the "
+                     f"ranks: {got}")
+            err = abs(got[0] - want[k])
+            if not err <= TP_BF16_TOL * max(1.0, abs(want[k])):
+                fail(f"{label}: step {i + 1}'s {k} {got[0]}, the "
+                     f"reference's {want[k]}")
+            worst[f"{k}{i + 1}"] = err
+    expect = train_expect(cfg, mb)
+    want_launches = {
+        "K3": {"forward": expect["K3_forward"] + expect["K3_recompute"],
+               "z": expect["K3_z"], "dx": expect["K3_dx"],
+               "dw": expect["K3_dw"]},
+        "K10": expect["K10_forward"] + expect["K10_backward"],
+        "K10_ml": expect["K10_ml"],
+        "K3_f32_store": (2 * 2 * cfg.num_layers * mb
+                         if mesh_cfg.model_size > 1 else 0)}
+    for r, rec in enumerate(ranks):
+        if not rec["repeat_equal"]:
+            fail(f"{label} rank {r}: the first step taken twice differs: "
+                 f"{rec['repeat_differ'][:10]}")
+        if rec["leaves"]["violations"]:
+            fail(f"{label} rank {r}: new leaves past the Adam allowance of "
+                 f"the reference's: {rec['leaves']['violations'][:10]}")
+        if rec["parity"]["violations"]:
+            fail(f"{label} rank {r} fp32 parity: "
+                 f"{rec['parity']['violations'][:10]}")
+        for i, got in enumerate(rec["launches"]):
+            if {k: got[k] for k in want_launches} != want_launches:
+                fail(f"{label} rank {r} step {i + 1}: launches {got}, "
+                     f"expected {want_launches}")
+            n3 = sum(got["K3"].values())
+            if got["K3_paths"] != {**dict.fromkeys(got["K3_paths"], 0),
+                                   "wgmma": n3}:
+                fail(f"{label} rank {r}: K3's paths {got['K3_paths']}, not "
+                     f"the wgmma path alone")
+    # the leaves and moments no model axis cuts: the same bits on the
+    # model ranks of one data group
+    replicated = 0
+    for a in ranks:
+        for b in ranks:
+            if a is b or a["coords"]["data"] != b["coords"]["data"]:
+                continue
+            for key in a["replicated"]:
+                replicated += 1
+                if a["fingerprints"][key] != b["fingerprints"][key]:
+                    fail(f"{label}: {key} differs between the model ranks "
+                         f"of data rank {a['coords']['data']}")
+    tokens = mesh_cfg.dp_size * MESH_TRAIN_ROWS * TRAIN_SEQ
+    out = {"mesh": name, "backend": "gloo", "ranks": world,
+           "layers": cfg.num_layers, "reduced": reduced,
+           "microbatches": mb, "rows_a_data_rank": MESH_TRAIN_ROWS,
+           "seq": TRAIN_SEQ, "fsdp": ranks[0]["fsdp"],
+           "reckoned_gb": budget, "reference_reckoned_gb": ref_budget,
+           "max_abs_err": worst, "tol": TP_BF16_TOL,
+           "reference": {"metrics": ref, "step_ms": ref_ms,
+                         "microbatches": mesh_reference_microbatches(
+                             mesh_cfg, mb), "seconds": ref_s},
+           "replicated_compared": replicated,
+           "per_rank": [{
+               "coords": rec["coords"],
+               "step_ms": statistics.median(rec["step_ms"]),
+               "step_ms_all": rec["step_ms"],
+               "tokens_per_s": tokens / statistics.median(rec["step_ms"])
+               * 1e3,
+               "peak_memory_gb": rec["peak_gb"],
+               "dryrun_gb": {k: v / 1e9 for k, v in rec["dryrun"].items()},
+               "collectives_a_step": mesh_split(rec["collectives"]),
+               "launches_a_step": rec["launches"][0],
+               "new_leaves_worst": rec["leaves"]["worst"],
+               "parity": {k: v for k, v in rec["parity"].items()
+                          if k != "violations"},
+               "init_s": rec["init_s"]} for rec in ranks],
+           "note": "gloo through host memory, the ranks sharing one card: "
+                   "the times measure nothing of NCCL or NVLink",
+           "ranks_s": ranks_s, "card": card,
+           "phase_s": time.perf_counter() - t0}
+    print("mesh17c " + json.dumps(out), flush=True)
+    r0 = out["per_rank"][0]
+    print(f"{label}: step {r0['step_ms']:.1f} ms ({r0['tokens_per_s']:.0f} "
+          f"tokens/s), peak {r0['peak_memory_gb']:.2f} GB a rank (dry run "
+          f"{r0['dryrun_gb']['total']:.2f} GB of state), wall "
+          f"{out['phase_s']:.1f} s [{card}]", flush=True)
+    return out
+
+
+def _adam_violations(torch, got, want, lr, label, tiny=None):
+    """(the largest error, a description or None): where ``got`` lies
+    past the Adam allowance of ``want``: with ``tiny`` (where the
+    reference's first moment is tiny against its leaf's)
+    ``_check_step``'s limits, else 2.02 lr plus one bf16 ulp of
+    ``want``."""
+    err = (got.float() - want.float()).abs()
+    if tiny is None:
+        ulp = torch.where(want.float() == 0, torch.zeros_like(err),
+                          2.0 ** (torch.floor(torch.log2(
+                              want.float().abs())) - 7))
+        lim = 2.02 * lr + ulp
+    else:
+        lim = torch.where(tiny, torch.full_like(err, 2.02 * lr + 1e-6),
+                          1e-6 * want.float().abs().clamp_min(1.0)
+                          + 1e-3 * lr)
+    over = (err - lim).max().item()
+    return err.max().item(), (f"{label} by {over}" if over > 0 else None)
+
+
+def mesh_parity(torch, np, dev, mesh, mesh_cfg, rules, mb):
+    """The fp32 parity of a rank: ``MESH_PARITY_LAYERS`` layers at full
+    width in fp32 from ``SEED``, one step on ``MESH_PARITY_ROWS`` x
+    ``TRAIN_PARITY_SEQ`` tokens at the mesh's microbatches, first through
+    ``_build_step`` on the rank's shards and rows, every rank at once,
+    then unsharded, one rank at a time (each keeps its slices of the new
+    leaves and moments): the metrics within 1e-5, the moments within 1e-4 and the leaves within
+    ``_check_step``'s limits of the unsharded step's.  Returns the
+    record."""
+    import torch.distributed as dist
+
+    from repro_torch.core.config import ShapeConfig
+    from repro_torch.launch.dryrun import _build_step
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.transformer import shard_init
+    from repro_torch.nn.param import init_tree, tree_leaves
+    from repro_torch.sharding.rules import local_slice, logical_to_spec
+    from repro_torch.train.optimizer import adamw_init, adamw_init_spec
+    from repro_torch.train.step import make_train_step
+
+    t0 = time.perf_counter()
+    cfg = mesh_cfg_at(MESH_PARITY_LAYERS, "float32")
+    coords = dict(zip(mesh_cfg.axes, (int(c) for c in
+                                       mesh.get_coordinate())))
+    batch, = mesh_batches(torch, np, MESH_PARITY_ROWS, TRAIN_PARITY_SEQ, 1,
+                          seed_offset=1)
+    spec = get_model(cfg).param_spec()
+    fsdp = dict(rules.table).get("embed") is not None
+    mspec = adamw_init_spec(spec, zero1=True, dp_size=mesh_cfg.dp_size,
+                            fsdp=fsdp)["m"]
+    pspecs = [logical_to_spec(p.axes, mesh_cfg.axes, rules)
+              for p in tree_leaves(spec)]
+    mspecs = [logical_to_spec(p.axes, mesh_cfg.axes, rules)
+              for p in tree_leaves(mspec)]
+    parts = {}
+
+    def reference():
+        t = time.perf_counter()
+        model = get_model(cfg)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        tree = init_tree(spec, gen, "float32")
+        model.load_tree(tree)
+        opt = adamw_init(tree)
+        torch.cuda.synchronize()
+        parts["init"] = time.perf_counter() - t
+        _, _, ref_m = make_train_step(model, mesh_tcfg(), microbatches=mb)(
+            tree, opt, {k: v.to(dev) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        parts["step"] = time.perf_counter() - t - parts["init"]
+
+        def mine(leaves, specs):
+            return [local_slice(t, s, mesh_cfg, coords).clone()
+                    for t, s in zip(leaves, specs)]
+
+        return {"params": mine(tree_leaves(tree), pspecs),
+                "m": mine(tree_leaves(opt["m"]), mspecs),
+                "v": mine(tree_leaves(opt["v"]), mspecs),
+                # where the moment is tiny against its whole leaf's
+                "tiny": mine([t.abs() <= 1e-3 * max(t.abs().max().item(),
+                                                    1e-30)
+                              for t in tree_leaves(opt["m"])], pspecs)
+                }, {k: v.item() for k, v in ref_m.items()}
+
+    # the sharded step first, on every rank at once: a new process's first
+    # train step costs about 10 s more than the next on an H100's host
+    # (its first torch.utils.checkpoint call imports torch._dynamo), which
+    # the ranks then pay side by side rather than turn by turn
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    local = shard_init(cfg, gen, mesh, rules)
+    step, _ = _build_step(cfg, ShapeConfig(
+        "train", TRAIN_PARITY_SEQ, MESH_PARITY_ROWS, "train"), mesh_cfg,
+        rules, tcfg=mesh_tcfg(), microbatches=mb)(mesh, local)
+    opt = adamw_init(local, step.plan())
+    bspec = logical_to_spec(("batch", "seq"), mesh_cfg.axes, rules)
+    rows = {k: local_slice(v, bspec, mesh_cfg, coords).to(dev)
+            for k, v in batch.items()}
+    _, _, got_m = step(local, opt, rows)
+    got_m = {k: v.item() for k, v in got_m.items()}
+    parts["sharded_step"] = time.perf_counter() - t0
+    # then the unsharded step, one rank at a time: the ranks share one
+    # card, and each whole fp32 step holds about 16 GB
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            ref, ref_m = reference()
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    reference_s = time.perf_counter() - t0 - parts["sharded_step"]
+    parts["turns"] = reference_s
+    violations, worst = [], {}
+    for k, want in ref_m.items():
+        err = abs(got_m[k] - want)
+        worst[k] = err
+        if not err <= 1e-5 * max(1.0, abs(want)):
+            violations.append(f"{k} {got_m[k]} against {want}")
+    lr = ref_m["lr"]
+    for part in ("m", "v"):
+        worst[part] = 0.0
+        for i, (a, b) in enumerate(zip(tree_leaves(opt[part]), ref[part])):
+            e = (a - b).abs().max().item()
+            worst[part] = max(worst[part], e)
+            if not e <= 1e-4 * max(1.0, b.abs().max().item()):
+                violations.append(f"{part} leaf {i} by {e}")
+    worst["param"] = 0.0
+    for i, (a, b, t) in enumerate(zip(tree_leaves(local), ref["params"],
+                                      ref["tiny"])):
+        e, bad = _adam_violations(torch, a, b, lr, f"leaf {i}", t)
+        worst["param"] = max(worst["param"], e)
+        if bad:
+            violations.append(bad)
+    del local, opt, step, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": cfg.num_layers, "rows": MESH_PARITY_ROWS,
+            "seq": TRAIN_PARITY_SEQ, "microbatches": mb,
+            "loss": got_m["loss"], "max_abs_err": worst,
+            "violations": violations, "seconds": time.perf_counter() - t0,
+            "reference_s": reference_s, "parts_s": parts}
+
+
+def mesh_rank_main(args) -> int:
+    """One rank of phase 17c (``--mt-rank``): see ``mesh_two_phase``."""
+    os.environ["MKL_CBWR"] = MKL_CBWR
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.core.config import ShapeConfig
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.matmul_fused import ops as mm_ops
+    from repro_torch.launch.dryrun import _build_step
+    from repro_torch.launch.mesh import make_mesh, parse_mesh
+    from repro_torch.models.transformer import shard_init
+    from repro_torch.nn.param import tree_leaves
+    from repro_torch.sharding import collectives
+    from repro_torch.sharding.rules import local_slice, logical_to_spec
+    from repro_torch.train.optimizer import adamw_init
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: a rank needs the GPU")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = rank_device(torch)
+    _build.library()
+    work, rank = Path(args.mt_work), args.mt_rank
+    case = json.loads((work / "case.json").read_text())
+    dist.init_process_group("gloo", init_method=f"file://{work / 'store'}",
+                            rank=rank, world_size=args.mt_world)
+    try:
+        mesh_cfg = parse_mesh(case["mesh"])
+        mesh = make_mesh(mesh_cfg, "cuda", backend="gloo")
+        coords = dict(zip(mesh_cfg.axes, (int(c) for c in
+                                           mesh.get_coordinate())))
+        mb = case["microbatches"]
+        rows = mesh_cfg.dp_size * MESH_TRAIN_ROWS
+        rules = mesh_rules(mesh_cfg, rows)
+        parity = mesh_parity(torch, np, dev, mesh, mesh_cfg, rules, mb)
+        cfg = mesh_cfg_at(case["layers"])
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+
+        def draw():
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            return shard_init(cfg, gen, mesh, rules)
+
+        local = draw()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        step, model = _build_step(cfg, ShapeConfig(
+            "train", TRAIN_SEQ, rows, "train"), mesh_cfg, rules,
+            tcfg=mesh_tcfg(), microbatches=mb)(mesh, local)
+        opt = adamw_init(local, step.plan())
+        bspec = logical_to_spec(("batch", "seq"), mesh_cfg.axes, rules)
+        batches = [{k: local_slice(v, bspec, mesh_cfg, coords).to(dev)
+                    for k, v in b.items()}
+                   for b in torch.load(work / "batches.pt")]
+        k3, k10 = mm_ops.matmul_fused, attn_ops.flash_attention
+
+        def zero():
+            for fn in (k3, k10):
+                fn.launches = 0
+                for p in fn.path_launches:
+                    fn.path_launches[p] = 0
+            for table in (k3.role_launches, k3.entry_launches):
+                for key in table:
+                    table[key] = 0
+            k10.ml_launches = 0
+            collectives.reset_counts()
+
+        def counted(batch):
+            zero()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, _, m = step(local, opt, batch)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t)
+            launches = {"K3": dict(k3.role_launches),
+                        "K3_paths": dict(k3.path_launches),
+                        "K3_f32_store": k3.entry_launches[
+                            "matmul_fused_bf16_f32"],
+                        "K10": k10.launches, "K10_ml": k10.ml_launches}
+            return ({k: v.item() for k, v in m.items()}, ms, launches,
+                    collectives.counts_by_name())
+
+        m1, ms1, l1, coll = counted(batches[0])
+        # the new leaves against the reference's, each the rank's slice
+        ref = torch.load(work / "reference.pt", mmap=True)
+        spec = model.param_spec()
+        keys, pspecs = [], []
+
+        def walk(s, path):
+            if isinstance(s, dict):
+                for k in sorted(s):
+                    walk(s[k], path + (k,))
+            else:
+                keys.append("/".join(path))
+                pspecs.append(logical_to_spec(s.axes, mesh_cfg.axes, rules))
+
+        walk(spec, ())
+        violations, worst = [], 0.0
+        for key, sp, got, want in zip(keys, pspecs, tree_leaves(local),
+                                      tree_leaves(ref)):
+            e, bad = _adam_violations(
+                torch, got, local_slice(want, sp, mesh_cfg, coords).to(dev),
+                m1["lr"], key)
+            worst = max(worst, e)
+            if bad:
+                violations.append(bad)
+        del ref
+        first = {"params": mesh_fingerprints(torch, local),
+                 "m": mesh_fingerprints(torch, opt["m"]),
+                 "v": mesh_fingerprints(torch, opt["v"])}
+        # the first step again from the same state: the same draws, zero
+        # moments
+        for t_, s_ in zip(tree_leaves(local), tree_leaves(draw())):
+            t_.copy_(s_)
+        for t_ in tree_leaves(opt):
+            t_.zero_()
+        m1b, ms1b, l1b, _ = counted(batches[0])
+        again = {"params": mesh_fingerprints(torch, local),
+                 "m": mesh_fingerprints(torch, opt["m"]),
+                 "v": mesh_fingerprints(torch, opt["v"])}
+        differ = [f"{part}:{k}" for part in first for k in first[part]
+                  if first[part][k] != again[part][k]]
+        differ += [k for k in m1 if m1[k] != m1b[k]]
+        m2, ms2, l2, _ = counted(batches[1])
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        prints = {f"params:{k}": v for k, v in
+                  mesh_fingerprints(torch, local).items()}
+        prints.update({f"m:{k}": v for k, v in
+                       mesh_fingerprints(torch, opt["m"]).items()})
+        replicated = [f"{part}:{k}" for part in ("params", "m")
+                      for k, sp in zip(keys, pspecs)
+                      if "model" not in str(sp)]
+        rec = {"coords": coords, "fsdp": rules.lookup("embed"),
+               "steps": [{"metrics": m1}, {"metrics": m2}],
+               "step_ms": [ms1, ms1b, ms2], "launches": [l1, l1b, l2],
+               "collectives": coll, "repeat_equal": not differ,
+               "repeat_differ": differ,
+               "leaves": {"worst": worst, "violations": violations},
+               "parity": parity, "fingerprints": prints,
+               "replicated": replicated, "peak_gb": peak,
+               "dryrun": mesh_state_bytes(cfg, mesh_cfg, rules, mb),
+               "init_s": init_s}
+        torch.save(rec, work / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_dryrun_main(args) -> int:
+    """Part ``--mesh-dryrun-part i/n`` of 17d's records
+    (``MESH_DRYRUN_ARCHS`` x ``MESH_DRYRUN_MESHES`` at ``train_4k``, every
+    n-th from the i-th), written as JSON to ``--mesh-dryrun``."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import parse_mesh
+
+    i, n = (int(v) for v in args.mesh_dryrun_part.split("/"))
+    combos = [(a, m) for a in MESH_DRYRUN_ARCHS for m in MESH_DRYRUN_MESHES]
+    recs = [dryrun.run_one(a, "train_4k", parse_mesh(m))
+            for a, m in combos[i::n]]
+    Path(args.mesh_dryrun).write_text(json.dumps(recs))
+    return 0
+
+
+def mesh_dryrun_start(work):
+    """Start 17d's ``MESH_DRYRUN_PROCS`` processes; returns them with the
+    files they write."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    out = []
+    for i in range(MESH_DRYRUN_PROCS):
+        path = work / f"dryrun{i}.json"
+        log = open(work / f"dryrun{i}.log", "w")
+        p = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-dryrun",
+             str(path), "--mesh-dryrun-part", f"{i}/{MESH_DRYRUN_PROCS}"],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=str(ROOT))
+        out.append((p, path, log))
+    return out
+
+
+def mesh_dryrun_rows(started, card):
+    """Phase 17d: the records of ``mesh_dryrun_start``'s processes, each
+    printed; gemma2-2b and qwen1.5-32b must be traced at 1 x 4."""
+    from repro_torch.launch import dryrun
+
+    rows = []
+    for p, path, log in started:
+        try:
+            p.wait(timeout=MESH_RANK_TIMEOUT)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        if p.returncode != 0:
+            fail(f"17d dry run exited {p.returncode}:\n"
+                 f"{Path(log.name).read_text()[-4000:]}")
+        rows += json.loads(path.read_text())
+    for rec in rows:
+        print("mesh17d " + dryrun.summary(rec) + f" [{card}]", flush=True)
+    for arch in ("gemma2-2b", "qwen1.5-32b"):
+        rec = next(r for r in rows if r["arch"] == arch
+                   and r["mesh"] == "1x4")
+        if not rec["traced"]:
+            fail(f"17d: {arch} train_4k at 1x4 not traced: "
+                 f"{rec['why_not_traced']}")
+    return rows
+
+
+def mesh_phase(torch, np, dev, peaks, counters, card):
+    """Phase 17: 17a-17d; returns (cases, 1x1 record, the meshes'
+    records, dry-run rows)."""
+    import tempfile
+
+    t17 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        started = mesh_dryrun_start(Path(work))
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        cases = [k3_store_grad_case(torch, gen, dev, role, kk, n,
+                                    MESH_TRAIN_ROWS * TRAIN_SEQ, peaks)
+                 for role, kk, n in K3_STORE_GRAD_SHAPES]
+        gc.collect()
+        torch.cuda.empty_cache()
+        one = mesh_one_phase(torch, np, dev, counters, card)
+        meshes = {name: mesh_two_phase(torch, np, dev, card, name)
+                  for name in MESH_TRAIN_MESHES}
+        rows = mesh_dryrun_rows(started, card)
+    print(f"phase 17 wall time {time.perf_counter() - t17:.1f} s (1x1 "
+          f"{one['phase_s']:.1f}, "
+          + ", ".join(f"{k} {v['phase_s']:.1f}" for k, v in meshes.items())
+          + f") [{card}]", flush=True)
+    return cases, one, meshes, rows
+
+
 def main() -> int:
     global SEED
     t_smoke = time.perf_counter()
@@ -4906,10 +5879,20 @@ def main() -> int:
     ap.add_argument("--tp-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--tp-world", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--tp-work", help=argparse.SUPPRESS)
+    # one rank of phase 17c, and a part of 17d, started by the smoke itself
+    ap.add_argument("--mt-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--mt-world", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--mt-work", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-dryrun", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-dryrun-part", help=argparse.SUPPRESS)
     args = ap.parse_args()
     SEED = args.seed
     if args.tp_rank is not None:
         return tp_rank_main(args)
+    if args.mt_rank is not None:
+        return mesh_rank_main(args)
+    if args.mesh_dryrun is not None:
+        return mesh_dryrun_main(args)
 
     # before torch loads: MKL reads its reproducibility mode once (F3)
     os.environ["MKL_CBWR"] = MKL_CBWR
@@ -5238,7 +6221,19 @@ def main() -> int:
         torch, F, np, dev, peaks, counters, card_line)
     tp_runs = [tp_one] + tp_two["per_rank"]
 
-    # -- 17. the kernels line -----------------------------------------------
+    # -- 17. training on a mesh: gemma2-2b data and tensor parallel ----------
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_cases, mesh_one, mesh_runs, mesh_dry = mesh_phase(
+        torch, np, dev, peaks, counters, card_line)
+    # each 17c rank's first step, summed: K3 by role and its fp32 stores,
+    # K10 and its launches with m and l
+    mesh_ranks = [r["launches_a_step"] for m in mesh_runs.values()
+                  for r in m["per_rank"]]
+    mesh_k3 = {role: sum(r["K3"][role] for r in mesh_ranks)
+               for role in ("forward", "z", "dx", "dw")}
+
+    # -- 18. the kernels line -----------------------------------------------
     kernels = []
     for kid, (name, src, replaces) in sources.items():
         mine = [c for c in cases if c["kernel"] == kid]
@@ -5302,7 +6297,8 @@ def main() -> int:
         [c for c in k10 if c["main"]], k10_wgmma["wgmma"],
         max(c["max_abs_err"] for c in k10 if c["path"] == "wgmma"),
         path="wgmma", paths=k10_wgmma,
-        train_ml_launches=sum(t["launches"]["K10_ml"] for t in trained)))
+        train_ml_launches=sum(t["launches"]["K10_ml"] for t in trained),
+        mesh_train_launches=sum(r["K10"] for r in mesh_ranks)))
     kernels.append(lm_entry(
         "flash_attention_simt", k10_src, k10_pallas,
         [c for c in k10 if c["dtype"] == "float32"
@@ -5325,7 +6321,8 @@ def main() -> int:
         lm["launches"]["K3"] + sum(r["launches"]["K3"] for r in served_k3)
         + sum(r["launches"]["K3"] for r in tp_runs),
         max(c["max_abs_err"] for c in k3_all),
-        train_backward_launches=k3_backward))
+        train_backward_launches=k3_backward,
+        mesh_train_launches=mesh_k3))
     kernels.append(lm_entry(
         "matmul_fused_bf16_wgmma", "src/repro_torch/csrc/matmul_fused.cu",
         "src/repro/kernels/matmul_fused/kernel.py:37",
@@ -5341,13 +6338,22 @@ def main() -> int:
     # shapes of 16a at M = 4 and 4500
     k3_f32 = [c for c in tp_cases if c["kernel"] == "K3-bf16"
               and c["store"] == "float32"]
+    # 17a's backward cases beside them: dx and dw on the fp32 store's dz,
+    # and 17c's ranks' fp32 stores (the row-parallel o and down)
     kernels.append(lm_entry(
         "matmul_fused_bf16_f32", "src/repro_torch/csrc/matmul_fused.cu",
         "src/repro/kernels/matmul_fused/kernel.py:37",
         [c for c in k3_f32 if c["main"]],
         sum(r["store_launches"]["matmul_fused_bf16_f32"]
-            for r in tp_two["per_rank"]),
-        max(c["max_abs_err"] for c in k3_f32)))
+            for r in tp_two["per_rank"])
+        + sum(r["K3_f32_store"] for r in mesh_ranks),
+        max(c["max_abs_err"] for c in k3_f32),
+        mesh_train_store_launches=sum(r["K3_f32_store"]
+                                      for r in mesh_ranks),
+        backward={k: sum(c[k] for c in mesh_cases) for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms")},
+        backward_max_abs_err=max(max(c["max_abs_err"].values())
+                                 for c in mesh_cases)))
     k11 = next(c for c in rwkv_cases if c["kernel"] == "K11" and c["main"])
     kernels.append({
         "name": "wkv6", "route": "cuda",
@@ -5390,7 +6396,9 @@ def main() -> int:
              "dense_cases": dense_cases,
              "dense_parity": dense_parity, "dense": dense,
              "tp_cases": tp_cases, "tp_one": tp_one, "tp_two": tp_two,
-             "tp_dryrun": tp_dry,
+             "tp_dryrun": tp_dry, "mesh_cases": mesh_cases,
+             "mesh_one": mesh_one, "mesh_runs": mesh_runs,
+             "mesh_dryrun": mesh_dry,
              "capture": capture, "kernels": kernels},
             indent=1))
     print(f"smoke wall time {time.perf_counter() - t_smoke:.1f} s",

@@ -182,6 +182,9 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, cap, scale, chunk):
+        if q.device.type == "meta":  # the dry run's trace: shapes alone
+            ctx.meta, ctx.like = None, (q, k, v)
+            return torch.empty_like(q)
         if q.device.type == "cuda":
             out, m, l = _launch(q, k, v, causal, window, cap, scale, ml=True)
         else:
@@ -195,6 +198,9 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
+        if ctx.meta is None:
+            return (*(torch.empty_like(t) for t in ctx.like), None, None,
+                    None, None, None)
         q, k, v, out, m, l = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, m, l, do, **ctx.meta)
         return dq, dk, dv, None, None, None, None, None
@@ -210,7 +216,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, attn_softcap=0.0,
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    if q.device.type in ("cpu", "cuda") and torch.is_grad_enabled() and (
+    if torch.is_grad_enabled() and (
             q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, causal, window, attn_softcap,
                                       scale, chunk)

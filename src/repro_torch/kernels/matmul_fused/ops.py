@@ -182,12 +182,24 @@ def act_grad(act: str, z):
 class MatmulFusedFn(torch.autograd.Function):
     """K3 with its backward on K3: ``dx = dz w^T`` and ``dw = x^T dz`` on
     copies of the transposed operands, ``dz = dy act'(z)`` in fp32 cast to
-    x's dtype, ``db`` its fp32 column sum.  x is 2-D."""
+    x's dtype, ``db`` its fp32 column sum.  x is 2-D.
+
+    With ``out_dtype`` fp32 for bf16 operands (the fp32 store of a
+    row-parallel partial, ``nn.linear.dense``) dy is fp32, and dz is cast
+    to bf16 before K3's dx and dw, as a bf16 store's dz is.  Where the
+    partial feeds only the ranks' sum (whose adjoint over "model" is the
+    identity), an fp32 bias and the one cast to x's dtype, with the
+    activation "none" (gemma2's and qwen1.5's o and down), dy is the
+    cotangent of that bf16 cast, upcast: bf16 values, and the cast back
+    is exact.  Where an activation follows the sum (``dense``'s ``act``
+    after a row-parallel product), dy carries act' in fp32 and the cast
+    rounds it once, as JAX's bf16 product rounds its own dz."""
 
     @staticmethod
-    def forward(ctx, x, w, b, act):
+    def forward(ctx, x, w, b, act, out_dtype):
         ctx.act = act
-        y = _call(x, w, b, act)
+        y = (_call(x, w, b, act) if out_dtype is None
+             else _call(x, w, b, act, out_dtype=out_dtype))
         # relu's act'(z) is y > 0 (y and z share their sign)
         ctx.save_for_backward(x, w, b, y if act == "relu" else None)
         return y
@@ -198,9 +210,9 @@ class MatmulFusedFn(torch.autograd.Function):
         act = ctx.act
         dy = dy.contiguous()
         if act == "none":
-            dz = dy
+            dz = dy.to(x.dtype)
         elif act == "relu":
-            dz = dy * (y > 0).to(dy.dtype)
+            dz = (dy * (y > 0).to(dy.dtype)).to(x.dtype)
         else:
             z = _call(x, w, b, "none", role="z")
             dz = (dy.to(ACC_DTYPE) * act_grad(act, z)).to(x.dtype)
@@ -211,14 +223,14 @@ class MatmulFusedFn(torch.autograd.Function):
             dw = _call(x.t().contiguous(), dz, None, "none", role="dw")
         if b is not None and ctx.needs_input_grad[2]:
             db = dz.to(ACC_DTYPE).sum(dim=0)
-        return dx, dw, db, None
+        return dx, dw, db, None, None
 
 
 def matmul_fused(x, w, b=None, act: str = "none", out_dtype=None):
     """y = act(x @ w + b).  Leading dims of x are flattened to M.  fp32
     accumulation, bias and activation; one cast to x's dtype, or to
     ``out_dtype`` (fp32 for bf16 operands: no cast).  Under autograd it
-    goes through :class:`MatmulFusedFn` (x's dtype only)."""
+    goes through :class:`MatmulFusedFn`."""
     if act not in _ACTS:
         raise ValueError(f"unknown activation {act!r}")
     if x.shape[-1] != w.shape[0]:
@@ -230,10 +242,7 @@ def matmul_fused(x, w, b=None, act: str = "none", out_dtype=None):
     if torch.is_grad_enabled() and (
             x.requires_grad or w.requires_grad
             or (b is not None and b.requires_grad)):
-        if _out_dtype(x.dtype, out_dtype) != x.dtype:
-            raise NotImplementedError("matmul_fused: a gradient through an "
-                                      "fp32 store of bf16 operands")
-        return MatmulFusedFn.apply(x, w, b, act)
+        return MatmulFusedFn.apply(x, w, b, act, out_dtype)
     return _call(x, w, b, act, out_dtype=out_dtype)
 
 

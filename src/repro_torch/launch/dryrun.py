@@ -1,29 +1,36 @@
 """The dry run: every (architecture x input shape x mesh) reckoned
-against the card, and the dense family's prefill and decode step traced
-over the mesh.  The port's counterpart of ``repro.launch.dryrun``.
+against the card, and the dense family's train, prefill and decode steps
+traced over the mesh.  The port's counterpart of
+``repro.launch.dryrun``.
 
 For each combination it records the sharding rules' notes
 (``sharding.auto.rules_for``, the variants' after them), the JAX
 package's switch to an int8 KV cache above ``KV_QUANT_THRESHOLD_BYTES``
 a device, and the bytes a device holds as arguments of the step: the
 parameters, the cache, the batch and, for ``train_4k``, the optimizer's
-moments (``adamw_init_spec(zero1=True, fsdp=...)``), each leaf at its
+moments (``adamw_init_spec(zero1=True, fsdp=...)``), the gradients (the
+parameters' local bytes) and, where the step takes more than one
+microbatch, their accumulator in ``grad_acc_dtype``, each leaf at its
 shard shape under the rules.  The fit is against ``CARD_MEMORY_BYTES``.
 Temporaries (activations, the logits) are not reckoned.
 
-For the dense family's prefill and decode shapes, the step that
-:func:`_build_step` builds (the one the tests and the smoke execute) is
-traced on meta tensors of the local shapes, as rank 0 of a fake process
-group of the mesh's size: the kernels' wrappers return shapes alone, and
-the collectives are counted, not run (``sharding.collectives.COUNTS``:
-calls and bytes a step by collective and mesh axis; the role of the JAX
-package's ``hlo_analysis``).  A family or rule the executed path lacks
-is recorded as ``"traced": false`` with its reason, never replicated in
-silence.  ``train_4k`` is reckoned from specs only.
+For the dense family, the step that :func:`_build_step` builds (the one
+the tests and the smoke execute) is traced on meta tensors of the local
+shapes, as rank 0 of a fake process group of the mesh's size: the
+kernels' wrappers return shapes alone, and the collectives are counted,
+not run (``sharding.collectives.COUNTS``: calls and bytes a step by
+collective and mesh axis, a backward's apart; the role of the JAX
+package's ``hlo_analysis``).  A train step traces one microbatch's
+forward, backward and the update, and counts the microbatch's
+collectives as many times as the step takes microbatches.  A family or
+rule the executed path lacks is recorded as ``"traced": false`` with its
+reason, never replicated in silence.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen1.5-32b --shape decode_32k \\
       --mesh 1x4 [--variant head_pad+int8kv] [--out DIR]
+  python -m repro_torch.launch.dryrun --arch gemma2-2b --shape train_4k \\
+      --mesh 1x4
   python -m repro_torch.launch.dryrun --all [--multi-pod | --mesh DxM]
 """
 from __future__ import annotations
@@ -51,29 +58,72 @@ CARD_MEMORY_BYTES = 80 * 10**9
 _BYTES = {"bfloat16": 2, "float16": 2, "float32": 4, "int8": 1, "int32": 4}
 
 
+def train_settings(cfg: ModelConfig, shape: ShapeConfig,
+                   mesh_cfg: MeshConfig, microbatches=None) -> dict:
+    """The JAX dry run's train settings for ``cfg`` at ``shape`` on
+    ``mesh_cfg``: ``default_microbatches`` at 4096 local tokens for the
+    vlm and audio families and 8192 otherwise (or ``microbatches``), and
+    bf16 moments and gradient accumulation above 100 B parameters."""
+    from repro_torch.train.step import default_microbatches
+
+    big = cfg.num_params() > 100e9
+    mlt = 4096 if cfg.family in ("vlm", "audio") else 8192
+    return {"microbatches": microbatches or default_microbatches(
+                shape.global_batch * shape.seq_len, mesh_cfg.dp_size,
+                max_local_tokens=mlt),
+            "grad_acc_dtype": "bfloat16" if big else "float32",
+            "moment_dtype": "bfloat16" if big else "float32"}
+
+
 def _build_step(cfg: ModelConfig, shape: ShapeConfig, mesh_cfg: MeshConfig,
-                rules):
+                rules, *, tcfg=None, microbatches=None):
     """The step of ``shape`` over one rank's shards: ``build(mesh,
     params)`` loads the rank's tree ``params`` (``shard_params`` /
     ``shard_init``'s, or meta tensors of the local shapes) into a
-    ``TransformerLM(cfg, mesh_cfg, rules)`` and returns ``(step,
-    model)``: ``prefill(batch, cache) -> (logits, cache, aux)`` for a
-    prefill shape, ``serve_step(tokens, positions, cache) -> (logits,
-    cache)`` for a decode shape, each run under the mesh's
-    ``activation_sharding``.  Raises NotImplementedError for a train
-    shape, and (``check_executed``) for a rule the path does not take."""
+    ``TransformerLM(cfg, mesh_cfg, rules)`` and returns ``(step, model)``:
+    ``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)`` for a train shape (``make_train_step`` with
+    ``train_settings``' microbatches, ``microbatches`` if given, and
+    ``tcfg`` or the default ``TrainConfig``; the rank's rows of the
+    global batch, ``params`` the tree the model was built on),
+    ``prefill(batch, cache) -> (logits, cache, aux)`` for a prefill shape,
+    ``serve_step(tokens, positions, cache) -> (logits, cache)`` for a
+    decode shape, each run under the mesh's ``activation_sharding``.
+    Raises NotImplementedError (``check_executed``) for a rule the path
+    does not take."""
+    from repro_torch.core.config import TrainConfig
     from repro_torch.models.transformer import TransformerLM, check_executed
     from repro_torch.sharding.ctx import activation_sharding, global_sizes
+    from repro_torch.train.step import make_train_step
 
-    if shape.kind == "train":
-        raise NotImplementedError(f"{shape.name}: the train step on a mesh "
-                                  f"is not in the executed path yet")
     check_executed(cfg, mesh_cfg, rules)
     sizes = global_sizes(cfg, shape.global_batch)
 
     def build(mesh, params):
         model = TransformerLM(cfg, mesh_cfg, rules).load_tree(params)
         window = model.effective_window(shape)
+
+        if shape.kind == "train":
+            settings = train_settings(cfg, shape, mesh_cfg, microbatches)
+            # the activations hold a microbatch's rows
+            mb_sizes = global_sizes(cfg, shape.global_batch
+                                    // settings["microbatches"])
+            inner = make_train_step(
+                model, tcfg or TrainConfig(), window_override=window,
+                microbatches=settings["microbatches"],
+                grad_acc_dtype=settings["grad_acc_dtype"])
+
+            def under_mesh(fn):
+                def run(*args, **kw):
+                    with activation_sharding(mesh, rules, mb_sizes):
+                        return fn(*args, **kw)
+                return run
+
+            train_step = under_mesh(inner)
+            for name in ("accumulate", "finish", "plan"):
+                setattr(train_step, name, under_mesh(getattr(inner, name)))
+            train_step.microbatches = settings["microbatches"]
+            return train_step, model
 
         if shape.kind == "prefill":
             def prefill(batch, cache):
@@ -124,7 +174,11 @@ def kv_quant_switch(cfg: ModelConfig, shape: ShapeConfig,
 
 def _trace(cfg, shape, mesh_cfg, rules, model_spec, window):
     """One step of ``_build_step`` on meta tensors as rank 0 of a fake
-    group of the mesh's size: the collectives it calls, by name."""
+    group of the mesh's size: the collectives it calls, by name.  A train
+    step traces one microbatch's forward and backward, counts its
+    collectives once a microbatch, and adds the once-a-step exchanges of
+    ``finish`` (the data ranks' gradient sums, the norm's, the ZeRO-1
+    gathers)."""
     from repro_torch.launch.inputs import input_specs
     from repro_torch.launch.mesh import fake_group, make_production_mesh
     from repro_torch.nn.param import DTYPES, tree_map
@@ -143,6 +197,8 @@ def _trace(cfg, shape, mesh_cfg, rules, model_spec, window):
     with fake_group(mesh_cfg.num_devices):
         mesh = make_production_mesh(mesh_cfg=mesh_cfg)
         step, model = build(mesh, params)
+        if shape.kind == "train":
+            return _trace_train(step, params, batch, collectives)
         cache = model.init_cache(shape.global_batch, shape.seq_len, window,
                                  device="meta")
         collectives.reset_counts()
@@ -154,11 +210,34 @@ def _trace(cfg, shape, mesh_cfg, rules, model_spec, window):
     return {"logits_shape": list(logits.shape), "collectives": counts}
 
 
+def _trace_train(step, params, batch, collectives) -> dict:
+    """``step``'s collectives a train step: one microbatch's times the
+    microbatches, plus ``finish``'s."""
+    from repro_torch.train.optimizer import adamw_init
+
+    k = step.microbatches
+    opt = adamw_init(params, step.plan())
+    collectives.reset_counts()
+    grads, metrics = step.accumulate(params, batch, [0])
+    per_mb = collectives.counts_by_name()
+    collectives.reset_counts()
+    step.finish(params, opt, grads, metrics)
+    once = collectives.counts_by_name()
+    total = {}
+    for name in sorted(set(per_mb) | set(once)):
+        a, b = per_mb.get(name, {}), once.get(name, {})
+        total[name] = {f: k * a.get(f, 0) + b.get(f, 0)
+                       for f in ("calls", "bytes")}
+    return {"microbatches": k, "collectives": total,
+            "collectives_microbatch": per_mb, "collectives_once": once}
+
+
 def run_one(arch: str, shape: Union[str, ShapeConfig], mesh_cfg: MeshConfig,
             variants: Sequence[str] = (), trace: bool = True) -> dict:
     """The record of ``arch`` at ``shape`` (a name of ``SHAPES`` or a
     ``ShapeConfig``) on ``mesh_cfg``."""
     from repro_torch.models.registry import get_model
+    from repro_torch.nn.param import tree_map
     from repro_torch.sharding.auto import rules_for
     from repro_torch.train.optimizer import adamw_init_spec
 
@@ -197,10 +276,19 @@ def run_one(arch: str, shape: Union[str, ShapeConfig], mesh_cfg: MeshConfig,
     per = {"params": spec_bytes(spec, mesh_cfg, rules, cfg.param_dtype)}
     if shape.kind == "train":
         fsdp = dict(rules.table).get("embed") is not None
-        big = cfg.num_params() > 100e9
+        settings = train_settings(cfg, shape, mesh_cfg, mb_override)
         opt = adamw_init_spec(spec, zero1=True, dp_size=dp, fsdp=fsdp,
-                              moment_dtype="bfloat16" if big else "float32")
+                              moment_dtype=settings["moment_dtype"])
         per["optimizer"] = spec_bytes(opt, mesh_cfg, rules, "float32")
+        # the backward's gradient buffers, in the parameters' local shapes
+        # and types, and the microbatches' accumulator beside them
+        per["grads"] = per["params"]
+        if settings["microbatches"] > 1:
+            per["grad_acc"] = spec_bytes(
+                tree_map(lambda p: p._replace(
+                    dtype=settings["grad_acc_dtype"]), spec),
+                mesh_cfg, rules, cfg.param_dtype)
+        rec["microbatches"] = settings["microbatches"]
     else:
         per["cache"] = spec_bytes(
             model.cache_spec(shape.global_batch, shape.seq_len, window),
@@ -220,10 +308,7 @@ def run_one(arch: str, shape: Union[str, ShapeConfig], mesh_cfg: MeshConfig,
         rec["why_not_traced"] = "not asked"
     elif cfg.family != "dense":
         rec["why_not_traced"] = (f"the {cfg.family} family: the trace is of "
-                                 f"the dense family's prefill and decode")
-    elif shape.kind == "train":
-        rec["why_not_traced"] = (f"{shape.name}: the train step on a mesh "
-                                 f"is reckoned from specs only")
+                                 f"the dense family's steps")
     else:
         try:
             rec.update(_trace(cfg, shape, mesh_cfg, rules, spec, window))

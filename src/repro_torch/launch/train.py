@@ -7,8 +7,9 @@ Example:
 
 It runs on ``cuda`` unless ``--device`` names another device (``--device
 cpu`` runs the plain versions), and raises when there is no GPU and no
-device is named.  The JAX launcher's mesh and sharding context have no
-counterpart on one card (ROADMAP.md, queue 1 item 6).  The corpus,
+device is named.  It trains on one device: the train step on a mesh
+is ``launch.dryrun._build_step``'s, over a process group the caller
+initialises (ROADMAP.md, queue 1, "The mesh").  The corpus,
 ``MarkovLM(vocab)``, is a vocab x vocab float64 matrix (524 GB at
 gemma2's 256000), so the launcher is for ``--reduced`` archs, as the JAX
 one is.  The vlm and audio families get zero media embeddings or frames,

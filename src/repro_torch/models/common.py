@@ -31,6 +31,7 @@ from repro_torch.nn.norm import (layernorm_apply, layernorm_spec,
                                  rmsnorm_apply, rmsnorm_spec)
 from repro_torch.nn.param import (DTYPES, Param, init_tree, is_param,
                                   tree_map)
+from repro_torch.sharding import ctx as shard_ctx
 from repro_torch.sharding.ctx import shard_act
 
 #: the batch axis of every cache leaf: [n_scan, batch, S, kvh, hd] for a
@@ -125,10 +126,21 @@ def layer_call(remat: bool):
     while grad is enabled, under ``torch.utils.checkpoint`` (non-reentrant:
     the unit's activations are dropped after its forward and recomputed in
     the backward), as the JAX package's ``remat="full"`` in train mode;
-    else a plain call."""
+    else a plain call.  The recompute runs under the forward's sharding
+    context (``sharding.ctx.installed``): autograd runs a CUDA backward on
+    a thread of its own, which does not see the forward's."""
     if remat and torch.is_grad_enabled():
-        return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False,
-                                            preserve_rng_state=False)
+        def call(fn, *args):
+            # the recompute runs under the forward's sharding context
+            sharding = shard_ctx.current()
+
+            def run(*a):
+                with shard_ctx.installed(sharding):
+                    return fn(*a)
+
+            return checkpoint(run, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return call
     return lambda fn, *args: fn(*args)
 
 

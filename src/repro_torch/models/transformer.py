@@ -35,6 +35,7 @@ from repro_torch.models.common import (BaseModel, _accumulate_aux,
 from repro_torch.nn.embedding import embed_tokens, embedding_spec, lm_logits
 from repro_torch.nn.param import (DTYPES, ParamTree, _initialize, is_param,
                                   stack_spec, tree_map)
+from repro_torch.sharding.collectives import gather_over
 from repro_torch.sharding.rules import (AxisRules, entry_axes, kv_cache_spec,
                                         local_shape, local_slice, local_spec,
                                         logical_to_spec, shards)
@@ -58,6 +59,9 @@ class TransformerLM(BaseModel):
         if mesh_cfg is not None:
             check_executed(cfg, mesh_cfg, rules)
         dt = cfg.param_dtype
+        self._fsdp = {k: fsdp_plan(v, mesh_cfg, rules) for k, v in (
+            ("embed", embedding_spec(cfg)), ("ln_f", norm_spec(cfg)),
+            ("unit", self._unit_spec()))}
         spec = self._local(self.param_spec())
         self.embed = ParamTree(spec["embed"], dt)
         self.layers = nn.ModuleList(
@@ -102,7 +106,10 @@ class TransformerLM(BaseModel):
 
     def _unit(self, unit, x, c_i, lw, gw, kw):
         """One layer unit (a local/global pair for gemma2) -> (its output,
-        its blocks' aux losses summed)."""
+        its blocks' aux losses summed); its FSDP'd leaves gathered here,
+        inside the remat, so that the backward's recompute gathers them
+        again and no whole weight outlives its unit."""
+        unit = fsdp_gather(unit, self._fsdp["unit"])
         if self.pair:
             blocks = [(unit[k], w, None if c_i is None else c_i[k])
                       for k, w in (("local", lw), ("global", gw))]
@@ -129,7 +136,8 @@ class TransformerLM(BaseModel):
                         kw)
             if aux is not None:
                 aux = _accumulate_aux(aux, a)
-        return norm_apply(self.ln_f, x, self.cfg), aux
+        return norm_apply(fsdp_gather(self.ln_f, self._fsdp["ln_f"]), x,
+                          self.cfg), aux
 
     # -- forward (prefill) ------------------------------------------------------
     def forward(self, batch: dict, mode: str = "train", *,
@@ -145,12 +153,14 @@ class TransformerLM(BaseModel):
         if positions is None:
             positions = torch.arange(tokens.shape[1],
                                      device=tokens.device)[None, :]
-        x = embed_tokens(self.embed, tokens, self.cfg,
+        embed = fsdp_gather(self.embed, self._fsdp["embed"])
+        x = embed_tokens(embed, tokens, self.cfg,
                          scale_by_dim=self.cfg.rms_plus_one)
         lw, gw = self._windows(window_override)
         x, aux = self._layers(x, positions, "full", cache, lw, gw, mode,
                               _zero_aux(x.device))
-        logits = lm_logits(self.embed, x, self.cfg)
+        # training takes the rank's vocab slice (train.step.cross_entropy)
+        logits = lm_logits(embed, x, self.cfg, gather=mode != "train")
         if cache is not None:
             return logits, cache, aux
         return logits, aux
@@ -201,11 +211,12 @@ class TransformerLM(BaseModel):
     def decode_step(self, tokens, positions, cache, *, window: int = 0):
         """tokens [b, 1], positions [b] -> (logits [b, 1, V], cache), the
         new k/v written into ``cache`` in place."""
-        x = embed_tokens(self.embed, tokens, self.cfg,
+        embed = fsdp_gather(self.embed, self._fsdp["embed"])
+        x = embed_tokens(embed, tokens, self.cfg,
                          scale_by_dim=self.cfg.rms_plus_one)
         lw, gw = self._windows(window)
         x, _ = self._layers(x, positions, "decode", cache, lw, gw)
-        return lm_logits(self.embed, x, self.cfg), cache
+        return lm_logits(embed, x, self.cfg), cache
 
 
 # ---------------------------------------------------------------------------
@@ -218,16 +229,17 @@ UNSUPPORTED = (
     ("kv_seq", "kv-sequence sharding ('kv_seq': kv heads that do not "
                "divide 'model', or a batch below dp)"),
     ("seq_res", "seq_sp's residual-stream sequence ('seq_res')"),
-    ("embed", "FSDP's 'embed'"),
 )
 
 
 def check_executed(cfg: ModelConfig, mesh_cfg: MeshConfig,
                    rules: AxisRules) -> None:
     """Raise NotImplementedError, naming the rule, where ``cfg`` on
-    ``mesh_cfg`` under ``rules`` needs what the executed tensor-parallel
-    path (the dense transformer's prefill and decode) does not take yet;
-    every spec is still reckoned by the dry run."""
+    ``mesh_cfg`` under ``rules`` needs what the executed sharded path (the
+    dense transformer's train step, prefill and decode, tensor parallel
+    over "model", data parallel over "data", FSDP's "embed" gathered
+    unit by unit) does not take yet; every spec is still reckoned by the
+    dry run."""
     if cfg.ssm is not None or cfg.rwkv is not None:
         raise NotImplementedError(
             f"the {cfg.family} family's 'ssm_inner' (the SSM / RWKV inner "
@@ -253,6 +265,48 @@ def check_executed(cfg: ModelConfig, mesh_cfg: MeshConfig,
         raise NotImplementedError(
             f"q heads in {heads} shards and kv heads in {kv}: the executed "
             f"path cuts both alike")
+
+
+#: the mesh axes a batch is split over: FSDP's "embed" cuts a leaf over them
+DATA_AXES = ("pod", "data")
+
+
+def fsdp_plan(spec, mesh_cfg: Optional[MeshConfig], rules: AxisRules):
+    """For each leaf of ``spec`` (a tree of ``Param``), the (dimension,
+    mesh axes) that the data axes cut under ``rules`` on ``mesh_cfg``
+    (FSDP's "embed"), or None; a subtree none of whose leaves is cut, and
+    a mesh without one, give None."""
+    if mesh_cfg is None:
+        return None
+    if is_param(spec):
+        for dim, entry in enumerate(logical_to_spec(spec.axes,
+                                                    mesh_cfg.axes, rules)):
+            axes = entry_axes(entry)
+            if (axes and all(a in DATA_AXES for a in axes)
+                    and shards(entry, mesh_cfg) > 1):
+                return dim, axes
+        return None
+    plan = {k: fsdp_plan(v, mesh_cfg, rules) for k, v in spec.items()}
+    return plan if any(v is not None for v in plan.values()) else None
+
+
+def fsdp_gather(params, plan):
+    """``params`` (a ``ParamTree`` or a dict) with every leaf that
+    ``plan`` (:func:`fsdp_plan`'s) cuts gathered over its data axes, as a
+    dict; ``params`` itself where ``plan`` is None.  Each gather's adjoint
+    sums the data ranks' gradients onto the rank's shard, in rank order."""
+    if plan is None:
+        return params
+    if isinstance(plan, tuple):
+        dim, axes = plan
+        return gather_over(axes, params, dim)
+    return {k: fsdp_gather(params[k], plan.get(k)) for k in _keys(params)}
+
+
+def _keys(params):
+    if isinstance(params, dict):
+        return list(params)
+    return list(params._parameters) + list(params._modules)
 
 
 def _carve(spec, full, mesh, rules: AxisRules, device, path=""):
@@ -302,3 +356,55 @@ def shard_init(cfg: ModelConfig, generator: torch.Generator, mesh,
     return _carve(spec, lambda path, p: _initialize(
         p.check(), generator, cfg.param_dtype), mesh, rules,
         generator.device)
+
+
+def shard_opt_state(cfg: ModelConfig, opt: dict, mesh, rules: AxisRules,
+                    device=None) -> dict:
+    """The rank's shards of a whole optimizer tree ``opt`` (``{"m", "v",
+    "step"}``, the JAX package's layout: numpy or tensors) on ``mesh``
+    under ``rules``: each moment cut as ``adamw_init_spec(zero1=True,
+    dp_size, fsdp)`` specifies it (``optimizer.shard_plan``'s shapes), FSDP
+    on where the rules cut "embed"; the step whole."""
+    from repro_torch.models.common import _to_tensor
+    from repro_torch.sharding.ctx import mesh_config_of
+    from repro_torch.train.optimizer import adamw_init_spec
+
+    m = mesh_config_of(mesh)
+    spec = TransformerLM(cfg).param_spec()
+    mspec = adamw_init_spec(spec, zero1=True, dp_size=m.dp_size,
+                            fsdp=dict(rules.table).get("embed") is not None)
+
+    def full(tree):
+        def get(path, p):
+            t = tree
+            for k in path.strip("/").split("/"):
+                t = t[k]
+            return t if isinstance(t, torch.Tensor) else _to_tensor(t)
+        return get
+
+    out = {part: _carve(mspec[part], full(opt[part]), mesh, rules, device)
+           for part in ("m", "v")}
+    step = opt["step"]
+    step = step if isinstance(step, torch.Tensor) else _to_tensor(step)
+    out["step"] = step.to(torch.int32).to(
+        device if device is not None else step.device, copy=True)
+    return out
+
+
+def unshard(spec, tree: dict, mesh_cfg: MeshConfig, rules: AxisRules) -> dict:
+    """The whole tree of a rank's shards ``tree`` (laid out as the
+    ``Param`` tree ``spec``: a model's ``param_spec()``, or the moments
+    of ``adamw_init_spec``), each cut dimension gathered over its mesh
+    axes; run it on every rank at once, under the mesh's
+    ``activation_sharding``."""
+    def walk(s, t):
+        if is_param(s):
+            for dim, entry in enumerate(logical_to_spec(s.axes, mesh_cfg.axes,
+                                                        rules)):
+                if shards(entry, mesh_cfg) > 1:
+                    t = gather_over(entry_axes(entry), t, dim)
+            return t
+        return {k: walk(s[k], t[k]) for k in sorted(s)}
+
+    with torch.no_grad():
+        return walk(spec, tree)

@@ -30,7 +30,8 @@ write ever touches a tensor that autograd saved.
 The head counts are read from the projections' widths, so on a mesh
 (``sharding.ctx``) a rank attends over its local q and kv heads, its
 cache shard holding its kv heads (``sharding.rules.kv_cache_spec``), and
-``wo`` is row-parallel over "heads".
+``wo`` is row-parallel over "heads"; x enters the column-parallel q, k
+and v through ``nn.linear.column_input``.
 """
 from __future__ import annotations
 
@@ -41,7 +42,7 @@ import torch
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.kernels.attention.ops import flash_attention
-from repro_torch.nn.linear import dense, linear_spec
+from repro_torch.nn.linear import column_input, dense, linear_spec
 from repro_torch.nn.norm import rmsnorm_apply, rmsnorm_spec
 from repro_torch.nn.rope import apply_rope
 from repro_torch.sharding.ctx import shard_act
@@ -289,11 +290,13 @@ def attention_apply(
     ``cache`` then takes those k/v whole (``cache_spec``'s cross leaves,
     [b, t, kvh, hd]), rounded to its dtype."""
     b, s, _ = x.shape
+    x = column_input(x, "heads")  # q, k, v are column-parallel
     q = dense(params["wq"], x).reshape(b, s, -1, cfg.head_dim)
     q = shard_act(q, ("batch", "seq", "heads", None))
     if cfg.qk_norm:
         q = rmsnorm_apply(params["q_norm"], q, cfg.norm_eps)
-    k, v = cross_kv(params, x if context is None else context, cfg)
+    k, v = cross_kv(params, x if context is None
+                    else column_input(context, "kv_heads"), cfg)
     scale = cfg.attn_logit_scale or None
 
     if context is not None:

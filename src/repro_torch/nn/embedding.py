@@ -8,7 +8,10 @@ its own rows and -0.0 for ids outside them, and ``sum_over`` adds the
 ranks' rows: exactly one rank holds each id, and x + (-0.0) is x for
 every x, so the sum is the whole table's gather bit for bit.  The logits
 are the local vocab slice, softcapped and masked by global index, then
-gathered over the ranks."""
+gathered over the ranks, but in training, whose cross entropy takes the
+slices (``train.step.cross_entropy``); the head's input enters through
+``nn.linear.column_input``.  Both adjoints of a tied ``tok``, the
+lookup's and the head's, add into the rank's shard."""
 from __future__ import annotations
 
 import torch
@@ -16,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.nn.attention import NEG_INF, softcap
+from repro_torch.nn.linear import column_input
 from repro_torch.nn.param import Param
 from repro_torch.sharding.collectives import gather_over, sum_over
 from repro_torch.sharding.ctx import shard_act, shard_of
@@ -54,9 +58,12 @@ def embed_tokens(params, tokens, cfg: ModelConfig, scale_by_dim: bool = False):
     return x
 
 
-def lm_logits(params, x, cfg: ModelConfig):
+def lm_logits(params, x, cfg: ModelConfig, gather: bool = True):
     """fp32 logits.  The head is a plain product (the JAX package leaves
-    it to XLA, outside any Pallas kernel)."""
+    it to XLA, outside any Pallas kernel).  ``gather=False`` (training:
+    the vocab-parallel cross entropy, ``train.step``) returns the rank's
+    vocab slice."""
+    x = column_input(x, "vocab")
     if cfg.tie_embeddings:
         logits = torch.matmul(x, params["tok"].t())
     else:
@@ -70,4 +77,4 @@ def lm_logits(params, x, cfg: ModelConfig):
         pad = torch.arange(i * cols, (i + 1) * cols,
                            device=x.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, NEG_INF)
-    return gather_over(axes, logits, dim=-1)
+    return gather_over(axes, logits, dim=-1) if gather else logits

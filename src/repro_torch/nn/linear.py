@@ -13,7 +13,9 @@ weight as on one card.  A row-parallel one (``wo``, ``w_down``: the
 contraction axis ``k_axis`` sharded) has K3 store the fp32 partial, as
 the TPU kernel stores it; ``sum_over`` adds the ranks' partials in rank
 order, and then the bias, the activation and the one cast follow, so the
-product is rounded once, as the whole one is.
+product is rounded once, as the whole one is.  A replicated activation
+enters column-parallel products through :func:`column_input`, whose
+backward sums the ranks' parts of its cotangent.
 
 :func:`act_fn` is the port's copy of the JAX package's ``_ACTS``, for the
 products that do not run K3 (the MoE experts, ``nn/moe.py``), with its
@@ -28,7 +30,7 @@ from repro_torch.kernels.common import ACC_DTYPE
 from repro_torch.kernels.matmul_fused import ref as mm_ref
 from repro_torch.kernels.matmul_fused.ops import matmul_fused
 from repro_torch.nn.param import Param
-from repro_torch.sharding.collectives import sum_over
+from repro_torch.sharding.collectives import copy_to, sum_over
 from repro_torch.sharding.ctx import shard_of
 
 _ACTS = {
@@ -73,3 +75,12 @@ def dense(params, x, act: str = "none", k_axis=None):
                 y = y + params["b"].to(ACC_DTYPE)
             return mm_ref._ACTS[act](y).to(x.dtype)
     return matmul_fused(x, params["w"], params.get("b"), act=act)
+
+
+def column_input(x, out_axis: str):
+    """``x`` as the input of column-parallel products whose output axis is
+    the logical ``out_axis``: through ``copy_to`` where the active sharding
+    cuts that axis (each rank's product then gives a part of x's
+    cotangent, summed over the ranks in rank order), else ``x``."""
+    _, n, axes = shard_of(out_axis)
+    return copy_to(axes, x) if n > 1 else x

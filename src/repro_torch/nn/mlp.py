@@ -1,11 +1,11 @@
 """Feed-forward blocks, gated (SwiGLU/GeGLU) and plain: the port of
 ``repro.nn.mlp``; every projection runs K3 through ``dense``.  On a mesh
-``w_gate``/``w_up`` are column-parallel and ``w_down`` row-parallel over
-"ff"."""
+``w_gate``/``w_up`` are column-parallel (their input through ``column_input``)
+and ``w_down`` row-parallel over "ff"."""
 from __future__ import annotations
 
 from repro_torch.core.config import ModelConfig
-from repro_torch.nn.linear import dense, linear_spec
+from repro_torch.nn.linear import column_input, dense, linear_spec
 from repro_torch.sharding.ctx import shard_act
 
 
@@ -24,6 +24,7 @@ def mlp_spec(cfg: ModelConfig, d_ff: int = 0) -> dict:
 
 
 def mlp_apply(params, x, cfg: ModelConfig):
+    x = column_input(x, "ff")  # gate and up are column-parallel
     if cfg.mlp_gated:
         g = dense(params["w_gate"], x, act=cfg.act)
         u = dense(params["w_up"], x)

@@ -71,6 +71,18 @@ def current() -> Optional[Sharding]:
     return _CTX.get()
 
 
+@contextlib.contextmanager
+def installed(sharding: Optional[Sharding]):
+    """Run the code inside with ``sharding`` (a :func:`current`, or None)
+    active: a rematted unit's recompute, which autograd runs on its own
+    thread for CUDA tensors, where the forward's context is not set."""
+    token = _CTX.set(sharding)
+    try:
+        yield
+    finally:
+        _CTX.reset(token)
+
+
 def shard_of(logical: str) -> Tuple[int, int, Tuple[str, ...]]:
     """(this rank's shard index, the shard count, the mesh axes) of the
     logical axis ``logical`` under the active rules; (0, 1, ()) with no

@@ -10,17 +10,30 @@ the JAX package's keys and shapes, then ``adamw_update`` writes the new
 parameters in place.  The forward runs in train mode (each layer unit
 rematted); K3's gradients run on K3, K10's and K11's backwards are plain
 PyTorch (``kernels/*/ops.py``).
+
+Under a mesh's ``activation_sharding`` (``launch.dryrun._build_step``)
+the same step runs on one rank's shards and computes what JAX's
+GSPMD-lowered step computes: the rank's microbatch ``i`` is its shard of
+JAX's microbatch ``i`` (the strided split of the local batch), the loss
+it differentiates is its local mean over the data ranks' count, so that
+the data-replicated leaves' gradients summed over "data" in rank order
+(``optimizer.reduce_grads``, onto their ZeRO-1 shards) are JAX's mean
+over the global batch, and an FSDP'd leaf's comes summed from its
+gather's adjoint; the cross entropy is vocab-parallel, and the metrics
+are averaged over the data ranks.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional, Sequence
 
 import torch
 
 from repro_torch.core.config import TrainConfig
 from repro_torch.models.common import AUX_LOSSES
 from repro_torch.nn.param import DTYPES, tree_leaves, tree_map
-from repro_torch.train.optimizer import adamw_update
+from repro_torch.sharding import ctx as shard_ctx
+from repro_torch.sharding.collectives import max_over, sum_over
+from repro_torch.train.optimizer import adamw_update, reduce_grads, shard_plan
 
 
 def cross_entropy(logits, labels, vocab_size: int) -> torch.Tensor:
@@ -28,9 +41,26 @@ def cross_entropy(logits, labels, vocab_size: int) -> torch.Tensor:
 
     The gold logit is a gather; the JAX package takes a masked sum (a
     gather would all-gather its vocab-sharded logits), which on one device
-    adds only zeros to it, so the two agree exactly."""
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    adds only zeros to it, so the two agree exactly.
+
+    Where the active sharding cuts "vocab", ``logits`` is the rank's vocab
+    slice and the CE is vocab-parallel, with no gather of the logits: the
+    max through ``max_over``, the sum of exps and the gold logit (the
+    rank's own where the label lies in its slice, else 0) through
+    ``sum_over``, each added in rank order."""
+    i, n, axes = shard_ctx.shard_of("vocab")
+    if n == 1:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+        return (lse - gold).mean()
+    cols = logits.shape[-1]
+    m = max_over(axes, logits.amax(dim=-1))
+    lse = m + torch.log(sum_over(axes, torch.exp(
+        logits - m[..., None]).sum(dim=-1)))
+    local = labels.long() - i * cols
+    inside = (local >= 0) & (local < cols)
+    gold = logits.gather(-1, local.clamp(0, cols - 1)[..., None])[..., 0]
+    gold = sum_over(axes, torch.where(inside, gold, 0.0))
     return (lse - gold).mean()
 
 
@@ -59,19 +89,20 @@ def make_loss_fn(model, *, window_override: int = 0) -> Callable:
 def _grad_views(model, leaves, grads):
     """(parameter, its gradient view) for every parameter of ``model``: the
     view of ``grads[i]`` at the place the parameter takes in ``leaves[i]``
-    (the tensor itself, or an entry of a stacked leaf), or None where a
-    parameter lies in no leaf."""
+    (the tensor itself, or an entry of a stacked leaf: the same storage,
+    from the leaf's offset on; on meta tensors too, whose ``data_ptr`` is
+    their offset alone), or None where a parameter lies in no leaf."""
     out = []
     for p in model.parameters():
         view = None
+        store = p.untyped_storage()._cdata
         for t, g in zip(leaves, grads):
-            start = t.data_ptr()
-            off = p.data_ptr() - start
+            off = p.storage_offset() - t.storage_offset()
             if (t.device == p.device and t.dtype == p.dtype
-                    and 0 <= off < t.numel() * t.element_size()):
+                    and t.untyped_storage()._cdata == store
+                    and 0 <= off < t.numel()):
                 view = g.as_strided(p.shape, p.stride(),
-                                    g.storage_offset()
-                                    + off // t.element_size())
+                                    g.storage_offset() + off)
                 break
         out.append((p, view))
     return out
@@ -115,47 +146,96 @@ def make_train_step(model, tcfg: TrainConfig, *, window_override: int = 0,
     batch is split as the JAX package splits it (``reshape(b // k, k,
     ...)``, microbatch ``i`` its column ``i``), the gradients are
     accumulated in ``grad_acc_dtype`` and the gradients and metrics
-    divided by k."""
+    divided by k.
+
+    Under a mesh's ``activation_sharding`` ``params`` and ``opt_state``
+    are a rank's shards (``models.transformer.shard_params`` and
+    ``shard_opt_state``, or ``optimizer.adamw_init(params,
+    train_step.plan())``) and ``batch`` its rows (see the module's
+    docstring).  The step is two calls, :func:`accumulate`'s and
+    :func:`finish`'s, exposed as ``train_step.accumulate`` (the
+    microbatches ``indices`` only: the dry run traces one) and
+    ``train_step.finish``."""
     loss_fn = make_loss_fn(model, window_override=window_override)
     buffers: dict = {}
+    plans: dict = {}
+
+    def plan():
+        """The rank's ``optimizer.shard_plan`` under the active mesh, or
+        None without one."""
+        c = shard_ctx.current()
+        if c is None:
+            return None
+        key = (c.mesh_cfg, c.rules)
+        if key not in plans:
+            plans[key] = shard_plan(model.param_spec(), c.mesh_cfg, c.rules)
+        return plans[key]
 
     def grads_of(params, batch):
         grads = bind_grads(model, params, buffers)
         loss, metrics = loss_fn(batch)
-        loss.backward()
+        dp = shard_ctx.shard_of("batch")[1]
+        # the local mean over the data ranks: their gradients' sum is the
+        # global batch's mean's
+        (loss if dp == 1 else loss / dp).backward()
         return {k: v.detach() for k, v in metrics.items()}, grads
 
-    def train_step(params, opt_state, batch):
-        if microbatches == 1:
+    def accumulate(params, batch, indices: Optional[Sequence[int]] = None):
+        """(gradients, metrics) of microbatches ``indices`` (all of them
+        by default): one microbatch's own, or their sums in
+        ``grad_acc_dtype``, not yet divided."""
+        k = microbatches
+        if k == 1:
             metrics, grads = grads_of(params, batch)
-        else:
-            k = microbatches
-            acc_dt = DTYPES[grad_acc_dtype]
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dt,
-                                                   device=p.device), params)
-            metrics = None
-            for i in range(k):
-                mb = {}
-                for name, x in batch.items():
-                    assert x.shape[0] % k == 0, (x.shape[0], k)
-                    mb[name] = x.reshape(x.shape[0] // k, k,
-                                         *x.shape[1:])[:, i].contiguous()
-                m_i, g_i = grads_of(params, mb)
-                for a, g in zip(tree_leaves(grads), tree_leaves(g_i)):
-                    a.add_(g.to(acc_dt))
-                metrics = m_i if metrics is None else {
-                    n: metrics[n] + m_i[n] for n in metrics}
+            return grads, metrics
+        acc_dt = DTYPES[grad_acc_dtype]
+        grads = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dt,
+                                               device=p.device), params)
+        metrics = None
+        for i in range(k) if indices is None else indices:
+            mb = {}
+            for name, x in batch.items():
+                assert x.shape[0] % k == 0, (x.shape[0], k)
+                mb[name] = x.reshape(x.shape[0] // k, k,
+                                     *x.shape[1:])[:, i].contiguous()
+            m_i, g_i = grads_of(params, mb)
+            for a, g in zip(tree_leaves(grads), tree_leaves(g_i)):
+                a.add_(g.to(acc_dt))
+            metrics = m_i if metrics is None else {
+                n: metrics[n] + m_i[n] for n in metrics}
+        return grads, metrics
+
+    def finish(params, opt_state, grads, metrics):
+        """The data ranks' sums of ``accumulate``'s gradients and metrics,
+        divided by the microbatches, and the update."""
+        k, shards = microbatches, plan()
+        if shards is not None:
+            with torch.no_grad():
+                grads = reduce_grads(grads, shards)
+                _, dp, axes = shard_ctx.shard_of("batch")
+                if dp > 1:
+                    metrics = {n: sum_over(axes, v) / dp
+                               for n, v in metrics.items()}
+        if k > 1:
             for a in tree_leaves(grads):
                 a.div_(k)
             metrics = {n: v / k for n, v in metrics.items()}
         train_step.grads = grads
-        params, opt_state, opt_metrics = adamw_update(grads, opt_state,
-                                                      params, tcfg)
+        params, opt_state, opt_metrics = adamw_update(
+            grads, opt_state, params, tcfg, plan=shards)
         metrics.update(opt_metrics)
         return params, opt_state, metrics
 
+    def train_step(params, opt_state, batch):
+        grads, metrics = accumulate(params, batch)
+        return finish(params, opt_state, grads, metrics)
+
     #: the gradient tree of the last step (the buffers the next one zeroes)
     train_step.grads = None
+    train_step.accumulate = accumulate
+    train_step.finish = finish
+    train_step.plan = plan
+    train_step.microbatches = microbatches
     return train_step
 
 

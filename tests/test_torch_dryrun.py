@@ -23,6 +23,7 @@ from repro.models import registry as jregistry
 from repro.sharding import auto as jauto
 from repro.sharding import rules as jrules
 from repro.train import optimizer as joptimizer
+from repro.train import step as jstep
 from repro_torch.core import config as tconfig
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import fake_group, parse_mesh
@@ -78,6 +79,13 @@ def _jax_bytes(tree, mesh, rules, default):
     return total
 
 
+def _retype(tree, dtype):
+    """A JAX spec tree with every leaf's dtype ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: _retype(v, dtype) for k, v in tree.items()}
+    return tree._replace(dtype=dtype)
+
+
 def test_threshold_is_jax():
     assert dryrun.KV_QUANT_THRESHOLD_BYTES == _jax_threshold()
 
@@ -110,7 +118,19 @@ def test_per_device_bytes_equal_jax_specs(arch, shape_name, mesh_name):
             spec, zero1=True, dp_size=jmesh.dp_size, fsdp=fsdp,
             moment_dtype="bfloat16" if big else "float32")
         assert per["optimizer"] == _jax_bytes(opt, jmesh, rules, "float32")
-        assert not rec["traced"]
+        # the gradients in the parameters' types, and the microbatches'
+        # accumulator in JAX's grad_acc_dtype
+        assert per["grads"] == _jax_bytes(spec, jmesh, rules,
+                                          jcfg.param_dtype)
+        k = jstep.default_microbatches(
+            shape.global_batch * shape.seq_len, jmesh.dp_size)
+        assert rec["microbatches"] == k
+        acc = _retype(spec, "bfloat16" if big else "float32")
+        if k > 1:
+            assert per["grad_acc"] == _jax_bytes(acc, jmesh, rules,
+                                                 jcfg.param_dtype)
+        else:
+            assert "grad_acc" not in per
     else:
         window = jm.effective_window(shape)
         assert per["cache"] == _jax_bytes(
@@ -120,11 +140,14 @@ def test_per_device_bytes_equal_jax_specs(arch, shape_name, mesh_name):
     assert rec["fits"] == (per["total"] <= dryrun.CARD_MEMORY_BYTES)
     if arch == "grok-1-314b" and shape.kind != "train":
         assert not rec["traced"] and "moe family" in rec["why_not_traced"]
-    if arch != "grok-1-314b" and shape.kind == "train":
-        assert "train step on a mesh" in rec["why_not_traced"]
-    if arch == "qwen1.5-32b" and mesh_name == "single_pod" and \
-            shape.kind != "train":
-        # 40 kv heads on 16: the kv sequence sharded, not in the path yet
+    if arch != "grok-1-314b" and shape.kind == "train" and \
+            mesh_name == "1x4":
+        # the dense family's train step, traced: collectives a step
+        assert rec["traced"], rec.get("why_not_traced")
+        assert rec["collectives"]["sum_over/model"]["calls"] > 0
+    if arch != "grok-1-314b" and mesh_name == "single_pod":
+        # 40 kv heads on 16 (qwen1.5), 4 on 16 (gemma2): the kv sequence
+        # sharded, not in the path yet
         assert not rec["traced"] and "kv_seq" in rec["why_not_traced"]
     assert not dist.is_initialized()
 
@@ -172,6 +195,58 @@ def test_every_arch_and_shape_reckoned(mesh_name):
             assert per["params"] > 0 and per["total"] >= per["params"]
             assert rec["mesh"] == MESHES[mesh_name]
             assert rec["card"] == dryrun.CARD
+
+
+def test_train_record_repairs_the_gradients():
+    """gemma2-2b's ``train_4k`` at 1 x 1: 5.23 GB of bf16 parameters,
+    20.91 of fp32 moments, 5.23 of gradients in the parameters' types and,
+    at 128 microbatches, a 10.46-GB fp32 accumulator (the fp32 norms are
+    already 4 bytes): about 41.8 GB."""
+    rec = dryrun.run_one("gemma2-2b", "train_4k", parse_mesh("1x1"),
+                         trace=False)
+    gb = {k: v / 1e9 for k, v in rec["per_device_bytes"].items()}
+    assert rec["microbatches"] == 128
+    assert gb["grads"] == pytest.approx(gb["params"])
+    assert gb["grad_acc"] == pytest.approx(2 * gb["params"], rel=1e-3)
+    assert 41.7 < gb["total"] < 41.9
+
+
+def test_traced_train_step_counts_the_collectives():
+    """gemma2-2b's ``train_4k`` at 1 x 4 (dp 1: 128 microbatches of 2
+    rows): a microbatch sums o and down over "model" in the forward and
+    again in the remat recompute, the embedding once and the CE's sum of
+    exps and gold logit, takes one max, and sums the cotangents of the
+    column-parallel inputs (q/k/v and gate/up of 26 blocks, the head) in
+    the backward; once a step the grad norm's shard sums."""
+    rec = dryrun.run_one("gemma2-2b", "train_4k", parse_mesh("1x4"))
+    assert rec["traced"], rec.get("why_not_traced")
+    k = rec["microbatches"]
+    assert k == 128
+    mb = rec["collectives_microbatch"]
+    assert mb["sum_over/model"]["calls"] == 2 * 26 + 1 + 2 * 26 + 2
+    assert mb["copy_to.bwd/model"]["calls"] == 2 * 26 + 1
+    assert mb["max_over/model"]["calls"] == 1
+    coll = rec["collectives"]
+    for name, v in coll.items():
+        once = rec["collectives_once"].get(name, {"calls": 0})["calls"]
+        assert v["calls"] == k * mb.get(name, {"calls": 0})["calls"] + once
+    assert not dist.is_initialized()
+
+
+def test_fsdp_train_step_gathers_unit_by_unit():
+    """qwen1.5-32b's ``train_4k`` at 2 x 4 shards "embed" over "data":
+    each unit's leaves are gathered in the forward and again in the
+    recompute, and each gather's adjoint sums the data ranks' gradients
+    onto the shard."""
+    rec = dryrun.run_one("qwen1.5-32b", "train_4k", parse_mesh("2x4"))
+    assert rec["traced"], rec.get("why_not_traced")
+    assert any(n.startswith("FSDP") for n in rec["sharding_notes"])
+    mb = rec["collectives_microbatch"]
+    # 9 leaves a layer cut by "embed" (two norms, q, k, v, o, gate, up,
+    # down), the embedding, the head and the final norm
+    assert mb["gather_over/data"]["calls"] == 2 * 9 * 64 + 3
+    assert mb["gather_over.bwd/data"]["calls"] == 9 * 64 + 3
+    assert not dist.is_initialized()
 
 
 def test_fake_group_is_destroyed_and_refuses_a_second():

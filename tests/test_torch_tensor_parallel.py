@@ -235,7 +235,7 @@ def test_kv_heads_not_dividing_model_raise_the_kv_seq_rule():
     ("ssm_inner", "rwkv6-1.6b", (1, 2)),
     ("experts", "qwen3-moe-30b-a3b", (1, 2)),
     ("family", "llama-3.2-vision-11b", (1, 2)),
-    ("train", "qwen1.5-32b", (1, 2))])
+    ("train", "qwen3-moe-30b-a3b", (1, 2))])
 def test_unsupported_rules_raise_and_name_themselves(rule, arch, mesh):
     cfg = tconfig.get_arch(arch).reduced()
     mesh_cfg = tconfig.MeshConfig(mesh, ("data", "model"))
@@ -245,7 +245,7 @@ def test_unsupported_rules_raise_and_name_themselves(rule, arch, mesh):
     with pytest.raises(NotImplementedError) as e:
         _build_step(cfg, shape, mesh_cfg, rules)
     word = {"ssm_inner": "'ssm_inner'", "experts": "'experts'",
-            "family": "'media'", "train": "train step"}[rule]
+            "family": "'media'", "train": "'experts'"}[rule]
     assert word in str(e.value)
 
 
