@@ -417,7 +417,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    tokens the unsharded port's bits, K3 7 and K10 1 launches a layer in a
    prefill, K3 7 a layer in a step; c. two ranks on the one card over
    gloo (mesh 1 x 2; this script started twice with ``--tp-rank``), the
-   model cut to 16 layers, the unsharded reference run first here and
+   model cut to 8 layers, the unsharded reference run first here and
    freed: the ranks' logits within ``TP_BF16_TOL``-relative of it (on
    the reference's tokens; an argmax apart only at a near tie), both
    ranks' the same bits, a repeated first step the same bits, the
@@ -431,7 +431,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
 17. gemma2-2b training on a mesh (``mesh_phase``), at full width in
    bf16, its rules ``rules_for``'s of the uncut arch on each mesh (FSDP's
    "embed" on at dp 2), cut in depth only (``mesh_train_cut``, printed as
-   ``reduced``; 8 layers at 1 x 2, ``MESH_TRAIN_DEPTH``'s 4 on the
+   ``reduced``; ``MESH_TRAIN_DEPTH``'s 4 layers at 1 x 2, 2 on the
    meshes whose FSDP gathers go through gloo): a. K3's fp32-store backward (dx, dw on dz = the fp32
    cotangent cast to bf16) at the 2-way o and down shards, M = 4096,
    against the plain products within ``LM_KERNEL_TOL``, timed beside
@@ -453,7 +453,47 @@ Phases, each of which fails the run (non-zero exit, no result line):
    rows for gemma2-2b, starcoder2-15b, internlm2-20b and qwen1.5-32b at 1
    x 4, 1 x 8 and 2 x 4 (two processes beside 17a-c; gemma2-2b and
    qwen1.5-32b at 1 x 4 must be traced);
-18. prints one JSON line ``{"kernels": [...]}``: per kernel, ``launches``
+18. kv-sequence sharding (``kv_phase``): the cache cut by sequence and q
+   heads cut over whole kv heads, as ``rules_for`` lays them out: a. K3 at
+   starcoder2-15b's 8-way shards (``KV_K3_SHAPES``: q cut, k/v whole, up;
+   o and down on the fp32 store) at M = 4 and 4500, and K10 at the rank
+   views (``KV_K10_CASES``: starcoder2's 6 q heads over one kv head with
+   its window, gemma2-2b's 1 over 1 with softcap 50, local and global) at
+   1500 and 4500 tokens, as 16a, while the ranks of b-d (this script
+   started once a rank with ``--kv-rank``) start up; then the unsharded
+   references of b-d run on the card and are freed; then c runs, and b
+   and d once c's ranks are done (the card does not hold c's prefill
+   logits beside b's prefill); b. starcoder2-15b at full width cut to
+   ``KV_CUTS``' depth on a 1 x 8 gloo mesh: 6 q heads a rank, every kv
+   head whole, the 4096-row ring cut into 512 rows a rank; ``LM_PROMPTS``
+   into 4 slots and ``TP_DECODE`` steps on the reference's tokens, the
+   logits within ``TP_BF16_TOL`` (an argmax apart only at a near tie),
+   every rank's the same bits, a repeat of the first step on the cache as
+   it stood the same bits, each rank's cache rows the matching rows of the
+   reference's cache, K3 ``K3_DENSE_PER_LAYER`` and K10 1 launches a layer
+   in a prefill, K3 as many in a step, the collectives a step (a max and
+   two sums over "model" a layer for the softmax, q gathered); the int8
+   cache on ``KV_INT8_PROMPT`` (its ring wrapped across the ranks) and
+   ``KV_INT8_STEPS`` steps, its values and scales within
+   ``KV_INT8_CACHE_TOL`` of the reference's; a one-layer
+   fp32 parity, greedy, within ``LM_TOL``; c. gemma2-2b under
+   ``long_500k``'s rules on a 2 x 1 mesh (batch 1 replicated, the cache
+   cut over "data", FSDP's "embed" gathered over it): a
+   ``KV_LONG_PROMPT``-token prompt wrapping its 4096-row rings
+   (long_500k's window) across the ranks and ``KV_LONG_DECODE`` steps,
+   held as b, softcap 50 across the shards, and its fp32 parity at the
+   same prompt; d. gemma2-2b's train step on the 1 x 8 ranks after b (one
+   q head a rank over 4 whole kv heads), ``KV_TRAIN_ROWS`` x 2048 tokens,
+   two steps, the first twice: each step's CE within ``KV_TRAIN_CE_TOL``
+   of the reference's, the first step's grad norm within
+   ``KV_TRAIN_NORM_TOL`` and its ``wk``/``wv`` gradients within
+   ``KV_TRAIN_GRAD_TOL`` of the reference's, the metrics the same bits on
+   every rank, the ``wk``/``wv`` gradients the same bits on every rank
+   (``bits_fingerprint``), the repeat the same bits, the launches
+   ``train_expect``'s; e. the dry run's rows of every shape of the four
+   dense archs at 16 x 16 and 2 x 16 x 16 (two processes beside a-d), all
+   32 traced;
+19. prints one JSON line ``{"kernels": [...]}``: per kernel, ``launches``
    is its count summed over the AlexNet forwards of phase 4 (K1-K3,
    K7-K9) or phase 5 (K4-K6), or over the first LM serving run of phase
    7c and the first runs of phases 11c and 15c (K10's wgmma path as
@@ -480,8 +520,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``mesh_train_launches`` on the K3 bf16 entry (by role) and on
    ``flash_attention``, and their fp32 stores to the
    ``matmul_fused_bf16_f32`` entry's launches, which carries 17a's times
-   under ``backward``;
-19. prints ``{"ok": true, "device": {...}}`` as its last line.
+   under ``backward``; the bf16 serving runs of 18b's and 18c's ranks add
+   their K3, K10 and fp32-store launches as 16c's do, and 18a's cases
+   join the largest errors;
+20. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Run it from the repository root; it needs one CUDA device and the CUDA
 toolkit, and imports nothing of the JAX package.
@@ -4399,9 +4441,9 @@ TP_K10_TOKENS = (1500, 4500)
 #: the width, heads and vocab stay as published
 TP_CUTS = {"1x1": (8, "the 1 x 1 mesh is the unsharded model's bits: 8 "
                       "layers show it"),
-           "1x2": (16, "two ranks share one 80-GB card: 16 layers, 18.4 "
-                       "GB of weights and 10.7 GB of cache in all, plus "
-                       "the unsharded reference run first")}
+           "1x2": (8, "two ranks share one 80-GB card, the unsharded "
+                      "reference run first; 8 layers (16 before phase 18 "
+                      "joined the smoke: its time)")}
 #: 16c's fp32 parity: one layer, a prompt of LM_PARITY_PROMPT tokens and
 #: LM_PARITY_DECODE greedy tokens
 TP_PARITY_LAYERS = 1
@@ -4470,17 +4512,20 @@ def tp_prompts(np, vocab):
 
 
 def tp_serve(torch, prefill, decode, cache, prompts, steps, counters=None,
-             forced=None):
+             forced=None, snapshot=False):
     """Each prompt prefilled into its slot of ``cache`` (one request a
     call, the slot's views), then ``steps`` decode steps of every slot:
     the greedy tokens, or ``forced`` ([slots, steps + 1], the reference's
     tokens).  ``counters`` (K3, K10 wrappers): set to 0 before each call
     and read after.  Returns the prefills' last-position logits [slots,
     V], each step's [steps, slots, V], the tokens [slots, steps + 1], the
-    first step's inputs, each call's launches and times (ms)."""
+    first step's inputs, each call's launches and times (ms); with
+    ``snapshot`` also a copy of the cache before the first step (a ring
+    buffer's later writes fall inside the first step's window)."""
     from repro_torch.models.common import cache_slot
+    from repro_torch.nn.param import tree_leaves, tree_map
 
-    dev = next(iter(cache.values())).device
+    dev = tree_leaves(cache)[0].device
     last, launches, ms = [], {"prefill": [], "decode": []}, \
         {"prefill": [], "decode": []}
 
@@ -4514,6 +4559,7 @@ def tp_serve(torch, prefill, decode, cache, prompts, steps, counters=None,
         nxt = last.argmax(-1) if forced is None else forced[:, 0].to(dev)
         pos = torch.tensor([p.shape[1] for p in prompts], device=dev)
         toks, outs, first = [nxt], [], None
+        snap = tree_map(lambda t: t.clone(), cache) if snapshot else None
         for t in range(steps):
             inputs = (nxt[:, None].clone(), pos.clone())
             first = first or inputs
@@ -4525,7 +4571,8 @@ def tp_serve(torch, prefill, decode, cache, prompts, steps, counters=None,
             pos = pos + 1
     return {"prefill_last": last, "steps": torch.stack(outs),
             "tokens": torch.stack(toks, 1), "first": first,
-            "launches": launches, "ms": ms, "k3_paths": k3_paths}
+            "launches": launches, "ms": ms, "k3_paths": k3_paths,
+            "snapshot": snap}
 
 
 def _free_port():
@@ -4956,8 +5003,9 @@ MESH_TRAIN_LAYERS = 8
 #: through gloo in the forward, again in the recompute, and summed back in
 #: the backward, once a microbatch (2 x 1 at 8 layers: 6.1 GB a rank and
 #: 13.3 s a step on an H100 at 700 W; at 4, 4.2 GB and 6.8 s once
-#: gathers went by broadcast; the smoke ran past its 1200 s once)
-MESH_TRAIN_DEPTH = {"2x1": 4, "2x2": 4}
+#: gathers went by broadcast; the smoke ran past its 1200 s once); since
+#: phase 18 joined the smoke, 2 on those and 4 at 1 x 2
+MESH_TRAIN_DEPTH = {"2x1": 2, "2x2": 2, "1x2": 4}
 #: 17c's steps (the first taken twice from the same state)
 MESH_TRAIN_STEPS = 2
 #: the fp32 parity: one local/global pair at full width, this many rows of
@@ -5285,20 +5333,23 @@ def mesh_one_phase(torch, np, dev, counters, card):
     return rec
 
 
-def mesh_reference(torch, np, dev, cfg, mesh_cfg, microbatches, work):
-    """The unsharded reference of 17c on ``mesh_cfg``'s global batch:
-    ``cfg`` from ``SEED``'s draws, ``MESH_TRAIN_STEPS`` steps of
+def mesh_reference(torch, np, dev, cfg, mesh_cfg, microbatches, work,
+                   rows=None, first=None):
+    """The unsharded reference of 17c on ``mesh_cfg``'s global batch
+    (``MESH_TRAIN_ROWS`` rows a data rank, or ``rows`` in all): ``cfg``
+    from ``SEED``'s draws, ``MESH_TRAIN_STEPS`` steps of
     ``make_train_step`` (at ``mesh_reference_microbatches``); its metrics
-    a step, and its parameters after the first step written to
-    ``work/reference.pt`` (bf16, on the host) for the ranks.  The batches
-    go to ``work/batches.pt``.  Returns (metrics, seconds, step ms)."""
+    a step, and ``first(tree, step)`` called after the first step (17c
+    writes the parameters for the ranks, 18d keeps the gradients).  The
+    batches go to ``work/batches.pt``.  Returns (metrics, seconds, step
+    ms)."""
     from repro_torch.models.registry import get_model
-    from repro_torch.nn.param import init_tree, tree_map
+    from repro_torch.nn.param import init_tree
     from repro_torch.train.optimizer import adamw_init
     from repro_torch.train.step import make_train_step
 
     t0 = time.perf_counter()
-    rows = mesh_cfg.dp_size * MESH_TRAIN_ROWS
+    rows = rows or mesh_cfg.dp_size * MESH_TRAIN_ROWS
     batches = mesh_batches(torch, np, rows, TRAIN_SEQ, MESH_TRAIN_STEPS)
     torch.save(batches, work / "batches.pt")
     model = get_model(cfg)
@@ -5316,9 +5367,8 @@ def mesh_reference(torch, np, dev, cfg, mesh_cfg, microbatches, work):
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t))
         metrics.append({k: v.item() for k, v in m.items()})
-        if i == 0:
-            torch.save(tree_map(lambda t: t.cpu(), tree),
-                       work / "reference.pt")
+        if i == 0 and first is not None:
+            first(tree, step)
     del model, tree, opt, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -5367,8 +5417,10 @@ def mesh_two_phase(torch, np, dev, card, name):
           f"{ {k: round(v, 2) for k, v in budget.items()} } GB", flush=True)
     with tempfile.TemporaryDirectory() as work:
         work = Path(work)
-        ref, ref_s, ref_ms = mesh_reference(torch, np, dev, cfg, mesh_cfg,
-                                            mb, work)
+        ref, ref_s, ref_ms = mesh_reference(
+            torch, np, dev, cfg, mesh_cfg, mb, work,
+            first=lambda tree, _: torch.save(_cpu_tree(tree),
+                                             work / "reference.pt"))
         (work / "case.json").write_text(json.dumps(
             {"mesh": name, "layers": cfg.num_layers, "microbatches": mb}))
         env = dict(os.environ, MKL_CBWR=MKL_CBWR)
@@ -5780,43 +5832,53 @@ def mesh_rank_main(args) -> int:
     return 0
 
 
+def dryrun_combos(which):
+    """The (arch, shape, mesh) rows of 17d (``"mesh"``: ``train_4k`` of
+    ``MESH_DRYRUN_ARCHS`` on ``MESH_DRYRUN_MESHES``) or 18e (``"kv"``:
+    every shape of ``KV_DRYRUN_ARCHS`` on ``KV_DRYRUN_MESHES``)."""
+    if which == "mesh":
+        return [(a, "train_4k", m) for a in MESH_DRYRUN_ARCHS
+                for m in MESH_DRYRUN_MESHES]
+    from repro_torch.core.config import SHAPES
+
+    return [(a, s, m) for m in KV_DRYRUN_MESHES for a in KV_DRYRUN_ARCHS
+            for s in SHAPES]
+
+
 def mesh_dryrun_main(args) -> int:
-    """Part ``--mesh-dryrun-part i/n`` of 17d's records
-    (``MESH_DRYRUN_ARCHS`` x ``MESH_DRYRUN_MESHES`` at ``train_4k``, every
-    n-th from the i-th), written as JSON to ``--mesh-dryrun``."""
+    """Part ``--mesh-dryrun-part i/n`` of the dry run's records of
+    ``dryrun_combos(--dryrun-set)`` (every n-th from the i-th), written as
+    JSON to ``--mesh-dryrun``."""
     sys.path.insert(0, str(SRC))
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import parse_mesh
 
     i, n = (int(v) for v in args.mesh_dryrun_part.split("/"))
-    combos = [(a, m) for a in MESH_DRYRUN_ARCHS for m in MESH_DRYRUN_MESHES]
-    recs = [dryrun.run_one(a, "train_4k", parse_mesh(m))
-            for a, m in combos[i::n]]
+    recs = [dryrun.run_one(a, s, parse_mesh(m))
+            for a, s, m in dryrun_combos(args.dryrun_set)[i::n]]
     Path(args.mesh_dryrun).write_text(json.dumps(recs))
     return 0
 
 
-def mesh_dryrun_start(work):
-    """Start 17d's ``MESH_DRYRUN_PROCS`` processes; returns them with the
-    files they write."""
+def mesh_dryrun_start(work, which="mesh", procs=MESH_DRYRUN_PROCS):
+    """Start ``procs`` processes of the dry run's rows ``which``
+    (``dryrun_combos``); returns them with the files they write."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     out = []
-    for i in range(MESH_DRYRUN_PROCS):
-        path = work / f"dryrun{i}.json"
-        log = open(work / f"dryrun{i}.log", "w")
+    for i in range(procs):
+        path = work / f"dryrun_{which}{i}.json"
+        log = open(work / f"dryrun_{which}{i}.log", "w")
         p = subprocess.Popen(
             [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-dryrun",
-             str(path), "--mesh-dryrun-part", f"{i}/{MESH_DRYRUN_PROCS}"],
+             str(path), "--mesh-dryrun-part", f"{i}/{procs}",
+             "--dryrun-set", which],
             stdout=log, stderr=subprocess.STDOUT, env=env, cwd=str(ROOT))
         out.append((p, path, log))
     return out
 
 
-def mesh_dryrun_rows(started, card):
-    """Phase 17d: the records of ``mesh_dryrun_start``'s processes, each
-    printed; gemma2-2b and qwen1.5-32b must be traced at 1 x 4."""
-    from repro_torch.launch import dryrun
-
+def dryrun_collect(started, label):
+    """The records of ``mesh_dryrun_start``'s processes."""
     rows = []
     for p, path, log in started:
         try:
@@ -5827,9 +5889,18 @@ def mesh_dryrun_rows(started, card):
                 p.wait()
             log.close()
         if p.returncode != 0:
-            fail(f"17d dry run exited {p.returncode}:\n"
+            fail(f"{label} dry run exited {p.returncode}:\n"
                  f"{Path(log.name).read_text()[-4000:]}")
         rows += json.loads(path.read_text())
+    return rows
+
+
+def mesh_dryrun_rows(started, card):
+    """Phase 17d: the records of ``mesh_dryrun_start``'s processes, each
+    printed; gemma2-2b and qwen1.5-32b must be traced at 1 x 4."""
+    from repro_torch.launch import dryrun
+
+    rows = dryrun_collect(started, "17d")
     for rec in rows:
         print("mesh17d " + dryrun.summary(rec) + f" [{card}]", flush=True)
     for arch in ("gemma2-2b", "qwen1.5-32b"):
@@ -5866,6 +5937,879 @@ def mesh_phase(torch, np, dev, peaks, counters, card):
     return cases, one, meshes, rows
 
 
+# ---------------------------------------------------------------------------
+#: phase 18: kv-sequence sharding.  The cache cut by sequence ("kv_seq")
+#: and q heads cut over whole kv heads, as ``rules_for`` lays them out
+#: wherever the kv heads do not divide "model" (every dense arch at the
+#: JAX package's 16-way "model") or the batch does not divide dp
+#: (``long_500k``); ranks of this script over gloo on the one card.
+#: 18b serves starcoder2-15b (48 q heads over 4 kv heads) 8 ways: 6 q heads
+#: a rank, every kv head whole, its 4096-row ring cut into 512 rows a rank
+KV_ARCH = "starcoder2-15b"
+KV_MESH = "1x8"
+#: 18a: starcoder2-15b's projections on an 8-way shard (role, K, N,
+#: activation, bias, fp32 store): q cut, k and v whole, up cut; o and down
+#: row-parallel on the fp32 store, as the path launches them (down's bias
+#: is added after the ranks' sum)
+KV_K3_SHAPES = (("q", 6144, 768, "none", True, False),
+                ("kv", 6144, 512, "none", True, False),
+                ("o", 768, 6144, "none", False, True),
+                ("up", 6144, 3072, "gelu", True, False),
+                ("down", 3072, 6144, "none", False, True))
+#: 18a's K10 cases (``K10_CASES``' order) at the rank views, at 1500 and
+#: 4500 tokens: starcoder2's 6 q heads over their one kv head with its
+#: window; gemma2-2b's 1 q head over its one kv head (8 over 4 whole at 8
+#: ways), softcap 50, its local (window 4096) and global layers
+KV_K10_CASES = tuple(c for s in TP_K10_TOKENS for c in (
+    (s, 4096, 0.0, "bfloat16", 6, 1, 128, True),
+    (s, 4096, 50.0, "bfloat16", 1, 1, 256, True),
+    (s, 0, 50.0, "bfloat16", 1, 1, 256, True)))
+#: the depth of each run (layers, why); width, heads and vocab as published
+KV_CUTS = {
+    "serve": (2, "eight gloo ranks on one card sum o's and down's fp32 "
+                 "partials of a 4500-token prefill through host memory, "
+                 "about 0.8 GB received a rank a sum: 2 layers"),
+    "long": (2, "one local/global pair: long_500k's rules turn FSDP on at "
+                "dp 2, and a step gathers each unit's weights through gloo "
+                "(1.19 s a step at 4 layers)"),
+    "train": (2, "one local/global pair: eight gloo ranks exchange the "
+                 "fp32 partials and the cotangents of 2048 tokens a step"),
+}
+#: 18b's int8 cache: one prompt of ``LM_PROMPTS`` (4500 wraps the ring
+#: across the ranks), then this many steps
+KV_INT8_PROMPT = 4500
+KV_INT8_STEPS = 4
+#: each rank's int8 cache against the reference's.  Its k and v rows are
+#: bf16 sums taken in another order, a few bf16 steps apart near a row's
+#: max (a bf16 step there is half an int8 step), so a value may quantize
+#: ``steps`` away and a share ``apart`` of them at most differ (on the
+#: 4500 prompt: 2 steps, 0.27-0.48 %); the fp16 scales, max|row| / 127,
+#: within ``scale`` of the reference's, relative: two bf16 steps (at
+#: most 0.0097 there)
+KV_INT8_CACHE_TOL = {"steps": 2, "apart": 0.01, "scale": 2.0 ** -6}
+#: 18c: gemma2-2b under ``long_500k``'s rules on a 2 x 1 mesh (batch 1,
+#: replicated; the cache cut over "data"): its prompt and steps, 4 and not
+#: 8: 18c runs alone (its prefill logits beside 18b's prefill ran the card
+#: out of memory), and each step of its two runs costs 1.34 s (FSDP's
+#: gathers through gloo) of the smoke's time
+KV_LONG_MESH = "2x1"
+KV_LONG_PROMPT = 4500
+KV_LONG_DECODE = 4
+#: 18d: gemma2-2b's train step on the 1 x 8 mesh (8 q heads over 4 whole
+#: kv heads), a batch of this many rows of ``TRAIN_SEQ`` tokens
+KV_TRAIN_ROWS = 1
+#: each step's CE within this of the reference's (absolute; the second
+#: step follows bf16 gradients summed in another order through Adam's
+#: first step)
+KV_TRAIN_CE_TOL = (1e-3, 1e-2)
+#: the first step's grad norm within this of the reference's (relative),
+#: and each ``wk``/``wv`` gradient within this of max|g| of the
+#: reference's: bf16 gradients of activations that the shards' fp32 sums
+#: round at other points (3.3e-4 and 0.0075-0.0119 apart on an H100; a
+#: cotangent sum over "model" that drops or doubles a rank's part is off
+#: by about max|g|)
+KV_TRAIN_NORM_TOL = 1e-3
+KV_TRAIN_GRAD_TOL = 2.0 ** -5
+#: the ranks start while the references run, and wait this long (s) for
+#: their inputs
+KV_INPUTS_TIMEOUT = 300
+#: 18e: the dry run's rows, every shape at the JAX package's two meshes
+KV_DRYRUN_ARCHS = ("gemma2-2b", "starcoder2-15b", "internlm2-20b",
+                   "qwen1.5-32b")
+KV_DRYRUN_MESHES = ("16x16", "2x16x16")
+KV_DRYRUN_PROCS = 2
+#: the ranks' processes may take this long (s) before the phase fails
+KV_RANK_TIMEOUT = 600
+
+
+def kv_cfg(arch, layers, dtype="bfloat16", **over):
+    """``arch`` at full width, ``layers`` deep, in ``dtype``."""
+    import dataclasses
+
+    from repro_torch.core.config import get_arch
+
+    return dataclasses.replace(get_arch(arch), num_layers=layers,
+                               dtype=dtype, param_dtype=dtype, **over)
+
+
+def kv_kernel_cases(torch, F, dev, peaks):
+    """Phase 18a: K3 at ``KV_K3_SHAPES`` at ``TP_K3_ROWS`` (o and down on
+    the fp32 store) and K10 at ``KV_K10_CASES``, each held against its
+    plain version, repeated, timed beside the library and printed by its
+    case's function; returns the records."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    for role, kk, n, act, bias, f32 in KV_K3_SHAPES:
+        for m in TP_K3_ROWS:
+            rows.append(k3_bf16_case(
+                torch, F, gen, dev, m, kk, n, act, peaks, False, bias=bias,
+                out_dtype=torch.float32 if f32 else None, ways=8, role=role,
+                arch=KV_ARCH))
+    for case in KV_K10_CASES:
+        r = k10_case(torch, F, gen, dev, case, peaks)
+        r.update(main=False, view=KV_ARCH if case[4] == 6 else LM_ARCH)
+        rows.append(r)
+    return rows
+
+
+def kv_long_steps(cfg, mesh_cfg, mesh, params, rules):
+    """18c's prefill (one request of ``KV_LONG_PROMPT`` tokens) and decode
+    step (``long_500k``'s batch of 1 and window) on the rank's shards
+    ``params``: (prefill, decode, model, window)."""
+    from repro_torch.core.config import ShapeConfig, get_shape
+    from repro_torch.launch.dryrun import _build_step
+
+    shape = get_shape("long_500k")
+    pre = ShapeConfig("prefill", KV_LONG_PROMPT, 1, "prefill")
+    prefill, model = _build_step(cfg, pre, mesh_cfg, rules)(mesh, params)
+    decode, _ = _build_step(cfg, shape, mesh_cfg, rules)(mesh, params)
+    return prefill, decode, model, model.effective_window(shape)
+
+
+def kv_long_rules(mesh_cfg):
+    """``rules_for`` of the uncut gemma2-2b at ``long_500k``."""
+    from repro_torch.core.config import get_arch, get_shape
+    from repro_torch.sharding.auto import rules_for
+
+    return rules_for(get_arch(LM_ARCH), mesh_cfg, get_shape("long_500k"))[0]
+
+
+def kv_int8_prompt(prompts):
+    """18b's int8 run's prompt, of ``tp_prompts``' ``prompts``."""
+    return prompts[LM_PROMPTS.index(KV_INT8_PROMPT):][:1]
+
+
+def kv_long_prompt(np, vocab):
+    return [np.random.default_rng(SEED + 18).integers(
+        0, vocab, (1, KV_LONG_PROMPT))]
+
+
+def kv_unsharded(torch, dev, cfg, tree=None):
+    """The unsharded port of ``cfg`` on ``SEED``'s draws (or ``tree``):
+    (model, tree, prefill, decode at the window ``w``)."""
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.param import init_tree
+
+    model = get_model(cfg)
+    if tree is None:
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        tree = init_tree(model.param_spec(), gen, cfg.param_dtype)
+    model.load_tree(tree)
+
+    def steps(w):
+        return (lambda b, c: model.forward(b, "prefill", window_override=w,
+                                           cache=c),
+                lambda t, p, c: model.decode_step(t, p, c, window=w))
+    return model, tree, steps
+
+
+def kv_grads(grads):
+    """18d's ``wk`` and ``wv`` gradients of ``grads``, on the host."""
+    return {f"{u}/{n}": grads["layers"][u]["attn"][n]["w"].cpu()
+            for u in ("local", "global") for n in ("wk", "wv")}
+
+
+def _cpu_tree(tree):
+    from repro_torch.nn.param import tree_map
+
+    return tree_map(lambda t: t.cpu(), tree)
+
+
+def _host_run(run, cache):
+    return {"prefill_last": run["prefill_last"].cpu(),
+            "steps": run["steps"].cpu(), "tokens": run["tokens"].cpu(),
+            "ms": run["ms"], "cache": _cpu_tree(cache)}
+
+
+#: the fp32 parities' cache rows: the prompt, the steps and a margin
+KV_PARITY_ROWS = LM_PARITY_PROMPT + LM_PARITY_DECODE + 8
+
+
+def kv_parity_prompt(np, vocab):
+    return [np.random.default_rng(SEED).integers(0, vocab,
+                                                 (1, LM_PARITY_PROMPT))]
+
+
+def kv_publish(torch, work, part, inputs):
+    """Give the ranks of ``part`` their inputs: ``work/<part>.inputs``,
+    written whole, then renamed into place."""
+    torch.save(inputs, work / f"{part}.tmp")
+    (work / f"{part}.tmp").rename(work / f"{part}.inputs")
+
+
+def kv_inputs(torch, work, part):
+    """On a rank: ``part``'s inputs, once ``kv_publish`` has written
+    them."""
+    path = work / f"{part}.inputs"
+    deadline = time.perf_counter() + KV_INPUTS_TIMEOUT
+    while not path.exists():
+        if time.perf_counter() > deadline:
+            fail(f"no {path} after {KV_INPUTS_TIMEOUT} s")
+        time.sleep(0.2)
+    return torch.load(path)
+
+
+def kv_references(torch, np, dev, work):
+    """The unsharded references on the card, each freed before the next,
+    while the ranks start up: 18d's two train steps (``mesh_reference``:
+    the batches go to ``work``); 18b's bf16 run (``LM_PROMPTS`` into
+    ``LM_MAX_BATCH`` slots, ``TP_DECODE`` steps) and int8 run (their
+    tokens, which the ranks are forced to); 18c's bf16 run (its tokens)
+    and fp32 parity; 18b's fp32 parity (one layer, greedy).  Returns the
+    records, on the host."""
+    from repro_torch.core.config import get_shape
+    from repro_torch.launch.mesh import parse_mesh
+
+    out = {}
+    long_shape = get_shape("long_500k")
+    grads = {}
+    out["train"], _, out["train_ms"] = mesh_reference(
+        torch, np, dev, mesh_cfg_at(KV_CUTS["train"][0]),
+        parse_mesh(KV_MESH), 1, work, rows=KV_TRAIN_ROWS,
+        first=lambda _, step: grads.update(kv_grads(step.grads)))
+    out["train_grads"] = grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 18b: bf16 and int8 on the same draws
+    cfg = kv_cfg(KV_ARCH, KV_CUTS["serve"][0])
+    prompts = tp_prompts(np, cfg.vocab_size)
+    model, tree, steps = kv_unsharded(torch, dev, cfg)
+    cache = model.init_cache(LM_MAX_BATCH, LM_MAX_LEN)
+    out["serve"] = _host_run(tp_serve(torch, *steps(0), cache, prompts,
+                                      TP_DECODE), cache)
+    model, _, steps = kv_unsharded(torch, dev, kv_cfg(
+        KV_ARCH, KV_CUTS["serve"][0], kv_quant=True), tree)
+    cache = model.init_cache(1, LM_MAX_LEN)
+    out["int8"] = _host_run(tp_serve(torch, *steps(0), cache,
+                                     kv_int8_prompt(prompts), KV_INT8_STEPS),
+                            cache)
+    del model, tree, cache
+    # 18c at long_500k's window, then 18b's fp32 parity (no window at its
+    # rows)
+    runs = (("long", kv_cfg(LM_ARCH, KV_CUTS["long"][0]), long_shape.seq_len,
+             kv_long_prompt, KV_LONG_DECODE, True),
+            ("long_parity", kv_cfg(LM_ARCH, KV_CUTS["long"][0], "float32"),
+             long_shape.seq_len, kv_long_prompt, KV_LONG_DECODE, True),
+            ("serve_parity", kv_cfg(KV_ARCH, TP_PARITY_LAYERS, "float32"),
+             KV_PARITY_ROWS, kv_parity_prompt, LM_PARITY_DECODE - 1, False))
+    for key, cfg, rows, prompt, n, long in runs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, _, steps = kv_unsharded(torch, dev, cfg)
+        window = model.effective_window(long_shape) if long else 0
+        cache = model.init_cache(1, rows, window)
+        out[key] = _host_run(tp_serve(torch, *steps(window), cache,
+                                      prompt(np, cfg.vocab_size), n), cache)
+        del model, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def kv_spawn(work, mesh, parts, label):
+    """Start this script once a rank of ``mesh`` (``--kv-rank``) over a
+    gloo group in ``work``, each rank running ``parts``."""
+    from repro_torch.launch.mesh import parse_mesh
+
+    work.mkdir(exist_ok=True)
+    world = parse_mesh(mesh).num_devices
+    (work / "case.json").write_text(json.dumps({"mesh": mesh,
+                                                "parts": parts}))
+    env = dict(os.environ, MKL_CBWR=MKL_CBWR, OMP_NUM_THREADS="1")
+    logs = [open(work / f"rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--seed", str(SEED),
+         "--kv-rank", str(r), "--kv-world", str(world), "--kv-work",
+         str(work)], stdout=logs[r], stderr=subprocess.STDOUT, env=env,
+        cwd=str(ROOT)) for r in range(world)]
+    return work, procs, logs, label
+
+
+def kv_wait(torch, started):
+    """The records of ``kv_spawn``'s ranks, once each has exited 0."""
+    work, procs, logs, label = started
+    try:
+        deadline = time.perf_counter() + KV_RANK_TIMEOUT
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    # every failed rank's tail: the first to fail may not be the first
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        fail(f"{label}: ranks {failed} failed\n" + "\n".join(
+            f"-- rank {r} exited {procs[r].returncode}:\n"
+            + (work / f"rank{r}.log").read_text()[-3000:] for r in failed))
+    return [torch.load(work / f"rank{r}.pt", weights_only=False)
+            for r in range(len(procs))]
+
+
+def kv_rank_main(args) -> int:
+    """One rank of phases 18b-18d (``--kv-rank``): the mesh and the parts
+    of ``case.json``; see ``kv_phase``."""
+    os.environ["MKL_CBWR"] = MKL_CBWR
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh, parse_mesh
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: a rank needs the GPU")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = rank_device(torch)
+    _build.library()
+    work, rank = Path(args.kv_work), args.kv_rank
+    case = json.loads((work / "case.json").read_text())
+    if "train" in case["parts"]:
+        # the first torch.utils.checkpoint call imports it (about 10 s):
+        # here, while 18a and the references run
+        import torch._dynamo  # noqa: F401
+    dist.init_process_group("gloo", init_method=f"file://{work / 'store'}",
+                            rank=rank, world_size=args.kv_world)
+    try:
+        mesh_cfg = parse_mesh(case["mesh"])
+        mesh = make_mesh(mesh_cfg, "cuda", backend="gloo")
+        coords = dict(zip(mesh_cfg.axes, (int(c) for c in
+                                           mesh.get_coordinate())))
+        rec = {"coords": coords}
+        for part in case["parts"]:
+            fn = {"serve": kv_rank_serve, "int8": kv_rank_int8,
+                  "long": kv_rank_long,
+                  "train": kv_rank_train}[part]
+            inputs = kv_inputs(torch, work.parent, part)
+            t = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            rec[part] = fn(torch, np, dev, mesh, mesh_cfg, work.parent,
+                           inputs)
+            rec[part]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            rec[part]["part_s"] = time.perf_counter() - t
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.save(rec, work / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _kv_counters():
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.matmul_fused import ops as mm_ops
+
+    return {"K3": mm_ops.matmul_fused, "K10": attn_ops.flash_attention}
+
+
+def kv_rank_run(torch, prefill, decode, cache, prompts, steps, forced=None):
+    """One sharded serving run of a rank: ``tp_serve`` with the counters
+    (``forced``: the reference's tokens, else greedy), then its first
+    step again on the cache as it stood before it.  Returns the logits,
+    tokens, launches, times, collectives (a step's, the prefills'), the
+    fp32 stores, the repeat's verdict and the cache, on the host."""
+    from repro_torch.sharding import collectives
+
+    counters = _kv_counters()
+    stores = counters["K3"].entry_launches
+    for k in stores:
+        stores[k] = 0
+    collectives.reset_counts()
+    run = tp_serve(torch, prefill, decode, cache, prompts, steps, counters,
+                   forced=forced, snapshot=True)
+    store_launches = dict(stores)
+    run_counts = collectives.counts_by_name()
+    with torch.no_grad():
+        collectives.reset_counts()
+        again = decode(*run["first"], run["snapshot"])[0][:, 0].float()
+        step_counts = collectives.counts_by_name()
+    rec = _host_run(run, cache)
+    rec.update(repeat_equal=torch.equal(again, run["steps"][0]),
+               launches=run["launches"], k3_paths=run["k3_paths"],
+               store_launches=store_launches,
+               collectives_step=step_counts,
+               collectives_prefills={
+                   k: v["calls"] - step_counts.get(k, {}).get("calls", 0)
+                   * steps for k, v in run_counts.items()})
+    return rec
+
+
+def kv_rank_serve(torch, np, dev, mesh, mesh_cfg, work, forced):
+    """18b on a rank: starcoder2-15b's shards (``shard_init``: the
+    reference's draws) under ``tp_rules``; the bf16 run on the reference's
+    tokens and the fp32 parity, greedy."""
+    from repro_torch.models.transformer import shard_init
+
+    cfg = kv_cfg(KV_ARCH, KV_CUTS["serve"][0])
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    local = shard_init(cfg, gen, mesh, tp_rules(cfg, mesh_cfg))
+    prompts = tp_prompts(np, cfg.vocab_size)
+    prefill, decode, model = tp_steps(cfg, mesh_cfg, mesh, local)
+    rec = kv_rank_run(torch, prefill, decode,
+                      model.init_cache(LM_MAX_BATCH, LM_MAX_LEN), prompts,
+                      TP_DECODE, forced["serve"])
+    del local, prefill, decode, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = kv_cfg(KV_ARCH, TP_PARITY_LAYERS, "float32")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    local = shard_init(cfg, gen, mesh, tp_rules(cfg, mesh_cfg, 1,
+                                                KV_PARITY_ROWS))
+    prefill, decode, model = tp_steps(cfg, mesh_cfg, mesh, local, 1,
+                                      KV_PARITY_ROWS)
+    rec["parity"] = kv_rank_run(torch, prefill, decode,
+                                model.init_cache(1, KV_PARITY_ROWS),
+                                kv_parity_prompt(np, cfg.vocab_size),
+                                LM_PARITY_DECODE - 1)
+    return rec
+
+
+def kv_rank_int8(torch, np, dev, mesh, mesh_cfg, work, forced):
+    """18b's int8 cache on a rank: ``kv_rank_serve``'s shards, one prompt
+    (``kv_int8_prompt``) and ``KV_INT8_STEPS`` steps on the reference's
+    tokens."""
+    import dataclasses
+
+    from repro_torch.models.transformer import shard_init
+
+    cfg = kv_cfg(KV_ARCH, KV_CUTS["serve"][0])
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    local = shard_init(cfg, gen, mesh, tp_rules(cfg, mesh_cfg))
+    prefill, decode, model = tp_steps(
+        dataclasses.replace(cfg, kv_quant=True), mesh_cfg, mesh, local, 1)
+    return kv_rank_run(torch, prefill, decode,
+                       model.init_cache(1, LM_MAX_LEN),
+                       kv_int8_prompt(tp_prompts(np, cfg.vocab_size)),
+                       KV_INT8_STEPS, forced["int8"])
+
+
+def kv_rank_long(torch, np, dev, mesh, mesh_cfg, work, forced):
+    """18c on a rank: gemma2-2b's shards under ``long_500k``'s rules
+    (``kv_long_rules``); the bf16 run on the reference's tokens and the
+    fp32 parity, greedy, each a ``KV_LONG_PROMPT``-token prompt and
+    ``KV_LONG_DECODE`` steps."""
+    from repro_torch.core.config import get_shape
+    from repro_torch.models.transformer import shard_init
+
+    rules = kv_long_rules(mesh_cfg)
+    rows = get_shape("long_500k").seq_len
+    out = {}
+    for key, dtype, tokens in (("bf16", "bfloat16", forced["long"]),
+                               ("parity", "float32", None)):
+        cfg = kv_cfg(LM_ARCH, KV_CUTS["long"][0], dtype)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        local = shard_init(cfg, gen, mesh, rules)
+        prefill, decode, model, window = kv_long_steps(cfg, mesh_cfg, mesh,
+                                                       local, rules)
+        out[key] = kv_rank_run(torch, prefill, decode,
+                               model.init_cache(1, rows, window),
+                               kv_long_prompt(np, cfg.vocab_size),
+                               KV_LONG_DECODE, tokens)
+        del local, prefill, decode, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def kv_rank_train(torch, np, dev, mesh, mesh_cfg, work, forced):
+    """18d on a rank: gemma2-2b's train step through the dry run's
+    ``_build_step`` on ``mesh_rules``' shards, ``MESH_TRAIN_STEPS`` steps
+    on the reference's batches, the first twice from the same state:
+    each step's metrics, launches, collectives and the fingerprints of
+    its ``wk``/``wv`` gradients (rank 0: the first step's values too);
+    the repeat's verdict."""
+    import torch.distributed as dist
+
+    from repro_torch.core.config import ShapeConfig
+    from repro_torch.launch.dryrun import _build_step
+    from repro_torch.models.transformer import shard_init
+    from repro_torch.nn.param import tree_leaves
+    from repro_torch.sharding import collectives
+    from repro_torch.train.optimizer import adamw_init
+
+    cfg = mesh_cfg_at(KV_CUTS["train"][0])
+    rows = KV_TRAIN_ROWS
+    rules = mesh_rules(mesh_cfg, rows)
+
+    def draw():
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        return shard_init(cfg, gen, mesh, rules)
+
+    local = draw()
+    step, _ = _build_step(cfg, ShapeConfig("train", TRAIN_SEQ, rows,
+                                           "train"), mesh_cfg, rules,
+                          tcfg=mesh_tcfg(), microbatches=1)(mesh, local)
+    opt = adamw_init(local, step.plan())
+    batches = [{k: v.to(dev) for k, v in b.items()}
+               for b in torch.load(work / "batches.pt")]
+    k3, k10 = _kv_counters().values()
+
+    def one(batch, keep=False):
+        for fn in (k3, k10):
+            fn.launches = 0
+        for key in k3.role_launches:
+            k3.role_launches[key] = 0
+        collectives.reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        grads, m = step.accumulate(local, batch)
+        kv = {f"{u}/{n}": bits_fingerprint(
+            torch, grads["layers"][u]["attn"][n]["w"])
+            for u in ("local", "global") for n in ("wk", "wv")}
+        # rank 0's, held against the reference's (the ranks' bits agree)
+        kept = kv_grads(grads) if keep and dist.get_rank() == 0 else None
+        _, _, m = step.finish(local, opt, grads, m)
+        torch.cuda.synchronize()
+        return {"metrics": {k: v.item() for k, v in m.items()},
+                "ms": 1e3 * (time.perf_counter() - t),
+                "launches": {"K3": dict(k3.role_launches),
+                             "K10": k10.launches},
+                "collectives": collectives.counts_by_name(),
+                "kv_grads": kv, "kv_grad_values": kept}
+
+    first = one(batches[0], keep=True)
+    prints = mesh_fingerprints(torch, local)
+    for t_, s_ in zip(tree_leaves(local), tree_leaves(draw())):
+        t_.copy_(s_)
+    for t_ in tree_leaves(opt):
+        t_.zero_()
+    again = one(batches[0])
+    repeat = (prints == mesh_fingerprints(torch, local)
+              and again["metrics"] == first["metrics"]
+              and again["kv_grads"] == first["kv_grads"])
+    return {"steps": [first, one(batches[1])], "repeat_ms": again["ms"],
+            "repeat_equal": repeat,
+            "heads": [rules.lookup("heads"), rules.lookup("kv_heads")]}
+
+
+def _tree_items(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tree_items(tree[k], path + (k,))
+    else:
+        yield "/".join(path), tree
+
+
+def _tree_get(tree, path):
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def kv_check_run(torch, label, ranks, recs, ref, layers, per_layer,
+                 mesh_cfg, rules, tol, greedy=False):
+    """The holds of 18b and 18c on the ranks' runs ``recs`` (one a rank)
+    against the unsharded ``ref``: the logits within ``tol[kind]`` x
+    max(1, |ref|) (``greedy``: the tokens the reference's; else an argmax
+    apart only at a near tie), the same bits on every rank, the repeat's
+    bits, each rank's cache rows the matching rows of the reference's
+    cache (within ``LM_CACHE_TOL["bfloat16"]`` of max(1, |ref|); an int8
+    cache's values as ``KV_INT8_CACHE_TOL`` says); the launches a call
+    (K3 ``per_layer`` a layer, K10 one a layer in a prefill).  Returns
+    (worst errors, with the int8 values' steps and share apart, and the
+    argmaxes apart at near ties)."""
+    from repro_torch.sharding.rules import local_slice, logical_to_spec
+
+    worst, parted = {}, []
+    for name, key in (("prefill", "prefill_last"), ("decode", "steps")):
+        want, got = ref[key], recs[0][key]
+        lim = tol[name] * max(1.0, want.abs().max().item())
+        worst[name] = _check_close(f"{label} {name} logits", got, want, lim)
+        g, w = got.reshape(-1, got.shape[-1]), want.reshape(-1,
+                                                            want.shape[-1])
+        pick = g.argmax(-1)
+        apart = pick != w.argmax(-1)
+        if bool((w.gather(1, pick[:, None])[:, 0] < w.max(-1).values - lim)
+                [apart].any()):
+            fail(f"{label}: a {name} argmax parts from the reference's "
+                 f"past a near tie")
+        parted.append(int(apart.sum()))
+    if greedy and not torch.equal(recs[0]["tokens"], ref["tokens"]):
+        fail(f"{label}: tokens {recs[0]['tokens'].tolist()}, the "
+             f"reference's {ref['tokens'].tolist()}")
+    for r, (rank, rec) in enumerate(zip(ranks, recs)):
+        for key in ("prefill_last", "steps", "tokens"):
+            if not torch.equal(rec[key], recs[0][key]):
+                fail(f"{label}: rank {r}'s {key} differ from rank 0's")
+        if not rec["repeat_equal"]:
+            fail(f"{label} rank {r}: a repeat of the first step differs")
+        for kind, want in (("prefill", {"K3": per_layer * layers,
+                                        "K10": layers}),
+                           ("decode", {"K3": per_layer * layers, "K10": 0})):
+            for i, got in enumerate(rec["launches"][kind]):
+                if got != want:
+                    fail(f"{label} rank {r}: {kind} {i} launched {got}, "
+                         f"not {want}")
+        err, apart = 0.0, {}
+
+        def mine(tree, path, t):
+            spec = logical_to_spec(
+                ("layers", "batch", "kv_seq", "kv_heads", None)[:t.dim()],
+                mesh_cfg.axes, rules)
+            return local_slice(_tree_get(tree, path), spec, mesh_cfg,
+                               rank["coords"])
+
+        for path, t in _tree_items(rec["cache"]):
+            want = mine(ref["cache"], path, t)
+            name = f"{label} rank {r} cache {path}"
+            if t.dtype == torch.int8:
+                d = (t.int() - want.int()).abs()
+                apart[path] = [d.max().item(), d.ne(0).float().mean().item()]
+                if (apart[path][0] > KV_INT8_CACHE_TOL["steps"] or
+                        apart[path][1] > KV_INT8_CACHE_TOL["apart"]):
+                    fail(f"{name}: int8 values {apart[path][0]} steps and "
+                         f"{apart[path][1]:.4%} apart")
+            elif path.endswith("_scale"):  # relative; 0 where both are 0
+                w = want.float()
+                apart[path] = ((t.float() - w).abs()
+                               / w.abs().clamp_min(1e-30)).max().item()
+                if not apart[path] <= KV_INT8_CACHE_TOL["scale"]:
+                    fail(f"{name}: scales {apart[path]:.3e} apart")
+            else:
+                err = max(err, _check_close(
+                    name, t.float(), want.float(), LM_CACHE_TOL["bfloat16"]
+                    * max(1.0, want.float().abs().max().item())))
+        worst[f"cache_rank{r}"] = err
+        if apart:
+            worst[f"int8_rank{r}"] = apart
+    return worst, parted
+
+
+def kv_check_collectives(label, recs, want):
+    """Each rank's collectives a decode step: the calls ``want``, and
+    besides them only FSDP's gathers over the data axes (the rules cut
+    "embed" over "data" where a model's weights pass 1.5 GiB a card)."""
+    for r, rec in enumerate(recs):
+        got = {k: v["calls"] for k, v in rec["collectives_step"].items()}
+        other = [k for k in got if k not in want and not (
+            k.startswith("gather_over/") and "model" not in k)]
+        if other or any(got.get(k) != v for k, v in want.items()):
+            fail(f"{label} rank {r}: a step's collectives {got}, not "
+                 f"{want} and FSDP's gathers")
+
+
+def kv_summary(recs, ref):
+    """A run's numbers for the record: the ranks' times and the
+    reference's."""
+    return {"prefill_ms": [r["ms"]["prefill"] for r in recs],
+            "step_ms": [statistics.median(r["ms"]["decode"]) for r in recs],
+            "reference_prefill_ms": ref["ms"]["prefill"],
+            "reference_step_ms": statistics.median(ref["ms"]["decode"]),
+            "collectives_a_step": recs[0]["collectives_step"],
+            "collectives_prefills": recs[0]["collectives_prefills"],
+            "per_rank": [{"launches": tp_sum_launches(r["launches"]),
+                          "k3_paths": r["k3_paths"],
+                          "store_launches": r["store_launches"]}
+                         for r in recs]}
+
+
+def kv_phase(torch, F, np, dev, peaks, card):
+    """Phase 18: 18a the kernels at the new shard shapes; 18b starcoder2
+    served on a 1 x 8 gloo mesh (the cache cut over "model", 6 q heads a
+    rank over every kv head), bf16, int8 and an fp32 parity; 18c
+    gemma2-2b under ``long_500k``'s rules on 2 x 1 (batch 1, the cache
+    cut over "data"); 18d gemma2-2b's train step on 1 x 8 (one q head a
+    rank over 4 whole kv heads); 18e the dry run's dense rows at the JAX
+    package's meshes, all traced (two processes beside the rest).  The
+    ranks of both meshes start first (the 1 x 8 ranks run 18b's bf16 run
+    and parity, 18d, then 18b's int8 run; the 2 x 1 ranks 18c) and wait
+    while 18a and the unsharded references run here on the card; then 18c
+    runs, and once its ranks are done, the 1 x 8 ranks' parts (the card
+    does not hold 18c's prefill logits beside 18b's prefill).  Returns the
+    record."""
+    import tempfile
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import parse_mesh
+
+    t18 = time.perf_counter()
+    out = {"card": card, "reduced": {k: {"num_layers": v[0], "why": v[1]}
+                                     for k, v in KV_CUTS.items()}}
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        started = mesh_dryrun_start(work, "kv", KV_DRYRUN_PROCS)
+        ranks = []
+        try:
+            # both meshes' ranks start up beside 18a and the references,
+            # and run side by side as the references publish their inputs
+            ranks += [kv_spawn(work / "b", KV_MESH,
+                               ["serve", "train", "int8"], "18b/18d"),
+                      kv_spawn(work / "c", KV_LONG_MESH, ["long"], "18c")]
+            out["cases"] = kv_kernel_cases(torch, F, dev, peaks)
+            gc.collect()
+            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            ref = kv_references(torch, np, dev, work)
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["references_s"] = time.perf_counter() - t
+            # 18c's ranks first, then the 1 x 8 ranks' parts: 18c's
+            # prefill logits (4500 x 256000 in fp32 and their softcap,
+            # 15 GB a rank) beside 18b's 4500-token prefill ran the card
+            # out of memory
+            kv_publish(torch, work, "long", {"long": ref["long"]["tokens"]})
+            two = kv_wait(torch, ranks[1])
+            kv_publish(torch, work, "serve", {"serve": ref["serve"]["tokens"]})
+            kv_publish(torch, work, "train", {})
+            kv_publish(torch, work, "int8", {"int8": ref["int8"]["tokens"]})
+            eight = kv_wait(torch, ranks[0])
+            out["ranks_s"] = time.perf_counter() - t - out["references_s"]
+            rows = dryrun_collect(started, "18e")
+        finally:  # a failed phase leaves no process of its own behind
+            procs = [p for p, _, _ in started] + [
+                p for _, group, _, _ in ranks for p in group]
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for log in [log for _, _, log in started] + [
+                    f for _, _, logs, _ in ranks for f in logs]:
+                log.close()
+    # 18b
+    layers = KV_CUTS["serve"][0]
+    per_layer = K3_DENSE_PER_LAYER[KV_ARCH]
+    m8 = parse_mesh(KV_MESH)
+    label = f"{KV_ARCH} {KV_MESH} kv_seq"
+    cfg = kv_cfg(KV_ARCH, layers)
+    rules = tp_rules(cfg, m8)
+    if rules.lookup("kv_seq") != ("model",) or rules.lookup("kv_heads"):
+        fail(f"{label}: the rules cut {rules.lookup('kv_seq')} and "
+             f"{rules.lookup('kv_heads')}, not the sequence over 'model'")
+    serve = [r["serve"] for r in eight]
+    b = {}
+    b["worst"], b["parted"] = kv_check_run(
+        torch, label, eight, serve, ref["serve"], layers, per_layer, m8,
+        rules, {"prefill": TP_BF16_TOL, "decode": TP_BF16_TOL})
+    kv_check_collectives(label, serve, {
+        "max_over/model": layers, "sum_over/model": 4 * layers + 1,
+        "gather_over/model": layers + 1})
+    q = [r["int8"] for r in eight]
+    b["int8_worst"], b["int8_parted"] = kv_check_run(
+        torch, f"{label} int8", eight, q, ref["int8"], layers, per_layer,
+        m8, rules, {"prefill": TP_BF16_TOL, "decode": TP_BF16_TOL})
+    par = [r["parity"] for r in serve]
+    b["parity_worst"], _ = kv_check_run(
+        torch, f"{label} fp32 parity", eight, par, ref["serve_parity"],
+        TP_PARITY_LAYERS, per_layer, m8,
+        tp_rules(cfg, m8, 1, KV_PARITY_ROWS), LM_TOL, greedy=True)
+    b.update(kv_summary(serve, ref["serve"]),
+             int8=kv_summary(q, ref["int8"]),
+             peak_memory_gb=[r["peak_gb"] for r in serve],
+             part_s=[r["part_s"] for r in serve],
+             int8_part_s=[r["part_s"] for r in q],
+             tokens=serve[0]["tokens"].tolist())
+    out["serve"] = b
+    print("kv18b " + json.dumps(b), flush=True)
+    # 18c
+    layers = KV_CUTS["long"][0]
+    m2 = parse_mesh(KV_LONG_MESH)
+    label = f"{LM_ARCH} {KV_LONG_MESH} long_500k kv_seq"
+    rules = kv_long_rules(m2)
+    if rules.lookup("kv_seq") != ("data",) or rules.lookup("batch"):
+        fail(f"{label}: the rules cut the sequence over "
+             f"{rules.lookup('kv_seq')} and the batch over "
+             f"{rules.lookup('batch')}")
+    c = {}
+    runs = [r["long"]["bf16"] for r in two]
+    c["worst"], c["parted"] = kv_check_run(
+        torch, label, two, runs, ref["long"], layers, 7, m2, rules,
+        {"prefill": TP_BF16_TOL, "decode": TP_BF16_TOL})
+    kv_check_collectives(label, runs, {"max_over/data": layers,
+                                       "sum_over/data": 2 * layers})
+    c["parity_worst"], _ = kv_check_run(
+        torch, f"{label} fp32 parity", two, [r["long"]["parity"]
+                                              for r in two],
+        ref["long_parity"], layers, 7, m2, rules, LM_TOL, greedy=True)
+    c.update(kv_summary(runs, ref["long"]),
+             part_s=[r["long"]["part_s"] for r in two],
+             tokens=runs[0]["tokens"].tolist())
+    out["long"] = c
+    print("kv18c " + json.dumps(c), flush=True)
+    # 18d
+    label = f"{LM_ARCH} train {KV_MESH}"
+    train = [r["train"] for r in eight]
+    if train[0]["heads"] != ["model", None]:
+        fail(f"{label}: q and kv heads cut as {train[0]['heads']}")
+    d = {"ce": [], "ce_err": []}
+    for i, want in enumerate(ref["train"]):
+        got = [t["steps"][i]["metrics"] for t in train]
+        if any(g != got[0] for g in got):
+            fail(f"{label}: step {i + 1}'s metrics differ between ranks")
+        err = abs(got[0]["ce"] - want["ce"])
+        d["ce"].append([got[0]["ce"], want["ce"]])
+        d["ce_err"].append(err)
+        if not err <= KV_TRAIN_CE_TOL[i]:
+            fail(f"{label}: step {i + 1}'s CE {got[0]['ce']}, the "
+                 f"reference's {want['ce']}, {err} apart")
+        kv = [t["steps"][i]["kv_grads"] for t in train]
+        if any(k != kv[0] for k in kv):
+            fail(f"{label}: step {i + 1}'s wk/wv gradients differ between "
+                 f"ranks")
+    # the backward of the kv heads' selection (copy_to's sum over
+    # "model"): the first step's gradients against the reference's
+    got, want = train[0]["steps"][0]["metrics"], ref["train"][0]
+    d["grad_norm"] = [got["grad_norm"], want["grad_norm"]]
+    d["grad_norm_err"] = abs(got["grad_norm"] - want["grad_norm"]) / abs(
+        want["grad_norm"])
+    d["kv_grad_err"] = {}
+    for path, g in train[0]["steps"][0]["kv_grad_values"].items():
+        w = ref["train_grads"][path].float()
+        d["kv_grad_err"][path] = (g.float() - w).abs().max().item() / (
+            w.abs().max().item())
+    print(f"{label}: step 1's grad norm {d['grad_norm_err']:.3e} apart "
+          f"(relative), wk/wv gradients {d['kv_grad_err']} (of max|g|)",
+          flush=True)
+    if not d["grad_norm_err"] <= KV_TRAIN_NORM_TOL:
+        fail(f"{label}: step 1's grad norm {d['grad_norm']} (sharded, "
+             f"reference)")
+    if not max(d["kv_grad_err"].values()) <= KV_TRAIN_GRAD_TOL:
+        fail(f"{label}: step 1's wk/wv gradients {d['kv_grad_err']} of "
+             f"max|g| from the reference's")
+    expect = train_expect(mesh_cfg_at(KV_CUTS["train"][0]))
+    want = {"K3": {"forward": expect["K3_forward"] + expect["K3_recompute"],
+                   "z": expect["K3_z"], "dx": expect["K3_dx"],
+                   "dw": expect["K3_dw"]},
+            "K10": expect["K10_forward"] + expect["K10_backward"]}
+    for r, t in enumerate(train):
+        if not t["repeat_equal"]:
+            fail(f"{label} rank {r}: the first step again differs")
+        for s in t["steps"]:
+            if s["launches"] != want:
+                fail(f"{label} rank {r}: launches {s['launches']}, not "
+                     f"{want}")
+    d.update(step_ms=[[s["ms"] for s in t["steps"]] for t in train],
+             reference_step_ms=ref["train_ms"],
+             collectives_a_step=mesh_split(train[0]["steps"][0][
+                 "collectives"]),
+             launches=train[0]["steps"][0]["launches"],
+             peak_memory_gb=[t["peak_gb"] for t in train])
+    out["train"] = d
+    print("kv18d " + json.dumps(d), flush=True)
+    # 18e
+    for rec in rows:
+        print("kv18e " + dryrun.summary(rec) + f" [{card}]", flush=True)
+    missed = [f"{r['arch']} {r['shape']} {r['mesh']}" for r in rows
+              if not r["traced"]]
+    if missed or len(rows) != len(dryrun_combos("kv")):
+        fail(f"18e: {len(rows)} rows, not traced: {missed}")
+    out["dryrun"] = [{k: r[k] for k in ("arch", "shape", "mesh", "fits",
+                                        "traced", "per_device_bytes",
+                                        "collectives")} for r in rows]
+    out["phase_s"] = time.perf_counter() - t18
+    print(f"phase 18 wall time {out['phase_s']:.1f} s (references "
+          f"{out['references_s']:.1f}, then the ranks {out['ranks_s']:.1f}; "
+          f"1x8 parts {b['part_s'][0]:.1f} + "
+          f"{eight[0]['train']['part_s']:.1f} + {b['int8_part_s'][0]:.1f}, "
+          f"2x1 "
+          f"{c['part_s'][0]:.1f}) [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     global SEED
     t_smoke = time.perf_counter()
@@ -5885,12 +6829,19 @@ def main() -> int:
     ap.add_argument("--mt-work", help=argparse.SUPPRESS)
     ap.add_argument("--mesh-dryrun", help=argparse.SUPPRESS)
     ap.add_argument("--mesh-dryrun-part", help=argparse.SUPPRESS)
+    ap.add_argument("--dryrun-set", default="mesh", help=argparse.SUPPRESS)
+    # one rank of phase 18b-18d, started by the smoke itself
+    ap.add_argument("--kv-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--kv-world", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--kv-work", help=argparse.SUPPRESS)
     args = ap.parse_args()
     SEED = args.seed
     if args.tp_rank is not None:
         return tp_rank_main(args)
     if args.mt_rank is not None:
         return mesh_rank_main(args)
+    if args.kv_rank is not None:
+        return kv_rank_main(args)
     if args.mesh_dryrun is not None:
         return mesh_dryrun_main(args)
 
@@ -6233,7 +7184,15 @@ def main() -> int:
     mesh_k3 = {role: sum(r["K3"][role] for r in mesh_ranks)
                for role in ("forward", "z", "dx", "dw")}
 
-    # -- 18. the kernels line -----------------------------------------------
+    # -- 18. kv-sequence sharding: the cache cut by sequence ----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    kv = kv_phase(torch, F, np, dev, peaks, card_line)
+    # the bf16 serving runs of 18b's and 18c's ranks, each rank's launches
+    kv_runs = kv["serve"]["per_rank"] + kv["long"]["per_rank"]
+    kv_cases = kv["cases"]
+
+    # -- 19. the kernels line -----------------------------------------------
     kernels = []
     for kid, (name, src, replaces) in sources.items():
         mine = [c for c in cases if c["kernel"] == kid]
@@ -6273,15 +7232,17 @@ def main() -> int:
     # K10: the wgmma path (every bf16 prefill of 7c, 11c and 15c) and the
     # CUDA-core kernel (the fp32 prefills of 7b, 11b and 15b; its time the
     # fp32 4500-token case)
-    k10 = [c for c in lm_cases + cross_cases + dense_cases
+    k10 = [c for c in lm_cases + cross_cases + dense_cases + kv_cases
            if c["kernel"] == "K10"]
     k10_src = "src/repro_torch/csrc/flash_attention.cu"
     k10_pallas = "src/repro/kernels/attention/kernel.py:116"
     k10_wgmma = {p: lm["k10_paths"][p] + sum(
         r["k10_paths"][p] for r in (*cross.values(), *dense.values()))
                  for p in lm["k10_paths"]}
-    # phase 16's bf16 prefills (16b and both ranks of 16c) on wgmma alone
-    k10_wgmma["wgmma"] += sum(r["launches"]["K10"] for r in tp_runs)
+    # phase 16's bf16 prefills (16b and both ranks of 16c) and 18b's and
+    # 18c's ranks' on wgmma alone
+    k10_wgmma["wgmma"] += sum(r["launches"]["K10"] for r in tp_runs
+                              + kv_runs)
     k10_simt = {p: lm_parity["paths"][p] + sum(
         r["paths"][p] for r in (*cross_parity.values(),
                                 *dense_parity.values()))
@@ -6311,7 +7272,7 @@ def main() -> int:
     # case
     k3 = [c for c in lm_cases if c["kernel"] == "K3-bf16"]
     k3_all = [c for c in k3 + rwkv_cases + cross_cases + dense_cases
-              + tp_cases if c["kernel"] == "K3-bf16"
+              + tp_cases + kv_cases if c["kernel"] == "K3-bf16"
               and c.get("store", "bfloat16") == "bfloat16"]
     served_k3 = (*cross.values(), *dense.values())
     kernels.append(lm_entry(
@@ -6319,7 +7280,7 @@ def main() -> int:
         "src/repro/kernels/matmul_fused/kernel.py:37",
         [c for c in k3 if c["main"]],
         lm["launches"]["K3"] + sum(r["launches"]["K3"] for r in served_k3)
-        + sum(r["launches"]["K3"] for r in tp_runs),
+        + sum(r["launches"]["K3"] for r in tp_runs + kv_runs),
         max(c["max_abs_err"] for c in k3_all),
         train_backward_launches=k3_backward,
         mesh_train_launches=mesh_k3))
@@ -6330,14 +7291,14 @@ def main() -> int:
          and c["rows"] == K3_WGMMA_GAIN[0]],
         lm["k3_paths"]["wgmma"] + sum(r["k3_paths"]["wgmma"]
                                       for r in served_k3)
-        + sum(r["k3_paths"].get("wgmma", 0) for r in tp_runs),
+        + sum(r["k3_paths"].get("wgmma", 0) for r in tp_runs + kv_runs),
         max(c["max_abs_err"] for c in k3_all if c["path"] == "wgmma"),
         train_backward_launches=k3_backward))
     # K3's fp32 store of bf16 operands (the row-parallel o and down of
     # 16c's ranks; 16b's 1 x 1 mesh cuts nothing): its times the 2-way
     # shapes of 16a at M = 4 and 4500
-    k3_f32 = [c for c in tp_cases if c["kernel"] == "K3-bf16"
-              and c["store"] == "float32"]
+    k3_f32 = [c for c in tp_cases + kv_cases if c["kernel"] == "K3-bf16"
+              and c.get("store") == "float32"]
     # 17a's backward cases beside them: dx and dw on the fp32 store's dz,
     # and 17c's ranks' fp32 stores (the row-parallel o and down)
     kernels.append(lm_entry(
@@ -6345,7 +7306,7 @@ def main() -> int:
         "src/repro/kernels/matmul_fused/kernel.py:37",
         [c for c in k3_f32 if c["main"]],
         sum(r["store_launches"]["matmul_fused_bf16_f32"]
-            for r in tp_two["per_rank"])
+            for r in tp_two["per_rank"] + kv_runs)
         + sum(r["K3_f32_store"] for r in mesh_ranks),
         max(c["max_abs_err"] for c in k3_f32),
         mesh_train_store_launches=sum(r["K3_f32_store"]
@@ -6398,7 +7359,7 @@ def main() -> int:
              "tp_cases": tp_cases, "tp_one": tp_one, "tp_two": tp_two,
              "tp_dryrun": tp_dry, "mesh_cases": mesh_cases,
              "mesh_one": mesh_one, "mesh_runs": mesh_runs,
-             "mesh_dryrun": mesh_dry,
+             "mesh_dryrun": mesh_dry, "kv": kv,
              "capture": capture, "kernels": kernels},
             indent=1))
     print(f"smoke wall time {time.perf_counter() - t_smoke:.1f} s",

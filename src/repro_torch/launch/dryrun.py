@@ -22,9 +22,16 @@ not run (``sharding.collectives.COUNTS``: calls and bytes a step by
 collective and mesh axis, a backward's apart; the role of the JAX
 package's ``hlo_analysis``).  A train step traces one microbatch's
 forward, backward and the update, and counts the microbatch's
-collectives as many times as the step takes microbatches.  A family or
-rule the executed path lacks is recorded as ``"traced": false`` with its
-reason, never replicated in silence.
+collectives as many times as the step takes microbatches.  The cache
+is cut as its leaves' logical axes say (by sequence where the kv heads
+do not divide "model" or the batch does not divide dp), and a decode
+step counts the softmax's exchange across the cache's shards: a
+``max_over`` and two ``sum_over`` (the sum of the exps, the partial
+outputs) a layer over the "kv_seq" axes, and where q heads are cut over
+whole kv heads a ``gather_over`` of q over "model".  A family or rule
+the executed path lacks is recorded as ``"traced": false`` with its
+reason (the rule ``check_executed`` names, where one applies), never
+replicated in silence.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen1.5-32b --shape decode_32k \\
@@ -307,8 +314,15 @@ def run_one(arch: str, shape: Union[str, ShapeConfig], mesh_cfg: MeshConfig,
     if not trace:
         rec["why_not_traced"] = "not asked"
     elif cfg.family != "dense":
-        rec["why_not_traced"] = (f"the {cfg.family} family: the trace is of "
-                                 f"the dense family's steps")
+        from repro_torch.models.transformer import check_executed
+
+        why = (f"the {cfg.family} family: the trace is of the dense "
+               f"family's steps")
+        try:  # the rule the executed path lacks for it, where one cuts
+            check_executed(cfg, mesh_cfg, rules)
+        except NotImplementedError as e:
+            why = f"{e}; {why}"
+        rec["why_not_traced"] = why
     else:
         try:
             rec.update(_trace(cfg, shape, mesh_cfg, rules, spec, window))

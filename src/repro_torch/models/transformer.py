@@ -36,8 +36,8 @@ from repro_torch.nn.embedding import embed_tokens, embedding_spec, lm_logits
 from repro_torch.nn.param import (DTYPES, ParamTree, _initialize, is_param,
                                   stack_spec, tree_map)
 from repro_torch.sharding.collectives import gather_over
-from repro_torch.sharding.rules import (AxisRules, entry_axes, kv_cache_spec,
-                                        local_shape, local_slice, local_spec,
+from repro_torch.sharding.rules import (AxisRules, entry_axes, local_shape,
+                                        local_slice, local_spec,
                                         logical_to_spec, shards)
 
 
@@ -185,22 +185,18 @@ class TransformerLM(BaseModel):
                    device=None) -> dict:
         """A zero cache (``BaseModel.init_cache``); on a mesh, the rank's
         shard of it: every leaf [n_scan, batch, S, kvh, hd] (int8 scales
-        without hd) cut as ``kv_cache_spec`` chooses, the batch over the
-        dp axes and the kv heads over "model"."""
+        without hd) cut by its logical axes ("layers", "batch", "kv_seq",
+        "kv_heads", None) under the rules, as the JAX dry run shards the
+        cache: the batch over the dp axes, the kv heads over "model" where
+        they divide it, else the sequence ("kv_seq"), the rank at index r
+        over its axes holding the rows [r * S / n, (r + 1) * S / n)."""
         if self.mesh_cfg is None:
             return super().init_cache(batch, cache_len, window, device)
         m = self.mesh_cfg
-        kv = (None,) + kv_cache_spec(batch, self.cfg.num_kv_heads, m.dp_size,
-                                     m.model_size, m.axes, self.rules)
         dev = torch.device(device) if device is not None else self.device
 
         def leaf(p):
-            spec = kv[:len(p.shape)]
-            if logical_to_spec(p.axes, m.axes, self.rules) != spec:
-                raise NotImplementedError(
-                    f"a cache leaf {p.axes} sharded as "
-                    f"{logical_to_spec(p.axes, m.axes, self.rules)}, not as "
-                    f"kv_cache_spec's {spec}")
+            spec = logical_to_spec(p.axes, m.axes, self.rules)
             return torch.zeros(local_shape(p.shape, spec, m),
                                dtype=DTYPES[p.dtype or "bfloat16"],
                                device=dev)
@@ -226,8 +222,6 @@ class TransformerLM(BaseModel):
 #: a rule the executed path does not take yet, where it cuts an axis: the
 #: logical axis and what it names
 UNSUPPORTED = (
-    ("kv_seq", "kv-sequence sharding ('kv_seq': kv heads that do not "
-               "divide 'model', or a batch below dp)"),
     ("seq_res", "seq_sp's residual-stream sequence ('seq_res')"),
 )
 
@@ -238,8 +232,9 @@ def check_executed(cfg: ModelConfig, mesh_cfg: MeshConfig,
     ``mesh_cfg`` under ``rules`` needs what the executed sharded path (the
     dense transformer's train step, prefill and decode, tensor parallel
     over "model", data parallel over "data", FSDP's "embed" gathered
-    unit by unit) does not take yet; every spec is still reckoned by the
-    dry run."""
+    unit by unit, q heads cut over whole kv heads, the cache cut by
+    sequence over any of its axes) does not take yet; every spec is still
+    reckoned by the dry run."""
     if cfg.ssm is not None or cfg.rwkv is not None:
         raise NotImplementedError(
             f"the {cfg.family} family's 'ssm_inner' (the SSM / RWKV inner "
@@ -261,10 +256,10 @@ def check_executed(cfg: ModelConfig, mesh_cfg: MeshConfig,
                 f"{mesh_cfg.shape}: not in the executed path yet")
     heads, kv = (shards(logical_to_spec((a,), mesh_cfg.axes, rules)[0],
                         mesh_cfg) for a in ("heads", "kv_heads"))
-    if heads != kv:
+    if kv > 1 and heads != kv:
         raise NotImplementedError(
-            f"q heads in {heads} shards and kv heads in {kv}: the executed "
-            f"path cuts both alike")
+            f"kv heads in {kv} shards and q heads in {heads}: the executed "
+            f"path cuts the kv heads only as the q heads")
 
 
 #: the mesh axes a batch is split over: FSDP's "embed" cuts a leaf over them

@@ -14,6 +14,10 @@ package, each a ``torch.autograd.Function``.
 * :func:`max_over` is the elementwise max over the ranks, without a
   gradient.
 
+Each takes one mesh axis or several at once (the cache's sequence cut
+over ``("data", "model")``): the ranks over several axes are ordered
+row-major, the major axis first.
+
 **The adjoints depend on what lies downstream on the axis.**  Over
 "model" (tensor parallel) every rank computes the same loss, so a
 cotangent arrives replicated: ``sum_over``'s adjoint is the identity and
@@ -94,10 +98,33 @@ def _nbytes(x) -> int:
 
 
 def _group(c, axes: Tuple[str, ...]):
-    if len(axes) != 1:
-        raise NotImplementedError(
-            f"a collective over the mesh axes {axes} at once")
-    return c.mesh.get_group(axes[0])
+    """The process group over ``axes`` that holds this rank: the mesh's own
+    where one axis of more than one device remains, else a group over the
+    product of those axes, made at its first use and kept on the mesh
+    (every rank of the world makes every such group, in the same order,
+    as ``new_group`` asks).  Its group ranks run row-major over ``axes``,
+    the major axis first: the global ranks of a ``DeviceMesh`` are
+    row-major over its axes, and ``new_group`` sorts them."""
+    live = tuple(a for a in axes if c.mesh_cfg.size(a) > 1)
+    if len(live) == 1:
+        return c.mesh.get_group(live[0])
+    groups = c.mesh.__dict__.setdefault("_groups_over_axes", {})
+    if live not in groups:
+        import torch.distributed as dist
+
+        order = [c.mesh_cfg.axes.index(a) for a in live]
+        if order != sorted(order):
+            raise ValueError(f"the mesh axes {live} out of the mesh's "
+                             f"order {c.mesh_cfg.axes}")
+        rest = [d for d, a in enumerate(c.mesh_cfg.axes) if a not in live]
+        # the other axes first, then the group's flattened: a row a group
+        rows = c.mesh.mesh.permute(*rest, *order).reshape(-1,
+                                                         _size(c, live))
+        for row in rows.tolist():
+            group = dist.new_group(row)
+            if dist.get_rank() in row:
+                groups[live] = group
+    return groups[live]
 
 
 def _index(c, axes: Tuple[str, ...]) -> int:

@@ -9,10 +9,11 @@ for every logical axis whose global size the context was given, and
 raises where it is not.  With no context it is the identity.
 
 The context also tells the model code which shard of a logical axis its
-rank holds (:func:`shard_of`): the sharded embedding, the row-parallel
-products and the logits read it, and the collectives
-(``sharding.collectives``) read its mesh.  With no context every axis is
-whole, and the model runs as on one card.
+rank holds (:func:`shard_of`, and :func:`shard_rows` for the rows of a
+cut dimension: the cache's sequence): the sharded embedding, the
+row-parallel products, the logits and the cache read it, and the
+collectives (``sharding.collectives``) read its mesh.  With no context
+every axis is whole, and the model runs as on one card.
 """
 from __future__ import annotations
 
@@ -96,6 +97,17 @@ def shard_of(logical: str) -> Tuple[int, int, Tuple[str, ...]]:
         return 0, 1, ()
     return (shard_index(entry, ctx.coords, ctx.mesh_cfg), n,
             entry_axes(entry))
+
+
+def shard_rows(logical: str, local: int) -> Tuple[int, int, Tuple[str, ...]]:
+    """(the offset of this rank's rows in the whole dimension, the whole
+    dimension's size, the mesh axes) of a dimension that the logical axis
+    ``logical`` cuts, of which this rank holds ``local`` rows: the rank at
+    index r over the entry's axes (row-major, the major axis first, as
+    ``local_slice`` carves) holds rows [r * local, (r + 1) * local);
+    (0, local, ()) with no context or where the axis is whole."""
+    r, n, axes = shard_of(logical)
+    return r * local, n * local, axes
 
 
 def shard_act(x, logical_axes: Sequence[Optional[str]]):

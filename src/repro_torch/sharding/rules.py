@@ -127,6 +127,10 @@ def kv_cache_spec(
                      else shard the sequence over model.
     - batch <  dp  : (long_500k b=1) shard the *sequence* over dp, heads over
                      model if divisible.
+
+    The JAX package exports it and lays out no cache by it; neither does
+    the port: a model's cache leaves are cut by their logical axes
+    (``TransformerLM.init_cache``), as the JAX dry run shards them.
     """
     dp = _filter_axes(rules.lookup("batch"), mesh_axes)
     model = _filter_axes(rules.lookup("heads"), mesh_axes)

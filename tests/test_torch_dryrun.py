@@ -7,8 +7,11 @@ sum over the JAX package's own specs (``rules_for`` and
 int8-KV switch is the JAX dry run's rule; qwen1.5-32b's traced decode
 step at 1 x 4 (all 64 layers, rank 0 of a fake process group of 4, meta
 tensors) counts two ``sum_over`` a layer (o and down), one for the
-embedding and one ``gather_over`` for the logits; a family or rule the
-executed path lacks is recorded with its reason.  The fake group is
+embedding and one ``gather_over`` for the logits; at the JAX package's
+own meshes (16 x 16, 2 x 16 x 16) every dense row is traced with the
+cache cut by sequence, and a decode step counts the softmax's exchange
+across the cache's shards; a family or rule the executed path lacks is
+recorded with the rule it names.  The fake group is
 destroyed when each trace ends, so no other test sees a process group.
 """
 import ast
@@ -147,8 +150,9 @@ def test_per_device_bytes_equal_jax_specs(arch, shape_name, mesh_name):
         assert rec["collectives"]["sum_over/model"]["calls"] > 0
     if arch != "grok-1-314b" and mesh_name == "single_pod":
         # 40 kv heads on 16 (qwen1.5), 4 on 16 (gemma2): the kv sequence
-        # sharded, not in the path yet
-        assert not rec["traced"] and "kv_seq" in rec["why_not_traced"]
+        # sharded over "model", in the executed path
+        assert rec["traced"], rec.get("why_not_traced")
+        assert any("kv-seq" in n for n in rec["sharding_notes"])
     assert not dist.is_initialized()
 
 
@@ -166,6 +170,70 @@ def test_traced_decode_step_counts_the_collectives():
     assert coll["sum_over/model"]["bytes"] == \
         3 * (2 * 64 * 128 * 5120 * 4 + 128 * 5120 * 2)
     assert rec["logits_shape"] == [128, 1, 152064]
+    assert not dist.is_initialized()
+
+
+DENSE = ("gemma2-2b", "starcoder2-15b", "internlm2-20b", "qwen1.5-32b")
+#: the rule each other family lacks, as ``check_executed`` names it
+REFUSED = {"moe": "'experts'", "ssm": "'ssm_inner'",
+           "hybrid": "'ssm_inner'", "vlm": "'media'", "audio": "'media'"}
+
+
+@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("mesh_name", ("single_pod", "multi_pod"))
+def test_every_dense_row_traced_at_the_production_meshes(mesh_name, arch):
+    """The JAX package's own meshes, 16 x 16 and 2 x 16 x 16: every shape
+    of the dense family traced at full depth, the cache cut by sequence
+    (no dense arch has kv heads that 16 divides)."""
+    mesh = parse_mesh(MESHES[mesh_name])
+    for shape in tconfig.SHAPES:
+        rec = dryrun.run_one(arch, shape, mesh)
+        assert rec["traced"], (shape, rec.get("why_not_traced"))
+        assert any("kv-seq" in n for n in rec["sharding_notes"]), shape
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("mesh_name", ("single_pod", "multi_pod"))
+def test_other_families_refused_with_their_rule(mesh_name):
+    """Every moe, ssm, hybrid, vlm and audio row at the production meshes
+    is refused, its reason naming the rule the executed path lacks."""
+    mesh = parse_mesh(MESHES[mesh_name])
+    n = 0
+    for arch in tconfig.list_archs():
+        family = tconfig.get_arch(arch).family
+        if family == "dense":
+            continue
+        for shape in tconfig.SHAPES:
+            rec = dryrun.run_one(arch, shape, mesh)
+            assert not rec["traced"], (arch, shape)
+            why = rec["why_not_traced"]
+            assert REFUSED[family] in why and f"{family} family" in why, \
+                (arch, shape, why)
+            n += 1
+    assert n == 24
+
+
+def test_traced_decode_step_counts_the_softmax_exchange():
+    """qwen1.5-32b's ``decode_32k`` at 16 x 16: its 40 kv heads whole
+    (and its 40 q heads), the cache cut over "model" into 2048 rows a
+    rank; each of the 64 layers takes the softmax's max and sums the
+    exps and the partial outputs over "model" (fp32 [8, 40, 1, 1, 1] and
+    [8, 1, 40, 1, 128] a rank), besides down's partial and the
+    embedding's.  starcoder2-15b's q heads are cut over its 4 whole kv
+    heads: q is gathered over "model" once a layer."""
+    rec = dryrun.run_one("qwen1.5-32b", "decode_32k", parse_mesh("16x16"))
+    assert rec["traced"], rec.get("why_not_traced")
+    coll = rec["collectives"]
+    stat, out, part, emb = 8 * 40 * 4, 8 * 40 * 128 * 4, 8 * 5120 * 4, \
+        8 * 5120 * 2
+    assert coll["max_over/model"] == {"calls": 64, "bytes": 15 * 64 * stat}
+    assert coll["sum_over/model"] == {
+        "calls": 3 * 64 + 1,
+        "bytes": 15 * (64 * (stat + out + part) + emb)}
+    assert coll["gather_over/model"]["calls"] == 1
+    rec = dryrun.run_one("starcoder2-15b", "decode_32k", parse_mesh("16x16"))
+    assert rec["collectives"]["gather_over/model"]["calls"] == 40 + 1
+    assert rec["collectives"]["max_over/model"]["calls"] == 40
     assert not dist.is_initialized()
 
 

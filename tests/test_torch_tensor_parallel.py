@@ -219,33 +219,45 @@ def test_one_by_one_mesh_gives_the_unsharded_bits(tmp_path):
 
 def test_kv_heads_not_dividing_model_raise_the_kv_seq_rule():
     """Reduced qwen1.5's 2 kv heads on a 4-way "model" axis: the rules
-    shard the kv sequence, which the executed path does not take."""
+    shard the kv sequence and keep the kv heads whole while the q heads
+    are cut; the executed path takes it: the step builds, and the rank's
+    cache holds every kv head and a quarter of the rows
+    (``tests/test_torch_kv_seq.py`` runs it against JAX)."""
     cfg = tconfig.get_arch(ARCH).reduced()
     mesh_cfg = tconfig.MeshConfig((1, 4), ("data", "model"))
     shape = tconfig.ShapeConfig("decode", CACHE, 2, "decode")
     rules, notes = rules_for(cfg, mesh_cfg, shape)
     assert any("kv-seq" in n for n in notes)
-    with pytest.raises(NotImplementedError, match="kv_seq"):
-        _build_step(cfg, shape, mesh_cfg, rules)
-    with pytest.raises(NotImplementedError, match="kv_seq"):
-        TransformerLM(cfg, mesh_cfg, rules)
+    assert rules.lookup("kv_seq") == ("model",)
+    assert callable(_build_step(cfg, shape, mesh_cfg, rules))
+    model = TransformerLM(cfg, mesh_cfg, rules)
+    cache = model.init_cache(2, CACHE, device="meta")
+    assert tuple(cache["k"].shape) == (cfg.num_layers, 2, CACHE // 4,
+                                       cfg.num_kv_heads, cfg.head_dim)
 
 
 @pytest.mark.parametrize("rule,arch,mesh", [
     ("ssm_inner", "rwkv6-1.6b", (1, 2)),
     ("experts", "qwen3-moe-30b-a3b", (1, 2)),
     ("family", "llama-3.2-vision-11b", (1, 2)),
-    ("train", "qwen3-moe-30b-a3b", (1, 2))])
+    ("train", "qwen3-moe-30b-a3b", (1, 2)),
+    ("seq_res", "qwen1.5-32b", (1, 2))])
 def test_unsupported_rules_raise_and_name_themselves(rule, arch, mesh):
     cfg = tconfig.get_arch(arch).reduced()
     mesh_cfg = tconfig.MeshConfig(mesh, ("data", "model"))
     shape = tconfig.get_shape("train_4k" if rule == "train" else
                               "decode_32k")
     rules, _ = rules_for(cfg, mesh_cfg, shape)
+    if rule == "seq_res":  # seq_sp's rule (launch/variants.py)
+        from repro_torch.launch.variants import apply_variants
+
+        _, rules, _, _ = apply_variants(("seq_sp",), cfg, rules,
+                                        mesh_cfg.model_size)
     with pytest.raises(NotImplementedError) as e:
         _build_step(cfg, shape, mesh_cfg, rules)
     word = {"ssm_inner": "'ssm_inner'", "experts": "'experts'",
-            "family": "'media'", "train": "'experts'"}[rule]
+            "family": "'media'", "train": "'experts'",
+            "seq_res": "'seq_res'"}[rule]
     assert word in str(e.value)
 
 
