@@ -493,7 +493,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``train_expect``'s; e. the dry run's rows of every shape of the four
    dense archs at 16 x 16 and 2 x 16 x 16 (two processes beside a-d), all
    32 traced;
-19. prints one JSON line ``{"kernels": [...]}``: per kernel, ``launches``
+19. the MoE block on a mesh (``moe_mesh_phase``): a. K3 at the slice's
+   rank shapes (``MOE_K3_SHAPES``: qwen3-moe's and grok-1's q, k/v and o
+   on the fp32 store at 1 x 4, M = 4 and 4500; grok's expert down on the
+   fp32 store at its 8192 ff columns a rank, M = 8 and 2250) and K10 at
+   the rank views (``MOE_K10_CASES``), as 16a, while the ranks of b-d
+   (``--kv-rank``) start up; then the unsharded references run on the
+   card and are freed; b. qwen3-moe-30b-a3b at full width cut to
+   ``MOE_CUTS``' depth on a 1 x 4 gloo mesh (32 experts a rank, 8 q heads
+   over 1 kv head), ``LM_PROMPTS`` into 4 slots and ``MOE_DECODE`` steps
+   on the reference's tokens, held as 18b (logits within
+   ``TP_BF16_TOL``, every rank's the same bits, the repeat's bits, each
+   rank's cache rows, K3 4 and K10 1 launches a layer in a prefill, the
+   prefills on K3's and K10's wgmma paths; the cache rows of tokens
+   routed apart left out, every layer's but the first held to
+   ``TP_BF16_TOL``), every MoE call's capacity the reference's and, in a
+   prefill's or step's first MoE layer, its set of experts the
+   reference's but at a near tie (``MOE_NEAR_TIE``), at most
+   ``MOE_MOST_PARTED`` of the run's tokens routed apart in any layer, the
+   collectives a step (o's partials and the picked rows summed over
+   "model" a layer); c. grok-1-314b on the same ranks (each expert's
+   8192 ff columns, 12 q heads over 2 kv heads), held as b with K3 12 a
+   layer (the experts' fp32 partials), on ``MOE_PROMPTS``' three
+   prompts; d. qwen3-moe's bf16 train step
+   (``moe_redraw``'s experts) on 2 x 2 under ``rules_for``'s rules
+   (FSDP's "embed" over "data"), ``MOE_TRAIN_ROWS`` x 2048 tokens a data
+   rank, two steps, the first twice: CE and both aux losses within
+   ``MOE_TRAIN_TOL`` of the unsharded step on the global batch grouped by
+   dp 2, the metrics the same bits on every rank, the repeat the same
+   bits, the router's gradient the same bits on both model ranks of a
+   data group; e. the dry run's 16 MoE rows at 16 x 16 and 2 x 16 x 16
+   (two processes beside a-d), all traced and fitting;
+20. prints one JSON line ``{"kernels": [...]}``: per kernel, ``launches``
    is its count summed over the AlexNet forwards of phase 4 (K1-K3,
    K7-K9) or phase 5 (K4-K6), or over the first LM serving run of phase
    7c and the first runs of phases 11c and 15c (K10's wgmma path as
@@ -520,10 +551,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``mesh_train_launches`` on the K3 bf16 entry (by role) and on
    ``flash_attention``, and their fp32 stores to the
    ``matmul_fused_bf16_f32`` entry's launches, which carries 17a's times
-   under ``backward``; the bf16 serving runs of 18b's and 18c's ranks add
-   their K3, K10 and fp32-store launches as 16c's do, and 18a's cases
-   join the largest errors;
-20. prints ``{"ok": true, "device": {...}}`` as its last line.
+   under ``backward``; the bf16 serving runs of 18b's, 18c's, 19b's and
+   19c's ranks add their K3, K10 and fp32-store launches as 16c's do, and
+   18a's and 19a's cases join the largest errors;
+21. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Run it from the repository root; it needs one CUDA device and the CUDA
 toolkit, and imports nothing of the JAX package.
@@ -2576,7 +2607,7 @@ def record_routing(torch, log):
 
     real = common.moe_apply
 
-    def wrapped(params, x, cfg, *, dp_size=1, mode="train"):
+    def wrapped(params, x, cfg, *, dp_size=1, mode="train", **kw):
         r = moe.route(params, x, cfg, dp_size=dp_size, mode=mode)
         k = cfg.moe.num_experts_per_token
         top = torch.topk(r.probs, k + 1, dim=-1).values
@@ -2585,7 +2616,7 @@ def record_routing(torch, log):
                     "experts": r.e_k.cpu(), "kept": kept.cpu(),
                     "dropped": int((~r.keep).sum()),
                     "margin": (top[..., k - 1] - top[..., k]).min().item()})
-        return real(params, x, cfg, dp_size=dp_size, mode=mode)
+        return real(params, x, cfg, dp_size=dp_size, mode=mode, **kw)
 
     common.moe_apply = wrapped
     try:
@@ -4529,7 +4560,7 @@ def tp_serve(torch, prefill, decode, cache, prompts, steps, counters=None,
     last, launches, ms = [], {"prefill": [], "decode": []}, \
         {"prefill": [], "decode": []}
 
-    k3_paths = {}
+    k3_paths, k10_paths = {}, {}
 
     def timed(kind, fn):
         for c in (counters or {}).values():
@@ -4543,9 +4574,10 @@ def tp_serve(torch, prefill, decode, cache, prompts, steps, counters=None,
         ms[kind].append(1e3 * (time.perf_counter() - t))
         launches[kind].append({k: c.launches
                                for k, c in (counters or {}).items()})
-        if counters and "K3" in counters:
-            for p, n in counters["K3"].path_launches.items():
-                k3_paths[p] = k3_paths.get(p, 0) + n
+        for kid, paths in (("K3", k3_paths), ("K10", k10_paths)):
+            if counters and kid in counters:
+                for p, n in counters[kid].path_launches.items():
+                    paths[p] = paths.get(p, 0) + n
         return out
 
     with torch.no_grad():
@@ -4572,7 +4604,7 @@ def tp_serve(torch, prefill, decode, cache, prompts, steps, counters=None,
     return {"prefill_last": last, "steps": torch.stack(outs),
             "tokens": torch.stack(toks, 1), "first": first,
             "launches": launches, "ms": ms, "k3_paths": k3_paths,
-            "snapshot": snap}
+            "k10_paths": k10_paths, "snapshot": snap}
 
 
 def _free_port():
@@ -4701,9 +4733,9 @@ def tp_sum_launches(launches):
 def tp_two_phase(torch, np, dev, card):
     """Phase 16c: two ranks on the one card over gloo, mesh 1 x 2.  The
     unsharded reference (``TP_CUTS["1x2"]`` layers of ``TP_ARCH`` at full
-    width, bf16, and ``TP_PARITY_LAYERS`` in fp32) runs first here and is
-    freed; then two processes of this script (``--tp-rank``) join a gloo
-    group, each draws its shards (``shard_init``, the reference's draws),
+    width, bf16, and ``TP_PARITY_LAYERS`` in fp32) runs here and is freed
+    while two processes of this script (``--tp-rank``) start up; then they
+    join a gloo group, each draws its shards (``shard_init``, the reference's draws),
     prefills ``LM_PROMPTS`` into ``LM_MAX_BATCH`` slots of ``LM_MAX_LEN``
     rows and takes ``TP_DECODE`` steps on the reference's tokens, repeats
     the first step, and runs the fp32 parity greedily.  Held: bf16 logits
@@ -4719,23 +4751,12 @@ def tp_two_phase(torch, np, dev, card):
     layers, why = TP_CUTS["1x2"]
     cfg = tp_cfg(layers)
     prompts = tp_prompts(np, cfg.vocab_size)
-    model, _ = build_model(torch, TP_ARCH, dev, layers=layers)
-    cache = model.init_cache(LM_MAX_BATCH, LM_MAX_LEN)
-    ref = tp_serve(torch, lambda b, c: model.forward(b, "prefill", cache=c),
-                   lambda t, p, c: model.decode_step(t, p, c), cache,
-                   prompts, TP_DECODE)
-    del model, cache
-    gc.collect()
-    torch.cuda.empty_cache()
-    par_ref = tp_parity_run(torch, np, dev, None, None)
-    gc.collect()
-    torch.cuda.empty_cache()
-    t_ref = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as work:
         work = Path(work)
-        torch.save({"tokens": ref["tokens"].cpu()}, work / "reference.pt")
         env = dict(os.environ, MKL_CBWR=MKL_CBWR)
         logs = [open(work / f"rank{r}.log", "w") for r in range(2)]
+        # the ranks start up while the reference runs, and wait for its
+        # tokens before they touch the card's memory
         procs = [subprocess.Popen(
             [sys.executable, str(ROOT / "chip_smoke.py"), "--seed",
              str(SEED), "--tp-rank", str(r), "--tp-world", "2",
@@ -4743,6 +4764,20 @@ def tp_two_phase(torch, np, dev, card):
             stderr=subprocess.STDOUT, env=env, cwd=str(ROOT))
             for r in range(2)]
         try:
+            model, _ = build_model(torch, TP_ARCH, dev, layers=layers)
+            cache = model.init_cache(LM_MAX_BATCH, LM_MAX_LEN)
+            ref = tp_serve(torch, lambda b, c: model.forward(
+                b, "prefill", cache=c), lambda t, p, c: model.decode_step(
+                    t, p, c), cache, prompts, TP_DECODE)
+            del model, cache
+            gc.collect()
+            torch.cuda.empty_cache()
+            par_ref = tp_parity_run(torch, np, dev, None, None)
+            gc.collect()
+            torch.cuda.empty_cache()
+            t_ref = time.perf_counter() - t0
+            kv_publish(torch, work, "reference",
+                       {"tokens": ref["tokens"].cpu()})
             deadline = time.perf_counter() + TP_RANK_TIMEOUT
             for p in procs:
                 p.wait(timeout=max(1.0, deadline - time.perf_counter()))
@@ -4888,7 +4923,7 @@ def tp_rank_main(args) -> int:
     dev = rank_device(torch)
     _build.library()
     work, rank = Path(args.tp_work), args.tp_rank
-    forced = torch.load(work / "reference.pt")["tokens"]
+    forced = kv_inputs(torch, work, "reference")["tokens"]
     dist.init_process_group("gloo", init_method=f"file://{work / 'store'}",
                             rank=rank, world_size=args.tp_world)
     try:
@@ -5386,13 +5421,43 @@ def mesh_split(counts):
     return out
 
 
-def mesh_two_phase(torch, np, dev, card, name):
-    """Phase 17c on mesh ``name`` (data x model) over gloo: the depth
-    ``mesh_train_cut``'s; the unsharded reference (``mesh_reference``) run
-    here first and freed; then the ranks, this script started once a rank
-    (``--mt-rank``), each taking ``MESH_TRAIN_STEPS`` steps on its rows
-    through the dry run's ``_build_step``, the first twice from the same
-    state, and the fp32 parity (``mesh_parity``).  Held: the first step's
+def mesh_two_start(work, name):
+    """Start 17c's ranks of mesh ``name`` (data x model): this script once
+    a rank (``--mt-rank``) in ``work``, at ``mesh_train_cut``'s depth
+    (``case.json``); they start up (the interpreter, the library, dynamo)
+    while the phase's earlier parts run, and wait for the reference's
+    files (``mesh_two_phase``) before they touch the card's memory.
+    Returns what ``mesh_two_phase`` takes."""
+    from repro_torch.launch.mesh import parse_mesh
+
+    mesh_cfg = parse_mesh(name)
+    mb = MESH_TRAIN_MICROBATCHES.get(name, 1)
+    cfg, reduced, budget, ref_budget = mesh_train_cut(
+        mesh_cfg, mb, MESH_TRAIN_DEPTH.get(name, MESH_TRAIN_LAYERS))
+    world = mesh_cfg.num_devices
+    work.mkdir()
+    (work / "case.json").write_text(json.dumps(
+        {"mesh": name, "layers": cfg.num_layers, "microbatches": mb}))
+    env = dict(os.environ, MKL_CBWR=MKL_CBWR)
+    logs = [open(work / f"rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--seed",
+         str(SEED), "--mt-rank", str(r), "--mt-world", str(world),
+         "--mt-work", str(work)], stdout=logs[r],
+        stderr=subprocess.STDOUT, env=env, cwd=str(ROOT))
+        for r in range(world)]
+    return {"name": name, "mesh_cfg": mesh_cfg, "mb": mb, "cfg": cfg,
+            "reduced": reduced, "budget": budget, "ref_budget": ref_budget,
+            "work": work, "procs": procs, "logs": logs}
+
+
+def mesh_two_phase(torch, np, dev, card, started):
+    """Phase 17c on the mesh ``mesh_two_start`` started (data x model)
+    over gloo: the depth ``mesh_train_cut``'s; the unsharded reference
+    (``mesh_reference``) run here and freed; then the ranks, each taking
+    ``MESH_TRAIN_STEPS`` steps on its rows through the dry run's
+    ``_build_step``, the first twice from the same state, and the fp32
+    parity (``mesh_parity``).  Held: the first step's
     CE, loss and grad norm within ``TP_BF16_TOL`` (relative to max(1,
     |reference|)) of the reference's, the second's too, the same bits on
     every rank; every new leaf within the Adam allowance of the
@@ -5401,55 +5466,41 @@ def mesh_two_phase(torch, np, dev, card, name):
     leaves that no model axis cuts the same bits on the model ranks of a
     data group; the repeated step the same bits; the launches a step
     ``train_expect``'s, on the wgmma path.  Returns the record."""
-    import tempfile
-
-    from repro_torch.launch.mesh import parse_mesh
-
     t0 = time.perf_counter()
-    mesh_cfg = parse_mesh(name)
-    mb = MESH_TRAIN_MICROBATCHES.get(name, 1)
-    cfg, reduced, budget, ref_budget = mesh_train_cut(
-        mesh_cfg, mb, MESH_TRAIN_DEPTH.get(name, MESH_TRAIN_LAYERS))
+    name, mesh_cfg, mb, cfg = (started[k] for k in ("name", "mesh_cfg",
+                                                     "mb", "cfg"))
+    reduced, budget, ref_budget = (started[k] for k in (
+        "reduced", "budget", "ref_budget"))
+    work, procs, logs = started["work"], started["procs"], started["logs"]
     world = mesh_cfg.num_devices
     label = f"{MESH_TRAIN_ARCH} train {name} mesh"
     print(f"{label}: {cfg.num_layers} layers, reduced "
           f"{json.dumps(reduced)}, microbatches {mb}, reckoned "
           f"{ {k: round(v, 2) for k, v in budget.items()} } GB", flush=True)
-    with tempfile.TemporaryDirectory() as work:
-        work = Path(work)
+    try:
         ref, ref_s, ref_ms = mesh_reference(
             torch, np, dev, cfg, mesh_cfg, mb, work,
             first=lambda tree, _: torch.save(_cpu_tree(tree),
                                              work / "reference.pt"))
-        (work / "case.json").write_text(json.dumps(
-            {"mesh": name, "layers": cfg.num_layers, "microbatches": mb}))
-        env = dict(os.environ, MKL_CBWR=MKL_CBWR)
-        logs = [open(work / f"rank{r}.log", "w") for r in range(world)]
-        t_ranks = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--seed",
-             str(SEED), "--mt-rank", str(r), "--mt-world", str(world),
-             "--mt-work", str(work)], stdout=logs[r],
-            stderr=subprocess.STDOUT, env=env, cwd=str(ROOT))
-            for r in range(world)]
-        try:
-            deadline = time.perf_counter() + MESH_RANK_TIMEOUT
-            for p in procs:
-                p.wait(timeout=max(1.0, deadline - time.perf_counter()))
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-            for f in logs:
-                f.close()
-        for r, p in enumerate(procs):
-            if p.returncode != 0:
-                tail = (work / f"rank{r}.log").read_text()[-4000:]
-                fail(f"{label} rank {r} exited {p.returncode}:\n{tail}")
-        ranks = [torch.load(work / f"rank{r}.pt", weights_only=False)
-                 for r in range(world)]
-        ranks_s = time.perf_counter() - t_ranks
+        kv_publish(torch, work, "reference", {})
+        t_ranks = time.perf_counter()  # the ranks' time after it
+        deadline = time.perf_counter() + MESH_RANK_TIMEOUT
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            tail = (work / f"rank{r}.log").read_text()[-4000:]
+            fail(f"{label} rank {r} exited {p.returncode}:\n{tail}")
+    ranks = [torch.load(work / f"rank{r}.pt", weights_only=False)
+             for r in range(world)]
+    ranks_s = time.perf_counter() - t_ranks
     worst = {}
     for i, want in enumerate(ref):
         for k in ("ce", "loss", "grad_norm"):
@@ -5706,8 +5757,12 @@ def mesh_rank_main(args) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = rank_device(torch)
     _build.library()
+    # the first torch.utils.checkpoint call imports it (about 10 s): here,
+    # while the reference runs
+    import torch._dynamo  # noqa: F401
     work, rank = Path(args.mt_work), args.mt_rank
     case = json.loads((work / "case.json").read_text())
+    kv_inputs(torch, work, "reference")  # the reference's files are written
     dist.init_process_group("gloo", init_method=f"file://{work / 'store'}",
                             rank=rank, world_size=args.mt_world)
     try:
@@ -5834,14 +5889,16 @@ def mesh_rank_main(args) -> int:
 
 def dryrun_combos(which):
     """The (arch, shape, mesh) rows of 17d (``"mesh"``: ``train_4k`` of
-    ``MESH_DRYRUN_ARCHS`` on ``MESH_DRYRUN_MESHES``) or 18e (``"kv"``:
-    every shape of ``KV_DRYRUN_ARCHS`` on ``KV_DRYRUN_MESHES``)."""
+    ``MESH_DRYRUN_ARCHS`` on ``MESH_DRYRUN_MESHES``), 18e (``"kv"``:
+    every shape of ``KV_DRYRUN_ARCHS`` on ``KV_DRYRUN_MESHES``) or 19e
+    (``"moe"``: every shape of ``MOE_DRYRUN_ARCHS`` on the same)."""
     if which == "mesh":
         return [(a, "train_4k", m) for a in MESH_DRYRUN_ARCHS
                 for m in MESH_DRYRUN_MESHES]
     from repro_torch.core.config import SHAPES
 
-    return [(a, s, m) for m in KV_DRYRUN_MESHES for a in KV_DRYRUN_ARCHS
+    archs = MOE_DRYRUN_ARCHS if which == "moe" else KV_DRYRUN_ARCHS
+    return [(a, s, m) for m in KV_DRYRUN_MESHES for a in archs
             for s in SHAPES]
 
 
@@ -5920,15 +5977,28 @@ def mesh_phase(torch, np, dev, peaks, counters, card):
     t17 = time.perf_counter()
     with tempfile.TemporaryDirectory() as work:
         started = mesh_dryrun_start(Path(work))
-        gen = torch.Generator(device=dev).manual_seed(SEED)
-        cases = [k3_store_grad_case(torch, gen, dev, role, kk, n,
-                                    MESH_TRAIN_ROWS * TRAIN_SEQ, peaks)
-                 for role, kk, n in K3_STORE_GRAD_SHAPES]
-        gc.collect()
-        torch.cuda.empty_cache()
-        one = mesh_one_phase(torch, np, dev, counters, card)
-        meshes = {name: mesh_two_phase(torch, np, dev, card, name)
-                  for name in MESH_TRAIN_MESHES}
+        # every mesh's ranks start up beside 17a, 17b and the meshes
+        # before theirs
+        ranks = [mesh_two_start(Path(work) / name, name)
+                 for name in MESH_TRAIN_MESHES]
+        try:
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            cases = [k3_store_grad_case(torch, gen, dev, role, kk, n,
+                                        MESH_TRAIN_ROWS * TRAIN_SEQ, peaks)
+                     for role, kk, n in K3_STORE_GRAD_SHAPES]
+            gc.collect()
+            torch.cuda.empty_cache()
+            one = mesh_one_phase(torch, np, dev, counters, card)
+            meshes = {r["name"]: mesh_two_phase(torch, np, dev, card, r)
+                      for r in ranks}
+        finally:  # a failed phase leaves no process of its own behind
+            for r in ranks:
+                for p in r["procs"]:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+                for f in r["logs"]:
+                    f.close()
         rows = mesh_dryrun_rows(started, card)
     print(f"phase 17 wall time {time.perf_counter() - t17:.1f} s (1x1 "
           f"{one['phase_s']:.1f}, "
@@ -6269,7 +6339,7 @@ def kv_rank_main(args) -> int:
     _build.library()
     work, rank = Path(args.kv_work), args.kv_rank
     case = json.loads((work / "case.json").read_text())
-    if "train" in case["parts"]:
+    if {"train", "moe_train"} & set(case["parts"]):
         # the first torch.utils.checkpoint call imports it (about 10 s):
         # here, while 18a and the references run
         import torch._dynamo  # noqa: F401
@@ -6283,8 +6353,10 @@ def kv_rank_main(args) -> int:
         rec = {"coords": coords}
         for part in case["parts"]:
             fn = {"serve": kv_rank_serve, "int8": kv_rank_int8,
-                  "long": kv_rank_long,
-                  "train": kv_rank_train}[part]
+                  "long": kv_rank_long, "train": kv_rank_train,
+                  "qwen": moe_rank_serve("qwen"),
+                  "grok": moe_rank_serve("grok"),
+                  "moe_train": moe_rank_train}[part]
             inputs = kv_inputs(torch, work.parent, part)
             t = time.perf_counter()
             torch.cuda.reset_peak_memory_stats()
@@ -6331,10 +6403,13 @@ def kv_rank_run(torch, prefill, decode, cache, prompts, steps, forced=None):
     rec = _host_run(run, cache)
     rec.update(repeat_equal=torch.equal(again, run["steps"][0]),
                launches=run["launches"], k3_paths=run["k3_paths"],
-               store_launches=store_launches,
+               k10_paths=run["k10_paths"], store_launches=store_launches,
                collectives_step=step_counts,
                collectives_prefills={
                    k: v["calls"] - step_counts.get(k, {}).get("calls", 0)
+                   * steps for k, v in run_counts.items()},
+               collectives_prefill_bytes={
+                   k: v["bytes"] - step_counts.get(k, {}).get("bytes", 0)
                    * steps for k, v in run_counts.items()})
     return rec
 
@@ -6502,14 +6577,18 @@ def _tree_get(tree, path):
 
 
 def kv_check_run(torch, label, ranks, recs, ref, layers, per_layer,
-                 mesh_cfg, rules, tol, greedy=False):
+                 mesh_cfg, rules, tol, greedy=False, skip=None,
+                 deep_tol=None):
     """The holds of 18b and 18c on the ranks' runs ``recs`` (one a rank)
     against the unsharded ``ref``: the logits within ``tol[kind]`` x
     max(1, |ref|) (``greedy``: the tokens the reference's; else an argmax
     apart only at a near tie), the same bits on every rank, the repeat's
     bits, each rank's cache rows the matching rows of the reference's
     cache (within ``LM_CACHE_TOL["bfloat16"]`` of max(1, |ref|); an int8
-    cache's values as ``KV_INT8_CACHE_TOL`` says); the launches a call
+    cache's values as ``KV_INT8_CACHE_TOL`` says; ``skip`` [slots, S]:
+    rows of the global cache left out, those of tokens an MoE block routed
+    apart; ``deep_tol``: the limit of every layer's rows but the first,
+    in place of ``LM_CACHE_TOL``'s); the launches a call
     (K3 ``per_layer`` a layer, K10 one a layer in a prefill).  Returns
     (worst errors, with the int8 values' steps and share apart, and the
     argmaxes apart at near ties)."""
@@ -6571,9 +6650,29 @@ def kv_check_run(torch, label, ranks, recs, ref, layers, per_layer,
                 if not apart[path] <= KV_INT8_CACHE_TOL["scale"]:
                     fail(f"{name}: scales {apart[path]:.3e} apart")
             else:
-                err = max(err, _check_close(
-                    name, t.float(), want.float(), LM_CACHE_TOL["bfloat16"]
-                    * max(1.0, want.float().abs().max().item())))
+                got, want = t.float(), want.float()
+                if skip is not None:
+                    whole = _tree_get(ref["cache"], path)
+                    left = local_slice(skip.reshape(1, *skip.shape, *(
+                        [1] * (whole.dim() - 3))).expand(whole.shape),
+                        logical_to_spec(("layers", "batch", "kv_seq",
+                                         "kv_heads", None)[:t.dim()],
+                                        mesh_cfg.axes, rules), mesh_cfg,
+                        rank["coords"])
+                    got, want = (torch.where(left, 0.0, v)
+                                 for v in (got, want))
+                top = max(1.0, want.abs().max().item())
+                if deep_tol is None:
+                    err = max(err, _check_close(
+                        name, got, want, LM_CACHE_TOL["bfloat16"] * top))
+                else:
+                    err = max(err, _check_close(
+                        f"{name} layer 0", got[0], want[0],
+                        LM_CACHE_TOL["bfloat16"] * top))
+                    deep = _check_close(f"{name} layers 1-", got[1:],
+                                        want[1:], deep_tol * top)
+                    worst[f"cache_deep_rank{r}"] = max(
+                        deep, worst.get(f"cache_deep_rank{r}", 0.0))
         worst[f"cache_rank{r}"] = err
         if apart:
             worst[f"int8_rank{r}"] = apart
@@ -6807,6 +6906,577 @@ def kv_phase(torch, F, np, dev, peaks, card):
           f"{eight[0]['train']['part_s']:.1f} + {b['int8_part_s'][0]:.1f}, "
           f"2x1 "
           f"{c['part_s'][0]:.1f}) [{card}]", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+#: phase 19: the MoE block on a mesh, ranks of this script over gloo on the
+#: one card.  19b serves qwen3-moe-30b-a3b with its 128 experts cut over
+#: "model" (32 a rank), 19c grok-1-314b with each expert's d_ff of 32768
+#: cut (8192 a rank), both on 1 x 4 and ``rules_for``'s rules; 19d trains
+#: qwen3-moe on 2 x 2 (one token group a data rank, FSDP's "embed")
+MOE_MESH = "1x4"
+MOE_TRAIN_MESH = "2x2"
+MOE_GROK_ARCH = "grok-1-314b"
+#: the depth of each run (layers, why); width, heads, experts and vocab as
+#: published
+MOE_CUTS = {
+    "qwen": (4, "four gloo ranks on one card exchange the picked expert "
+                "rows of a 4500-token prefill through host memory (147 MB "
+                "a layer in bf16) and gather its 2.7-GB fp32 logits: 4 "
+                "layers keep phase 19 near two minutes"),
+    "grok": (2, "9.84 GB a layer: the four ranks' shards and the unsharded "
+                "reference, run first and freed, each hold a whole model "
+                "on the one card"),
+    "train": (2, "a train step of 2 x 2048 tokens on four gloo ranks, "
+                 "FSDP's gathers and the picked rows' exchange through host "
+                 "memory"),
+}
+#: 19b's and 19c's prompts (of ``tp_prompts``) and decode steps on the
+#: reference's tokens; grok without the 4500-token prompt, whose experts'
+#: fp32 partials (442 MB a layer a rank) took 11.6 s of the smoke's time
+MOE_PROMPTS = {"qwen": LM_PROMPTS, "grok": LM_PROMPTS[:3]}
+MOE_DECODE = {"qwen": 8, "grok": 4}
+#: a token's chosen experts may part from the reference's only where its
+#: k-th and (k+1)-th router probabilities lie within this (a near tie),
+#: and at most this share of a run's tokens (prompts and decode steps)
+#: may part in any layer, as ``tests/test_torch_dense_archs.py``'s
+#: ``MOST_PARTED`` rules a prompt's (on the card qwen3's 16-token prompt
+#: parted 2 tokens at near ties in its fourth layer: a prompt's share is
+#: too coarse below 16 tokens)
+MOE_NEAR_TIE = 2.0 ** -8
+MOE_MOST_PARTED = 1.0 / 16
+#: 19d: bf16, a data rank's rows of ``TRAIN_SEQ`` tokens, each step's
+#: metrics (CE and both aux losses) within this of the unsharded step's on
+#: the global batch grouped by the mesh's dp (relative to max(1, |ref|);
+#: the second step follows bf16 gradients summed in another order through
+#: Adam's first step).  In fp32 the steps gave 1.1e-6 at most, but FSDP
+#: gathered twice the bytes through gloo: 12.3-13.3 s a step
+MOE_TRAIN_DTYPE = "bfloat16"
+MOE_TRAIN_ROWS = 1
+MOE_TRAIN_TOL = (1e-4, 1e-3)
+#: 19a: K3 at the slice's rank shapes (arch, role, K, N, rows, fp32
+#: store): qwen3's q (8 heads), k/v (1 kv head) and o at 1 x 4, grok's q
+#: (12 heads), k/v (2 kv heads), o, and an expert's down product on the
+#: fp32 store (each expert's 8192 ff columns; 2250 rows: the capacity of
+#: a 4500-token prefill, 8: a decode step's at 4 slots)
+MOE_K3_SHAPES = (
+    (MOE_ARCH, "q", 2048, 1024, TP_K3_ROWS, False),
+    (MOE_ARCH, "kv", 2048, 128, TP_K3_ROWS, False),
+    (MOE_ARCH, "o", 1024, 2048, TP_K3_ROWS, True),
+    (MOE_GROK_ARCH, "q", 6144, 1536, TP_K3_ROWS, False),
+    (MOE_GROK_ARCH, "kv", 6144, 256, TP_K3_ROWS, False),
+    (MOE_GROK_ARCH, "o", 1536, 6144, TP_K3_ROWS, True),
+    (MOE_GROK_ARCH, "expert_down", 8192, 6144, (8, 2250), True))
+#: 19a's K10 cases at the rank views: qwen3's 8 q heads over its 1 kv
+#: head, grok's 12 over 2 with softcap 30, at 1500 and 4500 tokens
+MOE_K10_CASES = tuple(c for s in TP_K10_TOKENS for c in (
+    (s, 0, 0.0, "bfloat16", 8, 1, 128, True),
+    (s, 0, 30.0, "bfloat16", 12, 2, 128, True)))
+#: 19e: the dry run's rows, every shape of both MoE archs at the JAX
+#: package's two meshes
+MOE_DRYRUN_ARCHS = (MOE_ARCH, MOE_GROK_ARCH)
+MOE_DRYRUN_PROCS = 2
+
+
+def moe_arch(key):
+    return MOE_GROK_ARCH if key == "grok" else MOE_ARCH
+
+
+def moe_k3_per_layer(cfg):
+    """K3 launches a layer of a sharded prefill or decode step: q, k, v,
+    o, and where each expert's ff axis is cut, every expert's down partial
+    on the fp32 store (grok: 8)."""
+    return 4 + (cfg.moe.num_experts if cfg.moe.shard_mode == "tensor"
+                else 0)
+
+
+def moe_kernel_mesh_cases(torch, F, dev, peaks):
+    """Phase 19a: K3 at ``MOE_K3_SHAPES`` (o and the experts' down on the
+    fp32 store) and K10 at ``MOE_K10_CASES``, each held against its plain
+    version, repeated, timed beside the library and printed by its case's
+    function; returns the records."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    for arch, role, kk, n, ms, f32 in MOE_K3_SHAPES:
+        for m in ms:
+            rows.append(k3_bf16_case(
+                torch, F, gen, dev, m, kk, n, "none", peaks, False,
+                out_dtype=torch.float32 if f32 else None, ways=4, role=role,
+                arch=arch))
+    for case in MOE_K10_CASES:
+        r = k10_case(torch, F, gen, dev, case, peaks)
+        r.update(main=False, ways=4,
+                 view=MOE_ARCH if case[4] == 8 else MOE_GROK_ARCH)
+        rows.append(r)
+    return rows
+
+
+@contextlib.contextmanager
+def route_log(torch, log):
+    """Every MoE call's routing while inside (``repro_torch.nn.moe.route``
+    wrapped): its mode, capacity, chosen experts [D, T_l, k] and each
+    token's margin between its k-th and (k+1)-th router probability, on
+    the host."""
+    from repro_torch.nn import moe
+
+    real = moe.route
+
+    def wrapped(params, x, cfg, **kw):
+        r = real(params, x, cfg, **kw)
+        k = cfg.moe.num_experts_per_token
+        top = torch.topk(r.probs, k + 1, dim=-1).values
+        log.append({"mode": kw.get("mode", "train"), "cap": r.cap,
+                    "experts": r.e_k.cpu(),
+                    "margin": (top[..., k - 1] - top[..., k]).cpu()})
+        return r
+
+    moe.route = wrapped
+    try:
+        yield
+    finally:
+        moe.route = real
+
+
+def moe_check_routing(label, ref, got, layers):
+    """The ranks' MoE calls against the reference's, call by call (the
+    reference's count; a rank's repeat of the first step comes after),
+    ``layers`` calls a prefill or a decode step: the same mode and
+    capacity; in each prefill's or step's first MoE layer, whose input
+    parts from the reference's by the attention's rounding alone, the
+    same set of experts but at a near tie (``MOE_NEAR_TIE``).  In a later
+    layer a token may part too: a token routed apart before moves every
+    hidden state after it through attention, and the pairs it adds to or
+    takes from an expert move others past or within the capacity
+    (``moe_parted_rows`` bounds their share).  Returns the summary and
+    each call's tokens routed apart."""
+    if len(got) < len(ref):
+        fail(f"{label}: {len(got)} MoE calls, the reference made {len(ref)}")
+    rows = []
+    by_layer, margins = [0] * layers, [0.0] * layers
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if (a["mode"], a["cap"]) != (b["mode"], b["cap"]):
+            fail(f"{label}: MoE call {i} ran {a['mode']} cap {a['cap']}, "
+                 f"the reference {b['mode']} cap {b['cap']}")
+        # the sets of experts: two picks of nearly equal probability may
+        # come in either order, which changes only the combine's order
+        apart = (a["experts"].sort(-1).values != b["experts"].sort(
+            -1).values).any(-1).reshape(-1)
+        margin = b["margin"].reshape(-1)[apart]
+        layer = i % layers
+        if layer == 0 and not bool((margin < MOE_NEAR_TIE).all()):
+            fail(f"{label}: MoE call {i} ({a['mode']}, a first layer) chose "
+                 f"other experts for {int(apart.sum())} tokens, the "
+                 f"reference's margins {margin.tolist()[:8]}, past a near "
+                 f"tie")
+        by_layer[layer] += int(apart.sum())
+        if margin.numel():
+            margins[layer] = max(margins[layer], margin.max().item())
+        rows.append(apart)
+    return {"calls": len(ref), "token_calls_parted_by_layer": by_layer,
+            "largest_margin_parted_by_layer": margins,
+            "prefill_cap": [r["cap"] for r in ref if r["mode"] == "prefill"],
+            "decode_cap": ref[-1]["cap"]}, rows
+
+
+def moe_parted_rows(torch, parted, prompts, layers, rows):
+    """[slots, rows]: the cache rows of the tokens some MoE call routed
+    apart (``moe_check_routing``'s flags, call by call: each prompt's
+    ``layers`` prefill calls, then each decode step's), their k and v in
+    the later layers computed from another expert's output."""
+    slots = len(prompts)
+    out = torch.zeros((slots, rows), dtype=torch.bool)
+    for c, flags in enumerate(parted):
+        if c < slots * layers:
+            out[c // layers, :flags.numel()] |= flags
+        else:
+            step = (c - slots * layers) // layers
+            for j in range(slots):
+                out[j, prompts[j] + step] |= bool(flags[j])
+    return out
+
+
+def moe_slots(key):
+    return len(MOE_PROMPTS[key])
+
+
+def moe_train_rules(mesh_cfg):
+    """``rules_for`` of the uncut qwen3-moe at 19d's train shape: FSDP's
+    "embed" over "data" at dp 2."""
+    from repro_torch.core.config import ShapeConfig, get_arch
+    from repro_torch.sharding.auto import rules_for
+
+    return rules_for(get_arch(MOE_ARCH), mesh_cfg, ShapeConfig(
+        "train", TRAIN_SEQ, mesh_cfg.dp_size * MOE_TRAIN_ROWS, "train"))[0]
+
+
+def moe_train_reference(torch, np, dev, work):
+    """19d's unsharded reference: qwen3-moe in ``MOE_TRAIN_DTYPE`` cut to
+    ``MOE_CUTS["train"]``, ``SEED``'s draws with ``moe_redraw``'s experts,
+    ``MESH_TRAIN_STEPS`` steps of ``make_train_step(dp_size=2)`` on the
+    global batch (the batches go to ``work/batches.pt``).  Returns each
+    step's metrics and ms."""
+    from repro_torch.launch.mesh import parse_mesh
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.step import make_train_step
+
+    mesh_cfg = parse_mesh(MOE_TRAIN_MESH)
+    cfg = kv_cfg(MOE_ARCH, MOE_CUTS["train"][0], MOE_TRAIN_DTYPE)
+    batches = mesh_batches(torch, np, mesh_cfg.dp_size * MOE_TRAIN_ROWS,
+                           TRAIN_SEQ, MESH_TRAIN_STEPS, seed_offset=19)
+    torch.save(batches, work / "batches.pt")
+    model = get_model(cfg)
+    tree = moe_tree(torch, dev, cfg)
+    model.load_tree(tree)
+    opt = adamw_init(tree)
+    step = make_train_step(model, mesh_tcfg(), dp_size=mesh_cfg.dp_size)
+    metrics, ms = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, _, m = step(tree, opt, {k: v.to(dev) for k, v in b.items()})
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+        metrics.append({k: v.item() for k, v in m.items()})
+    del model, tree, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return metrics, ms
+
+
+def moe_references(torch, np, dev, work):
+    """The unsharded references on the card, each freed before the next,
+    while the ranks start up: 19b's and 19c's bf16 runs (``MOE_PROMPTS``
+    into as many slots of ``LM_MAX_LEN`` rows, ``MOE_DECODE`` greedy
+    steps), their routing logged, and 19d's train steps.  Returns the
+    records, on the host."""
+    out = {}
+    for key in ("qwen", "grok"):
+        cfg = kv_cfg(moe_arch(key), MOE_CUTS[key][0])
+        model, _, steps = kv_unsharded(torch, dev, cfg)
+        cache = model.init_cache(moe_slots(key), LM_MAX_LEN)
+        routes = []
+        with route_log(torch, routes):
+            run = tp_serve(torch, *steps(0), cache, tp_prompts(
+                np, cfg.vocab_size)[:moe_slots(key)], MOE_DECODE[key])
+        out[key] = _host_run(run, cache)
+        out[key]["routes"] = routes
+        del model, cache, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["train"], out["train_ms"] = moe_train_reference(torch, np, dev, work)
+    return out
+
+
+def moe_tree(torch, dev, cfg):
+    """The whole tree of ``SEED``'s draws with ``moe_redraw``'s experts
+    (``moe_shard_init``'s shards are its slices)."""
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.moe import moe_redraw
+    from repro_torch.nn.param import init_tree
+
+    tree = init_tree(get_model(cfg).param_spec(), torch.Generator(
+        device=dev).manual_seed(SEED), cfg.param_dtype)
+    moe_redraw(tree, torch.Generator(device=dev).manual_seed(SEED + 19))
+    return tree
+
+
+def moe_shard_init(torch, dev, cfg, mesh, mesh_cfg, rules, redraw=True):
+    """The rank's shards of ``SEED``'s draws (``shard_init``; with
+    ``redraw`` then ``moe_redraw_shards``: ``moe_tree``'s), one rank
+    drawing at a time: each draws every leaf whole on the card before it
+    cuts it (a grok expert leaf of 2 layers is 6.4 GB in bf16)."""
+    import torch.distributed as dist
+
+    from repro_torch.models.transformer import shard_init
+
+    coords = dict(zip(mesh_cfg.axes, (int(c) for c in
+                                       mesh.get_coordinate())))
+    local = None
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            local = shard_init(cfg, gen, mesh, rules)
+            if redraw:
+                moe_redraw_shards(torch, dev, local, cfg, mesh_cfg, rules,
+                                  coords)
+            torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return local
+
+
+def moe_redraw_shards(torch, dev, local, cfg, mesh_cfg, rules, coords):
+    """``moe_redraw``'s experts on the rank's shards: each layer's expert
+    leaf drawn whole from the same generator in the same order, and the
+    rank's slice kept."""
+    import math
+
+    from repro_torch.nn.moe import moe_spec
+    from repro_torch.sharding.rules import local_slice, logical_to_spec
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    spec = moe_spec(cfg)
+    for name in ("we_gate", "we_up", "we_down"):
+        p = spec[name]
+        sp = logical_to_spec(p.axes, mesh_cfg.axes, rules)
+        for t in local["layers"]["mlp"][name]:
+            whole = torch.randn(p.shape, generator=gen, device=dev,
+                                dtype=torch.float32) / math.sqrt(p.shape[-2])
+            t.copy_(local_slice(whole, sp, mesh_cfg, coords))
+            del whole
+
+
+def moe_rank_serve(key):
+    """19b (``"qwen"``) or 19c (``"grok"``) on a rank: the shards of the
+    reference's draws under ``tp_rules``; the bf16 run on the reference's
+    tokens, its routing logged."""
+    def part(torch, np, dev, mesh, mesh_cfg, work, forced):
+        cfg = kv_cfg(moe_arch(key), MOE_CUTS[key][0])
+        slots = moe_slots(key)
+        rules = tp_rules(cfg, mesh_cfg, slots)
+        local = moe_shard_init(torch, dev, cfg, mesh, mesh_cfg, rules,
+                               redraw=False)
+        prefill, decode, model = tp_steps(cfg, mesh_cfg, mesh, local, slots)
+        routes = []
+        with route_log(torch, routes):
+            rec = kv_rank_run(torch, prefill, decode,
+                              model.init_cache(slots, LM_MAX_LEN),
+                              tp_prompts(np, cfg.vocab_size)[:slots],
+                              MOE_DECODE[key], forced[key])
+        rec["routes"] = routes
+        rec["rules"] = {a: rules.lookup(a) for a in (
+            "experts", "expert_ff", "heads", "kv_heads", "kv_seq")}
+        return rec
+    return part
+
+
+def moe_rank_train(torch, np, dev, mesh, mesh_cfg, work, forced):
+    """19d on a rank: qwen3-moe's train step through the dry run's
+    ``_build_step`` on ``moe_train_rules``' shards (the reference's draws
+    and ``moe_redraw``'s experts), ``MESH_TRAIN_STEPS`` steps on the
+    reference's batches, the first twice from the same state: each step's
+    metrics, launches, collectives and the fingerprint of its router
+    gradient; the repeat's verdict."""
+    from repro_torch.core.config import ShapeConfig
+    from repro_torch.launch.dryrun import _build_step
+    from repro_torch.nn.param import tree_leaves
+    from repro_torch.sharding import collectives
+    from repro_torch.sharding.rules import local_slice, logical_to_spec
+    from repro_torch.train.optimizer import adamw_init
+
+    cfg = kv_cfg(MOE_ARCH, MOE_CUTS["train"][0], MOE_TRAIN_DTYPE)
+    rules = moe_train_rules(mesh_cfg)
+    coords = dict(zip(mesh_cfg.axes, (int(c) for c in
+                                       mesh.get_coordinate())))
+
+    def draw():
+        return moe_shard_init(torch, dev, cfg, mesh, mesh_cfg, rules)
+
+    local = draw()
+    rows = mesh_cfg.dp_size * MOE_TRAIN_ROWS
+    step, _ = _build_step(cfg, ShapeConfig("train", TRAIN_SEQ, rows,
+                                           "train"), mesh_cfg, rules,
+                          tcfg=mesh_tcfg(), microbatches=1)(mesh, local)
+    opt = adamw_init(local, step.plan())
+    spec = logical_to_spec(("batch", "seq"), mesh_cfg.axes, rules)
+    batches = [{k: local_slice(v, spec, mesh_cfg, coords).to(dev)
+                for k, v in b.items()}
+               for b in torch.load(work / "batches.pt")]
+    k3, k10 = _kv_counters().values()
+
+    def one(batch):
+        for fn in (k3, k10):
+            fn.launches = 0
+        for key in k3.role_launches:
+            k3.role_launches[key] = 0
+        collectives.reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        grads, m = step.accumulate(local, batch)
+        router = bits_fingerprint(torch, grads["layers"]["mlp"]["router"])
+        _, _, m = step.finish(local, opt, grads, m)
+        torch.cuda.synchronize()
+        return {"metrics": {k: v.item() for k, v in m.items()},
+                "ms": 1e3 * (time.perf_counter() - t),
+                "launches": {"K3": dict(k3.role_launches),
+                             "K10": k10.launches},
+                "collectives": collectives.counts_by_name(),
+                "router_grad": router}
+
+    first = one(batches[0])
+    prints = mesh_fingerprints(torch, local)
+    for t_, s_ in zip(tree_leaves(local), tree_leaves(draw())):
+        t_.copy_(s_)
+    for t_ in tree_leaves(opt):
+        t_.zero_()
+    again = one(batches[0])
+    repeat = (prints == mesh_fingerprints(torch, local)
+              and again["metrics"] == first["metrics"]
+              and again["router_grad"] == first["router_grad"])
+    return {"steps": [first, one(batches[1])], "repeat_ms": again["ms"],
+            "repeat_equal": repeat, "coords": coords,
+            "embed": rules.lookup("embed"),
+            "experts": rules.lookup("experts")}
+
+
+def moe_mesh_phase(torch, F, np, dev, peaks, card):
+    """Phase 19: 19a K3 and K10 at the slice's rank shapes; 19b qwen3-moe
+    served on a 1 x 4 gloo mesh (32 experts a rank, the picked rows summed
+    over "model"), 19c grok-1 on the same ranks (each expert's 8192 ff
+    columns a rank, the fp32 partials summed), both against the unsharded
+    port; 19d qwen3-moe's bf16 train step on 2 x 2 against the unsharded
+    step on the global batch grouped by dp 2; 19e the dry run's 16 MoE
+    rows at the JAX package's meshes, all traced (two processes beside
+    the rest).  The ranks of both meshes start first and wait while 19a
+    and the references run here; then the 1 x 4 ranks run 19b and 19c,
+    and once they are done, the 2 x 2 ranks run 19d.  Returns the
+    record."""
+    import tempfile
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import parse_mesh
+
+    t19 = time.perf_counter()
+    out = {"card": card, "reduced": {k: {"num_layers": v[0], "why": v[1]}
+                                     for k, v in MOE_CUTS.items()}}
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        started = mesh_dryrun_start(work, "moe", MOE_DRYRUN_PROCS)
+        ranks = []
+        try:
+            ranks += [kv_spawn(work / "b", MOE_MESH, ["qwen", "grok"],
+                               "19b/19c"),
+                      kv_spawn(work / "d", MOE_TRAIN_MESH, ["moe_train"],
+                               "19d")]
+            out["cases"] = moe_kernel_mesh_cases(torch, F, dev, peaks)
+            gc.collect()
+            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            ref = moe_references(torch, np, dev, work)
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["references_s"] = time.perf_counter() - t
+            for key in ("qwen", "grok"):
+                kv_publish(torch, work, key, {key: ref[key]["tokens"]})
+            four = kv_wait(torch, ranks[0])
+            kv_publish(torch, work, "moe_train", {})
+            train = [r["moe_train"] for r in kv_wait(torch, ranks[1])]
+            out["ranks_s"] = time.perf_counter() - t - out["references_s"]
+            rows = dryrun_collect(started, "19e")
+        finally:  # a failed phase leaves no process of its own behind
+            procs = [p for p, _, _ in started] + [
+                p for _, group, _, _ in ranks for p in group]
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for log in [log for _, _, log in started] + [
+                    f for _, _, logs, _ in ranks for f in logs]:
+                log.close()
+    m4 = parse_mesh(MOE_MESH)
+    # 19b and 19c
+    for key, want_rules in (("qwen", ("model", None)),
+                            ("grok", (None, "model"))):
+        layers = MOE_CUTS[key][0]
+        cfg = kv_cfg(moe_arch(key), layers)
+        label = f"{moe_arch(key)} {MOE_MESH} moe"
+        rules = tp_rules(cfg, m4, moe_slots(key))
+        runs = [r[key] for r in four]
+        got = (runs[0]["rules"]["experts"], runs[0]["rules"]["expert_ff"])
+        if got != want_rules:
+            fail(f"{label}: experts and expert_ff cut as {got}")
+        rec = {"routing": []}
+        skip = torch.zeros((moe_slots(key), LM_MAX_LEN), dtype=torch.bool)
+        for r, run in enumerate(runs):
+            if (run["k10_paths"].get("wgmma") != layers * moe_slots(key)
+                    or run["k3_paths"].get("wgmma", 0) < 1):
+                fail(f"{label} rank {r}: the prefills took K3's paths "
+                     f"{run['k3_paths']} and K10's {run['k10_paths']}")
+            summary, parted = moe_check_routing(
+                f"{label} rank {r}", ref[key]["routes"], run["routes"],
+                layers)
+            rec["routing"].append(summary)
+            skip |= moe_parted_rows(torch, parted, MOE_PROMPTS[key], layers,
+                                    LM_MAX_LEN)
+        rec["cache_rows_left_out"] = int(skip.sum())
+        tokens = sum(MOE_PROMPTS[key]) + moe_slots(key) * MOE_DECODE[key]
+        rec["tokens_parted_share"] = int(skip.sum()) / tokens
+        if rec["tokens_parted_share"] > MOE_MOST_PARTED:
+            fail(f"{label}: {int(skip.sum())} of {tokens} tokens routed "
+                 f"apart at near ties")
+        rec["worst"], rec["parted"] = kv_check_run(
+            torch, label, four, runs, ref[key], layers,
+            moe_k3_per_layer(cfg), m4, rules,
+            {"prefill": TP_BF16_TOL, "decode": TP_BF16_TOL}, skip=skip,
+            deep_tol=TP_BF16_TOL)
+        kv_check_collectives(label, runs, {"sum_over/model": 2 * layers + 1,
+                                           "gather_over/model": 1})
+        exchange = runs[0]["collectives_prefill_bytes"]["sum_over/model"]
+        rec.update(kv_summary(runs, ref[key]),
+                   peak_memory_gb=[r["peak_gb"] for r in runs],
+                   part_s=[r["part_s"] for r in runs],
+                   prompts=list(MOE_PROMPTS[key]), steps=MOE_DECODE[key],
+                   prefill_sum_over_bytes=exchange,
+                   tokens=runs[0]["tokens"].tolist())
+        out[key] = rec
+        print(f"moe19{'b' if key == 'qwen' else 'c'} " + json.dumps(
+            {k: v for k, v in rec.items() if k != "routing"}), flush=True)
+        print(f"{label}: routing " + json.dumps(rec["routing"][0]),
+              flush=True)
+    # 19d
+    label = f"{MOE_ARCH} train {MOE_TRAIN_MESH}"
+    if train[0]["experts"] != "model" or train[0]["embed"] != ("data",):
+        fail(f"{label}: experts cut over {train[0]['experts']}, embed over "
+             f"{train[0]['embed']}")
+    d = {"metrics": [], "err": []}
+    for i, want in enumerate(ref["train"]):
+        got = [t["steps"][i]["metrics"] for t in train]
+        if any(g != got[0] for g in got):
+            fail(f"{label}: step {i + 1}'s metrics differ between ranks")
+        err = {k: abs(got[0][k] - want[k]) / max(1.0, abs(want[k]))
+               for k in ("ce", "load_balance_loss", "router_z_loss")}
+        d["metrics"].append([got[0], want])
+        d["err"].append(err)
+        if not max(err.values()) <= MOE_TRAIN_TOL[i]:
+            fail(f"{label}: step {i + 1}'s metrics {err} apart from the "
+                 f"reference's")
+    for t in train:
+        if not t["repeat_equal"]:
+            fail(f"{label} rank {t['coords']}: the first step again "
+                 f"differs")
+        for u in train:
+            if (u["coords"]["data"] == t["coords"]["data"] and any(
+                    a["router_grad"] != b["router_grad"]
+                    for a, b in zip(t["steps"], u["steps"]))):
+                fail(f"{label}: the router's gradient differs between the "
+                     f"model ranks of data rank {t['coords']['data']}")
+    d.update(step_ms=[[s["ms"] for s in t["steps"]] for t in train],
+             reference_step_ms=ref["train_ms"],
+             collectives_a_step=mesh_split(train[0]["steps"][0][
+                 "collectives"]),
+             launches=train[0]["steps"][0]["launches"],
+             peak_memory_gb=[t["peak_gb"] for t in train])
+    out["train"] = d
+    print("moe19d " + json.dumps(d), flush=True)
+    # 19e
+    for rec in rows:
+        print("moe19e " + dryrun.summary(rec) + f" [{card}]", flush=True)
+    missed = [f"{r['arch']} {r['shape']} {r['mesh']}" for r in rows
+              if not r["traced"] or not r["fits"]]
+    if missed or len(rows) != len(dryrun_combos("moe")):
+        fail(f"19e: {len(rows)} rows, not traced or not fitting: {missed}")
+    out["dryrun"] = [{k: r[k] for k in ("arch", "shape", "mesh", "fits",
+                                        "traced", "per_device_bytes",
+                                        "collectives")} for r in rows]
+    out["phase_s"] = time.perf_counter() - t19
+    print(f"phase 19 wall time {out['phase_s']:.1f} s (references "
+          f"{out['references_s']:.1f}, then the ranks {out['ranks_s']:.1f}; "
+          f"1x4 parts {out['qwen']['part_s'][0]:.1f} + "
+          f"{out['grok']['part_s'][0]:.1f}, 2x2 "
+          f"{train[0]['part_s']:.1f}) [{card}]", flush=True)
     return out
 
 
@@ -7192,7 +7862,16 @@ def main() -> int:
     kv_runs = kv["serve"]["per_rank"] + kv["long"]["per_rank"]
     kv_cases = kv["cases"]
 
-    # -- 19. the kernels line -----------------------------------------------
+    # -- 19. the MoE block on a mesh: qwen3-moe, grok-1 -------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_mesh = moe_mesh_phase(torch, F, np, dev, peaks, card_line)
+    # the bf16 serving runs of 19b's and 19c's ranks, each rank's launches
+    kv_runs = kv_runs + moe_mesh["qwen"]["per_rank"] + \
+        moe_mesh["grok"]["per_rank"]
+    kv_cases = kv_cases + moe_mesh["cases"]
+
+    # -- 20. the kernels line -----------------------------------------------
     kernels = []
     for kid, (name, src, replaces) in sources.items():
         mine = [c for c in cases if c["kernel"] == kid]
@@ -7359,7 +8038,7 @@ def main() -> int:
              "tp_cases": tp_cases, "tp_one": tp_one, "tp_two": tp_two,
              "tp_dryrun": tp_dry, "mesh_cases": mesh_cases,
              "mesh_one": mesh_one, "mesh_runs": mesh_runs,
-             "mesh_dryrun": mesh_dry, "kv": kv,
+             "mesh_dryrun": mesh_dry, "kv": kv, "moe_mesh": moe_mesh,
              "capture": capture, "kernels": kernels},
             indent=1))
     print(f"smoke wall time {time.perf_counter() - t_smoke:.1f} s",

@@ -1,6 +1,6 @@
 """The dry run: every (architecture x input shape x mesh) reckoned
-against the card, and the dense family's train, prefill and decode steps
-traced over the mesh.  The port's counterpart of
+against the card, and the dense and MoE families' train, prefill and
+decode steps traced over the mesh.  The port's counterpart of
 ``repro.launch.dryrun``.
 
 For each combination it records the sharding rules' notes
@@ -14,24 +14,27 @@ microbatch, their accumulator in ``grad_acc_dtype``, each leaf at its
 shard shape under the rules.  The fit is against ``CARD_MEMORY_BYTES``.
 Temporaries (activations, the logits) are not reckoned.
 
-For the dense family, the step that :func:`_build_step` builds (the one
-the tests and the smoke execute) is traced on meta tensors of the local
-shapes, as rank 0 of a fake process group of the mesh's size: the
-kernels' wrappers return shapes alone, and the collectives are counted,
-not run (``sharding.collectives.COUNTS``: calls and bytes a step by
-collective and mesh axis, a backward's apart; the role of the JAX
-package's ``hlo_analysis``).  A train step traces one microbatch's
+For the dense and MoE families, the step that :func:`_build_step` builds
+(the one the tests and the smoke execute) is traced on meta tensors of
+the local shapes, as rank 0 of a fake process group of the mesh's size:
+the kernels' wrappers return shapes alone, and the collectives are
+counted, not run (``sharding.collectives.COUNTS``: calls and bytes a
+step by collective and mesh axis, a backward's apart; the role of the
+JAX package's ``hlo_analysis``).  A train step traces one microbatch's
 forward, backward and the update, and counts the microbatch's
-collectives as many times as the step takes microbatches.  The cache
-is cut as its leaves' logical axes say (by sequence where the kv heads
-do not divide "model" or the batch does not divide dp), and a decode
-step counts the softmax's exchange across the cache's shards: a
-``max_over`` and two ``sum_over`` (the sum of the exps, the partial
-outputs) a layer over the "kv_seq" axes, and where q heads are cut over
-whole kv heads a ``gather_over`` of q over "model".  A family or rule
-the executed path lacks is recorded as ``"traced": false`` with its
-reason (the rule ``check_executed`` names, where one applies), never
-replicated in silence.
+collectives as many times as the step takes microbatches.  The cache is
+cut as its leaves' logical axes say (by sequence where the kv heads do
+not divide "model" or the batch does not divide dp), and a decode step
+counts the softmax's exchange across the cache's shards: a ``max_over``
+and two ``sum_over`` (the sum of the exps, the partial outputs) a layer
+over the "kv_seq" axes, and where q heads are cut over whole kv heads a
+``gather_over`` of q over "model".  An MoE block counts its exchange over
+"model" (the picked rows where the experts are cut, the down product's
+fp32 partials where each expert's ff axis is) and, where the batch is
+cut, its aux statistics' sums over the data axes.  A family or rule the
+executed path lacks is recorded as ``"traced": false`` with its reason
+(the rule ``check_executed`` names, where one applies), never replicated
+in silence.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen1.5-32b --shape decode_32k \\
@@ -61,6 +64,10 @@ KV_QUANT_THRESHOLD_BYTES = 8 * 2**30
 #: the card each device of a mesh stands for: an NVIDIA H100 80GB HBM3
 CARD = "NVIDIA H100 80GB HBM3"
 CARD_MEMORY_BYTES = 80 * 10**9
+
+#: the families whose steps the executed sharded path takes, and the dry
+#: run traces: ``TransformerLM``'s, dense and MoE
+TRACED_FAMILIES = ("dense", "moe")
 
 _BYTES = {"bfloat16": 2, "float16": 2, "float32": 4, "int8": 1, "int32": 4}
 
@@ -313,11 +320,11 @@ def run_one(arch: str, shape: Union[str, ShapeConfig], mesh_cfg: MeshConfig,
     rec["traced"] = False
     if not trace:
         rec["why_not_traced"] = "not asked"
-    elif cfg.family != "dense":
+    elif cfg.family not in TRACED_FAMILIES:
         from repro_torch.models.transformer import check_executed
 
-        why = (f"the {cfg.family} family: the trace is of the dense "
-               f"family's steps")
+        why = (f"the {cfg.family} family: the trace is of the "
+               f"{' and '.join(TRACED_FAMILIES)} families' steps")
         try:  # the rule the executed path lacks for it, where one cuts
             check_executed(cfg, mesh_cfg, rules)
         except NotImplementedError as e:

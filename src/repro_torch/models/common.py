@@ -97,7 +97,9 @@ def block_apply(params, x, cfg: ModelConfig, *, window: int = 0,
                 moe_mode: str = "train"):
     """(the block's output, its aux: the MoE block's, else ``{}``); its
     k/v go into ``cache`` in place.  The MoE block runs in ``decode`` in
-    a decode step, else in ``moe_mode`` (``train`` or ``prefill``).  With
+    a decode step (which sums no aux: none is computed), else in
+    ``moe_mode`` (``train`` or ``prefill``), its tokens grouped by
+    ``dp_size`` (on a mesh, the mesh's data size).  With
     a ``context`` the attention is cross-attention without RoPE, and each
     residual is scaled by its gate's tanh (``gate_attn``, ``gate_mlp``)."""
     aux: dict = {}
@@ -112,7 +114,8 @@ def block_apply(params, x, cfg: ModelConfig, *, window: int = 0,
     h = norm_apply(params["ln_mlp"], x, cfg)
     if use_moe:
         m, aux = moe_apply(params["mlp"], h, cfg, dp_size=dp_size,
-                           mode="decode" if mode == "decode" else moe_mode)
+                           mode="decode" if mode == "decode" else moe_mode,
+                           aux=mode != "decode")
     else:
         m = mlp_apply(params["mlp"], h, cfg)
     if cfg.post_block_norms:

@@ -15,7 +15,8 @@ local shapes (:func:`shard_params` or :func:`shard_init` carve them),
 ``forward``/``decode_step`` run on them under
 ``sharding.ctx.activation_sharding`` — tensor parallel over "model" (q, k,
 v, gate and up column-parallel; o and down row-parallel; the vocab of the
-embedding and the head cut), the batch over "data", the residual stream
+embedding and the head cut; the MoE block's experts, or each expert's ff
+axis, cut: ``nn/moe.py``), the batch over "data", the residual stream
 replicated over "model".  :func:`check_executed` names what this path
 does not take yet, and raises.
 """
@@ -35,6 +36,7 @@ from repro_torch.models.common import (BaseModel, _accumulate_aux,
 from repro_torch.nn.embedding import embed_tokens, embedding_spec, lm_logits
 from repro_torch.nn.param import (DTYPES, ParamTree, _initialize, is_param,
                                   stack_spec, tree_map)
+from repro_torch.sharding import ctx as shard_ctx
 from repro_torch.sharding.collectives import gather_over
 from repro_torch.sharding.rules import (AxisRules, entry_axes, local_shape,
                                         local_slice, local_spec,
@@ -123,12 +125,16 @@ class TransformerLM(BaseModel):
         return x, aux
 
     def _layers(self, x, positions, mode, cache, lw, gw, moe_mode="train",
-                aux=None):
+                aux=None, dp_size=None):
         """(the final norm of the last block's output, ``aux`` plus the
         blocks' aux losses; None stays None: a decode step sums none).  A
-        forward in train mode without a cache remats each unit."""
+        forward in train mode without a cache remats each unit.  The MoE
+        blocks group their tokens by ``dp_size``: the JAX call's, by
+        default the active mesh's data size (1 without one)."""
         kw = dict(positions=positions, mode=mode, use_moe=self.use_moe,
-                  moe_mode=moe_mode)
+                  moe_mode=moe_mode,
+                  dp_size=shard_ctx.data_size() if dp_size is None
+                  else dp_size)
         call = layer_call(mode == "full" and moe_mode == "train"
                           and cache is None)
         for i, unit in enumerate(self.layers):
@@ -141,13 +147,15 @@ class TransformerLM(BaseModel):
 
     # -- forward (prefill) ------------------------------------------------------
     def forward(self, batch: dict, mode: str = "train", *,
-                window_override: int = 0, cache=None):
+                window_override: int = 0, cache=None, dp_size=None):
         """batch: {"tokens": [b, s], "positions": optional [b, s]} ->
         (fp32 logits [b, s, V] at every position, aux), or with ``cache``
         (logits, cache, aux): the prompt's k/v written into ``cache`` in
         place.  ``mode`` (``train`` or ``prefill``) sets the MoE blocks'
-        capacity; aux holds the MoE losses summed over the blocks (zeros
-        for a dense model), as the JAX package's."""
+        capacity and ``dp_size`` their token groups (the JAX package's
+        argument; by default the active mesh's data size, 1 without one);
+        aux holds the MoE losses summed over the blocks (zeros for a
+        dense model), as the JAX package's."""
         tokens = batch["tokens"]
         positions = batch.get("positions")
         if positions is None:
@@ -158,7 +166,7 @@ class TransformerLM(BaseModel):
                          scale_by_dim=self.cfg.rms_plus_one)
         lw, gw = self._windows(window_override)
         x, aux = self._layers(x, positions, "full", cache, lw, gw, mode,
-                              _zero_aux(x.device))
+                              _zero_aux(x.device), dp_size)
         # training takes the rank's vocab slice (train.step.cross_entropy)
         logits = lm_logits(embed, x, self.cfg, gather=mode != "train")
         if cache is not None:
@@ -204,14 +212,17 @@ class TransformerLM(BaseModel):
         return tree_map(leaf, self.cache_spec(batch, cache_len, window))
 
     # -- decode ------------------------------------------------------------------
-    def decode_step(self, tokens, positions, cache, *, window: int = 0):
+    def decode_step(self, tokens, positions, cache, *, window: int = 0,
+                    dp_size=None):
         """tokens [b, 1], positions [b] -> (logits [b, 1, V], cache), the
-        new k/v written into ``cache`` in place."""
+        new k/v written into ``cache`` in place; ``dp_size`` as in
+        :meth:`forward`."""
         embed = fsdp_gather(self.embed, self._fsdp["embed"])
         x = embed_tokens(embed, tokens, self.cfg,
                          scale_by_dim=self.cfg.rms_plus_one)
         lw, gw = self._windows(window)
-        x, _ = self._layers(x, positions, "decode", cache, lw, gw)
+        x, _ = self._layers(x, positions, "decode", cache, lw, gw,
+                            dp_size=dp_size)
         return lm_logits(embed, x, self.cfg), cache
 
 
@@ -230,11 +241,12 @@ def check_executed(cfg: ModelConfig, mesh_cfg: MeshConfig,
                    rules: AxisRules) -> None:
     """Raise NotImplementedError, naming the rule, where ``cfg`` on
     ``mesh_cfg`` under ``rules`` needs what the executed sharded path (the
-    dense transformer's train step, prefill and decode, tensor parallel
-    over "model", data parallel over "data", FSDP's "embed" gathered
-    unit by unit, q heads cut over whole kv heads, the cache cut by
-    sequence over any of its axes) does not take yet; every spec is still
-    reckoned by the dry run."""
+    dense and MoE transformer's train step, prefill and decode, tensor
+    parallel over "model", data parallel over "data", FSDP's "embed"
+    gathered unit by unit, q heads cut over whole kv heads, the cache cut
+    by sequence over any of its axes, the MoE block's experts or each
+    expert's ff axis over "model" with the capacity of a data group) does
+    not take yet; every spec is still reckoned by the dry run."""
     if cfg.ssm is not None or cfg.rwkv is not None:
         raise NotImplementedError(
             f"the {cfg.family} family's 'ssm_inner' (the SSM / RWKV inner "
@@ -243,11 +255,6 @@ def check_executed(cfg: ModelConfig, mesh_cfg: MeshConfig,
         raise NotImplementedError(
             f"the {cfg.family} family's 'media' (the cross-attention "
             f"context) on a mesh: not in the executed path yet")
-    if cfg.moe is not None and mesh_cfg.num_devices > 1:
-        raise NotImplementedError(
-            f"MoE blocks ('experts' / 'expert_ff', the capacity of a dp "
-            f"group) on the mesh {mesh_cfg.shape}: not in the executed "
-            f"path yet")
     for axis, what in UNSUPPORTED:
         entry = logical_to_spec((axis,), mesh_cfg.axes, rules)[0]
         if shards(entry, mesh_cfg) > 1:

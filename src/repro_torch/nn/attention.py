@@ -39,7 +39,9 @@ every rank computes every kv head, and its local q head i (global
 :func:`_local_kv` selects those kv heads for K10.  k and v enter the
 selection through ``copy_to``, so that their cotangents, each rank's
 from its own q heads, are summed over "model" in rank order and the
-replicated ``wk`` and ``wv`` get the same gradient on every rank.
+replicated ``wk`` and ``wv`` get the same gradient on every rank.  The
+QK-norm scales (qwen3) enter the norm of cut heads through ``copy_to``
+for the same reason (:func:`_head_norm`).
 
 **The cache cut by sequence** ("kv_seq": kv heads that do not divide
 "model", or a batch below dp): a rank holds the rows ``[off, off +
@@ -329,6 +331,18 @@ def _prefill_cache(cache: dict, k, v, rows=None) -> None:
             c.copy_(src.index_select(1, idx).to(c.dtype))
 
 
+def _head_norm(params, x, cfg: ModelConfig, heads: str):
+    """QK-norm of ``x`` [b, s, h, hd], whose heads axis is the logical
+    ``heads``.  Its scale is replicated where the active sharding cuts the
+    heads, and each rank norms only its own: the scale enters through
+    ``copy_to``, so its gradient sums every rank's heads' in rank order,
+    the same bits on each rank."""
+    _, n, axes = shard_of(heads)
+    if n > 1:
+        params = {"scale": copy_to(axes, params["scale"])}
+    return rmsnorm_apply(params, x, cfg.norm_eps)
+
+
 def cross_kv(params, context, cfg: ModelConfig):
     """K/V of the stream [b, t, d_ctx] that the keys come from (a
     cross-attention's context, or ``attention_apply``'s own input): each
@@ -340,7 +354,7 @@ def cross_kv(params, context, cfg: ModelConfig):
     k = shard_act(k, ("batch", "seq", "kv_heads", None))
     v = shard_act(v, ("batch", "seq", "kv_heads", None))
     if cfg.qk_norm:
-        k = rmsnorm_apply(params["k_norm"], k, cfg.norm_eps)
+        k = _head_norm(params["k_norm"], k, cfg, "kv_heads")
     return k, v
 
 
@@ -351,7 +365,7 @@ def cross_attention_cached(params, x, ck, cv, cfg: ModelConfig):
     b, s, _ = x.shape
     q = dense(params["wq"], x).reshape(b, s, -1, cfg.head_dim)
     if cfg.qk_norm:
-        q = rmsnorm_apply(params["q_norm"], q, cfg.norm_eps)
+        q = _head_norm(params["q_norm"], q, cfg, "heads")
     pos = torch.full((b,), ck.shape[1] - 1, dtype=torch.long,
                      device=x.device)
     out = decode_attention(q, ck, cv, pos, window=0,
@@ -386,7 +400,7 @@ def attention_apply(
     q = dense(params["wq"], xq).reshape(b, s, -1, cfg.head_dim)
     q = shard_act(q, ("batch", "seq", "heads", None))
     if cfg.qk_norm:
-        q = rmsnorm_apply(params["q_norm"], q, cfg.norm_eps)
+        q = _head_norm(params["q_norm"], q, cfg, "heads")
     k, v = cross_kv(params, column_input(context, "kv_heads")
                     if context is not None else x if whole_kv else xq, cfg)
     scale = cfg.attn_logit_scale or None

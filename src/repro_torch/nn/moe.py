@@ -30,9 +30,35 @@ drops, as in the JAX package.  Within a group:
   to x's dtype and sums the k products in fp32 with one cast to x's
   dtype, as ``jnp.sum`` does.
 
-The JAX package pins the buffers' sharding (``shard_act``) and shards the
-experts over the model axis (``shard_mode``: the expert axis or each
-expert's ff axis); on one card there is nothing to shard.
+On a mesh (``sharding.ctx``) the block runs what GSPMD makes of the JAX
+package's ``shard_act`` pins:
+
+* **groups**: where the rules cut "batch" over the data ranks, a rank's
+  rows are whole groups of the JAX call's (``ctx.moe_groups``) and it
+  routes them alone; where "batch" is whole, every rank runs all the
+  groups.  The routing is computed whole on every model rank: the same
+  fp32 bits on each;
+* **experts cut** (``shard_mode="expert"``, "experts" over "model"): a
+  rank gathers only its own experts' buffer rows, ``[E / m, D * cap,
+  d]``, runs its experts, and each (token, pick) pair's expert row comes
+  from the one rank that holds it, zeros from the others: ``sum_over``
+  the picked rows ``[D, T_l * k, d]`` in rank order gives the whole
+  block's rows bit for bit (x + 0 = x), and the combine runs as on one
+  card;
+* **each expert's ff cut** (``shard_mode="tensor"``, "expert_ff" over
+  "model"): gate and up are column-parallel, down row-parallel: K3
+  stores each expert's fp32 partial of the bf16 operands, ``sum_over``
+  adds the ranks' partials in rank order, and one cast to x's dtype
+  follows, the rounding point of ``nn.linear.dense(k_axis=)``;
+* the experts' input enters through ``copy_to``, so each rank's part of
+  its cotangent is summed over "model"; the router's input does not (the
+  router runs whole on every rank, and the picked rows' exchange passes
+  the replicated cotangent back), so the router's gradient is the same
+  bits on every model rank;
+* the aux losses are JAX's over all groups: the expert counts, the mean
+  router probabilities and the z-loss summed over the data ranks in rank
+  order before the load-balance product (a product of means, not a mean
+  of per-group products).
 
 Decode computes all E experts: at the worst-case capacity ``T_l * k`` no
 pair drops, so a step's tokens never interact (a request's token does not
@@ -49,8 +75,12 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.core.config import ModelConfig
+from repro_torch.kernels.common import ACC_DTYPE
+from repro_torch.kernels.matmul_fused.ops import matmul_fused
 from repro_torch.nn.linear import act_fn
 from repro_torch.nn.param import Param
+from repro_torch.sharding.collectives import copy_to, sum_over
+from repro_torch.sharding.ctx import moe_groups, shard_of
 
 
 def moe_spec(cfg: ModelConfig) -> dict:
@@ -186,12 +216,20 @@ class _GatherRows(torch.autograd.Function):
         return dtable, None, None
 
 
-def experts(params, buf, act: str):
+def experts(params, buf, act: str, partial: bool = False):
     """buf [E, n, d] -> [E, n, d]: expert e's gated feed-forward on its n
-    rows, as three batched products over the experts."""
+    rows, as three batched products over the experts.  ``partial``: the
+    weights hold a slice of each expert's ff axis, and the result is the
+    fp32 partial of the down product, each expert's on K3's fp32 store of
+    the operands as they are (bf16 for a bf16 model)."""
     g = torch.matmul(buf, params["we_gate"])
     u = torch.matmul(buf, params["we_up"])
-    return torch.matmul(act_fn(act)(g) * u, params["we_down"])
+    h = act_fn(act)(g) * u
+    if not partial:
+        return torch.matmul(h, params["we_down"])
+    return torch.stack([matmul_fused(h[e], params["we_down"][e],
+                                     out_dtype=ACC_DTYPE)
+                        for e in range(h.shape[0])])
 
 
 def dispatch_maps(r: Routing, k: int):
@@ -213,47 +251,87 @@ def dispatch_maps(r: Routing, k: int):
     return src_map[:, :rows], pair_of_row[:, :rows], inv_slot
 
 
+def _own_slots(src_map, pair_of_row, inv_slot, first: int, rows: int):
+    """The dispatch's maps cut to the buffer rows ``[first, first +
+    rows)`` (a rank's experts): those rows' sources and pairs, and each
+    pair's row among them (``rows``, the zero row, where another rank's
+    expert or no expert holds it)."""
+    loc = inv_slot - first
+    loc = torch.where((loc >= 0) & (loc < rows), loc, rows)
+    return (src_map[:, first:first + rows], pair_of_row[:, first:first + rows],
+            loc)
+
+
 def moe_apply(params, x, cfg: ModelConfig, *, dp_size: int = 1,
-              mode: str = "train") -> Tuple[torch.Tensor, dict]:
+              mode: str = "train", aux: bool = True
+              ) -> Tuple[torch.Tensor, dict]:
     """x [b, s, d] -> (out [b, s, d] in x's dtype, aux): ``mode`` is
-    ``train``, ``prefill`` or ``decode`` (it sets the capacity)."""
+    ``train``, ``prefill`` or ``decode`` (it sets the capacity);
+    ``dp_size`` the JAX call's (on a mesh: the mesh's data size, however
+    the rank's rows make up its groups); ``aux=False``: no aux losses
+    (``{}``), and on a mesh none of their exchanges."""
     moe = cfg.moe
     E, k = moe.num_experts, moe.num_experts_per_token
     b, s, d = x.shape
-    r = route(params, x, cfg, dp_size=dp_size, mode=mode)
+    groups, data_axes = moe_groups(dp_size)
+    r = route(params, x, cfg, dp_size=groups, mode=mode)
     D, T_l, _ = r.logits.shape
     cap = r.cap
 
     src_map, pair_of_row, inv_slot = dispatch_maps(r, k)
-    # [E, D * cap, d]: the expert axis leads, so each product is one
+    e_rank, e_ways, e_axes = shard_of("experts")
+    _, f_ways, f_axes = shard_of("expert_ff")
+    E_l = E // e_ways
+    if e_ways > 1:  # the rank's experts' rows alone
+        src_map, pair_of_row, inv_slot = _own_slots(
+            src_map, pair_of_row, inv_slot, e_rank * E_l * cap, E_l * cap)
+    # the experts' input: each model rank's part of its cotangent summed
+    xe = copy_to(e_axes or f_axes, x)
+    # [E_l, D * cap, d]: the expert axis leads, so each product is one
     # batched matmul over the experts (a view when D == 1).  The dispatch
     # and the combine gather; each one's backward is the other's gather,
     # a token's k buffer rows summed in a fixed order
-    buf = _GatherRows.apply(x.reshape(D, T_l, d), src_map,
+    buf = _GatherRows.apply(xe.reshape(D, T_l, d), src_map,
                             inv_slot.reshape(D, T_l, k))
-    buf = buf.reshape(D, E, cap, d).transpose(0, 1).reshape(E, D * cap, d)
+    buf = buf.reshape(D, E_l, cap, d).transpose(0, 1).reshape(E_l, D * cap, d)
 
-    y = experts(params, buf, cfg.act).reshape(E, D, cap, d)
-    y = y.transpose(0, 1).reshape(D, E * cap, d)
-    picked = _GatherRows.apply(y, inv_slot, pair_of_row[..., None]
-                               ).reshape(D, T_l, k, d)
+    if f_ways > 1:  # row-parallel down: the ranks' fp32 partials, one cast
+        y = sum_over(f_axes, experts(params, buf, cfg.act, partial=True)
+                     ).to(x.dtype)
+    else:
+        y = experts(params, buf, cfg.act)
+    y = y.reshape(E_l, D, cap, d).transpose(0, 1).reshape(D, E_l * cap, d)
+    picked = _GatherRows.apply(y, inv_slot, pair_of_row[..., None])
+    # each pair's row from the rank that holds its expert, zeros elsewhere
+    picked = sum_over(e_axes, picked).reshape(D, T_l, k, d)
     out = (picked * r.p_k.to(picked.dtype)[..., None]).float().sum(dim=2)
+    out = out.to(x.dtype).reshape(b, s, d)
+    if not aux:
+        return out, {}
 
     # Switch-style load balance: E * sum_e f_e * P_e, f_e counting every
     # top-k pick (dropped or not); the counts are exact in fp32, and unlike
-    # torch.bincount the sum never reads the device's data on the host
+    # torch.bincount the sum never reads the device's data on the host.
+    # Over the data ranks: the counts, the mean probabilities and the
+    # z-loss summed in rank order, each a mean over every group
     picks = r.e_k.reshape(-1)
-    f_e = torch.zeros(E, device=x.device).index_add_(
-        0, picks, torch.ones(picks.shape, device=x.device)) / (D * T_l)
+    counts = torch.zeros(E, device=x.device).index_add_(
+        0, picks, torch.ones(picks.shape, device=x.device))
     P_e = r.probs.mean(dim=(0, 1))
     z = torch.logsumexp(r.logits, dim=-1).square().mean()
-    aux = {
+    n = 1
+    if data_axes:
+        n = dp_size // groups
+        counts = sum_over(data_axes, counts)
+        P_e = sum_over(data_axes, P_e) / n
+        z = sum_over(data_axes, z) / n
+    f_e = counts / (n * D * T_l)
+    return out, {
         "load_balance_loss":
             moe.load_balance_loss * (E * (f_e / k * P_e).sum()),
         "router_z_loss": moe.router_z_loss * z,
         "expert_fraction": f_e / k,
     }
-    return out.to(x.dtype).reshape(b, s, d), aux
 
 
 # ---------------------------------------------------------------------------

@@ -11,9 +11,11 @@ raises where it is not.  With no context it is the identity.
 The context also tells the model code which shard of a logical axis its
 rank holds (:func:`shard_of`, and :func:`shard_rows` for the rows of a
 cut dimension: the cache's sequence): the sharded embedding, the
-row-parallel products, the logits and the cache read it, and the
-collectives (``sharding.collectives``) read its mesh.  With no context
-every axis is whole, and the model runs as on one card.
+row-parallel products, the logits, the cache and the MoE block's experts
+read it, and the collectives (``sharding.collectives``) read its mesh.
+The MoE block also reads the mesh's data size (:func:`data_size`) and how
+a rank's rows make up its token groups (:func:`moe_groups`).  With no
+context every axis is whole, and the model runs as on one card.
 """
 from __future__ import annotations
 
@@ -108,6 +110,35 @@ def shard_rows(logical: str, local: int) -> Tuple[int, int, Tuple[str, ...]]:
     (0, local, ()) with no context or where the axis is whole."""
     r, n, axes = shard_of(logical)
     return r * local, n * local, axes
+
+
+def data_size() -> int:
+    """The data-parallel size of the active mesh (its "pod" times its
+    "data"): the ``dp_size`` the JAX package's step is given on that mesh,
+    by which the MoE block groups its tokens; 1 with no context."""
+    ctx = _CTX.get()
+    return 1 if ctx is None else ctx.mesh_cfg.dp_size
+
+
+def moe_groups(dp_size: int) -> Tuple[int, Tuple[str, ...]]:
+    """How this rank runs the MoE block's token groups of a call whose
+    JAX ``dp_size`` is ``dp_size``: (the ``dp_size`` to route its own rows
+    with, the mesh axes its rows are cut over).
+
+    Where the rules cut "batch" over n ranks, the JAX call's tokens divide
+    into ``dp_size`` groups (a batch is cut only where dp divides it) and
+    the rank's rows are ``dp_size / n`` of them, whole: it routes them with
+    ``dp_size / n`` and the aux losses' means are taken over the axes.
+    Where "batch" is whole (a batch that dp does not divide, ``long_500k``'s
+    one row), every rank holds the same tokens and runs all the groups
+    itself: ``(dp_size, ())``."""
+    _, n, axes = shard_of("batch")
+    if n == 1:
+        return dp_size, ()
+    if dp_size % n:
+        raise ValueError(f"the MoE block's dp_size {dp_size} over a batch "
+                         f"cut {n} ways")
+    return dp_size // n, axes
 
 
 def shard_act(x, logical_axes: Sequence[Optional[str]]):

@@ -20,7 +20,11 @@ the data-replicated leaves' gradients summed over "data" in rank order
 (``optimizer.reduce_grads``, onto their ZeRO-1 shards) are JAX's mean
 over the global batch, and an FSDP'd leaf's comes summed from its
 gather's adjoint; the cross entropy is vocab-parallel, and the metrics
-are averaged over the data ranks.
+are averaged over the data ranks.  The MoE aux losses are the whole
+batch's on every data rank (``nn/moe.py`` sums their statistics over
+the data ranks, and the adjoint of that sum adds the ranks' cotangents),
+so the rank's loss takes them whole beside its local CE, as the
+unsharded step does.
 """
 from __future__ import annotations
 
@@ -64,15 +68,20 @@ def cross_entropy(logits, labels, vocab_size: int) -> torch.Tensor:
     return (lse - gold).mean()
 
 
-def make_loss_fn(model, *, window_override: int = 0) -> Callable:
+def make_loss_fn(model, *, window_override: int = 0,
+                 dp_size: Optional[int] = None) -> Callable:
     """``loss_fn(batch) -> (loss, metrics)``: the model's train-mode
     forward, CE, and the MoE aux losses added (zeros for other families,
-    as the JAX package's layer scan emits them)."""
+    as the JAX package's layer scan emits them).  ``dp_size``: the JAX
+    package's argument, the MoE blocks' token groups (a transformer's
+    default: the active mesh's data size, 1 without one).  On a mesh the
+    aux losses are the whole batch's on every rank (``nn/moe.py``)."""
     cfg = model.cfg
+    kw = {} if dp_size is None else {"dp_size": dp_size}
 
     def loss_fn(batch):
         logits, aux = model(batch, mode="train",
-                            window_override=window_override)
+                            window_override=window_override, **kw)
         ce = cross_entropy(logits, batch["labels"], cfg.vocab_size)
         loss = ce
         metrics = {"ce": ce}
@@ -139,8 +148,8 @@ def bind_grads(model, params, buffers: dict) -> dict:
 
 
 def make_train_step(model, tcfg: TrainConfig, *, window_override: int = 0,
-                    microbatches: int = 1,
-                    grad_acc_dtype: str = "float32") -> Callable:
+                    microbatches: int = 1, grad_acc_dtype: str = "float32",
+                    dp_size: Optional[int] = None) -> Callable:
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``, the trees updated in place.  With ``microbatches > 1`` the
     batch is split as the JAX package splits it (``reshape(b // k, k,
@@ -155,8 +164,9 @@ def make_train_step(model, tcfg: TrainConfig, *, window_override: int = 0,
     docstring).  The step is two calls, :func:`accumulate`'s and
     :func:`finish`'s, exposed as ``train_step.accumulate`` (the
     microbatches ``indices`` only: the dry run traces one) and
-    ``train_step.finish``."""
-    loss_fn = make_loss_fn(model, window_override=window_override)
+    ``train_step.finish``.  ``dp_size`` as in :func:`make_loss_fn`."""
+    loss_fn = make_loss_fn(model, window_override=window_override,
+                           dp_size=dp_size)
     buffers: dict = {}
     plans: dict = {}
 

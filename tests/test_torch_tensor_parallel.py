@@ -238,9 +238,9 @@ def test_kv_heads_not_dividing_model_raise_the_kv_seq_rule():
 
 @pytest.mark.parametrize("rule,arch,mesh", [
     ("ssm_inner", "rwkv6-1.6b", (1, 2)),
-    ("experts", "qwen3-moe-30b-a3b", (1, 2)),
+    ("hybrid", "zamba2-1.2b", (1, 2)),
     ("family", "llama-3.2-vision-11b", (1, 2)),
-    ("train", "qwen3-moe-30b-a3b", (1, 2)),
+    ("train", "seamless-m4t-large-v2", (1, 2)),
     ("seq_res", "qwen1.5-32b", (1, 2))])
 def test_unsupported_rules_raise_and_name_themselves(rule, arch, mesh):
     cfg = tconfig.get_arch(arch).reduced()
@@ -255,8 +255,8 @@ def test_unsupported_rules_raise_and_name_themselves(rule, arch, mesh):
                                         mesh_cfg.model_size)
     with pytest.raises(NotImplementedError) as e:
         _build_step(cfg, shape, mesh_cfg, rules)
-    word = {"ssm_inner": "'ssm_inner'", "experts": "'experts'",
-            "family": "'media'", "train": "'experts'",
+    word = {"ssm_inner": "'ssm_inner'", "hybrid": "'ssm_inner'",
+            "family": "'media'", "train": "'media'",
             "seq_res": "'seq_res'"}[rule]
     assert word in str(e.value)
 
