@@ -147,7 +147,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
       K3 launch must step the counter of the path ``k3_path`` names: the
       weight stream below 64 rows, TMA + wgmma from 64 on, where the
       CUDA-core tile is held and timed beside it (tile, wgmma, wgmma,
-      tile) and must be at least ``K3_WGMMA_GAIN`` times slower at 4500.
+      tile) and must be at least ``K3_WGMMA_GAIN`` times slower at 4500
+      in device time (each path's graph replay).
       On the stream, row 0 must equal the same row called alone bit for
       bit, ``STREAM_GRAPH_LAUNCHES`` calls are captured into a CUDA graph
       whose replay gives the device time a call (``device_ms``, no host
@@ -417,7 +418,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    tokens the unsharded port's bits, K3 7 and K10 1 launches a layer in a
    prefill, K3 7 a layer in a step; c. two ranks on the one card over
    gloo (mesh 1 x 2; this script started twice with ``--tp-rank``), the
-   model cut to 8 layers, the unsharded reference run first here and
+   model cut to 4 layers, the unsharded reference run first here and
    freed: the ranks' logits within ``TP_BF16_TOL``-relative of it (on
    the reference's tokens; an argmax apart only at a near tie), both
    ranks' the same bits, a repeated first step the same bits, the
@@ -431,14 +432,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
 17. gemma2-2b training on a mesh (``mesh_phase``), at full width in
    bf16, its rules ``rules_for``'s of the uncut arch on each mesh (FSDP's
    "embed" on at dp 2), cut in depth only (``mesh_train_cut``, printed as
-   ``reduced``; ``MESH_TRAIN_DEPTH``'s 4 layers at 1 x 2, 2 on the
-   meshes whose FSDP gathers go through gloo): a. K3's fp32-store backward (dx, dw on dz = the fp32
+   ``reduced``; ``MESH_TRAIN_DEPTH``'s 2 layers, one local/global
+   pair): a. K3's fp32-store backward (dx, dw on dz = the fp32
    cotangent cast to bf16) at the 2-way o and down shards, M = 4096,
    against the plain products within ``LM_KERNEL_TOL``, timed beside
    ``torch.matmul`` and the bound; b. a 1 x 1 NCCL mesh, 8 layers, two
    steps: the loss, CE, grad norm and every new leaf and moment the
-   unsharded port's bits (``bits_fingerprint``); c. 2 x 1 (FSDP), 1 x 2
-   and 2 x 2 (FSDP) as gloo ranks on the one card (this script started
+   unsharded port's bits (``bits_fingerprint``); c. 1 x 2 and 2 x 2
+   (FSDP; 2 x 1 left out since phase 20: ``MESH_TRAIN_MESHES``) as gloo
+   ranks on the one card (this script started
    once a rank with ``--mt-rank``), 2 x 2048 tokens a data rank,
    ``MESH_TRAIN_MICROBATCHES`` on the dp meshes, two steps against the
    unsharded reference run first (``make_train_step`` on the global
@@ -524,7 +526,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
    bits, the router's gradient the same bits on both model ranks of a
    data group; e. the dry run's 16 MoE rows at 16 x 16 and 2 x 16 x 16
    (two processes beside a-d), all traced and fitting;
-20. prints one JSON line ``{"kernels": [...]}``: per kernel, ``launches``
+20. "ssm_inner" on a mesh (``ssm_mesh_phase``): a. K11 at a rank's 16
+   heads from a state (``SSM_K11_CASES``: 1500 and 4500 tokens), K3 at
+   rwkv6's and zamba2's 1 x 2 rank shapes (``SSM_K3_SHAPES``: the
+   row-parallel wo, wv, out_proj, o, down and shared_out on the fp32
+   store) at M = 4 and 4500, and K10 at the shared block's 16 heads over
+   16 (``SSM_K10_CASES``), as 16a, while the ranks of b-d (``--kv-rank``)
+   start up; then the unsharded references run on the card and are freed;
+   b. rwkv6-1.6b at full width cut to ``SSM_CUTS``' depth on a 1 x 2 gloo
+   mesh (16 WKV heads a rank, wr/wk/wv/wg column-parallel, wo and the
+   channel mix's wv row-parallel), ``LM_PROMPTS`` into 4 slots and
+   ``SSM_DECODE`` steps on the reference's tokens: the logits within
+   ``TP_BF16_TOL`` (an argmax apart only at a near tie), both ranks' the
+   same bits, the repeat's bits, K3 8 a layer and K11 1 a layer in a
+   prefill, each kernel given the rank's heads alone, each cache leaf
+   (the WKV state's heads, the token-shift rows) the rank's slice of the
+   reference's (the first layer within ``LM_CACHE_TOL``, later ones
+   within ``TP_BF16_TOL``), the collectives a step; c. zamba2-1.2b on
+   the same ranks, one group (6 Mamba blocks, one shared invocation): 32
+   SSD heads a rank, in_proj's columns gathered over "model", the shared
+   block's 16 heads, held as b with K3 2 a block and 8 an invocation and
+   K10 1 an invocation; d. a bf16 train step of rwkv6 (2 layers) and of
+   zamba2 (one group) on the same ranks, ``SSM_TRAIN_ROWS`` x 2048
+   tokens, two steps, the first twice: each step's CE within
+   ``SSM_TRAIN_TOL`` of the unsharded step's, zamba2's gathered in_proj
+   gradient within ``SSM_GRAD_TOL``, the metrics the same bits on both
+   ranks, the repeat the same bits; the dry run's 16 ssm and hybrid rows
+   are traced in tier-1 (tests/test_torch_ssm_mesh.py), not here;
+21. prints one JSON line ``{"kernels": [...]}``: per kernel, ``launches``
    is its count summed over the AlexNet forwards of phase 4 (K1-K3,
    K7-K9) or phase 5 (K4-K6), or over the first LM serving run of phase
    7c and the first runs of phases 11c and 15c (K10's wgmma path as
@@ -553,8 +582,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``matmul_fused_bf16_f32`` entry's launches, which carries 17a's times
    under ``backward``; the bf16 serving runs of 18b's, 18c's, 19b's and
    19c's ranks add their K3, K10 and fp32-store launches as 16c's do, and
-   18a's and 19a's cases join the largest errors;
-21. prints ``{"ok": true, "device": {...}}`` as its last line.
+   18a's and 19a's cases join the largest errors; so do 20b's and 20c's
+   ranks and 20a's cases, and their K11 launches are ``wkv6``'s
+   ``mesh_launches``;
+22. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Run it from the repository root; it needs one CUDA device and the CUDA
 toolkit, and imports nothing of the JAX package.
@@ -1574,8 +1605,14 @@ STREAM_GRAPH_LAUNCHES = 20
 #: csrc/matmul_fused.cu)
 K3_WGMMA_BN = 128
 #: at this M every projection shape must run on the wgmma path at least
-#: this many times faster than on the CUDA-core tile, timed in one call
+#: this many times faster than on the CUDA-core tile, timed in one call:
+#: their device times, each from a captured graph's replay
+#: (``stream_device_ms``)
 K3_WGMMA_GAIN = (4500, 5.0)
+#: the gate's graphs: (launches, timed replays) of the wgmma path and of
+#: the CUDA-core tile
+K3_GAIN_GRAPH = (5, 3)
+K3_GAIN_TILE_GRAPH = (2, 3)
 #: at this many tokens K10's bf16 cases at gemma2-2b's shape must run on
 #: the wgmma path at least this many times faster than on the CUDA-core
 #: kernel, timed in one call
@@ -1624,12 +1661,12 @@ def host_call_ms(torch, fn):
     return ms
 
 
-def stream_device_ms(torch, call):
+def stream_device_ms(torch, call, launches=STREAM_GRAPH_LAUNCHES, reps=5):
     """Device time of one call of a kernel wrapper (K3's weight stream,
-    K9, K11): ``STREAM_GRAPH_LAUNCHES`` calls captured into a CUDA graph
-    (a launch allocates only its outputs and scratch and never
-    synchronises, so it captures), the replay timed with CUDA events, the
-    median of 5 over the launches."""
+    K9, K11): ``launches`` calls captured into a CUDA graph (a launch
+    allocates only its outputs and scratch and never synchronises, so it
+    captures), the replay timed with CUDA events, the median of ``reps``
+    over the launches."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -1638,9 +1675,9 @@ def stream_device_ms(torch, call):
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(STREAM_GRAPH_LAUNCHES):
+        for _ in range(launches):
             call()
-    ms = time_ms(torch, graph.replay, 5) / STREAM_GRAPH_LAUNCHES
+    ms = time_ms(torch, graph.replay, reps) / launches
     del graph
     return ms
 
@@ -1739,9 +1776,21 @@ def k3_bf16_case(torch, F, gen, dev, m, kk, n, act, peaks, main, bias=False,
                  runs_tile_wgmma_wgmma_tile_ms=runs)
         r["gain_vs_tile"] = r["tile_ms"] / r["ms"]
         gain_m, gain = K3_WGMMA_GAIN
-        if m == gain_m and not r["gain_vs_tile"] >= gain:
-            fail(f"{label}: wgmma {r['ms']:.4f} ms against the CUDA-core "
-                 f"tile's {r['tile_ms']:.4f}, under {gain}x")
+        if m == gain_m:
+            # the paths' device times, each from a captured graph's
+            # replay: the events above take in the wrapper's host work
+            # before each launch (about 35 us), which a 30-us kernel at a
+            # small N does not hide.  Few launches a graph: the tile takes
+            # up to 20 ms a call at these shapes, and a graph holds every
+            # launch's output
+            r["device_ms"] = stream_device_ms(torch, kernel, *K3_GAIN_GRAPH)
+            r["tile_device_ms"] = stream_device_ms(torch, tile,
+                                                   *K3_GAIN_TILE_GRAPH)
+            r["gain_vs_tile_device"] = r["tile_device_ms"] / r["device_ms"]
+            if not r["gain_vs_tile_device"] >= gain:
+                fail(f"{label}: wgmma {r['device_ms']:.4f} ms of device "
+                     f"time against the CUDA-core tile's "
+                     f"{r['tile_device_ms']:.4f}, under {gain}x")
     else:
         r["ms"] = time_ms(torch, kernel)
         r["device_ms"] = stream_device_ms(torch, kernel)
@@ -2378,7 +2427,7 @@ K3_RWKV_SHAPES = ((2048, 2048, "none"), (2048, 7168, "relu"),
 LM_CACHE_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-4}
 
 
-def wkv6_cost(b, s, h, e, chunk, dtype_bytes):
+def wkv6_cost(b, s, h, e, chunk, dtype_bytes, state=False):
     """(operations, bytes) the chunked WKV needs, from K11's arithmetic:
     per chunk of n rows and n (n - 1) / 2 pairs j < i, the cumulative
     decays and cw_prev (2 n e), each pair's decay and product (5 e: a
@@ -2386,7 +2435,7 @@ def wkv6_cost(b, s, h, e, chunk, dtype_bytes):
     (5 n e), r ⊙ exp(cw_prev) (2 n e) and its product with S (2 n e^2),
     k ⊙ exp(cw_L - cw) (3 n e), the state update (2 n e^2 + 3 e^2).
     Bytes: r, k, v and o once in their type, logw and u in fp32, the final
-    state in fp32."""
+    state in fp32, and with ``state`` the initial one read in fp32."""
     L = min(chunk, s)
     ops = 0.0
     for t0 in range(0, s, L):
@@ -2396,7 +2445,7 @@ def wkv6_cost(b, s, h, e, chunk, dtype_bytes):
                 + 2 * n * e * e + 3 * n * e + 2 * n * e * e + 3 * e * e)
     elems = b * s * h * e
     nbytes = (4 * dtype_bytes * elems + 4 * elems + 4 * h * e
-              + 4 * b * h * e * e)
+              + 4 * b * h * e * e * (2 if state else 1))
     return b * h * ops, float(nbytes)
 
 
@@ -2414,83 +2463,103 @@ def wkv6_design_bytes(plan, s, h, dtype_bytes, b=1):
     return float(pass1 + pass2 + pass3)
 
 
-def rwkv_kernel_cases(torch, F, dev, peaks):
-    """Phase 8a: K11 at rwkv6-1.6b's shapes (``K11_CASES``, then a state
-    hand-off) and K3 (bf16) at its projections against their plain
-    versions, repeated bit for bit, timed; returns the records."""
+def k11_case(torch, gen, dev, peaks, s, dname, decay, heads=K11_HEADS,
+             with_state=False):
+    """K11 at ``s`` tokens of ``heads`` heads in ``dname`` (decays
+    ``K11_DECAYS[decay]``; ``with_state``: from a seeded fp32 state, as a
+    prompt's later chunk or a rank's state shard takes it) against its
+    plain version, repeated bit for bit, timed with its bound; returns
+    the record."""
     from repro_torch.kernels.common import sm_count
     from repro_torch.kernels.wkv6.ops import wkv6, wkv6_plan
     from repro_torch.kernels.wkv6.ref import wkv6_chunked_ref
 
     fp32_peak, bw_peak, _ = peaks
+    r, k, v, logw, u = k11_inputs(torch, gen, dev, s, getattr(torch, dname),
+                                  decay, heads)
+    st = (0.1 * torch.randn((1, heads, 64, 64), generator=gen, device=dev)
+          if with_state else None)
+    kernel = lambda: wkv6(r, k, v, logw, u, chunk=64,  # noqa: E731
+                          state=st)
+    plain = lambda: wkv6_chunked_ref(r, k, v, logw, u, 64,  # noqa: E731
+                                     st)
+    ref_o, ref_s = plain()
+    out_o, out_s = kernel()
+    torch.cuda.synchronize()
+    rtol, atol = LM_KERNEL_TOL[dname]
+    label = f"K11 {dname} s={s} h={heads} decays {decay}" + (
+        " from a state" if with_state else "")
+    err = _check_close(label, out_o, ref_o, atol, rtol)
+    s_rtol, s_atol = LM_KERNEL_TOL["float32"]
+    s_err = _check_close(f"{label} state", out_s, ref_s, s_atol, s_rtol)
+    again = kernel()
+    if not (torch.equal(again[0], out_o) and torch.equal(again[1], out_s)):
+        fail(f"{label}: a repeated launch differs")
+    flops, nbytes = wkv6_cost(1, s, heads, 64, 64, out_o.element_size(),
+                              with_state)
+    plan = wkv6_plan(1, s, heads, min(64, s), sm_count(dev))
+    design_bytes = wkv6_design_bytes(plan, s, heads, out_o.element_size())
+    rec = {"kernel": "K11", "tokens": s, "heads": heads,
+           "dtype": dname, "decays": decay, "state": with_state,
+           "max_abs_err": err, "state_max_abs_err": s_err,
+           "tol": {"rtol": rtol, "atol": atol,
+                   "state_rtol": s_rtol, "state_atol": s_atol},
+           "rms_plain": ref_o.float().square().mean().sqrt().item(),
+           "max_abs_plain": ref_o.float().abs().max().item(),
+           "ms": time_ms(torch, kernel),
+           "host_ms": host_call_ms(torch, kernel),
+           "device_ms": stream_device_ms(torch, kernel),
+           "plain_ms": time_ms(torch, plain, reps=5),
+           "library_ms": None,
+           "library_note": "no single PyTorch call computes WKV6",
+           "design": {
+               "launches": 3, "grids": plan.grids,
+               "items": plan.items, "walkers": plan.walkers,
+               "waves": plan.waves, "exps": plan.exps,
+               "operations": plan.operations, "bytes": design_bytes,
+               "scratch_bytes": 4 * plan.scratch_elems,
+               "bound_ms": 1e3 * max(plan.operations / fp32_peak,
+                                     design_bytes / bw_peak)},
+           "bound_ms": 1e3 * max(flops / fp32_peak, nbytes / bw_peak),
+           "bound_by": "operations" if flops / fp32_peak > nbytes / bw_peak
+           else "bytes", "flops": flops, "bytes": nbytes,
+           "peak": fp32_peak,
+           "main": (s, dname, decay, heads, with_state)
+           == (4500, "bfloat16", "normal", K11_HEADS, False)}
+    print("case " + json.dumps(rec), flush=True)
+    return rec
+
+
+def k11_inputs(torch, gen, dev, s, dt, decay, heads=K11_HEADS):
+    """r, k, v in ``dt``, fp32 logw with ``K11_DECAYS[decay]``'s decays
+    and u, seeded: [1, s, heads, 64] and [heads, 64]."""
+    mean, std = K11_DECAYS[decay]
+    shape = (1, s, heads, 64)
+    r, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
+               for _ in range(3))
+    logw = -torch.exp(mean + std * torch.randn(shape, generator=gen,
+                                               device=dev))
+    u = 0.5 * torch.randn((heads, 64), generator=gen, device=dev)
+    return r, k, v, logw, u
+
+
+def rwkv_kernel_cases(torch, F, dev, peaks):
+    """Phase 8a: K11 at rwkv6-1.6b's shapes (``K11_CASES``, then a state
+    hand-off) and K3 (bf16) at its projections against their plain
+    versions, repeated bit for bit, timed; returns the records."""
+    from repro_torch.kernels.wkv6.ops import wkv6
+
     gen = torch.Generator(device=dev).manual_seed(SEED)
-
-    def inputs(s, dt, decay):
-        mean, std = K11_DECAYS[decay]
-        shape = (1, s, K11_HEADS, 64)
-        r, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
-                   for _ in range(3))
-        logw = -torch.exp(mean + std * torch.randn(shape, generator=gen,
-                                                   device=dev))
-        u = 0.5 * torch.randn((K11_HEADS, 64), generator=gen, device=dev)
-        return r, k, v, logw, u
-
-    rows = []
-    for s, dname, decay in K11_CASES:
-        r, k, v, logw, u = inputs(s, getattr(torch, dname), decay)
-        kernel = lambda: wkv6(r, k, v, logw, u, chunk=64)  # noqa: E731
-        plain = lambda: wkv6_chunked_ref(r, k, v, logw, u, 64)  # noqa: E731
-        ref_o, ref_s = plain()
-        out_o, out_s = kernel()
-        torch.cuda.synchronize()
-        rtol, atol = LM_KERNEL_TOL[dname]
-        label = f"K11 {dname} s={s} decays {decay}"
-        err = _check_close(label, out_o, ref_o, atol, rtol)
-        s_rtol, s_atol = LM_KERNEL_TOL["float32"]
-        s_err = _check_close(f"{label} state", out_s, ref_s, s_atol, s_rtol)
-        again = kernel()
-        if not (torch.equal(again[0], out_o) and torch.equal(again[1], out_s)):
-            fail(f"{label}: a repeated launch differs")
-        flops, nbytes = wkv6_cost(1, s, K11_HEADS, 64, 64,
-                                  out_o.element_size())
-        plan = wkv6_plan(1, s, K11_HEADS, min(64, s), sm_count(dev))
-        design_bytes = wkv6_design_bytes(plan, s, K11_HEADS,
-                                         out_o.element_size())
-        rec = {"kernel": "K11", "tokens": s, "heads": K11_HEADS,
-               "dtype": dname, "decays": decay, "max_abs_err": err,
-               "state_max_abs_err": s_err,
-               "tol": {"rtol": rtol, "atol": atol,
-                       "state_rtol": s_rtol, "state_atol": s_atol},
-               "rms_plain": ref_o.float().square().mean().sqrt().item(),
-               "max_abs_plain": ref_o.float().abs().max().item(),
-               "ms": time_ms(torch, kernel),
-               "host_ms": host_call_ms(torch, kernel),
-               "device_ms": stream_device_ms(torch, kernel),
-               "plain_ms": time_ms(torch, plain, reps=5),
-               "library_ms": None,
-               "library_note": "no single PyTorch call computes WKV6",
-               "design": {
-                   "launches": 3, "grids": plan.grids,
-                   "items": plan.items, "walkers": plan.walkers,
-                   "waves": plan.waves, "exps": plan.exps,
-                   "operations": plan.operations, "bytes": design_bytes,
-                   "scratch_bytes": 4 * plan.scratch_elems,
-                   "bound_ms": 1e3 * max(plan.operations / fp32_peak,
-                                         design_bytes / bw_peak)},
-               "bound_ms": 1e3 * max(flops / fp32_peak, nbytes / bw_peak),
-               "bound_by": "operations" if flops / fp32_peak > nbytes / bw_peak
-               else "bytes", "flops": flops, "bytes": nbytes,
-               "peak": fp32_peak,
-               "main": (s, dname, decay) == (4500, "bfloat16", "normal")}
-        rows.append(rec)
-        print("case " + json.dumps(rec), flush=True)
+    rows = [k11_case(torch, gen, dev, peaks, s, dname, decay)
+            for s, dname, decay in K11_CASES]
     # the state hand-off: two calls over the halves (the second one from
     # the first one's final state) against one call over the whole.  The
     # halves' chunks start at 750, not at a multiple of 64, so the state is
     # the same sum in other groupings: its elements are held at fp32's
     # rtol plus 1e-5 of the largest state (each element's rounding follows
     # the size of its terms, not its own)
-    r, k, v, logw, u = inputs(K11_HANDOFF, torch.bfloat16, "normal")
+    r, k, v, logw, u = k11_inputs(torch, gen, dev, K11_HANDOFF,
+                                  torch.bfloat16, "normal")
     whole_o, whole_s = wkv6(r, k, v, logw, u, chunk=64)
     h = K11_HANDOFF // 2
     first_o, first_s = wkv6(*(t[:, :h].contiguous() for t in (r, k, v, logw)),
@@ -4472,9 +4541,9 @@ TP_K10_TOKENS = (1500, 4500)
 #: the width, heads and vocab stay as published
 TP_CUTS = {"1x1": (8, "the 1 x 1 mesh is the unsharded model's bits: 8 "
                       "layers show it"),
-           "1x2": (8, "two ranks share one 80-GB card, the unsharded "
-                      "reference run first; 8 layers (16 before phase 18 "
-                      "joined the smoke: its time)")}
+           "1x2": (4, "two ranks share one 80-GB card, the unsharded "
+                      "reference run first; 4 layers (16 before phase 18 "
+                      "joined the smoke, 8 before phase 20: its time)")}
 #: 16c's fp32 parity: one layer, a prompt of LM_PARITY_PROMPT tokens and
 #: LM_PARITY_DECODE greedy tokens
 TP_PARITY_LAYERS = 1
@@ -5024,8 +5093,14 @@ def tp_phase(torch, F, np, dev, peaks, counters, card):
 #: on at dp 2), cut in depth only
 MESH_TRAIN_ARCH = LM_ARCH
 #: 17c's meshes (data x model), gloo ranks sharing the one card (NCCL
-#: refuses two ranks on one device), and the mesh that takes microbatches
-MESH_TRAIN_MESHES = ("2x1", "1x2", "2x2")
+#: refuses two ranks on one device), and the mesh that takes microbatches.
+#: 2 x 1 ran here until phase 20 joined the smoke (57.7-80.4 s of phase
+#: 17 on an H100 at 700 W, its FSDP gathers and fp32 parity through
+#: gloo): 2 x 2 runs each of its checks (FSDP's "embed" over "data", 2
+#: microbatches, the parity) with "model" cut too, and
+#: tests/test_torch_train_mesh.py runs 2 x 1 on the CPU
+#: (``tools/mesh_train_probe.py --meshes 2x1`` still runs it on the card)
+MESH_TRAIN_MESHES = ("1x2", "2x2")
 MESH_TRAIN_MICROBATCHES = {"2x1": 2, "2x2": 2}
 #: rows of TRAIN_SEQ tokens a data rank takes a step
 MESH_TRAIN_ROWS = 2
@@ -5039,8 +5114,9 @@ MESH_TRAIN_LAYERS = 8
 #: the backward, once a microbatch (2 x 1 at 8 layers: 6.1 GB a rank and
 #: 13.3 s a step on an H100 at 700 W; at 4, 4.2 GB and 6.8 s once
 #: gathers went by broadcast; the smoke ran past its 1200 s once); since
-#: phase 18 joined the smoke, 2 on those and 4 at 1 x 2
-MESH_TRAIN_DEPTH = {"2x1": 2, "2x2": 2, "1x2": 4}
+#: phase 18 joined the smoke, 2 on those and 4 at 1 x 2, and since phase
+#: 20 joined it 2 at 1 x 2 too (one local/global pair everywhere)
+MESH_TRAIN_DEPTH = {"2x1": 2, "2x2": 2, "1x2": 2}
 #: 17c's steps (the first taken twice from the same state)
 MESH_TRAIN_STEPS = 2
 #: the fp32 parity: one local/global pair at full width, this many rows of
@@ -6036,9 +6112,10 @@ KV_K10_CASES = tuple(c for s in TP_K10_TOKENS for c in (
     (s, 0, 50.0, "bfloat16", 1, 1, 256, True)))
 #: the depth of each run (layers, why); width, heads and vocab as published
 KV_CUTS = {
-    "serve": (2, "eight gloo ranks on one card sum o's and down's fp32 "
+    "serve": (1, "eight gloo ranks on one card sum o's and down's fp32 "
                  "partials of a 4500-token prefill through host memory, "
-                 "about 0.8 GB received a rank a sum: 2 layers"),
+                 "about 0.8 GB received a rank a sum: 1 layer (2 before "
+                 "phase 20 joined the smoke: its time)"),
     "long": (2, "one local/global pair: long_500k's rules turn FSDP on at "
                 "dp 2, and a step gathers each unit's weights through gloo "
                 "(1.19 s a step at 4 layers)"),
@@ -6320,8 +6397,9 @@ def kv_wait(torch, started):
 
 
 def kv_rank_main(args) -> int:
-    """One rank of phases 18b-18d (``--kv-rank``): the mesh and the parts
-    of ``case.json``; see ``kv_phase``."""
+    """One rank of phases 18b-18d, 19b-19d and 20b-20d (``--kv-rank``):
+    the mesh and the parts of ``case.json``; see ``kv_phase``,
+    ``moe_mesh_phase`` and ``ssm_mesh_phase``."""
     os.environ["MKL_CBWR"] = MKL_CBWR
     import numpy as np
     import torch
@@ -6339,7 +6417,7 @@ def kv_rank_main(args) -> int:
     _build.library()
     work, rank = Path(args.kv_work), args.kv_rank
     case = json.loads((work / "case.json").read_text())
-    if {"train", "moe_train"} & set(case["parts"]):
+    if {"train", "moe_train", "ssm_train"} & set(case["parts"]):
         # the first torch.utils.checkpoint call imports it (about 10 s):
         # here, while 18a and the references run
         import torch._dynamo  # noqa: F401
@@ -6356,7 +6434,10 @@ def kv_rank_main(args) -> int:
                   "long": kv_rank_long, "train": kv_rank_train,
                   "qwen": moe_rank_serve("qwen"),
                   "grok": moe_rank_serve("grok"),
-                  "moe_train": moe_rank_train}[part]
+                  "moe_train": moe_rank_train,
+                  "rwkv": ssm_rank_serve("rwkv"),
+                  "zamba": ssm_rank_serve("zamba"),
+                  "ssm_train": ssm_rank_train}[part]
             inputs = kv_inputs(torch, work.parent, part)
             t = time.perf_counter()
             torch.cuda.reset_peak_memory_stats()
@@ -6379,15 +6460,17 @@ def _kv_counters():
     return {"K3": mm_ops.matmul_fused, "K10": attn_ops.flash_attention}
 
 
-def kv_rank_run(torch, prefill, decode, cache, prompts, steps, forced=None):
+def kv_rank_run(torch, prefill, decode, cache, prompts, steps, forced=None,
+                counters=None):
     """One sharded serving run of a rank: ``tp_serve`` with the counters
-    (``forced``: the reference's tokens, else greedy), then its first
-    step again on the cache as it stood before it.  Returns the logits,
-    tokens, launches, times, collectives (a step's, the prefills'), the
-    fp32 stores, the repeat's verdict and the cache, on the host."""
+    (``_kv_counters``' by default; ``forced``: the reference's tokens,
+    else greedy), then its first step again on the cache as it stood
+    before it.  Returns the logits, tokens, launches, times, collectives
+    (a step's, the prefills'), the fp32 stores, the repeat's verdict and
+    the cache, on the host."""
     from repro_torch.sharding import collectives
 
-    counters = _kv_counters()
+    counters = counters or _kv_counters()
     stores = counters["K3"].entry_launches
     for k in stores:
         stores[k] = 0
@@ -6921,16 +7004,17 @@ MOE_GROK_ARCH = "grok-1-314b"
 #: the depth of each run (layers, why); width, heads, experts and vocab as
 #: published
 MOE_CUTS = {
-    "qwen": (4, "four gloo ranks on one card exchange the picked expert "
+    "qwen": (2, "four gloo ranks on one card exchange the picked expert "
                 "rows of a 4500-token prefill through host memory (147 MB "
-                "a layer in bf16) and gather its 2.7-GB fp32 logits: 4 "
-                "layers keep phase 19 near two minutes"),
+                "a layer in bf16) and gather its 2.7-GB fp32 logits: 2 "
+                "layers (4 before phase 20 joined the smoke: its time)"),
     "grok": (2, "9.84 GB a layer: the four ranks' shards and the unsharded "
                 "reference, run first and freed, each hold a whole model "
                 "on the one card"),
-    "train": (2, "a train step of 2 x 2048 tokens on four gloo ranks, "
+    "train": (1, "a train step of 2 x 2048 tokens on four gloo ranks, "
                  "FSDP's gathers and the picked rows' exchange through host "
-                 "memory"),
+                 "memory: 1 layer (2 before phase 20 joined the smoke: its "
+                 "time)"),
 }
 #: 19b's and 19c's prompts (of ``tp_prompts``) and decode steps on the
 #: reference's tokens; grok without the 4500-token prompt, whose experts'
@@ -7480,6 +7564,565 @@ def moe_mesh_phase(torch, F, np, dev, peaks, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+#: phase 20: "ssm_inner" on a mesh, ranks of this script over gloo on the
+#: one card.  20b serves rwkv6-1.6b with its 32 WKV heads and their
+#: projections cut over "model" (16 a rank), 20c zamba2-1.2b with its 64
+#: SSD heads and in_proj's 8384 columns (4192 a rank) cut and its shared
+#: block's 32 heads (16 a rank), both on 1 x 2 and ``rules_for``'s rules;
+#: 20d one bf16 train step of each on the same ranks
+SSM_MESH = "1x2"
+#: the depth of each run (layers, why); width, heads and vocab as
+#: published
+SSM_CUTS = {
+    "rwkv": (4, "two gloo ranks on one card exchange wo's and wv's fp32 "
+                "partials of a 4500-token prefill through host memory (37 "
+                "MB each a layer) and gather its 1.2-GB fp32 logits: 4 of 24 "
+                "layers keep phase 20 near a minute"),
+    "zamba": (6, "one group: 6 of 38 Mamba blocks and 1 of 6 shared-block "
+                 "invocations (the proj gathered, 75 MB a block at 4500 "
+                 "tokens)"),
+    "rwkv_train": (2, "a bf16 train step of 2048 tokens, the first taken "
+                      "twice; K11's plain backward 122 ms a layer"),
+    "zamba_train": (6, "one group, as 20c"),
+}
+#: 20b's and 20c's decode steps (on the reference's tokens); the prompts
+#: are ``LM_PROMPTS`` into ``LM_MAX_BATCH`` slots of ``LM_MAX_LEN`` rows
+SSM_DECODE = 8
+#: 20d: one row of ``TRAIN_SEQ`` tokens (``MarkovLM(TRAIN_VOCAB)``), each
+#: step's CE within this of the unsharded step's (relative to max(1,
+#: |ref|); the second follows bf16 gradients summed in another order
+#: through Adam's first step), as 19d's; zamba2's gathered in_proj
+#: gradient of the first step within ``SSM_GRAD_TOL`` of max|g| of the
+#: reference's (18d's limit of a gradient summed over the ranks)
+SSM_TRAIN_ROWS = 1
+SSM_TRAIN_TOL = (1e-4, 1e-3)
+SSM_GRAD_TOL = KV_TRAIN_GRAD_TOL
+#: 20a: K11 at a rank's 16 heads of 64 from a state (the cache's shard),
+#: bf16, at 1500 and 4500 tokens
+SSM_K11_CASES = ((1500, "bfloat16", "normal"), (4500, "bfloat16", "normal"))
+SSM_K11_HEADS = 16
+#: 20a: K3 at the slice's rank shapes on 1 x 2 (arch, role, K, N,
+#: activation, fp32 store): rwkv6's r/k/v/g and wo, its channel mix's key
+#: (relu) and value; zamba2's in_proj (4192 of 8384 columns) and
+#: out_proj, the shared block's q/k/v, o, gate (silu), up and down, and
+#: shared_out
+SSM_K3_SHAPES = (
+    (RWKV_ARCH, "rkvg", 2048, 1024, "none", False),
+    (RWKV_ARCH, "o", 1024, 2048, "none", True),
+    (RWKV_ARCH, "chan_k", 2048, 3584, "relu", False),
+    (RWKV_ARCH, "chan_v", 3584, 2048, "none", True),
+    (ZAMBA_ARCH, "in_proj", 2048, 4192, "none", False),
+    (ZAMBA_ARCH, "out_proj", 2048, 2048, "none", True),
+    (ZAMBA_ARCH, "shared_qkv", 4096, 2048, "none", False),
+    (ZAMBA_ARCH, "shared_o", 2048, 4096, "none", True),
+    (ZAMBA_ARCH, "shared_gate", 4096, 4096, "silu", False),
+    (ZAMBA_ARCH, "shared_up", 4096, 4096, "none", False),
+    (ZAMBA_ARCH, "shared_down", 4096, 4096, "none", True),
+    (ZAMBA_ARCH, "shared_out", 2048, 2048, "none", True))
+#: 20a: K10 at the shared block's rank view, 16 heads over 16, hd 128,
+#: causal
+SSM_K10_CASES = tuple((s, 0, 0.0, "bfloat16", 16, 16, 128, True)
+                      for s in TP_K10_TOKENS)
+
+
+def ssm_arch(key):
+    return ZAMBA_ARCH if key.startswith("zamba") else RWKV_ARCH
+
+
+def ssm_cfg(key):
+    """20b's, 20c's or 20d's config: the arch cut to ``SSM_CUTS[key]``
+    layers in bf16 (zamba2's 6 blocks: one group, no tail)."""
+    return kv_cfg(ssm_arch(key), SSM_CUTS[key][0])
+
+
+def ssm_tree(torch, dev, key, cfg):
+    """The whole tree of ``SEED``'s draws with ``rwkv_redraw``'s or
+    ``ssm_redraw``'s leaves, on the card (the ranks' shards are its
+    slices)."""
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.param import init_tree
+    from repro_torch.nn.rwkv import rwkv_redraw
+    from repro_torch.nn.ssm import ssm_redraw
+
+    tree = init_tree(get_model(cfg).param_spec(), torch.Generator(
+        device=dev).manual_seed(SEED), cfg.param_dtype)
+    redraw = ssm_redraw if ssm_arch(key) == ZAMBA_ARCH else rwkv_redraw
+    redraw(tree, torch.Generator(device=dev).manual_seed(SEED + 20))
+    return tree
+
+
+def ssm_counters():
+    from repro_torch.kernels.wkv6 import ops as wkv6_ops
+
+    return dict(_kv_counters(), K11=wkv6_ops.wkv6)
+
+
+def ssm_per_layer(key, cfg):
+    """K3, K10 and K11 launches of a prefill and of a decode step: rwkv6's
+    8 projections a layer and K11 once a layer in a prefill; zamba2's 2 a
+    Mamba block, 8 a shared-block invocation and K10 once an invocation
+    in a prefill."""
+    if ssm_arch(key) == RWKV_ARCH:
+        n = cfg.num_layers
+        return ({"K3": 8 * n, "K10": 0, "K11": n},
+                {"K3": 8 * n, "K10": 0, "K11": 0})
+    groups = cfg.num_layers // cfg.shared_attn_every
+    k3 = 2 * cfg.num_layers + 8 * groups
+    return ({"K3": k3, "K10": groups, "K11": 0},
+            {"K3": k3, "K10": 0, "K11": 0})
+
+
+def ssm_kernel_cases(torch, F, dev, peaks):
+    """Phase 20a: K11 at ``SSM_K11_CASES`` (16 heads from a state), K3 at
+    ``SSM_K3_SHAPES`` at ``TP_K3_ROWS`` (the row-parallel products on the
+    fp32 store) and K10 at ``SSM_K10_CASES``, each held against its plain
+    version, repeated, timed beside the library (K11: none) and printed by
+    its case's function; returns the records."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = [k11_case(torch, gen, dev, peaks, s, dname, decay,
+                     heads=SSM_K11_HEADS, with_state=True)
+            for s, dname, decay in SSM_K11_CASES]
+    for r in rows:
+        r.update(ways=2, view=RWKV_ARCH)
+    for arch, role, kk, n, act, f32 in SSM_K3_SHAPES:
+        for m in TP_K3_ROWS:
+            rows.append(k3_bf16_case(
+                torch, F, gen, dev, m, kk, n, act, peaks, False,
+                out_dtype=torch.float32 if f32 else None, ways=2, role=role,
+                arch=arch))
+    for case in SSM_K10_CASES:
+        r = k10_case(torch, F, gen, dev, case, peaks)
+        r.update(main=False, ways=2, view=ZAMBA_ARCH)
+        rows.append(r)
+    return rows
+
+
+@contextlib.contextmanager
+def heads_log(log):
+    """The heads each of K11 (its wrapper and the per-step WKV), the SSD
+    scan and K10 is given while inside (``log``: a set a kernel), where
+    the model code calls them."""
+    from repro_torch.nn import attention, rwkv, ssm
+
+    places = ((rwkv, "wkv6", "K11"), (rwkv, "wkv6_reference", "K11"),
+              (ssm, "_ssd_chunked", "ssd"),
+              (attention, "flash_attention", "K10"))
+    real = [getattr(mod, name) for mod, name, _ in places]
+
+    def wrap(fn, key):
+        def wrapped(*a, **kw):
+            log.setdefault(key, set()).add(int(a[0].shape[2]))
+            return fn(*a, **kw)
+        return wrapped
+
+    for (mod, name, key), fn in zip(places, real):
+        setattr(mod, name, wrap(fn, key))
+    try:
+        yield
+    finally:
+        for (mod, name, _), fn in zip(places, real):
+            setattr(mod, name, fn)
+
+
+def ssm_train_rules(key, mesh_cfg):
+    """``rules_for`` of the uncut arch at 20d's train shape."""
+    from repro_torch.core.config import ShapeConfig, get_arch
+    from repro_torch.sharding.auto import rules_for
+
+    return rules_for(get_arch(ssm_arch(key)), mesh_cfg, ShapeConfig(
+        "train", TRAIN_SEQ, mesh_cfg.dp_size * SSM_TRAIN_ROWS, "train"))[0]
+
+
+def ssm_in_proj_grad(grads):
+    return grads["mamba"]["ssm"]["in_proj"]["w"]
+
+
+def ssm_references(torch, np, dev, work):
+    """The unsharded references on the card, each freed before the next,
+    while the ranks start up: 20b's and 20c's bf16 runs (``LM_PROMPTS``
+    into ``LM_MAX_BATCH`` slots, ``SSM_DECODE`` greedy steps) and 20d's
+    two train steps of each (the batches go to ``work/ssm_batches.pt``;
+    zamba2's first in_proj gradient kept).  Returns the records, on the
+    host."""
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.step import make_train_step
+
+    out = {}
+    for key in ("rwkv", "zamba"):
+        cfg = ssm_cfg(key)
+        model, _, steps = kv_unsharded(torch, dev, cfg,
+                                       ssm_tree(torch, dev, key, cfg))
+        cache = model.init_cache(LM_MAX_BATCH, LM_MAX_LEN)
+        out[key] = _host_run(tp_serve(
+            torch, *steps(0), cache, tp_prompts(np, cfg.vocab_size),
+            SSM_DECODE), cache)
+        del model, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+    batches = mesh_batches(torch, np, SSM_TRAIN_ROWS, TRAIN_SEQ,
+                           MESH_TRAIN_STEPS, seed_offset=20)
+    torch.save(batches, work / "ssm_batches.pt")
+    for key in ("rwkv_train", "zamba_train"):
+        cfg = ssm_cfg(key)
+        model, tree, _ = kv_unsharded(torch, dev, cfg,
+                                      ssm_tree(torch, dev, key, cfg))
+        opt = adamw_init(tree)
+        step = make_train_step(model, mesh_tcfg())
+        rec = {"metrics": [], "ms": []}
+        for i, b in enumerate(batches):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, _, m = step(tree, opt, {k: v.to(dev) for k, v in b.items()})
+            torch.cuda.synchronize()
+            rec["ms"].append(1e3 * (time.perf_counter() - t))
+            rec["metrics"].append({k: v.item() for k, v in m.items()})
+            if i == 0 and key == "zamba_train":
+                rec["in_proj_grad"] = ssm_in_proj_grad(step.grads).cpu()
+        out[key] = rec
+        del model, tree, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def ssm_rank_serve(key):
+    """20b (``"rwkv"``) or 20c (``"zamba"``) on a rank: the shards of the
+    reference's draws under ``tp_rules``; the bf16 run on the reference's
+    tokens with K3, K10 and K11 counted and the heads each was given."""
+    def part(torch, np, dev, mesh, mesh_cfg, work, forced):
+        from repro_torch.models.transformer import shard_params
+
+        cfg = ssm_cfg(key)
+        rules = tp_rules(cfg, mesh_cfg)
+        local = shard_params(cfg, ssm_tree(torch, dev, key, cfg), mesh,
+                             rules)
+        gc.collect()
+        torch.cuda.empty_cache()
+        prefill, decode, model = tp_steps(cfg, mesh_cfg, mesh, local)
+        heads = {}
+        with heads_log(heads):
+            rec = kv_rank_run(torch, prefill, decode,
+                              model.init_cache(LM_MAX_BATCH, LM_MAX_LEN),
+                              tp_prompts(np, cfg.vocab_size), SSM_DECODE,
+                              forced[key], counters=ssm_counters())
+        rec["heads"] = {k: sorted(v) for k, v in heads.items()}
+        rec["rules"] = {a: rules.lookup(a) for a in (
+            "heads", "kv_heads", "ssm_inner", "ff", "embed")}
+        return rec
+    return part
+
+
+def ssm_rank_train(torch, np, dev, mesh, mesh_cfg, work, forced):
+    """20d on a rank: rwkv6's and zamba2's train steps through the dry
+    run's ``_build_step`` on ``ssm_train_rules``' shards of the
+    reference's draws, ``MESH_TRAIN_STEPS`` steps on the reference's
+    batches, the first twice from the same state: each step's metrics,
+    launches and collectives, zamba2's first in_proj gradient shard (the
+    parent gathers it), the heads each kernel was given; the repeat's
+    verdict."""
+    from repro_torch.core.config import ShapeConfig
+    from repro_torch.launch.dryrun import _build_step
+    from repro_torch.models.transformer import shard_params
+    from repro_torch.nn.param import tree_leaves
+    from repro_torch.sharding import collectives
+    from repro_torch.sharding.rules import local_slice, logical_to_spec
+    from repro_torch.train.optimizer import adamw_init
+
+    coords = dict(zip(mesh_cfg.axes, (int(c) for c in
+                                       mesh.get_coordinate())))
+    out = {"coords": coords}
+    for key in ("rwkv_train", "zamba_train"):
+        cfg = ssm_cfg(key)
+        rules = ssm_train_rules(key, mesh_cfg)
+
+        def draw():
+            local = shard_params(cfg, ssm_tree(torch, dev, key, cfg), mesh,
+                                 rules)
+            gc.collect()
+            torch.cuda.empty_cache()
+            return local
+
+        local = draw()
+        rows = mesh_cfg.dp_size * SSM_TRAIN_ROWS
+        step, _ = _build_step(cfg, ShapeConfig("train", TRAIN_SEQ, rows,
+                                               "train"), mesh_cfg, rules,
+                              tcfg=mesh_tcfg(), microbatches=1)(mesh, local)
+        opt = adamw_init(local, step.plan())
+        spec = logical_to_spec(("batch", "seq"), mesh_cfg.axes, rules)
+        batches = [{k: local_slice(v, spec, mesh_cfg, coords).to(dev)
+                    for k, v in b.items()}
+                   for b in torch.load(work / "ssm_batches.pt")]
+        counters = ssm_counters()
+        heads = {}
+
+        def one(batch, keep=False):
+            for fn in counters.values():
+                fn.launches = 0
+            for k in counters["K3"].role_launches:
+                counters["K3"].role_launches[k] = 0
+            collectives.reset_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with heads_log(heads):
+                grads, m = step.accumulate(local, batch)
+            kept = None
+            if keep and key == "zamba_train":
+                kept = ssm_in_proj_grad(grads).cpu()
+            _, _, m = step.finish(local, opt, grads, m)
+            torch.cuda.synchronize()
+            return {"metrics": {k: v.item() for k, v in m.items()},
+                    "ms": 1e3 * (time.perf_counter() - t),
+                    "launches": {"K3": dict(counters["K3"].role_launches),
+                                 "K10": counters["K10"].launches,
+                                 "K11": counters["K11"].launches},
+                    "collectives": collectives.counts_by_name(),
+                    "in_proj_grad": kept}
+
+        first = one(batches[0], keep=True)
+        prints = mesh_fingerprints(torch, local)
+        for t_, s_ in zip(tree_leaves(local), tree_leaves(draw())):
+            t_.copy_(s_)
+        for t_ in tree_leaves(opt):
+            t_.zero_()
+        again = one(batches[0])
+        repeat = (prints == mesh_fingerprints(torch, local)
+                  and again["metrics"] == first["metrics"])
+        out[key] = {"steps": [first, one(batches[1])],
+                    "repeat_ms": again["ms"], "repeat_equal": repeat,
+                    "heads": {k: sorted(v) for k, v in heads.items()},
+                    "ssm_inner": rules.lookup("ssm_inner"),
+                    "embed": rules.lookup("embed")}
+        del local, step, opt, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def ssm_check_cache(torch, label, rank, got, want, cfg, model_spec,
+                    mesh_cfg, rules):
+    """Each of a rank's cache leaves against ``local_slice`` of the
+    reference's, cut by the leaf's logical axes: the first layer's within
+    ``LM_CACHE_TOL["bfloat16"]`` of max(1, |ref|), every later one (and
+    zamba2's shared KV, after its group's Mamba blocks) within
+    ``TP_BF16_TOL``, as 19b's deep rows.  Returns the worst errors."""
+    from repro_torch.nn.param import is_param
+    from repro_torch.sharding.rules import local_slice, logical_to_spec
+
+    worst = {}
+    for path, t in _tree_items(got):
+        p = _tree_get(model_spec, path)
+        assert is_param(p)
+        ref = local_slice(_tree_get(want, path), logical_to_spec(
+            p.axes, mesh_cfg.axes, rules), mesh_cfg, rank["coords"])
+        got_f, ref_f = t.float(), ref.float()
+        top = max(1.0, ref_f.abs().max().item())
+        name = f"{label} cache {path}"
+        deep = _check_close(f"{name} deep", got_f, ref_f,
+                            TP_BF16_TOL * top)
+        if not path.startswith("shared_kv"):
+            _check_close(f"{name} layer 0", got_f[0], ref_f[0],
+                         LM_CACHE_TOL["bfloat16"] * top)
+        worst[path] = deep
+    return worst
+
+
+def ssm_check_serve(torch, key, ranks, ref, mesh_cfg):
+    """20b's or 20c's holds: the logits within ``TP_BF16_TOL`` x max(1,
+    |ref|), an argmax apart only at a near tie, the same bits on both
+    ranks, the repeat's bits, each call's launches ``ssm_per_layer``'s,
+    each rank's kernels given its own heads, the cache leaves
+    (``ssm_check_cache``), a decode step's collectives.  Returns the
+    record."""
+    from repro_torch.models.registry import get_model
+
+    cfg = ssm_cfg(key)
+    label = f"{ssm_arch(key)} {SSM_MESH} ssm_inner"
+    rules = tp_rules(cfg, mesh_cfg)
+    runs = [r[key] for r in ranks]
+    ways = mesh_cfg.model_size
+    got = runs[0]["rules"]
+    if (got["ssm_inner"], got["heads"], got["embed"]) != ("model", "model",
+                                                          None):
+        fail(f"{label}: the rules cut {got}")
+    rec = {"worst": {}, "parted": []}
+    for name, k in (("prefill", "prefill_last"), ("decode", "steps")):
+        want, g = ref[k], runs[0][k]
+        lim = TP_BF16_TOL * max(1.0, want.abs().max().item())
+        rec["worst"][name] = _check_close(f"{label} {name} logits", g, want,
+                                          lim)
+        g2, w2 = g.reshape(-1, g.shape[-1]), want.reshape(-1, want.shape[-1])
+        pick = g2.argmax(-1)
+        apart = pick != w2.argmax(-1)
+        if bool((w2.gather(1, pick[:, None])[:, 0] < w2.max(-1).values - lim)
+                [apart].any()):
+            fail(f"{label}: a {name} argmax parts from the reference's past "
+                 f"a near tie")
+        rec["parted"].append(int(apart.sum()))
+    pre, dec = ssm_per_layer(key, cfg)
+    arch = ssm_arch(key)
+    want_heads = ({"K11": [cfg.d_model // cfg.rwkv.head_dim // ways]}
+                  if arch == RWKV_ARCH else
+                  {"ssd": [2 * cfg.d_model // cfg.ssm.head_dim // ways],
+                   "K10": [cfg.num_heads // ways]})
+    spec = get_model(cfg).cache_spec(LM_MAX_BATCH, LM_MAX_LEN)
+    for r, (rank, run) in enumerate(zip(ranks, runs)):
+        for k in ("prefill_last", "steps", "tokens"):
+            if not torch.equal(run[k], runs[0][k]):
+                fail(f"{label}: rank {r}'s {k} differ from rank 0's")
+        if not run["repeat_equal"]:
+            fail(f"{label} rank {r}: a repeat of the first step differs")
+        for kind, want in (("prefill", pre), ("decode", dec)):
+            for i, g in enumerate(run["launches"][kind]):
+                if g != want:
+                    fail(f"{label} rank {r}: {kind} {i} launched {g}, not "
+                         f"{want}")
+        if run["heads"] != want_heads:
+            fail(f"{label} rank {r}: the kernels were given the heads "
+                 f"{run['heads']}, not {want_heads}")
+        rec[f"cache_rank{r}"] = ssm_check_cache(
+            torch, f"{label} rank {r}", rank, run["cache"], ref["cache"],
+            cfg, spec, mesh_cfg, rules)
+    if arch == RWKV_ARCH:  # wo and wv a layer, the embedding; the logits
+        coll = {"sum_over/model": 2 * cfg.num_layers + 1,
+                "gather_over/model": 1}
+    else:  # a block: proj, conv_w, conv_b, conv state; out_proj, the norm;
+        #    the shared block's o and down, shared_out; the embedding
+        groups = cfg.num_layers // cfg.shared_attn_every
+        coll = {"gather_over/model": 4 * cfg.num_layers + 1,
+                "sum_over/model": 2 * cfg.num_layers + 3 * groups + 1}
+    kv_check_collectives(label, runs, coll)
+    rec.update(kv_summary(runs, ref),
+               per_rank=[{"launches": {k: sum(c[k] for kind in r["launches"]
+                                              for c in r["launches"][kind])
+                                       for k in ("K3", "K10", "K11")},
+                          "k3_paths": r["k3_paths"],
+                          "k10_paths": r["k10_paths"],
+                          "store_launches": r["store_launches"]}
+                         for r in runs],
+               heads=runs[0]["heads"],
+               peak_memory_gb=[r["peak_gb"] for r in runs],
+               part_s=[r["part_s"] for r in runs],
+               prompts=list(LM_PROMPTS), steps=SSM_DECODE,
+               prefill_collective_bytes=runs[0]["collectives_prefill_bytes"],
+               tokens=runs[0]["tokens"].tolist())
+    return rec
+
+
+def ssm_check_train(torch, train, ref):
+    """20d's holds for each arch: the metrics the same bits on both ranks
+    and each step's CE within ``SSM_TRAIN_TOL`` of the reference's, the
+    repeat's bits, K3 and K11 (rwkv6) or K10 (zamba2) launched, each kernel
+    given the rank's heads, zamba2's first in_proj gradient gathered
+    within ``SSM_GRAD_TOL`` of max|g| of the reference's.  Returns the
+    record."""
+    out = {}
+    for key in ("rwkv_train", "zamba_train"):
+        label = f"{ssm_arch(key)} train {SSM_MESH}"
+        runs = [t[key] for t in train]
+        if runs[0]["ssm_inner"] != "model" or runs[0]["embed"] is not None:
+            fail(f"{label}: ssm_inner cut over {runs[0]['ssm_inner']}, "
+                 f"embed over {runs[0]['embed']}")
+        d = {"ce": [], "ce_err": []}
+        for i, want in enumerate(ref[key]["metrics"]):
+            got = [t["steps"][i]["metrics"] for t in runs]
+            if any(g != got[0] for g in got):
+                fail(f"{label}: step {i + 1}'s metrics differ between ranks")
+            err = abs(got[0]["ce"] - want["ce"]) / max(1.0, abs(want["ce"]))
+            d["ce"].append([got[0]["ce"], want["ce"]])
+            d["ce_err"].append(err)
+            if not err <= SSM_TRAIN_TOL[i]:
+                fail(f"{label}: step {i + 1}'s CE {got[0]['ce']}, the "
+                     f"reference's {want['ce']}, {err} apart")
+        kernel = "K11" if ssm_arch(key) == RWKV_ARCH else "K10"
+        for r, t in enumerate(runs):
+            if not t["repeat_equal"]:
+                fail(f"{label} rank {r}: the first step again differs")
+            for s in t["steps"]:
+                if sum(s["launches"]["K3"].values()) < 1 or \
+                        s["launches"][kernel] < 1:
+                    fail(f"{label} rank {r}: launches {s['launches']}")
+        if key == "zamba_train":
+            g = torch.cat([t["steps"][0]["in_proj_grad"] for t in runs],
+                          dim=-1).float()
+            w = ref[key]["in_proj_grad"].float()
+            d["in_proj_grad_err"] = (g - w).abs().max().item() / \
+                w.abs().max().item()
+            if not d["in_proj_grad_err"] <= SSM_GRAD_TOL:
+                fail(f"{label}: step 1's gathered in_proj gradient "
+                     f"{d['in_proj_grad_err']:.3e} of max|g| from the "
+                     f"reference's")
+        d.update(step_ms=[[s["ms"] for s in t["steps"]] for t in runs],
+                 reference_step_ms=ref[key]["ms"],
+                 collectives_a_step=mesh_split(runs[0]["steps"][0][
+                     "collectives"]),
+                 launches=runs[0]["steps"][0]["launches"],
+                 heads=runs[0]["heads"])
+        out[key] = d
+    return out
+
+
+def ssm_mesh_phase(torch, F, np, dev, peaks, card):
+    """Phase 20: 20a K11, K3 and K10 at the slice's rank shapes; 20b
+    rwkv6-1.6b served on a 1 x 2 gloo mesh (16 WKV heads a rank), 20c
+    zamba2-1.2b on the same ranks (32 SSD heads and 4192 in_proj columns a
+    rank, the shared block's 16 heads), both against the unsharded port;
+    20d a bf16 train step of each on the same ranks against the unsharded
+    step.  The dry run's 16 ssm and hybrid rows are traced in tier-1
+    (tests/test_torch_ssm_mesh.py), not here: two processes of them take
+    about 20 s.  The ranks start first and wait while 20a and the
+    references run here.  Returns the record."""
+    import tempfile
+
+    from repro_torch.launch.mesh import parse_mesh
+
+    t20 = time.perf_counter()
+    out = {"card": card, "reduced": {k: {"num_layers": v[0], "why": v[1]}
+                                     for k, v in SSM_CUTS.items()}}
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        started = None
+        try:
+            started = kv_spawn(work / "r", SSM_MESH,
+                               ["rwkv", "zamba", "ssm_train"], "20b-20d")
+            out["cases"] = ssm_kernel_cases(torch, F, dev, peaks)
+            gc.collect()
+            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            ref = ssm_references(torch, np, dev, work)
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["references_s"] = time.perf_counter() - t
+            for key in ("rwkv", "zamba"):
+                kv_publish(torch, work, key, {key: ref[key]["tokens"]})
+            kv_publish(torch, work, "ssm_train", {})
+            ranks = kv_wait(torch, started)
+            out["ranks_s"] = time.perf_counter() - t - out["references_s"]
+        finally:  # a failed phase leaves no process of its own behind
+            if started is not None:
+                for p in started[1]:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+                for f in started[2]:
+                    f.close()
+    m2 = parse_mesh(SSM_MESH)
+    for key, tag in (("rwkv", "20b"), ("zamba", "20c")):
+        out[key] = ssm_check_serve(torch, key, ranks, ref[key], m2)
+        print(f"ssm{tag} " + json.dumps(out[key]), flush=True)
+    out["train"] = ssm_check_train(torch, [r["ssm_train"] for r in ranks],
+                                   ref)
+    out["train"]["part_s"] = ranks[0]["ssm_train"]["part_s"]
+    print("ssm20d " + json.dumps(out["train"]), flush=True)
+    out["phase_s"] = time.perf_counter() - t20
+    print(f"phase 20 wall time {out['phase_s']:.1f} s (references "
+          f"{out['references_s']:.1f}, then the ranks {out['ranks_s']:.1f}; "
+          f"parts {out['rwkv']['part_s'][0]:.1f} + "
+          f"{out['zamba']['part_s'][0]:.1f} + "
+          f"{out['train']['part_s']:.1f}) [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     global SEED
     t_smoke = time.perf_counter()
@@ -7871,7 +8514,17 @@ def main() -> int:
         moe_mesh["grok"]["per_rank"]
     kv_cases = kv_cases + moe_mesh["cases"]
 
-    # -- 20. the kernels line -----------------------------------------------
+    # -- 20. "ssm_inner" on a mesh: rwkv6, zamba2 --------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssm_mesh = ssm_mesh_phase(torch, F, np, dev, peaks, card_line)
+    # the bf16 serving runs of 20b's and 20c's ranks, each rank's launches
+    ssm_runs = ssm_mesh["rwkv"]["per_rank"] + ssm_mesh["zamba"]["per_rank"]
+    kv_runs = kv_runs + ssm_runs
+    kv_cases = kv_cases + [c for c in ssm_mesh["cases"]
+                           if c["kernel"] != "K11"]
+
+    # -- 21. the kernels line -----------------------------------------------
     kernels = []
     for kid, (name, src, replaces) in sources.items():
         mine = [c for c in cases if c["kernel"] == kid]
@@ -8001,13 +8654,14 @@ def main() -> int:
         "replaces": "src/repro/kernels/wkv6/kernel.py:30",
         "launches": rwkv["launches"]["K11"],
         "max_abs_err": max(c["max_abs_err"] for c in rwkv_cases
-                           if c["kernel"] == "K11"),
+                           + ssm_mesh["cases"] if c["kernel"] == "K11"),
         "ms": k11["ms"], "plain_ms": k11["plain_ms"],
         "bound_ms": k11["bound_ms"], "bound_by": k11["bound_by"],
         "library_ms": None,  # no single PyTorch call computes WKV6
         "train_launches": sum(t["launches"]["K11_forward"]
                               + t["launches"]["K11_backward"]
                               for t in trained),
+        "mesh_launches": sum(r["launches"]["K11"] for r in ssm_runs),
     })
     for k in kernels:
         if k["launches"] < 1:
@@ -8039,6 +8693,7 @@ def main() -> int:
              "tp_dryrun": tp_dry, "mesh_cases": mesh_cases,
              "mesh_one": mesh_one, "mesh_runs": mesh_runs,
              "mesh_dryrun": mesh_dry, "kv": kv, "moe_mesh": moe_mesh,
+             "ssm_mesh": ssm_mesh,
              "capture": capture, "kernels": kernels},
             indent=1))
     print(f"smoke wall time {time.perf_counter() - t_smoke:.1f} s",

@@ -168,6 +168,10 @@ class Wkv6Fn(torch.autograd.Function):
     def forward(ctx, r, k, v, logw, u, state, chunk):
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)  # an unused final state: None
+        if r.device.type == "meta":  # the dry run's trace: shapes alone
+            ctx.like = (r, k, v, logw, u, state)
+            return _meta(r)
+        ctx.like = None
         ctx.save_for_backward(r, k, v, logw, u, state)
         if r.device.type == "cuda":
             return _launch(r, k, v, logw, u, min(chunk, r.shape[1]), state)
@@ -175,9 +179,21 @@ class Wkv6Fn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do, ds):
+        if ctx.like is not None:
+            return (*(None if t is None or not need else torch.empty_like(t)
+                      for t, need in zip(ctx.like, ctx.needs_input_grad)),
+                    None)
         grads = wkv6_bwd(ctx.saved_tensors, ctx.needs_input_grad[:6],
                          ctx.chunk, do, ds)
         return (*grads, None)
+
+
+def _meta(r):
+    """The outputs' shapes alone, for meta tensors (the dry run's trace):
+    o like r, the final state [b, h, e, e] in fp32."""
+    b, _, h, e = r.shape
+    return (torch.empty_like(r),
+            torch.empty((b, h, e, e), dtype=torch.float32, device="meta"))
 
 
 def wkv6(r, k, v, logw, u, *, chunk: int, state=None):
@@ -193,14 +209,16 @@ def wkv6(r, k, v, logw, u, *, chunk: int, state=None):
             f"{tuple(v.shape)}, logw {tuple(logw.shape)}, u {tuple(u.shape)}"
             f", state {None if state is None else tuple(state.shape)}, "
             f"chunk {chunk}")
-    if r.device.type in ("cpu", "cuda") and torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (r, k, v, logw, u, state)):
+    if r.device.type in ("cpu", "cuda", "meta") and torch.is_grad_enabled() \
+            and any(t is not None and t.requires_grad
+                    for t in (r, k, v, logw, u, state)):
         return Wkv6Fn.apply(r, k, v, logw, u, state, chunk)
     if r.device.type == "cpu":
         return wkv6_chunked_ref(r, k, v, logw, u, chunk, state)
     if r.device.type == "cuda":
         return _launch(r, k, v, logw, u, min(chunk, s), state)
+    if r.device.type == "meta":  # the dry run's trace: the shapes alone
+        return _meta(r)
     raise ValueError(f"wkv6: unsupported device {r.device}")
 
 

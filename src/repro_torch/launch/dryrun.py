@@ -14,7 +14,8 @@ microbatch, their accumulator in ``grad_acc_dtype``, each leaf at its
 shard shape under the rules.  The fit is against ``CARD_MEMORY_BYTES``.
 Temporaries (activations, the logits) are not reckoned.
 
-For the dense and MoE families, the step that :func:`_build_step` builds
+For the dense, MoE, ssm and hybrid families, the step that
+:func:`_build_step` builds
 (the one the tests and the smoke execute) is traced on meta tensors of
 the local shapes, as rank 0 of a fake process group of the mesh's size:
 the kernels' wrappers return shapes alone, and the collectives are
@@ -31,7 +32,11 @@ over the "kv_seq" axes, and where q heads are cut over whole kv heads a
 ``gather_over`` of q over "model".  An MoE block counts its exchange over
 "model" (the picked rows where the experts are cut, the down product's
 fp32 partials where each expert's ff axis is) and, where the batch is
-cut, its aux statistics' sums over the data axes.  A family or rule the
+cut, its aux statistics' sums over the data axes.  A Mamba2 block counts
+its gathers of ``in_proj``'s columns and of the conv's weights (and of
+the conv state in a decode step) over "model", and its norm's sum of
+squares; an RWKV6 layer counts its row-parallel ``wo`` and ``wv``.  A
+family or rule the
 executed path lacks is recorded as ``"traced": false`` with its reason
 (the rule ``check_executed`` names, where one applies), never replicated
 in silence.
@@ -66,8 +71,9 @@ CARD = "NVIDIA H100 80GB HBM3"
 CARD_MEMORY_BYTES = 80 * 10**9
 
 #: the families whose steps the executed sharded path takes, and the dry
-#: run traces: ``TransformerLM``'s, dense and MoE
-TRACED_FAMILIES = ("dense", "moe")
+#: run traces: ``TransformerLM``'s (dense and MoE), ``RWKV6LM``'s (ssm) and
+#: ``Zamba2LM``'s (hybrid)
+TRACED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 _BYTES = {"bfloat16": 2, "float16": 2, "float32": 4, "int8": 1, "int32": 4}
 
@@ -93,8 +99,9 @@ def _build_step(cfg: ModelConfig, shape: ShapeConfig, mesh_cfg: MeshConfig,
                 rules, *, tcfg=None, microbatches=None):
     """The step of ``shape`` over one rank's shards: ``build(mesh,
     params)`` loads the rank's tree ``params`` (``shard_params`` /
-    ``shard_init``'s, or meta tensors of the local shapes) into a
-    ``TransformerLM(cfg, mesh_cfg, rules)`` and returns ``(step, model)``:
+    ``shard_init``'s, or meta tensors of the local shapes) into the
+    model of ``get_model(cfg, mesh_cfg, rules)`` and returns ``(step,
+    model)``:
     ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)`` for a train shape (``make_train_step`` with
     ``train_settings``' microbatches, ``microbatches`` if given, and
@@ -106,7 +113,8 @@ def _build_step(cfg: ModelConfig, shape: ShapeConfig, mesh_cfg: MeshConfig,
     Raises NotImplementedError (``check_executed``) for a rule the path
     does not take."""
     from repro_torch.core.config import TrainConfig
-    from repro_torch.models.transformer import TransformerLM, check_executed
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.transformer import check_executed
     from repro_torch.sharding.ctx import activation_sharding, global_sizes
     from repro_torch.train.step import make_train_step
 
@@ -114,7 +122,7 @@ def _build_step(cfg: ModelConfig, shape: ShapeConfig, mesh_cfg: MeshConfig,
     sizes = global_sizes(cfg, shape.global_batch)
 
     def build(mesh, params):
-        model = TransformerLM(cfg, mesh_cfg, rules).load_tree(params)
+        model = get_model(cfg, mesh_cfg, rules).load_tree(params)
         window = model.effective_window(shape)
 
         if shape.kind == "train":
@@ -186,10 +194,12 @@ def kv_quant_switch(cfg: ModelConfig, shape: ShapeConfig,
     return cache_bytes / mesh_cfg.num_devices > KV_QUANT_THRESHOLD_BYTES
 
 
-def _trace(cfg, shape, mesh_cfg, rules, model_spec, window):
+def _trace(cfg, shape, mesh_cfg, rules, model_spec, window,
+           microbatches=None):
     """One step of ``_build_step`` on meta tensors as rank 0 of a fake
     group of the mesh's size: the collectives it calls, by name.  A train
-    step traces one microbatch's forward and backward, counts its
+    step (at ``microbatches``, a variant's, or ``train_settings``'
+    default) traces one microbatch's forward and backward, counts its
     collectives once a microbatch, and adds the once-a-step exchanges of
     ``finish`` (the data ranks' gradient sums, the norm's, the ZeRO-1
     gathers)."""
@@ -200,7 +210,8 @@ def _trace(cfg, shape, mesh_cfg, rules, model_spec, window):
     from repro_torch.sharding.rules import (local_shape, local_spec,
                                             logical_to_spec)
 
-    build = _build_step(cfg, shape, mesh_cfg, rules)
+    build = _build_step(cfg, shape, mesh_cfg, rules,
+                        microbatches=microbatches)
     params = tree_map(lambda p: torch.empty(
         p.shape, dtype=DTYPES[p.dtype or cfg.param_dtype], device="meta"),
         local_spec(model_spec, mesh_cfg, rules))
@@ -332,7 +343,8 @@ def run_one(arch: str, shape: Union[str, ShapeConfig], mesh_cfg: MeshConfig,
         rec["why_not_traced"] = why
     else:
         try:
-            rec.update(_trace(cfg, shape, mesh_cfg, rules, spec, window))
+            rec.update(_trace(cfg, shape, mesh_cfg, rules, spec, window,
+                              mb_override))
             rec["traced"] = True
         except NotImplementedError as e:  # a rule the executed path lacks
             rec["why_not_traced"] = str(e)

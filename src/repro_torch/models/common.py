@@ -230,11 +230,22 @@ def cache_slot(cache, i: int):
 class BaseModel(nn.Module):
     """A model: its parameter spec, its parameters (on the meta device
     until :meth:`init` or :meth:`load_tree`), forward / prefill / decode.
-    The model runs on the device its parameters lie on."""
+    The model runs on the device its parameters lie on.  Built with a
+    mesh's config and rules, its leaves take a rank's shard shapes
+    (:meth:`_local`) and :meth:`init_cache` makes the rank's cache."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, mesh_cfg=None, rules=None):
         super().__init__()
         self.cfg = cfg
+        self.mesh_cfg, self.rules = mesh_cfg, rules
+
+    def _local(self, spec):
+        """``spec`` with a rank's shard shapes on a mesh, else as it is."""
+        if self.mesh_cfg is None:
+            return spec
+        from repro_torch.sharding.rules import local_spec
+
+        return local_spec(spec, self.mesh_cfg, self.rules)
 
     # -- parameters ----------------------------------------------------------
     def param_spec(self) -> dict:
@@ -271,12 +282,18 @@ class BaseModel(nn.Module):
                    device=None) -> dict:
         """A zero cache, each leaf in its spec's dtype or bf16 (the JAX
         package's default): bf16 KV caches, fp32 RWKV states.  On the
-        model's device unless ``device`` is given."""
+        model's device unless ``device`` is given.  On a mesh, the rank's
+        shard of it: every leaf cut by its logical axes under the rules,
+        as the JAX dry run shards the cache (a KV cache's batch over the
+        dp axes, its kv heads over "model" where they divide it, else its
+        sequence, "kv_seq"; an SSM state's heads and a conv row's
+        "ssm_inner" channels over "model"), the rank at index r over a
+        dimension's axes holding its rows [r * S / n, (r + 1) * S / n)."""
         dev = torch.device(device) if device is not None else self.device
+        spec = self._local(self.cache_spec(batch, cache_len, window))
         return tree_map(
             lambda p: torch.zeros(p.shape, dtype=DTYPES[p.dtype or "bfloat16"],
-                                  device=dev),
-            self.cache_spec(batch, cache_len, window))
+                                  device=dev), spec)
 
 
 # ---------------------------------------------------------------------------

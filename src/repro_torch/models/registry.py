@@ -9,22 +9,23 @@ import math
 from repro_torch.core.config import ModelConfig
 from repro_torch.nn.param import is_param
 
-def get_model(cfg: ModelConfig):
+def get_model(cfg: ModelConfig, mesh_cfg=None, rules=None):
+    """The model of ``cfg``: on a mesh (``mesh_cfg`` and its ``rules``)
+    one rank's, whose leaves take the local shapes; a family or rule the
+    executed sharded path does not take raises
+    (``transformer.check_executed``)."""
     from repro_torch.models.encdec import EncDecLM
     from repro_torch.models.rwkv6 import RWKV6LM
-    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.models.transformer import TransformerLM, check_executed
     from repro_torch.models.vision_lm import VisionLM
     from repro_torch.models.zamba2 import Zamba2LM
 
-    if cfg.family == "ssm":
-        return RWKV6LM(cfg)
-    if cfg.family == "hybrid":
-        return Zamba2LM(cfg)
-    if cfg.family == "vlm":
-        return VisionLM(cfg)
-    if cfg.family == "audio":
-        return EncDecLM(cfg)
-    return TransformerLM(cfg)  # dense + moe
+    if cfg.family in ("vlm", "audio"):
+        if mesh_cfg is not None:  # the cross families take no mesh yet
+            check_executed(cfg, mesh_cfg, rules)
+        return (VisionLM if cfg.family == "vlm" else EncDecLM)(cfg)
+    cls = {"ssm": RWKV6LM, "hybrid": Zamba2LM}.get(cfg.family, TransformerLM)
+    return cls(cfg, mesh_cfg, rules)  # dense and moe: TransformerLM
 
 
 def _spec_counts(spec, path=()):

@@ -34,12 +34,11 @@ from repro_torch.models.common import (BaseModel, _accumulate_aux,
                                        kv_cache_param, layer_call,
                                        norm_apply, norm_spec)
 from repro_torch.nn.embedding import embed_tokens, embedding_spec, lm_logits
-from repro_torch.nn.param import (DTYPES, ParamTree, _initialize, is_param,
-                                  stack_spec, tree_map)
+from repro_torch.nn.param import (ParamTree, _initialize, is_param,
+                                  stack_spec)
 from repro_torch.sharding import ctx as shard_ctx
 from repro_torch.sharding.collectives import gather_over
-from repro_torch.sharding.rules import (AxisRules, entry_axes, local_shape,
-                                        local_slice, local_spec,
+from repro_torch.sharding.rules import (AxisRules, entry_axes, local_slice,
                                         logical_to_spec, shards)
 
 
@@ -50,14 +49,13 @@ class TransformerLM(BaseModel):
     def __init__(self, cfg: ModelConfig,
                  mesh_cfg: Optional[MeshConfig] = None,
                  rules: Optional[AxisRules] = None):
-        super().__init__(cfg)
+        super().__init__(cfg, mesh_cfg, rules)
         self.use_moe = cfg.moe is not None
         self.pair = cfg.local_global_interval == 2
         assert cfg.local_global_interval in (0, 2), "only k=2 alternation"
         if self.pair:
             assert cfg.num_layers % 2 == 0
         self.n_scan = cfg.num_layers // (2 if self.pair else 1)
-        self.mesh_cfg, self.rules = mesh_cfg, rules
         if mesh_cfg is not None:
             check_executed(cfg, mesh_cfg, rules)
         dt = cfg.param_dtype
@@ -70,12 +68,6 @@ class TransformerLM(BaseModel):
             ParamTree(self._local(self._unit_spec()), dt)
             for _ in range(self.n_scan))
         self.ln_f = ParamTree(spec["ln_f"], dt)
-
-    def _local(self, spec):
-        """``spec`` with a rank's shard shapes on a mesh, else as it is."""
-        if self.mesh_cfg is None:
-            return spec
-        return local_spec(spec, self.mesh_cfg, self.rules)
 
     # -- params ---------------------------------------------------------------
     def _unit_spec(self) -> dict:
@@ -189,28 +181,6 @@ class TransformerLM(BaseModel):
             }
         return kv_cache_param(self.cfg, batch, clen(lw), stacked=self.n_scan)
 
-    def init_cache(self, batch: int, cache_len: int, window: int = 0,
-                   device=None) -> dict:
-        """A zero cache (``BaseModel.init_cache``); on a mesh, the rank's
-        shard of it: every leaf [n_scan, batch, S, kvh, hd] (int8 scales
-        without hd) cut by its logical axes ("layers", "batch", "kv_seq",
-        "kv_heads", None) under the rules, as the JAX dry run shards the
-        cache: the batch over the dp axes, the kv heads over "model" where
-        they divide it, else the sequence ("kv_seq"), the rank at index r
-        over its axes holding the rows [r * S / n, (r + 1) * S / n)."""
-        if self.mesh_cfg is None:
-            return super().init_cache(batch, cache_len, window, device)
-        m = self.mesh_cfg
-        dev = torch.device(device) if device is not None else self.device
-
-        def leaf(p):
-            spec = logical_to_spec(p.axes, m.axes, self.rules)
-            return torch.zeros(local_shape(p.shape, spec, m),
-                               dtype=DTYPES[p.dtype or "bfloat16"],
-                               device=dev)
-
-        return tree_map(leaf, self.cache_spec(batch, cache_len, window))
-
     # -- decode ------------------------------------------------------------------
     def decode_step(self, tokens, positions, cache, *, window: int = 0,
                     dp_size=None):
@@ -241,28 +211,44 @@ def check_executed(cfg: ModelConfig, mesh_cfg: MeshConfig,
                    rules: AxisRules) -> None:
     """Raise NotImplementedError, naming the rule, where ``cfg`` on
     ``mesh_cfg`` under ``rules`` needs what the executed sharded path (the
-    dense and MoE transformer's train step, prefill and decode, tensor
-    parallel over "model", data parallel over "data", FSDP's "embed"
-    gathered unit by unit, q heads cut over whole kv heads, the cache cut
-    by sequence over any of its axes, the MoE block's experts or each
-    expert's ff axis over "model" with the capacity of a data group) does
-    not take yet; every spec is still reckoned by the dry run."""
-    if cfg.ssm is not None or cfg.rwkv is not None:
-        raise NotImplementedError(
-            f"the {cfg.family} family's 'ssm_inner' (the SSM / RWKV inner "
-            f"dimension) on a mesh: not in the executed path yet")
+    dense, MoE, ssm and hybrid families' train step, prefill and decode,
+    tensor parallel over "model", data parallel over "data", FSDP's
+    "embed" gathered unit by unit, q heads cut over whole kv heads, the
+    cache cut by sequence over any of its axes, the MoE block's experts or
+    each expert's ff axis over "model" with the capacity of a data group,
+    the RWKV6 and Mamba2 heads over "model" with their "ssm_inner"
+    projections) does not take yet; every spec is still reckoned by the
+    dry run."""
+    def cut(axis):
+        entry = logical_to_spec((axis,), mesh_cfg.axes, rules)[0]
+        return entry, shards(entry, mesh_cfg)
+
     if cfg.cross_attn is not None:
         raise NotImplementedError(
             f"the {cfg.family} family's 'media' (the cross-attention "
             f"context) on a mesh: not in the executed path yet")
+    if cfg.ssm is not None or cfg.rwkv is not None:
+        entry, n = cut("embed")
+        if n > 1:  # rwkv6's chan/wr [d, d] would name its axes twice
+            raise NotImplementedError(
+                f"FSDP's 'embed' over {entry_axes(entry)} for the "
+                f"{cfg.family} family on the mesh {mesh_cfg.shape}: not in "
+                f"the executed path yet")
+        (h_entry, h), (s_entry, i) = cut("heads"), cut("ssm_inner")
+        if (h > 1 or i > 1) and entry_axes(h_entry) != entry_axes(s_entry):
+            raise NotImplementedError(
+                f"the {cfg.family} family's 'heads' over "
+                f"{entry_axes(h_entry)} ({h} shards) and 'ssm_inner' over "
+                f"{entry_axes(s_entry)} ({i}) on the mesh {mesh_cfg.shape}: "
+                f"the executed path cuts a rank's heads with their inner "
+                f"dimension")
     for axis, what in UNSUPPORTED:
-        entry = logical_to_spec((axis,), mesh_cfg.axes, rules)[0]
-        if shards(entry, mesh_cfg) > 1:
+        entry, n = cut(axis)
+        if n > 1:
             raise NotImplementedError(
                 f"{what} over {entry_axes(entry)} on the mesh "
                 f"{mesh_cfg.shape}: not in the executed path yet")
-    heads, kv = (shards(logical_to_spec((a,), mesh_cfg.axes, rules)[0],
-                        mesh_cfg) for a in ("heads", "kv_heads"))
+    heads, kv = cut("heads")[1], cut("kv_heads")[1]
     if kv > 1 and heads != kv:
         raise NotImplementedError(
             f"kv heads in {kv} shards and q heads in {heads}: the executed "
@@ -311,6 +297,13 @@ def _keys(params):
     return list(params._parameters) + list(params._modules)
 
 
+def _spec(cfg: ModelConfig) -> dict:
+    """The whole parameter spec of ``cfg``'s model, any family."""
+    from repro_torch.models.registry import get_model
+
+    return get_model(cfg).param_spec()
+
+
 def _carve(spec, full, mesh, rules: AxisRules, device, path=""):
     """The rank's tree: ``full(path, p)`` gives each leaf whole, one at a
     time, and only its local slice is kept (a copy on ``device``)."""
@@ -335,9 +328,9 @@ def shard_params(cfg: ModelConfig, tree: dict, mesh, rules: AxisRules,
     """The rank's shards of the whole parameter tree ``tree`` (the JAX
     package's layout: ``params_from_jax``'s, ``init_tree``'s) on ``mesh``
     under ``rules``, leaf by leaf: each local slice is copied to
-    ``device`` (the leaf's own by default) as it is cut.  A
-    ``TransformerLM(cfg, mesh_cfg, rules)`` loads the result."""
-    spec = TransformerLM(cfg).param_spec()
+    ``device`` (the leaf's own by default) as it is cut.  The model of
+    ``get_model(cfg, mesh_cfg, rules)`` loads the result."""
+    spec = _spec(cfg)
 
     def full(path, p):
         t = tree
@@ -354,7 +347,7 @@ def shard_init(cfg: ModelConfig, generator: torch.Generator, mesh,
     ``generator`` (the same draws in the same order), each leaf drawn
     whole on the generator's device and cut at once: no whole tree is
     ever held."""
-    spec = TransformerLM(cfg).param_spec()
+    spec = _spec(cfg)
     return _carve(spec, lambda path, p: _initialize(
         p.check(), generator, cfg.param_dtype), mesh, rules,
         generator.device)
@@ -372,7 +365,7 @@ def shard_opt_state(cfg: ModelConfig, opt: dict, mesh, rules: AxisRules,
     from repro_torch.train.optimizer import adamw_init_spec
 
     m = mesh_config_of(mesh)
-    spec = TransformerLM(cfg).param_spec()
+    spec = _spec(cfg)
     mspec = adamw_init_spec(spec, zero1=True, dp_size=m.dp_size,
                             fsdp=dict(rules.table).get("embed") is not None)
 

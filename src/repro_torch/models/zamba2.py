@@ -17,15 +17,28 @@ invocation (``shared_kv``, [groups, batch, S, kvh, hd]); every leaf has
 its batch on ``CACHE_BATCH_AXIS``.  The blocks write into views of it in
 place.  A prompt runs the chunked SSD scan and, on the card, K10 in every
 invocation; every projection runs K3.
+
+Built with a mesh's config and rules (``Zamba2LM(cfg, mesh_cfg, rules)``,
+or ``registry.get_model``), the model holds one rank's shards, as
+``TransformerLM`` does.  The Mamba blocks run their own SSD heads
+(``nn/ssm.py``); the shared block runs ``block_apply`` on the dense
+family's sharded path (its heads and ff axis over "model", its KV cache
+cut by its leaves' logical axes, by sequence over the data axes at
+``long_500k``) under the wide config's activation sizes
+(``sharding.ctx.resized``); ``shared_out`` ("ff" → "embed") is
+row-parallel: the rank feeds its "ff" columns of the block's whole
+output to K3's fp32 store, summed over "model" in rank order.
+``layerscale`` is whole.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 from torch import nn
 
-from repro_torch.core.config import ModelConfig
+from repro_torch.core.config import MeshConfig, ModelConfig
 from repro_torch.models.common import (BaseModel, _zero_aux, block_apply,
                                        block_spec, cache_index,
                                        kv_cache_param, layer_call, norm_apply,
@@ -34,6 +47,9 @@ from repro_torch.nn.embedding import embed_tokens, embedding_spec, lm_logits
 from repro_torch.nn.linear import dense, linear_spec
 from repro_torch.nn.param import Param, ParamTree, stack_spec
 from repro_torch.nn.ssm import ssm_apply, ssm_dims, ssm_spec
+from repro_torch.sharding import ctx as shard_ctx
+from repro_torch.sharding.collectives import copy_to
+from repro_torch.sharding.rules import AxisRules
 
 
 class Zamba2LM(BaseModel):
@@ -41,8 +57,14 @@ class Zamba2LM(BaseModel):
     ``ln``, ``ssm``), ``mamba_tail`` (likewise, maybe empty), ``shared``
     (the wide block), ``shared_out``, ``layerscale`` and ``ln_f``."""
 
-    def __init__(self, cfg: ModelConfig):
-        super().__init__(cfg)
+    def __init__(self, cfg: ModelConfig,
+                 mesh_cfg: Optional[MeshConfig] = None,
+                 rules: Optional[AxisRules] = None):
+        super().__init__(cfg, mesh_cfg, rules)
+        if mesh_cfg is not None:
+            from repro_torch.models.transformer import check_executed
+
+            check_executed(cfg, mesh_cfg, rules)
         every = cfg.shared_attn_every
         assert every > 0
         self.n_groups = cfg.num_layers // every  # shared-block invocations
@@ -53,11 +75,12 @@ class Zamba2LM(BaseModel):
             cfg, d_model=2 * cfg.d_model, moe=None, ssm=None,
             shared_attn_every=0)
         dt = cfg.param_dtype
-        spec = self.param_spec()
+        spec = self._local(self.param_spec())
+        unit = self._local(self._mamba_unit())
         self.embed = ParamTree(spec["embed"], dt)
-        self.mamba = nn.ModuleList(ParamTree(self._mamba_unit(), dt)
+        self.mamba = nn.ModuleList(ParamTree(unit, dt)
                                    for _ in range(self.n_groups * every))
-        self.mamba_tail = nn.ModuleList(ParamTree(self._mamba_unit(), dt)
+        self.mamba_tail = nn.ModuleList(ParamTree(unit, dt)
                                         for _ in range(self.n_tail))
         self.shared = ParamTree(spec["shared"], dt)
         self.shared_out = ParamTree(spec["shared_out"], dt)
@@ -135,16 +158,24 @@ class Zamba2LM(BaseModel):
 
     def _shared_apply(self, x, embeds, gi, *, window, positions, mode, cache):
         """One invocation of the shared wide block; its k/v go into
-        ``cache`` in place."""
+        ``cache`` in place.  On a mesh ``shared_out`` is row-parallel over
+        "ff": the block's output, whole on every rank, enters through
+        ``copy_to`` (each rank's cotangent comes from its own columns)."""
         wide = torch.cat([x, embeds], dim=-1)
-        y, _ = block_apply(self.shared, wide, self.wide_cfg, window=window,
-                           positions=positions, mode=mode, cache=cache)
-        out = dense(self.shared_out, y)
+        with shard_ctx.resized(embed_act=self.wide_cfg.d_model):
+            y, _ = block_apply(self.shared, wide, self.wide_cfg,
+                               window=window, positions=positions, mode=mode,
+                               cache=cache)
+        i, n, axes = shard_ctx.shard_of("ff")
+        if n > 1:
+            cols = y.shape[-1] // n
+            y = copy_to(axes, y).narrow(-1, i * cols, cols).contiguous()
+        out = dense(self.shared_out, y, k_axis="ff")
         scale = self.layerscale["scale"][gi].to(out.dtype)
         return x + out * scale
 
     def _run(self, x, embeds, *, mode, positions, window, cache,
-             remat=False):
+             remat=False, gather=True):
         mamba_c = None if cache is None else cache["mamba"]
         call = layer_call(remat and cache is None)
         shared = (lambda xx, ee, gi: self._shared_apply(
@@ -166,17 +197,19 @@ class Zamba2LM(BaseModel):
             x = call(self._mamba_block, unit, x, mode,
                      cache_index(tail_c, i))
         x = norm_apply(self.ln_f, x, self.cfg)
-        return lm_logits(self.embed, x, self.cfg)
+        return lm_logits(self.embed, x, self.cfg, gather=gather)
 
     def forward(self, batch: dict, mode: str = "train", *,
-                window_override: int = 0, cache=None):
+                window_override: int = 0, cache=None, dp_size=None):
         """batch: {"tokens": [b, s]} -> (fp32 logits [b, s, V], aux), or
         with ``cache`` (logits, cache, aux): the prompt's conv rows, final
         SSD states and k/v written into ``cache`` in place.  Whatever
         ``mode`` is, the Mamba blocks run the chunked scan and the shared
         block its full attention, as in the JAX package; in train mode each
-        Mamba block and each shared invocation is rematted; aux is
-        zeros."""
+        Mamba block and each shared invocation is rematted, and on a mesh
+        that cuts "vocab" the logits are the rank's vocab slice
+        (``train.step.cross_entropy``); aux is zeros.  ``dp_size`` (the
+        JAX package's argument) is accepted and ignored: no MoE block."""
         tokens = batch["tokens"]
         positions = torch.arange(tokens.shape[1],
                                  device=tokens.device)[None, :]
@@ -184,15 +217,17 @@ class Zamba2LM(BaseModel):
         window = self.cfg.sliding_window or window_override
         logits = self._run(embeds, embeds, mode="full", positions=positions,
                            window=window, cache=cache,
-                           remat=mode == "train")
+                           remat=mode == "train", gather=mode != "train")
         aux = _zero_aux(logits.device)
         if cache is not None:
             return logits, cache, aux
         return logits, aux
 
-    def decode_step(self, tokens, positions, cache, *, window: int = 0):
+    def decode_step(self, tokens, positions, cache, *, window: int = 0,
+                    dp_size=None):
         """tokens [b, 1], positions [b] -> (logits [b, 1, V], cache), the
-        new conv rows, states and k/v written into ``cache`` in place."""
+        new conv rows, states and k/v written into ``cache`` in place;
+        ``dp_size`` is accepted and ignored."""
         embeds = embed_tokens(self.embed, tokens, self.cfg)
         w = self.cfg.sliding_window or window
         logits = self._run(embeds, embeds, mode="decode",

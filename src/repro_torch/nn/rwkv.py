@@ -18,6 +18,19 @@ Unlike the JAX package, the cache is updated in place: with a cache
 (``{"last": [b, d], "state": [b, h, e, e]}``, fp32 views of the model's
 stacked cache) the apply functions write the new token-shift row and
 state into it and return only their output.
+
+On a mesh whose rules cut "ssm_inner" (and with it "heads": the same
+axes, ``models.transformer.check_executed``) a rank computes its own
+heads alone.  The ddlerp and the decay LoRA's trunk are whole on every
+rank; ``wr``/``wk``/``wv``/``wg`` are column-parallel, their inputs
+through ``column_input``; the rank's heads take their columns of
+``w_B``, ``w0`` and ``u`` (the weights are sliced, so that logw comes out
+contiguous, as K11 takes it), and K11 runs on the rank's heads with its
+state shard; ``wo`` is row-parallel.  Whole leaves that a rank uses only
+in part (the trunk's output, ``w_B``, ``w0``, ``u``, the heads'
+``out_norm`` scale) enter through ``copy_to``, so that their gradients
+sum every rank's heads in rank order.  The channel mix's ``wk`` is
+column-parallel and ``wv`` row-parallel over "ff"; ``wr`` is whole.
 """
 from __future__ import annotations
 
@@ -29,9 +42,11 @@ import torch.nn.functional as F
 from repro_torch.core.config import ModelConfig
 from repro_torch.kernels.wkv6.ops import wkv6
 from repro_torch.kernels.wkv6.ref import wkv6_reference
-from repro_torch.nn.linear import dense, linear_spec
+from repro_torch.nn.linear import column_input, dense, linear_spec
 from repro_torch.nn.norm import rmsnorm_apply, rmsnorm_spec
 from repro_torch.nn.param import Param
+from repro_torch.sharding.collectives import copy_to
+from repro_torch.sharding.ctx import shard_act, shard_of
 
 _BRANCHES = ("r", "k", "v", "w", "g")
 
@@ -132,22 +147,34 @@ def rwkv_time_apply(params, x, cfg: ModelConfig, *,
                     cache: Optional[dict] = None,
                     mode: str = "full") -> torch.Tensor:
     """x: [b, s, d] -> [b, s, d]; with ``cache`` its ``last`` and ``state``
-    are overwritten with the segment's last token and final state."""
+    are overwritten with the segment's last token and final state.  On a
+    mesh the rank's heads alone (see the module's docstring)."""
     d, h = rwkv_dims(cfg)
     e = cfg.rwkv.head_dim
     b, s, _ = x.shape
     last = cache["last"] if cache is not None else None
     sx = _token_shift(x, last)
     xr, xk, xv, xw, xg = _ddlerp(params, x, sx)
+    i, n, axes = shard_of("ssm_inner")
+    hl = h // n  # the rank's heads
+    xr, xk, xv, xg = (column_input(t, "ssm_inner") for t in (xr, xk, xv, xg))
 
-    r = dense(params["wr"], xr).reshape(b, s, h, e)
-    k = dense(params["wk"], xk).reshape(b, s, h, e)
-    v = dense(params["wv"], xv).reshape(b, s, h, e)
+    heads = ("batch", "seq", "heads", None)
+    r = shard_act(dense(params["wr"], xr).reshape(b, s, hl, e), heads)
+    k = shard_act(dense(params["wk"], xk).reshape(b, s, hl, e), heads)
+    v = shard_act(dense(params["wv"], xv).reshape(b, s, hl, e), heads)
     g = dense(params["wg"], xg)
-    loww = (params["w0"]
-            + torch.tanh(xw.float() @ params["w_A"]) @ params["w_B"])
-    logw = -torch.exp(loww).reshape(b, s, h, e)  # log decay < 0
-    u = params["u"].reshape(h, e)
+    trunk = torch.tanh(xw.float() @ params["w_A"])
+    w0, w_B, u, norm = (params["w0"], params["w_B"], params["u"],
+                        params["out_norm"])
+    if n > 1:  # the rank's columns of the whole leaves
+        cols = slice(i * hl * e, (i + 1) * hl * e)
+        trunk = copy_to(axes, trunk)
+        w0, w_B, u = (copy_to(axes, t)[..., cols] for t in (w0, w_B, u))
+        norm = {"scale": copy_to(axes, norm["scale"])}
+    loww = w0 + trunk @ w_B
+    logw = -torch.exp(loww).reshape(b, s, hl, e)  # log decay < 0
+    u = u.reshape(hl, e)
 
     state = cache["state"] if cache is not None else None
     if mode == "full" and s > 1:
@@ -156,26 +183,29 @@ def rwkv_time_apply(params, x, cfg: ModelConfig, *,
     else:
         o, S_final = wkv6_reference(r, k, v, logw, u, state)
 
-    o = rmsnorm_apply(params["out_norm"], o, cfg.norm_eps)
-    o = o.reshape(b, s, d) * F.silu(g)
+    o = rmsnorm_apply(norm, o, cfg.norm_eps)
+    o = o.reshape(b, s, hl * e) * F.silu(g)
     if cache is not None:
         cache["last"].copy_(x[:, -1])
         cache["state"].copy_(S_final)
-    return dense(params["wo"], o)
+    return shard_act(dense(params["wo"], o, k_axis="ssm_inner"),
+                     ("batch", "seq", "embed_act"))
 
 
 def rwkv_channel_apply(params, x, cfg: ModelConfig,
                        cache: Optional[dict] = None) -> torch.Tensor:
     """The channel mix (squared-relu MLP with a receptance gate); with
-    ``cache`` its ``last`` is overwritten with the segment's last token."""
+    ``cache`` its ``last`` is overwritten with the segment's last token.
+    On a mesh ``wk`` is column-parallel and ``wv`` row-parallel over
+    "ff"."""
     last = cache["last"] if cache is not None else None
     sx = _token_shift(x, last).float()
     xf = x.float()
     xk = (xf + sx * params["mu_k"]).to(x.dtype)
     xr = (xf + sx * params["mu_r"]).to(x.dtype)
-    kk = dense(params["wk"], xk, act="relu")
+    kk = dense(params["wk"], column_input(xk, "ff"), act="relu")
     kk = kk * kk
-    vv = dense(params["wv"], kk)
+    vv = dense(params["wv"], kk, k_axis="ff")
     rr = torch.sigmoid(dense(params["wr"], xr).float()).to(x.dtype)
     if cache is not None:
         cache["last"].copy_(x[:, -1])

@@ -26,6 +26,23 @@ model's stacked cache) :func:`ssm_apply` writes the conv's trailing
 inputs and the final state into it and returns only its output.  As in
 the JAX package, a prompt starts the scan from a zero state and the conv
 from the cache's trailing inputs.
+
+On a mesh whose rules cut "ssm_inner" (and "heads" with it:
+``models.transformer.check_executed``) a rank computes its own SSD heads
+alone, while its leaves keep the JAX package's layout.  ``in_proj``'s
+output ``[z, x, B, C, dt]`` is cut evenly over "model" and the cuts do
+not fall on the segments' edges (GSPMD re-lays it out behind JAX's back),
+so the rank computes its spec columns on K3 and gathers ``proj`` whole
+(``gather_over(parts=True)``: the adjoint sums the ranks' cotangents onto
+their shards, so B's and C's gradients add every rank's heads), then
+takes its heads' z, x and dt columns and the whole of B and C;
+``conv_w``/``conv_b`` (cut the same way) are gathered, and a cached conv
+state too, the rank writing back its spec slice of the new one.  The
+whole leaves ``A_log``, ``D``, ``dt_bias`` and ``out_norm``'s scale enter
+through ``copy_to`` before the rank takes its heads' entries.
+``out_norm`` normalises over all ``d_inner`` channels: the rank's fp32
+sum of squares is summed over "model" in rank order.  ``out_proj`` is
+row-parallel.
 """
 from __future__ import annotations
 
@@ -34,9 +51,11 @@ from typing import Optional
 import torch
 
 from repro_torch.core.config import ModelConfig
-from repro_torch.nn.linear import act_fn, dense, linear_spec
+from repro_torch.nn.linear import act_fn, column_input, dense, linear_spec
 from repro_torch.nn.norm import rmsnorm_apply, rmsnorm_spec
 from repro_torch.nn.param import Param
+from repro_torch.sharding.collectives import copy_to, gather_over, sum_over
+from repro_torch.sharding.ctx import shard_act, shard_of
 
 
 def ssm_dims(cfg: ModelConfig):
@@ -202,28 +221,74 @@ def _ssd_chunked(x, dt, A, B, C, chunk: int):
     return y, S_in[nc]
 
 
+def _own(t, cols: slice, whole: int):
+    """The rank's columns of the [x, B, C] channels of ``t`` (its last
+    axis ``whole`` wide: the x channels ``cols``, then every channel past
+    the x segment, B and C), contiguous."""
+    return torch.cat([t[..., cols], t[..., whole:]], dim=-1)
+
+
+def _rmsnorm_over(params, y, eps: float, width: int, axes):
+    """``rmsnorm_apply`` of the rank's channels ``y`` of a ``width``-wide
+    row cut over ``axes``, ``params`` the rank's slice of the scale: the
+    ranks' fp32 sums of squares summed in rank order (``copy_to`` after:
+    each rank's cotangent of the sum comes from its own channels)."""
+    yf = y.float()
+    ss = copy_to(axes, sum_over(axes, torch.sum(yf * yf, dim=-1,
+                                                keepdim=True)))
+    yf = yf * (ss / width + eps) ** -0.5
+    return (yf * params["scale"].float()).to(y.dtype)
+
+
 def ssm_apply(params, x, cfg: ModelConfig, *, mode: str = "full",
               cache: Optional[dict] = None) -> torch.Tensor:
     """x: [b, s, d] -> [b, s, d]; with ``cache`` its ``conv`` and
     ``state`` are overwritten with the conv's trailing inputs and the
     final state.  ``mode`` "full" runs the chunked scan from a zero
-    state, "decode" (s == 1) one step from the cache's state."""
+    state, "decode" (s == 1) one step from the cache's state.  On a mesh
+    the rank's heads alone (see the module's docstring)."""
     ssm = cfg.ssm
     d_inner, h = ssm_dims(cfg)
     n = ssm.d_state
     p = ssm.head_dim
-
-    proj = dense(params["in_proj"], x)
-    z, xbc, dt_raw = _split_proj(proj, cfg)
-    dt = _softplus(dt_raw.float() + params["dt_bias"])
-    A = -torch.exp(params["A_log"])  # [h], negative
-
-    conv_state = cache["conv"] if cache is not None else None
-    xbc, new_conv = _causal_conv(xbc, params["conv_w"], params["conv_b"],
-                                 conv_state)
-    xs, B, C = torch.split(xbc, [d_inner, n, n], dim=-1)
     bsz, s, _ = x.shape
-    xh = xs.reshape(bsz, s, h, p)
+    i, ways, axes = shard_of("ssm_inner")
+    hl, dl = h // ways, d_inner // ways  # the rank's heads and channels
+
+    proj = dense(params["in_proj"], column_input(x, "ssm_inner"))
+    proj = shard_act(proj, ("batch", "seq", "ssm_inner"))
+    conv_w, conv_b = params["conv_w"], params["conv_b"]
+    A_log, D, dt_bias = params["A_log"], params["D"], params["dt_bias"]
+    norm = params["out_norm"]
+    conv_state = cache["conv"] if cache is not None else None
+    if ways > 1:  # JAX's layout gathered whole; the rank's heads taken
+        proj, conv_w, conv_b = (gather_over(axes, t, -1, parts=True)
+                                for t in (proj, conv_w, conv_b))
+        if conv_state is not None:
+            conv_state = gather_over(axes, conv_state, -1)
+        heads, cols = slice(i * hl, (i + 1) * hl), slice(i * dl, (i + 1) * dl)
+        A_log, D, dt_bias = (copy_to(axes, t)[heads]
+                             for t in (A_log, D, dt_bias))
+        norm = {"scale": copy_to(axes, norm["scale"])[cols]}
+    z, xbc, dt_raw = _split_proj(proj, cfg)
+    conv_in, w, b, state = xbc, conv_w, conv_b, conv_state
+    if ways > 1:
+        z, dt_raw = z[..., cols], dt_raw[..., heads]
+        conv_in, w, b = (_own(t, cols, d_inner) for t in (xbc, conv_w,
+                                                           conv_b))
+        state = None if conv_state is None else _own(conv_state, cols,
+                                                     d_inner)
+    dt = _softplus(dt_raw.float() + dt_bias)
+    A = -torch.exp(A_log)  # [hl], negative
+
+    xbc_c, new_conv = _causal_conv(conv_in, w, b, state)
+    if ways > 1 and cache is not None:  # the rank's spec slice, as JAX's
+        c = xbc.shape[-1] // ways
+        pad = (conv_state.to(xbc.dtype) if conv_state is not None
+               else xbc.new_zeros((bsz, w.shape[0] - 1, xbc.shape[-1])))
+        new_conv = torch.cat([pad, xbc], dim=1)[:, s:, i * c:(i + 1) * c]
+    xs, B, C = torch.split(xbc_c, [dl, n, n], dim=-1)
+    xh = xs.reshape(bsz, s, hl, p)
 
     if mode == "full":
         y, S = _ssd_chunked(xh, dt, A, B, C, ssm.chunk_size)
@@ -241,11 +306,15 @@ def ssm_apply(params, x, cfg: ModelConfig, *, mode: str = "full",
         cache["conv"].copy_(new_conv)
         cache["state"].copy_(S)
 
-    y = y + params["D"].to(y.dtype)[None, None, :, None] * xh
-    y = y.reshape(bsz, s, d_inner)
+    y = y + D.to(y.dtype)[None, None, :, None] * xh
+    y = y.reshape(bsz, s, dl)
     y = y * _silu(z)
-    y = rmsnorm_apply(params["out_norm"], y, cfg.norm_eps)
-    return dense(params["out_proj"], y)
+    if ways > 1:
+        y = _rmsnorm_over(norm, y, cfg.norm_eps, d_inner, axes)
+    else:
+        y = rmsnorm_apply(norm, y, cfg.norm_eps)
+    return shard_act(dense(params["out_proj"], y, k_axis="ssm_inner"),
+                     ("batch", "seq", "embed_act"))
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,11 @@ cotangent arrives replicated: ``sum_over``'s adjoint is the identity and
 adjoint sums the cotangents and ``gather_over``'s is
 ``sum_scatter_over``, summed in rank order.  ``copy_to``'s adjoint is
 ``sum_over`` and ``sum_scatter_over``'s is ``gather_over`` on either.
+Where each rank uses only its own part of a result that is whole on every
+rank (zamba2's projection, a norm's sum of squares over the ranks'
+channels), the cotangents over "model" differ too: ``gather_over(...,
+parts=True)`` then sums them onto the shards, and ``copy_to`` after a
+``sum_over`` sums them.
 
 All read the mesh from the active context (``sharding.ctx``); with no
 context, or over an axis of size 1, they return their input and exchange
@@ -265,18 +270,18 @@ class _SumOver(torch.autograd.Function):
 
 class _GatherOver(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, c, axes, dim):
-        ctx.c, ctx.axes, ctx.dim = c, axes, dim
+    def forward(ctx, x, c, axes, dim, parts):
+        ctx.c, ctx.axes, ctx.dim, ctx.parts = c, axes, dim, parts
         return _gather(c, axes, x, dim, "gather_over")
 
     @staticmethod
     def backward(ctx, dy):
-        if _replicated(ctx.axes):  # no exchange: this rank's slice
-            dx = _own_slice(ctx.c, ctx.axes, dy, ctx.dim)
+        if _replicated(ctx.axes) and not ctx.parts:
+            dx = _own_slice(ctx.c, ctx.axes, dy, ctx.dim)  # no exchange
         else:
             dx = _sum_scatter(ctx.c, ctx.axes, dy, ctx.dim,
                               "gather_over.bwd")
-        return dx, None, None, None
+        return dx, None, None, None, None
 
 
 class _SumScatterOver(torch.autograd.Function):
@@ -311,13 +316,16 @@ def sum_over(axis: Axes, x):
     return _SumOver.apply(x, c, axes)
 
 
-def gather_over(axis: Axes, x, dim: int):
+def gather_over(axis: Axes, x, dim: int, *, parts: bool = False):
     """Every rank's shard ``x`` over mesh ``axis``, concatenated along
-    ``dim`` in rank order."""
+    ``dim`` in rank order.  ``parts``: each rank uses only a part of the
+    whole (zamba2's gathered projection: its own heads' columns), so the
+    ranks' cotangents differ even over "model"; the adjoint is then
+    ``sum_scatter_over`` on any axis."""
     c, axes = _active(axis)
     if c is None:
         return x
-    return _GatherOver.apply(x, c, axes, dim % x.dim())
+    return _GatherOver.apply(x, c, axes, dim % x.dim(), parts)
 
 
 def sum_scatter_over(axis: Axes, x, dim: int):

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
@@ -72,6 +73,22 @@ def activation_sharding(mesh, rules: AxisRules,
 
 def current() -> Optional[Sharding]:
     return _CTX.get()
+
+
+@contextlib.contextmanager
+def resized(**sizes: int):
+    """Run the code inside with the active context's global sizes
+    ``sizes`` in place of its own (zamba2's shared block: rows of 2 ·
+    d_model, ``embed_act``); nothing with no context."""
+    ctx = _CTX.get()
+    if ctx is None:
+        yield
+        return
+    token = _CTX.set(dataclasses.replace(ctx, sizes={**ctx.sizes, **sizes}))
+    try:
+        yield
+    finally:
+        _CTX.reset(token)
 
 
 @contextlib.contextmanager

@@ -175,9 +175,9 @@ def test_traced_decode_step_counts_the_collectives():
 
 DENSE = ("gemma2-2b", "starcoder2-15b", "internlm2-20b", "qwen1.5-32b")
 #: the rule each other family lacks, as ``check_executed`` names it (the
-#: moe family is traced: tests/test_torch_moe_mesh.py)
-REFUSED = {"ssm": "'ssm_inner'", "hybrid": "'ssm_inner'", "vlm": "'media'",
-           "audio": "'media'"}
+#: moe, ssm and hybrid families are traced: tests/test_torch_moe_mesh.py,
+#: tests/test_torch_ssm_mesh.py)
+REFUSED = {"vlm": "'media'", "audio": "'media'"}
 
 
 @pytest.mark.parametrize("arch", DENSE)
@@ -196,8 +196,8 @@ def test_every_dense_row_traced_at_the_production_meshes(mesh_name, arch):
 
 @pytest.mark.parametrize("mesh_name", ("single_pod", "multi_pod"))
 def test_other_families_refused_with_their_rule(mesh_name):
-    """Every ssm, hybrid, vlm and audio row at the production meshes is
-    refused, its reason naming the rule the executed path lacks."""
+    """Every vlm and audio row at the production meshes is refused, its
+    reason naming the rule the executed path lacks."""
     mesh = parse_mesh(MESHES[mesh_name])
     n = 0
     for arch in tconfig.list_archs():
@@ -211,7 +211,7 @@ def test_other_families_refused_with_their_rule(mesh_name):
             assert REFUSED[family] in why and f"{family} family" in why, \
                 (arch, shape, why)
             n += 1
-    assert n == 16
+    assert n == 8
 
 
 def test_traced_decode_step_counts_the_softmax_exchange():
@@ -351,3 +351,22 @@ def test_isolated_from_jax():
                        text=True, env={"PYTHONPATH": str(ROOT / "src")})
     assert p.returncode == 0, p.stderr
     assert p.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("variant,k", [("mb2", 2), ("mb16", 16)])
+def test_microbatch_variant_is_traced_at_its_microbatches(variant, k):
+    """A ``mbK`` variant's train step is traced at K microbatches (the
+    JAX dry run builds its step with the variant's ``mb_override``): the
+    record's microbatches are K, and every collective's calls and bytes a
+    step are K times a microbatch's plus the once-a-step exchanges."""
+    rec = dryrun.run_one("gemma2-2b", "train_4k", parse_mesh("1x4"),
+                         (variant,))
+    assert rec["traced"], rec.get("why_not_traced")
+    assert rec["mb_override"] == rec["microbatches"] == k
+    mb, once = rec["collectives_microbatch"], rec["collectives_once"]
+    assert mb["copy_to.bwd/model"]["calls"] > 0
+    for name, v in rec["collectives"].items():
+        for f in ("calls", "bytes"):
+            assert v[f] == k * mb.get(name, {f: 0})[f] + \
+                once.get(name, {f: 0})[f], (name, f)
+    assert not dist.is_initialized()

@@ -561,13 +561,15 @@ def test_every_moe_row_traced_at_the_production_meshes(run, mesh_name, arch):
     ("qwen3-moe-30b-a3b", (16, 16), "", None),
     ("grok-1-314b", (2, 4), "", None),
     ("qwen3-moe-30b-a3b", (1, 4), "seq_sp", "'seq_res'"),
-    ("rwkv6-1.6b", (1, 2), "", "'ssm_inner'"),
+    ("rwkv6-1.6b", (1, 64), "", "'ssm_inner'"),
     ("seamless-m4t-large-v2", (2, 2), "", "'media'")])
 def test_check_executed_takes_moe_and_names_the_rest(arch, mesh, variant,
                                                      rule):
     """``check_executed`` takes both MoE shard modes on a mesh of any data
     and model size, at ``rules_for``'s rules; it still raises, naming the
-    rule, for "ssm_inner", "media" and seq_sp's "seq_res"."""
+    rule, for "media", seq_sp's "seq_res" and a mesh that cuts an ssm
+    family's "ssm_inner" unlike its "heads" (rwkv6's 32 heads whole on 64
+    ranks, its inner dimension cut)."""
     from repro_torch.launch.variants import apply_variants
     from repro_torch.models.transformer import check_executed
 

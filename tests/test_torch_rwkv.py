@@ -193,8 +193,14 @@ def test_wkv6_wrapper_checks_its_inputs():
         wkv6(r, k, v, logw, u[:1], chunk=64)
     with pytest.raises(ValueError, match="wkv6"):
         wkv6(r, k, v, logw, u, chunk=64, state=st[:, :1])
-    with pytest.raises(ValueError, match="unsupported device"):
-        wkv6(*(x.to("meta") for x in (r, k, v, logw, u)), chunk=64)
+    # meta tensors (the dry run's trace) give the outputs' shapes alone
+    o, S = wkv6(*(x.to("meta") for x in (r, k, v, logw, u)), chunk=64)
+    assert o.device.type == S.device.type == "meta"
+    assert o.shape == r.shape and o.dtype == r.dtype
+    assert S.shape == st.shape and S.dtype == torch.float32
+    with pytest.raises(ValueError, match="wkv6"):
+        wkv6(*(x.to("meta") for x in (r, k, v, logw)), u[:1].to("meta"),
+             chunk=64)
 
 
 # -- the smoke's limit of K11 -------------------------------------------------

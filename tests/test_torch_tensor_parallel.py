@@ -237,8 +237,8 @@ def test_kv_heads_not_dividing_model_raise_the_kv_seq_rule():
 
 
 @pytest.mark.parametrize("rule,arch,mesh", [
-    ("ssm_inner", "rwkv6-1.6b", (1, 2)),
-    ("hybrid", "zamba2-1.2b", (1, 2)),
+    ("fsdp", "rwkv6-1.6b", (2, 1)),
+    ("heads", "zamba2-1.2b", (1, 8)),
     ("family", "llama-3.2-vision-11b", (1, 2)),
     ("train", "seamless-m4t-large-v2", (1, 2)),
     ("seq_res", "qwen1.5-32b", (1, 2))])
@@ -253,9 +253,13 @@ def test_unsupported_rules_raise_and_name_themselves(rule, arch, mesh):
 
         _, rules, _, _ = apply_variants(("seq_sp",), cfg, rules,
                                         mesh_cfg.model_size)
+    if rule == "fsdp":  # rules_for never sets it for the ssm family
+        rules = rules.replace(embed=("data",))
     with pytest.raises(NotImplementedError) as e:
         _build_step(cfg, shape, mesh_cfg, rules)
-    word = {"ssm_inner": "'ssm_inner'", "hybrid": "'ssm_inner'",
+    # "heads": the reduced zamba2's 4 attention heads whole on 8 ranks,
+    # its 512-wide inner dimension cut
+    word = {"fsdp": "FSDP's 'embed'", "heads": "'heads'",
             "family": "'media'", "train": "'media'",
             "seq_res": "'seq_res'"}[rule]
     assert word in str(e.value)
